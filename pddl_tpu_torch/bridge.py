@@ -1,8 +1,11 @@
-"""Weight bridge: a flax Llama parameter tree → the port's ``state_dict``.
+"""Weight bridge between a flax Llama parameter tree and the port's
+``state_dict``, both ways.
 
-The JAX package's params are taken as NUMPY arrays (``jax.tree.map(
-np.asarray, params)`` on the JAX side), so this module needs neither jax
-nor flax. The mapping:
+The JAX package's params are taken and given as NUMPY arrays
+(``jax.tree.map(np.asarray, params)`` on the JAX side), so this module
+needs neither jax nor flax. Each leaf keeps its dtype across the bridge
+(f32 master weights stay f32; ``load_state_dict`` then copies into the
+model's ``param_dtype``). The mapping:
 
 - ``query``/``key``/``value`` DenseGeneral kernels ``[E, H, D]`` become
   Linear weights ``[H·D, E]`` (the reshape of
@@ -14,7 +17,7 @@ nor flax. The mapping:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -60,3 +63,42 @@ def llama_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             sd[pre + f"{name}.weight"] = _tensor(
                 np.asarray(blk[name]["kernel"]).T)
     return sd
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy; bf16 (which numpy lacks) comes back as f32."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def llama_params_to_jax(model) -> Dict[str, Any]:
+    """The inverse of :func:`llama_params_from_jax`: a port ``Llama``'s
+    parameters as a flax-layout tree of numpy arrays (the ``params``
+    collection), e.g. to compare trained weights with the JAX package's."""
+    sd = model.state_dict()
+    e = model.embed_dim
+    out: Dict[str, Any] = {
+        "embed": {"embedding": _array(sd["stem.embed.weight"])},
+        "ln_final": {"scale": _array(sd["head.ln_final.weight"])},
+        "lm_head": {"kernel": _array(sd["head.lm_head.weight"]).T.copy()},
+    }
+    heads = {"query": model.num_heads, "key": model.num_kv_heads,
+             "value": model.num_kv_heads}
+    for i in range(model.depth):
+        pre = f"blocks.{i}."
+        attn: Dict[str, Any] = {}
+        for name, h in heads.items():
+            w = _array(sd[pre + f"attn.{name}.weight"])      # [H*D, E]
+            attn[name] = {"kernel": w.T.reshape(e, h, -1).copy()}
+            if pre + f"attn.{name}.bias" in sd:
+                attn[name]["bias"] = _array(
+                    sd[pre + f"attn.{name}.bias"]).reshape(h, -1)
+        attn["out"] = {"kernel": _array(sd[pre + "attn.out.weight"]).T.copy()}
+        blk: Dict[str, Any] = {
+            "ln1": {"scale": _array(sd[pre + "ln1.weight"])},
+            "ln2": {"scale": _array(sd[pre + "ln2.weight"])},
+            "attn": attn}
+        for name in ("mlp_gate", "mlp_up", "mlp_down"):
+            blk[name] = {"kernel": _array(sd[pre + f"{name}.weight"]).T.copy()}
+        out[f"block{i}"] = blk
+    return out

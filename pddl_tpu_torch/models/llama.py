@@ -3,16 +3,22 @@ attention (the port of :mod:`pddl_tpu.models.llama`, dense blocks).
 
 Parameter layout follows torch idiom — ``nn.Linear`` weights are
 ``[out, in]`` — and :func:`pddl_tpu_torch.bridge.llama_params_from_jax`
-maps a flax parameter tree onto it. The port keeps one ``dtype`` for
-parameters and compute (the serving configuration stores its weights in
-the compute dtype, as the JAX benchmarks do with
-``param_dtype=dtype``); RMSNorm computes in f32 whatever it is.
+maps a flax parameter tree onto it. As in flax's ``Dense``/``Embed``/
+``RMSNorm``, parameters are stored in ``param_dtype`` and cast to the
+compute ``dtype`` where they are used (training keeps f32 parameters
+under bf16 compute); ``param_dtype`` defaults to ``dtype``, the serving
+configuration, whose linears are plain ``nn.Linear`` with no cast.
+RMSNorm computes in f32 whatever it is.
 
 Two forward modes, chosen by whether a cache is passed:
 
 - no cache: the training-shaped full forward over ``[B, S]`` tokens at
   positions ``arange(S)``, attention through
-  :func:`~pddl_tpu_torch.ops.attention.attention_reference`;
+  :func:`~pddl_tpu_torch.ops.attention.flash_attention` (the default
+  ``attention="flash"``: the CUDA flash kernels on the card, with their
+  backward under a gradient) or
+  :func:`~pddl_tpu_torch.ops.attention.attention_reference`
+  (``attention="reference"``);
 - a PAGED cache (``serve/kvcache/block_pool.paged_decode_cache``) plus
   the engine-owned ``cache_index`` (an int for a batch-1 prefill chunk,
   ``[B]`` for the decode tick) and ``block_table`` (``[B, T]``): each
@@ -24,9 +30,9 @@ Two forward modes, chosen by whether a cache is passed:
   bit-valid for every row whose table references it.
 
 Not ported yet (each raises ``NotImplementedError``): routed experts
-(``moe_experts > 0``), rolling sliding-window ring caches, and the
-``flash`` / ``ring`` attention kernels — ROADMAP.md queue 1 item 5 and
-queue 2 (K1–K3).
+(``moe_experts > 0``, ROADMAP.md queue 1 item 5), rematerialization
+(``remat``, queue 1 item 5), rolling sliding-window ring caches (queue 1
+item 2) and ring / sequence-parallel attention (queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -42,13 +48,13 @@ from torch import nn
 from pddl_tpu_torch.device import resolve_device
 from pddl_tpu_torch.ops.attention import (
     attention_reference,
+    flash_attention,
     paged_cache_insert,
     paged_decode_attention,
 )
 from pddl_tpu_torch.ops.rope import apply_rope_qk
 
-_NOT_PORTED = ("not ported yet: ROADMAP.md queue 1 item 5 (causal-LM "
-               "training) and queue 2 (K1-K3)")
+_NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
 
 
 def _default_intermediate_dim(embed_dim: int) -> int:
@@ -68,12 +74,14 @@ def ring_len(sliding_window: Optional[int],
 
 
 class _RMSNorm(nn.Module):
-    """Family-standard RMSNorm: f32 compute, learned scale, f32 output."""
+    """Family-standard RMSNorm: f32 compute, learned scale (stored in the
+    parameter dtype), f32 output."""
 
-    def __init__(self, dim: int, eps: float, dtype, device):
+    def __init__(self, dim: int, eps: float, param_dtype, device):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.weight = nn.Parameter(torch.ones(dim, dtype=param_dtype,
+                                              device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
@@ -81,8 +89,37 @@ class _RMSNorm(nn.Module):
         return x * (torch.rsqrt(var + self.eps) * self.weight.float())
 
 
-def _rms_norm(dim: int, eps: float, dtype, device) -> _RMSNorm:
-    return _RMSNorm(dim, eps, dtype, device)
+def _rms_norm(dim: int, eps: float, param_dtype, device) -> _RMSNorm:
+    return _RMSNorm(dim, eps, param_dtype, device)
+
+
+class _Linear(nn.Linear):
+    """``nn.Linear`` whose parameters live in ``param_dtype`` and whose
+    product runs in the compute ``dtype`` (flax ``Dense`` semantics:
+    input, kernel and bias cast to ``dtype`` at use)."""
+
+    def __init__(self, in_features: int, out_features: int, *, bias: bool,
+                 dtype, param_dtype, device):
+        super().__init__(in_features, out_features, bias=bias,
+                         dtype=param_dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def _linear(in_features: int, out_features: int, *, bias: bool, dtype,
+            param_dtype, device) -> nn.Linear:
+    """A plain ``nn.Linear`` when the parameters are stored in the compute
+    dtype (serving: no casts on the host-bound decode tick), else a
+    :class:`_Linear` that casts at use."""
+    if param_dtype == dtype:
+        return nn.Linear(in_features, out_features, bias=bias, dtype=dtype,
+                         device=device)
+    return _Linear(in_features, out_features, bias=bias, dtype=dtype,
+                   param_dtype=param_dtype, device=device)
 
 
 class LlamaAttention(nn.Module):
@@ -91,9 +128,10 @@ class LlamaAttention(nn.Module):
     and consumed unexpanded by every attention path."""
 
     def __init__(self, embed_dim: int, num_heads: int, num_kv_heads: int, *,
-                 rope_theta: float = 10000.0,
+                 rope_theta: float = 10000.0, attention: str = "flash",
                  sliding_window: Optional[int] = None,
-                 qkv_bias: bool = False, dtype=torch.float32, device=None):
+                 qkv_bias: bool = False, dtype=torch.float32,
+                 param_dtype=None, device=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(
@@ -108,9 +146,12 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = num_kv_heads
         self.head_dim = embed_dim // num_heads
         self.rope_theta = rope_theta
+        self.attention = attention
         self.sliding_window = sliding_window
         self.dtype = dtype
-        lin = functools.partial(nn.Linear, dtype=dtype, device=device)
+        lin = functools.partial(_linear, dtype=dtype,
+                                param_dtype=param_dtype or dtype,
+                                device=device)
         hd = self.head_dim
         self.query = lin(embed_dim, num_heads * hd, bias=qkv_bias)
         self.key = lin(embed_dim, num_kv_heads * hd, bias=qkv_bias)
@@ -129,8 +170,9 @@ class LlamaAttention(nn.Module):
         if cache is None:
             pos = torch.arange(s, device=x.device)
             q, k = apply_rope_qk(q, k, pos, theta=self.rope_theta)
-            o = attention_reference(q, k, v, causal=True,
-                                    window=self.sliding_window)
+            attend = (flash_attention if self.attention == "flash"
+                      else attention_reference)
+            o = attend(q, k, v, causal=True, window=self.sliding_window)
         else:
             i = torch.as_tensor(cache_index, device=x.device)
             pos = i[..., None] + torch.arange(s, device=x.device)
@@ -152,19 +194,22 @@ class LlamaBlock(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int, num_kv_heads: int,
                  intermediate_dim: int, *, rope_theta: float = 10000.0,
+                 attention: str = "flash",
                  sliding_window: Optional[int] = None,
                  qkv_bias: bool = False, rms_eps: float = 1e-5,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
+        param_dtype = param_dtype or dtype
         self.dtype = dtype
-        self.ln1 = _rms_norm(embed_dim, rms_eps, dtype, device)
+        self.ln1 = _rms_norm(embed_dim, rms_eps, param_dtype, device)
         self.attn = LlamaAttention(
             embed_dim, num_heads, num_kv_heads, rope_theta=rope_theta,
-            sliding_window=sliding_window, qkv_bias=qkv_bias, dtype=dtype,
+            attention=attention, sliding_window=sliding_window,
+            qkv_bias=qkv_bias, dtype=dtype, param_dtype=param_dtype,
             device=device)
-        self.ln2 = _rms_norm(embed_dim, rms_eps, dtype, device)
-        lin = functools.partial(nn.Linear, bias=False, dtype=dtype,
-                                device=device)
+        self.ln2 = _rms_norm(embed_dim, rms_eps, param_dtype, device)
+        lin = functools.partial(_linear, bias=False, dtype=dtype,
+                                param_dtype=param_dtype, device=device)
         self.mlp_gate = lin(embed_dim, intermediate_dim)
         self.mlp_up = lin(embed_dim, intermediate_dim)
         self.mlp_down = lin(intermediate_dim, embed_dim)
@@ -177,17 +222,19 @@ class LlamaBlock(nn.Module):
 
 
 class _LlamaEmbed(nn.Module):
-    """Token embedding over the ``vocab_multiple``-padded vocabulary."""
+    """Token embedding over the ``vocab_multiple``-padded vocabulary, the
+    table in ``param_dtype``, its rows in ``dtype``."""
 
     def __init__(self, vocab_size: int, embed_dim: int, vocab_multiple: int,
-                 dtype, device):
+                 dtype, param_dtype, device):
         super().__init__()
         padded_v = -(-vocab_size // vocab_multiple) * vocab_multiple
-        self.embed = nn.Embedding(padded_v, embed_dim, dtype=dtype,
+        self.dtype = dtype
+        self.embed = nn.Embedding(padded_v, embed_dim, dtype=param_dtype,
                                   device=device)
 
     def forward(self, tokens):
-        return self.embed(tokens)
+        return self.embed(tokens).to(self.dtype)
 
 
 class _LlamaHead(nn.Module):
@@ -195,14 +242,14 @@ class _LlamaHead(nn.Module):
     off and logits come back in f32."""
 
     def __init__(self, vocab_size: int, embed_dim: int, vocab_multiple: int,
-                 rms_eps: float, dtype, device):
+                 rms_eps: float, dtype, param_dtype, device):
         super().__init__()
         self.vocab_size = vocab_size
         self.dtype = dtype
         padded_v = -(-vocab_size // vocab_multiple) * vocab_multiple
-        self.ln_final = _rms_norm(embed_dim, rms_eps, dtype, device)
-        self.lm_head = nn.Linear(embed_dim, padded_v, bias=False,
-                                 dtype=dtype, device=device)
+        self.ln_final = _rms_norm(embed_dim, rms_eps, param_dtype, device)
+        self.lm_head = _linear(embed_dim, padded_v, bias=False, dtype=dtype,
+                               param_dtype=param_dtype, device=device)
 
     def features(self, x):
         return self.ln_final(x).to(self.dtype)
@@ -220,31 +267,42 @@ class Llama(nn.Module):
     (normal, std ``fan_in ** -0.5`` for every projection and
     ``embed_dim ** -0.5`` for the embedding; RMSNorm scales at 1) on
     ``device`` — ``None`` means ``cuda``, and a host without a card must
-    pass ``device="cpu"``.
+    pass ``device="cpu"``. ``dtype`` is the compute type and
+    ``param_dtype`` (default: ``dtype``) the parameters' storage type.
     """
 
     def __init__(self, vocab_size: int, max_len: int = 2048,
                  embed_dim: int = 512, depth: int = 4, num_heads: int = 8,
                  num_kv_heads: Optional[int] = None,
                  intermediate_dim: Optional[int] = None,
-                 rope_theta: float = 10000.0, attention: str = "reference",
+                 rope_theta: float = 10000.0, attention: str = "flash",
                  sliding_window: Optional[int] = None,
-                 qkv_bias: bool = False, vocab_multiple: int = 1,
-                 moe_experts: int = 0, rms_eps: float = 1e-5,
-                 dtype=torch.float32, device=None, seed: int = 0):
+                 qkv_bias: bool = False, remat: str = "none",
+                 vocab_multiple: int = 1, moe_experts: int = 0,
+                 rms_eps: float = 1e-5, dtype=torch.float32,
+                 param_dtype=None, device=None, seed: int = 0):
         super().__init__()
-        if attention != "reference":
+        if attention in ("ring", "ring_flash"):
             raise NotImplementedError(
-                f"attention={attention!r} is {_NOT_PORTED}; the port's "
-                "Llama runs attention='reference' (and the paged kernel "
-                "when serving)")
+                f"attention={attention!r} (sequence parallelism) is "
+                + _NOT_PORTED.format("7 (distributed)"))
+        if attention not in ("flash", "reference"):
+            raise ValueError(f"unknown attention {attention!r}")
+        if remat != "none":
+            raise NotImplementedError(
+                f"remat={remat!r} is "
+                + _NOT_PORTED.format("5 (causal-LM train step)"))
         if moe_experts:
-            raise NotImplementedError(f"moe_experts > 0 is {_NOT_PORTED}")
+            raise NotImplementedError(
+                "moe_experts > 0 is "
+                + _NOT_PORTED.format("5 (causal-LM train step, ops/moe.py)"))
         if ring_len(sliding_window, max_len) is not None:
             raise NotImplementedError(
                 f"sliding_window={sliding_window} allocates a rolling ring "
-                f"cache, which is {_NOT_PORTED}")
+                "cache, which is "
+                + _NOT_PORTED.format("2 (resident-row engine)"))
         device = resolve_device(device)
+        param_dtype = param_dtype or dtype
         self.vocab_size = vocab_size
         self.max_len = max_len
         self.embed_dim = embed_dim
@@ -253,18 +311,21 @@ class Llama(nn.Module):
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = embed_dim // num_heads
         self.sliding_window = sliding_window
+        self.attention = attention
         self.dtype = dtype
+        self.param_dtype = param_dtype
         inter = intermediate_dim or _default_intermediate_dim(embed_dim)
         self.stem = _LlamaEmbed(vocab_size, embed_dim, vocab_multiple, dtype,
-                                device)
+                                param_dtype, device)
         self.blocks = nn.ModuleList(
             LlamaBlock(embed_dim, num_heads, self.num_kv_heads, inter,
-                       rope_theta=rope_theta, sliding_window=sliding_window,
-                       qkv_bias=qkv_bias, rms_eps=rms_eps, dtype=dtype,
+                       rope_theta=rope_theta, attention=attention,
+                       sliding_window=sliding_window, qkv_bias=qkv_bias,
+                       rms_eps=rms_eps, dtype=dtype, param_dtype=param_dtype,
                        device=device)
             for _ in range(depth))
         self.head = _LlamaHead(vocab_size, embed_dim, vocab_multiple,
-                               rms_eps, dtype, device)
+                               rms_eps, dtype, param_dtype, device)
         self.init_weights(seed)
 
     @property
@@ -285,11 +346,13 @@ class Llama(nn.Module):
                 fan_in = p.shape[1]
                 p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
 
-    def forward(self, tokens: torch.Tensor, *,
+    def forward(self, tokens: torch.Tensor, *, train: bool = True,
                 cache: Optional[dict] = None,
                 cache_index: Union[int, torch.Tensor, None] = None,
                 block_table: Optional[torch.Tensor] = None,
                 features_only: bool = False) -> torch.Tensor:
+        """``train`` is accepted for the JAX signature and changes nothing
+        (the dense blocks have no dropout)."""
         x = self.stem(tokens)
         for i, block in enumerate(self.blocks):
             kw = {}
@@ -312,6 +375,7 @@ def tiny_llama(vocab_size: int = 64, **kwargs) -> Llama:
     kwargs.setdefault("depth", 2)
     kwargs.setdefault("num_heads", 4)
     kwargs.setdefault("num_kv_heads", 2)
+    kwargs.setdefault("attention", "reference")
     return Llama(vocab_size=vocab_size, **kwargs)
 
 

@@ -10,9 +10,9 @@ the checkout are the build's only input.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a host without ``nvcc``. Launch counts live in
-:data:`launch_counts` — each wrapper adds one where it launches its
-kernel, and nowhere else, so a run can show which kernels its main path
-went through.
+:data:`launch_counts`, one per kernel variant (:data:`COUNTERS`) — each
+wrapper adds one where it launches its kernel, and nowhere else, so a run
+can show which kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -29,13 +29,18 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 # name -> source file under csrc/
-SOURCES = {"paged_decode": "paged_decode.cu"}
+SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu",
+           "flash_bwd": "flash_bwd.cu"}
+
+# Launch counters: one per kernel variant a run may go through. The
+# forward's two variants (with and without the LSE write) share a source.
+COUNTERS = ("paged_decode", "flash_fwd", "flash_fwd_nolse", "flash_bwd_fused")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # Launches per kernel since the last reset_launch_counts().
-launch_counts: Dict[str, int] = dict.fromkeys(SOURCES, 0)
+launch_counts: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -115,6 +120,21 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             i, i, i, i, i, i, i,         # B, H, Hkv, N, bs, D, T
             i, ctypes.c_float, i, p]     # window, scale, dtype, stream
         lib.pddl_paged_decode.restype = i
+    elif name == "flash_fwd":
+        lib.pddl_flash_fwd.argtypes = [
+            p, p, p, p, p,               # q, k, v, o, lse (NULL: no LSE)
+            i, i, i, i, i, i,            # B, H, Hkv, Sq, Sk, D
+            i, i, i, ctypes.c_float,     # causal, window, k_offset, scale
+            i, p]                        # dtype, stream
+        lib.pddl_flash_fwd.restype = i
+    elif name == "flash_bwd":
+        lib.pddl_flash_bwd.argtypes = [
+            p, p, p, p, p, p,            # q, k, v, do, lse, di
+            p, p, p,                     # dq (f32), dk, dv
+            i, i, i, i, i, i,            # B, H, Hkv, Sq, Sk, D
+            i, i, i, ctypes.c_float,     # causal, window, k_offset, scale
+            i, p]                        # dtype, stream
+        lib.pddl_flash_bwd.restype = i
     lib.pddl_cuda_error_string.argtypes = [i]
     lib.pddl_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,8 +1,21 @@
-"""Attention ops of the paged serving path, in PyTorch (subset of
+"""Attention ops of the port, in PyTorch (subset of
 :mod:`pddl_tpu.ops.attention`).
 
 - :func:`attention_reference` — plain causal GQA softmax attention, the
-  Llama module's non-decode path and the numerics oracle.
+  numerics oracle.
+- :func:`flash_attention` / :func:`flash_attention_lse` — the training
+  path's attention, with the JAX package's signatures: the same window
+  rules, power-of-two scale fold and fused-backward test. Unlike the
+  Pallas kernels, which need blocks that divide the length, these tile
+  by 64 and mask ragged edges, so every length runs the kernels (the
+  JAX package's reference fallback for degenerate tilings has no
+  counterpart; ``block_q``/``block_k`` are accepted and ignored). The
+  forward is the hand-written K1 (:func:`flash_forward`,
+  ``csrc/flash_fwd.cu``); under a gradient, a ``torch.autograd.Function``
+  saves ``(q, k, v, o, lse)`` and its backward is the fused K2
+  (:func:`flash_backward`, ``csrc/flash_bwd.cu``). Each kernel's plain
+  version (:func:`flash_forward_plain`, :func:`flash_backward_plain`)
+  sits beside it and runs only for CPU tensors.
 - :func:`paged_cache_insert` — write the current token(s) of every row
   into its table-mapped pool block.
 - :func:`paged_decode_attention` — attention over the pool through a
@@ -21,7 +34,7 @@ harmless by masking.
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -76,6 +89,306 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
     return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+# ----------------------------------------------------------- flash attention
+# The JAX package's dispatch between the fused backward (K2) and the
+# two-sweep one (K3a/K3b): rep·Sq·D·4 bytes of dq accumulator. It sized a
+# TPU VMEM scratch there; it is kept here so that both packages take the
+# same branch at the same shape. Read at call time (tests patch it).
+_FUSED_BWD_DQ_BYTES = 6 * 1024 * 1024
+
+
+def _normalize_window(window: Optional[int], causal: bool, sk: int,
+                      k_offset: int = 0) -> Optional[int]:
+    """Validate a sliding-window width; ``window >= sk`` with aligned keys
+    degrades to plain causal (None)."""
+    if window is None:
+        return None
+    if not causal:
+        raise ValueError("window requires causal=True (sliding-window "
+                         "attention is a causal-LM construct)")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    window = int(window)
+    return None if (window >= sk and k_offset == 0) else window
+
+
+def _fold_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
+    """Fold a power-of-two softmax scale into q (exact in any binary float
+    type), so the kernels skip the multiply; other scales stay in-kernel."""
+    m, _ = math.frexp(scale)
+    if m == 0.5:
+        return q * scale, 1.0
+    return q, scale
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, scale: Optional[float] = None,
+                    window: Optional[int] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
+    """Flash attention over ``q [B, H, Sq, D]`` and grouped (unexpanded)
+    ``k, v [B, H_kv, Sk, D]``; returns ``o`` in q's dtype.
+
+    With no gradient to take (``torch.is_grad_enabled()`` false, or no
+    input requiring grad) this launches K1 without its LSE write; under a
+    gradient it runs K1 with the LSE and the fused backward K2. ``window``
+    (causal only): query t sees keys ``[t-window+1, t]``.
+    ``block_q``/``block_k`` are accepted for the JAX signature and ignored:
+    the kernels tile by 64 at every length.
+    """
+    d, sk = q.shape[-1], k.shape[-2]
+    _gqa_rep(q, k)
+    scale_v = (1.0 / math.sqrt(d)) if scale is None else scale
+    window = _normalize_window(window, causal, sk)
+    q, scale_v = _fold_scale(q, scale_v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _needs_grad(q, k, v):
+        return _Flash.apply(q, k, v, causal, scale_v, window, 0)
+    o, _ = flash_forward(q, k, v, causal=causal, scale=scale_v,
+                         window=window, want_lse=False)
+    return o
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = False,
+                        scale: Optional[float] = None,
+                        window: Optional[int] = None, k_offset: int = 0,
+                        block_q: Optional[int] = None,
+                        block_k: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention` that also returns the per-row logsumexp:
+    ``(o [B, H, Sq, D], lse [B, H, Sq] f32)``, differentiable through
+    both (the LSE cotangent folds into the backward's row term).
+    ``k_offset`` shifts every key's position for the causal/window mask
+    (ring attention's rotations)."""
+    d, sk = q.shape[-1], k.shape[-2]
+    _gqa_rep(q, k)
+    scale_v = (1.0 / math.sqrt(d)) if scale is None else scale
+    window = _normalize_window(window, causal, sk, k_offset)
+    q, scale_v = _fold_scale(q, scale_v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _needs_grad(q, k, v):
+        return _FlashLse.apply(q, k, v, causal, scale_v, window, k_offset)
+    return flash_forward(q, k, v, causal=causal, scale=scale_v,
+                         window=window, k_offset=k_offset)
+
+
+def _flash_scores(q, k, causal, scale, window, k_offset):
+    """``scale·q·kᵀ`` in f32 as ``[B, H_kv, rep, Sq, Sk]``, masked to
+    NEG_INF where key ``j + k_offset`` is after query ``i`` (or outside
+    the window) — the kernels' mask, written out."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, sq, d).float()
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float())
+    if scale != 1.0:
+        s = s * scale
+    if causal:
+        q_pos = torch.arange(sq, device=q.device)[:, None]
+        k_pos = torch.arange(sk, device=q.device)[None, :] + k_offset
+        mask = q_pos >= k_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        s = torch.where(mask, s, NEG_INF)
+    return s
+
+
+def flash_forward_plain(q, k, v, *, causal: bool, scale: float,
+                        window: Optional[int] = None, k_offset: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K1: ``(o, lse)`` from one masked softmax in
+    f32, with the kernel's rounding point (p rounded to v's dtype before
+    the P·V product, the denominator summed in f32)."""
+    b, h, sq, d = q.shape
+    s = _flash_scores(q, k, causal, scale, window, k_offset)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bgrqk,bgkd->bgrqd", p.to(v.dtype).float(),
+                     v.float()) / l
+    lse = (m + torch.log(l)).reshape(b, h, sq)
+    return o.reshape(b, h, sq, d).to(q.dtype), lse
+
+
+def flash_backward_plain(q, k, v, o, lse, do, dlse=None, *, causal: bool,
+                         scale: float, window: Optional[int] = None,
+                         k_offset: int = 0
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of K2 (and of the two-sweep K3a/K3b, which compute
+    the same function): ``(dq, dk, dv)`` by the kernel's formulas written
+    out, not by autograd — ``p = exp(s − lse)``, ``dp = do·vᵀ``,
+    ``di = rowsum(do⊙o) − dlse``, ``ds = p·(dp − di)``, ``dv = pᵀ·do``,
+    ``dk = scale·dsᵀ·q``, ``dq = scale·ds·k`` — with its rounding points
+    (p to do's dtype, ds to q's and k's) and dk/dv summed over each kv
+    head's query group."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    rep = h // hkv
+    s = _flash_scores(q, k, causal, scale, window, k_offset)
+    p = torch.exp(s - lse.reshape(b, hkv, rep, sq, 1))
+    dog = do.reshape(b, hkv, rep, sq, d)
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", dog.float(), v.float())
+    di = (do.float() * o.float()).sum(dim=-1)
+    if dlse is not None:
+        di = di - dlse.float()
+    ds = p * (dp - di.reshape(b, hkv, rep, sq, 1))
+    dv = torch.einsum("bgrqk,bgrqd->bgkd", p.to(do.dtype).float(),
+                      dog.float())
+    dk = torch.einsum("bgrqk,bgrqd->bgkd", ds.to(q.dtype).float(),
+                      q.reshape(b, hkv, rep, sq, d).float())
+    dq = torch.einsum("bgrqk,bgkd->bgrqd", ds.to(k.dtype).float(), k.float())
+    if scale != 1.0:
+        dk, dq = dk * scale, dq * scale
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check_flash(q: torch.Tensor, named) -> None:
+    """Raise on what the flash kernels do not take: every tensor on q's
+    CUDA device and contiguous; q/k/v/do of one dtype, f32 or bf16; lse
+    f32; head grouping and D <= 128."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash kernels need CUDA tensors, got {q.device}")
+    for name, x in named.items():
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        want = torch.float32 if name == "lse" else q.dtype
+        if x.dtype != want:
+            raise ValueError(f"{name} must be {want}, got {x.dtype}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"flash kernels take float32 or bfloat16, got "
+                         f"{q.dtype}")
+    k, v = named["k"], named["v"]
+    if (q.ndim != 4 or k.ndim != 4 or k.shape != v.shape
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]):
+        raise ValueError(f"flash kernels take q [B, H, Sq, D] and k, v "
+                         f"[B, Hkv, Sk, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _gqa_rep(q, k)
+    if q.shape[3] > 128:
+        raise ValueError(f"flash kernels take D <= 128, got {q.shape[3]}")
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, scale: float, window: Optional[int] = None,
+                  k_offset: int = 0, want_lse: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1, the flash forward — the port of the Pallas ``_flash_kernel``
+    (``want_lse``) and ``_flash_kernel_nolse`` (``csrc/flash_fwd.cu``).
+    Returns ``(o, lse [B, H, Sq] f32 or None)``.
+
+    A CUDA ``q`` launches the kernel or raises (see :func:`_check_flash`);
+    a CPU ``q`` gets the plain version, the only reason it ever runs."""
+    if q.device.type == "cpu":
+        o, lse = flash_forward_plain(q, k, v, causal=causal, scale=scale,
+                                     window=window, k_offset=k_offset)
+        return o, (lse if want_lse else None)
+    _check_flash(q, {"k": k, "v": v})
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    lib = _kernels.library("flash_fwd")
+    code = lib.pddl_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, hkv, sq, sk, d,
+        int(causal), window or 0, k_offset, scale, _KERNEL_DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _kernels.check("flash_fwd", code)
+    _kernels.launch_counts["flash_fwd" if want_lse else "flash_fwd_nolse"] += 1
+    return o, lse
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   dlse: Optional[torch.Tensor] = None, *, causal: bool,
+                   scale: float, window: Optional[int] = None,
+                   k_offset: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward: ``(dq, dk, dv)`` for ``o = flash(q, k, v)``
+    with saved ``lse`` and cotangents ``do`` (and ``dlse``, the LSE
+    output's, or None).
+
+    Dispatches as the JAX package does: when ``rep·Sq·D·4`` fits
+    ``_FUSED_BWD_DQ_BYTES`` the fused K2 (``csrc/flash_bwd.cu``), else the
+    two-sweep K3a/K3b. A CPU ``q`` gets the plain version on either
+    branch. A CUDA ``q`` launches K2 or raises: the two-sweep kernels are
+    not ported yet and nothing falls back quietly."""
+    b, h, sq, d = q.shape
+    rep = _gqa_rep(q, k)
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, o, lse, do, dlse, causal=causal,
+                                    scale=scale, window=window,
+                                    k_offset=k_offset)
+    if rep * sq * d * 4 > _FUSED_BWD_DQ_BYTES:
+        raise NotImplementedError(
+            f"rep·Sq·D·4 = {rep * sq * d * 4} bytes exceeds the fused "
+            "backward's dq budget, and the two-sweep backward (K3a/K3b) is "
+            "not ported yet: ROADMAP.md queue 2 K3")
+    _check_flash(q, {"k": k, "v": v, "o": o, "do": do, "lse": lse})
+    di = (do.float() * o.float()).sum(dim=-1)
+    if dlse is not None:
+        di = di - dlse.float()
+    di = di.contiguous()
+    dq = torch.zeros(b, h, sq, d, dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _kernels.library("flash_bwd")
+    code = lib.pddl_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d, int(causal),
+        window or 0, k_offset, scale, _KERNEL_DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _kernels.check("flash_bwd", code)
+    _kernels.launch_counts["flash_bwd_fused"] += 1
+    return dq.to(q.dtype), dk, dv
+
+
+def _forward_saving(ctx, q, k, v, causal, scale, window, k_offset):
+    """K1 with the LSE, saving ``(q, k, v, o, lse)`` for the backward."""
+    o, lse = flash_forward(q, k, v, causal=causal, scale=scale, window=window,
+                           k_offset=k_offset)
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.cfg = dict(causal=causal, scale=scale, window=window,
+                   k_offset=k_offset)
+    return o, lse
+
+
+class _Flash(torch.autograd.Function):
+    """``o = flash(q, k, v)``: the backward has no LSE cotangent to fold."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, k_offset):
+        return _forward_saving(ctx, q, k, v, causal, scale, window,
+                               k_offset)[0]
+
+    @staticmethod
+    def backward(ctx, do, dlse=None):
+        q, k, v, o, lse = ctx.saved_tensors
+        if dlse is not None:
+            dlse = dlse.contiguous()
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do.contiguous(), dlse,
+                                    **ctx.cfg)
+        return dq, dk, dv, None, None, None, None
+
+
+class _FlashLse(_Flash):
+    """``(o, lse) = flash(q, k, v)``: the backward folds the LSE cotangent
+    into the row term, ``di = rowsum(do⊙o) − dlse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, k_offset):
+        return _forward_saving(ctx, q, k, v, causal, scale, window, k_offset)
 
 
 def _check_table(block_table: torch.Tensor, b: int) -> None:

@@ -1,4 +1,5 @@
-"""The port stands alone: `pddl_tpu_torch` and `chip_smoke.py` import no
+"""The port stands alone: `pddl_tpu_torch`, `chip_smoke.py` and
+`serve_tick_ab.py` import no
 `jax`, no `flax` and nothing of the JAX package, and the engine refuses
 to run on a host without a card unless asked for the CPU."""
 
@@ -47,7 +48,8 @@ def _imported_roots(path):
 
 
 def test_source_scan_finds_no_jax_package_import():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "serve_tick_ab.py"]
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
