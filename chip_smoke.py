@@ -6,9 +6,10 @@ toolkit::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
-each against its plain PyTorch version, drives the two main paths of the
-port on a full-width Llama-1B — the paged serving engine and the
-causal-LM trainer — and prints one line per phase:
+each against its plain PyTorch version, drives the main paths of the
+port on a full-width Llama-1B — the paged serving engine, the causal-LM
+trainer, and the trainer at long context (S 8192, block remat, the
+two-sweep flash backward) — and prints one line per phase:
 
 1. device — ``nvidia-smi``'s card name and power limit;
 2. build — every kernel compiled by ``nvcc``, one process per source, all
@@ -24,6 +25,13 @@ causal-LM trainer — and prints one line per phase:
 5. flash_bwd vs plain — K2's dq, dk, dv at the same shapes (two of them
    with an LSE cotangent too), relative to each gradient's max-abs; then
    times and bound (SDPA forward+backward minus forward the yardstick);
+5b. flash_bwd_two_sweep vs plain — K3a's dq and K3b's dk, dv at
+   Llama-1B's long shape (B 1, H 32/8, S 8192, D 64, bf16, causal: 8 MiB
+   of fused dq accumulator, so the branch by the JAX package's test) and
+   at K2's odd shapes with the test's threshold at 0; K3 against K2 at the
+   long shape; two K3a runs bitwise equal; then the times of K3a, K3b,
+   their wrapper, K2 at the same shape, SDPA's backward and the plain
+   version, and the bounds;
 6. engine parity — full-width Llama-1B at depth 2 in f32 (TF32 off), one
    seeded weight set in an engine on the card (kernel) and one on the
    CPU (plain version), 4 greedy requests x 16 tokens, token-exact
@@ -37,7 +45,9 @@ causal-LM trainer — and prints one line per phase:
    and on the CPU (plain versions), 3 adamw steps (losses within rtol
    1e-4, parameters within 2·lr·steps), then 3 sgd steps (losses within
    rtol 1e-5, each parameter's last-step gradient within 1e-3 of its
-   max-abs: the check that holds K2's gradients on the training path);
+   max-abs: the check that holds K2's gradients on the training path),
+   then 3 sgd steps with ``remat="dots"`` and the backward's threshold at
+   0 on both sides (the same check for K3a, K3b and remat);
 9. train converge — a width-64 tiny Llama with flash attention learns
    the synthetic next-token task on the card (last loss < 0.7 x first);
 10. train step — full-width, full-depth Llama-1B, bf16 compute over f32
@@ -45,20 +55,32 @@ causal-LM trainer — and prints one line per phase:
     ``Trainer.fit`` and one ``evaluate`` batch: tokens/s, ms/step, 6ND
     MFU, peak device memory, the losses, and the launches of each flash
     kernel (the training path's launches);
-11. kernels — one JSON object: every ported kernel with its launches on
-    its main path (phase 7 or 10), error, times and bound;
+11. train long — the same model with ``remat="dots"`` at B 1 x S 8192:
+    2 warm-up then 5 timed steps through ``Trainer.fit``, the same
+    figures, and per step 16 K3a, 16 K3b, no K2 and 32 K1 with the LSE
+    (16 in the forward, 16 in the remat recompute) — the long-context
+    path's launches;
+12. fused loss — full-width Llama-1B at depth 2, B 1 x S 8192, one
+    forward+backward through ``fused_lm_loss`` against one through the
+    materialized logits and the trainer's cross-entropy: the losses'
+    relative difference (within 2e-3), each parameter gradient's error
+    relative to its max-abs (within 2e-2: bf16 logits there, f32 here),
+    the ms and the peak device memory of each;
+13. kernels — one JSON object: every ported kernel with its launches on
+    its main path (phase 7, 10 or 11), error, times and bound;
 
 and, as its last line, ``{"ok": true, "device": {...}}``. Any failure
 raises: the script exits non-zero and prints no result. It needs the
 repository beside it and a card (``torch.cuda.is_available()``).
-``--profile DIR`` adds a profiled decode window after phase 7 and a
-profiled train step after phase 10, and writes their kernel tables to
-DIR.
+``--profile DIR`` adds a profiled decode window after phase 7 and one
+profiled train step after each of phases 10 and 11, and writes their
+kernel tables to DIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -70,12 +92,14 @@ import torch
 import torch.nn.functional as F
 
 from pddl_tpu_torch.data.synthetic import SyntheticLanguageModeling
+from pddl_tpu_torch.models.gpt import fused_lm_loss
 from pddl_tpu_torch.models.llama import Llama_1B, tiny_llama
 from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.request import FinishReason
 from pddl_tpu_torch.train.loop import Trainer
+from pddl_tpu_torch.train.metrics import sparse_categorical_crossentropy
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
@@ -267,12 +291,13 @@ def flash_case(gen, b, h, hkv, sq, sk, d, dtype, causal, window, k_offset):
     return (q, k, v), do, dlse, kw
 
 
-def flash_fwd_bound_ms(q, k):
+def flash_fwd_bound_ms(q, k, want_lse=True):
     """Least time of one causal forward and what sets it: 2·B·H·S²·D
     flops over the bf16 tensor-core peak, or the bytes of q, k, v read
-    once and o and lse written once over HBM bandwidth."""
+    once and o (and lse) written once over HBM bandwidth."""
     b, h, s, d = q.shape
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + b * h * s * 4
+    nbytes = ((2 * q.numel() + 2 * k.numel()) * q.element_size()
+              + (b * h * s * 4 if want_lse else 0))
     flops = 2 * b * h * s * s * d
     return _bound(nbytes, flops, q.dtype)
 
@@ -323,14 +348,20 @@ def phase_flash_fwd():
     library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
         *cases[i][0], is_causal=True, enable_gqa=True), 2, iters=20)
     bound_ms, bound_by = flash_fwd_bound_ms(*cases[0][0][:2])
+    nolse_bound_ms, nolse_bound_by = flash_fwd_bound_ms(*cases[0][0][:2],
+                                                        want_lse=False)
     phase("flash_fwd_time", shape="B4_H32_Hkv8_S2048_D64_bf16_causal",
           ms=f"{ms:.5f}", ms_nolse=f"{ms_nolse:.5f}",
           plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
           bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
-    err = max(e for k, (e, _) in errs.items() if k.startswith("llama1b_"))
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "max_abs_err": err}
+    common = {"plain_ms": plain_ms, "library_ms": library_ms}
+    return {
+        "flash_fwd": {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "max_abs_err": errs["llama1b_lse"][0], **common},
+        "flash_fwd_nolse": {"ms": ms_nolse, "bound_ms": nolse_bound_ms,
+                            "bound_by": nolse_bound_by,
+                            "max_abs_err": errs["llama1b_nolse"][0],
+                            **common}}
 
 
 def phase_flash_bwd():
@@ -390,6 +421,157 @@ def phase_flash_bwd():
             "bound_by": bound_by, "library_ms": library_ms,
             "max_abs_err": max(v for k, v in abs_errs.items()
                                if k.startswith("llama1b"))}
+
+
+# ------------------------------------------------------------- phase 5b
+# Llama-1B at long context: rep 4 · S 8192 · D 64 · 4 bytes = 8 MiB of
+# fused dq accumulator, above the JAX package's 6 MiB, so its backward
+# takes the two sweeps K3a/K3b with nothing patched.
+LONG = (1, 32, 8, 8192, 8192, 64, torch.bfloat16, True, None, 0)
+TWO_SWEEP_ODD = ("llama1b_w512", "mha", "rep3_d128", "ragged1000",
+                 "k_offset", "f32")
+
+
+@contextlib.contextmanager
+def dispatch_threshold(nbytes):
+    """Set the backward's K2/K3 dispatch threshold for the block: 0 sends
+    every shape to K3a/K3b, a huge one every shape to K2."""
+    old = tatt._FUSED_BWD_DQ_BYTES
+    tatt._FUSED_BWD_DQ_BYTES = nbytes
+    try:
+        yield
+    finally:
+        tatt._FUSED_BWD_DQ_BYTES = old
+
+
+def two_sweep_bound_ms(q, k, sweep):
+    """Least time of K3a (``dq``: 3 products per causal tile pair; q, do,
+    k, v, lse and di read, dq written) or K3b (``dkv``: 4 products; the
+    same read, dk and dv written), each product 2·B·H·S²·D/2 causal
+    flops."""
+    b, h, s, d = q.shape
+    products, q_like, k_like = {"dq": (3, 3, 2), "dkv": (4, 2, 4)}[sweep]
+    nbytes = ((q_like * q.numel() + k_like * k.numel()) * q.element_size()
+              + 2 * b * h * s * 4)
+    return _bound(nbytes, products * b * h * s * s * d, q.dtype)
+
+
+def rel_errs(got, want):
+    """Each gradient's max-abs error relative to the reference's max-abs."""
+    return [float((g.float() - w.float()).abs().max())
+            / float(w.float().abs().max()) for g, w in zip(got, want)]
+
+
+def phase_flash_bwd_two_sweep():
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    errs, long_abs = {}, {}
+    cases = [("llama1b_s8192", LONG)] + [(n, FLASH_CASES[n])
+                                         for n in TWO_SWEEP_ODD]
+    for name, shape in cases:
+        qkv, do, dlse, kw = flash_case(gen, *shape)
+        with (contextlib.nullcontext() if name == "llama1b_s8192"
+              else dispatch_threshold(0)):
+            if not tatt.takes_two_sweeps(*qkv[:2]):
+                raise RuntimeError(f"{name} does not take the two sweeps")
+            o, lse = tatt.flash_forward_plain(*qkv, **kw)
+            for cot in ((None, dlse) if name in WITH_DLSE else (None,)):
+                before = dict(_kernels.launch_counts)
+                got = tatt.flash_backward(*qkv, o, lse, do, cot, **kw)
+                torch.cuda.synchronize()
+                moved = {k: _kernels.launch_counts[k] - before[k]
+                         for k in before if _kernels.launch_counts[k]
+                         != before[k]}
+                if moved != {"flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
+                    raise RuntimeError(f"two-sweep {name} launched {moved}")
+                want = tatt.flash_backward_plain(*qkv, o, lse, do, cot, **kw)
+                torch.cuda.synchronize()
+                tag = name + ("_dlse" if cot is not None else "")
+                for g, x in zip(got, qkv):
+                    if g.shape != x.shape or g.dtype != x.dtype or not \
+                            torch.isfinite(g.float()).all():
+                        raise RuntimeError(f"two-sweep {tag}: bad gradient")
+                if name == "llama1b_s8192":
+                    long_abs = {"dq": float((got[0].float() - want[0].float())
+                                            .abs().max()),
+                                "dkv": max(float((g.float() - w.float())
+                                                 .abs().max()) for g, w
+                                           in zip(got[1:], want[1:]))}
+                errs[tag] = (max(rel_errs(got, want)),
+                             GRAD_TOL[qkv[0].dtype])
+                del got, want
+        del qkv, do, o, lse
+    bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    phase("flash_bwd_two_sweep", cases=len(errs), relative_errors=" ".join(
+        f"{k}:{e:.3g}/{tol:g}" for k, (e, tol) in errs.items()))
+    if bad:
+        raise RuntimeError(f"K3a/K3b disagree with plain: {bad}")
+
+    # At the long shape: K3 against K2 (the same function), K3a twice
+    # (bitwise), then times on two input sets.
+    sets = []
+    for _ in range(2):
+        qkv, do, _, kw = flash_case(gen, *LONG)
+        o, lse = tatt.flash_forward(*qkv, **kw)
+        sets.append((qkv, o, lse, do, tatt._row_term(o, do)))
+    qkv, o, lse, do, di = sets[0]
+    k3 = tatt.flash_backward(*qkv, o, lse, do, **kw)
+    with dispatch_threshold(1 << 62):
+        k2 = tatt.flash_backward(*qkv, o, lse, do, **kw)
+    vs_k2 = rel_errs(k3, k2)
+    dq_again = tatt.flash_backward_dq(*qkv, do, lse, di, **kw)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(dq_again, k3[0]))
+    phase("flash_bwd_two_sweep_vs_k2", shape="B1_H32_Hkv8_S8192_D64_bf16",
+          dq=f"{vs_k2[0]:.3g}", dk=f"{vs_k2[1]:.3g}", dv=f"{vs_k2[2]:.3g}",
+          tol=f"{GRAD_TOL[torch.bfloat16]:g}", dq_bitwise_equal=bitwise)
+    if not max(vs_k2) <= GRAD_TOL[torch.bfloat16]:
+        raise RuntimeError(f"K3 and K2 disagree: {vs_k2}")
+    if not bitwise:
+        raise RuntimeError("two K3a runs gave different dq")
+    del k3, k2, dq_again
+
+    dq_ms = cuda_ms(lambda i: tatt.flash_backward_dq(
+        *sets[i][0], sets[i][3], sets[i][2], sets[i][4], **kw), 2, iters=10)
+    dkv_ms = cuda_ms(lambda i: tatt.flash_backward_dkv(
+        *sets[i][0], sets[i][3], sets[i][2], sets[i][4], **kw), 2, iters=10)
+    pair_ms = cuda_ms(lambda i: tatt.flash_backward(
+        *sets[i][0], *sets[i][1:4], **kw), 2, iters=10)
+    with dispatch_threshold(1 << 62):
+        k2_ms = cuda_ms(lambda i: tatt.flash_backward(
+            *sets[i][0], *sets[i][1:4], **kw), 2, iters=10)
+    plain_ms = cuda_ms(lambda i: tatt.flash_backward_plain(
+        *sets[i][0], *sets[i][1:4], **kw), 2, iters=2)
+    leaves = [[x.detach().requires_grad_() for x in c[0]] for c in sets]
+
+    def sdpa(i, backward):
+        o = F.scaled_dot_product_attention(*leaves[i], is_causal=True,
+                                           enable_gqa=True)
+        if backward:
+            o.backward(sets[i][3])
+    sdpa_fb = cuda_ms(lambda i: sdpa(i, True), 2, iters=10)
+    sdpa_f = cuda_ms(lambda i: sdpa(i, False), 2, iters=10)
+    sdpa_bwd = sdpa_fb - sdpa_f
+    k1_ms = cuda_ms(lambda i: tatt.flash_forward(*sets[i][0], **kw), 2,
+                    iters=10)
+    q, k = sets[0][0][:2]
+    k1_bound, _ = flash_fwd_bound_ms(q, k)
+    dq_bound, dq_by = two_sweep_bound_ms(q, k, "dq")
+    dkv_bound, dkv_by = two_sweep_bound_ms(q, k, "dkv")
+    phase("flash_bwd_two_sweep_time", shape="B1_H32_Hkv8_S8192_D64_bf16",
+          dq_ms=f"{dq_ms:.5f}", dkv_ms=f"{dkv_ms:.5f}",
+          sum_ms=f"{dq_ms + dkv_ms:.5f}", wrapper_ms=f"{pair_ms:.5f}",
+          k2_ms=f"{k2_ms:.5f}", sdpa_bwd_ms=f"{sdpa_bwd:.5f}",
+          sdpa_fwd_ms=f"{sdpa_f:.5f}", k1_ms=f"{k1_ms:.5f}",
+          k1_bound_ms=f"{k1_bound:.5f}",
+          plain_ms=f"{plain_ms:.5f}", dq_bound_ms=f"{dq_bound:.5f}",
+          dkv_bound_ms=f"{dkv_bound:.5f}", bound_by=f"{dq_by}/{dkv_by}")
+    common = {"plain_ms": plain_ms, "library_ms": None}
+    return {"flash_bwd_dq": {"ms": dq_ms, "bound_ms": dq_bound,
+                             "bound_by": dq_by,
+                             "max_abs_err": long_abs["dq"], **common},
+            "flash_bwd_dkv": {"ms": dkv_ms, "bound_ms": dkv_bound,
+                              "bound_by": dkv_by,
+                              "max_abs_err": long_abs["dkv"], **common}}
 
 
 # -------------------------------------------------------------- phase 6
@@ -552,17 +734,18 @@ def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8) -> None:
 
 
 # ---------------------------------------------------------- phase 8-10
-FLASH_COUNTERS = ("flash_fwd", "flash_fwd_nolse", "flash_bwd_fused")
+FLASH_COUNTERS = ("flash_fwd", "flash_fwd_nolse", "flash_bwd_fused",
+                  "flash_bwd_dq", "flash_bwd_dkv")
 LM_KEYS = dict(input_key="tokens", target_key="targets")
 
 
-def _train_both(optimizer: str, lr: float, steps: int):
+def _train_both(optimizer: str, lr: float, steps: int, **model_kw):
     """One seeded Llama-1B (depth 2, f32) trained ``steps`` steps by the
     port's Trainer on the card (kernels) and on the CPU (plain versions),
     on the same batches. Returns the per-step losses of each, their
     largest relative difference and, per parameter, the card's and the
     CPU's trained value and last step's gradient."""
-    cfg = dict(vocab_size=VOCAB, depth=2, dtype=torch.float32)
+    cfg = dict(vocab_size=VOCAB, depth=2, dtype=torch.float32, **model_kw)
     cpu_model = Llama_1B(**cfg, device="cpu", seed=2)
     gpu_model = Llama_1B(**cfg, device=DEV, seed=2)
     gpu_model.load_state_dict(cpu_model.state_dict())
@@ -608,7 +791,24 @@ def phase_train_parity(steps: int = 3, lr: float = 1e-4, sgd_lr: float = 1e-2):
     if not max_diff <= 2 * lr * steps:
         raise RuntimeError(f"trained parameters differ by {max_diff}")
     del params
-    losses, rel, params = _train_both("sgd", sgd_lr, steps)
+    _sgd_leg(steps, sgd_lr, "fused")
+    # The long-context path at parity size: remat, and every backward
+    # through K3a/K3b.
+    with dispatch_threshold(0):
+        _kernels.reset_launch_counts()
+        _sgd_leg(steps, sgd_lr, "two_sweep_remat_dots", remat="dots")
+    want = {"flash_fwd": 2 * 2 * steps, "flash_fwd_nolse": 0,
+            "flash_bwd_fused": 0, "flash_bwd_dq": 2 * steps,
+            "flash_bwd_dkv": 2 * steps}
+    got = {k: _kernels.launch_counts[k] for k in want}
+    if got != want:
+        raise RuntimeError(f"remat parity leg launched {got}, want {want}")
+
+
+def _sgd_leg(steps, lr, leg, **model_kw):
+    """Train with sgd on the card and on the CPU; every parameter's
+    last-step gradient must agree within GRAD_TOL of its max-abs."""
+    losses, rel, params = _train_both("sgd", lr, steps, **model_kw)
     grad_rel = {}
     for name, (_, _, g, c) in params.items():
         scale = float(c.abs().max())
@@ -617,16 +817,16 @@ def phase_train_parity(steps: int = 3, lr: float = 1e-4, sgd_lr: float = 1e-2):
         grad_rel[name] = float((g - c).abs().max()) / scale
     worst = max(grad_rel, key=grad_rel.get)
     phase("train_parity", model="Llama_1B_depth2_f32", allow_tf32=False,
-          optimizer="sgd", lr=sgd_lr, steps=steps,
+          optimizer="sgd", leg=leg, lr=lr, steps=steps,
           losses_cuda="/".join(f"{x:.7f}" for x in losses["cuda"]),
           losses_cpu="/".join(f"{x:.7f}" for x in losses["cpu"]),
           max_loss_rel_diff=f"{rel:.3g}",
           max_grad_rel_diff=f"{grad_rel[worst]:.3g}", worst_leaf=worst,
           grad_bound=f"{GRAD_TOL[torch.float32]:g}")
     if not rel <= 1e-5:
-        raise RuntimeError(f"sgd train losses disagree: {losses}")
+        raise RuntimeError(f"sgd train losses disagree ({leg}): {losses}")
     if not grad_rel[worst] <= GRAD_TOL[torch.float32]:
-        raise RuntimeError(f"sgd gradients disagree: {worst} by "
+        raise RuntimeError(f"sgd gradients disagree ({leg}): {worst} by "
                            f"{grad_rel[worst]:.3g} of its max-abs")
 
 
@@ -653,13 +853,15 @@ def phase_train_converge():
                            f"{launches}")
 
 
-def phase_train_step(batch: int = 4, seq: int = 2048, warmup: int = 2,
-                     steps: int = 5):
-    torch.cuda.empty_cache()
-    model = Llama_1B(vocab_size=VOCAB, dtype=torch.bfloat16,
-                     param_dtype=torch.float32, device=DEV, seed=0)
-    n_params = sum(p.numel() for p in model.parameters())
-    n_matmul = n_params - model.stem.embed.weight.numel()
+def _timed_fit(model, batch: int, seq: int, warmup: int, steps: int):
+    """adamw at lr 1e-4 on the synthetic LM task: ``warmup`` steps, then
+    ``steps`` timed ones (host clock around ``Trainer.fit``, ending in a
+    sync) with the launch counts set to 0 just before and the peak memory
+    reset. Returns the trainer, the data, the history, the wall seconds,
+    the launches, tokens/s, the 6ND MFU over the non-embedding parameters
+    and the peak memory."""
+    n_matmul = sum(p.numel() for p in model.parameters()) \
+        - model.stem.embed.weight.numel()
     tr = Trainer(model, optimizer="adamw", learning_rate=1e-4, device=DEV,
                  **LM_KEYS)
     data = SyntheticLanguageModeling(batch_size=batch, seq_len=seq,
@@ -673,29 +875,47 @@ def phase_train_step(batch: int = 4, seq: int = 2048, warmup: int = 2,
                   verbose=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    train_counts = dict(_kernels.launch_counts)
-    val = tr.evaluate(data.with_offset(warmup + steps), steps=1)
-    launches = dict(_kernels.launch_counts)
-    peak = torch.cuda.max_memory_allocated()
-    losses = hist.history["loss"] + [val["loss"]]
+    counts = dict(_kernels.launch_counts)
     tokens_s = batch * seq * steps / wall
     mfu = 6 * n_matmul * tokens_s / PEAK_FLOPS[torch.bfloat16]
+    return (tr, data, hist, wall, counts, tokens_s, mfu,
+            torch.cuda.max_memory_allocated())
+
+
+def _train_fields(model, batch, seq, steps, hist, wall, counts, tokens_s,
+                  mfu, peak):
+    n_params = sum(p.numel() for p in model.parameters())
+    return dict(params=n_params,
+                matmul_params=n_params - model.stem.embed.weight.numel(),
+                batch=batch, seq=seq, steps=steps,
+                wall_s=f"{wall:.4f}", ms_per_step=f"{1e3 * wall / steps:.3f}",
+                tokens_per_s=f"{tokens_s:.2f}", mfu_6nd=f"{mfu:.4f}",
+                peak_mem_gib=f"{peak / 2**30:.3f}",
+                losses="/".join(f"{x:.5f}" for x in hist.history["loss"]),
+                flash_per_step="/".join(f"{k}:{counts[k] / steps:g}"
+                                        for k in FLASH_COUNTERS))
+
+
+def phase_train_step(batch: int = 4, seq: int = 2048, warmup: int = 2,
+                     steps: int = 5):
+    torch.cuda.empty_cache()
+    model = Llama_1B(vocab_size=VOCAB, dtype=torch.bfloat16,
+                     param_dtype=torch.float32, device=DEV, seed=0)
+    tr, data, hist, wall, train_counts, tokens_s, mfu, peak = _timed_fit(
+        model, batch, seq, warmup, steps)
+    val = tr.evaluate(data.with_offset(warmup + steps), steps=1)
+    launches = dict(_kernels.launch_counts)
+    losses = hist.history["loss"] + [val["loss"]]
     depth = model.depth
     phase("train_step", model="Llama_1B_bf16_compute_f32_params",
-          params=n_params, matmul_params=n_matmul, batch=batch, seq=seq,
-          steps=steps, wall_s=f"{wall:.4f}",
-          ms_per_step=f"{1e3 * wall / steps:.3f}",
-          tokens_per_s=f"{tokens_s:.2f}", mfu_6nd=f"{mfu:.4f}",
-          peak_mem_gib=f"{peak / 2**30:.3f}",
-          losses="/".join(f"{x:.5f}" for x in hist.history["loss"]),
+          **_train_fields(model, batch, seq, steps, hist, wall, train_counts,
+                          tokens_s, mfu, peak),
           eval_loss=f"{val['loss']:.5f}",
-          flash_per_step="/".join(
-              f"{k}:{train_counts[k] / steps:g}" for k in FLASH_COUNTERS),
           eval_flash_fwd_nolse=launches["flash_fwd_nolse"])
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite training losses {losses}")
     want = {"flash_fwd": depth * steps, "flash_bwd_fused": depth * steps,
-            "flash_fwd_nolse": 0}
+            "flash_fwd_nolse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     got = {k: train_counts[k] for k in want}
     if got != want or launches["flash_fwd_nolse"] != depth or any(
             launches[k] != train_counts[k] for k in ("flash_fwd",
@@ -706,7 +926,88 @@ def phase_train_step(batch: int = 4, seq: int = 2048, warmup: int = 2,
     return launches, tr, data
 
 
-def profile_train(tr, data, out_dir: str) -> None:
+def phase_train_long(batch: int = 1, seq: int = 8192, warmup: int = 2,
+                     steps: int = 5):
+    """Long-context training: full Llama-1B with ``remat="dots"`` at
+    B 1 x S 8192, whose backward takes the two sweeps."""
+    torch.cuda.empty_cache()
+    model = Llama_1B(vocab_size=VOCAB, remat="dots", dtype=torch.bfloat16,
+                     param_dtype=torch.float32, device=DEV, seed=0)
+    tr, data, hist, wall, counts, tokens_s, mfu, peak = _timed_fit(
+        model, batch, seq, warmup, steps)
+    depth = model.depth
+    phase("train_long", model="Llama_1B_remat_dots_bf16_compute_f32_params",
+          **_train_fields(model, batch, seq, steps, hist, wall, counts,
+                          tokens_s, mfu, peak))
+    losses = hist.history["loss"]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite long-context losses {losses}")
+    # K1 runs in the forward and again in the remat recompute; the
+    # backward is K3a + K3b in every layer, never K2.
+    want = {"flash_fwd": 2 * depth * steps, "flash_fwd_nolse": 0,
+            "flash_bwd_fused": 0, "flash_bwd_dq": depth * steps,
+            "flash_bwd_dkv": depth * steps}
+    if {k: counts[k] for k in want} != want:
+        raise RuntimeError(f"long-context launches {counts} over {steps} "
+                           f"steps of a {depth}-layer model, want {want}")
+    return counts, tr, data
+
+
+def phase_fused_loss(seq: int = 8192, reps: int = 3):
+    """``fused_lm_loss`` against the materialized logits and the trainer's
+    cross-entropy on one forward+backward of Llama-1B at depth 2: the
+    loss, every gradient, the ms (mean of ``reps`` after one warm-up) and
+    the peak memory of each."""
+    torch.cuda.empty_cache()
+    model = Llama_1B(vocab_size=VOCAB, depth=2, dtype=torch.bfloat16,
+                     param_dtype=torch.float32, device=DEV, seed=3)
+    batch = SyntheticLanguageModeling(batch_size=1, seq_len=seq,
+                                      vocab_size=VOCAB, seed=2).batch(0)
+    x = torch.as_tensor(batch["tokens"]).to(DEV)
+    y = torch.as_tensor(batch["targets"]).to(DEV)
+    paths = {"materialized": lambda: sparse_categorical_crossentropy(
+                 model(x), y),
+             "fused": lambda: fused_lm_loss(model, x, y)}
+    out = {}
+    for name, loss_fn in paths.items():
+        model.zero_grad(set_to_none=True)
+        loss_fn().backward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wall = 0.0
+        for _ in range(reps):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = loss_fn()
+            loss.backward()
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+        out[name] = (loss.item(), 1e3 * wall / reps,
+                     torch.cuda.max_memory_allocated(),
+                     {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()})
+        del loss
+    ref, got = out["materialized"], out["fused"]
+    rel = abs(got[0] - ref[0]) / abs(ref[0])
+    grad_rel = {n: float((got[3][n] - g).abs().max()) / float(g.abs().max())
+                for n, g in ref[3].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    phase("fused_loss", model="Llama_1B_depth2_bf16_compute_f32_params",
+          batch=1, seq=seq, loss_materialized=f"{ref[0]:.6f}",
+          loss_fused=f"{got[0]:.6f}", loss_rel_diff=f"{rel:.3g}",
+          max_grad_rel_diff=f"{grad_rel[worst]:.3g}", worst_leaf=worst,
+          ms_materialized=f"{ref[1]:.3f}", ms_fused=f"{got[1]:.3f}",
+          peak_gib_materialized=f"{ref[2] / 2**30:.3f}",
+          peak_gib_fused=f"{got[2] / 2**30:.3f}")
+    if not (np.isfinite(got[0]) and rel <= 2e-3):
+        raise RuntimeError(f"fused loss {got[0]} vs materialized {ref[0]}")
+    if not grad_rel[worst] <= GRAD_TOL[torch.bfloat16]:
+        raise RuntimeError(f"fused-loss gradients disagree: {worst} by "
+                           f"{grad_rel[worst]:.3g} of its max-abs")
+
+
+def profile_train(tr, data, out_dir: str, tag: str = "train") -> None:
     """``--profile``: one train step under ``torch.profiler``: its wall
     time, the device-busy share and the largest kernels by device time;
     the whole kernel table goes to ``out_dir``."""
@@ -721,12 +1022,12 @@ def profile_train(tr, data, out_dir: str) -> None:
     kern = device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kern)
     pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)
-    (pathlib.Path(out_dir) / "profile_train.txt").write_text(
+    (pathlib.Path(out_dir) / f"profile_{tag}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=60))
     top = ";".join(f"{e.key[:60]}:{e.self_device_time_total / 1e3:.2f}ms"
-                   f"x{e.count}" for e in kern[:10])
-    phase("profile_train", step_ms=f"{1e3 * wall:.3f}",
+                   f"x{e.count}" for e in kern[:12])
+    phase(f"profile_{tag}", step_ms=f"{1e3 * wall:.3f}",
           device_busy_ms=f"{busy_us / 1e3:.3f}",
           device_idle_share=(f"{1 - busy_us / 1e6 / wall:.4f}" if busy_us
                              else "not measured"),
@@ -737,8 +1038,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile a window of decode ticks after "
-                         "phase 7 and one train step after phase 10, and "
-                         "write their kernel tables to DIR")
+                         "phase 7 and one train step after each of phases "
+                         "10 and 11, and write their kernel tables to DIR")
     args = ap.parse_args(argv)
     smi = device_line()
     print(smi, flush=True)
@@ -747,9 +1048,9 @@ def main(argv=None) -> int:
           cuda=torch.version.cuda)
     phase("build", kernels=",".join(_kernels.SOURCES),
           seconds=f"{build_kernels():.2f}")
-    timing = {"paged_decode": phase_paged_decode(),
-              "flash_fwd": phase_flash_fwd(),
-              "flash_bwd_fused": phase_flash_bwd()}
+    timing = {"paged_decode": phase_paged_decode(), **phase_flash_fwd(),
+              "flash_bwd_fused": phase_flash_bwd(),
+              **phase_flash_bwd_two_sweep()}
     phase_engine_parity()
     serve_launches, model, prompts = phase_engine_serve()
     if args.profile:
@@ -760,24 +1061,33 @@ def main(argv=None) -> int:
     train_launches, tr, data = phase_train_step()
     if args.profile:
         profile_train(tr, data, args.profile)
+    del tr, data
+    long_launches, tr, data = phase_train_long()
+    if args.profile:
+        profile_train(tr, data, args.profile, tag="train_long")
+    del tr, data
+    phase_fused_loss()
     src = "pddl_tpu_torch/ops/csrc/"
-    kernels = [
-        {"name": "paged_decode", "route": "cuda",
-         "source": src + "paged_decode.cu",
-         "replaces": "pddl_tpu/ops/attention.py:1221",
-         "launches": serve_launches["paged_decode"],
-         **timing["paged_decode"]},
-        {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
-         "replaces": "pddl_tpu/ops/attention.py:183",
-         "launches": (train_launches["flash_fwd"]
-                      + train_launches["flash_fwd_nolse"]),
-         **timing["flash_fwd"]},
-        {"name": "flash_bwd_fused", "route": "cuda",
-         "source": src + "flash_bwd.cu",
-         "replaces": "pddl_tpu/ops/attention.py:617",
-         "launches": train_launches["flash_bwd_fused"],
-         **timing["flash_bwd_fused"]},
+    att = "pddl_tpu/ops/attention.py:"
+    # (name, source, TPU kernel's line, launches on the main path: the
+    # serve run, the train step with its eval batch, or the long-context
+    # run; K1 with the LSE runs on both training paths).
+    rows = [
+        ("paged_decode", "paged_decode.cu", 1221,
+         serve_launches["paged_decode"]),
+        ("flash_fwd", "flash_fwd.cu", 183,
+         train_launches["flash_fwd"] + long_launches["flash_fwd"]),
+        ("flash_fwd_nolse", "flash_fwd.cu", 389,
+         train_launches["flash_fwd_nolse"]),
+        ("flash_bwd_fused", "flash_bwd.cu", 617,
+         train_launches["flash_bwd_fused"]),
+        ("flash_bwd_dq", "flash_bwd.cu", 551, long_launches["flash_bwd_dq"]),
+        ("flash_bwd_dkv", "flash_bwd.cu", 578,
+         long_launches["flash_bwd_dkv"]),
     ]
+    kernels = [{"name": name, "route": "cuda", "source": src + file,
+                "replaces": f"{att}{line}", "launches": launches,
+                **timing[name]} for name, file, line, launches in rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

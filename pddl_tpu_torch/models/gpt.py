@@ -1,5 +1,5 @@
-"""Sampling and serving hooks shared by the decoder families (subset of
-:mod:`pddl_tpu.models.gpt`, in PyTorch).
+"""Sampling and serving hooks shared by the decoder families, and the
+fused LM loss (subset of :mod:`pddl_tpu.models.gpt`, in PyTorch).
 
 The JAX package keeps the decode cache in a flax collection and stamps
 the engine-owned per-slot positions and block tables into it
@@ -15,6 +15,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from pddl_tpu_torch.ops.large_vocab import chunked_cross_entropy
 
 # The names of the engine-owned per-slot state a paged forward takes:
 # position counters (``cache_index``; GPT's embed calls its ``pos_index``)
@@ -127,3 +129,32 @@ def prefill_row_from(model, tokens: torch.Tensor, length: int, cache: dict,
     feats = model(tokens, cache=cache, cache_index=int(start),
                   block_table=block_table, features_only=True)
     return cache, model.head_logits(feats[:, length - 1])
+
+
+def fused_lm_loss(model, tokens: torch.Tensor, targets: torch.Tensor, *,
+                  train: bool = True,
+                  chunk_size: Optional[int] = None) -> torch.Tensor:
+    """Mean token cross-entropy without materializing the ``[B, S, V]``
+    logits: the model's ``features_only`` output goes straight into
+    :func:`pddl_tpu_torch.ops.large_vocab.chunked_cross_entropy`, which
+    saves only per-token logsumexp rows for the backward and recomputes
+    chunk logits there.
+
+    The head weight is ``model.head.lm_head.weight[:V]`` (the real columns
+    of a padded head), transposed to the JAX package's ``[E, V]`` kernel
+    and cast to the compute type as the materialized head casts it; a
+    bias, where the head has one, stays f32. ``chunk_size=None`` walks the
+    whole unpadded vocab in one step (fastest: one transient
+    ``[tokens, V]`` f32 chunk); a smaller chunk is the memory valve for
+    long context or a large vocabulary. ``train`` is forwarded to the
+    model. The model (a :class:`~pddl_tpu_torch.models.llama.Llama`)
+    takes the place of the JAX function's ``model`` and ``variables``.
+    """
+    feats = model(tokens, train=train, features_only=True)
+    head = model.head.lm_head
+    v = model.vocab_size
+    kernel = head.weight[:v].t().to(model.dtype)
+    bias = None if head.bias is None else head.bias[:v].float()
+    return chunked_cross_entropy(
+        feats, kernel, targets, bias,
+        chunk_size=chunk_size if chunk_size is not None else v)

@@ -29,10 +29,15 @@ Two forward modes, chosen by whether a cache is passed:
   post-RoPE at their ABSOLUTE positions, so a shared pool block is
   bit-valid for every row whose table references it.
 
+``remat`` (``"none"``, ``"dots"``, ``"full"``) wraps every block with
+:func:`pddl_tpu_torch.models.vit.remat_block`: under a gradient, with no
+cache passed, each block's activations are rematerialized in the backward
+per the named policy; the paged decode path never remats.
+
 Not ported yet (each raises ``NotImplementedError``): routed experts
-(``moe_experts > 0``, ROADMAP.md queue 1 item 5), rematerialization
-(``remat``, queue 1 item 5), rolling sliding-window ring caches (queue 1
-item 2) and ring / sequence-parallel attention (queue 1 item 7).
+(``moe_experts > 0``, ROADMAP.md queue 1 item 5), rolling sliding-window
+ring caches (queue 1 item 2) and ring / sequence-parallel attention
+(queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pddl_tpu_torch.device import resolve_device
+from pddl_tpu_torch.models.vit import remat_block
 from pddl_tpu_torch.ops.attention import (
     attention_reference,
     flash_attention,
@@ -288,10 +294,6 @@ class Llama(nn.Module):
                 + _NOT_PORTED.format("7 (distributed)"))
         if attention not in ("flash", "reference"):
             raise ValueError(f"unknown attention {attention!r}")
-        if remat != "none":
-            raise NotImplementedError(
-                f"remat={remat!r} is "
-                + _NOT_PORTED.format("5 (causal-LM train step)"))
         if moe_experts:
             raise NotImplementedError(
                 "moe_experts > 0 is "
@@ -301,6 +303,7 @@ class Llama(nn.Module):
                 f"sliding_window={sliding_window} allocates a rolling ring "
                 "cache, which is "
                 + _NOT_PORTED.format("2 (resident-row engine)"))
+        block_cls = remat_block(LlamaBlock, remat)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
         self.vocab_size = vocab_size
@@ -312,13 +315,14 @@ class Llama(nn.Module):
         self.head_dim = embed_dim // num_heads
         self.sliding_window = sliding_window
         self.attention = attention
+        self.remat = remat
         self.dtype = dtype
         self.param_dtype = param_dtype
         inter = intermediate_dim or _default_intermediate_dim(embed_dim)
         self.stem = _LlamaEmbed(vocab_size, embed_dim, vocab_multiple, dtype,
                                 param_dtype, device)
         self.blocks = nn.ModuleList(
-            LlamaBlock(embed_dim, num_heads, self.num_kv_heads, inter,
+            block_cls(embed_dim, num_heads, self.num_kv_heads, inter,
                        rope_theta=rope_theta, attention=attention,
                        sliding_window=sliding_window, qkv_bias=qkv_bias,
                        rms_eps=rms_eps, dtype=dtype, param_dtype=param_dtype,

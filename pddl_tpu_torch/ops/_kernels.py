@@ -33,8 +33,10 @@ SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu",
            "flash_bwd": "flash_bwd.cu"}
 
 # Launch counters: one per kernel variant a run may go through. The
-# forward's two variants (with and without the LSE write) share a source.
-COUNTERS = ("paged_decode", "flash_fwd", "flash_fwd_nolse", "flash_bwd_fused")
+# forward's two variants (with and without the LSE write) share a source,
+# and so do the backward's three (the fused K2, the two-sweep K3a and K3b).
+COUNTERS = ("paged_decode", "flash_fwd", "flash_fwd_nolse", "flash_bwd_fused",
+            "flash_bwd_dq", "flash_bwd_dkv")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -135,6 +137,20 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             i, i, i, ctypes.c_float,     # causal, window, k_offset, scale
             i, p]                        # dtype, stream
         lib.pddl_flash_bwd.restype = i
+        lib.pddl_flash_bwd_dq.argtypes = [
+            p, p, p, p, p, p,            # q, k, v, do, lse, di
+            p,                           # dq (q's type)
+            i, i, i, i, i, i,            # B, H, Hkv, Sq, Sk, D
+            i, i, i, ctypes.c_float,     # causal, window, k_offset, scale
+            i, p]                        # dtype, stream
+        lib.pddl_flash_bwd_dq.restype = i
+        lib.pddl_flash_bwd_dkv.argtypes = [
+            p, p, p, p, p, p,            # q, k, v, do, lse, di
+            p, p,                        # dk, dv
+            i, i, i, i, i, i,            # B, H, Hkv, Sq, Sk, D
+            i, i, i, ctypes.c_float,     # causal, window, k_offset, scale
+            i, p]                        # dtype, stream
+        lib.pddl_flash_bwd_dkv.restype = i
     lib.pddl_cuda_error_string.argtypes = [i]
     lib.pddl_cuda_error_string.restype = ctypes.c_char_p
 

@@ -12,8 +12,10 @@
   counterpart; ``block_q``/``block_k`` are accepted and ignored). The
   forward is the hand-written K1 (:func:`flash_forward`,
   ``csrc/flash_fwd.cu``); under a gradient, a ``torch.autograd.Function``
-  saves ``(q, k, v, o, lse)`` and its backward is the fused K2
-  (:func:`flash_backward`, ``csrc/flash_bwd.cu``). Each kernel's plain
+  saves ``(q, k, v, o, lse)`` and its backward (:func:`flash_backward`,
+  ``csrc/flash_bwd.cu``) is the fused K2, or the two sweeps K3a (dq) and
+  K3b (dk/dv) where the JAX package's dispatch takes them (long
+  sequences). Each kernel's plain
   version (:func:`flash_forward_plain`, :func:`flash_backward_plain`)
   sits beside it and runs only for CPU tensors.
 - :func:`paged_cache_insert` — write the current token(s) of every row
@@ -137,7 +139,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     With no gradient to take (``torch.is_grad_enabled()`` false, or no
     input requiring grad) this launches K1 without its LSE write; under a
-    gradient it runs K1 with the LSE and the fused backward K2. ``window``
+    gradient it runs K1 with the LSE and the backward of
+    :func:`flash_backward` (K2, or K3a and K3b). ``window``
     (causal only): query t sees keys ``[t-window+1, t]``.
     ``block_q``/``block_k`` are accepted for the JAX signature and ignored:
     the kernels tile by 64 at every length.
@@ -199,12 +202,33 @@ def _flash_scores(q, k, causal, scale, window, k_offset):
     return s
 
 
+def _by_kv_head(fn, q, k, v, *rows, **kw):
+    """Run a plain version one kv head's query group at a time and join
+    the parts along the head axis: the same function, with its f32
+    ``[B, rep, Sq, Sk]`` intermediates bounded by one group (long
+    sequences). ``rows`` are ``[B, H, ...]`` tensors (or None) sliced with
+    q; outputs with q's head count join at H, the others at H_kv."""
+    hkv = k.shape[1]
+    rep = q.shape[1] // hkv
+    parts = []
+    for g in range(hkv):
+        qs = slice(g * rep, (g + 1) * rep)
+        parts.append(fn(q[:, qs], k[:, g:g + 1], v[:, g:g + 1],
+                        *(None if x is None else x[:, qs] for x in rows),
+                        **kw))
+    return tuple(torch.cat(x, dim=1) for x in zip(*parts))
+
+
 def flash_forward_plain(q, k, v, *, causal: bool, scale: float,
                         window: Optional[int] = None, k_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of K1: ``(o, lse)`` from one masked softmax in
     f32, with the kernel's rounding point (p rounded to v's dtype before
-    the P·V product, the denominator summed in f32)."""
+    the P·V product, the denominator summed in f32); one kv head's group
+    at a time."""
+    kw = dict(causal=causal, scale=scale, window=window, k_offset=k_offset)
+    if k.shape[1] > 1:
+        return _by_kv_head(flash_forward_plain, q, k, v, **kw)
     b, h, sq, d = q.shape
     s = _flash_scores(q, k, causal, scale, window, k_offset)
     m = s.amax(dim=-1, keepdim=True)
@@ -220,28 +244,46 @@ def flash_backward_plain(q, k, v, o, lse, do, dlse=None, *, causal: bool,
                          scale: float, window: Optional[int] = None,
                          k_offset: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain version of K2 (and of the two-sweep K3a/K3b, which compute
-    the same function): ``(dq, dk, dv)`` by the kernel's formulas written
-    out, not by autograd — ``p = exp(s − lse)``, ``dp = do·vᵀ``,
+    """The plain version of K2 and of the two sweeps K3a (its ``dq``) and
+    K3b (its ``dk, dv``), which compute the same function: ``(dq, dk, dv)``
+    by the kernels' formulas written out, not by autograd —
+    ``p = exp(s − lse)``, ``dp = do·vᵀ``,
     ``di = rowsum(do⊙o) − dlse``, ``ds = p·(dp − di)``, ``dv = pᵀ·do``,
     ``dk = scale·dsᵀ·q``, ``dq = scale·ds·k`` — with its rounding points
     (p to do's dtype, ds to q's and k's) and dk/dv summed over each kv
-    head's query group."""
-    b, h, sq, d = q.shape
-    hkv = k.shape[1]
-    rep = h // hkv
-    s = _flash_scores(q, k, causal, scale, window, k_offset)
-    p = torch.exp(s - lse.reshape(b, hkv, rep, sq, 1))
-    dog = do.reshape(b, hkv, rep, sq, d)
-    dp = torch.einsum("bgrqd,bgkd->bgrqk", dog.float(), v.float())
+    head's query group; one group at a time."""
+    return _backward_plain(q, k, v, lse, do, _row_term(o, do, dlse),
+                           causal=causal, scale=scale, window=window,
+                           k_offset=k_offset)
+
+
+def _row_term(o, do, dlse=None) -> torch.Tensor:
+    """The backward's row term ``di = rowsum(do⊙o) − dlse``, ``[B, H, Sq]``
+    f32 — computed outside the kernels, as the JAX package computes it in
+    XLA."""
     di = (do.float() * o.float()).sum(dim=-1)
     if dlse is not None:
         di = di - dlse.float()
-    ds = p * (dp - di.reshape(b, hkv, rep, sq, 1))
+    return di.contiguous()
+
+
+def _backward_plain(q, k, v, lse, do, di, *, causal, scale, window,
+                    k_offset):
+    """:func:`flash_backward_plain` from the row term ``di``."""
+    if k.shape[1] > 1:
+        return _by_kv_head(_backward_plain, q, k, v, lse, do, di,
+                           causal=causal, scale=scale, window=window,
+                           k_offset=k_offset)
+    b, h, sq, d = q.shape
+    s = _flash_scores(q, k, causal, scale, window, k_offset)
+    p = torch.exp(s - lse.reshape(b, 1, h, sq, 1))
+    dog = do.reshape(b, 1, h, sq, d)
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", dog.float(), v.float())
+    ds = p * (dp - di.reshape(b, 1, h, sq, 1))
     dv = torch.einsum("bgrqk,bgrqd->bgkd", p.to(do.dtype).float(),
                       dog.float())
     dk = torch.einsum("bgrqk,bgrqd->bgkd", ds.to(q.dtype).float(),
-                      q.reshape(b, hkv, rep, sq, d).float())
+                      q.reshape(b, 1, h, sq, d).float())
     dq = torch.einsum("bgrqk,bgkd->bgrqd", ds.to(k.dtype).float(), k.float())
     if scale != 1.0:
         dk, dq = dk * scale, dq * scale
@@ -249,10 +291,18 @@ def flash_backward_plain(q, k, v, o, lse, do, dlse=None, *, causal: bool,
             dv.to(v.dtype))
 
 
+def takes_two_sweeps(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """The JAX package's backward dispatch: the two sweeps K3a/K3b when
+    the fused backward's ``rep·Sq·D`` f32 dq accumulator would exceed
+    ``_FUSED_BWD_DQ_BYTES``, else K2."""
+    _, _, sq, d = q.shape
+    return _gqa_rep(q, k) * sq * d * 4 > _FUSED_BWD_DQ_BYTES
+
+
 def _check_flash(q: torch.Tensor, named) -> None:
     """Raise on what the flash kernels do not take: every tensor on q's
-    CUDA device and contiguous; q/k/v/do of one dtype, f32 or bf16; lse
-    f32; head grouping and D <= 128."""
+    CUDA device and contiguous; q/k/v/do of one dtype, f32 or bf16; the
+    ``[B, H, Sq]`` rows lse and di f32; head grouping and D <= 128."""
     if q.device.type != "cuda":
         raise ValueError(f"flash kernels need CUDA tensors, got {q.device}")
     for name, x in named.items():
@@ -260,9 +310,13 @@ def _check_flash(q: torch.Tensor, named) -> None:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        want = torch.float32 if name == "lse" else q.dtype
+        rows = name in ("lse", "di")
+        want = torch.float32 if rows else q.dtype
         if x.dtype != want:
             raise ValueError(f"{name} must be {want}, got {x.dtype}")
+        if rows and x.shape != q.shape[:3]:
+            raise ValueError(f"{name} must be [B, H, Sq] = "
+                             f"{tuple(q.shape[:3])}, got {tuple(x.shape)}")
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"flash kernels take float32 or bfloat16, got "
                          f"{q.dtype}")
@@ -318,40 +372,91 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with saved ``lse`` and cotangents ``do`` (and ``dlse``, the LSE
     output's, or None).
 
-    Dispatches as the JAX package does: when ``rep·Sq·D·4`` fits
-    ``_FUSED_BWD_DQ_BYTES`` the fused K2 (``csrc/flash_bwd.cu``), else the
-    two-sweep K3a/K3b. A CPU ``q`` gets the plain version on either
-    branch. A CUDA ``q`` launches K2 or raises: the two-sweep kernels are
-    not ported yet and nothing falls back quietly."""
+    Dispatches as the JAX package does (:func:`takes_two_sweeps`): the
+    fused K2 when its dq accumulator fits ``_FUSED_BWD_DQ_BYTES``, else
+    the two sweeps K3a (:func:`flash_backward_dq`) and K3b
+    (:func:`flash_backward_dkv`), all in ``csrc/flash_bwd.cu``. A CPU
+    ``q`` gets the plain version on either branch. A CUDA ``q`` launches
+    the branch's kernels or raises: nothing falls back quietly."""
     b, h, sq, d = q.shape
-    rep = _gqa_rep(q, k)
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, o, lse, do, dlse, causal=causal,
                                     scale=scale, window=window,
                                     k_offset=k_offset)
-    if rep * sq * d * 4 > _FUSED_BWD_DQ_BYTES:
-        raise NotImplementedError(
-            f"rep·Sq·D·4 = {rep * sq * d * 4} bytes exceeds the fused "
-            "backward's dq budget, and the two-sweep backward (K3a/K3b) is "
-            "not ported yet: ROADMAP.md queue 2 K3")
     _check_flash(q, {"k": k, "v": v, "o": o, "do": do, "lse": lse})
-    di = (do.float() * o.float()).sum(dim=-1)
-    if dlse is not None:
-        di = di - dlse.float()
-    di = di.contiguous()
+    di = _row_term(o, do, dlse)
+    kw = dict(causal=causal, scale=scale, window=window, k_offset=k_offset)
+    if takes_two_sweeps(q, k):
+        return (flash_backward_dq(q, k, v, do, lse, di, **kw),
+                *flash_backward_dkv(q, k, v, do, lse, di, **kw))
     dq = torch.zeros(b, h, sq, d, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _kernels.library("flash_bwd")
-    code = lib.pddl_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d, int(causal),
-        window or 0, k_offset, scale, _KERNEL_DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    code = lib.pddl_flash_bwd(*_bwd_operands(q, k, v, do, lse, di),
+                              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                              *_bwd_scalars(q, k, **kw))
     _kernels.check("flash_bwd", code)
     _kernels.launch_counts["flash_bwd_fused"] += 1
     return dq.to(q.dtype), dk, dv
+
+
+def _bwd_operands(q, k, v, do, lse, di):
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr())
+
+
+def _bwd_scalars(q, k, *, causal, scale, window, k_offset):
+    b, h, sq, d = q.shape
+    return (b, h, k.shape[1], sq, k.shape[2], d, int(causal), window or 0,
+            k_offset, scale, _KERNEL_DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_backward_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor, di: torch.Tensor,
+                      *, causal: bool, scale: float,
+                      window: Optional[int] = None, k_offset: int = 0
+                      ) -> torch.Tensor:
+    """K3a, the dq sweep of the two-sweep backward — the port of the
+    Pallas ``_flash_bwd_dq_kernel``. ``di [B, H, Sq]`` f32 is the row term
+    :func:`flash_backward` builds. Returns dq in q's dtype, written once
+    with no atomics (bitwise reproducible). A CUDA ``q`` launches the
+    kernel or raises; a CPU ``q`` gets the plain version's dq."""
+    kw = dict(causal=causal, scale=scale, window=window, k_offset=k_offset)
+    if q.device.type == "cpu":
+        return _backward_plain(q, k, v, lse, do, di, **kw)[0]
+    _check_flash(q, {"k": k, "v": v, "do": do, "lse": lse, "di": di})
+    dq = torch.empty_like(q)
+    code = _kernels.library("flash_bwd").pddl_flash_bwd_dq(
+        *_bwd_operands(q, k, v, do, lse, di), dq.data_ptr(),
+        *_bwd_scalars(q, k, **kw))
+    _kernels.check("flash_bwd", code)
+    _kernels.launch_counts["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_backward_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor,
+                       di: torch.Tensor, *, causal: bool, scale: float,
+                       window: Optional[int] = None, k_offset: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3b, the dk/dv sweep of the two-sweep backward — the port of the
+    Pallas ``_flash_bwd_dkv_kernel``: ``(dk, dv)`` in k's dtype, summed
+    over each kv head's query group. A CUDA ``q`` launches the kernel or
+    raises; a CPU ``q`` gets the plain version's dk, dv."""
+    kw = dict(causal=causal, scale=scale, window=window, k_offset=k_offset)
+    if q.device.type == "cpu":
+        return _backward_plain(q, k, v, lse, do, di, **kw)[1:]
+    _check_flash(q, {"k": k, "v": v, "do": do, "lse": lse, "di": di})
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    code = _kernels.library("flash_bwd").pddl_flash_bwd_dkv(
+        *_bwd_operands(q, k, v, do, lse, di), dk.data_ptr(), dv.data_ptr(),
+        *_bwd_scalars(q, k, **kw))
+    _kernels.check("flash_bwd", code)
+    _kernels.launch_counts["flash_bwd_dkv"] += 1
+    return dk, dv
 
 
 def _forward_saving(ctx, q, k, v, causal, scale, window, k_offset):

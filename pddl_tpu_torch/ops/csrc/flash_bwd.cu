@@ -1,43 +1,54 @@
-// Fused single-sweep flash-attention backward for Hopper (sm_90a): dq, dk
-// and dv in one pass over the (k tile, q tile) pairs of the causal band.
+// Flash-attention backward for Hopper (sm_90a): the fused single sweep (K2)
+// and the two sweeps of the long-context backward (K3a dq, K3b dk/dv).
 //
-// Replaces the Pallas kernel pddl_tpu/ops/attention.py:_flash_bwd_fused_kernel
-// (launched by _flash_bwd_impl when rep * Sq * D * 4 <= 6 MiB). It computes
-// the same function. Inputs as the forward (q, do [B, H, Sq, D]; k, v
-// [B, Hkv, Sk, D]; one type, f32 or bf16) plus the forward's lse and the
-// row term di = rowsum(do * o) - dlse, both [B * H, Sq] f32, built by the
-// caller. For every pair it recomputes
+// Replaces the Pallas kernels of pddl_tpu/ops/attention.py launched by
+// _flash_bwd_impl: _flash_bwd_fused_kernel (K2, taken when rep * Sq * D * 4
+// <= 6 MiB), and _flash_bwd_dq_kernel (K3a) with _flash_bwd_dkv_kernel
+// (K3b) above that. All three compute the same function. Inputs as the
+// forward (q, do [B, H, Sq, D]; k, v [B, Hkv, Sk, D]; one type, f32 or
+// bf16) plus the forward's lse and the row term di = rowsum(do * o) - dlse,
+// both [B * H, Sq] f32, built by the caller. For every (q tile, key tile)
+// pair of the causal/window band they recompute
 //   s = scale * q.k (masked to NEG_INF as in the forward), p = exp(s - lse),
 //   dp = do.v, ds = p * (dp - di),
-// and adds dv += p^T.do, dk += scale * ds^T.q, dq += scale * ds.k, with the
+// and add dv += p^T.do, dk += scale * ds^T.q, dq += scale * ds.k, with the
 // reference's rounding points: p is rounded to do's type before the dv
 // product, ds to q's and k's type before the dk and dq products, and every
 // product accumulates in f32. dk and dv are summed over the rep = H / Hkv
 // query heads of their kv head.
 //
-// What bounds it on an H100: 5 products per tile pair, 5 * B * H * S^2 * D
-// causal flops (~172 GFLOP at Llama-1B's training shape), so the tensor
-// cores' rate (~0.17 ms at 989 TFLOP/s bf16). The design:
-//  - one block of 256 threads (8 warps) per (b * hkv, 64-key tile) holds
-//    its K and V tiles in shared memory and its dk / dv accumulators for
-//    the whole sweep; a loop over the group's query heads and the q tiles
-//    in the band (the forward's band arithmetic seen from the keys) takes
-//    the place of the TPU's sequential inner grid axis;
-//  - bf16 (the training path): the five products run on the tensor cores
-//    as WMMA 16x16x16 bf16 fragments with f32 accumulation; s and dp go
+// What bounds them on an H100: the tensor cores' rate. Per tile pair K2
+// runs 5 products, K3a 3 (s, dp, dq) and K3b 4 (s, dp, dv, dk), each
+// 2 * 64 * 64 * D flops, over about half of the B * H * (S / 64)^2 pairs
+// under a causal mask: at Llama-1B's long-context shape (B 1, H 32, S 8192,
+// D 64) K3a ~412 GFLOP (~0.42 ms at 989 TFLOP/s bf16) and K3b ~550 GFLOP
+// (~0.56 ms). The design is the simple one, on 256 threads (8 warps):
+//  - K2 and K3b: one block per (b * hkv, 64-key tile) holds its K and V
+//    tiles in shared memory and its dk / dv accumulators for the whole
+//    sweep; a loop over the group's query heads and the q tiles in the band
+//    (the forward's band arithmetic seen from the keys) takes the place of
+//    the TPU's sequential inner grid axis. K3b is K2's kernel with the dq
+//    product and its atomics compiled out (template flag kDq);
+//  - K2's dq: the TPU kernel keeps a whole-sequence dq scratch in VMEM and
+//    relies on the grid running in order. Hopper blocks run concurrently,
+//    so each block adds its [64, D] dq contribution for a q tile with f32
+//    atomicAdd into a [B * H, Sq, D] f32 buffer the caller zeroes and casts.
+//    The order of those additions changes from run to run, so K2's dq is
+//    NOT bitwise reproducible;
+//  - K3a: one block per (b * h, 64-row q tile) holds its q, do, lse and di
+//    rows and loops over the key tiles of the forward's band, keeping its
+//    dq accumulator in the block for the whole sweep; dq is written once,
+//    in q's type, with no atomics, so it IS bitwise reproducible;
+//  - bf16 (the training path): the products run on the tensor cores as
+//    WMMA 16x16x16 bf16 fragments with f32 accumulation; s and dp go
 //    through shared memory for the elementwise p / ds pass, which stores p
-//    and ds as bf16 (the rounding points above) for the dv, dk and dq
-//    products; dk and dv stay in accumulator fragments for the sweep;
+//    and ds as bf16 (the rounding points above) for the following products;
+//    the sweep's accumulators stay in fragments;
 //  - f32: the products run on the f32 FMA units (rows of K / V padded by
-//    one against bank conflicts), dk / dv in registers;
-//  - dq: the TPU kernel keeps a whole-sequence dq scratch in VMEM and relies
-//    on the grid running in order. Hopper blocks run concurrently, so each
-//    block adds its [64, D] dq contribution for a q tile with f32 atomicAdd
-//    into a [B * H, Sq, D] f32 buffer the caller zeroes and casts. The order
-//    of those additions changes from run to run, so dq is NOT bitwise
-//    reproducible: two runs agree to f32 rounding, not exactly;
+//    one against bank conflicts), the accumulators in registers;
 //  - ragged Sq / Sk edges are masked here (p = ds = 0 outside the arrays).
-// The heaviest key tiles (the first ones under a causal mask) launch first.
+// The heaviest tiles launch first: the first key tiles (K2, K3b) and the
+// last q tiles (K3a) under a causal mask.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,8 +79,8 @@ constexpr size_t smem_floats() {
          2 * (size_t)kBlockQ * kPS + 2 * (size_t)kBlockQ;
 }
 
-// f32: every product on the FMA units.
-template <int DM>
+// K2 (kDq) and K3b in f32: every product on the FMA units.
+template <int DM, bool kDq>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -133,7 +144,6 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int bh = b * H + g * rep + r;
     const float* qb = q + (size_t)bh * Sq * D;
     const float* dob = dout + (size_t)bh * Sq * D;
-    float* dqb = dq + (size_t)bh * Sq * D;
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * kBlockQ;
       __syncthreads();  // the previous pair is done with sq / sdo / sp / sds
@@ -228,35 +238,40 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           }
       }
 
-      // This pair's dq rows: ds.k for rows ty*4+i, columns tx+16*j.
-      float dq_acc[4][NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dq_acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < kBlockK; ++c) {
-        float dsv[4], kv[NJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dsv[i] = sds[(ty * 4 + i) * kPS + c];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) kv[j] = sk[c * KS + tx + 16 * j];
+      // This pair's dq rows (K2 only): ds.k for rows ty*4+i, columns
+      // tx+16*j, added to the f32 dq buffer.
+      if constexpr (kDq) {
+        float* dqb = dq + (size_t)bh * Sq * D;
+        float dq_acc[4][NJ];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            dq_acc[i][j] = fmaf(dsv[i], kv[j], dq_acc[i][j]);
-      }
+          for (int j = 0; j < NJ; ++j) dq_acc[i][j] = 0.f;
+#pragma unroll 4
+        for (int c = 0; c < kBlockK; ++c) {
+          float dsv[4], kv[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + ty * 4 + i;
-        if (row >= Sq) continue;
+          for (int i = 0; i < 4; ++i) dsv[i] = sds[(ty * 4 + i) * kPS + c];
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int d = tx + 16 * j;
-          if (d < D) {
-            const float x = scale != 1.f ? scale * dq_acc[i][j] : dq_acc[i][j];
-            atomicAdd(dqb + (size_t)row * D + d, x);
+          for (int j = 0; j < NJ; ++j) kv[j] = sk[c * KS + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+              dq_acc[i][j] = fmaf(dsv[i], kv[j], dq_acc[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = q0 + ty * 4 + i;
+          if (row >= Sq) continue;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const int d = tx + 16 * j;
+            if (d < D) {
+              const float x = scale != 1.f ? scale * dq_acc[i][j]
+                                           : dq_acc[i][j];
+              atomicAdd(dqb + (size_t)row * D + d, x);
+            }
           }
         }
       }
@@ -327,7 +342,8 @@ struct WmmaLayout {
                 "dv staging reuses the s / dp tiles");
 };
 
-template <int DM>
+// K2 (kDq) and K3b in bf16, on the tensor cores.
+template <int DM, bool kDq>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -396,7 +412,6 @@ flash_bwd_wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int bh = b * H + g * rep + r;
     const bf16* qb = q + (size_t)bh * Sq * D;
     const bf16* dob = dout + (size_t)bh * Sq * D;
-    float* dqb = dq + (size_t)bh * Sq * D;
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * kBlockQ;
       __syncthreads();  // the previous pair is done with every tile
@@ -464,8 +479,8 @@ flash_bwd_wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       __syncthreads();
 
-      // dv += p^T.do, dk += ds^T.q (rows: keys), and this pair's dq = ds.k
-      // (rows: queries), over [64, DM] fragments.
+      // dv += p^T.do, dk += ds^T.q (rows: keys), and (K2) this pair's
+      // dq = ds.k (rows: queries), over [64, DM] fragments.
 #pragma unroll
       for (int i = 0; i < FPW; ++i) {
         const int f = warp + 8 * i;
@@ -473,7 +488,7 @@ flash_bwd_wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int rb = f / NC;
         const int cb = f - rb * NC;
         FragC acc_dq;
-        wmma::fill_fragment(acc_dq, 0.f);
+        if constexpr (kDq) wmma::fill_fragment(acc_dq, 0.f);
 #pragma unroll
         for (int kk = 0; kk < kBlockQ / 16; ++kk) {
           FragAT at;
@@ -484,23 +499,30 @@ flash_bwd_wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           wmma::load_matrix_sync(at, sds + kk * 16 * L::LP + rb * 16, L::LP);
           wmma::load_matrix_sync(bm, sq + kk * 16 * L::LD + cb * 16, L::LD);
           wmma::mma_sync(dk_acc[i], at, bm, dk_acc[i]);
-          FragA a;
-          wmma::load_matrix_sync(a, sds + rb * 16 * L::LP + kk * 16, L::LP);
-          wmma::load_matrix_sync(bm, sk + kk * 16 * L::LD + cb * 16, L::LD);
-          wmma::mma_sync(acc_dq, a, bm, acc_dq);
+          if constexpr (kDq) {
+            FragA a;
+            wmma::load_matrix_sync(a, sds + rb * 16 * L::LP + kk * 16, L::LP);
+            wmma::load_matrix_sync(bm, sk + kk * 16 * L::LD + cb * 16, L::LD);
+            wmma::mma_sync(acc_dq, a, bm, acc_dq);
+          }
         }
-        wmma::store_matrix_sync(sdq + rb * 16 * L::LQ + cb * 16, acc_dq,
-                                L::LQ, wmma::mem_row_major);
+        if constexpr (kDq) {
+          wmma::store_matrix_sync(sdq + rb * 16 * L::LQ + cb * 16, acc_dq,
+                                  L::LQ, wmma::mem_row_major);
+        }
       }
-      __syncthreads();
 
-      for (int i = tid; i < kBlockQ * DM; i += kThreads) {
-        const int rr = i / DM;
-        const int d = i - rr * DM;
-        const int row = q0 + rr;
-        if (row < Sq && d < D) {
-          const float x = sdq[rr * L::LQ + d];
-          atomicAdd(dqb + (size_t)row * D + d, scale != 1.f ? scale * x : x);
+      if constexpr (kDq) {
+        __syncthreads();
+        float* dqb = dq + (size_t)bh * Sq * D;
+        for (int i = tid; i < kBlockQ * DM; i += kThreads) {
+          const int rr = i / DM;
+          const int d = i - rr * DM;
+          const int row = q0 + rr;
+          if (row < Sq && d < D) {
+            const float x = sdq[rr * L::LQ + d];
+            atomicAdd(dqb + (size_t)row * D + d, scale != 1.f ? scale * x : x);
+          }
         }
       }
     }
@@ -538,6 +560,358 @@ flash_bwd_wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The key tiles whose keys some row of the q tile at q0 sees: the forward's
+// band (_block_in_band's arithmetic), [*kt_begin, *kt_end).
+__device__ __forceinline__ void key_band(int q0, int Sq, int Sk, int causal,
+                                         int window, int k_offset,
+                                         int* kt_begin, int* kt_end) {
+  *kt_begin = 0;
+  *kt_end = (Sk + kBlockK - 1) / kBlockK;
+  if (causal) {
+    const int q_last = min(q0 + kBlockQ - 1, Sq - 1);
+    *kt_end = min(*kt_end, max(0, floor_div(q_last - k_offset, kBlockK) + 1));
+    if (window > 0) {
+      *kt_begin = max(0, floor_div(q0 - window + 1 - k_offset, kBlockK));
+    }
+  }
+}
+
+// K3a in f32: the dq sweep on the FMA units. One block per (b * h, 64-row
+// q tile), the late (heavy) tiles first; the thread at (ty, tx) owns dq
+// rows ty*4+i, columns tx+16*j for the whole sweep.
+template <int DM>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di, float* __restrict__ dq,
+                        int H, int Hkv, int Sq, int Sk, int D, int causal,
+                        int window, int k_offset, float scale) {
+  constexpr int KS = DM + 1;
+  constexpr int NJ = DM / 16;
+  extern __shared__ float smem[];
+  float* sq = smem;                       // [64][DM]
+  float* sdo = sq + kBlockQ * DM;         // [64][DM]
+  float* sk = sdo + kBlockQ * DM;         // [64][DM + 1]
+  float* sv = sk + kBlockK * KS;          // [64][DM + 1]
+  float* sds = sv + kBlockK * KS;         // [64 q][65] ds
+  float* slse = sds + kBlockQ * kPS;      // [64]
+  float* sdi = slse + kBlockQ;            // [64]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int bkv = b * Hkv + (bh - b * H) / (H / Hkv);
+  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kBlockQ;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+
+  const float* qb = q + (size_t)bh * Sq * D;
+  const float* dob = dout + (size_t)bh * Sq * D;
+  const float* kb = k + (size_t)bkv * Sk * D;
+  const float* vb = v + (size_t)bkv * Sk * D;
+  for (int i = tid; i < kBlockQ * DM; i += kThreads) {
+    const int r = i / DM;
+    const int d = i - r * DM;
+    const int row = q0 + r;
+    const bool ok = row < Sq && d < D;
+    sq[i] = ok ? qb[(size_t)row * D + d] : 0.f;
+    sdo[i] = ok ? dob[(size_t)row * D + d] : 0.f;
+  }
+  if (tid < kBlockQ) {
+    const int row = q0 + tid;
+    slse[tid] = row < Sq ? lse[(size_t)bh * Sq + row] : 0.f;
+    sdi[tid] = row < Sq ? di[(size_t)bh * Sq + row] : 0.f;
+  }
+
+  int kt_begin, kt_end;
+  key_band(q0, Sq, Sk, causal, window, k_offset, &kt_begin, &kt_end);
+
+  float dq_acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dq_acc[i][j] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kBlockK;
+    __syncthreads();  // the previous tile is done with sk / sv / sds
+    for (int i = tid; i < kBlockK * DM; i += kThreads) {
+      const int r = i / DM;
+      const int d = i - r * DM;
+      const int key = k0 + r;
+      const bool ok = key < Sk && d < D;
+      sk[r * KS + d] = ok ? kb[(size_t)key * D + d] : 0.f;
+      sv[r * KS + d] = ok ? vb[(size_t)key * D + d] : 0.f;
+    }
+    __syncthreads();
+
+    // s = q.k and dp = do.v for rows ty*4+i, keys tx+16*j.
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DM; ++d) {
+      float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = sq[(ty * 4 + i) * DM + d];
+        ov[i] = sdo[(ty * 4 + i) * DM + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = sk[(tx + 16 * j) * KS + d];
+        vv[j] = sv[(tx + 16 * j) * KS + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = ty * 4 + i;
+      const int qpos = q0 + rr;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const int key = k0 + c;
+        float ds = 0.f;
+        if (qpos < Sq && key < Sk) {
+          float val = scale != 1.f ? scale * s[i][j] : s[i][j];
+          if (causal) {
+            const int kpos = key + k_offset;
+            bool keep = qpos >= kpos;
+            if (window > 0) keep = keep && kpos > qpos - window;
+            if (!keep) val = kNegInf;
+          }
+          ds = expf(val - slse[rr]) * (dp[i][j] - sdi[rr]);
+        }
+        sds[rr * kPS + c] = ds;
+      }
+    }
+    __syncthreads();
+
+    // dq += ds.k for rows ty*4+i, columns tx+16*j.
+#pragma unroll 4
+    for (int c = 0; c < kBlockK; ++c) {
+      float dsv[4], kv[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = sds[(ty * 4 + i) * kPS + c];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) kv[j] = sk[c * KS + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          dq_acc[i][j] = fmaf(dsv[i], kv[j], dq_acc[i][j]);
+    }
+  }
+
+  float* dqb = dq + (size_t)bh * Sq * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) {
+        const float x = dq_acc[i][j];
+        dqb[(size_t)row * D + d] = scale != 1.f ? scale * x : x;
+      }
+    }
+  }
+}
+
+// Shared-memory layout of K3a's tensor-core kernel: q, do, k, v tiles
+// (bf16), s and dp (f32), ds (bf16), lse and di rows; the finished dq is
+// staged over the s / dp tiles.
+template <int DM>
+struct DqLayout {
+  static constexpr int LD = DM + 8;
+  static constexpr int LS = kBlockK + 4;
+  static constexpr int LP = kBlockK + 8;
+  static constexpr int LQ = DM + 4;
+  static constexpr size_t bytes =
+      4 * kBlockQ * LD * sizeof(bf16) + 2 * kBlockQ * LS * sizeof(float) +
+      kBlockQ * LP * sizeof(bf16) + 2 * kBlockQ * sizeof(float);
+  static_assert(kBlockQ * LQ <= 2 * kBlockQ * LS,
+                "dq staging reuses the s / dp tiles");
+};
+
+// K3a in bf16: the dq sweep on the tensor cores, dq in [64, DM] accumulator
+// fragments for the whole sweep.
+template <int DM>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wmma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di, bf16* __restrict__ dq,
+                         int H, int Hkv, int Sq, int Sk, int D, int causal,
+                         int window, int k_offset, float scale) {
+  using L = DqLayout<DM>;
+  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
+                               wmma::row_major>;
+  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
+                               wmma::row_major>;
+  using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
+                                wmma::col_major>;
+  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+  constexpr int NC = DM / 16;
+  constexpr int NF = 4 * NC;
+  constexpr int FPW = NF >= 8 ? NF / 8 : 1;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdo = sq + kBlockQ * L::LD;
+  bf16* sk = sdo + kBlockQ * L::LD;
+  bf16* sv = sk + kBlockK * L::LD;
+  float* ss = reinterpret_cast<float*>(sv + kBlockK * L::LD);
+  float* sdp = ss + kBlockQ * L::LS;
+  bf16* sds = reinterpret_cast<bf16*>(sdp + kBlockQ * L::LS);
+  float* slse = reinterpret_cast<float*>(sds + kBlockQ * L::LP);
+  float* sdi = slse + kBlockQ;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int bkv = b * Hkv + (bh - b * H) / (H / Hkv);
+  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kBlockQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+
+  load_tile<DM>(sq, L::LD, q + (size_t)bh * Sq * D, q0, Sq, D);
+  load_tile<DM>(sdo, L::LD, dout + (size_t)bh * Sq * D, q0, Sq, D);
+  if (tid < kBlockQ) {
+    const int row = q0 + tid;
+    slse[tid] = row < Sq ? lse[(size_t)bh * Sq + row] : 0.f;
+    sdi[tid] = row < Sq ? di[(size_t)bh * Sq + row] : 0.f;
+  }
+  const bf16* kb = k + (size_t)bkv * Sk * D;
+  const bf16* vb = v + (size_t)bkv * Sk * D;
+
+  int kt_begin, kt_end;
+  key_band(q0, Sq, Sk, causal, window, k_offset, &kt_begin, &kt_end);
+
+  FragC dq_acc[FPW];
+#pragma unroll
+  for (int i = 0; i < FPW; ++i) wmma::fill_fragment(dq_acc[i], 0.f);
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kBlockK;
+    __syncthreads();  // the previous tile is done with sk / sv / sds
+    load_tile<DM>(sk, L::LD, kb, k0, Sk, D);
+    load_tile<DM>(sv, L::LD, vb, k0, Sk, D);
+    __syncthreads();
+
+    // s = q.k^T and dp = do.v^T: 16 fragments each, two per warp.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int f = warp + 8 * i;
+      const int rb = f >> 2;
+      const int cb = f & 3;
+      FragC acc_s, acc_dp;
+      wmma::fill_fragment(acc_s, 0.f);
+      wmma::fill_fragment(acc_dp, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+        FragA a;
+        FragBT bt;
+        wmma::load_matrix_sync(a, sq + rb * 16 * L::LD + kk * 16, L::LD);
+        wmma::load_matrix_sync(bt, sk + cb * 16 * L::LD + kk * 16, L::LD);
+        wmma::mma_sync(acc_s, a, bt, acc_s);
+        wmma::load_matrix_sync(a, sdo + rb * 16 * L::LD + kk * 16, L::LD);
+        wmma::load_matrix_sync(bt, sv + cb * 16 * L::LD + kk * 16, L::LD);
+        wmma::mma_sync(acc_dp, a, bt, acc_dp);
+      }
+      wmma::store_matrix_sync(ss + rb * 16 * L::LS + cb * 16, acc_s, L::LS,
+                              wmma::mem_row_major);
+      wmma::store_matrix_sync(sdp + rb * 16 * L::LS + cb * 16, acc_dp, L::LS,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    // ds = exp(s - lse) * (dp - di), stored as bf16.
+    {
+      const int rr = tid >> 2;
+      const int part = tid & 3;
+      const int qpos = q0 + rr;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int col = part * 16 + c;
+        const int key = k0 + col;
+        float ds = 0.f;
+        if (qpos < Sq && key < Sk) {
+          float x = ss[rr * L::LS + col];
+          if (scale != 1.f) x *= scale;
+          if (causal) {
+            const int kpos = key + k_offset;
+            bool keep = qpos >= kpos;
+            if (window > 0) keep = keep && kpos > qpos - window;
+            if (!keep) x = kNegInf;
+          }
+          ds = expf(x - slse[rr]) * (sdp[rr * L::LS + col] - sdi[rr]);
+        }
+        sds[rr * L::LP + col] = __float2bfloat16(ds);
+      }
+    }
+    __syncthreads();
+
+    // dq += ds.k over [64, DM] fragments.
+#pragma unroll
+    for (int i = 0; i < FPW; ++i) {
+      const int f = warp + 8 * i;
+      if (f >= NF) break;
+      const int rb = f / NC;
+      const int cb = f - rb * NC;
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
+        FragA a;
+        FragB bm;
+        wmma::load_matrix_sync(a, sds + rb * 16 * L::LP + kk * 16, L::LP);
+        wmma::load_matrix_sync(bm, sk + kk * 16 * L::LD + cb * 16, L::LD);
+        wmma::mma_sync(dq_acc[i], a, bm, dq_acc[i]);
+      }
+    }
+  }
+
+  // Stage dq over the s / dp tiles, then write it in q's type.
+  __syncthreads();
+  float* sdq = ss;
+#pragma unroll
+  for (int i = 0; i < FPW; ++i) {
+    const int f = warp + 8 * i;
+    if (f >= NF) break;
+    const int rb = f / NC;
+    const int cb = f - rb * NC;
+    if (scale != 1.f) {
+      for (int e = 0; e < dq_acc[i].num_elements; ++e) dq_acc[i].x[e] *= scale;
+    }
+    wmma::store_matrix_sync(sdq + rb * 16 * L::LQ + cb * 16, dq_acc[i], L::LQ,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+  bf16* dqb = dq + (size_t)bh * Sq * D;
+  for (int i = tid; i < kBlockQ * DM; i += kThreads) {
+    const int r = i / DM;
+    const int d = i - r * DM;
+    const int row = q0 + r;
+    if (row < Sq && d < D) {
+      dqb[(size_t)row * D + d] = __float2bfloat16(sdq[r * L::LQ + d]);
+    }
+  }
+}
+
 // Launch a kernel of 256 threads with `smem` bytes of dynamic shared memory
 // (raising the per-block limit above 48 KiB where it needs more).
 template <typename Kernel, typename... Args>
@@ -553,68 +927,137 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// The kernel for one padded head width DM: bf16 on the tensor cores, f32 on
-// the FMA units.
-template <int DM>
-cudaError_t launch_dm(bool bf16_, const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* di,
-                      void* dq, void* dk, void* dv, int B, int H, int Hkv,
-                      int Sq, int Sk, int D, int causal, int window,
-                      int k_offset, float scale, cudaStream_t s) {
-  const dim3 grid(B * Hkv, (Sk + kBlockK - 1) / kBlockK);
-  const float* l = static_cast<const float*>(lse);
-  const float* r = static_cast<const float*>(di);
-  float* g = static_cast<float*>(dq);
-  if (bf16_) {
-    return launch(flash_bwd_wmma_kernel<DM>, WmmaLayout<DM>::bytes, grid, s,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                  l, r, g, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H,
-                  Hkv, Sq, Sk, D, causal, window, k_offset, scale);
+// One backward call's operands, as the C entries take them.
+struct Bwd {
+  const void *q, *k, *v, *dout, *lse, *di;
+  void *dq, *dk, *dv;
+  int B, H, Hkv, Sq, Sk, D, causal, window, k_offset;
+  float scale;
+  bool b16;
+  cudaStream_t stream;
+};
+
+// The key-side sweep at one padded head width DM: K2 (kDq, dq into the f32
+// buffer a.dq) or K3b (a.dq unused).
+template <int DM, bool kDq>
+cudaError_t launch_kv_sweep(const Bwd& a) {
+  const dim3 grid(a.B * a.Hkv, (a.Sk + kBlockK - 1) / kBlockK);
+  const float* l = static_cast<const float*>(a.lse);
+  const float* r = static_cast<const float*>(a.di);
+  float* g = static_cast<float*>(a.dq);
+  if (a.b16) {
+    return launch(flash_bwd_wmma_kernel<DM, kDq>, WmmaLayout<DM>::bytes, grid,
+                  a.stream, static_cast<const bf16*>(a.q),
+                  static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+                  static_cast<const bf16*>(a.dout), l, r, g,
+                  static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H,
+                  a.Hkv, a.Sq, a.Sk, a.D, a.causal, a.window, a.k_offset,
+                  a.scale);
   }
-  return launch(flash_bwd_f32_kernel<DM>, sizeof(float) * smem_floats<DM>(),
-                grid, s, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<const float*>(dout), l, r, g,
-                static_cast<float*>(dk), static_cast<float*>(dv), H, Hkv, Sq,
-                Sk, D, causal, window, k_offset, scale);
+  return launch(flash_bwd_f32_kernel<DM, kDq>,
+                sizeof(float) * smem_floats<DM>(), grid, a.stream,
+                static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+                static_cast<const float*>(a.v),
+                static_cast<const float*>(a.dout), l, r, g,
+                static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H,
+                a.Hkv, a.Sq, a.Sk, a.D, a.causal, a.window, a.k_offset,
+                a.scale);
+}
+
+// The query-side sweep K3a at one padded head width DM (dq in q's type).
+template <int DM>
+cudaError_t launch_q_sweep(const Bwd& a) {
+  const dim3 grid(a.B * a.H, (a.Sq + kBlockQ - 1) / kBlockQ);
+  const float* l = static_cast<const float*>(a.lse);
+  const float* r = static_cast<const float*>(a.di);
+  if (a.b16) {
+    return launch(flash_bwd_dq_wmma_kernel<DM>, DqLayout<DM>::bytes, grid,
+                  a.stream, static_cast<const bf16*>(a.q),
+                  static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+                  static_cast<const bf16*>(a.dout), l, r,
+                  static_cast<bf16*>(a.dq), a.H, a.Hkv, a.Sq, a.Sk, a.D,
+                  a.causal, a.window, a.k_offset, a.scale);
+  }
+  constexpr size_t floats = 2 * (size_t)kBlockQ * DM +
+                            2 * (size_t)kBlockK * (DM + 1) +
+                            (size_t)kBlockQ * kPS + 2 * (size_t)kBlockQ;
+  return launch(flash_bwd_dq_f32_kernel<DM>, sizeof(float) * floats, grid,
+                a.stream, static_cast<const float*>(a.q),
+                static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+                static_cast<const float*>(a.dout), l, r,
+                static_cast<float*>(a.dq), a.H, a.Hkv, a.Sq, a.Sk, a.D,
+                a.causal, a.window, a.k_offset, a.scale);
+}
+
+enum class Sweep { kFused, kDkv, kDq };
+
+template <Sweep W, int DM>
+cudaError_t launch_sweep(const Bwd& a) {
+  if constexpr (W == Sweep::kDq) {
+    return launch_q_sweep<DM>(a);
+  } else {
+    return launch_kv_sweep<DM, W == Sweep::kFused>(a);
+  }
+}
+
+// Check the arguments, then launch sweep W at the padded head width for D.
+template <Sweep W>
+int run(const Bwd& a, int dtype) {
+  const int tiles = W == Sweep::kDq ? (a.Sq + kBlockQ - 1) / kBlockQ
+                                    : (a.Sk + kBlockK - 1) / kBlockK;
+  if (a.B < 1 || a.Hkv < 1 || a.H % a.Hkv != 0 || a.Sq < 1 || a.Sk < 1 ||
+      a.D < 1 || a.D > 128 || tiles > 65535 || (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (a.D <= 16) return (int)launch_sweep<W, 16>(a);
+  if (a.D <= 32) return (int)launch_sweep<W, 32>(a);
+  if (a.D <= 64) return (int)launch_sweep<W, 64>(a);
+  return (int)launch_sweep<W, 128>(a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do, dk, dv); lse, di and dq
-// are f32, dq zeroed by the caller. causal: 0 or 1; window <= 0 means no
-// window. D <= 128. Returns 0 on a launched kernel, else the cudaError_t
-// of the refusal.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do, and the outputs dk, dv and
+// K3a's dq); lse and di are f32. causal: 0 or 1; window <= 0 means no
+// window. D <= 128. Each returns 0 on a launched kernel, else the
+// cudaError_t of the refusal.
+
+// K2: dq is an f32 buffer the caller zeroes (and casts to q's type).
 int pddl_flash_bwd(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* di,
                    void* dq, void* dk, void* dv, int B, int H, int Hkv,
                    int Sq, int Sk, int D, int causal, int window,
                    int k_offset, float scale, int dtype, void* stream) {
-  if (B < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Sk < 1 || D < 1 ||
-      D > 128 || (long long)(Sk + kBlockK - 1) / kBlockK > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool b16 = dtype == 1;
-  if (D <= 16)
-    return (int)launch_dm<16>(b16, q, k, v, dout, lse, di, dq, dk, dv, B, H,
-                              Hkv, Sq, Sk, D, causal, window, k_offset, scale,
-                              s);
-  if (D <= 32)
-    return (int)launch_dm<32>(b16, q, k, v, dout, lse, di, dq, dk, dv, B, H,
-                              Hkv, Sq, Sk, D, causal, window, k_offset, scale,
-                              s);
-  if (D <= 64)
-    return (int)launch_dm<64>(b16, q, k, v, dout, lse, di, dq, dk, dv, B, H,
-                              Hkv, Sq, Sk, D, causal, window, k_offset, scale,
-                              s);
-  return (int)launch_dm<128>(b16, q, k, v, dout, lse, di, dq, dk, dv, B, H,
-                             Hkv, Sq, Sk, D, causal, window, k_offset, scale,
-                             s);
+  const Bwd a{q, k, v, dout, lse, di, dq, dk, dv, B, H, Hkv, Sq, Sk, D,
+              causal, window, k_offset, scale, dtype == 1,
+              static_cast<cudaStream_t>(stream)};
+  return run<Sweep::kFused>(a, dtype);
+}
+
+// K3a: dq [B, H, Sq, D] in q's type, every element written.
+int pddl_flash_bwd_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* di,
+                      void* dq, int B, int H, int Hkv, int Sq, int Sk, int D,
+                      int causal, int window, int k_offset, float scale,
+                      int dtype, void* stream) {
+  const Bwd a{q, k, v, dout, lse, di, dq, nullptr, nullptr, B, H, Hkv, Sq,
+              Sk, D, causal, window, k_offset, scale, dtype == 1,
+              static_cast<cudaStream_t>(stream)};
+  return run<Sweep::kDq>(a, dtype);
+}
+
+// K3b: dk, dv [B, Hkv, Sk, D] in k's type, every element written.
+int pddl_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* di,
+                       void* dk, void* dv, int B, int H, int Hkv, int Sq,
+                       int Sk, int D, int causal, int window, int k_offset,
+                       float scale, int dtype, void* stream) {
+  const Bwd a{q, k, v, dout, lse, di, nullptr, dk, dv, B, H, Hkv, Sq, Sk, D,
+              causal, window, k_offset, scale, dtype == 1,
+              static_cast<cudaStream_t>(stream)};
+  return run<Sweep::kDkv>(a, dtype);
 }
 
 const char* pddl_cuda_error_string(int code) {

@@ -9,9 +9,11 @@ so it also runs on a host that has only the port's dependencies::
 Tolerances: f32 within 1e-4 (the kernel sums in another order than the
 plain version); bf16 within 2e-2 (p is rounded to bf16 before the P·V
 product, and the output to bf16). The flash backward is held relative to
-each gradient's max-abs: within 2e-2 in bf16 and 1e-3 in f32, since dq is
-summed with atomics in an order that changes from run to run and the
-bf16 roundings of p and ds fall on values computed in another order.
+each gradient's max-abs: within 2e-2 in bf16 and 1e-3 in f32, since K2
+sums dq with atomics in an order that changes from run to run and the
+bf16 roundings of p and ds fall on values computed in another order. The
+two-sweep backward (K3a, K3b) is held to the same tolerances; its dq has
+no atomics and is bitwise equal from run to run.
 """
 
 import pytest
@@ -211,10 +213,72 @@ def test_flash_prime_lengths_launch_the_kernels(s, with_lse):
         assert err <= GRAD_TOL[torch.float32] * scale, (err, scale)
 
 
+# The two-sweep backward's shapes: Llama-1B at S 8192, which takes the
+# branch by the JAX package's test (rep 4 · S · D · 4 bytes = 8 MiB), then
+# K2's odd shapes and prime lengths with the test's threshold at 0.
+TWO_SWEEP = {
+    "llama1b_s8192": (1, 32, 8, 8192, 8192, 64, torch.bfloat16, True, None,
+                      0),
+    **{name: FLASH[name] for name in ("llama1b_w512", "mha", "rep3_d128",
+                                      "ragged1000", "k_offset", "f32",
+                                      "d40")},
+    "prime13": (2, 8, 2, 13, 13, 64, torch.float32, True, None, 0),
+    "prime1009": (2, 8, 2, 1009, 1009, 64, torch.float32, True, None, 0),
+}
+BWD_COUNTERS = ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dlse", [False, True])
+@pytest.mark.parametrize("shape", sorted(TWO_SWEEP))
+def test_two_sweep_backward_kernels_match_plain(shape, with_dlse,
+                                                monkeypatch):
+    """K3a's dq and K3b's dk/dv against the plain version; one launch of
+    each and none of K2."""
+    dev = _card()
+    q, k, v, do, dlse, kw = _flash_case(dev, *TWO_SWEEP[shape])
+    if shape == "llama1b_s8192":
+        assert tatt.takes_two_sweeps(q, k)
+    else:
+        monkeypatch.setattr(tatt, "_FUSED_BWD_DQ_BYTES", 0)
+    o, lse = tatt.flash_forward_plain(q, k, v, **kw)
+    dlse = dlse if with_dlse else None
+    before = {name: _kernels.launch_counts[name] for name in BWD_COUNTERS}
+    got = tatt.flash_backward(q, k, v, o, lse, do, dlse, **kw)
+    after = {name: _kernels.launch_counts[name] for name in BWD_COUNTERS}
+    assert after == {"flash_bwd_fused": before["flash_bwd_fused"],
+                     "flash_bwd_dq": before["flash_bwd_dq"] + 1,
+                     "flash_bwd_dkv": before["flash_bwd_dkv"] + 1}
+    want = tatt.flash_backward_plain(q, k, v, o, lse, do, dlse, **kw)
+    torch.cuda.synchronize()
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert torch.isfinite(g.float()).all()
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= GRAD_TOL[q.dtype] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["llama1b", "f32"])
+def test_two_sweep_dq_is_bitwise_reproducible(shape, monkeypatch):
+    """K3a writes each dq element once, with no atomics: two runs agree
+    bit for bit."""
+    dev = _card()
+    q, k, v, do, dlse, kw = _flash_case(dev, *FLASH[shape])
+    monkeypatch.setattr(tatt, "_FUSED_BWD_DQ_BYTES", 0)
+    o, lse = tatt.flash_forward(q, k, v, **kw)
+    first = tatt.flash_backward(q, k, v, o, lse, do, dlse, **kw)
+    second = tatt.flash_backward(q, k, v, o, lse, do, dlse, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_flash_kernels_raise_on_what_they_do_not_take(monkeypatch):
     """A CUDA tensor launches the kernel or raises: wrong dtype, device or
-    layout, and the two-sweep branch, which is not ported yet."""
+    layout raise; the two-sweep branch launches K3a and K3b."""
     dev = _card()
     q, k, v, do, _, kw = _flash_case(dev, *FLASH["f32"])
     before = dict(_kernels.launch_counts)
@@ -227,8 +291,15 @@ def test_flash_kernels_raise_on_what_they_do_not_take(monkeypatch):
                            v, **kw)
     with pytest.raises(ValueError, match="is on cpu"):
         tatt.flash_forward(q, k.cpu(), v, **kw)
+    assert _kernels.launch_counts == before
     o, lse = tatt.flash_forward_plain(q, k, v, **kw)
     monkeypatch.setattr(tatt, "_FUSED_BWD_DQ_BYTES", 0)
-    with pytest.raises(NotImplementedError, match="queue 2 K3"):
-        tatt.flash_backward(q, k, v, o, lse, do, **kw)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tatt.flash_backward(q.half(), k.half(), v.half(), o.half(), lse,
+                            do.half(), **kw)
     assert _kernels.launch_counts == before
+    tatt.flash_backward(q, k, v, o, lse, do, **kw)
+    assert _kernels.launch_counts == {**before, "flash_bwd_dq":
+                                      before["flash_bwd_dq"] + 1,
+                                      "flash_bwd_dkv":
+                                      before["flash_bwd_dkv"] + 1}

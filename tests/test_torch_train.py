@@ -208,7 +208,6 @@ def test_adamw_decays_matrices_only():
     ("optimizer", {"schedule": "cosine"}),
     ("optimizer", {"grad_clip_norm": 1.0}),
     ("optimizer", {"accumulate_steps": 4}),
-    ("model", {"remat": "full"}),
     ("model", {"moe_experts": 4}),
     ("model", {"attention": "ring"}),
 ])
