@@ -20,8 +20,10 @@ two-sweep flash backward) — and prints one line per phase:
    plain version's, an SDPA yardstick's and the bound, on CUDA events;
 4. flash_fwd vs plain — K1 with and without its LSE write at Llama-1B's
    training shape (B 4, H 32/8, S 2048, D 64, bf16, causal), with a
-   512 window, MHA, rep 3 at D 128, a ragged S of 1000, offset keys and
-   f32; then times and bound at the Llama-1B shape (SDPA the yardstick);
+   512 window, MHA, rep 3 at D 128, a ragged S of 1000, offset keys, f32,
+   and the edges of the bf16 kernel's tiles (S 129, no mask with Sq 200 x
+   Sk 136, a window of 6); two K1 runs bitwise equal (remat relies on it);
+   then times and bound at the Llama-1B shape (SDPA the yardstick);
 5. flash_bwd vs plain — K2's dq, dk, dv at the same shapes (two of them
    with an LSE cotangent too), relative to each gradient's max-abs; then
    times and bound (SDPA forward+backward minus forward the yardstick);
@@ -31,7 +33,8 @@ two-sweep flash backward) — and prints one line per phase:
    at K2's odd shapes with the test's threshold at 0; K3 against K2 at the
    long shape; two K3a runs bitwise equal; then the times of K3a, K3b,
    their wrapper, K2 at the same shape, SDPA's backward and the plain
-   version, and the bounds;
+   version, K1 with and without its LSE beside SDPA's forward, and the
+   bounds;
 6. engine parity — full-width Llama-1B at depth 2 in f32 (TF32 off), one
    seeded weight set in an engine on the card (kernel) and one on the
    CPU (plain version), 4 greedy requests x 16 tokens, token-exact
@@ -276,6 +279,9 @@ FLASH_CASES = {
     "ragged1000": (2, 8, 2, 1000, 1000, 64, torch.bfloat16, True, None, 0),
     "k_offset": (2, 8, 2, 512, 512, 64, torch.bfloat16, True, 384, -256),
     "f32": (2, 8, 2, 1024, 1024, 64, torch.float32, True, None, 0),
+    "s129": (2, 8, 2, 129, 129, 64, torch.bfloat16, True, None, 0),
+    "full_bf16": (2, 4, 2, 200, 136, 64, torch.bfloat16, False, None, 0),
+    "window6": (2, 8, 2, 300, 300, 64, torch.bfloat16, True, 6, 0),
 }
 WITH_DLSE = ("llama1b", "k_offset")
 
@@ -336,9 +342,19 @@ def phase_flash_fwd():
     if bad:
         raise RuntimeError(f"flash_fwd kernel disagrees with plain: {bad}")
 
-    # Times at Llama-1B's training shape: two input sets (~100 MB).
+    # Times at Llama-1B's training shape: two input sets (~100 MB). First,
+    # two runs on one set must agree bit for bit (no atomics; the remat
+    # recompute relies on it).
     cases = [flash_case(gen, *FLASH_CASES["llama1b"]) for _ in range(2)]
     kw = cases[0][3]
+    first, second = (tatt.flash_forward(*cases[0][0], **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(first, second))
+    phase("flash_fwd_bitwise", shape="B4_H32_Hkv8_S2048_D64_bf16_causal",
+          o_and_lse_equal=bitwise)
+    if not bitwise:
+        raise RuntimeError("two K1 runs gave different o or lse")
+    del first, second
     ms = cuda_ms(lambda i: tatt.flash_forward(*cases[i][0], **kw), 2,
                  iters=20)
     ms_nolse = cuda_ms(lambda i: tatt.flash_forward(
@@ -429,7 +445,7 @@ def phase_flash_bwd():
 # takes the two sweeps K3a/K3b with nothing patched.
 LONG = (1, 32, 8, 8192, 8192, 64, torch.bfloat16, True, None, 0)
 TWO_SWEEP_ODD = ("llama1b_w512", "mha", "rep3_d128", "ragged1000",
-                 "k_offset", "f32")
+                 "k_offset", "f32", "s129", "full_bf16", "window6")
 
 
 @contextlib.contextmanager
@@ -462,6 +478,35 @@ def rel_errs(got, want):
             / float(w.float().abs().max()) for g, w in zip(got, want)]
 
 
+def check_flash_fwd_long(qkv, kw, ref_o, ref_lse):
+    """K1 at the long shape against the plain forward's o and lse, with
+    and without its LSE, and two runs on the same inputs bitwise equal."""
+    errs, bitwise = {}, {}
+    for want_lse in (True, False):
+        tag = "lse" if want_lse else "nolse"
+        runs = [tatt.flash_forward(*qkv, want_lse=want_lse, **kw)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        o, lse = runs[0]
+        if not torch.isfinite(o.float()).all():
+            raise RuntimeError(f"flash_fwd llama1b_s8192_{tag}: non-finite")
+        err = float((o.float() - ref_o.float()).abs().max())
+        if want_lse:
+            err = max(err, float((lse - ref_lse).abs().max()))
+        errs[tag] = err
+        bitwise[tag] = all(a is None and b is None or torch.equal(a, b)
+                           for a, b in zip(*runs))
+        del runs, o, lse
+    tol = TOL[torch.bfloat16]
+    phase("flash_fwd_long", shape="B1_H32_Hkv8_S8192_D64_bf16_causal",
+          errors=" ".join(f"{k}:{e:.3g}/{tol:g}" for k, e in errs.items()),
+          bitwise_equal=" ".join(f"{k}:{v}" for k, v in bitwise.items()))
+    if not max(errs.values()) <= tol:
+        raise RuntimeError(f"flash_fwd disagrees with plain at S 8192: {errs}")
+    if not all(bitwise.values()):
+        raise RuntimeError(f"two K1 runs at S 8192 differ: {bitwise}")
+
+
 def phase_flash_bwd_two_sweep():
     gen = torch.Generator(device=DEV).manual_seed(4)
     errs, long_abs = {}, {}
@@ -474,6 +519,8 @@ def phase_flash_bwd_two_sweep():
             if not tatt.takes_two_sweeps(*qkv[:2]):
                 raise RuntimeError(f"{name} does not take the two sweeps")
             o, lse = tatt.flash_forward_plain(*qkv, **kw)
+            if name == "llama1b_s8192":
+                check_flash_fwd_long(qkv, kw, o, lse)
             for cot in ((None, dlse) if name in WITH_DLSE else (None,)):
                 before = dict(_kernels.launch_counts)
                 got = tatt.flash_backward(*qkv, o, lse, do, cot, **kw)
@@ -553,6 +600,8 @@ def phase_flash_bwd_two_sweep():
     sdpa_bwd = sdpa_fb - sdpa_f
     k1_ms = cuda_ms(lambda i: tatt.flash_forward(*sets[i][0], **kw), 2,
                     iters=10)
+    k1_nolse_ms = cuda_ms(lambda i: tatt.flash_forward(
+        *sets[i][0], want_lse=False, **kw), 2, iters=10)
     q, k = sets[0][0][:2]
     k1_bound, _ = flash_fwd_bound_ms(q, k)
     dq_bound, dq_by = two_sweep_bound_ms(q, k, "dq")
@@ -562,6 +611,7 @@ def phase_flash_bwd_two_sweep():
           sum_ms=f"{dq_ms + dkv_ms:.5f}", wrapper_ms=f"{pair_ms:.5f}",
           k2_ms=f"{k2_ms:.5f}", sdpa_bwd_ms=f"{sdpa_bwd:.5f}",
           sdpa_fwd_ms=f"{sdpa_f:.5f}", k1_ms=f"{k1_ms:.5f}",
+          k1_nolse_ms=f"{k1_nolse_ms:.5f}",
           k1_bound_ms=f"{k1_bound:.5f}",
           plain_ms=f"{plain_ms:.5f}", dq_bound_ms=f"{dq_bound:.5f}",
           dkv_bound_ms=f"{dkv_bound:.5f}", bound_by=f"{dq_by}/{dkv_by}")

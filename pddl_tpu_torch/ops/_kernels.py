@@ -4,9 +4,11 @@ Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled
 by ``nvcc`` for ``sm_90a`` into a shared library under ``build/`` at the
 root of the checkout (listed in ``.gitignore``) the first time it is
 used, and loaded with ``ctypes`` — no PyTorch headers, so a build takes
-seconds. The library's file name carries a hash of its source, so an
-edited kernel is rebuilt and a stale one is never loaded. The sources in
-the checkout are the build's only input.
+seconds. The flash kernels share device helpers in
+``csrc/flash_common.cuh``. The library's file name carries a hash of its
+source and of every shared header, so an edited kernel or header is
+rebuilt and a stale library is never loaded. The sources in the checkout
+are the build's only input.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a host without ``nvcc``. Launch counts live in
@@ -52,22 +54,29 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+_DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
+    if os.path.exists(_DEFAULT_NVCC):
+        return _DEFAULT_NVCC
     raise RuntimeError(
         "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
         "kernels build on a host with the CUDA toolkit")
 
 
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library of kernel ``name``, named by a hash of its source, every
+    shared header under ``csrc/`` (``*.cuh``) and the flags: an edit to any
+    of them names a new library, which :func:`build` compiles."""
+    digest = hashlib.sha256((_CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None,

@@ -6,8 +6,9 @@
 - :func:`flash_attention` / :func:`flash_attention_lse` — the training
   path's attention, with the JAX package's signatures: the same window
   rules, power-of-two scale fold and fused-backward test. Unlike the
-  Pallas kernels, which need blocks that divide the length, these tile
-  by 64 and mask ragged edges, so every length runs the kernels (the
+  Pallas kernels, which need blocks that divide the length, these pick
+  their own tiles (64 keys; 128 query rows for K1 and K3a in bf16, 64
+  otherwise) and mask ragged edges, so every length runs the kernels (the
   JAX package's reference fallback for degenerate tilings has no
   counterpart; ``block_q``/``block_k`` are accepted and ignored). The
   forward is the hand-written K1 (:func:`flash_forward`,
@@ -143,7 +144,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`flash_backward` (K2, or K3a and K3b). ``window``
     (causal only): query t sees keys ``[t-window+1, t]``.
     ``block_q``/``block_k`` are accepted for the JAX signature and ignored:
-    the kernels tile by 64 at every length.
+    the kernels pick their own tiles at every length.
     """
     d, sk = q.shape[-1], k.shape[-2]
     _gqa_rep(q, k)

@@ -21,29 +21,36 @@
 // runs 5 products, K3a 3 (s, dp, dq) and K3b 4 (s, dp, dv, dk), each
 // 2 * 64 * 64 * D flops, over about half of the B * H * (S / 64)^2 pairs
 // under a causal mask: at Llama-1B's long-context shape (B 1, H 32, S 8192,
-// D 64) K3a ~412 GFLOP (~0.42 ms at 989 TFLOP/s bf16) and K3b ~550 GFLOP
-// (~0.56 ms). The design is the simple one, on 256 threads (8 warps):
-//  - K2 and K3b: one block per (b * hkv, 64-key tile) holds its K and V
-//    tiles in shared memory and its dk / dv accumulators for the whole
-//    sweep; a loop over the group's query heads and the q tiles in the band
+// D 64) K3a ~412 GFLOP (0.417 ms at 989 TFLOP/s bf16) and K3b ~550 GFLOP
+// (0.556 ms). The design:
+//  - K2 and K3b, on 256 threads (8 warps): one block per (b * hkv, 64-key
+//    tile) holds its K and V tiles in shared memory and its dk / dv
+//    accumulators for the whole sweep; a loop over the group's query heads and the q tiles in the band
 //    (the forward's band arithmetic seen from the keys) takes the place of
 //    the TPU's sequential inner grid axis. K3b is K2's kernel with the dq
-//    product and its atomics compiled out (template flag kDq);
+//    product and its atomics compiled out (template flag kDq). In bf16 the
+//    products run on the tensor cores as WMMA 16x16x16 fragments with f32
+//    accumulation; s and dp go through shared memory for the elementwise
+//    p / ds pass, which stores p and ds as bf16 (the rounding points above)
+//    for the following products;
 //  - K2's dq: the TPU kernel keeps a whole-sequence dq scratch in VMEM and
 //    relies on the grid running in order. Hopper blocks run concurrently,
 //    so each block adds its [64, D] dq contribution for a q tile with f32
 //    atomicAdd into a [B * H, Sq, D] f32 buffer the caller zeroes and casts.
 //    The order of those additions changes from run to run, so K2's dq is
 //    NOT bitwise reproducible;
-//  - K3a: one block per (b * h, 64-row q tile) holds its q, do, lse and di
-//    rows and loops over the key tiles of the forward's band, keeping its
-//    dq accumulator in the block for the whole sweep; dq is written once,
-//    in q's type, with no atomics, so it IS bitwise reproducible;
-//  - bf16 (the training path): the products run on the tensor cores as
-//    WMMA 16x16x16 bf16 fragments with f32 accumulation; s and dp go
-//    through shared memory for the elementwise p / ds pass, which stores p
-//    and ds as bf16 (the rounding points above) for the following products;
-//    the sweep's accumulators stay in fragments;
+//  - K3a: one block per (b * h, q tile) holds its q, do, lse and di rows
+//    and loops over the key tiles of the forward's band, keeping its dq
+//    accumulator for the whole sweep; dq is written once, in q's type, with
+//    no atomics, so it IS bitwise reproducible. In bf16 (the training path)
+//    it is register-resident, as K1 is (flash_common.cuh): 128-row q tiles,
+//    32 rows per warp at D <= 64 (16 at D 128); mma.sync m16n8k16 fed by
+//    ldmatrix, with q's and do's A fragments held in registers; s and dp of
+//    each 16-key slice stay in registers, where ds is formed from the rows'
+//    lse and di and rounded to bf16 as the A fragment of ds.k; only tiles
+//    that cross the diagonal, the window edge or the ragged Sk edge take
+//    the mask; the K / V tiles are double-buffered with cp.async so that
+//    tile j+1 loads while tile j is computed (one barrier per key tile);
 //  - f32: the products run on the f32 FMA units (rows of K / V padded by
 //    one against bank conflicts), the accumulators in registers;
 //  - ragged Sq / Sk edges are masked here (p = ds = 0 outside the arrays).
@@ -57,21 +64,18 @@
 
 #include <cstdint>
 
+#include "flash_common.cuh"
+
 namespace {
 
 namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
+using namespace pddl_flash;
 
-constexpr float kNegInf = -1e30f;
+// K2, K3b and the f32 K3a tile by 64 rows and 64 keys; K3a in bf16 takes
+// the mma.sync kernels' 128-row tiles (kMmaBlockQ, flash_common.cuh).
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
 constexpr int kPS = kBlockK + 1;
-constexpr size_t kMaxSmem = 232448;
-
-__host__ __device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
 
 template <int DM>
 constexpr size_t smem_floats() {
@@ -560,22 +564,6 @@ flash_bwd_wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// The key tiles whose keys some row of the q tile at q0 sees: the forward's
-// band (_block_in_band's arithmetic), [*kt_begin, *kt_end).
-__device__ __forceinline__ void key_band(int q0, int Sq, int Sk, int causal,
-                                         int window, int k_offset,
-                                         int* kt_begin, int* kt_end) {
-  *kt_begin = 0;
-  *kt_end = (Sk + kBlockK - 1) / kBlockK;
-  if (causal) {
-    const int q_last = min(q0 + kBlockQ - 1, Sq - 1);
-    *kt_end = min(*kt_end, max(0, floor_div(q_last - k_offset, kBlockK) + 1));
-    if (window > 0) {
-      *kt_begin = max(0, floor_div(q0 - window + 1 - k_offset, kBlockK));
-    }
-  }
-}
-
 // K3a in f32: the dq sweep on the FMA units. One block per (b * h, 64-row
 // q tile), the late (heavy) tiles first; the thread at (ty, tx) owns dq
 // rows ty*4+i, columns tx+16*j for the whole sweep.
@@ -628,7 +616,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   }
 
   int kt_begin, kt_end;
-  key_band(q0, Sq, Sk, causal, window, k_offset, &kt_begin, &kt_end);
+  key_band<kBlockQ, kBlockK>(q0, Sq, Sk, causal, window, k_offset,
+                             &kt_begin, &kt_end);
 
   float dq_acc[4][NJ];
 #pragma unroll
@@ -732,199 +721,231 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   }
 }
 
-// Shared-memory layout of K3a's tensor-core kernel: q, do, k, v tiles
-// (bf16), s and dp (f32), ds (bf16), lse and di rows; the finished dq is
-// staged over the s / dp tiles.
+// Shared memory of K3a's tensor-core kernel: the q and do tiles, then two K
+// and two V tiles (double buffer), every row DM + 8 bf16 wide.
 template <int DM>
 struct DqLayout {
   static constexpr int LD = DM + 8;
-  static constexpr int LS = kBlockK + 4;
-  static constexpr int LP = kBlockK + 8;
-  static constexpr int LQ = DM + 4;
   static constexpr size_t bytes =
-      4 * kBlockQ * LD * sizeof(bf16) + 2 * kBlockQ * LS * sizeof(float) +
-      kBlockQ * LP * sizeof(bf16) + 2 * kBlockQ * sizeof(float);
-  static_assert(kBlockQ * LQ <= 2 * kBlockQ * LS,
-                "dq staging reuses the s / dp tiles");
+      (size_t)(2 * kMmaBlockQ + 4 * kMmaBlockK) * LD * sizeof(bf16);
 };
 
-// K3a in bf16: the dq sweep on the tensor cores, dq in [64, DM] accumulator
-// fragments for the whole sweep.
+// K3a in bf16: the dq sweep on the tensor cores, register-resident. One
+// block per (b * h, 128-row q tile), MT m-tiles of 16 rows per warp; for
+// each 16-key slice of a key tile a warp forms s = q.k^T and dp = do.v^T in
+// registers (q's and do's A fragments stay in registers for the sweep),
+// then ds = exp(s - lse) * (dp - di) from its rows' lse and di, rounds ds
+// to bf16 as the A fragment of ds.k, and adds that product to its dq
+// accumulator, which stays in registers for the whole sweep. Each K / V
+// fragment read from shared memory feeds the warp's MT m-tiles.
 template <int DM>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wmma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ di, bf16* __restrict__ dq,
-                         int H, int Hkv, int Sq, int Sk, int D, int causal,
-                         int window, int k_offset, float scale) {
-  using L = DqLayout<DM>;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                               wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                               wmma::row_major>;
-  using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::col_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  constexpr int NC = DM / 16;
-  constexpr int NF = 4 * NC;
-  constexpr int FPW = NF >= 8 ? NF / 8 : 1;
+__global__ void __launch_bounds__(MmaShape<DM>::kThreads, DM <= 64 ? 2 : 1)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di, bf16* __restrict__ dq,
+                        int H, int Hkv, int Sq, int Sk, int D, int causal,
+                        int window, int k_offset, float scale) {
+  constexpr int LD = DqLayout<DM>::LD;
+  constexpr int BK = kMmaBlockK;
+  constexpr int MT = MmaShape<DM>::MT;
+  constexpr int NT = MmaShape<DM>::kThreads;
+  constexpr int KK = DM / 16;              // k-steps of q.k^T and do.v^T
+  constexpr int NO = DM / 8;               // n-tiles of a dq row block
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdo = sq + kBlockQ * L::LD;
-  bf16* sk = sdo + kBlockQ * L::LD;
-  bf16* sv = sk + kBlockK * L::LD;
-  float* ss = reinterpret_cast<float*>(sv + kBlockK * L::LD);
-  float* sdp = ss + kBlockQ * L::LS;
-  bf16* sds = reinterpret_cast<bf16*>(sdp + kBlockQ * L::LS);
-  float* slse = reinterpret_cast<float*>(sds + kBlockQ * L::LP);
-  float* sdi = slse + kBlockQ;
+  bf16* sdo = sq + kMmaBlockQ * LD;
+  bf16* sk = sdo + kMmaBlockQ * LD;        // [2][BK][LD]
+  bf16* sv = sk + 2 * BK * LD;             // [2][BK][LD]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int bkv = b * Hkv + (bh - b * H) / (H / Hkv);
-  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
-  const int q0 = (nq - 1 - (int)blockIdx.y) * kBlockQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int nq = (Sq + kMmaBlockQ - 1) / kMmaBlockQ;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kMmaBlockQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wrow = warp * 16 * MT;
+  const bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v) && aligned16(dout);
 
-  load_tile<DM>(sq, L::LD, q + (size_t)bh * Sq * D, q0, Sq, D);
-  load_tile<DM>(sdo, L::LD, dout + (size_t)bh * Sq * D, q0, Sq, D);
-  if (tid < kBlockQ) {
-    const int row = q0 + tid;
-    slse[tid] = row < Sq ? lse[(size_t)bh * Sq + row] : 0.f;
-    sdi[tid] = row < Sq ? di[(size_t)bh * Sq + row] : 0.f;
-  }
   const bf16* kb = k + (size_t)bkv * Sk * D;
   const bf16* vb = v + (size_t)bkv * Sk * D;
 
   int kt_begin, kt_end;
-  key_band(q0, Sq, Sk, causal, window, k_offset, &kt_begin, &kt_end);
+  key_band<kMmaBlockQ, BK>(q0, Sq, Sk, causal, window, k_offset, &kt_begin,
+                           &kt_end);
 
-  FragC dq_acc[FPW];
+  load_rows<DM, kMmaBlockQ, NT>(sq, q + (size_t)bh * Sq * D, q0, Sq, D, vec);
+  load_rows<DM, kMmaBlockQ, NT>(sdo, dout + (size_t)bh * Sq * D, q0, Sq, D,
+                                vec);
+  if (kt_begin < kt_end) {
+    load_rows<DM, BK, NT>(sk, kb, kt_begin * BK, Sk, D, vec);
+    load_rows<DM, BK, NT>(sv, vb, kt_begin * BK, Sk, D, vec);
+  }
+  cp_async_commit();
+
+  // The lse and di of each m-tile's rows g and g + 8 (0 past Sq: such rows
+  // are computed and never written).
+  float row_lse[MT][2], row_di[MT][2];
 #pragma unroll
-  for (int i = 0; i < FPW; ++i) wmma::fill_fragment(dq_acc[i], 0.f);
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile is done with sk / sv / sds
-    load_tile<DM>(sk, L::LD, kb, k0, Sk, D);
-    load_tile<DM>(sv, L::LD, vb, k0, Sk, D);
-    __syncthreads();
-
-    // s = q.k^T and dp = do.v^T: 16 fragments each, two per warp.
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int f = warp + 8 * i;
-      const int rb = f >> 2;
-      const int cb = f & 3;
-      FragC acc_s, acc_dp;
-      wmma::fill_fragment(acc_s, 0.f);
-      wmma::fill_fragment(acc_dp, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < NC; ++kk) {
-        FragA a;
-        FragBT bt;
-        wmma::load_matrix_sync(a, sq + rb * 16 * L::LD + kk * 16, L::LD);
-        wmma::load_matrix_sync(bt, sk + cb * 16 * L::LD + kk * 16, L::LD);
-        wmma::mma_sync(acc_s, a, bt, acc_s);
-        wmma::load_matrix_sync(a, sdo + rb * 16 * L::LD + kk * 16, L::LD);
-        wmma::load_matrix_sync(bt, sv + cb * 16 * L::LD + kk * 16, L::LD);
-        wmma::mma_sync(acc_dp, a, bt, acc_dp);
-      }
-      wmma::store_matrix_sync(ss + rb * 16 * L::LS + cb * 16, acc_s, L::LS,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(sdp + rb * 16 * L::LS + cb * 16, acc_dp, L::LS,
-                              wmma::mem_row_major);
+      const int row = q0 + wrow + 16 * mt + g + 8 * i;
+      row_lse[mt][i] = row < Sq ? lse[(size_t)bh * Sq + row] : 0.f;
+      row_di[mt][i] = row < Sq ? di[(size_t)bh * Sq + row] : 0.f;
     }
-    __syncthreads();
+  cp_async_wait_all();
+  __syncthreads();
 
-    // ds = exp(s - lse) * (dp - di), stored as bf16.
-    {
-      const int rr = tid >> 2;
-      const int part = tid & 3;
-      const int qpos = q0 + rr;
+  uint32_t qf[MT][KK][4], dof[MT][KK][4];
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int col = part * 16 + c;
-        const int key = k0 + col;
-        float ds = 0.f;
-        if (qpos < Sq && key < Sk) {
-          float x = ss[rr * L::LS + col];
-          if (scale != 1.f) x *= scale;
-          if (causal) {
-            const int kpos = key + k_offset;
-            bool keep = qpos >= kpos;
-            if (window > 0) keep = keep && kpos > qpos - window;
-            if (!keep) x = kNegInf;
-          }
-          ds = expf(x - slse[rr]) * (sdp[rr * L::LS + col] - sdi[rr]);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const int off = a_offset<LD>(lane, wrow + 16 * mt, kk * 16);
+      ldmatrix_x4(qf[mt][kk], sq + off);
+      ldmatrix_x4(dof[mt][kk], sdo + off);
+    }
+
+  float acc[MT][NO][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+  // exp(scale * s - lse) as one FMA and exp2 on the tiles that need no mask.
+  const float s_log2 = scale * kLog2e;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    if (kt > kt_begin) {
+      cp_async_wait_all();
+      __syncthreads();  // tile kt landed; every warp is done with tile kt-1
+    }
+    if (kt + 1 < kt_end) {
+      load_rows<DM, BK, NT>(sk + (buf ^ 1) * BK * LD, kb, (kt + 1) * BK, Sk, D,
+                            vec);
+      load_rows<DM, BK, NT>(sv + (buf ^ 1) * BK * LD, vb, (kt + 1) * BK, Sk, D,
+                            vec);
+    }
+    cp_async_commit();
+    const bf16* skt = sk + buf * BK * LD;
+    const bf16* svt = sv + buf * BK * LD;
+    const int k0 = kt * BK;
+    bool masked[MT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      masked[mt] = needs_mask<BK>(q0 + wrow + 16 * mt, k0, Sk, causal, window,
+                                  k_offset);
+    }
+
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      // s and dp for keys k0 + 16j .. k0 + 16j + 15: two n-tiles each.
+      float s[MT][2][4], dp[MT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][n][e] = dp[mt][n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, skt + b_offset<LD>(lane, j * 16, kk * 16));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_16816(s[mt][0], qf[mt][kk], bf[0], bf[1]);
+          mma_16816(s[mt][1], qf[mt][kk], bf[2], bf[3]);
         }
-        sds[rr * L::LP + col] = __float2bfloat16(ds);
+        ldmatrix_x4(bf, svt + b_offset<LD>(lane, j * 16, kk * 16));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_16816(dp[mt][0], dof[mt][kk], bf[0], bf[1]);
+          mma_16816(dp[mt][1], dof[mt][kk], bf[2], bf[3]);
+        }
       }
-    }
-    __syncthreads();
 
-    // dq += ds.k over [64, DM] fragments.
+      // ds = p * (dp - di), p = exp(s - lse), rounded to bf16 as the A
+      // fragment of ds.k.
+      uint32_t da[MT][4];
 #pragma unroll
-    for (int i = 0; i < FPW; ++i) {
-      const int f = warp + 8 * i;
-      if (f >= NF) break;
-      const int rb = f / NC;
-      const int cb = f - rb * NC;
+      for (int mt = 0; mt < MT; ++mt) {
+        if (masked[mt]) {
+          const int r0 = q0 + wrow + 16 * mt;
 #pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        FragA a;
-        FragB bm;
-        wmma::load_matrix_sync(a, sds + rb * 16 * L::LP + kk * 16, L::LP);
-        wmma::load_matrix_sync(bm, sk + kk * 16 * L::LD + cb * 16, L::LD);
-        wmma::mma_sync(dq_acc[i], a, bm, dq_acc[i]);
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = k0 + j * 16 + n * 8 + 2 * t + (e & 1);
+              const int qpos = r0 + g + (e >> 1) * 8;
+              float ds = 0.f;
+              if (key < Sk) {
+                float x = scale != 1.f ? scale * s[mt][n][e] : s[mt][n][e];
+                if (causal && !keeps(qpos, key + k_offset, window)) {
+                  x = kNegInf;
+                }
+                ds = exp2_approx((x - row_lse[mt][e >> 1]) * kLog2e) *
+                     (dp[mt][n][e] - row_di[mt][e >> 1]);
+              }
+              s[mt][n][e] = ds;
+            }
+        } else {
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[mt][n][e] =
+                  exp2_approx(fmaf(s[mt][n][e], s_log2,
+                                   -row_lse[mt][e >> 1] * kLog2e)) *
+                  (dp[mt][n][e] - row_di[mt][e >> 1]);
+            }
+        }
+        da[mt][0] = pack_bf16(s[mt][0][0], s[mt][0][1]);
+        da[mt][1] = pack_bf16(s[mt][0][2], s[mt][0][3]);
+        da[mt][2] = pack_bf16(s[mt][1][0], s[mt][1][1]);
+        da[mt][3] = pack_bf16(s[mt][1][2], s[mt][1][3]);
+      }
+
+      // dq += ds.k.
+#pragma unroll
+      for (int p = 0; p < DM / 16; ++p) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, skt + bt_offset<LD>(lane, j * 16, p * 16));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_16816(acc[mt][2 * p], da[mt], bf[0], bf[1]);
+          mma_16816(acc[mt][2 * p + 1], da[mt], bf[2], bf[3]);
+        }
       }
     }
   }
+  cp_async_wait_all();
 
-  // Stage dq over the s / dp tiles, then write it in q's type.
-  __syncthreads();
-  float* sdq = ss;
-#pragma unroll
-  for (int i = 0; i < FPW; ++i) {
-    const int f = warp + 8 * i;
-    if (f >= NF) break;
-    const int rb = f / NC;
-    const int cb = f - rb * NC;
-    if (scale != 1.f) {
-      for (int e = 0; e < dq_acc[i].num_elements; ++e) dq_acc[i].x[e] *= scale;
-    }
-    wmma::store_matrix_sync(sdq + rb * 16 * L::LQ + cb * 16, dq_acc[i], L::LQ,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
+  // dq, scaled once, written once in q's type.
   bf16* dqb = dq + (size_t)bh * Sq * D;
-  for (int i = tid; i < kBlockQ * DM; i += kThreads) {
-    const int r = i / DM;
-    const int d = i - r * DM;
-    const int row = q0 + r;
-    if (row < Sq && d < D) {
-      dqb[(size_t)row * D + d] = __float2bfloat16(sdq[r * L::LQ + d]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + wrow + 16 * mt + g + 8 * i;
+      if (row >= Sq) continue;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        float x0 = acc[mt][n][2 * i], x1 = acc[mt][n][2 * i + 1];
+        if (scale != 1.f) {
+          x0 *= scale;
+          x1 *= scale;
+        }
+        store_pair(dqb + (size_t)row * D, n * 8 + 2 * t, D, x0, x1);
+      }
     }
-  }
-}
-
-// Launch a kernel of 256 threads with `smem` bytes of dynamic shared memory
-// (raising the per-block limit above 48 KiB where it needs more).
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream,
-                   Args... args) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 // One backward call's operands, as the C entries take them.
@@ -947,7 +968,7 @@ cudaError_t launch_kv_sweep(const Bwd& a) {
   float* g = static_cast<float*>(a.dq);
   if (a.b16) {
     return launch(flash_bwd_wmma_kernel<DM, kDq>, WmmaLayout<DM>::bytes, grid,
-                  a.stream, static_cast<const bf16*>(a.q),
+                  kThreads, a.stream, static_cast<const bf16*>(a.q),
                   static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
                   static_cast<const bf16*>(a.dout), l, r, g,
                   static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H,
@@ -955,7 +976,7 @@ cudaError_t launch_kv_sweep(const Bwd& a) {
                   a.scale);
   }
   return launch(flash_bwd_f32_kernel<DM, kDq>,
-                sizeof(float) * smem_floats<DM>(), grid, a.stream,
+                sizeof(float) * smem_floats<DM>(), grid, kThreads, a.stream,
                 static_cast<const float*>(a.q), static_cast<const float*>(a.k),
                 static_cast<const float*>(a.v),
                 static_cast<const float*>(a.dout), l, r, g,
@@ -967,12 +988,12 @@ cudaError_t launch_kv_sweep(const Bwd& a) {
 // The query-side sweep K3a at one padded head width DM (dq in q's type).
 template <int DM>
 cudaError_t launch_q_sweep(const Bwd& a) {
-  const dim3 grid(a.B * a.H, (a.Sq + kBlockQ - 1) / kBlockQ);
   const float* l = static_cast<const float*>(a.lse);
   const float* r = static_cast<const float*>(a.di);
   if (a.b16) {
-    return launch(flash_bwd_dq_wmma_kernel<DM>, DqLayout<DM>::bytes, grid,
-                  a.stream, static_cast<const bf16*>(a.q),
+    const dim3 grid(a.B * a.H, (a.Sq + kMmaBlockQ - 1) / kMmaBlockQ);
+    return launch(flash_bwd_dq_mma_kernel<DM>, DqLayout<DM>::bytes, grid,
+                  MmaShape<DM>::kThreads, a.stream, static_cast<const bf16*>(a.q),
                   static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
                   static_cast<const bf16*>(a.dout), l, r,
                   static_cast<bf16*>(a.dq), a.H, a.Hkv, a.Sq, a.Sk, a.D,
@@ -981,8 +1002,9 @@ cudaError_t launch_q_sweep(const Bwd& a) {
   constexpr size_t floats = 2 * (size_t)kBlockQ * DM +
                             2 * (size_t)kBlockK * (DM + 1) +
                             (size_t)kBlockQ * kPS + 2 * (size_t)kBlockQ;
+  const dim3 grid(a.B * a.H, (a.Sq + kBlockQ - 1) / kBlockQ);
   return launch(flash_bwd_dq_f32_kernel<DM>, sizeof(float) * floats, grid,
-                a.stream, static_cast<const float*>(a.q),
+                kThreads, a.stream, static_cast<const float*>(a.q),
                 static_cast<const float*>(a.k), static_cast<const float*>(a.v),
                 static_cast<const float*>(a.dout), l, r,
                 static_cast<float*>(a.dq), a.H, a.Hkv, a.Sq, a.Sk, a.D,

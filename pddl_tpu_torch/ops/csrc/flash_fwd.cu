@@ -8,60 +8,63 @@
 // scale * q.k in f32 (the multiply is skipped when the caller folded a
 // power-of-two scale into q and passes 1); a masked score is NEG_INF =
 // -1e30, as in the reference: key position kj + k_offset must be <= the
-// query's position, and > position - window when a window is given. p is
-// rounded to v's type before the P.V product (the reference's
-// p.astype(v_ref.dtype)) while the denominator sums p in f32. o is written
-// in q's type after a 1e-30 floor on the denominator; the LSE variant also
-// writes lse = m + log(l) packed as [B * H, Sq] f32 (the TPU kernel's
-// lane-replicated rows are a Mosaic layout, not part of the function).
+// query's position, and > position - window when a window is given; a key
+// past Sk scores -inf. p is rounded to v's type before the P.V product
+// (the reference's p.astype(v_ref.dtype)) while the denominator sums p in
+// f32. o is written in q's type after a 1e-30 floor on the denominator;
+// the LSE variant also writes lse = m + log(l) packed as [B * H, Sq] f32
+// (the TPU kernel's lane-replicated rows are a Mosaic layout, not part of
+// the function). No atomics: the result is bitwise the same from run to
+// run, which the remat recompute relies on.
 //
-// What bounds it on an H100: at Llama-1B's training shape (B 4, H 32,
-// Hkv 8, S 2048, D 64) the causal work is 2 * B * H * S^2 * D flops, ~70
-// GFLOP, against ~84 MB of q/k/v/o, so the tensor cores' rate bounds it
-// (~0.07 ms at 989 TFLOP/s bf16). The design is the simple one:
-//  - one block of 256 threads (8 warps) per (b * h, 64-row q tile); a loop
-//    over the 64-key tiles in the causal/window band takes the place of the
-//    TPU's sequential k grid axis, its bounds from the same arithmetic as
-//    _block_in_band, so out-of-band tiles are never loaded;
-//  - the q tile and each K / V tile are staged in shared memory,
-//    zero-padded to DM = 16/32/64/128 columns;
-//  - bf16 (the training path): both products run on the tensor cores as
-//    WMMA 16x16x16 bf16 fragments with f32 accumulation (bf16 products are
-//    exact in f32, as on the TPU's MXU). The score tile goes through shared
-//    memory for the masked online softmax (four threads per row), p is
-//    stored as bf16 (the rounding point above), and the f32 output
-//    accumulator lives in shared memory so each row can be rescaled by
-//    exp(m_old - m_new) before the P.V fragments add to it;
-//  - f32: the products run on the f32 FMA units (no f32 tensor-core mode
-//    keeps f32's precision); each thread owns a 4 x 4 block of scores and a
-//    4 x DM/16 block of the accumulator in registers;
+// What bounds it on an H100: the tensor cores' rate. The causal work is
+// 2 * B * H * S^2 * D flops, ~70 GFLOP at Llama-1B's training shape (B 4,
+// H 32, Hkv 8, S 2048, D 64) against ~84 MB of q, k, v and o: 0.069 ms at
+// 989 TFLOP/s bf16; ~275 GFLOP (0.278 ms) at B 1, S 8192.
+//
+// The bf16 kernel (the training path) is register-resident:
+//  - one block per (b * h, 128-row q tile) loops over the 64-key tiles of
+//    the causal/window band (the same arithmetic as _block_in_band,
+//    key_band in flash_common.cuh), so out-of-band tiles are never loaded.
+//    A warp owns 32 rows (two 16-row m-tiles, 4 warps) at D <= 64 and 16
+//    rows (8 warps) at D 128, where two would not fit in registers;
+//  - both products are mma.sync m16n8k16 bf16 -> f32 fed by ldmatrix: q's
+//    A fragments are loaded once and stay in registers; each K / V fragment
+//    read from shared memory feeds the warp's m-tiles; the score tile S
+//    stays in registers, where it is scaled, masked (only on tiles that
+//    cross the diagonal, the window edge or the ragged Sk edge) and put
+//    through the online softmax, each row reduced across the four threads
+//    of a quad with shuffles; p is rounded to bf16 in registers and is
+//    directly the A fragment of P.V; the f32 output accumulator stays in
+//    registers for the whole sweep and is rescaled there;
+//  - the K / V tiles are double-buffered in shared memory with cp.async
+//    16-byte copies, so tile j+1 loads while tile j is computed: one
+//    barrier per key tile. Rows are padded by 16 bytes, which keeps
+//    ldmatrix free of bank conflicts. A D that is not a multiple of 8
+//    takes a synchronous scalar load instead;
 //  - ragged Sq / Sk edges are masked here: a key past Sk scores -inf (it
 //    adds nothing, even to a row whose running max is still NEG_INF), and
 //    a query row past Sq is computed but never written.
+// The f32 kernel runs on the FMA units (no f32 tensor-core mode keeps
+// f32's precision) with 64-row tiles: each thread owns a 4 x 4 block of
+// scores and a 4 x DM/16 block of the accumulator in registers.
 // Heavy (late) q tiles are launched first, to shorten the causal tail.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 #include <cstdint>
 
+#include "flash_common.cuh"
+
 namespace {
 
-namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
+using namespace pddl_flash;
 
-constexpr float kNegInf = -1e30f;
-constexpr int kBlockQ = 64;
+constexpr int kBlockQ = 64;               // the f32 kernel's tiles
 constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
 constexpr int kPS = kBlockK + 1;          // score row stride
-constexpr size_t kMaxSmem = 232448;       // an H100 block's dynamic shared memory
-
-__host__ __device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
 
 template <int DM>
 constexpr size_t smem_floats() {
@@ -114,15 +117,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // The k tiles in the band of this q tile (_block_in_band's arithmetic).
-  int kt_begin = 0;
-  int kt_end = (Sk + kBlockK - 1) / kBlockK;
-  if (causal) {
-    const int q_last = min(q0 + kBlockQ - 1, Sq - 1);
-    kt_end = min(kt_end, max(0, floor_div(q_last - k_offset, kBlockK) + 1));
-    if (window > 0) {
-      kt_begin = max(0, floor_div(q0 - window + 1 - k_offset, kBlockK));
-    }
-  }
+  int kt_begin, kt_end;
+  key_band<kBlockQ, kBlockK>(q0, Sq, Sk, causal, window, k_offset, &kt_begin,
+                             &kt_end);
 
   float acc[4][NJ];
 #pragma unroll
@@ -171,12 +168,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float val = -INFINITY;
         if (key < Sk) {
           val = scale != 1.f ? scale * s[i][j] : s[i][j];
-          if (causal) {
-            const int kpos = key + k_offset;
-            bool keep = qpos >= kpos;
-            if (window > 0) keep = keep && kpos > qpos - window;
-            if (!keep) val = kNegInf;
-          }
+          if (causal && !keeps(qpos, key + k_offset, window)) val = kNegInf;
         }
         sp[r * kPS + c] = val;
       }
@@ -253,250 +245,258 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Stage rows [row0, row0 + 64) of a [rows, D] bf16 array into a [64][ld]
-// shared tile, zero-filled past `rows` and past D. When rows are exactly DM
-// wide and the array is 16-byte aligned, each row goes as 16-byte vectors
-// (8 values per load and store); otherwise one value at a time.
+// Shared memory of the bf16 kernel: the q tile, then two K and two V tiles
+// (double buffer), every row DM + 8 bf16 wide.
 template <int DM>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          int row0, int rows, int D) {
-  if (D == DM && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    constexpr int kVecs = DM / 8;
-    for (int i = threadIdx.x; i < kBlockQ * kVecs; i += kThreads) {
-      const int r = i / kVecs;
-      const int c = (i - r * kVecs) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < rows) {
-        val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * DM + c);
-      }
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    }
-    return;
-  }
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < kBlockQ * DM; i += kThreads) {
-    const int r = i / DM;
-    const int d = i - r * DM;
-    const int row = row0 + r;
-    dst[r * ld + d] = (row < rows && d < D) ? src[(size_t)row * D + d] : zero;
-  }
-}
-
-// Shared-memory layout of the bf16 tensor-core kernel (row strides padded
-// as WMMA's loads require: a multiple of 8 bf16 / 4 floats, 32-byte
-// aligned tiles).
-template <int DM>
-struct WmmaLayout {
-  static constexpr int LD = DM + 8;        // q, k, v tiles (bf16)
-  static constexpr int LS = kBlockK + 4;   // scores (f32)
-  static constexpr int LP = kBlockK + 8;   // p (bf16)
-  static constexpr int LO = DM + 4;        // output accumulator (f32)
+struct MmaLayout {
+  static constexpr int LD = DM + 8;
   static constexpr size_t bytes =
-      3 * kBlockQ * LD * sizeof(bf16) + kBlockQ * LS * sizeof(float) +
-      kBlockQ * LP * sizeof(bf16) + kBlockQ * LO * sizeof(float) +
-      2 * kBlockQ * sizeof(float);
+      (size_t)(kMmaBlockQ + 4 * kMmaBlockK) * LD * sizeof(bf16);
 };
 
+// bf16 on the tensor cores, everything the sweep carries in registers.
 template <int DM, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-                      int D, int causal, int window, int k_offset,
-                      float scale) {
-  using L = WmmaLayout<DM>;
-  constexpr int NC = DM / 16;              // 16-column blocks of a row
-  constexpr int NFO = 4 * NC;              // output fragments per tile
+__global__ void __launch_bounds__(MmaShape<DM>::kThreads, DM <= 64 ? 2 : 1)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+                     int D, int causal, int window, int k_offset,
+                     float scale) {
+  constexpr int LD = MmaLayout<DM>::LD;
+  constexpr int BK = kMmaBlockK;
+  constexpr int MT = MmaShape<DM>::MT;     // 16-row m-tiles per warp
+  constexpr int NT = MmaShape<DM>::kThreads;
+  constexpr int KK = DM / 16;              // k-steps of q.k^T
+  constexpr int NS = BK / 8;               // n-tiles of a score row block
+  constexpr int NO = DM / 8;               // n-tiles of an output row block
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sk = sq + kBlockQ * L::LD;
-  bf16* sv = sk + kBlockK * L::LD;
-  float* ss = reinterpret_cast<float*>(sv + kBlockK * L::LD);
-  bf16* sp = reinterpret_cast<bf16*>(ss + kBlockQ * L::LS);
-  float* so = reinterpret_cast<float*>(sp + kBlockQ * L::LP);
-  float* sm = so + kBlockQ * L::LO;
-  float* sl = sm + kBlockQ;
+  bf16* sk = sq + kMmaBlockQ * LD;         // [2][BK][LD]
+  bf16* sv = sk + 2 * BK * LD;             // [2][BK][LD]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int bkv = b * Hkv + h / (H / Hkv);
-  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
-  const int q0 = (nq - 1 - (int)blockIdx.y) * kBlockQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int nq = (Sq + kMmaBlockQ - 1) / kMmaBlockQ;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kMmaBlockQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wrow = warp * 16 * MT;         // this warp's first row in the tile
+  const bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
 
   const bf16* kb = k + (size_t)bkv * Sk * D;
   const bf16* vb = v + (size_t)bkv * Sk * D;
 
-  load_tile<DM>(sq, L::LD, q + (size_t)bh * Sq * D, q0, Sq, D);
-  for (int i = tid; i < kBlockQ * DM; i += kThreads) {
-    so[(i / DM) * L::LO + i % DM] = 0.f;
-  }
-  if (tid < kBlockQ) {
-    sm[tid] = kNegInf;
-    sl[tid] = 0.f;
-  }
+  int kt_begin, kt_end;
+  key_band<kMmaBlockQ, BK>(q0, Sq, Sk, causal, window, k_offset, &kt_begin,
+                           &kt_end);
 
-  int kt_begin = 0;
-  int kt_end = (Sk + kBlockK - 1) / kBlockK;
-  if (causal) {
-    const int q_last = min(q0 + kBlockQ - 1, Sq - 1);
-    kt_end = min(kt_end, max(0, floor_div(q_last - k_offset, kBlockK) + 1));
-    if (window > 0) {
-      kt_begin = max(0, floor_div(q0 - window + 1 - k_offset, kBlockK));
-    }
+  load_rows<DM, kMmaBlockQ, NT>(sq, q + (size_t)bh * Sq * D, q0, Sq, D, vec);
+  if (kt_begin < kt_end) {
+    load_rows<DM, BK, NT>(sk, kb, kt_begin * BK, Sk, D, vec);
+    load_rows<DM, BK, NT>(sv, vb, kt_begin * BK, Sk, D, vec);
   }
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBlockK;
-    load_tile<DM>(sk, L::LD, kb, k0, Sk, D);
-    load_tile<DM>(sv, L::LD, vb, k0, Sk, D);
-    __syncthreads();
-
-    // s = q.k^T: 16 fragments of 16 x 16, two per warp.
+  uint32_t qf[MT][KK][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int f = warp + 8 * i;
-      const int rb = f >> 2;
-      const int cb = f & 3;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int kk = 0; kk < NC; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, sq + rb * 16 * L::LD + kk * 16, L::LD);
-        wmma::load_matrix_sync(bt, sk + cb * 16 * L::LD + kk * 16, L::LD);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-      wmma::store_matrix_sync(ss + rb * 16 * L::LS + cb * 16, acc, L::LS,
-                              wmma::mem_row_major);
+    for (int kk = 0; kk < KK; ++kk) {
+      ldmatrix_x4(qf[mt][kk], sq + a_offset<LD>(lane, wrow + 16 * mt, kk * 16));
     }
-    __syncthreads();
 
-    // Masked online softmax, four threads per row; each also rescales its
-    // quarter of the row's output accumulator.
-    {
-      const int r = tid >> 2;
-      const int part = tid & 3;
-      const int qpos = q0 + r;
-      float val[16];
-      float mx = -INFINITY;
+  float acc[MT][NO][4];
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int col = part * 16 + c;
-        const int key = k0 + col;
-        float x = -INFINITY;
-        if (key < Sk) {
-          x = ss[r * L::LS + col];
-          if (scale != 1.f) x *= scale;
-          if (causal) {
-            const int kpos = key + k_offset;
-            bool keep = qpos >= kpos;
-            if (window > 0) keep = keep && kpos > qpos - window;
-            if (!keep) x = kNegInf;
-          }
-        }
-        val[c] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = sm[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = expf(val[c] - m_new);
-        sum += p;
-        sp[r * L::LP + part * 16 + c] = __float2bfloat16(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float alpha = expf(m_prev - m_new);
+    for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int d = part * (DM / 4); d < (part + 1) * (DM / 4); ++d) {
-        so[r * L::LO + d] *= alpha;
-      }
-      __syncwarp();  // the row's four threads have read m_prev
-      if (part == 0) {
-        sl[r] = sl[r] * alpha + sum;
-        sm[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // o += p.v, the accumulator fragments round-tripping through smem.
-    for (int f = warp; f < NFO; f += 8) {
-      const int rb = f / NC;
-      const int cb = f - rb * NC;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, so + rb * 16 * L::LO + cb * 16, L::LO,
-                             wmma::mem_row_major);
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+  // Per m-tile, rows g and g + 8: the running max, and this thread's part
+  // of the running denominator (the quad's four parts are summed at the end).
+  float m_run[MT][2], l_run[MT][2];
 #pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, sp + rb * 16 * L::LP + kk * 16, L::LP);
-        wmma::load_matrix_sync(bv, sv + kk * 16 * L::LD + cb * 16, L::LD);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(so + rb * 16 * L::LO + cb * 16, acc, L::LO,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
+  for (int mt = 0; mt < MT; ++mt) {
+    m_run[mt][0] = m_run[mt][1] = kNegInf;
+    l_run[mt][0] = l_run[mt][1] = 0.f;
   }
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    if (kt > kt_begin) {
+      cp_async_wait_all();
+      __syncthreads();  // tile kt landed; every warp is done with tile kt-1
+    }
+    if (kt + 1 < kt_end) {
+      load_rows<DM, BK, NT>(sk + (buf ^ 1) * BK * LD, kb, (kt + 1) * BK, Sk, D,
+                            vec);
+      load_rows<DM, BK, NT>(sv + (buf ^ 1) * BK * LD, vb, (kt + 1) * BK, Sk, D,
+                            vec);
+    }
+    cp_async_commit();
+    const bf16* skt = sk + buf * BK * LD;
+    const bf16* svt = sv + buf * BK * LD;
+    const int k0 = kt * BK;
+
+    // s = q.k^T: 16 MT rows x 64 keys per warp, in registers; each K
+    // fragment feeds the warp's MT m-tiles.
+    float s[MT][NS][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll
+    for (int p = 0; p < NS / 2; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, skt + b_offset<LD>(lane, p * 16, kk * 16));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_16816(s[mt][2 * p], qf[mt][kk], bf[0], bf[1]);
+          mma_16816(s[mt][2 * p + 1], qf[mt][kk], bf[2], bf[3]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r0 = q0 + wrow + 16 * mt;
+      if (scale != 1.f) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][n][e] *= scale;
+      }
+      if (needs_mask<BK>(r0, k0, Sk, causal, window, k_offset)) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + n * 8 + 2 * t + (e & 1);
+            const int qpos = r0 + g + (e >> 1) * 8;
+            if (key >= Sk) {
+              s[mt][n][e] = -INFINITY;
+            } else if (causal && !keeps(qpos, key + k_offset, window)) {
+              s[mt][n][e] = kNegInf;
+            }
+          }
+      }
+
+      // Online softmax: row max over the quad, p = exp(s - m) in place.
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[mt][n][0], s[mt][n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mt][n][2], s[mt][n][3]));
+      }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_run[mt][i], mx[i]);
+        alpha[i] = exp2_approx((m_run[mt][i] - m_new) * kLog2e);
+        m_run[mt][i] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_approx((s[mt][n][e] - m_run[mt][e >> 1]) *
+                                      kLog2e);
+          s[mt][n][e] = p;
+          rs[e >> 1] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l_run[mt][i] = l_run[mt][i] * alpha[i] + rs[i];
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[mt][n][0] *= alpha[0];
+        acc[mt][n][1] *= alpha[0];
+        acc[mt][n][2] *= alpha[1];
+        acc[mt][n][3] *= alpha[1];
+      }
+    }
+
+    // o += p.v: p, rounded to bf16, is the A fragment as it stands; each V
+    // fragment feeds the warp's MT m-tiles.
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        pa[mt][0] = pack_bf16(s[mt][2 * j][0], s[mt][2 * j][1]);
+        pa[mt][1] = pack_bf16(s[mt][2 * j][2], s[mt][2 * j][3]);
+        pa[mt][2] = pack_bf16(s[mt][2 * j + 1][0], s[mt][2 * j + 1][1]);
+        pa[mt][3] = pack_bf16(s[mt][2 * j + 1][2], s[mt][2 * j + 1][3]);
+      }
+#pragma unroll
+      for (int p = 0; p < DM / 16; ++p) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, svt + bt_offset<LD>(lane, j * 16, p * 16));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_16816(acc[mt][2 * p], pa[mt], bf[0], bf[1]);
+          mma_16816(acc[mt][2 * p + 1], pa[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
 
   bf16* ob = o + (size_t)bh * Sq * D;
-  for (int i = tid; i < kBlockQ * DM; i += kThreads) {
-    const int r = i / DM;
-    const int d = i - r * DM;
-    const int row = q0 + r;
-    if (row < Sq && d < D) {
-      ob[(size_t)row * D + d] =
-          __float2bfloat16(so[r * L::LO + d] / fmaxf(sl[r], 1e-30f));
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float l = l_run[mt][i];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      l = fmaxf(l, 1e-30f);
+      const int row = q0 + wrow + 16 * mt + g + 8 * i;
+      if (row >= Sq) continue;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        store_pair(ob + (size_t)row * D, n * 8 + 2 * t, D,
+                   acc[mt][n][2 * i] / l, acc[mt][n][2 * i + 1] / l);
+      }
+      if (kLse && t == 0) {
+        lse[(size_t)bh * Sq + row] = m_run[mt][i] + logf(l);
+      }
     }
-  }
-  if (kLse && tid < kBlockQ && q0 + tid < Sq) {
-    lse[(size_t)bh * Sq + q0 + tid] = sm[tid] + logf(fmaxf(sl[tid], 1e-30f));
-  }
 }
 
-// Launch a kernel of 256 threads with `smem` bytes of dynamic shared memory
-// (raising the per-block limit above 48 KiB where it needs more).
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream,
-                   Args... args) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-// The kernel for one padded head width DM: bf16 on the tensor cores, f32 on
-// the FMA units.
+// The kernel for one padded head width DM: bf16 on the tensor cores (128-row
+// tiles), f32 on the FMA units (64-row tiles).
 template <int DM, bool kLse>
 cudaError_t launch_dm(bool bf16_, const void* q, const void* k, const void* v,
                       void* o, void* lse, int B, int H, int Hkv, int Sq,
                       int Sk, int D, int causal, int window, int k_offset,
                       float scale, cudaStream_t s) {
-  const dim3 grid(B * H, (Sq + kBlockQ - 1) / kBlockQ);
   float* l = static_cast<float*>(lse);
   if (bf16_) {
-    return launch(flash_fwd_wmma_kernel<DM, kLse>, WmmaLayout<DM>::bytes,
-                  grid, s, static_cast<const bf16*>(q),
+    const dim3 grid(B * H, (Sq + kMmaBlockQ - 1) / kMmaBlockQ);
+    return launch(flash_fwd_mma_kernel<DM, kLse>, MmaLayout<DM>::bytes,
+                  grid, MmaShape<DM>::kThreads, s, static_cast<const bf16*>(q),
                   static_cast<const bf16*>(k), static_cast<const bf16*>(v),
                   static_cast<bf16*>(o), l, H, Hkv, Sq, Sk, D, causal, window,
                   k_offset, scale);
   }
+  const dim3 grid(B * H, (Sq + kBlockQ - 1) / kBlockQ);
   return launch(flash_fwd_f32_kernel<DM, kLse>,
-                sizeof(float) * smem_floats<DM>(), grid, s,
+                sizeof(float) * smem_floats<DM>(), grid, kThreads, s,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<float*>(o), l, H,
                 Hkv, Sq, Sk, D, causal, window, k_offset, scale);

@@ -13,7 +13,7 @@ each gradient's max-abs: within 2e-2 in bf16 and 1e-3 in f32, since K2
 sums dq with atomics in an order that changes from run to run and the
 bf16 roundings of p and ds fall on values computed in another order. The
 two-sweep backward (K3a, K3b) is held to the same tolerances; its dq has
-no atomics and is bitwise equal from run to run.
+no atomics and is bitwise equal from run to run, as is K1's output.
 """
 
 import pytest
@@ -91,7 +91,10 @@ def test_paged_decode_kernel_raises_on_what_it_does_not_take():
 # (b, h, hkv, sq, sk, d, dtype, causal, window, k_offset): Llama-1B's
 # training shape, with a window, MHA, rep 3 at D 128, a ragged length that
 # does not tile by 64, keys offset as in ring attention, f32, no mask, and a
-# bf16 head width that is not a multiple of 16 (zero-padded in the kernel).
+# bf16 head width that is not a multiple of 16 (zero-padded in the kernel);
+# then the edges of the bf16 kernels' 128-row q tiles and 64-key tiles: one
+# row past a q tile, no mask with Sq != Sk (ragged in both), and a window
+# narrower than a key tile.
 FLASH = {
     "llama1b": (4, 32, 8, 2048, 2048, 64, torch.bfloat16, True, None, 0),
     "llama1b_w512": (4, 32, 8, 2048, 2048, 64, torch.bfloat16, True, 512, 0),
@@ -102,6 +105,9 @@ FLASH = {
     "f32": (2, 8, 2, 512, 512, 64, torch.float32, True, None, 0),
     "full_d16": (2, 4, 2, 200, 136, 16, torch.float32, False, None, 0),
     "d40": (2, 4, 2, 300, 300, 40, torch.bfloat16, True, None, 0),
+    "s129": (2, 8, 2, 129, 129, 64, torch.bfloat16, True, None, 0),
+    "full_bf16": (2, 4, 2, 200, 136, 64, torch.bfloat16, False, None, 0),
+    "window6": (2, 8, 2, 300, 300, 64, torch.bfloat16, True, 6, 0),
 }
 
 
@@ -137,6 +143,22 @@ def test_flash_forward_kernel_matches_plain(shape, want_lse):
         assert float((lse - ref_lse).abs().max()) <= TOL[q.dtype]
     else:
         assert lse is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_lse", [True, False])
+@pytest.mark.parametrize("shape", ["llama1b", "s129"])
+def test_flash_forward_is_bitwise_reproducible(shape, want_lse):
+    """K1 has no atomics: two runs on the same inputs agree bit for bit,
+    which the remat recompute relies on."""
+    dev = _card()
+    q, k, v, _, _, kw = _flash_case(dev, *FLASH[shape])
+    first = tatt.flash_forward(q, k, v, want_lse=want_lse, **kw)
+    second = tatt.flash_forward(q, k, v, want_lse=want_lse, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    if want_lse:
+        assert torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda
@@ -221,7 +243,8 @@ TWO_SWEEP = {
                       0),
     **{name: FLASH[name] for name in ("llama1b_w512", "mha", "rep3_d128",
                                       "ragged1000", "k_offset", "f32",
-                                      "d40")},
+                                      "d40", "s129", "full_bf16",
+                                      "window6")},
     "prime13": (2, 8, 2, 13, 13, 64, torch.float32, True, None, 0),
     "prime1009": (2, 8, 2, 1009, 1009, 64, torch.float32, True, None, 0),
 }
@@ -260,7 +283,7 @@ def test_two_sweep_backward_kernels_match_plain(shape, with_dlse,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["llama1b", "f32"])
+@pytest.mark.parametrize("shape", ["llama1b", "f32", "s129"])
 def test_two_sweep_dq_is_bitwise_reproducible(shape, monkeypatch):
     """K3a writes each dq element once, with no atomics: two runs agree
     bit for bit."""
