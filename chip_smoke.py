@@ -22,16 +22,20 @@ two-sweep flash backward) — and prints one line per phase:
    training shape (B 4, H 32/8, S 2048, D 64, bf16, causal), with a
    512 window, MHA, rep 3 at D 128, a ragged S of 1000, offset keys, f32,
    and the edges of the bf16 kernel's tiles (S 129, no mask with Sq 200 x
-   Sk 136, a window of 6); two K1 runs bitwise equal (remat relies on it);
+   Sk 136, a window of 6) and of the kv sweep's 128-key blocks (S 257,
+   with and without a window of 12); two K1 runs bitwise equal (remat
+   relies on it);
    then times and bound at the Llama-1B shape (SDPA the yardstick);
 5. flash_bwd vs plain — K2's dq, dk, dv at the same shapes (two of them
-   with an LSE cotangent too), relative to each gradient's max-abs; then
-   times and bound (SDPA forward+backward minus forward the yardstick);
+   with an LSE cotangent too), relative to each gradient's max-abs; two K2
+   runs' dk and dv bitwise equal at Llama-1B's shape; then times and bound
+   (SDPA forward+backward minus forward the yardstick);
 5b. flash_bwd_two_sweep vs plain — K3a's dq and K3b's dk, dv at
    Llama-1B's long shape (B 1, H 32/8, S 8192, D 64, bf16, causal: 8 MiB
    of fused dq accumulator, so the branch by the JAX package's test) and
    at K2's odd shapes with the test's threshold at 0; K3 against K2 at the
-   long shape; two K3a runs bitwise equal; then the times of K3a, K3b,
+   long shape; two runs bitwise equal there: K3a's dq, K3b's and K2's dk
+   and dv; then the times of K3a, K3b,
    their wrapper, K2 at the same shape, SDPA's backward and the plain
    version, K1 with and without its LSE beside SDPA's forward, and the
    bounds;
@@ -70,7 +74,9 @@ two-sweep flash backward) — and prints one line per phase:
     relative to its max-abs (within 2e-2: bf16 logits there, f32 here),
     the ms and the peak device memory of each;
 13. kernels — one JSON object: every ported kernel with its launches on
-    its main path (phase 7, 10 or 11), error, times and bound;
+    its main path (phase 7, 10 or 11), error, times and bound (K3b's
+    library time is SDPA's backward, which computes dq, dk and dv, as
+    ``library_computes`` says);
 
 and, as its last line, ``{"ok": true, "device": {...}}``. Any failure
 raises: the script exits non-zero and prints no result. It needs the
@@ -282,6 +288,8 @@ FLASH_CASES = {
     "s129": (2, 8, 2, 129, 129, 64, torch.bfloat16, True, None, 0),
     "full_bf16": (2, 4, 2, 200, 136, 64, torch.bfloat16, False, None, 0),
     "window6": (2, 8, 2, 300, 300, 64, torch.bfloat16, True, 6, 0),
+    "sk257": (2, 8, 2, 257, 257, 64, torch.bfloat16, True, None, 0),
+    "sk257_window12": (2, 8, 2, 257, 257, 64, torch.bfloat16, True, 12, 0),
 }
 WITH_DLSE = ("llama1b", "k_offset")
 
@@ -413,6 +421,17 @@ def phase_flash_bwd():
         qkv, do, _, kw = flash_case(gen, *FLASH_CASES["llama1b"])
         o, lse = tatt.flash_forward(*qkv, **kw)
         cases.append((qkv, o, lse, do))
+    # dk and dv are summed inside one block and written once: two K2 runs
+    # on one set agree bit for bit (dq, added with atomics, need not).
+    first, second = (tatt.flash_backward(*cases[0][0], *cases[0][1:], **kw)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(first[1:], second[1:]))
+    phase("flash_bwd_bitwise", shape="B4_H32_Hkv8_S2048_D64_bf16_causal",
+          dk_and_dv_equal=bitwise)
+    if not bitwise:
+        raise RuntimeError("two K2 runs gave different dk or dv")
+    del first, second
     ms = cuda_ms(lambda i: tatt.flash_backward(
         *cases[i][0], *cases[i][1:], **kw), 2, iters=10)
     plain_ms = cuda_ms(lambda i: tatt.flash_backward_plain(
@@ -445,7 +464,8 @@ def phase_flash_bwd():
 # takes the two sweeps K3a/K3b with nothing patched.
 LONG = (1, 32, 8, 8192, 8192, 64, torch.bfloat16, True, None, 0)
 TWO_SWEEP_ODD = ("llama1b_w512", "mha", "rep3_d128", "ragged1000",
-                 "k_offset", "f32", "s129", "full_bf16", "window6")
+                 "k_offset", "f32", "s129", "full_bf16", "window6", "sk257",
+                 "sk257_window12")
 
 
 @contextlib.contextmanager
@@ -564,18 +584,25 @@ def phase_flash_bwd_two_sweep():
     k3 = tatt.flash_backward(*qkv, o, lse, do, **kw)
     with dispatch_threshold(1 << 62):
         k2 = tatt.flash_backward(*qkv, o, lse, do, **kw)
+        k2_again = tatt.flash_backward(*qkv, o, lse, do, **kw)
     vs_k2 = rel_errs(k3, k2)
     dq_again = tatt.flash_backward_dq(*qkv, do, lse, di, **kw)
+    dkv_again = tatt.flash_backward_dkv(*qkv, do, lse, di, **kw)
     torch.cuda.synchronize()
-    bitwise = bool(torch.equal(dq_again, k3[0]))
+    bitwise = {"k3a_dq": bool(torch.equal(dq_again, k3[0])),
+               "k3b_dk_dv": all(torch.equal(a, b)
+                                for a, b in zip(dkv_again, k3[1:])),
+               "k2_dk_dv": all(torch.equal(a, b)
+                               for a, b in zip(k2_again[1:], k2[1:]))}
     phase("flash_bwd_two_sweep_vs_k2", shape="B1_H32_Hkv8_S8192_D64_bf16",
           dq=f"{vs_k2[0]:.3g}", dk=f"{vs_k2[1]:.3g}", dv=f"{vs_k2[2]:.3g}",
-          tol=f"{GRAD_TOL[torch.bfloat16]:g}", dq_bitwise_equal=bitwise)
+          tol=f"{GRAD_TOL[torch.bfloat16]:g}", bitwise_equal=" ".join(
+              f"{k}:{v}" for k, v in bitwise.items()))
     if not max(vs_k2) <= GRAD_TOL[torch.bfloat16]:
         raise RuntimeError(f"K3 and K2 disagree: {vs_k2}")
-    if not bitwise:
-        raise RuntimeError("two K3a runs gave different dq")
-    del k3, k2, dq_again
+    if not all(bitwise.values()):
+        raise RuntimeError(f"two runs differ at S 8192: {bitwise}")
+    del k3, k2, k2_again, dq_again, dkv_again
 
     dq_ms = cuda_ms(lambda i: tatt.flash_backward_dq(
         *sets[i][0], sets[i][3], sets[i][2], sets[i][4], **kw), 2, iters=10)
@@ -615,13 +642,19 @@ def phase_flash_bwd_two_sweep():
           k1_bound_ms=f"{k1_bound:.5f}",
           plain_ms=f"{plain_ms:.5f}", dq_bound_ms=f"{dq_bound:.5f}",
           dkv_bound_ms=f"{dkv_bound:.5f}", bound_by=f"{dq_by}/{dkv_by}")
-    common = {"plain_ms": plain_ms, "library_ms": None}
+    # No PyTorch call computes dq alone or dk, dv alone: SDPA's backward,
+    # which computes all three, is K3b's yardstick and that of the pair.
     return {"flash_bwd_dq": {"ms": dq_ms, "bound_ms": dq_bound,
-                             "bound_by": dq_by,
-                             "max_abs_err": long_abs["dq"], **common},
+                             "bound_by": dq_by, "plain_ms": plain_ms,
+                             "max_abs_err": long_abs["dq"],
+                             "library_ms": None},
             "flash_bwd_dkv": {"ms": dkv_ms, "bound_ms": dkv_bound,
-                              "bound_by": dkv_by,
-                              "max_abs_err": long_abs["dkv"], **common}}
+                              "bound_by": dkv_by, "plain_ms": plain_ms,
+                              "max_abs_err": long_abs["dkv"],
+                              "library_ms": sdpa_bwd,
+                              "library_computes": "dq, dk and dv (the "
+                              "yardstick of flash_bwd_dq and flash_bwd_dkv "
+                              "together)"}}
 
 
 # -------------------------------------------------------------- phase 6

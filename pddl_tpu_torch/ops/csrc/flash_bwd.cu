@@ -2,13 +2,14 @@
 // and the two sweeps of the long-context backward (K3a dq, K3b dk/dv).
 //
 // Replaces the Pallas kernels of pddl_tpu/ops/attention.py launched by
-// _flash_bwd_impl: _flash_bwd_fused_kernel (K2, taken when rep * Sq * D * 4
-// <= 6 MiB), and _flash_bwd_dq_kernel (K3a) with _flash_bwd_dkv_kernel
-// (K3b) above that. All three compute the same function. Inputs as the
-// forward (q, do [B, H, Sq, D]; k, v [B, Hkv, Sk, D]; one type, f32 or
-// bf16) plus the forward's lse and the row term di = rowsum(do * o) - dlse,
-// both [B * H, Sq] f32, built by the caller. For every (q tile, key tile)
-// pair of the causal/window band they recompute
+// _flash_bwd_impl: _flash_bwd_fused_kernel (K2, :617, taken when
+// rep * Sq * D * 4 <= 6 MiB), and _flash_bwd_dq_kernel (K3a, :551) with
+// _flash_bwd_dkv_kernel (K3b, :578) above that. All three compute the same
+// function. Inputs as the forward (q, do [B, H, Sq, D]; k, v [B, Hkv, Sk,
+// D]; one type, f32 or bf16) plus the forward's lse and the row term
+// di = rowsum(do * o) - dlse, both [B * H, Sq] f32, built by the caller.
+// For every (q tile, key tile) pair of the causal/window band they
+// recompute
 //   s = scale * q.k (masked to NEG_INF as in the forward), p = exp(s - lse),
 //   dp = do.v, ds = p * (dp - di),
 // and add dv += p^T.do, dk += scale * ds^T.q, dq += scale * ds.k, with the
@@ -19,48 +20,61 @@
 //
 // What bounds them on an H100: the tensor cores' rate. Per tile pair K2
 // runs 5 products, K3a 3 (s, dp, dq) and K3b 4 (s, dp, dv, dk), each
-// 2 * 64 * 64 * D flops, over about half of the B * H * (S / 64)^2 pairs
-// under a causal mask: at Llama-1B's long-context shape (B 1, H 32, S 8192,
-// D 64) K3a ~412 GFLOP (0.417 ms at 989 TFLOP/s bf16) and K3b ~550 GFLOP
-// (0.556 ms). The design:
-//  - K2 and K3b, on 256 threads (8 warps): one block per (b * hkv, 64-key
-//    tile) holds its K and V tiles in shared memory and its dk / dv
-//    accumulators for the whole sweep; a loop over the group's query heads and the q tiles in the band
-//    (the forward's band arithmetic seen from the keys) takes the place of
-//    the TPU's sequential inner grid axis. K3b is K2's kernel with the dq
-//    product and its atomics compiled out (template flag kDq). In bf16 the
-//    products run on the tensor cores as WMMA 16x16x16 fragments with f32
-//    accumulation; s and dp go through shared memory for the elementwise
-//    p / ds pass, which stores p and ds as bf16 (the rounding points above)
-//    for the following products;
+// 2 * Bq * Bk * D flops, over about half of the pairs under a causal mask:
+// at Llama-1B's training shape (B 4, H 32/8, S 2048, D 64) K2 ~172 GFLOP,
+// 0.174 ms at 989 TFLOP/s bf16; at its long-context shape (B 1, S 8192) K3a
+// ~412 GFLOP (0.417 ms) and K3b ~550 GFLOP (0.556 ms). Replacing the
+// Pallas kernels block by block would leave them bound instead by shared
+// memory traffic and barriers, since Hopper blocks neither run in order nor
+// hold a whole-sequence scratch. The design:
+//  - K2 and K3b in bf16 (the training path), the kv sweep: one block per
+//    (b * hkv, 128-key block), on 4 warps of 32 keys (8 warps of 16 keys at
+//    D 128), two blocks an SM. A warp keeps the A fragments of its K rows
+//    (ldmatrix) and its dk / dv accumulators in registers for the whole
+//    sweep, which loops over the group's rep query heads and the 64-row q
+//    tiles of the band (q_band, the forward's band seen from the keys) —
+//    the loop takes the place of the TPU's sequential inner grid axis. Per
+//    16-row slice of a q tile a warp forms s^T = K.q^T and dp^T = V.do^T
+//    with mma.sync m16n8k16 (q and do as B fragments from shared memory,
+//    each feeding the warp's two 16-key m-tiles), then p^T and ds^T from
+//    the slice's lse and di, rounded to bf16 straight into the A fragments
+//    of dv += p^T.do and dk += ds^T.q (do and q as .trans B fragments): no
+//    s, dp, p or ds tile goes through shared memory. The next q tile, do
+//    tile and their lse / di rows load with cp.async while this one is
+//    computed (double buffer, one barrier per q tile); only the tiles that
+//    cross the diagonal, the window edge or a ragged edge take the mask
+//    (needs_mask_kv). dk and dv are summed over the query group inside the
+//    block and written once, in k's type, with no atomics, so they are
+//    bitwise reproducible. K3b is K2 with the dq product compiled out
+//    (template flag kDq);
 //  - K2's dq: the TPU kernel keeps a whole-sequence dq scratch in VMEM and
-//    relies on the grid running in order. Hopper blocks run concurrently,
-//    so each block adds its [64, D] dq contribution for a q tile with f32
-//    atomicAdd into a [B * H, Sq, D] f32 buffer the caller zeroes and casts.
-//    The order of those additions changes from run to run, so K2's dq is
-//    NOT bitwise reproducible;
+//    relies on the grid running in order. Here each warp also writes its
+//    ds^T rows in bf16 to one shared [keys][q] tile; after a second
+//    barrier the warps split the q tile two by two (32 rows x 32 columns
+//    each at D 64) and compute ds.k on the tensor cores (ds by .trans from
+//    that tile, K as .trans B fragments), adding the f32 result to a
+//    [B * H, Sq, D] buffer the caller zeroes and casts, with 8-byte
+//    reductions. The order of the additions changes from run to run, so
+//    K2's dq is NOT bitwise reproducible;
 //  - K3a: one block per (b * h, q tile) holds its q, do, lse and di rows
 //    and loops over the key tiles of the forward's band, keeping its dq
 //    accumulator for the whole sweep; dq is written once, in q's type, with
-//    no atomics, so it IS bitwise reproducible. In bf16 (the training path)
-//    it is register-resident, as K1 is (flash_common.cuh): 128-row q tiles,
-//    32 rows per warp at D <= 64 (16 at D 128); mma.sync m16n8k16 fed by
-//    ldmatrix, with q's and do's A fragments held in registers; s and dp of
-//    each 16-key slice stay in registers, where ds is formed from the rows'
-//    lse and di and rounded to bf16 as the A fragment of ds.k; only tiles
-//    that cross the diagonal, the window edge or the ragged Sk edge take
-//    the mask; the K / V tiles are double-buffered with cp.async so that
-//    tile j+1 loads while tile j is computed (one barrier per key tile);
+//    no atomics, so it IS bitwise reproducible. In bf16 it is
+//    register-resident, as K1 is (flash_common.cuh): 128-row q tiles,
+//    32 rows per warp at D <= 64 (16 at D 128); q's and do's A fragments
+//    stay in registers; s and dp of each 16-key slice stay in registers,
+//    where ds is formed from the rows' lse and di and rounded to bf16 as
+//    the A fragment of ds.k; the K / V tiles are double-buffered with
+//    cp.async (one barrier per key tile);
 //  - f32: the products run on the f32 FMA units (rows of K / V padded by
 //    one against bank conflicts), the accumulators in registers;
 //  - ragged Sq / Sk edges are masked here (p = ds = 0 outside the arrays).
-// The heaviest tiles launch first: the first key tiles (K2, K3b) and the
+// The heaviest tiles launch first: the first key blocks (K2, K3b) and the
 // last q tiles (K3a) under a causal mask.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 #include <cstdint>
 
@@ -68,11 +82,11 @@
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
 using namespace pddl_flash;
 
-// K2, K3b and the f32 K3a tile by 64 rows and 64 keys; K3a in bf16 takes
-// the mma.sync kernels' 128-row tiles (kMmaBlockQ, flash_common.cuh).
+// The f32 kernels tile by 64 rows and 64 keys. In bf16, K3a takes the
+// mma.sync kernels' 128-row tiles (kMmaBlockQ, flash_common.cuh) and K2 /
+// K3b the kv sweep's blocks of kKvBlockK keys against 64-row q tiles.
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kPS = kBlockK + 1;
@@ -126,17 +140,9 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     sv[r * KS + d] = ok ? vb[(size_t)key * D + d] : 0.f;
   }
 
-  // The q tiles whose rows see a key of this tile.
-  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
-  int qt_begin = 0;
-  int qt_end = nq;
-  if (causal) {
-    qt_begin = max(0, floor_div(k0 + k_offset, kBlockQ));
-    if (window > 0) {
-      const int k_last = min(k0 + kBlockK - 1, Sk - 1) + k_offset;
-      qt_end = min(nq, max(0, floor_div(k_last + window - 1, kBlockQ) + 1));
-    }
-  }
+  int qt_begin, qt_end;
+  q_band<kBlockQ, kBlockK>(k0, Sq, Sk, causal, window, k_offset, &qt_begin,
+                           &qt_end);
 
   float dk_acc[4][NJ], dv_acc[4][NJ];
 #pragma unroll
@@ -300,268 +306,375 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Stage rows [row0, row0 + 64) of a [rows, D] bf16 array into a [64][ld]
-// shared tile, zero-filled past `rows` and past D. When rows are exactly DM
-// wide and the array is 16-byte aligned, each row goes as 16-byte vectors
-// (8 values per load and store); otherwise one value at a time.
+// The kv sweep in bf16 (K2 with kDq, K3b without): a block owns kKvBlockK
+// keys for the whole sweep and walks the rep query heads of their kv head
+// and the kKvBlockQ-row q tiles of the band (q_band). A warp owns MT
+// m-tiles of 16 keys: two where registers allow (DM <= 64), so that every
+// q and do fragment read from shared memory feeds two products, on 4 warps
+// with two blocks an SM; one at DM 128, on 8 warps.
+constexpr int kKvBlockK = 128;
+constexpr int kKvBlockQ = 64;
+
 template <int DM>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          int row0, int rows, int D) {
-  if (D == DM && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    constexpr int kVecs = DM / 8;
-    for (int i = threadIdx.x; i < kBlockQ * kVecs; i += kThreads) {
-      const int r = i / kVecs;
-      const int c = (i - r * kVecs) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < rows) {
-        val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * DM + c);
-      }
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    }
-    return;
-  }
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < kBlockQ * DM; i += kThreads) {
-    const int r = i / DM;
-    const int d = i - r * DM;
-    const int row = row0 + r;
-    dst[r * ld + d] = (row < rows && d < D) ? src[(size_t)row * D + d] : zero;
+struct KvShape {
+  static constexpr int MT = DM <= 64 ? 2 : 1;
+  static constexpr int kWarps = kKvBlockK / (16 * MT);
+  static constexpr int kThreads = 32 * kWarps;
+};
+
+// Shared memory of the kv sweep: the K and V blocks, two q and two do tiles
+// (double buffer), two sets of the tiles' lse and di rows, and (K2) the
+// block's ds^T in bf16 for the dq product. bf16 rows are padded by 16 bytes
+// so that ldmatrix has no bank conflicts. At DM 64: 74,752 bytes for K3b,
+// 93,184 for K2, so two blocks fit an SM.
+template <int DM, bool kDq>
+struct KvLayout {
+  static constexpr int LD = DM + 8;           // K, V, q, do rows
+  static constexpr int LS = kKvBlockQ + 8;    // ds^T rows (keys)
+  static constexpr size_t bytes =
+      (size_t)(2 * kKvBlockK + 4 * kKvBlockQ) * LD * sizeof(bf16) +
+      4 * kKvBlockQ * sizeof(float) +
+      (kDq ? (size_t)kKvBlockK * LS * sizeof(bf16) : 0);
+};
+
+// Stage the lse and di of rows [q0, q0 + BQ) into dst[0, BQ) and
+// dst[BQ, 2 BQ), zero past Sq, with cp.async (the caller commits).
+template <int BQ, int THREADS>
+__device__ __forceinline__ void load_row_terms(float* dst, const float* lse,
+                                               const float* di, int q0,
+                                               int Sq) {
+  for (int i = threadIdx.x; i < 2 * BQ; i += THREADS) {
+    const int r = i < BQ ? i : i - BQ;
+    const float* src = i < BQ ? lse : di;
+    const bool ok = q0 + r < Sq;
+    cp_async_4(dst + i, ok ? src + q0 + r : src, ok);
   }
 }
 
-// Shared-memory layout of the bf16 tensor-core kernel (row strides padded
-// as WMMA's loads require: a multiple of 8 bf16 / 4 floats, 32-byte
-// aligned tiles).
-template <int DM>
-struct WmmaLayout {
-  static constexpr int LD = DM + 8;        // q, do, k, v tiles (bf16)
-  static constexpr int LS = kBlockK + 4;   // s, dp (f32)
-  static constexpr int LP = kBlockK + 8;   // p, ds (bf16)
-  static constexpr int LQ = DM + 4;        // dq staging (f32)
-  static constexpr size_t bytes =
-      4 * kBlockQ * LD * sizeof(bf16) + 2 * kBlockQ * LS * sizeof(float) +
-      2 * kBlockQ * LP * sizeof(bf16) + kBlockQ * LQ * sizeof(float) +
-      2 * kBlockQ * sizeof(float);
-  static_assert(kBlockK * LQ <= 2 * kBlockQ * LS,
-                "dv staging reuses the s / dp tiles");
-};
+// Add a thread's two adjacent f32 values at columns col, col + 1 (col even)
+// of an f32 row, within [0, D): one 8-byte reduction where D is even (the
+// row and col then keep it aligned), else one value at a time. The results
+// are unused, so these compile to reductions (RED), not atomics that wait.
+__device__ __forceinline__ void red_pair(float* row, int col, int D, float x0,
+                                         float x1) {
+  if ((D & 1) == 0) {
+    if (col < D) {
+      atomicAdd(reinterpret_cast<float2*>(row + col), make_float2(x0, x1));
+    }
+    return;
+  }
+  if (col < D) atomicAdd(row + col, x0);
+  if (col + 1 < D) atomicAdd(row + col + 1, x1);
+}
 
-// K2 (kDq) and K3b in bf16, on the tensor cores.
+// K2 (kDq) and K3b in bf16: the kv-stationary sweep on the tensor cores,
+// register-resident. A warp holds the A fragments of its K rows and its
+// dk / dv accumulators in registers for the whole sweep (V's fragments come
+// from shared memory: holding them too spills at DM 64); for each 16-row
+// slice of a q tile it forms s^T = K.q^T and dp^T = V.do^T (q and do as B
+// fragments from shared memory), then p^T = exp(s^T - lse) and
+// ds^T = p^T (dp^T - di) from the slice's lse and di, rounds both to bf16
+// as the A fragments of dv += p^T.do and dk += ds^T.q (do and q as .trans
+// B fragments). K2 also writes ds^T to shared memory; after one barrier the
+// warps split the q tile two by two and add dq = ds.k to the f32 buffer.
 template <int DM, bool kDq>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ di, float* __restrict__ dq,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                      int Hkv, int Sq, int Sk, int D, int causal, int window,
-                      int k_offset, float scale) {
-  using L = WmmaLayout<DM>;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                               wmma::row_major>;
-  using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                                wmma::col_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                               wmma::row_major>;
-  using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::col_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  constexpr int NC = DM / 16;              // 16-column blocks of a row
-  constexpr int NF = 4 * NC;               // [64, DM] fragments
-  constexpr int FPW = NF >= 8 ? NF / 8 : 1;  // of them per warp
+__global__ void __launch_bounds__(KvShape<DM>::kThreads, 1)
+flash_bwd_kv_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di, float* __restrict__ dq,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                        int Hkv, int Sq, int Sk, int D, int causal, int window,
+                        int k_offset, float scale) {
+  constexpr int LD = KvLayout<DM, kDq>::LD;
+  constexpr int LS = KvLayout<DM, kDq>::LS;
+  constexpr int BK = kKvBlockK;
+  constexpr int BQ = kKvBlockQ;
+  constexpr int MT = KvShape<DM>::MT;
+  constexpr int NW = KvShape<DM>::kWarps;
+  constexpr int NT = KvShape<DM>::kThreads;
+  constexpr int KK = DM / 16;              // k-steps of K.q^T and V.do^T
+  constexpr int NO = DM / 8;               // n-tiles of a dk / dv row block
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdo = sq + kBlockQ * L::LD;
-  bf16* sk = sdo + kBlockQ * L::LD;
-  bf16* sv = sk + kBlockK * L::LD;
-  float* ss = reinterpret_cast<float*>(sv + kBlockK * L::LD);
-  float* sdp = ss + kBlockQ * L::LS;
-  bf16* sp = reinterpret_cast<bf16*>(sdp + kBlockQ * L::LS);
-  bf16* sds = sp + kBlockQ * L::LP;
-  float* sdq = reinterpret_cast<float*>(sds + kBlockQ * L::LP);
-  float* slse = sdq + kBlockQ * L::LQ;
-  float* sdi = slse + kBlockQ;
+  bf16* sk = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sv = sk + BK * LD;
+  bf16* sq = sv + BK * LD;                 // [2][BQ][LD]
+  bf16* sdo = sq + 2 * BQ * LD;            // [2][BQ][LD]
+  float* srow = reinterpret_cast<float*>(sdo + 2 * BQ * LD);  // [2][2][BQ]
+  bf16* sds = reinterpret_cast<bf16*>(srow + 4 * BQ);  // [BK][LS]
 
   const int bkv = blockIdx.x;
   const int b = bkv / Hkv;
-  const int g = bkv - b * Hkv;
+  const int hk = bkv - b * Hkv;
   const int rep = H / Hkv;
-  const int k0 = blockIdx.y * kBlockK;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int k0 = blockIdx.y * BK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wrow = 16 * MT * warp;         // the warp's first key in the block
+  const bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v) && aligned16(dout);
 
-  load_tile<DM>(sk, L::LD, k + (size_t)bkv * Sk * D, k0, Sk, D);
-  load_tile<DM>(sv, L::LD, v + (size_t)bkv * Sk * D, k0, Sk, D);
+  int qt_begin, qt_end;
+  q_band<BQ, BK>(k0, Sq, Sk, causal, window, k_offset, &qt_begin, &qt_end);
+  const int nqt = max(0, qt_end - qt_begin);
+  const int steps = rep * nqt;             // (query head, q tile) pairs
 
-  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
-  int qt_begin = 0;
-  int qt_end = nq;
-  if (causal) {
-    qt_begin = max(0, floor_div(k0 + k_offset, kBlockQ));
-    if (window > 0) {
-      const int k_last = min(k0 + kBlockK - 1, Sk - 1) + k_offset;
-      qt_end = min(nq, max(0, floor_div(k_last + window - 1, kBlockQ) + 1));
+  // Stage step `it`'s q and do tiles and row terms into buffer `buf`.
+  auto stage = [&](int it, int buf) {
+    const int r = it / nqt;
+    const int q0 = (qt_begin + it - r * nqt) * BQ;
+    const size_t bh = (size_t)b * H + hk * rep + r;
+    load_rows<DM, BQ, NT>(sq + buf * BQ * LD, q + bh * Sq * D, q0, Sq, D,
+                          vec);
+    load_rows<DM, BQ, NT>(sdo + buf * BQ * LD, dout + bh * Sq * D, q0, Sq, D,
+                          vec);
+    load_row_terms<BQ, NT>(srow + buf * 2 * BQ, lse + bh * Sq, di + bh * Sq,
+                           q0, Sq);
+  };
+
+  load_rows<DM, BK, NT>(sk, k + (size_t)bkv * Sk * D, k0, Sk, D, vec);
+  load_rows<DM, BK, NT>(sv, v + (size_t)bkv * Sk * D, k0, Sk, D, vec);
+  if (steps > 0) stage(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  uint32_t kf[MT][KK][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const int off = a_offset<LD>(lane, wrow + 16 * mt, kk * 16);
+      ldmatrix_x4(kf[mt][kk], sk + off);
     }
-  }
 
-  FragC dk_acc[FPW], dv_acc[FPW];
+  float dk_acc[MT][NO][4], dv_acc[MT][NO][4];
 #pragma unroll
-  for (int i = 0; i < FPW; ++i) {
-    wmma::fill_fragment(dk_acc[i], 0.f);
-    wmma::fill_fragment(dv_acc[i], 0.f);
-  }
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[mt][n][e] = dv_acc[mt][n][e] = 0.f;
+  // exp(scale * s - lse) as one FMA and exp2 on the tiles that need no mask.
+  const float s_log2 = scale * kLog2e;
 
-  for (int r = 0; r < rep; ++r) {
-    const int bh = b * H + g * rep + r;
-    const bf16* qb = q + (size_t)bh * Sq * D;
-    const bf16* dob = dout + (size_t)bh * Sq * D;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kBlockQ;
-      __syncthreads();  // the previous pair is done with every tile
-      load_tile<DM>(sq, L::LD, qb, q0, Sq, D);
-      load_tile<DM>(sdo, L::LD, dob, q0, Sq, D);
-      if (tid < kBlockQ) {
-        const int row = q0 + tid;
-        slse[tid] = row < Sq ? lse[(size_t)bh * Sq + row] : 0.f;
-        sdi[tid] = row < Sq ? di[(size_t)bh * Sq + row] : 0.f;
-      }
-      __syncthreads();
+  for (int it = 0; it < steps; ++it) {
+    const int buf = it & 1;
+    if (it > 0) {
+      cp_async_wait_all();
+      __syncthreads();  // step it landed; every warp is done with step it-1
+    }
+    if (it + 1 < steps) stage(it + 1, buf ^ 1);
+    cp_async_commit();
 
-      // s = q.k^T and dp = do.v^T: 16 fragments each, two per warp.
+    const int r = it / nqt;
+    const int q0 = (qt_begin + it - r * nqt) * BQ;
+    const bf16* sqt = sq + buf * BQ * LD;
+    const bf16* sdot = sdo + buf * BQ * LD;
+    const float* slse = srow + buf * 2 * BQ;
+    const float* sdi = slse + BQ;
+    bool masked[MT];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int f = warp + 8 * i;
-        const int rb = f >> 2;
-        const int cb = f & 3;
-        FragC acc_s, acc_dp;
-        wmma::fill_fragment(acc_s, 0.f);
-        wmma::fill_fragment(acc_dp, 0.f);
+    for (int mt = 0; mt < MT; ++mt) {
+      masked[mt] = needs_mask_kv<BQ>(k0 + wrow + 16 * mt, q0, Sq, Sk, causal,
+                                     window, k_offset);
+    }
+
+    // Not unrolled: unrolled, the slices' registers spill at DM 64 and K2
+    // runs slower.
+#pragma unroll 1
+    for (int j = 0; j < BQ / 16; ++j) {
+      // s^T and dp^T for q rows q0 + 16j .. q0 + 16j + 15: two n-tiles each.
+      float s[MT][2][4], dp[MT][2][4];
 #pragma unroll
-        for (int kk = 0; kk < NC; ++kk) {
-          FragA a;
-          FragBT bt;
-          wmma::load_matrix_sync(a, sq + rb * 16 * L::LD + kk * 16, L::LD);
-          wmma::load_matrix_sync(bt, sk + cb * 16 * L::LD + kk * 16, L::LD);
-          wmma::mma_sync(acc_s, a, bt, acc_s);
-          wmma::load_matrix_sync(a, sdo + rb * 16 * L::LD + kk * 16, L::LD);
-          wmma::load_matrix_sync(bt, sv + cb * 16 * L::LD + kk * 16, L::LD);
-          wmma::mma_sync(acc_dp, a, bt, acc_dp);
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][n][e] = dp[mt][n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, sqt + b_offset<LD>(lane, j * 16, kk * 16));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_16816(s[mt][0], kf[mt][kk], bf[0], bf[1]);
+          mma_16816(s[mt][1], kf[mt][kk], bf[2], bf[3]);
         }
-        wmma::store_matrix_sync(ss + rb * 16 * L::LS + cb * 16, acc_s, L::LS,
-                                wmma::mem_row_major);
-        wmma::store_matrix_sync(sdp + rb * 16 * L::LS + cb * 16, acc_dp,
-                                L::LS, wmma::mem_row_major);
-      }
-      __syncthreads();
-
-      // p = exp(s - lse) and ds = p * (dp - di), stored as bf16.
-      {
-        const int rr = tid >> 2;
-        const int part = tid & 3;
-        const int qpos = q0 + rr;
+        ldmatrix_x4(bf, sdot + b_offset<LD>(lane, j * 16, kk * 16));
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
-          const int col = part * 16 + c;
-          const int key = k0 + col;
-          float p = 0.f, ds = 0.f;
-          if (qpos < Sq && key < Sk) {
-            float x = ss[rr * L::LS + col];
-            if (scale != 1.f) x *= scale;
-            if (causal) {
-              const int kpos = key + k_offset;
-              bool keep = qpos >= kpos;
-              if (window > 0) keep = keep && kpos > qpos - window;
-              if (!keep) x = kNegInf;
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t va[4];
+          ldmatrix_x4(va, sv + a_offset<LD>(lane, wrow + 16 * mt, kk * 16));
+          mma_16816(dp[mt][0], va, bf[0], bf[1]);
+          mma_16816(dp[mt][1], va, bf[2], bf[3]);
+        }
+      }
+
+      // p^T = exp(s^T - lse), ds^T = p^T (dp^T - di), by the columns' rows;
+      // both rounded to bf16 as A fragments over these 16 q rows.
+      uint32_t pa[MT][4], da[MT][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int c = j * 16 + n * 8 + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(slse + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(sdi + c);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float l = (e & 1) ? l2.y : l2.x;
+            float p;
+            if (masked[mt]) {
+              const int key = k0 + wrow + 16 * mt + g + 8 * (e >> 1);
+              const int qpos = q0 + c + (e & 1);
+              p = 0.f;
+              if (key < Sk && qpos < Sq) {
+                float x = scale != 1.f ? scale * s[mt][n][e] : s[mt][n][e];
+                if (causal && !keeps(qpos, key + k_offset, window)) {
+                  x = kNegInf;
+                }
+                p = exp2_approx((x - l) * kLog2e);
+              }
+            } else {
+              p = exp2_approx(fmaf(s[mt][n][e], s_log2, -l * kLog2e));
             }
-            p = expf(x - slse[rr]);
-            ds = p * (sdp[rr * L::LS + col] - sdi[rr]);
+            s[mt][n][e] = p;
+            dp[mt][n][e] = p * (dp[mt][n][e] - ((e & 1) ? d2.y : d2.x));
           }
-          sp[rr * L::LP + col] = __float2bfloat16(p);
-          sds[rr * L::LP + col] = __float2bfloat16(ds);
+          pa[mt][2 * n] = pack_bf16(s[mt][n][0], s[mt][n][1]);
+          pa[mt][2 * n + 1] = pack_bf16(s[mt][n][2], s[mt][n][3]);
+          da[mt][2 * n] = pack_bf16(dp[mt][n][0], dp[mt][n][1]);
+          da[mt][2 * n + 1] = pack_bf16(dp[mt][n][2], dp[mt][n][3]);
         }
       }
-      __syncthreads();
-
-      // dv += p^T.do, dk += ds^T.q (rows: keys), and (K2) this pair's
-      // dq = ds.k (rows: queries), over [64, DM] fragments.
-#pragma unroll
-      for (int i = 0; i < FPW; ++i) {
-        const int f = warp + 8 * i;
-        if (f >= NF) break;
-        const int rb = f / NC;
-        const int cb = f - rb * NC;
-        FragC acc_dq;
-        if constexpr (kDq) wmma::fill_fragment(acc_dq, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < kBlockQ / 16; ++kk) {
-          FragAT at;
-          FragB bm;
-          wmma::load_matrix_sync(at, sp + kk * 16 * L::LP + rb * 16, L::LP);
-          wmma::load_matrix_sync(bm, sdo + kk * 16 * L::LD + cb * 16, L::LD);
-          wmma::mma_sync(dv_acc[i], at, bm, dv_acc[i]);
-          wmma::load_matrix_sync(at, sds + kk * 16 * L::LP + rb * 16, L::LP);
-          wmma::load_matrix_sync(bm, sq + kk * 16 * L::LD + cb * 16, L::LD);
-          wmma::mma_sync(dk_acc[i], at, bm, dk_acc[i]);
-          if constexpr (kDq) {
-            FragA a;
-            wmma::load_matrix_sync(a, sds + rb * 16 * L::LP + kk * 16, L::LP);
-            wmma::load_matrix_sync(bm, sk + kk * 16 * L::LD + cb * 16, L::LD);
-            wmma::mma_sync(acc_dq, a, bm, acc_dq);
-          }
-        }
-        if constexpr (kDq) {
-          wmma::store_matrix_sync(sdq + rb * 16 * L::LQ + cb * 16, acc_dq,
-                                  L::LQ, wmma::mem_row_major);
-        }
-      }
-
       if constexpr (kDq) {
-        __syncthreads();
-        float* dqb = dq + (size_t)bh * Sq * D;
-        for (int i = tid; i < kBlockQ * DM; i += kThreads) {
-          const int rr = i / DM;
-          const int d = i - rr * DM;
-          const int row = q0 + rr;
-          if (row < Sq && d < D) {
-            const float x = sdq[rr * L::LQ + d];
-            atomicAdd(dqb + (size_t)row * D + d, scale != 1.f ? scale * x : x);
-          }
+        // ds^T rows g and g + 8 of each m-tile, columns 16j + 2t (n-tile 0)
+        // and 16j + 8 + 2t (n-tile 1).
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          bf16* row = sds + (wrow + 16 * mt + g) * LS + j * 16 + 2 * t;
+          *reinterpret_cast<uint32_t*>(row) = da[mt][0];
+          *reinterpret_cast<uint32_t*>(row + 8 * LS) = da[mt][1];
+          *reinterpret_cast<uint32_t*>(row + 8) = da[mt][2];
+          *reinterpret_cast<uint32_t*>(row + 8 * LS + 8) = da[mt][3];
+        }
+      }
+
+      // dv += p^T.do, dk += ds^T.q over these 16 q rows.
+#pragma unroll
+      for (int p = 0; p < DM / 16; ++p) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, sdot + bt_offset<LD>(lane, j * 16, p * 16));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_16816(dv_acc[mt][2 * p], pa[mt], bf[0], bf[1]);
+          mma_16816(dv_acc[mt][2 * p + 1], pa[mt], bf[2], bf[3]);
+        }
+        ldmatrix_x4_trans(bf, sqt + bt_offset<LD>(lane, j * 16, p * 16));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_16816(dk_acc[mt][2 * p], da[mt], bf[0], bf[1]);
+          mma_16816(dk_acc[mt][2 * p + 1], da[mt], bf[2], bf[3]);
         }
       }
     }
-  }
 
-  // Stage dk (over the dq tile) and dv (over the s / dp tiles), then write.
-  __syncthreads();
-  float* sdk = sdq;
-  float* sdv = ss;
-#pragma unroll
-  for (int i = 0; i < FPW; ++i) {
-    const int f = warp + 8 * i;
-    if (f >= NF) break;
-    const int rb = f / NC;
-    const int cb = f - rb * NC;
-    if (scale != 1.f) {
-      for (int e = 0; e < dk_acc[i].num_elements; ++e) dk_acc[i].x[e] *= scale;
+    if constexpr (kDq) {
+      // dq = ds.k for the tile's rows from ds^T in sds, added to the f32
+      // buffer. The warps split the tile WQ x WD: each takes MPW 16-row
+      // m-tiles and CPW 16-column blocks, so that each ds fragment feeds CPW
+      // products and each K fragment MPW.
+      __syncthreads();  // every warp's ds^T rows are in sds
+      constexpr int MQ = BQ / 16;
+      constexpr int NC = DM / 16;
+      constexpr int WD = NC >= 2 ? 2 : 1;
+      constexpr int WQ = NW / WD;
+      constexpr int MPW = MQ / WQ;
+      constexpr int CPW = NC / WD;
+      static_assert(NW % WD == 0 && MQ % WQ == 0 && MPW >= 1,
+                    "the dq product splits evenly over the warps");
+      const int m0 = (warp % WQ) * MPW;
+      const int c0 = (warp / WQ) * CPW;
+      float acc[MPW][CPW][2][4];
+  #pragma unroll
+      for (int m = 0; m < MPW; ++m)
+  #pragma unroll
+        for (int c = 0; c < CPW; ++c)
+  #pragma unroll
+          for (int n = 0; n < 2; ++n)
+  #pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][c][n][e] = 0.f;
+  #pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks) {
+        // ds (rows q, columns keys) from the [keys][q] tile, transposed.
+        uint32_t a[MPW][4];
+  #pragma unroll
+        for (int m = 0; m < MPW; ++m) {
+          ldmatrix_x4_trans(a[m],
+                            sds + b_offset<LS>(lane, ks * 16, (m0 + m) * 16));
+        }
+  #pragma unroll
+        for (int c = 0; c < CPW; ++c) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf,
+                            sk + bt_offset<LD>(lane, ks * 16, (c0 + c) * 16));
+  #pragma unroll
+          for (int m = 0; m < MPW; ++m) {
+            mma_16816(acc[m][c][0], a[m], bf[0], bf[1]);
+            mma_16816(acc[m][c][1], a[m], bf[2], bf[3]);
+          }
+        }
+      }
+      float* dqb = dq + ((size_t)b * H + hk * rep + r) * Sq * D;
+  #pragma unroll
+      for (int m = 0; m < MPW; ++m)
+  #pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = q0 + (m0 + m) * 16 + g + 8 * i;
+          if (row >= Sq) continue;
+  #pragma unroll
+          for (int c = 0; c < CPW; ++c)
+  #pragma unroll
+            for (int n = 0; n < 2; ++n) {
+              float x0 = acc[m][c][n][2 * i], x1 = acc[m][c][n][2 * i + 1];
+              if (scale != 1.f) {
+                x0 *= scale;
+                x1 *= scale;
+              }
+              red_pair(dqb + (size_t)row * D, (c0 + c) * 16 + n * 8 + 2 * t, D,
+                       x0, x1);
+            }
+        }
     }
-    wmma::store_matrix_sync(sdk + rb * 16 * L::LQ + cb * 16, dk_acc[i], L::LQ,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(sdv + rb * 16 * L::LQ + cb * 16, dv_acc[i], L::LQ,
-                            wmma::mem_row_major);
   }
-  __syncthreads();
+  cp_async_wait_all();
+
+  // dk (scaled once) and dv, written once in k's type: no atomics.
   bf16* dkb = dk + (size_t)bkv * Sk * D;
   bf16* dvb = dv + (size_t)bkv * Sk * D;
-  for (int i = tid; i < kBlockK * DM; i += kThreads) {
-    const int r = i / DM;
-    const int d = i - r * DM;
-    const int key = k0 + r;
-    if (key < Sk && d < D) {
-      dkb[(size_t)key * D + d] = __float2bfloat16(sdk[r * L::LQ + d]);
-      dvb[(size_t)key * D + d] = __float2bfloat16(sdv[r * L::LQ + d]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = k0 + wrow + 16 * mt + g + 8 * i;
+      if (key >= Sk) continue;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        float x0 = dk_acc[mt][n][2 * i], x1 = dk_acc[mt][n][2 * i + 1];
+        if (scale != 1.f) {
+          x0 *= scale;
+          x1 *= scale;
+        }
+        store_pair(dkb + (size_t)key * D, n * 8 + 2 * t, D, x0, x1);
+        store_pair(dvb + (size_t)key * D, n * 8 + 2 * t, D,
+                   dv_acc[mt][n][2 * i], dv_acc[mt][n][2 * i + 1]);
+      }
     }
-  }
 }
 
 // K3a in f32: the dq sweep on the FMA units. One block per (b * h, 64-row
@@ -962,19 +1075,21 @@ struct Bwd {
 // buffer a.dq) or K3b (a.dq unused).
 template <int DM, bool kDq>
 cudaError_t launch_kv_sweep(const Bwd& a) {
-  const dim3 grid(a.B * a.Hkv, (a.Sk + kBlockK - 1) / kBlockK);
   const float* l = static_cast<const float*>(a.lse);
   const float* r = static_cast<const float*>(a.di);
   float* g = static_cast<float*>(a.dq);
   if (a.b16) {
-    return launch(flash_bwd_wmma_kernel<DM, kDq>, WmmaLayout<DM>::bytes, grid,
-                  kThreads, a.stream, static_cast<const bf16*>(a.q),
+    const dim3 grid(a.B * a.Hkv, (a.Sk + kKvBlockK - 1) / kKvBlockK);
+    return launch(flash_bwd_kv_mma_kernel<DM, kDq>, KvLayout<DM, kDq>::bytes,
+                  grid, KvShape<DM>::kThreads, a.stream,
+                  static_cast<const bf16*>(a.q),
                   static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
                   static_cast<const bf16*>(a.dout), l, r, g,
                   static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H,
                   a.Hkv, a.Sq, a.Sk, a.D, a.causal, a.window, a.k_offset,
                   a.scale);
   }
+  const dim3 grid(a.B * a.Hkv, (a.Sk + kBlockK - 1) / kBlockK);
   return launch(flash_bwd_f32_kernel<DM, kDq>,
                 sizeof(float) * smem_floats<DM>(), grid, kThreads, a.stream,
                 static_cast<const float*>(a.q), static_cast<const float*>(a.k),

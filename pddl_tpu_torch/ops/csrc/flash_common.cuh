@@ -1,8 +1,9 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu): the mask constant and band arithmetic, the launch helper,
-// and the pieces of the register-resident tensor-core design that K1 and
-// K3a are built from — cp.async 16-byte tile copies into padded shared
-// rows, ldmatrix fragment loads and the mma.sync m16n8k16 bf16 product.
+// and the pieces of the register-resident tensor-core design that K1, K3a
+// and the kv sweep (K2, K3b) are built from — cp.async tile copies into
+// padded shared rows, ldmatrix fragment loads and the mma.sync m16n8k16
+// bf16 product.
 //
 // Fragment layouts of mma.sync.m16n8k16 (bf16 in, f32 accumulate), for lane
 // l of a warp, g = l / 4 and t = l % 4:
@@ -13,7 +14,9 @@
 // Two adjacent C tiles (keys 16j .. 16j+15 of one row block), rounded to
 // bf16 and packed in pairs, are exactly the A fragment of a product over
 // those 16 keys: that is how p (K1) and ds (K3a) feed the next product from
-// registers, with no trip through shared memory.
+// registers, with no trip through shared memory. The kv sweep uses the same
+// identity with the roles swapped: two C tiles of p^T or ds^T (rows keys,
+// columns 16 q rows) are the A fragment of a product over those 16 q rows.
 
 #pragma once
 
@@ -28,7 +31,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;         // a masked score
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 256;             // the WMMA and f32 kernels' blocks
+constexpr int kThreads = 256;             // the f32 kernels' blocks
 constexpr size_t kMaxSmem = 232448;       // an H100 block's dynamic shared memory
 
 // The mma.sync kernels (K1, K3a): 128 query rows per block against 64-key
@@ -67,6 +70,24 @@ __device__ __forceinline__ void key_band(int q0, int Sq, int Sk, int causal,
   }
 }
 
+// The q tiles (BQ rows each) whose rows see some key of the BK-key block at
+// k0: the same band seen from the keys (the JAX package's _block_in_band
+// with the roles swapped), [*qt_begin, *qt_end).
+template <int BQ, int BK>
+__device__ __forceinline__ void q_band(int k0, int Sq, int Sk, int causal,
+                                       int window, int k_offset,
+                                       int* qt_begin, int* qt_end) {
+  *qt_begin = 0;
+  *qt_end = (Sq + BQ - 1) / BQ;
+  if (causal) {
+    *qt_begin = max(0, floor_div(k0 + k_offset, BQ));
+    if (window > 0) {
+      const int k_last = min(k0 + BK - 1, Sk - 1) + k_offset;
+      *qt_end = min(*qt_end, max(0, floor_div(k_last + window - 1, BQ) + 1));
+    }
+  }
+}
+
 // Whether rows [r0, r0 + 16) against keys [k0, k0 + BK) need the mask: a
 // key past Sk, or (causal) a key after a row or outside a row's window.
 template <int BK>
@@ -76,6 +97,19 @@ __device__ __forceinline__ bool needs_mask(int r0, int k0, int Sk, int causal,
   if (!causal) return false;
   if (k0 + BK - 1 + k_offset > r0) return true;
   return window > 0 && k0 + k_offset <= r0 + 15 - window;
+}
+
+// The mirror from the keys' side: whether keys [kr0, kr0 + 16) against the
+// BQ-row q tile at q0 need the mask: a key past Sk, a row past Sq, or
+// (causal) a key after a row or outside a row's window.
+template <int BQ>
+__device__ __forceinline__ bool needs_mask_kv(int kr0, int q0, int Sq, int Sk,
+                                              int causal, int window,
+                                              int k_offset) {
+  if (kr0 + 16 > Sk || q0 + BQ > Sq) return true;
+  if (!causal) return false;
+  if (kr0 + 15 + k_offset > q0) return true;
+  return window > 0 && kr0 + k_offset <= q0 + BQ - 1 - window;
 }
 
 // Whether query qpos keeps key position kpos = key + k_offset.
@@ -94,6 +128,14 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 // 2^x on the special-function unit (flushes results below 2^-126 to 0).

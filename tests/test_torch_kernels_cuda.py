@@ -13,7 +13,8 @@ each gradient's max-abs: within 2e-2 in bf16 and 1e-3 in f32, since K2
 sums dq with atomics in an order that changes from run to run and the
 bf16 roundings of p and ds fall on values computed in another order. The
 two-sweep backward (K3a, K3b) is held to the same tolerances; its dq has
-no atomics and is bitwise equal from run to run, as is K1's output.
+no atomics and is bitwise equal from run to run, as is K1's output, and so
+are K2's and K3b's dk and dv, which are summed inside one block.
 """
 
 import pytest
@@ -94,7 +95,9 @@ def test_paged_decode_kernel_raises_on_what_it_does_not_take():
 # bf16 head width that is not a multiple of 16 (zero-padded in the kernel);
 # then the edges of the bf16 kernels' 128-row q tiles and 64-key tiles: one
 # row past a q tile, no mask with Sq != Sk (ragged in both), and a window
-# narrower than a key tile.
+# narrower than a key tile; and the edges of the kv sweep's (K2, K3b)
+# 128-key blocks: keys one past two blocks, and with a window narrower than
+# a warp's 16 keys.
 FLASH = {
     "llama1b": (4, 32, 8, 2048, 2048, 64, torch.bfloat16, True, None, 0),
     "llama1b_w512": (4, 32, 8, 2048, 2048, 64, torch.bfloat16, True, 512, 0),
@@ -108,6 +111,8 @@ FLASH = {
     "s129": (2, 8, 2, 129, 129, 64, torch.bfloat16, True, None, 0),
     "full_bf16": (2, 4, 2, 200, 136, 64, torch.bfloat16, False, None, 0),
     "window6": (2, 8, 2, 300, 300, 64, torch.bfloat16, True, 6, 0),
+    "sk257": (2, 8, 2, 257, 257, 64, torch.bfloat16, True, None, 0),
+    "sk257_window12": (2, 8, 2, 257, 257, 64, torch.bfloat16, True, 12, 0),
 }
 
 
@@ -244,7 +249,8 @@ TWO_SWEEP = {
     **{name: FLASH[name] for name in ("llama1b_w512", "mha", "rep3_d128",
                                       "ragged1000", "k_offset", "f32",
                                       "d40", "s129", "full_bf16",
-                                      "window6")},
+                                      "window6", "sk257",
+                                      "sk257_window12")},
     "prime13": (2, 8, 2, 13, 13, 64, torch.float32, True, None, 0),
     "prime1009": (2, 8, 2, 1009, 1009, 64, torch.float32, True, None, 0),
 }
@@ -295,6 +301,27 @@ def test_two_sweep_dq_is_bitwise_reproducible(shape, monkeypatch):
     second = tatt.flash_backward(q, k, v, o, lse, do, dlse, **kw)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", ["k2", "k3b"])
+@pytest.mark.parametrize("shape", ["llama1b", "s129", "sk257"])
+def test_kv_sweep_dk_dv_are_bitwise_reproducible(shape, sweep, monkeypatch):
+    """K2 and K3b sum dk and dv over the query group inside one block and
+    write each element once, with no atomics: two runs agree bit for bit."""
+    dev = _card()
+    q, k, v, do, dlse, kw = _flash_case(dev, *FLASH[shape])
+    if sweep == "k3b":
+        monkeypatch.setattr(tatt, "_FUSED_BWD_DQ_BYTES", 0)
+    name = {"k2": "flash_bwd_fused", "k3b": "flash_bwd_dkv"}[sweep]
+    o, lse = tatt.flash_forward(q, k, v, **kw)
+    before = _kernels.launch_counts[name]
+    first = tatt.flash_backward(q, k, v, o, lse, do, dlse, **kw)
+    second = tatt.flash_backward(q, k, v, o, lse, do, dlse, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts[name] == before + 2
+    for a, b in zip(first[1:], second[1:]):
         assert torch.equal(a, b)
 
 
