@@ -16,8 +16,13 @@ two-sweep flash backward) — and prints one line per phase:
    started together (seconds);
 3. paged_decode vs plain — max-abs error at Llama-1B's decode shape
    (bf16 and f32, with and without a window), an odd shape (rep 3,
-   D 128) and the CPU tests' tiny shape; then the kernel's time, the
-   plain version's, an SDPA yardstick's and the bound, on CUDA events;
+   D 128), the CPU tests' tiny shape, and the edges of K4's split of the
+   table: depths at a split boundary and one past it, a window across
+   it, a table far wider than the rows, rep 1 and rep 8, D 256 with bs
+   64, table entries outside [0, N); two runs bitwise equal at the
+   Llama-1B shape; then the kernel's time, the plain version's, an SDPA
+   yardstick's and the bound, on CUDA events, at three shapes (mixed
+   depths, the engine's steady tick, one row at depth 4095);
 4. flash_fwd vs plain — K1 with and without its LSE write at Llama-1B's
    training shape (B 4, H 32/8, S 2048, D 64, bf16, causal), with a
    512 window, MHA, rep 3 at D 128, a ragged S of 1000, offset keys, f32,
@@ -76,7 +81,8 @@ two-sweep flash backward) — and prints one line per phase:
 13. kernels — one JSON object: every ported kernel with its launches on
     its main path (phase 7, 10 or 11), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
-    ``library_computes`` says);
+    ``library_computes`` says; K4's other timing shapes under
+    ``shapes``);
 
 and, as its last line, ``{"ok": true, "device": {...}}``. Any failure
 raises: the script exits non-zero and prints no result. It needs the
@@ -181,6 +187,38 @@ def cuda_ms(fn, n_copies: int, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, n_copies: int, calls: int = 32, reps: int = 200) -> float:
+    """Device ms per call: ``calls`` calls (cycling over ``n_copies`` input
+    sets) captured in one CUDA graph, replayed ``reps`` times after 50
+    warm-up replays, on CUDA events. Where a call's device work is
+    shorter than its wrapper's host time, eager launches leave the card
+    idle between calls and :func:`cuda_ms` measures the host; the graph
+    replays the same launches back to back."""
+    for i in range(n_copies):
+        fn(i)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i % n_copies)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i % n_copies)
+    for _ in range(50):
+        graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
 def decode_bound_ms(case):
     """Least time for one call and what sets it: the bytes it must move
     (q, the live K/V prefix of every row, the table entries it follows,
@@ -229,10 +267,93 @@ def sdpa_fn(cases):
     return fn
 
 
+# K4's timing shapes (bf16): Llama-1B's decode shape at the agreement
+# case's mixed depths; the engine's steady tick (8 rows at depth 390); one
+# row at Llama_1B's max_len 4096 (T 256), where one block per (row, kv
+# head) would leave most of the card idle.
+LLAMA_DECODE = dict(b=8, h=32, hkv=8, d=64, bs=16, t=64)
+PAGED_TIMING = {
+    "mixed": dict(LLAMA_DECODE, depths=[0, 7, 16, 100, 391, 512, 777,
+                                        64 * 16 - 1]),
+    "tick": dict(LLAMA_DECODE, depths=[390] * 8),
+    "long_row": dict(LLAMA_DECODE, b=1, t=256, depths=[4095]),
+}
+
+
+def paged_split_edges(gen):
+    """Agreement cases at the edges of K4's split of the table (the plan
+    the wrapper takes on this card): depths at a split boundary and one
+    past it, a window from one split into the next, a table far wider
+    than the deepest row, rep 1 and rep 8, D 256 with bs 64, and table
+    entries outside [0, N), which read block 0 (held against the plain
+    version on the table with those entries at 0). ``name -> (err, tol)``."""
+    sms = tatt._sm_count(DEV.index or 0)
+    n_split, per = tatt.paged_split_plan(8, 8, 64, 16, sms)
+    edge = per * 16                       # first position of split 1
+    depths = [edge - 1, edge, edge + 1, 2 * edge - 1, 2 * edge, 0, 390,
+              64 * 16 - 1]
+    cases = {
+        "split_edges": (dict(LLAMA_DECODE, depths=depths), (None, 100)),
+        "wide_table": (dict(LLAMA_DECODE, b=4, t=256, depths=[0, 15, 16, 40]),
+                       (None, 6)),
+        "rep1": (dict(LLAMA_DECODE, b=4, hkv=32, depths=[0, 127, 128, 1000]),
+                 (None, 100)),
+        "rep8": (dict(LLAMA_DECODE, b=4, hkv=4, depths=[1, 127, 128, 1023]),
+                 (None, 100)),
+        "d256_bs64": (dict(b=2, h=8, hkv=2, d=256, bs=64, t=16,
+                           depths=[63, 1023]), (None, 100)),
+    }
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        for name, (shape, windows) in cases.items():
+            case = paged_case(gen, dtype=dtype, **shape)
+            for window in windows:
+                errs[f"{name}_{dn}_w{window}"] = (compare(case, window),
+                                                  TOL[dtype])
+        q, kp, vp, table, index = paged_case(gen, dtype=dtype,
+                                             **PAGED_TIMING["mixed"])
+        bad = table.clone()
+        bad[0, 0], bad[3, 5], bad[7, 60] = -7, kp.shape[0], kp.shape[0] + 11
+        got = tatt.paged_decode_attention_kernel(q, kp, vp, bad, index)
+        sink = torch.where((bad >= 0) & (bad < kp.shape[0]), bad, 0)
+        ref = tatt.paged_decode_attention(q, kp, vp, sink, index,
+                                          kernel=False)
+        torch.cuda.synchronize()
+        errs[f"table_out_of_range_{dn}"] = (
+            float((got.float() - ref.float()).abs().max()), TOL[dtype])
+    return n_split, per, errs
+
+
+def time_paged(gen, shape):
+    """K4's time at one shape on 8 copies of the inputs (~134 MB at the
+    Llama shape, so every launch reads K/V from HBM as in the tick, where
+    16 layers' pools and the weights stream between launches): ``ms`` and
+    the SDPA yardstick's ``library_ms`` are device times from a CUDA graph
+    (:func:`graph_ms`); ``eager_ms`` times the same wrapper calls launched
+    one by one (:func:`cuda_ms`), which is the wrapper's host time where
+    that is the longer; the plain version (``plain_ms``, eager: it reads
+    the depths on the host) and the bound beside them."""
+    cases = [paged_case(gen, dtype=torch.bfloat16, **shape)
+             for _ in range(8)]
+
+    def kernel(i):
+        return tatt.paged_decode_attention_kernel(*cases[i])
+
+    ms = graph_ms(kernel, 8)
+    eager_ms = cuda_ms(kernel, 8)
+    plain_ms = cuda_ms(lambda i: tatt.paged_decode_attention(
+        *cases[i], kernel=False), 8, iters=50)
+    library_ms = graph_ms(sdpa_fn(cases), 8)
+    bound_ms, bound_by = decode_bound_ms(cases[0])
+    return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def phase_paged_decode():
     gen = torch.Generator(device=DEV).manual_seed(0)
-    llama = dict(b=8, h=32, hkv=8, d=64, bs=16, t=64,
-                 depths=[0, 7, 16, 100, 391, 512, 777, 64 * 16 - 1])
+    llama = PAGED_TIMING["mixed"]
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -248,31 +369,43 @@ def phase_paged_decode():
     for window in (None, 6):
         errs[f"tiny_f32_w{window}"] = (compare(tiny, window),
                                        TOL[torch.float32])
+    n_split, per, edge_errs = paged_split_edges(gen)
+    errs.update(edge_errs)
     bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
     phase("paged_decode", cases=len(errs),
+          split_plan=f"{n_split}x{per}_entries",
           errors=" ".join(f"{k}:{e:.3g}/{tol:g}" for k, (e, tol)
                           in errs.items()))
     if bad:
         raise RuntimeError(f"paged_decode kernel disagrees with plain: {bad}")
 
-    # Timing at the engine's decode shape (bf16, no window); 8 copies of
-    # the pools (~134 MB) so every launch reads K/V from HBM.
-    cases = [paged_case(gen, dtype=torch.bfloat16, **llama)
-             for _ in range(8)]
-    ms = cuda_ms(lambda i: tatt.paged_decode_attention_kernel(*cases[i]), 8)
-    plain_ms = cuda_ms(lambda i: tatt.paged_decode_attention(
-        *cases[i], kernel=False), 8, iters=50)
-    library_ms = cuda_ms(sdpa_fn(cases), 8)
-    bound_ms, bound_by = decode_bound_ms(cases[0])
+    # Two runs bitwise equal at the Llama-1B shape: the splits merge in a
+    # fixed order.
+    case = paged_case(gen, dtype=torch.bfloat16, **llama)
+    first = tatt.paged_decode_attention_kernel(*case)
+    second = tatt.paged_decode_attention_kernel(*case)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise RuntimeError("paged_decode: two runs differ at the Llama-1B "
+                           "shape")
+    phase("paged_decode_bitwise", shape="B8_H32_Hkv8_D64_bs16_T64_bf16",
+          equal=True)
+
+    timings = {}
+    for name, shape in PAGED_TIMING.items():
+        timings[name] = t = time_paged(gen, shape)
+        phase("paged_decode_time", case=name,
+              shape=f"B{shape['b']}_H{shape['h']}_Hkv{shape['hkv']}_"
+                    f"D{shape['d']}_bs{shape['bs']}_T{shape['t']}_bf16",
+              depths="/".join(map(str, shape["depths"])),
+              split_plan="x".join(map(str, tatt.paged_split_plan(
+                  shape["b"], shape["hkv"], shape["t"], shape["bs"],
+                  tatt._sm_count(DEV.index or 0)))),
+              **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+                 for k, v in t.items()})
     err = max(e for k, (e, _) in errs.items() if k.startswith("llama1b_bf16"))
-    timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "library_ms": library_ms,
-              "max_abs_err": err}
-    phase("paged_decode_time", shape="B8_H32_Hkv8_D64_bs16_T64_bf16",
-          depths="/".join(map(str, llama["depths"])), ms=f"{ms:.5f}",
-          plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
-          bound_ms=f"{bound_ms:.5f}")
-    return timing
+    return {**timings["mixed"], "max_abs_err": err,
+            "shapes": {k: v for k, v in timings.items() if k != "mixed"}}
 
 
 # ---------------------------------------------------------- phase 4-5
@@ -779,8 +912,9 @@ def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8) -> None:
     """``--profile``: the wall time of one step that admits 8 requests,
     then a window of steady decode ticks (8 slots live at depth ~390)
     under ``torch.profiler``. Prints the tick's wall time, the
-    device-busy share of the window and the largest kernels by device
-    time; writes the whole kernel table to ``out_dir``."""
+    device-busy share of the window, K4's device time and kernel launches
+    per tick (its split and merge kernels) and the largest kernels by
+    device time; writes the whole kernel table to ``out_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = ServeEngine(model, max_slots=8, prefix_block_size=16)
@@ -808,9 +942,13 @@ def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8) -> None:
                                   row_limit=60))
     top = ";".join(f"{e.key[:60]}:{e.self_device_time_total / n_ticks:.1f}us"
                    f"x{e.count // n_ticks}" for e in kern[:8])
+    k4 = [e for e in kern if "paged_decode" in e.key]
+    k4_ms = sum(e.self_device_time_total for e in k4) / 1e3 / n_ticks
     phase("profile_decode", admit_step_ms=f"{admit_ms:.4f}", ticks=n_ticks,
           tick_ms=f"{1e3 * wall / n_ticks:.4f}",
           device_busy_ms_per_tick=f"{busy_us / 1e3 / n_ticks:.4f}",
+          paged_decode_ms_per_tick=f"{k4_ms:.4f}",
+          paged_decode_kernels_per_tick=sum(e.count for e in k4) // n_ticks,
           device_idle_share=(f"{1 - busy_us / 1e6 / wall:.4f}" if busy_us
                              else "not measured"),
           top_kernels_per_tick=top)

@@ -34,10 +34,13 @@ Two forward modes, chosen by whether a cache is passed:
 cache passed, each block's activations are rematerialized in the backward
 per the named policy; the paged decode path never remats.
 
-Not ported yet (each raises ``NotImplementedError``): routed experts
-(``moe_experts > 0``, ROADMAP.md queue 1 item 5), rolling sliding-window
-ring caches (queue 1 item 2) and ring / sequence-parallel attention
-(queue 1 item 7).
+A ``sliding_window`` trains and runs the full forward through the
+windowed flash kernels. Not ported yet (each raises
+``NotImplementedError``): routed experts (``moe_experts > 0``, ROADMAP.md
+queue 1 item 5), ring / sequence-parallel attention (queue 1 item 7), and
+the rolling ring cache a window under ``max_len`` needs in decode
+(:attr:`Llama.uses_ring_cache`, queue 1 item 2): the serving engine and
+the decode cache refuse such a model, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -298,11 +301,6 @@ class Llama(nn.Module):
             raise NotImplementedError(
                 "moe_experts > 0 is "
                 + _NOT_PORTED.format("5 (causal-LM train step, ops/moe.py)"))
-        if ring_len(sliding_window, max_len) is not None:
-            raise NotImplementedError(
-                f"sliding_window={sliding_window} allocates a rolling ring "
-                "cache, which is "
-                + _NOT_PORTED.format("2 (resident-row engine)"))
         block_cls = remat_block(LlamaBlock, remat)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
@@ -335,6 +333,12 @@ class Llama(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.head.lm_head.weight.device
+
+    @property
+    def uses_ring_cache(self) -> bool:
+        """True when decode would need a rolling ring cache: the window,
+        rounded up to 128, is under ``max_len`` (:func:`ring_len`)."""
+        return ring_len(self.sliding_window, self.max_len) is not None
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:

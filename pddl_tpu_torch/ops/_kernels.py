@@ -128,8 +128,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "paged_decode":
         lib.pddl_paged_decode.argtypes = [
             p, p, p, p, p, p,            # q, k_pool, v_pool, table, index, out
+            p,                           # scratch (NULL with one split)
             i, i, i, i, i, i, i,         # B, H, Hkv, N, bs, D, T
-            i, ctypes.c_float, i, p]     # window, scale, dtype, stream
+            i, ctypes.c_float,           # window, scale
+            i, i, i, p]                  # n_split, per_split, dtype, stream
         lib.pddl_paged_decode.restype = i
     elif name == "flash_fwd":
         lib.pddl_flash_fwd.argtypes = [

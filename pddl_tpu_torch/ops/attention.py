@@ -36,6 +36,7 @@ harmless by masking.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple, Union
 
@@ -134,7 +135,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, scale: Optional[float] = None,
                     window: Optional[int] = None,
                     block_q: Optional[int] = None,
-                    block_k: Optional[int] = None) -> torch.Tensor:
+                    block_k: Optional[int] = None,
+                    fused_backward: bool = True) -> torch.Tensor:
     """Flash attention over ``q [B, H, Sq, D]`` and grouped (unexpanded)
     ``k, v [B, H_kv, Sk, D]``; returns ``o`` in q's dtype.
 
@@ -145,11 +147,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (causal only): query t sees keys ``[t-window+1, t]``.
     ``block_q``/``block_k`` are accepted for the JAX signature and ignored:
     the kernels pick their own tiles at every length.
+    ``fused_backward=False`` takes :func:`attention_reference` instead, as
+    the JAX package does: O(S²) memory, and autograd differentiates it to
+    any order (the kernels' backward is first-order only).
     """
     d, sk = q.shape[-1], k.shape[-2]
     _gqa_rep(q, k)
     scale_v = (1.0 / math.sqrt(d)) if scale is None else scale
     window = _normalize_window(window, causal, sk)
+    if not fused_backward:
+        return attention_reference(q, k, v, causal=causal, scale=scale_v,
+                                   window=window)
     q, scale_v = _fold_scale(q, scale_v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if _needs_grad(q, k, v):
@@ -558,6 +566,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            index: IndexLike, *,
                            window: Optional[int] = None,
                            scale: Optional[float] = None,
+                           blocks_per_chunk: Optional[int] = None,
                            kernel: Optional[bool] = None) -> torch.Tensor:
     """Attention over a paged KV pool through a per-row block table.
 
@@ -575,6 +584,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
       index: tokens in the (virtual) cache before this call; an int or a
         per-row ``[B]`` tensor.
       window: sliding-window mask.
+      blocks_per_chunk: accepted for the JAX signature and ignored (a
+        tuning knob of the JAX plain path's chunked sweep); the kernel
+        chooses its own split of the table.
       kernel: ``None`` (default) sends single-token steps to
         :func:`paged_decode_attention_kernel` — the CUDA kernel for CUDA
         tensors, its plain version for CPU tensors — and multi-token
@@ -642,6 +654,41 @@ def _paged_attention_plain(q, k_pool, v_pool, block_table, index, scale,
     return (acc / l.clamp_min(1e-30)).reshape(b, h, s, d).to(q.dtype)
 
 
+# The paged decode kernel's split of the table (``paged_split_plan``): at
+# most 8 entries and 128 tokens per split, about 2 blocks per SM.
+_SPLIT_ENTRIES = 8
+_SPLIT_TOKENS = 128
+_SPLIT_BLOCKS_PER_SM = 2
+
+
+def paged_split_plan(b: int, hkv: int, t: int, bs: int,
+                     sm_count: int) -> Tuple[int, int]:
+    """``(n_split, per_split)``: the paged decode kernel splits each row's
+    ``t`` table entries into ``n_split`` contiguous ranges of
+    ``per_split`` entries (the last may be shorter), one block each per
+    (row, kv head).
+
+    It depends on the shapes and the card's SM count alone, never on the
+    rows' depths, so the launch geometry is the same on every decode tick.
+    Where one block per (row, kv head) already fills the card there is one
+    split. Otherwise the ranges shrink toward ``_SPLIT_BLOCKS_PER_SM``
+    blocks per SM, down to one entry, and never exceed ``_SPLIT_ENTRIES``
+    entries or ``_SPLIT_TOKENS`` tokens: that bounds each block's chain of
+    dependent loads."""
+    groups = b * hkv
+    if groups >= sm_count:
+        return 1, t
+    cap = max(1, min(_SPLIT_ENTRIES, _SPLIT_TOKENS // bs))
+    fill = -(-t * groups // (_SPLIT_BLOCKS_PER_SM * sm_count))
+    per = min(cap, max(1, fill))
+    return -(-t // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def paged_decode_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
                                   v_pool: torch.Tensor,
                                   block_table: torch.Tensor,
@@ -653,8 +700,11 @@ def paged_decode_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
     Pallas ``_paged_decode_kernel`` (``csrc/paged_decode.cu``).
 
     A CUDA ``q`` launches the kernel or raises: the wrapper checks
-    device, dtype, shape and contiguity, allocates the output, launches
-    on the current stream and raises on the C entry's nonzero return.
+    device, dtype, shape and contiguity, chooses the split of the table
+    (:func:`paged_split_plan`), allocates the output and the splits'
+    f32 scratch, launches on the current stream (the split kernel, then
+    the merge where there is more than one split: one count) and raises
+    on the C entry's nonzero return.
     A CPU ``q`` gets the plain version (:func:`paged_decode_attention`'s
     torch path) — the only reason it ever runs instead of the kernel.
     """
@@ -698,12 +748,18 @@ def paged_decode_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"paged decode kernel takes D <= 256 and "
                          f"block_size <= 64, got D={d}, block_size={bs}")
     lib = _kernels.library("paged_decode")
+    n_split, per_split = paged_split_plan(b, hkv, t, bs,
+                                          _sm_count(q.device.index))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
+    scratch = (torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
+                           device=q.device) if n_split > 1 else None)
     code = lib.pddl_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), index.data_ptr(), out.data_ptr(),
-        b, h, hkv, n, bs, d, t, window or 0, scale_v,
-        _KERNEL_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        None if scratch is None else scratch.data_ptr(),
+        b, h, hkv, n, bs, d, t, window or 0, scale_v, n_split, per_split,
+        _KERNEL_DTYPES[q.dtype], stream)
     _kernels.check("paged_decode", code)
     _kernels.launch_counts["paged_decode"] += 1
     return out

@@ -29,10 +29,13 @@ bit-valid for every request with the same prompt tokens.
 PyTorch runs eagerly, so the JAX engine's fixed compiled-program set
 (and its ``compile_counts`` pin) has no counterpart here. Not ported yet
 — each raises ``NotImplementedError`` naming its ROADMAP.md item: the
-resident-row engine (``paged=False``), speculative serving (``spec_k``),
-tenancy (``tenant``), the host KV tier (``host_tier``), fault injection
-and replay (``fault_plan``, ``preempt_cap > 0``), sliced prefill
-(``prefill_slice_tokens``), drain/restore and tracers.
+resident-row engine (``paged=False``) and the sliding-window ring cache,
+speculative serving (``spec_k`` and its options), tenancy (``tenant``,
+``submit``'s ``adapter``/``constraint``), int8 serving
+(``param_transform``), the host KV tier (``host_tier``), fault injection
+and replay (``fault_plan``, its retry and replay knobs,
+``preempt_cap > 0``), sliced prefill (``prefill_slice_tokens``),
+drain/restore and tracers.
 """
 
 from __future__ import annotations
@@ -104,8 +107,14 @@ class ServeEngine:
       preempt_cap: must be 0 (preemption resumes through replay
         admission, not ported).
       telemetry_capacity: size of the per-step :class:`TelemetryRing`.
-      prefill_slice_tokens / host_tier / fault_plan / tenant / spec_k /
-      tracer: not ported; anything but their defaults raises.
+      prefill_slice_tokens / param_transform / host_tier / fault_plan /
+      max_retries / retry_backoff_s / backoff_sleep / max_replays /
+      degraded_cooldown_s / tenant / spec_k / spec_ngram /
+      spec_draft_model / spec_draft_variables / tracer: not ported;
+      anything but the JAX engine's defaults raises.
+
+    A model with :attr:`~pddl_tpu_torch.models.llama.Llama.uses_ring_cache`
+    set is refused, as the JAX engine refuses it.
     """
 
     def __init__(self, model, *, device=None, max_slots: int = 8,
@@ -115,24 +124,44 @@ class ServeEngine:
                  aging_s: Optional[float] = 30.0,
                  prefill_slice_tokens: Optional[int] = None,
                  eos_token: Optional[int] = None,
+                 param_transform=None,
                  rng: Optional[torch.Generator] = None,
                  clock=time.monotonic,
                  prefix_cache_blocks: Optional[int] = None,
                  prefix_block_size: int = 8,
                  prefix_chunk: Optional[int] = None,
                  paged: bool = True,
-                 host_tier=None, fault_plan=None, preempt_cap: int = 0,
-                 tenant=None, spec_k: int = 0, tracer=None,
+                 host_tier=None, fault_plan=None, max_retries: int = 3,
+                 retry_backoff_s: float = 0.02, backoff_sleep=time.sleep,
+                 max_replays: int = 3, degraded_cooldown_s: float = 5.0,
+                 preempt_cap: int = 0, tenant=None, spec_k: int = 0,
+                 spec_ngram: int = 3, spec_draft_model=None,
+                 spec_draft_variables=None, tracer=None,
                  telemetry_capacity: int = 512):
         if not paged:
             raise _not_ported("paged=False", _ROADMAP_ROW)
+        if getattr(model, "uses_ring_cache", False):
+            raise _not_ported(
+                f"sliding_window={model.sliding_window} (a rolling ring "
+                "cache in decode)", _ROADMAP_ROW)
         for what, given in (("prefill_slice_tokens",
                              prefill_slice_tokens is not None),
+                            ("param_transform", param_transform is not None),
                             ("host_tier", host_tier is not None),
                             ("fault_plan", fault_plan is not None),
+                            ("max_retries", max_retries != 3),
+                            ("retry_backoff_s", retry_backoff_s != 0.02),
+                            ("backoff_sleep", backoff_sleep is not time.sleep),
+                            ("max_replays", max_replays != 3),
+                            ("degraded_cooldown_s",
+                             degraded_cooldown_s != 5.0),
                             ("preempt_cap > 0", preempt_cap > 0),
                             ("tenant", tenant is not None),
                             ("spec_k > 0", spec_k > 0),
+                            ("spec_ngram", spec_ngram != 3),
+                            ("spec_draft_model", spec_draft_model is not None),
+                            ("spec_draft_variables",
+                             spec_draft_variables is not None),
                             ("tracer", tracer is not None)):
             if given:
                 raise _not_ported(what)
@@ -230,11 +259,16 @@ class ServeEngine:
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                sampling: Optional[SamplingParams] = None,
                deadline_s: Optional[float] = None,
-               priority: Priority = Priority.INTERACTIVE) -> RequestHandle:
+               priority: Priority = Priority.INTERACTIVE,
+               adapter: Optional[str] = None,
+               constraint: Optional[dict] = None) -> RequestHandle:
         """Queue one request; returns its streaming handle. Raises
         :class:`~pddl_tpu_torch.serve.request.QueueFull` (with a
         priority-aware ``retry_after_s`` hint) when the queue is at
-        depth."""
+        depth. ``adapter`` and ``constraint`` (tenancy) must be None."""
+        for what, given in (("adapter", adapter), ("constraint", constraint)):
+            if given is not None:
+                raise _not_ported(f"submit({what}=...)")
         priority = Priority(priority)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:

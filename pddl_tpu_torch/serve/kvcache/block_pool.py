@@ -29,6 +29,11 @@ def paged_decode_cache(model, num_blocks: int, block_size: int) -> dict:
     dtype on its device — minus the position counters and block tables,
     which the port passes to the forward as arguments
     (``models/gpt.py``)."""
+    if getattr(model, "uses_ring_cache", False):
+        raise NotImplementedError(
+            f"sliding_window={model.sliding_window} needs a rolling ring "
+            "cache in decode, which is not ported yet: ROADMAP.md queue 1 "
+            "item 2 (the resident-row engine)")
     if num_blocks < 2:
         raise ValueError(
             f"num_blocks must be >= 2 (block 0 is the reserved scratch "

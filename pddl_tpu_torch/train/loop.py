@@ -43,9 +43,16 @@ _UNPORTED = {
     "param_update": ("plain", "queue 1 item 5 (mixed_precision.py)"),
     "fault_plan": (None, "queue 1 item 5 (train/faults.py)"),
     "tracer": (None, "queue 1 item 5 (train/faults.py)"),
+    "max_retries": (3, "queue 1 item 5 (train/faults.py)"),
+    "retry_backoff_s": (0.02, "queue 1 item 5 (train/faults.py)"),
+    "max_recoveries": (8, "queue 1 item 5 (train/faults.py)"),
+    "retry_sleep": (time.sleep, "queue 1 item 5 (train/faults.py)"),
+    "eval_with_ema": (True, "queue 1 item 5 (EMA)"),
+    "donate_state": (True, "queue 1 item 5 (donate_state and prefetch)"),
 }
 _UNPORTED_FIT = {
     "callbacks": ((), "queue 1 item 5 (train/callbacks.py)"),
+    "prefetch": (2, "queue 1 item 5 (donate_state and prefetch)"),
     "initial_epoch": (0, "queue 1 item 6 (checkpointing and resume)"),
     "resume": (None, "queue 1 item 6 (checkpointing and resume)"),
 }
@@ -193,7 +200,12 @@ class Trainer:
 
 
 def _mean_logs(logs_list) -> Dict[str, float]:
-    """Fetch once (one device sync), average on the host in float64."""
-    return {k: float(np.mean(torch.stack([d[k].float() for d in logs_list])
+    """Fetch once (one device sync), average on the host in float64. The
+    exact key ``"perplexity"`` is logged in log space per batch, so its
+    epoch value is the exp of the mean (``metrics.log_perplexity``)."""
+    out = {}
+    for k in logs_list[0]:
+        mean = float(np.mean(torch.stack([d[k].float() for d in logs_list])
                              .cpu().numpy().astype(np.float64)))
-            for k in logs_list[0]}
+        out[k] = float(np.exp(mean)) if k == "perplexity" else mean
+    return out

@@ -1,10 +1,15 @@
-"""Losses and metrics of the causal-LM trainer (the subset of
-:mod:`pddl_tpu.train.metrics` it uses), computed from logits in f32.
+"""Losses and metrics of the trainer (the port of
+:mod:`pddl_tpu.train.metrics`), computed from logits in f32.
 
-Each is a function ``(logits, labels) -> scalar tensor``; the loss is the
-mean token cross-entropy over every position of a ``[B, S, V]`` batch, as
-``optax.softmax_cross_entropy_with_integer_labels(...).mean()`` computes
-it in the JAX package.
+Each is a function ``(logits, labels) -> scalar tensor``, a mean over
+every position of the batch, as the JAX package computes it: the sparse
+loss as ``optax.softmax_cross_entropy_with_integer_labels(...).mean()``,
+the one-hot loss as ``optax.softmax_cross_entropy(...).mean()``.
+
+The metric named ``"perplexity"`` logs the mean token cross-entropy (log
+space) per batch; the trainer's epoch mean takes the exp of the mean for
+exactly that key (``loop._mean_logs``), which is exp(mean CE) over all
+tokens rather than a mean of per-batch exponentials.
 """
 
 from __future__ import annotations
@@ -25,16 +30,58 @@ def sparse_categorical_crossentropy(logits: torch.Tensor,
                            labels.reshape(-1).long())
 
 
+def categorical_crossentropy(logits: torch.Tensor,
+                             onehot: torch.Tensor) -> torch.Tensor:
+    """Mean CE over every position against (one-hot or soft) targets."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -(onehot.float() * logp).sum(dim=-1).mean()
+
+
+def mean_squared_error(pred: torch.Tensor,
+                       target: torch.Tensor) -> torch.Tensor:
+    return ((pred.float() - target.float()) ** 2).mean()
+
+
+LOSSES: Dict[str, MetricFn] = {
+    "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
+    "categorical_crossentropy": categorical_crossentropy,
+    "mse": mean_squared_error,
+}
+
+
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Top-1 accuracy over every position."""
     return (logits.argmax(dim=-1) == labels).float().mean()
 
 
-LOSSES: Dict[str, MetricFn] = {
-    "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
-}
+def top_k_accuracy(k: int) -> MetricFn:
+    """The share of positions whose label is among the ``k`` largest
+    logits."""
+    def _top_k(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        top = torch.topk(logits, k, dim=-1).indices
+        return (top == labels[..., None]).any(dim=-1).float().mean()
 
-METRICS: Dict[str, MetricFn] = {"accuracy": accuracy}
+    _top_k.__name__ = f"top_{k}_accuracy"
+    return _top_k
+
+
+def log_perplexity(logits: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy: what the ``"perplexity"`` metric logs."""
+    return sparse_categorical_crossentropy(logits, labels)
+
+
+def perplexity(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """exp(mean token cross-entropy), for one-shot use. As a trainer
+    metric it logs :func:`log_perplexity` under ``"perplexity"``."""
+    return torch.exp(log_perplexity(logits, labels))
+
+
+METRICS: Dict[str, MetricFn] = {
+    "accuracy": accuracy,
+    "top_5_accuracy": top_k_accuracy(5),
+    "perplexity": log_perplexity,
+}
 
 
 def resolve_loss(loss: Union[str, MetricFn]) -> MetricFn:
@@ -48,6 +95,8 @@ def resolve_loss(loss: Union[str, MetricFn]) -> MetricFn:
 
 
 def resolve_metric(metric: Union[str, MetricFn]) -> Tuple[str, MetricFn]:
+    if metric is perplexity:
+        return "perplexity", log_perplexity
     if callable(metric):
         return getattr(metric, "__name__", "metric"), metric
     try:

@@ -28,11 +28,22 @@ GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 
 # (b, h, hkv, d, bs, t, depths): Llama-1B's decode shape at mixed depths
 # (0, mid-block, T*bs-1), an odd group (rep 3, D 128), the CPU tests' tiny
-# shape.
+# shape; then the edges of the kernel's split of the table (on an H100's
+# 132 SMs the Llama shape takes 8 splits of 8 entries, 128 tokens each):
+# depths at a split boundary and one past it (the 128 window crosses it),
+# a table far wider than its rows, MHA, rep 8, D 256 with bs 64, and one
+# row at Llama_1B's max_len (32 splits).
 SHAPES = {
     "llama1b": (8, 32, 8, 64, 16, 64, [0, 7, 16, 100, 391, 512, 777, 1023]),
     "rep3_d128": (4, 12, 4, 128, 16, 8, [0, 5, 70, 127]),
     "tiny": (3, 4, 2, 8, 4, 6, [23, 0, 9]),
+    "split_edges": (8, 32, 8, 64, 16, 64, [127, 128, 129, 255, 256, 0, 390,
+                                           1023]),
+    "wide_table": (4, 32, 8, 64, 16, 256, [0, 15, 16, 40]),
+    "mha": (4, 32, 32, 64, 16, 64, [0, 127, 128, 1000]),
+    "rep8": (4, 32, 4, 64, 16, 64, [1, 127, 128, 1023]),
+    "d256_bs64": (2, 8, 2, 256, 64, 16, [63, 1023]),
+    "long_row": (1, 32, 8, 64, 16, 256, [4095]),
 }
 
 
@@ -69,6 +80,30 @@ def test_paged_decode_kernel_matches_plain(shape, dtype, window):
     assert torch.isfinite(got.float()).all()
     err = float((got.float() - ref.float()).abs().max())
     assert err <= TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_reads_block_0_for_entries_out_of_range(dtype):
+    dev = _card()
+    q, kp, vp, table, index = _case(dev, dtype, *SHAPES["llama1b"])
+    n = kp.shape[0]
+    table[0, 0], table[3, 5], table[7, 60] = -7, n, n + 11
+    got = tatt.paged_decode_attention_kernel(q, kp, vp, table, index)
+    sink = torch.where((table >= 0) & (table < n), table, 0)
+    ref = tatt.paged_decode_attention(q, kp, vp, sink, index, kernel=False)
+    torch.cuda.synchronize()
+    assert float((got.float() - ref.float()).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["llama1b", "long_row"])
+def test_paged_decode_kernel_is_bitwise_reproducible(shape):
+    """The splits merge in a fixed order: two runs are bitwise equal."""
+    dev = _card()
+    case = _case(dev, torch.bfloat16, *SHAPES[shape])
+    first = tatt.paged_decode_attention_kernel(*case)
+    assert torch.equal(first, tatt.paged_decode_attention_kernel(*case))
 
 
 @pytest.mark.cuda
