@@ -9,7 +9,8 @@ It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version, drives the main paths of the
 port on a full-width Llama-1B — the paged serving engine, the causal-LM
 trainer, and the trainer at long context (S 8192, block remat, the
-two-sweep flash backward) — and prints one line per phase:
+two-sweep flash backward) — and on a full-width, full-depth ResNet-50,
+the reference's own workload, and prints one line per phase:
 
 1. device — ``nvidia-smi``'s card name and power limit;
 2. build — every kernel compiled by ``nvcc``, one process per source, all
@@ -78,18 +79,43 @@ two-sweep flash backward) — and prints one line per phase:
     relative difference (within 2e-3), each parameter gradient's error
     relative to its max-abs (within 2e-2: bf16 logits there, f32 here),
     the ms and the peak device memory of each;
-13. kernels — one JSON object: every ported kernel with its launches on
+13. resnet parity — full-width, full-depth ResNet-50 in f32 (TF32 off,
+    ``torch.backends.cudnn.benchmark`` False), one seeded weight set
+    trained by the port's Trainer on the card (cuDNN) and on the CPU with
+    SGD at lr 0.005 and the gradient norm logged, B 4 x 224, for each
+    stem: 3 free-running steps (printed; the first gated: a BatchNorm net
+    at init parts the two sides' runs after it), then 3 steps each from
+    the CPU's state copied to the card: losses within rtol 1e-4, gradient
+    norms within 1e-3 relative, parameters within 2·lr·steps, each
+    BatchNorm buffer within 1e-4 of its max-abs;
+14. resnet converge — ``tiny_resnet`` through ``Trainer.fit`` on synthetic
+    32x32 images with ``standard_augment(crop=32)``,
+    ``standard_eval_transform(crop=32)``, validation data,
+    ``ReduceLROnPlateau`` and ``EarlyStopping`` (last loss < 0.7 x
+    first);
+15. resnet train — ``bench.py``'s step through ``Trainer.train_step`` on a
+    batch resident on the card: ResNet-50, bf16 compute over f32
+    parameters, BatchNorm in train mode, adam at 1e-3, B 256 x 224, with
+    ``torch.backends.cudnn.benchmark`` True: 2 warm-up then 10 timed
+    steps with the Keras stem, then 3 warm-up and 20 timed steps with the
+    space-to-depth stem (bench.py's default): images/s, ms/step, peak
+    device memory, the last loss, the forward's multiply-accumulates per
+    image (from the model's conv and dense shapes) and the MFU of
+    6 x MACs per image;
+16. kernels — one JSON object: every ported kernel with its launches on
     its main path (phase 7, 10 or 11), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
     ``library_computes`` says; K4's other timing shapes under
-    ``shapes``);
+    ``shapes``); the ResNet path adds none (the JAX package runs no
+    Pallas kernel there);
 
 and, as its last line, ``{"ok": true, "device": {...}}``. Any failure
 raises: the script exits non-zero and prints no result. It needs the
 repository beside it and a card (``torch.cuda.is_available()``).
-``--profile DIR`` adds a profiled decode window after phase 7 and one
-profiled train step after each of phases 10 and 11, and writes their
-kernel tables to DIR.
+``--profile DIR`` adds a profiled decode window after phase 7, one
+profiled train step after each of phases 10, 11 and 15 (the last with
+its device time by kernel class: convolutions, BatchNorm, elementwise
+ops and casts, adam, ...), and writes their kernel tables to DIR.
 """
 
 from __future__ import annotations
@@ -106,13 +132,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pddl_tpu_torch.data.synthetic import SyntheticLanguageModeling
+from pddl_tpu_torch.data.synthetic import (
+    SyntheticImageClassification,
+    SyntheticLanguageModeling,
+)
 from pddl_tpu_torch.models.gpt import fused_lm_loss
 from pddl_tpu_torch.models.llama import Llama_1B, tiny_llama
+from pddl_tpu_torch.models.resnet import Conv, ResNet50, tiny_resnet
 from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
+from pddl_tpu_torch.ops.augment import standard_augment, standard_eval_transform
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.request import FinishReason
+from pddl_tpu_torch.train.callbacks import EarlyStopping, ReduceLROnPlateau
 from pddl_tpu_torch.train.loop import Trainer
 from pddl_tpu_torch.train.metrics import sparse_categorical_crossentropy
 
@@ -1228,6 +1260,264 @@ def phase_fused_loss(seq: int = 8192, reps: int = 3):
                            f"{grad_rel[worst]:.3g} of its max-abs")
 
 
+# --------------------------------------------------------- phase 13-15
+def resnet_macs(model, image: int) -> int:
+    """Multiply-accumulates of one image's forward at ``image`` x
+    ``image``, from the model's own conv and dense shapes: each conv's
+    output elements times its ``in x kh x kw`` taps (hooks on a batch-1
+    inference forward, which leaves the BatchNorm buffers alone), plus
+    the head's ``in x out``."""
+    macs = []
+    hooks = [m.register_forward_hook(
+        lambda mod, _, out: macs.append(out[0].numel()
+                                        * mod.weight[0].numel()))
+        for m in model.modules() if isinstance(m, Conv)]
+    with torch.no_grad():
+        model(torch.zeros(1, image, image, 3, device=model.device),
+              train=False)
+    for h in hooks:
+        h.remove()
+    return sum(macs) + (model.head.weight.numel() if model.num_classes
+                        else 0)
+
+
+def phase_resnet_parity(steps: int = 3, lr: float = 0.005, batch: int = 4):
+    """Full-width, full-depth ResNet-50 in f32 (TF32 off, cuDNN's
+    algorithm search off), one seeded weight set trained by the port's
+    Trainer on the card (cuDNN/ATen) and on the CPU with SGD at
+    ``_train_1step``'s rate and the gradient norm logged, for each stem.
+
+    First ``steps`` free-running steps on each side, printed: a BatchNorm
+    net at init amplifies the two sides' rounding (cuDNN's and oneDNN's
+    convs differ by ~1e-7), so after the first step the runs part, as
+    ``__graft_entry__._train_1step`` notes of multi-step trajectories;
+    only the first step is gated. Then ``steps`` steps each from one
+    state, the CPU model's copied to the card, all gated: losses within
+    rtol 1e-4, gradient norms within 1e-3 relative, parameters within
+    2·lr·steps, each BatchNorm buffer within 1e-4 of its max-abs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    data = SyntheticImageClassification(batch_size=batch, image_size=224,
+                                        num_classes=1000, seed=1)
+    for stem in ("keras", "space_to_depth"):
+        cpu_model = ResNet50(num_classes=1000, stem=stem, device="cpu",
+                             seed=3)
+        gpu_model = ResNet50(num_classes=1000, stem=stem, device=DEV)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        trainers = {m: Trainer(m, optimizer="sgd", learning_rate=lr,
+                               log_grad_norm=True, device=m.device)
+                    for m in (gpu_model, cpu_model)}
+        free = {"loss": [], "grad_norm": []}
+        synced = {"loss": [], "grad_norm": [], "param": [], "buffer": []}
+        for step in range(2 * steps):
+            if step >= steps:  # from here on each step starts from one state
+                gpu_model.load_state_dict(cpu_model.state_dict())
+            b = data.batch(step)
+            g, c = (trainers[m].train_step(b) for m in (gpu_model, cpu_model))
+            rel = {k: abs(float(g[k]) - float(c[k])) / abs(float(c[k]))
+                   for k in ("loss", "grad_norm")}
+            out = free if step < steps else synced
+            for k in rel:
+                out[k].append((float(g[k]), float(c[k]), rel[k]))
+            if step < steps:
+                continue
+            cpu_sd = cpu_model.state_dict()
+            synced["param"].append(max(
+                float((p.detach().cpu() - cpu_sd[n]).abs().max())
+                for n, p in gpu_model.named_parameters()))
+            synced["buffer"].append(max(
+                (float((b_.cpu() - cpu_sd[n]).abs().max())
+                 / float(cpu_sd[n].abs().max()), n)
+                for n, b_ in gpu_model.named_buffers()))
+
+        def seq(rows, i, fmt):
+            return "/".join(format(r[i], fmt) for r in rows)
+
+        worst = {k: max(r[2] for r in synced[k])
+                 for k in ("loss", "grad_norm")}
+        buf_rel, buf_name = max(synced["buffer"])
+        param_diff = max(synced["param"])
+        phase("resnet_parity", model="ResNet50_f32", stem=stem,
+              allow_tf32=False, cudnn_benchmark=False, batch=batch,
+              image=224, optimizer="sgd", lr=lr,
+              free_losses_cuda=seq(free["loss"], 0, ".7f"),
+              free_losses_cpu=seq(free["loss"], 1, ".7f"),
+              free_grad_norms_cuda=seq(free["grad_norm"], 0, ".5f"),
+              free_grad_norms_cpu=seq(free["grad_norm"], 1, ".5f"),
+              free_loss_rel_diffs=seq(free["loss"], 2, ".3g"),
+              free_grad_norm_rel_diffs=seq(free["grad_norm"], 2, ".3g"),
+              synced_steps=steps,
+              synced_losses_cuda=seq(synced["loss"], 0, ".7f"),
+              synced_losses_cpu=seq(synced["loss"], 1, ".7f"),
+              max_loss_rel_diff=f"{worst['loss']:.3g}", loss_rtol="1e-4",
+              max_grad_norm_rel_diff=f"{worst['grad_norm']:.3g}",
+              grad_norm_rtol="1e-3", max_param_diff=f"{param_diff:.3g}",
+              param_bound=f"{2 * lr * steps:g}",
+              max_buffer_rel_diff=f"{buf_rel:.3g}", worst_buffer=buf_name,
+              buffer_bound="1e-4 of its max-abs")
+        first = {k: free[k][0][2] for k in ("loss", "grad_norm")}
+        if not (first["loss"] <= 1e-4 and worst["loss"] <= 1e-4):
+            raise RuntimeError(f"ResNet-50 losses disagree ({stem}): "
+                               f"{free['loss']} {synced['loss']}")
+        if not (first["grad_norm"] <= 1e-3 and worst["grad_norm"] <= 1e-3):
+            raise RuntimeError(f"ResNet-50 gradient norms disagree ({stem})"
+                               f": {free['grad_norm']} "
+                               f"{synced['grad_norm']}")
+        if not param_diff <= 2 * lr * steps:
+            raise RuntimeError(f"ResNet-50 parameters differ by "
+                               f"{param_diff} ({stem})")
+        if not buf_rel <= 1e-4:
+            raise RuntimeError(f"ResNet-50 BatchNorm buffer {buf_name} "
+                               f"differs by {buf_rel:.3g} of its max-abs")
+        del cpu_model, gpu_model, trainers
+
+
+def phase_resnet_converge(epochs: int = 8, steps: int = 16):
+    """``tiny_resnet`` through ``Trainer.fit`` with the reference's
+    augmentation and eval transform at 32x32, validation data and the
+    reference's two callbacks (shortened patience). BatchNorm momentum
+    0.5: at Keras' 0.99 the running averages of a 100-step run still
+    carry their initial values, and the validation loss would measure
+    that (``pddl_tpu/models/resnet.py``'s note on ``bn_momentum``)."""
+    model = tiny_resnet(num_classes=10, bn_momentum=0.5, device=DEV, seed=0)
+    tr = Trainer(model, optimizer="momentum", learning_rate=0.05,
+                 device=DEV, augment=standard_augment(crop=32),
+                 eval_transform=standard_eval_transform(crop=32))
+    data = SyntheticImageClassification(batch_size=32, image_size=32,
+                                        num_classes=10, seed=0)
+    plateau = ReduceLROnPlateau(factor=0.5, patience=1)
+    stop = EarlyStopping(patience=2, restore_best_weights=True)
+    hist = tr.fit(data, epochs=epochs, steps_per_epoch=steps,
+                  validation_data=data.with_offset(10**6),
+                  validation_steps=2, callbacks=[plateau, stop], verbose=0)
+    h = hist.history
+    phase("resnet_converge", model="tiny_resnet_bn_momentum_0.5",
+          image=32, batch=32, steps_per_epoch=steps,
+          epochs_run=len(h["loss"]), stopped_epoch=stop.stopped_epoch,
+          final_lr=f"{tr.optimizer.param_groups[0]['lr']:g}",
+          epoch_losses="/".join(f"{x:.4f}" for x in h["loss"]),
+          val_losses="/".join(f"{x:.4f}" for x in h["val_loss"]),
+          val_accuracy="/".join(f"{x:.4f}" for x in h["val_accuracy"]))
+    if not h["loss"][-1] < 0.7 * h["loss"][0]:
+        raise RuntimeError(f"tiny ResNet did not learn: {h['loss']}")
+
+
+def _timed_resnet(stem: str, batch: int, warmup: int, steps: int,
+                  image: int = 224):
+    """``bench.py``'s step through ``Trainer.train_step``: ResNet-50, bf16
+    compute over f32 parameters, BatchNorm in train mode, adam at 1e-3,
+    on a batch resident on the card; ``warmup`` steps, then ``steps``
+    timed ones (host clock, ending in a sync)."""
+    torch.cuda.empty_cache()
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, stem=stem,
+                     device=DEV, seed=0)
+    macs = resnet_macs(model, image)
+    tr = Trainer(model, optimizer="adam", learning_rate=1e-3, metrics=(),
+                 device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    batch_d = {"image": torch.randn(batch, image, image, 3, generator=gen,
+                                    device=DEV),
+               "label": torch.randint(0, 1000, (batch,), generator=gen,
+                                      device=DEV, dtype=torch.int32)}
+    for _ in range(warmup):
+        tr.train_step(batch_d)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logs = tr.train_step(batch_d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loss = float(logs["loss"])
+    images_s = batch * steps / wall
+    flops = 6 * macs  # 2 x MACs forward, x 3 for forward + backward
+    fields = dict(model="ResNet50_bf16_compute_f32_params", stem=stem,
+                  bn_mode="train", optimizer="adam", lr=1e-3, batch=batch,
+                  image=image, warmup=warmup, steps=steps,
+                  cudnn_benchmark=torch.backends.cudnn.benchmark,
+                  wall_s=f"{wall:.4f}", ms_per_step=f"{1e3 * wall / steps:.3f}",
+                  images_per_s=f"{images_s:.2f}",
+                  peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+                  last_loss=f"{loss:.5f}", fwd_gmac_per_image=f"{macs / 1e9:.4f}",
+                  train_gflop_per_image=f"{flops / 1e9:.4f}",
+                  mfu=f"{flops * images_s / PEAK_FLOPS[torch.bfloat16]:.4f}")
+    if not np.isfinite(loss):
+        raise RuntimeError(f"non-finite ResNet-50 loss {loss} ({stem})")
+    return tr, batch_d, fields
+
+
+def phase_resnet_train(batch: int = 256):
+    """``bench.py``'s configuration at B 256 x 224: a shorter leg with the
+    Keras stem (2 warm-up and 10 timed steps), then the space-to-depth
+    stem (bench.py's default; 3 warm-up and 20 timed steps), whose trainer
+    and batch it returns. cuDNN's algorithm search is on
+    (``torch.backends.cudnn.benchmark = True``): every step has the same
+    shapes, so the search runs in the warm-up."""
+    torch.backends.cudnn.benchmark = True
+    _, _, fields = _timed_resnet("keras", batch, 2, 10)
+    phase("resnet_train", **fields)
+    tr, batch_d, fields = _timed_resnet("space_to_depth", batch, 3, 20)
+    phase("resnet_train", **fields)
+    return tr, batch_d
+
+
+# Kernel classes of the ResNet step's profile, by kernel name; the first
+# class whose words appear in a kernel's name takes it. The generic
+# elementwise class holds the conv biases' adds (cuDNN adds the bias in a
+# kernel of its own), the ReLUs, the residual adds and the casts.
+RESNET_CLASSES = (
+    ("batchnorm", ("batch_norm",)),
+    ("adam", ("multi_tensor_apply",)),
+    ("pooling", ("pool",)),
+    ("reductions_and_loss", ("reduce_kernel", "softmax", "SoftMax", "nll")),
+    ("elementwise_and_casts", ("elementwise", "copy", "fill", "Memset")),
+    ("convolutions_and_gemm", ("conv", "xmma", "cudnn", "cutlass", "gemm",
+                               "nvjet", "nhwc", "implicit")),
+)
+
+
+def profile_resnet(tr, batch_d, out_dir: str) -> None:
+    """``--profile``: one ResNet-50 train step under ``torch.profiler``:
+    its wall time, the device-busy share, device time by kernel class
+    (convolutions, BatchNorm, elementwise and casts, adam, ...) and the
+    largest kernels; the whole kernel table goes to ``out_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(batch_d)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = device_kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    by_class, other = {}, {}
+    for e in kern:
+        cls = next((c for c, words in RESNET_CLASSES
+                    if any(w in e.key for w in words)), "other")
+        ms, n = by_class.get(cls, (0.0, 0))
+        by_class[cls] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        if cls == "other":
+            other[e.key[:50]] = e.self_device_time_total / 1e3
+    pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)
+    (pathlib.Path(out_dir) / "profile_resnet.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=80))
+    top = ";".join(f"{e.key[:60]}:{e.self_device_time_total / 1e3:.3f}ms"
+                   f"x{e.count}" for e in kern[:10])
+    phase("profile_resnet", model="ResNet50_bf16_s2d", batch=len(
+              batch_d["label"]), step_ms=f"{1e3 * wall:.3f}",
+          device_busy_ms=f"{busy_us / 1e3:.3f}",
+          device_idle_share=(f"{1 - busy_us / 1e6 / wall:.4f}" if busy_us
+                             else "not measured"),
+          by_class=";".join(f"{c}:{ms:.3f}ms/{n}" for c, (ms, n) in
+                            sorted(by_class.items(), key=lambda x: -x[1][0])),
+          other=";".join(f"{k}:{v:.3f}ms" for k, v in other.items()),
+          top_kernels=top)
+
+
 def profile_train(tr, data, out_dir: str, tag: str = "train") -> None:
     """``--profile``: one train step under ``torch.profiler``: its wall
     time, the device-busy share and the largest kernels by device time;
@@ -1260,7 +1550,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile a window of decode ticks after "
                          "phase 7 and one train step after each of phases "
-                         "10 and 11, and write their kernel tables to DIR")
+                         "10, 11 and 15, and write their kernel tables to "
+                         "DIR")
     args = ap.parse_args(argv)
     smi = device_line()
     print(smi, flush=True)
@@ -1288,6 +1579,12 @@ def main(argv=None) -> int:
         profile_train(tr, data, args.profile, tag="train_long")
     del tr, data
     phase_fused_loss()
+    phase_resnet_parity()
+    phase_resnet_converge()
+    tr, batch_d = phase_resnet_train()
+    if args.profile:
+        profile_resnet(tr, batch_d, args.profile)
+    del tr, batch_d
     src = "pddl_tpu_torch/ops/csrc/"
     att = "pddl_tpu/ops/attention.py:"
     # (name, source, TPU kernel's line, launches on the main path: the

@@ -15,7 +15,13 @@ What is ported so far:
 - causal-LM training on one card: ``Trainer`` fitting a Llama with
   ``attention="flash"``, whose attention forward and backward run
   hand-written CUDA kernels (``ops/csrc/flash_fwd.cu``,
-  ``ops/csrc/flash_bwd.cu``).
+  ``ops/csrc/flash_bwd.cu``);
+- the reference's own workload, ResNet-50 training on one card:
+  ``Trainer`` fitting a ``ResNet50`` (flax BatchNorm semantics, the Keras
+  or space-to-depth stem, bf16 compute over f32 parameters) with the
+  on-device augmentation of ``ops/augment.py`` and the reference's
+  callbacks; its convolutions, BatchNorm and pooling go through torch to
+  cuDNN and ATen (the JAX package runs no Pallas kernel there).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no ``device="cpu"`` they raise.
@@ -28,12 +34,18 @@ _LAZY_EXPORTS = {
     "Llama": ("pddl_tpu_torch.models.llama", "Llama"),
     "Llama_1B": ("pddl_tpu_torch.models.llama", "Llama_1B"),
     "tiny_llama": ("pddl_tpu_torch.models.llama", "tiny_llama"),
+    "ResNet50": ("pddl_tpu_torch.models.resnet", "ResNet50"),
+    "tiny_resnet": ("pddl_tpu_torch.models.resnet", "tiny_resnet"),
     "ServeEngine": ("pddl_tpu_torch.serve.engine", "ServeEngine"),
     "Trainer": ("pddl_tpu_torch.train.loop", "Trainer"),
+    "SyntheticImageClassification": ("pddl_tpu_torch.data.synthetic",
+                                     "SyntheticImageClassification"),
     "SyntheticLanguageModeling": ("pddl_tpu_torch.data.synthetic",
                                   "SyntheticLanguageModeling"),
     "llama_params_from_jax": ("pddl_tpu_torch.bridge",
                               "llama_params_from_jax"),
+    "resnet_params_from_jax": ("pddl_tpu_torch.bridge",
+                               "resnet_params_from_jax"),
 }
 
 __all__ = sorted(_LAZY_EXPORTS)

@@ -1,5 +1,5 @@
-"""Weight bridge between a flax Llama parameter tree and the port's
-``state_dict``, both ways.
+"""Weight bridge between a flax parameter tree (a Llama's, or a ResNet's
+with its ``batch_stats``) and the port's ``state_dict``, both ways.
 
 The JAX package's params are taken and given as NUMPY arrays
 (``jax.tree.map(np.asarray, params)`` on the JAX side), so this module
@@ -13,11 +13,17 @@ model's ``param_dtype``). The mapping:
 - ``out``, ``mlp_*`` and ``lm_head`` kernels ``[in, out]`` are
   transposed to ``[out, in]``;
 - ``embed`` and the RMSNorm ``scale``\\ s carry over as they are.
+
+For a ResNet (:func:`resnet_params_from_jax`): conv kernels ``[kh, kw,
+in, out]`` become ``[out, in, kh, kw]``, the dense head's ``[in, out]``
+becomes ``[out, in]``, BatchNorm ``scale``/``bias`` become its weight and
+bias, and the ``batch_stats`` ``mean``/``var`` its running buffers;
+``stage{s}_block{b}`` modules sit under ``blocks.``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -102,3 +108,78 @@ def llama_params_to_jax(model) -> Dict[str, Any]:
             blk[name] = {"kernel": _array(sd[pre + f"{name}.weight"]).T.copy()}
         out[f"block{i}"] = blk
     return out
+
+
+def _resnet_key(path: str) -> str:
+    """flax module path ``a/b`` -> the port's module path."""
+    parts = path.split("/")
+    if parts[0].startswith("stage"):
+        parts.insert(0, "blocks")
+    return ".".join(parts)
+
+
+def _flat(tree: Mapping, prefix: str = ""):
+    """(module path, leaf dict) for every innermost dict of ``tree``."""
+    leaves = {k: v for k, v in tree.items() if not isinstance(v, Mapping)}
+    if leaves:
+        yield prefix, leaves
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, f"{prefix}/{k}" if prefix else k)
+
+
+def resnet_params_from_jax(params: Mapping, batch_stats: Mapping
+                           ) -> Dict[str, torch.Tensor]:
+    """Map a flax ``ResNet``'s ``params`` and ``batch_stats`` collections
+    (numpy leaves) to a state_dict for
+    :class:`pddl_tpu_torch.models.resnet.ResNet`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flat(params):
+        key = _resnet_key(path)
+        if "scale" in leaf:  # BatchNorm
+            sd[key + ".weight"] = _tensor(leaf["scale"])
+            sd[key + ".bias"] = _tensor(leaf["bias"])
+            continue
+        kern = np.asarray(leaf["kernel"])
+        perm = (3, 2, 0, 1) if kern.ndim == 4 else (1, 0)
+        sd[key + ".weight"] = _tensor(kern.transpose(perm))
+        sd[key + ".bias"] = _tensor(leaf["bias"])
+    for path, leaf in _flat(batch_stats):
+        key = _resnet_key(path)
+        sd[key + ".running_mean"] = _tensor(leaf["mean"])
+        sd[key + ".running_var"] = _tensor(leaf["var"])
+    return sd
+
+
+def resnet_params_to_jax(state_dict: Mapping[str, torch.Tensor]
+                         ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of :func:`resnet_params_from_jax`: a port ResNet's
+    ``state_dict`` as flax-layout ``(params, batch_stats)`` trees of numpy
+    arrays."""
+    modules: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, t in state_dict.items():
+        path, leaf = name.rsplit(".", 1)
+        modules.setdefault(path, {})[leaf] = t
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def put(tree, path, value):
+        parts = path.split(".")
+        if parts[0] == "blocks":
+            parts = parts[1:]
+        for p in parts[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[parts[-1]] = value
+
+    for path, leaf in modules.items():
+        if "running_mean" in leaf:
+            put(params, path, {"scale": _array(leaf["weight"]),
+                               "bias": _array(leaf["bias"])})
+            put(stats, path, {"mean": _array(leaf["running_mean"]),
+                              "var": _array(leaf["running_var"])})
+            continue
+        w = _array(leaf["weight"])
+        perm = (2, 3, 1, 0) if w.ndim == 4 else (1, 0)
+        put(params, path, {"kernel": np.ascontiguousarray(w.transpose(perm)),
+                           "bias": _array(leaf["bias"])})
+    return params, stats

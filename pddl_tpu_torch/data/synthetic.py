@@ -1,6 +1,7 @@
-"""Synthetic language-modeling data: deterministic, host-cheap (the port's
-copy of :class:`pddl_tpu.data.synthetic.SyntheticLanguageModeling`, batch
-for batch identical: numpy only, one seed per (seed, batch index)."""
+"""Synthetic data: deterministic, host-cheap (the port's copies of
+:class:`pddl_tpu.data.synthetic.SyntheticImageClassification` and
+:class:`~pddl_tpu.data.synthetic.SyntheticLanguageModeling`, batch for
+batch identical: numpy only, one seed per (seed, batch index))."""
 
 from __future__ import annotations
 
@@ -8,6 +9,72 @@ import dataclasses
 from typing import Dict, Iterator
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class SyntheticImageClassification:
+    """Infinite iterable of ``{"image": f32[B,H,W,C], "label": i32[B]}``.
+
+    Each class has a distinct per-channel mean (drawn from ``seed``), so a
+    model can fit the data; ``signal_strength`` scales the separation (0
+    is pure noise). ``process_index``/``process_count`` slice this
+    process's share of the global batch, and ``index_offset`` shifts the
+    batch-index space (a validation split with the same class means).
+    """
+
+    batch_size: int = 32
+    image_size: int = 224
+    channels: int = 3
+    num_classes: int = 1000
+    seed: int = 0
+    process_index: int = 0
+    process_count: int = 1
+    signal_strength: float = 1.0
+    index_offset: int = 0
+
+    def __post_init__(self):
+        if self.batch_size % self.process_count:
+            raise ValueError(
+                f"batch {self.batch_size} not divisible by "
+                f"{self.process_count} processes")
+        self._class_means = None
+
+    @property
+    def local_batch_size(self) -> int:
+        return self.batch_size // self.process_count
+
+    def _means(self) -> np.ndarray:
+        if self._class_means is None:
+            rng = np.random.default_rng(self.seed)
+            self._class_means = rng.normal(
+                size=(self.num_classes, self.channels)).astype(np.float32)
+        return self._class_means
+
+    def batch(self, index: int) -> Dict[str, np.ndarray]:
+        """Deterministic global batch ``index``, sliced to this process."""
+        rng = np.random.default_rng((self.seed, index + self.index_offset))
+        labels = rng.integers(0, self.num_classes, size=self.batch_size)
+        images = rng.normal(size=(self.batch_size, self.image_size,
+                                  self.image_size, self.channels)
+                            ).astype(np.float32)
+        if self.signal_strength:
+            images += (self.signal_strength
+                       * self._means()[labels][:, None, None, :])
+        lo = self.process_index * self.local_batch_size
+        hi = lo + self.local_batch_size
+        return {"image": images[lo:hi],
+                "label": labels[lo:hi].astype(np.int32)}
+
+    def with_offset(self, n: int) -> "SyntheticImageClassification":
+        """The same stream positioned ``n`` batches ahead."""
+        return dataclasses.replace(
+            self, index_offset=self.index_offset + int(n))
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        index = 0
+        while True:
+            yield self.batch(index)
+            index += 1
 
 
 @dataclasses.dataclass

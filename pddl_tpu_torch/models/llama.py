@@ -37,7 +37,9 @@ per the named policy; the paged decode path never remats.
 A ``sliding_window`` trains and runs the full forward through the
 windowed flash kernels. Not ported yet (each raises
 ``NotImplementedError``): routed experts (``moe_experts > 0``, ROADMAP.md
-queue 1 item 5), ring / sequence-parallel attention (queue 1 item 7), and
+queue 1 item 5; the other ``moe_*`` options are accepted at their JAX
+defaults only), ring / sequence-parallel attention and ``mesh`` (queue 1
+item 7), and
 the rolling ring cache a window under ``max_len`` needs in decode
 (:attr:`Llama.uses_ring_cache`, queue 1 item 2): the serving engine and
 the decode cache refuse such a model, as the JAX engine does.
@@ -288,9 +290,24 @@ class Llama(nn.Module):
                  sliding_window: Optional[int] = None,
                  qkv_bias: bool = False, remat: str = "none",
                  vocab_multiple: int = 1, moe_experts: int = 0,
+                 moe_top_k: int = 2, moe_every: int = 1,
+                 moe_capacity_factor: float = 2.0,
+                 moe_eval_dropless: bool = True, mesh=None,
                  rms_eps: float = 1e-5, dtype=torch.float32,
                  param_dtype=None, device=None, seed: int = 0):
         super().__init__()
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh (sharded attention) is " + _NOT_PORTED.format(
+                    "7 (distributed)"))
+        for name, value, default in (
+                ("moe_top_k", moe_top_k, 2), ("moe_every", moe_every, 1),
+                ("moe_capacity_factor", moe_capacity_factor, 2.0),
+                ("moe_eval_dropless", moe_eval_dropless, True)):
+            if value != default:
+                raise NotImplementedError(
+                    f"{name}={value!r} is " + _NOT_PORTED.format(
+                        "5.8 (ops/moe.py)"))
         if attention in ("ring", "ring_flash"):
             raise NotImplementedError(
                 f"attention={attention!r} (sequence parallelism) is "

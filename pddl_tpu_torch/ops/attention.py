@@ -64,12 +64,14 @@ def _gqa_rep(q: torch.Tensor, k: torch.Tensor) -> int:
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = False,
-                        scale: Optional[float] = None,
+                        scale: Optional[float] = None, k_offset: int = 0,
                         window: Optional[int] = None) -> torch.Tensor:
     """Plain softmax attention over ``[B, H, S, D]`` queries and
     ``[B, H_kv, S, D]`` keys/values (GQA unexpanded: each kv head serves
-    ``H/H_kv`` consecutive query heads), computed in f32. ``window``
-    (causal only): query t sees keys ``[t-window+1, t]``."""
+    ``H/H_kv`` consecutive query heads), computed in f32. ``k_offset``
+    shifts every key's position for the causal mask (ring attention's
+    rotated K/V slices). ``window`` (causal only): query t sees keys
+    ``[t-window+1, t]``."""
     b, h, sq, d = q.shape
     sk = k.shape[-2]
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
@@ -85,7 +87,7 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float()) * scale
     if causal:
         q_pos = torch.arange(sq, device=q.device)[:, None]
-        k_pos = torch.arange(sk, device=q.device)[None, :]
+        k_pos = torch.arange(sk, device=q.device)[None, :] + k_offset
         mask = q_pos >= k_pos
         if window is not None:
             mask &= k_pos > q_pos - window
@@ -136,6 +138,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None,
+                    interpret: Optional[bool] = None,
                     fused_backward: bool = True) -> torch.Tensor:
     """Flash attention over ``q [B, H, Sq, D]`` and grouped (unexpanded)
     ``k, v [B, H_kv, Sk, D]``; returns ``o`` in q's dtype.
@@ -146,7 +149,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`flash_backward` (K2, or K3a and K3b). ``window``
     (causal only): query t sees keys ``[t-window+1, t]``.
     ``block_q``/``block_k`` are accepted for the JAX signature and ignored:
-    the kernels pick their own tiles at every length.
+    the kernels pick their own tiles at every length; so is ``interpret``,
+    the Pallas interpret-mode switch, which a CUDA kernel has no use for.
     ``fused_backward=False`` takes :func:`attention_reference` instead, as
     the JAX package does: O(S²) memory, and autograd differentiates it to
     any order (the kernels' backward is first-order only).
@@ -172,13 +176,15 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None,
                         window: Optional[int] = None, k_offset: int = 0,
                         block_q: Optional[int] = None,
-                        block_k: Optional[int] = None
+                        block_k: Optional[int] = None,
+                        interpret: Optional[bool] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention` that also returns the per-row logsumexp:
     ``(o [B, H, Sq, D], lse [B, H, Sq] f32)``, differentiable through
     both (the LSE cotangent folds into the backward's row term).
     ``k_offset`` shifts every key's position for the causal/window mask
-    (ring attention's rotations)."""
+    (ring attention's rotations). ``block_q``, ``block_k`` and
+    ``interpret`` are accepted for the JAX signature and ignored."""
     d, sk = q.shape[-1], k.shape[-2]
     _gqa_rep(q, k)
     scale_v = (1.0 / math.sqrt(d)) if scale is None else scale
@@ -567,7 +573,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            window: Optional[int] = None,
                            scale: Optional[float] = None,
                            blocks_per_chunk: Optional[int] = None,
-                           kernel: Optional[bool] = None) -> torch.Tensor:
+                           kernel: Optional[bool] = None,
+                           interpret: Optional[bool] = None) -> torch.Tensor:
     """Attention over a paged KV pool through a per-row block table.
 
     Semantically decode attention over the VIRTUAL cache
@@ -586,7 +593,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
       window: sliding-window mask.
       blocks_per_chunk: accepted for the JAX signature and ignored (a
         tuning knob of the JAX plain path's chunked sweep); the kernel
-        chooses its own split of the table.
+        chooses its own split of the table. So is ``interpret``, the
+        Pallas interpret-mode switch.
       kernel: ``None`` (default) sends single-token steps to
         :func:`paged_decode_attention_kernel` — the CUDA kernel for CUDA
         tensors, its plain version for CPU tensors — and multi-token
@@ -694,10 +702,13 @@ def paged_decode_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
                                   block_table: torch.Tensor,
                                   index: IndexLike, *,
                                   scale: Optional[float] = None,
-                                  window: Optional[int] = None
+                                  window: Optional[int] = None,
+                                  interpret: Optional[bool] = None
                                   ) -> torch.Tensor:
     """The paged decode kernel (single-token steps) — the port of the
-    Pallas ``_paged_decode_kernel`` (``csrc/paged_decode.cu``).
+    Pallas ``_paged_decode_kernel`` (``csrc/paged_decode.cu``);
+    ``interpret``, the Pallas interpret-mode switch, is accepted for the
+    JAX signature and ignored.
 
     A CUDA ``q`` launches the kernel or raises: the wrapper checks
     device, dtype, shape and contiguity, chooses the split of the table

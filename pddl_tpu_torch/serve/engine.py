@@ -83,6 +83,9 @@ class ServeEngine:
     Args:
       model: a port Llama (``pddl_tpu_torch.models.llama``); it is moved
         to ``device`` in place.
+      variables: accepted for the JAX signature at ``None`` only: the
+        port's model carries its weights (anything else raises, naming
+        the fleet's ROADMAP.md item).
       device: where the engine runs — ``None`` means ``cuda`` (raises on
         a host without a card), ``"cpu"`` runs the plain PyTorch paths.
       max_slots: batch slots ``S`` — the max concurrent requests in one
@@ -117,7 +120,8 @@ class ServeEngine:
     set is refused, as the JAX engine refuses it.
     """
 
-    def __init__(self, model, *, device=None, max_slots: int = 8,
+    def __init__(self, model, variables=None, *, device=None,
+                 max_slots: int = 8,
                  prefill_len: Optional[int] = None,
                  max_queue_depth: int = 64,
                  prefill_token_budget: Optional[int] = None,
@@ -138,6 +142,11 @@ class ServeEngine:
                  spec_ngram: int = 3, spec_draft_model=None,
                  spec_draft_variables=None, tracer=None,
                  telemetry_capacity: int = 512):
+        if variables is not None:
+            # The port's model carries its weights; the JAX engine takes
+            # them apart, and its fleet workers pass them so.
+            raise _not_ported("a separate variables tree",
+                              "ROADMAP.md queue 1 item 8 (the fleet)")
         if not paged:
             raise _not_ported("paged=False", _ROADMAP_ROW)
         if getattr(model, "uses_ring_cache", False):

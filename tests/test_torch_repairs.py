@@ -18,8 +18,12 @@ right error, held against the JAX package on the CPU.
   exactly).
 - Every other option of the JAX signatures that the port lacks is
   accepted at the JAX default and raises `NotImplementedError` naming its
-  ROADMAP.md item for any other value; `paged_decode_attention` accepts
-  and ignores `blocks_per_chunk`.
+  ROADMAP.md item for any other value (the `Llama`'s `moe_*` options and
+  `mesh`, and `ServeEngine`'s second positional `variables`, among them);
+  `paged_decode_attention` accepts and ignores `blocks_per_chunk`, and
+  the four attention entry points the Pallas `interpret` switch.
+- `attention_reference(k_offset=)` gives the JAX twin's output within
+  1e-5 (f32), with GQA and with a window.
 """
 
 import inspect
@@ -33,6 +37,7 @@ import torch
 
 import pddl_tpu.ops.attention as jatt
 from pddl_tpu.data.synthetic import SyntheticLanguageModeling as JaxLM
+from pddl_tpu.models.llama import Llama as JaxLlama
 from pddl_tpu.models.llama import tiny_llama as jax_tiny_llama
 from pddl_tpu.serve.engine import ServeEngine as JaxServeEngine
 from pddl_tpu.train.loop import Trainer as JaxTrainer
@@ -204,12 +209,20 @@ SWEEP = [
     ("engine", "spec_draft_variables", {}),
     ("submit", "adapter", "tenant-a"),
     ("submit", "constraint", {"regex": "[0-9]+"}),
+    ("model", "moe_top_k", 1),
+    ("model", "moe_every", 2),
+    ("model", "moe_capacity_factor", 1.25),
+    ("model", "moe_eval_dropless", False),
+    ("model", "mesh", object()),
 ]
 JAX_FN = {"trainer": JaxTrainer.__init__, "fit": JaxTrainer.fit,
-          "engine": JaxServeEngine.__init__, "submit": JaxServeEngine.submit}
+          "engine": JaxServeEngine.__init__, "submit": JaxServeEngine.submit,
+          "model": JaxLlama}
 
 
 def _call(where, **kw):
+    if where == "model":
+        return tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu", **kw)
     model = tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu")
     if where == "trainer":
         return Trainer(model, device="cpu", **KEYS, **kw)
@@ -256,3 +269,60 @@ def test_paged_decode_ignores_blocks_per_chunk():
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert "blocks_per_chunk" in inspect.signature(
         jatt.paged_decode_attention).parameters
+
+
+def test_engine_takes_the_jax_second_positional_variables_at_none():
+    params = list(inspect.signature(JaxServeEngine.__init__).parameters)
+    assert params[:3] == ["self", "model", "variables"]
+    model = tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu")
+    eng = ServeEngine(model, None, device="cpu", max_slots=2,
+                      prefill_len=16)
+    assert eng.submit([1, 2, 3], 2) is not None
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 8"):
+        ServeEngine(model, {"params": {}}, device="cpu", max_slots=2,
+                    prefill_len=16)
+
+
+def _qkv(seed, h=4, hkv=2, s=12, d=8, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(2, h, s, d, generator=gen).to(dtype),
+            torch.randn(2, hkv, s, d, generator=gen).to(dtype),
+            torch.randn(2, hkv, s, d, generator=gen).to(dtype))
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_lse",
+                                  "paged_decode_attention",
+                                  "paged_decode_attention_kernel"])
+def test_interpret_is_accepted_and_ignored(name):
+    assert "interpret" in inspect.signature(getattr(jatt, name)).parameters
+    fn = getattr(tatt, name)
+    if name.startswith("flash"):
+        q, k, v = _qkv(0)
+        args, kw = (q, k, v), dict(causal=True)
+    else:
+        gen = torch.Generator().manual_seed(1)
+        kp, vp = (torch.randn(13, 2, 4, 8, generator=gen) for _ in range(2))
+        table = (torch.randperm(12, generator=gen) + 1).view(2, 6).int()
+        q = torch.randn(2, 4, 1, 8, generator=gen)
+        args = (q, kp, vp, table, torch.tensor([17, 3], dtype=torch.int32))
+        kw = {}
+    want = fn(*args, **kw)
+    for interpret in (None, True, False):
+        got = fn(*args, interpret=interpret, **kw)
+        for g, w in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (got, want))):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k_offset,window", [(0, None), (4, None), (-3, None),
+                                             (5, 6), (-2, 3)])
+def test_attention_reference_k_offset_matches_jax(k_offset, window):
+    q, k, v = _qkv(2)
+    want = jatt.attention_reference(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+        jnp.asarray(v.numpy()), causal=True, k_offset=k_offset,
+        window=window)
+    got = tatt.attention_reference(q, k, v, causal=True, k_offset=k_offset,
+                                   window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)

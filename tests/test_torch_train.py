@@ -16,7 +16,8 @@
   gradient's size, so a near-zero gradient whose sign differs between the
   two (their sums run in another order) puts them 2·lr apart per step;
 - the `adamw` decay mask leaves 1-D parameters undecayed;
-- unported options raise `NotImplementedError` naming ROADMAP.md;
+- unported options raise `NotImplementedError` naming ROADMAP.md, and
+  `augment` and `callbacks`, once among them, now run;
 - the trainer runs on `cuda` unless given `device="cpu"`.
 """
 
@@ -32,6 +33,7 @@ from pddl_tpu.train.loop import Trainer as JaxTrainer
 from pddl_tpu_torch.bridge import llama_params_from_jax, llama_params_to_jax
 from pddl_tpu_torch.data.synthetic import SyntheticLanguageModeling
 from pddl_tpu_torch.models.llama import Llama, tiny_llama
+from pddl_tpu_torch.train.callbacks import Callback
 from pddl_tpu_torch.train.loop import Trainer
 from pddl_tpu_torch.train.state import (
     get_learning_rate,
@@ -202,8 +204,8 @@ def test_adamw_decays_matrices_only():
     ("trainer", {"lr_schedule": "cosine"}),
     ("trainer", {"param_update": "stochastic_round"}),
     ("trainer", {"fault_plan": object()}),
-    ("trainer", {"augment": lambda rng, x: x}),
-    ("fit", {"callbacks": [object()]}),
+    ("trainer", {"lr_schedule_options": {"warmup_steps": 2}}),
+    ("fit", {"prefetch": 4}),
     ("fit", {"resume": "ckpt_dir"}),
     ("optimizer", {"schedule": "cosine"}),
     ("optimizer", {"grad_clip_norm": 1.0}),
@@ -225,6 +227,25 @@ def test_unported_options_raise(where, kw):
             Trainer(model, **trainer_kw).fit(
                 SyntheticLanguageModeling(**LM), steps_per_epoch=1,
                 verbose=0, **kw)
+
+
+def test_augment_and_callbacks_are_accepted():
+    """Once refused above, both are ported: the augment runs on each
+    train batch, a callback's hooks run."""
+    seen, ends = [], []
+
+    class Stop(Callback):
+        def on_epoch_end(self, epoch, logs):
+            ends.append(epoch)
+            self.trainer.stop_training = True
+
+    tr = Trainer(tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu"),
+                 device="cpu", input_key="tokens", target_key="targets",
+                 augment=lambda gen, x: seen.append(x.shape) or x)
+    hist = tr.fit(SyntheticLanguageModeling(**LM), epochs=3,
+                  steps_per_epoch=2, verbose=0, callbacks=[Stop()])
+    assert seen == [(LM["batch_size"], SEQ)] * 2 and ends == [0]
+    assert len(hist.history["loss"]) == 1
 
 
 def test_jax_trainer_defaults_are_accepted():
