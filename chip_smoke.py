@@ -8,9 +8,11 @@ toolkit::
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version, drives the main paths of the
 port on a full-width Llama-1B — the paged serving engine, the causal-LM
-trainer, and the trainer at long context (S 8192, block remat, the
-two-sweep flash backward) — and on a full-width, full-depth ResNet-50,
-the reference's own workload, and prints one line per phase:
+trainer, the trainer at long context (S 8192, block remat, the
+two-sweep flash backward), KV-cache decoding through ``generate`` (with
+a sliding-window ring cache) and the resident-row serving engine — and
+on a full-width, full-depth ResNet-50, the reference's own workload, and
+prints one line per phase:
 
 1. device — ``nvidia-smi``'s card name and power limit;
 2. build — every kernel compiled by ``nvcc``, one process per source, all
@@ -102,8 +104,31 @@ the reference's own workload, and prints one line per phase:
     device memory, the last loss, the forward's multiply-accumulates per
     image (from the model's conv and dense shapes) and the MFU of
     6 x MACs per image;
-16. kernels — one JSON object: every ported kernel with its launches on
-    its main path (phase 7, 10 or 11), error, times and bound (K3b's
+16. generate parity — ``generate`` on the card against the CPU, greedy,
+    full-width Llama-1B at depth 2 in f32 (TF32 off): a full-length cache
+    (B 2, prompt 64, 32 new) and a sliding window of 256 (ring 256 under
+    ``max_len`` 1024; B 1, prompt 384, 64 new: the ring wraps in the
+    prefill and in decode, and the prefill runs K1 with its LSE on the
+    card, once a layer); token-exact unless a tie, as in phase 6;
+17. generate decode — ``benchmarks/decode_bench.py``'s configuration
+    (full Llama-1B, vocab 128256, ``max_len`` 1024, bf16, prompt 64, 256
+    new, greedy) at B 1 and B 8: new tokens/s, ms per token, peak device
+    memory, and at B 1 the weight-read bound (the weights' bytes and the
+    live K/V over HBM bandwidth) and the ratio to it; no hand-written
+    kernel runs there;
+18. generate swa — a sliding-window Llama-1B (window 1024, ``max_len``
+    4096), bf16, B 1, prompt 2048, 256 new: tokens/s, the prefill's wall,
+    16 K1 launches with the LSE in the run (the sliding-window path's
+    launches), the ring's cache bytes against a full-length cache's; K1
+    at this shape against its plain version, with its times and bound;
+19. engine row parity — phase 6's wave through ``ServeEngine(paged=False)``
+    with the prefix cache on and at ``prefix_cache_blocks=0``;
+20. engine row serve — phase 7's wave through ``ServeEngine(paged=False)``:
+    tokens/s, TTFT, the tick, the prefix cache's gather and donation
+    copy bytes and ``resident_kv_report`` beside the paged engine's; no
+    hand-written kernel runs there;
+21. kernels — one JSON object: every ported kernel with its launches on
+    its main path (phase 7, 10, 11 or 18), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
     ``library_computes`` says; K4's other timing shapes under
     ``shapes``); the ResNet path adds none (the JAX package runs no
@@ -115,7 +140,9 @@ repository beside it and a card (``torch.cuda.is_available()``).
 ``--profile DIR`` adds a profiled decode window after phase 7, one
 profiled train step after each of phases 10, 11 and 15 (the last with
 its device time by kernel class: convolutions, BatchNorm, elementwise
-ops and casts, adam, ...), and writes their kernel tables to DIR.
+ops and casts, adam, ...), one profiled B 1 ``generate`` of 64 tokens
+in phase 17 (its idle share), a profiled window of the row engine's
+ticks after phase 20, and writes their kernel tables to DIR.
 """
 
 from __future__ import annotations
@@ -136,13 +163,14 @@ from pddl_tpu_torch.data.synthetic import (
     SyntheticImageClassification,
     SyntheticLanguageModeling,
 )
-from pddl_tpu_torch.models.gpt import fused_lm_loss
+from pddl_tpu_torch.models.gpt import decode_cache, fused_lm_loss, generate
 from pddl_tpu_torch.models.llama import Llama_1B, tiny_llama
 from pddl_tpu_torch.models.resnet import Conv, ResNet50, tiny_resnet
 from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
 from pddl_tpu_torch.ops.augment import standard_augment, standard_eval_transform
 from pddl_tpu_torch.serve.engine import ServeEngine
+from pddl_tpu_torch.serve.kvcache import pool_nbytes
 from pddl_tpu_torch.serve.request import FinishReason
 from pddl_tpu_torch.train.callbacks import EarlyStopping, ReduceLROnPlateau
 from pddl_tpu_torch.train.loop import Trainer
@@ -830,70 +858,95 @@ def top2_margin(model, tokens) -> float:
     return float(top[0] - top[1])
 
 
-def phase_engine_parity():
+def _parity_pair(**cfg):
+    """One seeded full-width Llama-1B weight set at ``cfg``, on the CPU and
+    copied to the card, f32 with TF32 off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dict(vocab_size=VOCAB, max_len=MAX_LEN, depth=2,
-               dtype=torch.float32)
-    cpu_model = Llama_1B(**cfg, device="cpu", seed=1)
-    gpu_model = Llama_1B(**cfg, device=DEV, seed=1)
+    cpu_model = Llama_1B(vocab_size=VOCAB, dtype=torch.float32, device="cpu",
+                         seed=1, **cfg)
+    gpu_model = Llama_1B(vocab_size=VOCAB, dtype=torch.float32, device=DEV,
+                         seed=1, **cfg)
     gpu_model.load_state_dict(cpu_model.state_dict())
+    return gpu_model, cpu_model
+
+
+def check_streams(what, streams_gpu, streams_cpu, prompts, cpu_model, n):
+    """Token-exact card against CPU, unless the CPU's top-2 logit margin
+    at the first divergence is < 1e-3 (a tie). Returns ``(exact, ties)``;
+    raises on any other divergence or a short stream."""
+    exact, ties = 0, []
+    for i, prompt in enumerate(prompts):
+        a, b = list(streams_gpu[i]), list(streams_cpu[i])
+        if len(a) != n or len(b) != n:
+            raise RuntimeError(f"{what} {i} emitted {len(a)}/{len(b)} tokens")
+        diverge = next((j for j in range(n) if a[j] != b[j]), None)
+        if diverge is None:
+            exact += 1
+            continue
+        margin = top2_margin(cpu_model, list(prompt) + b[:diverge])
+        if margin >= 1e-3:
+            raise RuntimeError(
+                f"{what} {i} diverges at token {diverge} "
+                f"(cuda {a[diverge]}, cpu {b[diverge]}) with a CPU top-2 "
+                f"margin of {margin:.3g} >= 1e-3")
+        ties.append((i, diverge, margin))
+    return exact, ";".join(f"req{i}@{j}:margin={m:.3g}" for i, j, m in ties
+                           ) or "none"
+
+
+def engine_parity_legs(tag, legs):
+    """4 greedy requests x 16 tokens through engines on the card and on
+    the CPU (Llama-1B width, depth 2, f32), one line per leg of engine
+    keywords."""
+    gpu_model, cpu_model = _parity_pair(max_len=MAX_LEN, depth=2)
     rng = np.random.RandomState(4)
     shared = rng.randint(0, VOCAB, 32)
     prompts = [np.concatenate([shared, rng.randint(0, VOCAB, 16)]),
                rng.randint(0, VOCAB, 80),
                np.concatenate([shared, rng.randint(0, VOCAB, 32)]),
                rng.randint(0, VOCAB, 100)]
-    streams = {}
-    for name, model in (("cuda", gpu_model), ("cpu", cpu_model)):
-        eng = ServeEngine(model, device=model.device, max_slots=4,
-                          prefill_len=128, prefix_block_size=16)
-        handles = [eng.submit(p, 16) for p in prompts]
-        eng.run(max_steps=200)
-        streams[name] = [h.tokens for h in handles]
-    exact, ties = 0, []
-    for i, prompt in enumerate(prompts):
-        a, b = streams["cuda"][i], streams["cpu"][i]
-        if len(a) != 16 or len(b) != 16:
-            raise RuntimeError(f"request {i} emitted {len(a)}/{len(b)} tokens")
-        diverge = next((j for j in range(16) if a[j] != b[j]), None)
-        if diverge is None:
-            exact += 1
-            continue
-        margin = top2_margin(cpu_model,
-                             list(prompt) + list(b[:diverge]))
-        if margin >= 1e-3:
-            raise RuntimeError(
-                f"request {i} diverges at token {diverge} "
-                f"(cuda {a[diverge]}, cpu {b[diverge]}) with a CPU top-2 "
-                f"margin of {margin:.3g} >= 1e-3")
-        ties.append((i, diverge, margin))
-    phase("engine_parity", model="Llama_1B_depth2_f32", allow_tf32=False,
-          requests=len(prompts), token_exact=exact,
-          ties=";".join(f"req{i}@{j}:margin={m:.3g}" for i, j, m in ties)
-          or "none")
+    for leg, engine_kw in legs:
+        streams = {}
+        for name, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+            eng = ServeEngine(model, device=model.device, max_slots=4,
+                              prefill_len=128, prefix_block_size=16,
+                              **engine_kw)
+            handles = [eng.submit(p, 16) for p in prompts]
+            eng.run(max_steps=200)
+            streams[name] = [h.tokens for h in handles]
+        exact, ties = check_streams("request", streams["cuda"],
+                                    streams["cpu"], prompts, cpu_model, 16)
+        phase(tag, **({"leg": leg} if leg else {}),
+              model="Llama_1B_depth2_f32", allow_tf32=False,
+              requests=len(prompts), token_exact=exact, ties=ties)
     del cpu_model, gpu_model
 
 
+def phase_engine_parity():
+    engine_parity_legs("engine_parity", [(None, {"paged": True})])
+
+
 # -------------------------------------------------------------- phase 7
-def phase_engine_serve():
-    torch.cuda.empty_cache()
-    model = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN,
-                     dtype=torch.bfloat16, device=DEV, seed=0)
-    rng = np.random.RandomState(5)
-    shared = rng.randint(0, VOCAB, 256)
-    prompts = [np.concatenate([shared, rng.randint(0, VOCAB, 128)])
-               for _ in range(24)]
-    eng = ServeEngine(model, paged=True, max_slots=8, prefix_block_size=16)
+def serve_wave(model, prompts, paged: bool):
+    """``engine_serve``'s wave through one engine: 24 greedy requests x 32
+    new tokens on 8 slots. Returns the launches, the metrics snapshot, the
+    engine, the handles, the wall, the live-slot ticks, the pure decode
+    ticks' walls, the largest ``blocks_shared`` and the
+    ``resident_kv_report`` at the step with the most live tokens."""
+    eng = ServeEngine(model, paged=paged, max_slots=8, prefix_block_size=16)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launch_counts()
     t0 = time.perf_counter()
     handles = [eng.submit(p, 32) for p in prompts]
-    max_shared = 0
+    max_shared, kv = 0, {"tokens_resident": -1}
     while eng.has_work:
         eng.step()
         max_shared = max(max_shared, eng.metrics.blocks_shared)
+        report = eng.resident_kv_report()
+        if report["tokens_resident"] > kv["tokens_resident"]:
+            kv = report
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_kernels.launch_counts)
@@ -906,28 +959,62 @@ def phase_engine_serve():
                                f"{len(h.tokens)} tokens")
         if not all(0 <= tok < VOCAB for tok in h.tokens):
             raise RuntimeError(f"request {i} emitted a token outside vocab")
-    if max_shared <= 0:
-        raise RuntimeError("no pool block was ever shared between slots")
-    if launches["paged_decode"] < model.depth * ticks or ticks == 0:
-        raise RuntimeError(f"paged_decode launched {launches} times over "
-                           f"{ticks} ticks of a {model.depth}-layer model")
-    snap = eng.metrics.snapshot()
-    tokens = sum(len(h.tokens) for h in handles)
     # Steps that admitted nothing emit one token per live slot: the pure
     # decode ticks.
     tick_s = [r["tick_wall_s"] for r in eng.telemetry.snapshot()
               if r["live_slots"] and r["tokens"] == r["live_slots"]]
-    phase("engine_serve", model="Llama_1B_bf16", requests=len(handles),
-          tokens=tokens, wall_s=f"{wall:.4f}",
-          tokens_per_s=f"{tokens / wall:.2f}",
-          ttft_p50_s=f"{snap['ttft_p50_s']:.5f}",
-          ttft_p99_s=f"{snap['ttft_p99_s']:.5f}", ticks=ticks,
-          decode_tick_ms_p50=f"{1e3 * float(np.median(tick_s)):.4f}",
+    return dict(launches=launches, snap=eng.metrics.snapshot(), eng=eng,
+                handles=handles, wall=wall, ticks=ticks, tick_s=tick_s,
+                max_shared=max_shared, kv=kv,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def serve_fields(run):
+    snap, handles, wall = run["snap"], run["handles"], run["wall"]
+    tokens = sum(len(h.tokens) for h in handles)
+    return dict(requests=len(handles), tokens=tokens, wall_s=f"{wall:.4f}",
+                tokens_per_s=f"{tokens / wall:.2f}",
+                ttft_p50_s=f"{snap['ttft_p50_s']:.5f}",
+                ttft_p99_s=f"{snap['ttft_p99_s']:.5f}", ticks=run["ticks"],
+                decode_tick_ms_p50=(
+                    f"{1e3 * float(np.median(run['tick_s'])):.4f}"))
+
+
+def serve_model_and_prompts():
+    torch.cuda.empty_cache()
+    model = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN,
+                     dtype=torch.bfloat16, device=DEV, seed=0)
+    rng = np.random.RandomState(5)
+    shared = rng.randint(0, VOCAB, 256)
+    prompts = [np.concatenate([shared, rng.randint(0, VOCAB, 128)])
+               for _ in range(24)]
+    return model, prompts
+
+
+def phase_engine_serve(model=None, prompts=None):
+    """Phase 7 (``serve_tick_ab.py`` runs it alone, with no arguments).
+    Returns the launches and the ``resident_kv_report`` at the step with
+    the most live tokens."""
+    if model is None:
+        model, prompts = serve_model_and_prompts()
+    run = serve_wave(model, prompts, paged=True)
+    launches, snap = run["launches"], run["snap"]
+    if run["max_shared"] <= 0:
+        raise RuntimeError("no pool block was ever shared between slots")
+    ticks = run["ticks"]
+    if launches["paged_decode"] < model.depth * ticks or ticks == 0:
+        raise RuntimeError(f"paged_decode launched {launches} times over "
+                           f"{ticks} ticks of a {model.depth}-layer model")
+    fields = serve_fields(run)
+    phase("engine_serve", model="Llama_1B_bf16", **{
+        k: fields[k] for k in ("requests", "tokens", "wall_s", "tokens_per_s",
+                               "ttft_p50_s", "ttft_p99_s", "ticks",
+                               "decode_tick_ms_p50")},
           paged_decode_launches=launches["paged_decode"],
-          max_blocks_shared=max_shared,
+          max_blocks_shared=run["max_shared"],
           prefix_hits=snap["prefix_hits"],
-          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
-    return launches, model, prompts
+          peak_mem_gib=f"{run['peak'] / 2**30:.3f}")
+    return launches, run["kv"]
 
 
 def device_kernels(prof):
@@ -940,16 +1027,20 @@ def device_kernels(prof):
                   key=lambda e: -e.self_device_time_total)
 
 
-def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8) -> None:
+def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8,
+                   paged: bool = True) -> None:
     """``--profile``: the wall time of one step that admits 8 requests,
     then a window of steady decode ticks (8 slots live at depth ~390)
-    under ``torch.profiler``. Prints the tick's wall time, the
-    device-busy share of the window, K4's device time and kernel launches
-    per tick (its split and merge kernels) and the largest kernels by
-    device time; writes the whole kernel table to ``out_dir``."""
+    under ``torch.profiler``, for the paged engine (``profile_decode``)
+    or the row engine (``profile_row_decode``). Prints the tick's wall
+    time, the device-busy share of the window, K4's device time and
+    kernel launches per tick (its split and merge kernels; none in the
+    row engine) and the largest kernels by device time; writes the whole
+    kernel table to ``out_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
-    eng = ServeEngine(model, max_slots=8, prefix_block_size=16)
+    tag = "profile_decode" if paged else "profile_row_decode"
+    eng = ServeEngine(model, paged=paged, max_slots=8, prefix_block_size=16)
     for p in prompts[:8]:
         eng.submit(p, 32)
     torch.cuda.synchronize()
@@ -969,14 +1060,14 @@ def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8) -> None:
     kern = device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kern)
     pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)
-    (pathlib.Path(out_dir) / "profile_decode.txt").write_text(
+    (pathlib.Path(out_dir) / f"{tag}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=60))
     top = ";".join(f"{e.key[:60]}:{e.self_device_time_total / n_ticks:.1f}us"
                    f"x{e.count // n_ticks}" for e in kern[:8])
     k4 = [e for e in kern if "paged_decode" in e.key]
     k4_ms = sum(e.self_device_time_total for e in k4) / 1e3 / n_ticks
-    phase("profile_decode", admit_step_ms=f"{admit_ms:.4f}", ticks=n_ticks,
+    phase(tag, admit_step_ms=f"{admit_ms:.4f}", ticks=n_ticks,
           tick_ms=f"{1e3 * wall / n_ticks:.4f}",
           device_busy_ms_per_tick=f"{busy_us / 1e3 / n_ticks:.4f}",
           paged_decode_ms_per_tick=f"{k4_ms:.4f}",
@@ -1545,13 +1636,250 @@ def profile_train(tr, data, out_dir: str, tag: str = "train") -> None:
           top_kernels=top)
 
 
+# ---------------------------------------------------------- phase 16-20
+def phase_generate_parity():
+    """``generate`` card against CPU, greedy, Llama-1B width at depth 2,
+    f32 (TF32 off): a full-length cache (``max_len`` 1024, B 2, prompt 64,
+    32 new) and a ring (``sliding_window=256``: ring 256 under 1024, B 1,
+    prompt 384, 64 new — the ring wraps in the prefill and in decode, and
+    the prefill runs K1 with its LSE on the card, once a layer)."""
+    legs = (("full_cache", dict(max_len=MAX_LEN), 2, 64, 32),
+            ("ring256", dict(max_len=MAX_LEN, sliding_window=256), 1, 384,
+             64))
+    rng = np.random.RandomState(6)
+    for leg, cfg, batch, plen, new in legs:
+        gpu_model, cpu_model = _parity_pair(depth=2, **cfg)
+        prompt = rng.randint(0, VOCAB, (batch, plen))
+        _kernels.reset_launch_counts()
+        out = generate(gpu_model, prompt, new)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launch_counts)
+        ref = generate(cpu_model, prompt, new)
+        exact, ties = check_streams("row", out[:, plen:].cpu().tolist(),
+                                    ref[:, plen:].tolist(), prompt.tolist(),
+                                    cpu_model, new)
+        want = gpu_model.depth if gpu_model.uses_ring_cache else 0
+        if launches["flash_fwd"] != want or sum(launches.values()) != want:
+            raise RuntimeError(f"generate_parity {leg}: launches {launches}, "
+                               f"want {want} K1 with the LSE")
+        phase("generate_parity", leg=leg, model="Llama_1B_depth2_f32",
+              allow_tf32=False, batch=batch, prompt=plen, new=new,
+              ring=gpu_model.uses_ring_cache, rows=batch, token_exact=exact,
+              ties=ties, flash_fwd_launches=launches["flash_fwd"])
+        del gpu_model, cpu_model
+
+
+def weight_read_bound_tokens_s(model, prompt_len: int, new: int) -> float:
+    """``decode_bench._roofline_tokens_per_sec`` for the card: every
+    decoded token reads each matmul weight once (the embedding table is
+    gathered, one row a token) and the live K/V prefix, averaged over the
+    decode, at the HBM rate."""
+    params = sum(p.numel() * p.element_size()
+                 for name, p in model.named_parameters()
+                 if name != "stem.embed.weight")
+    item = torch.finfo(model.dtype).bits // 8
+    kv = (2 * model.depth * model.num_kv_heads * model.head_dim * item
+          * (prompt_len + new / 2))
+    return HBM_BYTES_PER_S / (params + model.embed_dim * item + kv)
+
+
+def timed_generate(model, prompt, new, repeats):
+    """Median wall of ``repeats`` greedy ``generate`` calls after one
+    warm-up (host clock, ending in a sync), the output of the last one,
+    and the launches of one call."""
+    out = generate(model, prompt, new)
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = generate(model, prompt, new)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out = out.cpu()
+    plen = prompt.shape[1]
+    if out.shape != (prompt.shape[0], plen + new) or not (
+            (out[:, plen:] >= 0) & (out[:, plen:] < VOCAB)).all():
+        raise RuntimeError(f"generate gave {tuple(out.shape)} or a token "
+                           "outside the vocabulary")
+    return float(np.median(walls)), out, dict(_kernels.launch_counts)
+
+
+def phase_generate_decode(profile_dir=None, new: int = 256,
+                          plen: int = 64):
+    """``benchmarks/decode_bench.py``'s configuration: Llama-1B, vocab
+    128256, ``max_len`` 1024, bf16 parameters and compute, prompt 64, 256
+    new tokens, greedy, B 1 and B 8; the median of 3 timed calls. The
+    full-length row cache runs no hand-written kernel (the JAX package's
+    decode runs none either)."""
+    torch.cuda.empty_cache()
+    model = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN, dtype=torch.bfloat16,
+                     device=DEV, seed=0)
+    bound = weight_read_bound_tokens_s(model, plen, new)
+    rng = np.random.RandomState(7)
+    for batch in (1, 8):
+        prompt = rng.randint(0, VOCAB, (batch, plen))
+        torch.cuda.reset_peak_memory_stats()
+        wall, _, launches = timed_generate(model, prompt, new, 3)
+        if sum(launches.values()):
+            raise RuntimeError(f"generate_decode launched {launches}")
+        tokens_s = batch * new / wall
+        fields = dict(model="Llama_1B_bf16", max_len=MAX_LEN, batch=batch,
+                      prompt=plen, new=new, wall_s=f"{wall:.4f}",
+                      new_tokens_per_s=f"{tokens_s:.2f}",
+                      ms_per_token=f"{1e3 * wall / new:.4f}",
+                      peak_mem_gib=(
+                          f"{torch.cuda.max_memory_allocated() / 2**30:.3f}"))
+        if batch == 1:
+            fields.update(weight_read_bound_tokens_per_s=f"{bound:.2f}",
+                          ratio_to_bound=f"{tokens_s / bound:.4f}")
+        phase("generate_decode", **fields)
+    if profile_dir:
+        profile_generate(model, rng.randint(0, VOCAB, (1, plen)), 64,
+                         profile_dir)
+    del model
+
+
+def profile_generate(model, prompt, new, out_dir):
+    """``--profile``: one B 1 ``generate`` of ``new`` tokens under
+    ``torch.profiler``: the device-busy share of its wall and the largest
+    kernels by device time; the kernel table goes to ``out_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    generate(model, prompt, 4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(model, prompt, new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = device_kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)
+    (pathlib.Path(out_dir) / "profile_generate.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=60))
+    top = ";".join(f"{e.key[:50]}:{e.self_device_time_total / new:.1f}us"
+                   f"x{e.count // new}" for e in kern[:8])
+    phase("profile_generate", batch=prompt.shape[0], new=new,
+          ms_per_token=f"{1e3 * wall / new:.4f}",
+          device_busy_ms_per_token=f"{busy_us / 1e3 / new:.4f}",
+          device_idle_share=(f"{1 - busy_us / 1e6 / wall:.4f}" if busy_us
+                             else "not measured"),
+          top_kernels_per_token=top)
+
+
+def windowed_fwd_bound_ms(q, k, window):
+    """Least time of one causal windowed forward: 4·D flops for each
+    (query, key) pair in the band, or q, k, v, o and lse moved once."""
+    b, h, s, d = q.shape
+    pairs = sum(min(i + 1, window) for i in range(s))
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + b * h * s * 4
+    return _bound(nbytes, 4 * b * h * d * pairs, q.dtype)
+
+
+def phase_generate_swa(plen: int = 2048, new: int = 256,
+                       window: int = 1024, max_len: int = 4096):
+    """A sliding-window Llama-1B (window 1024, ``max_len`` 4096: ring 1024),
+    bf16, B 1, prompt 2048, 256 new: the prefill runs K1 with its LSE once
+    a layer (16 launches, counted from zero around the call) merged with
+    the pre-write ring's history. Prints tokens/s, the prefill's wall,
+    K1's launches, the ring's cache bytes against a full-length cache's,
+    and K1 at this shape (B 1, H 32/8, S 2048, D 64, window 1024) against
+    its plain version, with its times. Returns the launches."""
+    torch.cuda.empty_cache()
+    model = Llama_1B(vocab_size=VOCAB, max_len=max_len, sliding_window=window,
+                     dtype=torch.bfloat16, device=DEV, seed=0)
+    if not model.uses_ring_cache:
+        raise RuntimeError("the sliding-window model has no ring cache")
+    prompt = np.random.RandomState(8).randint(0, VOCAB, (1, plen))
+    prefill_s, _, _ = timed_generate(model, prompt, 1, 3)
+    torch.cuda.reset_peak_memory_stats()
+    wall, _, launches = timed_generate(model, prompt, new, 1)
+    if launches["flash_fwd"] != model.depth or sum(launches.values()) != \
+            model.depth:
+        raise RuntimeError(f"generate_swa launched {launches}; want "
+                           f"{model.depth} K1 with the LSE")
+    ring_bytes = pool_nbytes(decode_cache(model, 1))
+    full_bytes = ring_bytes * max_len // model.blocks[0].attn.ring
+    # K1 at the ring prefill's shape, against its plain version.
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    qkv, _, _, kw = flash_case(gen, 1, 32, 8, plen, plen, 64, torch.bfloat16,
+                               True, window, 0)
+    o, lse = tatt.flash_forward(*qkv, **kw)
+    ref_o, ref_lse = tatt.flash_forward_plain(*qkv, **kw)
+    torch.cuda.synchronize()
+    err = max(float((o.float() - ref_o.float()).abs().max()),
+              float((lse - ref_lse).abs().max()))
+    if not (torch.isfinite(o.float()).all() and err <= TOL[torch.bfloat16]):
+        raise RuntimeError(f"K1 at the ring prefill's shape: error {err}")
+    ms = cuda_ms(lambda i: tatt.flash_forward(*qkv, **kw), 1, iters=50)
+    plain_ms = cuda_ms(lambda i: tatt.flash_forward_plain(*qkv, **kw), 1,
+                       iters=4)
+    pos = torch.arange(plen, device=DEV)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        *qkv, attn_mask=band, enable_gqa=True), 1, iters=20)
+    bound_ms, bound_by = windowed_fwd_bound_ms(qkv[0], qkv[1], window)
+    phase("generate_swa", model=f"Llama_1B_bf16_window{window}",
+          max_len=max_len,
+          ring=model.blocks[0].attn.ring, batch=1, prompt=plen, new=new,
+          wall_s=f"{wall:.4f}", new_tokens_per_s=f"{new / wall:.2f}",
+          prefill_ms=f"{1e3 * prefill_s:.3f}",
+          flash_fwd_launches=launches["flash_fwd"],
+          ring_cache_bytes=ring_bytes, full_cache_bytes=full_bytes,
+          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+    phase("generate_swa_k1",
+          shape=f"B1_H32_Hkv8_S{plen}_D64_bf16_window{window}",
+          max_abs_err=f"{err:.3g}", tol=TOL[torch.bfloat16],
+          ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          library_ms=f"{library_ms:.5f}", bound_ms=f"{bound_ms:.5f}",
+          bound_by=bound_by)
+    del model
+    return launches
+
+
+def phase_engine_row_parity():
+    """``engine_parity``'s wave through the resident-row engine
+    (``paged=False``), card against CPU: with the prefix cache and with
+    ``prefix_cache_blocks=0``."""
+    engine_parity_legs("engine_row_parity", [
+        ("prefix_cache", {"paged": False}),
+        ("prefix_off", {"paged": False, "prefix_cache_blocks": 0})])
+
+
+def phase_engine_row_serve(model, prompts, paged_kv):
+    """``engine_serve``'s wave with ``paged=False``: tokens/s, TTFT, the
+    tick, the prefix cache's gather and donation copies, and
+    ``resident_kv_report`` at the step with the most live tokens, beside
+    the paged engine's at its own such step. The row path launches no
+    hand-written kernel."""
+    run = serve_wave(model, prompts, paged=False)
+    if sum(run["launches"].values()):
+        raise RuntimeError(f"the row engine launched {run['launches']}")
+    metrics, kv = run["eng"].metrics, run["kv"]
+    phase("engine_row_serve", model="Llama_1B_bf16", paged=False,
+          **serve_fields(run), prefix_hits=run["snap"]["prefix_hits"],
+          copy_bytes_gathered=metrics.copy_bytes_gathered,
+          copy_bytes_donated=metrics.copy_bytes_donated,
+          tokens_resident=kv["tokens_resident"],
+          kv_bytes_used=kv["kv_bytes_used"],
+          kv_bytes_allocated=kv["kv_bytes_allocated"],
+          paged_tokens_resident=paged_kv["tokens_resident"],
+          paged_kv_bytes_used=paged_kv["kv_bytes_used"],
+          paged_kv_bytes_allocated=paged_kv["kv_bytes_allocated"],
+          peak_mem_gib=f"{run['peak'] / 2**30:.3f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile a window of decode ticks after "
-                         "phase 7 and one train step after each of phases "
-                         "10, 11 and 15, and write their kernel tables to "
-                         "DIR")
+                         "phases 7 and 20, one train step after each of "
+                         "phases 10, 11 and 15 and one B 1 generate in "
+                         "phase 17, and write their kernel tables to DIR")
     args = ap.parse_args(argv)
     smi = device_line()
     print(smi, flush=True)
@@ -1564,7 +1892,8 @@ def main(argv=None) -> int:
               "flash_bwd_fused": phase_flash_bwd(),
               **phase_flash_bwd_two_sweep()}
     phase_engine_parity()
-    serve_launches, model, prompts = phase_engine_serve()
+    model, prompts = serve_model_and_prompts()
+    serve_launches, paged_kv = phase_engine_serve(model, prompts)
     if args.profile:
         profile_decode(model, prompts, args.profile)
     del model
@@ -1585,16 +1914,27 @@ def main(argv=None) -> int:
     if args.profile:
         profile_resnet(tr, batch_d, args.profile)
     del tr, batch_d
+    phase_generate_parity()
+    phase_generate_decode(args.profile)
+    swa_launches = phase_generate_swa()
+    phase_engine_row_parity()
+    model, prompts = serve_model_and_prompts()
+    phase_engine_row_serve(model, prompts, paged_kv)
+    if args.profile:
+        profile_decode(model, prompts, args.profile, paged=False)
+    del model
     src = "pddl_tpu_torch/ops/csrc/"
     att = "pddl_tpu/ops/attention.py:"
-    # (name, source, TPU kernel's line, launches on the main path: the
-    # serve run, the train step with its eval batch, or the long-context
-    # run; K1 with the LSE runs on both training paths).
+    # (name, source, TPU kernel's line, launches on the main paths: the
+    # paged serve run, the train step with its eval batch, the
+    # long-context run, or the sliding-window generate; K1 with the LSE
+    # runs on both training paths and in the ring prefill).
     rows = [
         ("paged_decode", "paged_decode.cu", 1221,
          serve_launches["paged_decode"]),
         ("flash_fwd", "flash_fwd.cu", 183,
-         train_launches["flash_fwd"] + long_launches["flash_fwd"]),
+         train_launches["flash_fwd"] + long_launches["flash_fwd"]
+         + swa_launches["flash_fwd"]),
         ("flash_fwd_nolse", "flash_fwd.cu", 389,
          train_launches["flash_fwd_nolse"]),
         ("flash_bwd_fused", "flash_bwd.cu", 617,

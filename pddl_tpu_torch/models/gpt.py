@@ -1,13 +1,20 @@
-"""Sampling and serving hooks shared by the decoder families, and the
-fused LM loss (subset of :mod:`pddl_tpu.models.gpt`, in PyTorch).
+"""Sampling, KV-cache decoding and the serving hooks shared by the
+decoder families, and the fused LM loss (subset of
+:mod:`pddl_tpu.models.gpt`, in PyTorch).
 
 The JAX package keeps the decode cache in a flax collection and stamps
 the engine-owned per-slot positions and block tables into it
 (``set_cache_positions`` / ``set_cache_block_tables``). Here the cache
-is an explicit object — per-layer K/V pools
-(``serve/kvcache/block_pool.paged_decode_cache``) — and the positions and
-tables are ARGUMENTS of the model's forward, named by the registry
-constants below.
+is an explicit tree of K/V tensors — row caches (:func:`decode_cache`)
+or per-layer pools (``serve/kvcache/block_pool.paged_decode_cache``) —
+written in place by the forward, and the positions and tables are
+ARGUMENTS of the model's forward, named by the registry constants below.
+
+:func:`generate` is the JAX package's first serving entry point: one
+batched prefill of the whole prompt, then one single-token forward per
+new token. The JAX function runs its decode as one compiled
+``lax.scan``; here it is a host loop with no host sync per token (the
+sampled token stays on the device and feeds the next step).
 """
 
 from __future__ import annotations
@@ -16,7 +23,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from pddl_tpu_torch.models.llama import ring_len
+from pddl_tpu_torch.ops.attention import cache_slot_insert
 from pddl_tpu_torch.ops.large_vocab import chunked_cross_entropy
+
+_NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
 
 # The names of the engine-owned per-slot state a paged forward takes:
 # position counters (``cache_index``; GPT's embed calls its ``pos_index``)
@@ -105,30 +116,178 @@ def sample_logits_batched(generator: torch.Generator, logits: torch.Tensor,
                        greedy).to(torch.int32)
 
 
-def prefill_row_from(model, tokens: torch.Tensor, length: int, cache: dict,
-                     start: int, block_table: torch.Tensor
-                     ) -> Tuple[dict, torch.Tensor]:
-    """Chunked prefill CONTINUING a row's paged cache: the admission
-    building block.
+def sample_logits(generator: Optional[torch.Generator], logits: torch.Tensor,
+                  *, temperature: float = 1.0, top_k: Optional[int] = None,
+                  top_p: Optional[float] = None) -> torch.Tensor:
+    """One sampling step over ``[B, V]`` logits: temperature warps first,
+    then top-k, then nucleus (:func:`filtered_logits`), then one draw per
+    row from ``generator`` (the Gumbel-max trick). ``temperature <= 0`` is
+    the greedy argmax and draws nothing. Returns int64 ``[B]``. The draws
+    are not the JAX package's (threefry and torch's generators differ):
+    only greedy streams compare token for token."""
+    if top_k is not None and int(top_k) < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if top_p is not None and not 0.0 < float(top_p) <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    logits = logits.float()
+    if temperature <= 0:
+        return logits.argmax(dim=-1)
+    filt = filtered_logits(logits, temperature=temperature, top_k=top_k,
+                           top_p=top_p)
+    u = torch.rand(filt.shape, generator=generator, device=logits.device)
+    return (filt - torch.log(-torch.log(u))).argmax(dim=-1)
 
-    The row already holds ``start`` valid tokens of K/V in the pool
-    blocks its ``block_table [1, T]`` names (a pinned shared-prefix
-    chain, earlier chunks); ``tokens`` is int ``[1, C]`` RIGHT-padded and
-    ``length <= C`` its true token count. The chunk's tokens take global
-    positions ``start .. start+C-1``, so the caller keeps
-    ``start + C <= model.max_len``. Padding junk is harmless: causal
-    masking hides it from positions ``< start + length``, its K/V lands
-    beyond the position counter the caller stamps (or in the scratch
-    block, past the table), and decode overwrites it before the counter
-    crosses.
+
+def decode_cache(model, batch: int) -> dict:
+    """A zero ROW decode cache for ``model`` at ``batch`` rows (the port of
+    ``_decode_cache_shapes``, materialized): per layer
+    ``{"cached_key", "cached_value"}`` of ``[batch, H_kv, L, D]`` in the
+    model's dtype on its device, ``L`` the ring length
+    (:func:`~pddl_tpu_torch.models.llama.ring_len`) or ``max_len``. The
+    JAX tree's position counters are the forward's ``cache_index``."""
+    length = ring_len(model.sliding_window, model.max_len) or model.max_len
+    shape = (batch, model.num_kv_heads, length, model.head_dim)
+
+    def _leaf():
+        return torch.zeros(shape, dtype=model.dtype, device=model.device)
+
+    return {f"block{i}": {"attn": {"cached_key": _leaf(),
+                                   "cached_value": _leaf()}}
+            for i in range(model.depth)}
+
+
+def slot_decode_cache(model, slots: int) -> dict:
+    """The serving engine's pooled cache: one row per request slot, each
+    slot at its own depth (the forward's ``[slots]`` ``cache_index``)."""
+    return decode_cache(model, slots)
+
+
+def insert_cache_slot(cache: dict, row_cache: dict, slot: int) -> dict:
+    """Copy a finished batch-1 prefill (``row_cache``) into slot ``slot``
+    of a pooled cache, whole rows, in place (:func:`~pddl_tpu_torch.ops.
+    attention.cache_slot_insert`). The JAX function also stamps the
+    slot's position counter; the port's engine owns the positions."""
+    for blk, leaves in cache.items():
+        for name, leaf in leaves["attn"].items():
+            cache_slot_insert(leaf, row_cache[blk]["attn"][name], slot)
+    return cache
+
+
+def _last_logits(model, tokens, length: int, **cache_kw) -> torch.Tensor:
+    """The forward's features, and the head over the one position
+    ``length - 1``: ``[B, V]`` f32."""
+    feats = model(tokens, features_only=True, **cache_kw)
+    return model.head_logits(feats[:, length - 1])
+
+
+def prefill_row(model, prompt: torch.Tensor, length: int
+                ) -> Tuple[dict, torch.Tensor]:
+    """One request's prefill on a FRESH batch-1 row cache: the serving
+    engine's admission with the prefix cache off.
+
+    ``prompt`` is int ``[1, P_pad]`` RIGHT-padded; ``length`` its true
+    token count. Padding is harmless: causal attention hides it from
+    positions ``< length``, the logits row is taken at ``length - 1``,
+    and its K/V lies past the slot's position counter, which decode
+    overwrites position by position. Returns ``(row_cache, last_logits
+    [1, V])``."""
+    cache = decode_cache(model, 1)
+    return cache, _last_logits(model, prompt, length, cache=cache,
+                               cache_index=0)
+
+
+def prefill_row_from(model, tokens: torch.Tensor, length: int, cache: dict,
+                     start: int, block_table: Optional[torch.Tensor] = None
+                     ) -> Tuple[dict, torch.Tensor]:
+    """Chunked prefill CONTINUING a batch-1 cache: the prefix-cache
+    admission building block.
+
+    The row already holds ``start`` valid tokens of K/V: in the row cache
+    ``cache`` (a gathered shared-prefix chain, earlier chunks), or — with
+    ``block_table [1, T]`` — in the paged pool blocks it names. ``tokens``
+    is int ``[1, C]`` RIGHT-padded and ``length <= C`` its true token
+    count. The chunk's tokens take global positions
+    ``start .. start+C-1``, so the caller keeps ``start + C <=
+    model.max_len`` (the forward raises past a row cache; a paged write
+    past the table lands in the scratch block). Padding junk is harmless:
+    causal masking hides it from positions ``< start + length``, its K/V
+    lands beyond the position counter the caller stamps, and decode
+    overwrites it before the counter crosses.
 
     Returns ``(cache, last_logits [1, V])`` — the cache is written in
     place; the logits row is the one at ``length - 1`` (only the final
     chunk's logits are meaningful to sample from).
     """
-    feats = model(tokens, cache=cache, cache_index=int(start),
-                  block_table=block_table, features_only=True)
-    return cache, model.head_logits(feats[:, length - 1])
+    return cache, _last_logits(model, tokens, length, cache=cache,
+                               cache_index=int(start),
+                               block_table=block_table)
+
+
+@torch.no_grad()
+def generate(model, prompt, max_new_tokens: int, *,
+             temperature: float = 0.0, top_k: Optional[int] = None,
+             top_p: Optional[float] = None,
+             generator: Optional[torch.Generator] = None, strategy=None,
+             param_transform=None) -> torch.Tensor:
+    """Autoregressive sampling with a KV cache (the port of the JAX
+    package's ``generate``).
+
+    Args:
+      model: a port Llama; it decodes on its own device. With
+        :attr:`~pddl_tpu_torch.models.llama.Llama.uses_ring_cache` its
+        cache is the rolling ring of the window, and its prefill runs K1
+        with its LSE on the card.
+      prompt: int ``[B, P]`` prompt tokens (``P >= 1``; a tensor or an
+        array).
+      max_new_tokens: tokens to append.
+      temperature: 0 → greedy argmax; > 0 → temperature sampling
+        (``generator`` required, a ``torch.Generator`` on the model's
+        device in place of the JAX ``rng`` key), optionally filtered by
+        ``top_k`` and/or nucleus ``top_p`` (:func:`sample_logits`).
+      strategy: must be None (sharded inference, ROADMAP.md queue 1
+        item 7).
+      param_transform: must be None (int8 serving, queue 1 item 3).
+
+    Returns int32 ``[B, P + max_new_tokens]`` (prompt + continuation) on
+    the model's device. One batched prefill of the whole prompt, then one
+    single-token forward per new token but the last (whose logits would
+    never be sampled); no step syncs with the host.
+    """
+    if strategy is not None:
+        raise NotImplementedError(
+            "generate(strategy=...) (sharded inference) is "
+            + _NOT_PORTED.format("7 (distributed)"))
+    if param_transform is not None:
+        raise NotImplementedError(
+            "generate(param_transform=...) (int8 serving) is "
+            + _NOT_PORTED.format("3 (engine features)"))
+    dev = model.device
+    prompt = torch.as_tensor(prompt).to(dev, torch.int32)
+    b, p = prompt.shape
+    total = p + max_new_tokens
+    if p < 1:
+        raise ValueError("generate() needs a non-empty prompt (P >= 1)")
+    if total > model.max_len:
+        raise ValueError(
+            f"prompt+new tokens {total} exceed max_len {model.max_len}")
+    if temperature > 0 and generator is None:
+        raise ValueError("temperature sampling needs an rng key (a "
+                         "torch.Generator as generator=)")
+    if temperature <= 0 and (top_k is not None or top_p is not None):
+        raise ValueError(
+            "top_k/top_p require temperature > 0 (greedy decoding would "
+            "silently ignore them)")
+    cache = decode_cache(model, b)
+    logits = _last_logits(model, prompt, p, cache=cache, cache_index=0)
+    out = [prompt]
+    for t in range(max_new_tokens):
+        nxt = sample_logits(generator, logits, temperature=temperature,
+                            top_k=top_k, top_p=top_p).to(torch.int32)
+        out.append(nxt[:, None])
+        if t + 1 < max_new_tokens:
+            logits = _last_logits(model, nxt[:, None], 1, cache=cache,
+                                  cache_index=p + t)
+    return torch.cat(out, dim=1)
 
 
 def fused_lm_loss(model, tokens: torch.Tensor, targets: torch.Tensor, *,

@@ -10,7 +10,7 @@ under bf16 compute); ``param_dtype`` defaults to ``dtype``, the serving
 configuration, whose linears are plain ``nn.Linear`` with no cast.
 RMSNorm computes in f32 whatever it is.
 
-Two forward modes, chosen by whether a cache is passed:
+Three forward modes, chosen by the cache passed:
 
 - no cache: the training-shaped full forward over ``[B, S]`` tokens at
   positions ``arange(S)``, attention through
@@ -19,30 +19,45 @@ Two forward modes, chosen by whether a cache is passed:
   backward under a gradient) or
   :func:`~pddl_tpu_torch.ops.attention.attention_reference`
   (``attention="reference"``);
+- a ROW cache (``models/gpt.decode_cache``: ``[B, H_kv, L, D]`` per
+  layer, ``L = ring_len(window, max_len) or max_len``) plus
+  ``cache_index`` (an int for a batch-wide position, ``[B]`` for the
+  serving engine's slots) — ``generate()`` and the resident-row engine.
+  Each layer writes its post-RoPE K/V at its positions (``pos % L`` on a
+  ring) and attends through
+  :func:`~pddl_tpu_torch.ops.attention.decode_attention`. A multi-token
+  block on a ring (the chunked prefill of a sliding-window model) attends
+  to itself through :func:`~pddl_tpu_torch.ops.attention.flash_attention_lse`
+  (K1 with its LSE on the card) and to the PRE-WRITE ring through
+  ``decode_attention(history_only=True)``, the two merged in logsumexp
+  space;
 - a PAGED cache (``serve/kvcache/block_pool.paged_decode_cache``) plus
   the engine-owned ``cache_index`` (an int for a batch-1 prefill chunk,
   ``[B]`` for the decode tick) and ``block_table`` (``[B, T]``): each
   layer writes its post-RoPE K/V into the pool
   (:func:`~pddl_tpu_torch.ops.attention.paged_cache_insert`) and attends
   through the table (:func:`~pddl_tpu_torch.ops.attention.paged_decode_attention`
-  — the CUDA kernel for single-token steps on the card). Keys are cached
-  post-RoPE at their ABSOLUTE positions, so a shared pool block is
-  bit-valid for every row whose table references it.
+  — the CUDA kernel for single-token steps on the card).
+
+Keys are cached post-RoPE at their ABSOLUTE positions, so a cached block
+is bit-valid for every row that shares its tokens. Unlike the JAX
+module, which clamps an out-of-range cache write and drops an
+out-of-range scatter, the port raises on a write past the cache.
 
 ``remat`` (``"none"``, ``"dots"``, ``"full"``) wraps every block with
 :func:`pddl_tpu_torch.models.vit.remat_block`: under a gradient, with no
 cache passed, each block's activations are rematerialized in the backward
-per the named policy; the paged decode path never remats.
+per the named policy; the decode paths never remat.
 
 A ``sliding_window`` trains and runs the full forward through the
-windowed flash kernels. Not ported yet (each raises
+windowed flash kernels, and decodes through the rolling ring cache when
+its window, rounded up to 128, is under ``max_len``
+(:attr:`Llama.uses_ring_cache`); the serving engine and the paged cache
+refuse such a model, as the JAX package does. Not ported yet (each raises
 ``NotImplementedError``): routed experts (``moe_experts > 0``, ROADMAP.md
 queue 1 item 5; the other ``moe_*`` options are accepted at their JAX
-defaults only), ring / sequence-parallel attention and ``mesh`` (queue 1
-item 7), and
-the rolling ring cache a window under ``max_len`` needs in decode
-(:attr:`Llama.uses_ring_cache`, queue 1 item 2): the serving engine and
-the decode cache refuse such a model, as the JAX engine does.
+defaults only) and ring / sequence-parallel attention and ``mesh``
+(queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -59,7 +74,9 @@ from pddl_tpu_torch.device import resolve_device
 from pddl_tpu_torch.models.vit import remat_block
 from pddl_tpu_torch.ops.attention import (
     attention_reference,
+    decode_attention,
     flash_attention,
+    flash_attention_lse,
     paged_cache_insert,
     paged_decode_attention,
 )
@@ -141,8 +158,8 @@ class LlamaAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, num_kv_heads: int, *,
                  rope_theta: float = 10000.0, attention: str = "flash",
                  sliding_window: Optional[int] = None,
-                 qkv_bias: bool = False, dtype=torch.float32,
-                 param_dtype=None, device=None):
+                 qkv_bias: bool = False, max_decode_len: int = 1024,
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(
@@ -159,6 +176,7 @@ class LlamaAttention(nn.Module):
         self.rope_theta = rope_theta
         self.attention = attention
         self.sliding_window = sliding_window
+        self.ring = ring_len(sliding_window, max_decode_len)
         self.dtype = dtype
         lin = functools.partial(_linear, dtype=dtype,
                                 param_dtype=param_dtype or dtype,
@@ -172,7 +190,8 @@ class LlamaAttention(nn.Module):
     def forward(self, x: torch.Tensor, *,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_index: Union[int, torch.Tensor, None] = None,
-                block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+                block_table: Optional[torch.Tensor] = None,
+                max_index: Optional[int] = None) -> torch.Tensor:
         b, s, _ = x.shape
         hd = self.head_dim
         q = self.query(x).view(b, s, self.num_heads, hd).transpose(1, 2)
@@ -185,19 +204,100 @@ class LlamaAttention(nn.Module):
                       else attention_reference)
             o = attend(q, k, v, causal=True, window=self.sliding_window)
         else:
-            i = torch.as_tensor(cache_index, device=x.device)
-            pos = i[..., None] + torch.arange(s, device=x.device)
+            if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
+                i = cache_index.to(x.device)
+                if s != 1 and self.ring is not None:
+                    raise ValueError(
+                        "per-row cache_index over a rolling ring cache "
+                        f"supports single-token steps only (got a {s}-token "
+                        "block)")
+                pos = i[:, None] + torch.arange(s, device=x.device)
+            else:
+                # A shared offset stays a host int: no copy to the device.
+                i = max_index = int(cache_index)
+                pos = torch.arange(i, i + s, device=x.device)
             q, k = apply_rope_qk(q, k, pos, theta=self.rope_theta)
-            if not isinstance(cache_index, torch.Tensor):
-                i = int(cache_index)  # batch-1 chunk: a host offset
-            kp = paged_cache_insert(cache["cached_key"], k.to(self.dtype),
-                                    block_table, i)
-            vp = paged_cache_insert(cache["cached_value"], v.to(self.dtype),
-                                    block_table, i)
-            o = paged_decode_attention(q, kp, vp, block_table, i,
-                                       window=self.sliding_window)
+            k, v = k.to(self.dtype), v.to(self.dtype)
+            if block_table is not None:
+                o = self._paged(q, k, v, cache, i, block_table)
+            else:
+                o = self._row(q, k, v, cache, i, max_index)
         o = o.transpose(1, 2).reshape(b, s, self.num_heads * hd)
         return self.out(o)
+
+    def _paged(self, q, k, v, cache, i, block_table):
+        """Write K/V into the pool through the table, then attend."""
+        if self.ring is not None:
+            raise NotImplementedError(
+                "paged attention requires a full-length cache; rolling "
+                "sliding-window caches are not paged")
+        kp = paged_cache_insert(cache["cached_key"], k, block_table, i)
+        vp = paged_cache_insert(cache["cached_value"], v, block_table, i)
+        return paged_decode_attention(q, kp, vp, block_table, i,
+                                      window=self.sliding_window)
+
+    def _row(self, q, k, v, cache, i, max_index):
+        """Write K/V into the row cache (in place) and attend over it.
+
+        ``i`` is an int, or a ``[B]`` tensor with ``max_index`` its
+        deepest row as a host int (None: the write is checked by a sync
+        and the sweep reads the whole cache)."""
+        ck, cv = cache["cached_key"], cache["cached_value"]
+        b, _, s, _ = q.shape
+        ring, window = self.ring, self.sliding_window
+        cache_len = ck.shape[2]
+        if ring is None:
+            deepest = int(i.max()) if max_index is None else max_index
+            if deepest + s > cache_len:
+                # The JAX module clamps a block start past the cache (and
+                # drops a scatter past it): either would lose tokens here.
+                raise ValueError(
+                    f"a {s}-token block at cache_index {deepest} runs past "
+                    f"the cache's {cache_len} positions")
+        if isinstance(i, torch.Tensor):
+            # Per-row scatter at i[b] + arange(s) (ring rows wrap their
+            # slot; s == 1 there). The indexed axes go first: the update
+            # is [B, s, H_kv, D].
+            rows = torch.arange(b, device=q.device)[:, None]
+            slot = i.long()[:, None] + torch.arange(s, device=q.device)
+            if ring is not None:
+                slot = slot % ring
+            ck[rows, :, slot] = k.transpose(1, 2)
+            cv[rows, :, slot] = v.transpose(1, 2)
+            return decode_attention(q, ck, cv, i, window=window,
+                                    rolling=ring is not None,
+                                    max_index=max_index,
+                                    chunk=128 if s > 1 else 512)
+        if ring is None:
+            ck[:, :, i:i + s] = k
+            cv[:, :, i:i + s] = v
+            return decode_attention(q, ck, cv, i, window=window,
+                                    chunk=128 if s > 1 else 512)
+        if s == 1:
+            ck[:, :, i % ring] = k[:, :, 0]
+            cv[:, :, i % ring] = v[:, :, 0]
+            return decode_attention(q, ck, cv, i, window=window,
+                                    rolling=True)
+        # A block on the ring (chunked prefill of a sliding-window model):
+        # it attends to itself through K1 with its LSE and to the history
+        # through the ring as it was BEFORE this block's writes, which may
+        # overwrite in-window slots that its early queries still need.
+        # The two normalized partials merge in logsumexp space; at i == 0
+        # the history lse is ~NEG_INF and its o 0, so it weighs 0.
+        o_blk, lse_blk = flash_attention_lse(q, k, v, causal=True,
+                                             window=window)
+        o_hist, lse_hist = decode_attention(
+            q, ck, cv, i, window=window, rolling=True, history_only=True,
+            return_lse=True, chunk=128)
+        keep = min(s, ring)  # only the last `ring` tokens survive
+        slots = (i + torch.arange(s - keep, s, device=q.device)) % ring
+        ck[:, :, slots] = k[:, :, s - keep:]
+        cv[:, :, slots] = v[:, :, s - keep:]
+        m = torch.maximum(lse_blk, lse_hist)
+        w_blk = torch.exp(lse_blk - m)[..., None]
+        w_hist = torch.exp(lse_hist - m)[..., None]
+        return ((o_blk.float() * w_blk + o_hist.float() * w_hist)
+                / (w_blk + w_hist)).to(q.dtype)
 
 
 class LlamaBlock(nn.Module):
@@ -208,7 +308,8 @@ class LlamaBlock(nn.Module):
                  attention: str = "flash",
                  sliding_window: Optional[int] = None,
                  qkv_bias: bool = False, rms_eps: float = 1e-5,
-                 dtype=torch.float32, param_dtype=None, device=None):
+                 max_decode_len: int = 1024, dtype=torch.float32,
+                 param_dtype=None, device=None):
         super().__init__()
         param_dtype = param_dtype or dtype
         self.dtype = dtype
@@ -216,8 +317,8 @@ class LlamaBlock(nn.Module):
         self.attn = LlamaAttention(
             embed_dim, num_heads, num_kv_heads, rope_theta=rope_theta,
             attention=attention, sliding_window=sliding_window,
-            qkv_bias=qkv_bias, dtype=dtype, param_dtype=param_dtype,
-            device=device)
+            qkv_bias=qkv_bias, max_decode_len=max_decode_len, dtype=dtype,
+            param_dtype=param_dtype, device=device)
         self.ln2 = _rms_norm(embed_dim, rms_eps, param_dtype, device)
         lin = functools.partial(_linear, bias=False, dtype=dtype,
                                 param_dtype=param_dtype, device=device)
@@ -340,8 +441,8 @@ class Llama(nn.Module):
             block_cls(embed_dim, num_heads, self.num_kv_heads, inter,
                        rope_theta=rope_theta, attention=attention,
                        sliding_window=sliding_window, qkv_bias=qkv_bias,
-                       rms_eps=rms_eps, dtype=dtype, param_dtype=param_dtype,
-                       device=device)
+                       rms_eps=rms_eps, max_decode_len=max_len, dtype=dtype,
+                       param_dtype=param_dtype, device=device)
             for _ in range(depth))
         self.head = _LlamaHead(vocab_size, embed_dim, vocab_multiple,
                                rms_eps, dtype, param_dtype, device)
@@ -375,15 +476,23 @@ class Llama(nn.Module):
                 cache: Optional[dict] = None,
                 cache_index: Union[int, torch.Tensor, None] = None,
                 block_table: Optional[torch.Tensor] = None,
+                max_index: Optional[int] = None,
                 features_only: bool = False) -> torch.Tensor:
         """``train`` is accepted for the JAX signature and changes nothing
-        (the dense blocks have no dropout)."""
+        (the dense blocks have no dropout). With a cache, ``cache_index``
+        is an int or a ``[B]`` tensor, and ``max_index`` the tensor's
+        largest entry as a host int, which bounds each layer's sweep to
+        the live prefix without a host sync (the serving engine owns its
+        positions on the host)."""
         x = self.stem(tokens)
+        if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
+            cache_index = cache_index.to(x.device)  # once, not per layer
         for i, block in enumerate(self.blocks):
             kw = {}
             if cache is not None:
                 kw = {"cache": cache[f"block{i}"]["attn"],
-                      "cache_index": cache_index, "block_table": block_table}
+                      "cache_index": cache_index, "block_table": block_table,
+                      "max_index": max_index}
             x = block(x, **kw)
         feats = self.head.features(x)
         return feats if features_only else self.head.logits(feats)

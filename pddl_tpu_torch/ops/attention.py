@@ -19,6 +19,13 @@
   sequences). Each kernel's plain
   version (:func:`flash_forward_plain`, :func:`flash_backward_plain`)
   sits beside it and runs only for CPU tensors.
+- :func:`decode_attention` — attention over a ROW cache (``generate``
+  and the resident-row engine): a scalar or per-row index, a window, a
+  rolling ring, ``history_only`` and the LSE, read over the live prefix
+  only; plain PyTorch on every device, as the JAX package leaves it to
+  XLA. Beside it the row and block copies :func:`cache_slot_insert`,
+  :func:`cache_slot_reset`, :func:`cache_blocks_gather` and
+  :func:`cache_blocks_scatter`, which write in place.
 - :func:`paged_cache_insert` — write the current token(s) of every row
   into its table-mapped pool block.
 - :func:`paged_decode_attention` — attention over the pool through a
@@ -40,6 +47,7 @@ import functools
 import math
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from pddl_tpu_torch.ops import _kernels
@@ -509,6 +517,237 @@ class _FlashLse(_Flash):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window, k_offset):
         return _forward_saving(ctx, q, k, v, causal, scale, window, k_offset)
+
+
+def _attention_reference_lse(q, k, v, causal, scale, window=None,
+                             k_offset=0):
+    """O(S²) ``(o, lse)`` in f32 with :func:`attention_reference`'s exact
+    masking (the JAX package's fallback of ``flash_attention_lse`` for
+    shapes its Pallas tiles do not divide); grouped K/V unexpanded."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[-3], k.shape[-2]
+    rep = _gqa_rep(q, k)
+    qg = q.reshape(b, hkv, rep, sq, d).float()
+    s = scale * torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float())
+    if causal:
+        q_pos = torch.arange(sq, device=q.device)[:, None]
+        k_pos = torch.arange(sk, device=q.device)[None, :] + k_offset
+        mask = q_pos >= k_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        s = torch.where(mask, s, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
+    return o.reshape(b, h, sq, d).to(q.dtype), lse.reshape(b, h, sq)
+
+
+# ------------------------------------------------------ row-cache decoding
+def cache_slot_insert(pool: torch.Tensor, row: torch.Tensor,
+                      slot: int) -> torch.Tensor:
+    """Copy a batch-1 cache leaf ``row [1, ...]`` into row ``slot`` of the
+    pooled leaf ``pool [S, ...]`` (the serving engine's slot model: one
+    resident cache whose batch dim is a pool of request slots). The whole
+    row is overwritten, so nothing of the slot's previous occupant stays
+    reachable. Writes ``pool`` in place (the JAX function returns a new
+    array) and returns it."""
+    if tuple(row.shape) != (1,) + tuple(pool.shape[1:]):
+        raise ValueError(f"row {tuple(row.shape)} is not a batch-1 slice "
+                         f"of pool {tuple(pool.shape)}")
+    if not 0 <= int(slot) < pool.shape[0]:
+        raise ValueError(f"slot {slot} outside [0, {pool.shape[0]})")
+    pool[int(slot)] = row[0]
+    return pool
+
+
+def cache_slot_reset(pool: torch.Tensor, slot: int) -> torch.Tensor:
+    """Zero one slot row of a pooled cache leaf, in place."""
+    return cache_slot_insert(
+        pool, torch.zeros((1,) + tuple(pool.shape[1:]), dtype=pool.dtype,
+                          device=pool.device), slot)
+
+
+def _block_ids(block_ids, n: int, device) -> torch.Tensor:
+    """Block ids as a long tensor on ``device``, checked on the host
+    against the pool's ``n`` blocks (an id out of range would fault on the
+    card, where the JAX function clamps it)."""
+    ids = np.asarray(torch.as_tensor(block_ids).cpu(), dtype=np.int64)
+    if ids.ndim != 1:
+        raise ValueError(f"block_ids must be [M], got {ids.shape}")
+    if ids.size and not (0 <= ids.min() and ids.max() < n):
+        raise ValueError(f"block ids {ids.tolist()} outside [0, {n})")
+    return torch.from_numpy(ids).to(device)
+
+
+def cache_blocks_gather(pool: torch.Tensor, block_ids) -> torch.Tensor:
+    """Gather KV blocks ``block_ids [M]`` of a block-pool leaf
+    ``[N, ..., block_size, D]`` into one contiguous batch-1 prefix
+    ``[1, ..., M*block_size, D]`` (block ``j``'s tokens land at positions
+    ``[j*block_size, (j+1)*block_size)``). A copy: a slot filled from it
+    never aliases pool storage."""
+    if pool.ndim < 3:
+        raise ValueError(f"pool leaf must be [N, ..., block_size, D], got "
+                         f"{tuple(pool.shape)}")
+    ids = _block_ids(block_ids, pool.shape[0], pool.device)
+    m = ids.numel()
+    bs, d = pool.shape[-2], pool.shape[-1]
+    g = pool[ids].movedim(0, -3)                # [..., M, bs, D]
+    return g.reshape(g.shape[:-3] + (m * bs, d))[None]
+
+
+def cache_blocks_scatter(pool: torch.Tensor, row: torch.Tensor, block_ids,
+                         start_block: int) -> torch.Tensor:
+    """Write a batch-1 cache row's tokens ``[start_block*block_size,
+    (start_block+M)*block_size)`` into pool blocks ``block_ids [M]`` of a
+    ``[N, ..., block_size, D]`` leaf (the donation half of the prefix
+    cache). Source positions past the row's end are clamped per token, as
+    in the JAX function (a padded tail block reads junk, never a shifted
+    slice). Writes ``pool`` in place and returns it."""
+    if row.shape[0] != 1 or row.ndim != pool.ndim:
+        raise ValueError(f"row {tuple(row.shape)} is not a batch-1 cache "
+                         f"leaf matching pool {tuple(pool.shape)}")
+    ids = _block_ids(block_ids, pool.shape[0], pool.device)
+    m = ids.numel()
+    bs, d = pool.shape[-2], pool.shape[-1]
+    pos = int(start_block) * bs + torch.arange(m * bs, device=pool.device)
+    window = row[0].index_select(-2, pos.clamp(max=row.shape[-2] - 1))
+    blocks = window.reshape(window.shape[:-2] + (m, bs, d)).movedim(-3, 0)
+    pool[ids] = blocks.to(pool.dtype)
+    return pool
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, index: IndexLike, *,
+                     window: Optional[int] = None, rolling: bool = False,
+                     chunk: int = 512, scale: Optional[float] = None,
+                     history_only: bool = False, return_lse: bool = False,
+                     max_index: Optional[int] = None):
+    """Attention over a row KV cache (the port of the JAX package's
+    ``decode_attention``; plain PyTorch on every device, as the JAX
+    package leaves it to XLA).
+
+    Args:
+      q: ``[B, H, S, D]`` post-RoPE queries (``S`` tokens being decoded).
+      k_cache/v_cache: ``[B, H_kv, L, D]``, the current tokens already
+        written at their slots (unless ``history_only``), read in their
+        storage dtype and never expanded to ``H``.
+      index: tokens in the cache BEFORE this call (queries sit at global
+        positions ``index .. index+S-1``): an int, a 0-d tensor, or a
+        per-row ``[B]`` tensor (the serving engine's slots, each at its
+        own depth).
+      window: sliding-window width; keys below ``q_pos - window + 1`` are
+        masked.
+      rolling: the cache is a RING of ``L >= window`` slots: slot ``j``
+        holds the newest position ``p ≡ j (mod L)`` with
+        ``p <= index+S-1``; never-written slots (``p < 0``) are masked.
+      chunk: keys per step of the online softmax for multi-token blocks
+        (it bounds the f32 score memory); a single-token step scores the
+        whole live prefix in one pass. Tuning, not semantics.
+      history_only: the cache holds only the ``index`` tokens BEFORE this
+        block, which is not written: queries attend to ``pos < index``
+        (the chunked-prefill building block, merged with the block's own
+        attention in logsumexp space). A row that sees no key (no
+        history, or none inside its window) returns 0 and lse
+        ``≈ NEG_INF``, so a merge gives it zero weight (the JAX function
+        returns junk ``o`` for the second kind, with the same lse).
+      return_lse: also return the per-row logsumexp ``[B, H, S]`` f32.
+      max_index: the deepest row's ``index`` as a host int, when ``index``
+        is a tensor: the sweep then reads only the live prefix
+        ``[0, max_index + S)`` (``max_index`` under ``history_only``).
+        Without it a tensor index sweeps the whole cache (same result,
+        more bytes, and no host sync). An int ``index`` is its own bound.
+
+    Scores are f32 over q cast to the cache's dtype; p is rounded to v's
+    dtype before the P·V product, both as in the JAX function. Returns
+    ``[B, H, S, D]`` in q's dtype (and the lse under ``return_lse``).
+    """
+    b, h, s, d = q.shape
+    hkv, cache_len = k_cache.shape[1], k_cache.shape[2]
+    rep = _gqa_rep(q, k_cache)
+    if isinstance(index, torch.Tensor) and index.ndim:
+        if index.ndim > 1 or index.shape[0] != b:
+            raise ValueError(f"index must be a scalar or [B]={b} vector, "
+                             f"got {tuple(index.shape)}")
+        idx = index.to(device=q.device, dtype=torch.long)[:, None]  # [B, 1]
+        q_pos = idx + torch.arange(s, device=q.device)             # [B, s]
+        before = idx[:, :, None]                                   # [B, 1, 1]
+    else:
+        # A shared position stays a host int: no copy to the device.
+        idx = before = max_index = int(index)
+        q_pos = torch.arange(idx, idx + s, device=q.device)        # [s]
+    if rolling:
+        if window is None:
+            raise ValueError("rolling=True needs a sliding window (the ring "
+                             "holds only the newest position per slot — "
+                             "unwindowed attention would silently miss "
+                             "overwritten history)")
+        if cache_len < window:
+            raise ValueError(
+                f"rolling cache length {cache_len} < window {window}: "
+                "in-window keys would be overwritten before leaving the "
+                "band")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    scale_v = (1.0 / math.sqrt(d)) if scale is None else scale
+    total = idx if history_only else idx + s
+    # The live prefix: slots [0, live) hold every token any row has (a
+    # ring is dense once it wrapped).
+    live = cache_len if max_index is None else max(0, min(
+        cache_len, max_index + (0 if history_only else s)))
+    step = live if s == 1 else min(chunk, cache_len)
+    qg = q.reshape(b, hkv, rep, s, d).to(k_cache.dtype).float()
+    m = l = acc = None  # the online softmax's state, from the first chunk
+    for start in range(0, live, max(step, 1)):
+        stop = min(start + step, live)
+        kc = k_cache[:, :, start:stop].float()
+        sb = torch.einsum("bgrqd,bgkd->bgrqk", qg, kc) * scale_v
+        slot = torch.arange(start, stop, device=q.device)
+        if rolling:
+            t1 = total - 1
+            pos = t1 - torch.remainder(t1 - slot, cache_len)  # [n]|[B, n]
+        else:
+            pos = slot
+        if history_only:
+            mask = pos[..., None, :] < before
+        else:
+            mask = pos[..., None, :] <= q_pos[..., :, None]
+        if window is not None:
+            mask = mask & (pos[..., None, :] > q_pos[..., :, None] - window)
+        if rolling:
+            mask = mask & (pos >= 0)[..., None, :]
+        sb = torch.where(mask if mask.ndim == 2 else mask[:, None, None],
+                         sb, NEG_INF)
+        m_new = sb.amax(dim=-1, keepdim=True)
+        if m is not None:
+            m_new = torch.maximum(m, m_new)
+        p = torch.exp(sb - m_new)
+        pv = torch.einsum("bgrqk,bgkd->bgrqd", p.to(v_cache.dtype).float(),
+                          v_cache[:, :, start:stop].float())
+        if m is None:
+            l, acc = p.sum(dim=-1, keepdim=True), pv
+        else:
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + pv
+        m = m_new
+    if m is None:  # nothing live: the empty sweep
+        f32 = dict(dtype=torch.float32, device=q.device)
+        m = torch.full((b, hkv, rep, s, 1), NEG_INF, **f32)
+        l = torch.zeros((b, hkv, rep, s, 1), **f32)
+        acc = torch.zeros((b, hkv, rep, s, d), **f32)
+    if history_only:
+        # A row that saw no key (no history, or none inside its window)
+        # keeps the empty sweep's state: its fully masked chunks would
+        # otherwise average junk with weight 1. Only history_only can
+        # leave a row empty: otherwise each query sees its own token.
+        seen = m > NEG_INF
+        l = torch.where(seen, l, 0.0)
+        acc = torch.where(seen, acc, 0.0)
+    l = l.clamp_min(1e-30)
+    out = (acc / l).reshape(b, h, s, d).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(b, h, s)
+    return out
 
 
 def _check_table(block_table: torch.Tensor, b: int) -> None:

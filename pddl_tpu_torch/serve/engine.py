@@ -1,35 +1,47 @@
-"""Continuous-batching online serving engine over the PAGED decode path
-(the port of :mod:`pddl_tpu.serve.engine` for ``paged=True``).
+"""Continuous-batching online serving engine (the port of
+:mod:`pddl_tpu.serve.engine`), in its two modes.
 
 Orca-style iteration-level scheduling: requests join and leave the
 running batch at token granularity. Each :meth:`ServeEngine.step`:
 
 1. REAP cancelled and timed-out slots;
 2. ADMIT queued requests into free slots — the radix index
-   (``kvcache/radix.py``) matches the longest cached prompt prefix and
-   the slot's block table points at those pool blocks IN PLACE (pinned,
-   never copied); private blocks are allocated for the suffix, which is
-   chunk-prefilled straight into them (narrow chunks for short suffixes,
-   one wide chunk for a long remainder); the prompt's full blocks are
-   then handed to the index (a refcount hand-off — zero copies) and the
-   first token is sampled from the prefill logits (that is TTFT);
-3. APPEND a fresh private block to every live slot about to write at a
-   block boundary;
-4. one fused decode TICK for every live slot: each layer writes its token's
-   K/V through the slot's table and attends through it — on the card the
-   hand-written paged-decode kernel (``ops/csrc/paged_decode.cu``) — with
-   per-slot sampling parameters as batched arrays; finished slots are
-   evicted host-side (their private blocks return to the free list, their
-   pinned chain stays cached and becomes LRU-evictable).
+   (``kvcache/radix.py``) matches the longest cached prompt prefix, the
+   uncached suffix is chunk-prefilled (narrow chunks for short suffixes,
+   one wide chunk for a long remainder), the prompt's full blocks are
+   handed to the index, and the first token is sampled from the prefill
+   logits (that is TTFT);
+3. one fused decode TICK for every live slot, with per-slot sampling
+   parameters as batched arrays; finished slots are evicted host-side.
+
+``paged=False`` (the default, as in the JAX package) keeps each live
+request in a RESIDENT ROW of a pooled slot cache ``[S, H_kv, max_len,
+D]`` per layer. Admission works in one batch-1 row: a prefix hit
+GATHERS the matched pool blocks into it (a copy), the suffix chunks
+continue it, the prompt's uncovered full blocks are DONATED back to the
+pool (a copy), and the row is copied into the slot. The tick writes each
+slot's token at its own position and attends over the rows through
+:func:`~pddl_tpu_torch.ops.attention.decode_attention`, bounded by the
+deepest slot. ``prefix_cache_blocks=0`` turns the prefix cache off:
+each admission is then one padded one-shot prefill.
+
+``paged=True`` has no rows: the pool IS the cache. A prefix hit points
+the slot's block table at the matched blocks IN PLACE (pinned, never
+copied), private blocks take the suffix, a fresh private block is
+appended before a slot writes across a block boundary, and each layer
+attends through the table — on the card the hand-written paged-decode
+kernel (``ops/csrc/paged_decode.cu``).
 
 Token-exactness of shared blocks is structural: Llama caches post-RoPE
 keys at their absolute positions, so a block computed by one request is
-bit-valid for every request with the same prompt tokens.
+bit-valid for every request with the same prompt tokens. A model whose
+decode needs a rolling ring cache (``Llama.uses_ring_cache``) is
+refused in both modes, as the JAX engine refuses it; it decodes through
+``models/gpt.generate``.
 
 PyTorch runs eagerly, so the JAX engine's fixed compiled-program set
 (and its ``compile_counts`` pin) has no counterpart here. Not ported yet
-— each raises ``NotImplementedError`` naming its ROADMAP.md item: the
-resident-row engine (``paged=False``) and the sliding-window ring cache,
+— each raises ``NotImplementedError`` naming its ROADMAP.md item:
 speculative serving (``spec_k`` and its options), tenancy (``tenant``,
 ``submit``'s ``adapter``/``constraint``), int8 serving
 (``param_transform``), the host KV tier (``host_tier``), fault injection
@@ -47,10 +59,20 @@ import numpy as np
 import torch
 
 from pddl_tpu_torch.device import resolve_device
-from pddl_tpu_torch.models.gpt import prefill_row_from, sample_logits_batched
+from pddl_tpu_torch.models.gpt import (
+    decode_cache,
+    insert_cache_slot,
+    prefill_row,
+    prefill_row_from,
+    sample_logits_batched,
+    slot_decode_cache,
+)
 from pddl_tpu_torch.obs.ring import TelemetryRing
 from pddl_tpu_torch.serve.kvcache import (
     RadixPrefixCache,
+    donate_prefix_blocks,
+    gather_prefix_into_row,
+    kv_block_pool,
     paged_decode_cache,
     pool_nbytes,
 )
@@ -66,7 +88,6 @@ from pddl_tpu_torch.serve.request import (
 )
 from pddl_tpu_torch.serve.scheduler import SLOScheduler
 
-_ROADMAP_ROW = "ROADMAP.md queue 1 item 2 (the resident-row engine)"
 _ROADMAP_FEATURES = "ROADMAP.md queue 1 item 3 (engine features)"
 
 
@@ -74,11 +95,11 @@ def _not_ported(what: str, item: str = _ROADMAP_FEATURES
                 ) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet ({item}); the port's engine serves "
-        "paged=True with the prefix cache")
+        "paged=False and paged=True without it")
 
 
 class ServeEngine:
-    """Online multiplexer of generate requests onto one paged decode path.
+    """Online multiplexer of generate requests onto one fused decode tick.
 
     Args:
       model: a port Llama (``pddl_tpu_torch.models.llama``); it is moved
@@ -99,14 +120,16 @@ class ServeEngine:
         (default: seeded with 0).
       clock: injectable monotonic clock.
       prefix_cache_blocks: pool size in blocks, block 0 the scratch sink.
-        ``None`` sizes it to every slot at ``max_len`` plus headroom for
-        two cached prompts per slot; an explicit size must cover
-        ``max_slots * ceil(max_len / block_size) + 1`` so a live stream
-        never starves for a writable block.
+        ``None`` sizes it to two cached prompts per slot (``paged=False``)
+        or to every slot at ``max_len`` plus that headroom (``paged=True``,
+        where an explicit size must cover ``max_slots * ceil(max_len /
+        block_size) + 1`` so a live stream never starves for a writable
+        block). ``0`` turns the prefix cache off (``paged=False`` only).
       prefix_block_size: tokens per pool block (the sharing granularity).
       prefix_chunk: the narrow prefill chunk width (default
         ``max(prefix_block_size, prefill_len // 4)``).
-      paged: must be True (the resident-row engine is not ported).
+      paged: False (default) for the resident-row engine, True for the
+        paged one (module docstring).
       preempt_cap: must be 0 (preemption resumes through replay
         admission, not ported).
       telemetry_capacity: size of the per-step :class:`TelemetryRing`.
@@ -118,6 +141,11 @@ class ServeEngine:
 
     A model with :attr:`~pddl_tpu_torch.models.llama.Llama.uses_ring_cache`
     set is refused, as the JAX engine refuses it.
+
+    ``metrics`` carries two counters the JAX engine lacks, outside its
+    snapshot: ``copy_bytes_gathered`` (pool → admission row on a prefix
+    hit) and ``copy_bytes_donated`` (admission row → pool), the row
+    engine's copies that the paged one avoids.
     """
 
     def __init__(self, model, variables=None, *, device=None,
@@ -134,7 +162,7 @@ class ServeEngine:
                  prefix_cache_blocks: Optional[int] = None,
                  prefix_block_size: int = 8,
                  prefix_chunk: Optional[int] = None,
-                 paged: bool = True,
+                 paged: bool = False,
                  host_tier=None, fault_plan=None, max_retries: int = 3,
                  retry_backoff_s: float = 0.02, backoff_sleep=time.sleep,
                  max_replays: int = 3, degraded_cooldown_s: float = 5.0,
@@ -147,12 +175,11 @@ class ServeEngine:
             # them apart, and its fleet workers pass them so.
             raise _not_ported("a separate variables tree",
                               "ROADMAP.md queue 1 item 8 (the fleet)")
-        if not paged:
-            raise _not_ported("paged=False", _ROADMAP_ROW)
         if getattr(model, "uses_ring_cache", False):
-            raise _not_ported(
-                f"sliding_window={model.sliding_window} (a rolling ring "
-                "cache in decode)", _ROADMAP_ROW)
+            raise NotImplementedError(
+                "the serving engine needs full-length KV caches; "
+                f"sliding_window={model.sliding_window} allocates a "
+                "rolling ring cache whose slot reuse is not supported yet")
         for what, given in (("prefill_slice_tokens",
                              prefill_slice_tokens is not None),
                             ("param_transform", param_transform is not None),
@@ -206,48 +233,77 @@ class ServeEngine:
         self._donate_cap = self.prefill_len // bs
         chunk = (int(prefix_chunk) if prefix_chunk is not None
                  else max(bs, self.prefill_len // 4))
-        # T table entries cover every position a stream can reach; the
-        # pool must hold one writable block per live position-block plus
-        # the scratch sink, or a decode tick could starve mid-stream.
+        self._paged = bool(paged)
+        # Paged: T table entries cover every position a stream can reach;
+        # the pool must hold one writable block per live position-block
+        # plus the scratch sink, or a decode tick could starve mid-stream.
         self._table_width = -(-model.max_len // bs)
         paged_floor = self.max_slots * self._table_width + 1
-        if prefix_cache_blocks is None:
-            pool_blocks = (paged_floor
-                           + 2 * self.max_slots * max(self._donate_cap, 1))
-        else:
+        headroom = 2 * self.max_slots * max(self._donate_cap, 1)
+        if prefix_cache_blocks is not None:
             pool_blocks = int(prefix_cache_blocks)
-        if pool_blocks < paged_floor:
-            raise ValueError(
-                f"paged=True needs prefix_cache_blocks >= {paged_floor} "
-                f"(max_slots * ceil(max_len/block_size) + scratch) so live "
-                f"streams can never starve for a writable block; got "
-                f"{pool_blocks}")
-        if self._match_cap < 1:
-            raise ValueError(
-                f"prefix_block_size {bs} leaves no cacheable block under "
-                f"prefill_len {self.prefill_len} (need block_size < "
-                "prefill_len)")
-        if not 1 <= chunk or self.prefill_len + chunk > model.max_len:
-            raise ValueError(
-                f"prefix_chunk {chunk} needs 1 <= chunk and prefill_len + "
-                f"chunk <= max_len ({self.prefill_len} + {chunk} > "
-                f"{model.max_len}): a chunk starting at the deepest cached "
-                "offset would clamp its positions")
+        elif self._paged:
+            pool_blocks = paged_floor + headroom
+        else:
+            pool_blocks = headroom + 1 if self._match_cap >= 1 else 0
+        self._prefix_on = pool_blocks > 0
+        if self._paged:
+            if not self._prefix_on:
+                raise ValueError(
+                    "paged=True needs the block-pool machinery; "
+                    "prefix_cache_blocks=0 disables it")
+            if pool_blocks < paged_floor:
+                raise ValueError(
+                    f"paged=True needs prefix_cache_blocks >= {paged_floor} "
+                    f"(max_slots * ceil(max_len/block_size) + scratch) so "
+                    f"live streams can never starve for a writable block; "
+                    f"got {pool_blocks}")
+        if self._prefix_on:
+            if self._match_cap < 1:
+                raise ValueError(
+                    f"prefix_block_size {bs} leaves no cacheable block "
+                    f"under prefill_len {self.prefill_len} (need "
+                    "block_size < prefill_len); pass prefix_cache_blocks=0 "
+                    "to disable prefix caching")
+            if not 1 <= chunk or self.prefill_len + chunk > model.max_len:
+                raise ValueError(
+                    f"prefix_chunk {chunk} needs 1 <= chunk and prefill_len "
+                    f"+ chunk <= max_len ({self.prefill_len} + {chunk} > "
+                    f"{model.max_len}): a chunk starting at the deepest "
+                    "cached offset would clamp its positions")
+            if pool_blocks < 2:
+                raise ValueError(
+                    f"prefix_cache_blocks must be >= 2 (block 0 is the "
+                    f"reserved scratch sink), got {pool_blocks}")
         self.prefix_block_size = bs
         self._chunk = chunk
         # The WIDE chunk (the whole prefill_len) serves cold or barely
         # cached prompts in one forward; it can start as deep as
         # prefill_len/4 (the width policy's threshold), so its positions
-        # must stay in range there too.
-        self._has_wide = (self._chunk < self.prefill_len
+        # must stay in range there too. With the prefix cache off, an
+        # admission is one padded prefill and there are no chunks.
+        self._has_wide = (self._prefix_on and self._chunk < self.prefill_len
                           and self.prefill_len + self.prefill_len // 4
                           <= model.max_len)
 
-        self._prefix = RadixPrefixCache(bs, pool_blocks)
-        self._cache = paged_decode_cache(self.model, pool_blocks, bs)
-        # KV bytes one token occupies across every layer: what one avoided
-        # gather copy is worth (`copy_bytes_avoided`).
-        self._kv_token_bytes = pool_nbytes(self._cache) // (pool_blocks * bs)
+        self._prefix = (RadixPrefixCache(bs, pool_blocks)
+                        if self._prefix_on else None)
+        if self._paged:
+            self._cache = paged_decode_cache(self.model, pool_blocks, bs)
+            self._pool = self._row = None
+            token_slots = pool_blocks * bs
+        else:
+            self._cache = slot_decode_cache(self.model, self.max_slots)
+            self._pool = (kv_block_pool(self.model, pool_blocks, bs)
+                          if self._prefix_on else None)
+            # The resident admission row: every admission with the prefix
+            # cache on is prefilled here, then copied into its slot.
+            self._row = (decode_cache(self.model, 1) if self._prefix_on
+                         else None)
+            token_slots = self.max_slots * model.max_len
+        # KV bytes one token occupies across every layer: what a gathered,
+        # donated or avoided copy of one token is worth.
+        self._kv_token_bytes = pool_nbytes(self._cache) // token_slots
 
         # One handle per occupied slot; the other per-slot state lives in
         # the host arrays below, stamped into every tick.
@@ -258,10 +314,11 @@ class ServeEngine:
         self._temps = np.zeros(self.max_slots, np.float32)
         self._top_ks = np.zeros(self.max_slots, np.int32)
         self._top_ps = np.full(self.max_slots, 2.0, np.float32)
-        # Host-authoritative block tables (scratch-filled for parked
-        # slots) and the private, not-yet-shared block ids each slot owns.
-        self._tables = np.zeros((self.max_slots, self._table_width),
-                                np.int32)
+        # Paged: host-authoritative block tables (scratch-filled for
+        # parked slots) and the private, not-yet-shared block ids each
+        # slot owns.
+        self._tables = (np.zeros((self.max_slots, self._table_width),
+                                 np.int32) if self._paged else None)
         self._private: List[List[int]] = [[] for _ in range(self.max_slots)]
 
     # -------------------------------------------------------- submission
@@ -318,13 +375,19 @@ class ServeEngine:
     # ------------------------------------------------------------- state
     @property
     def paged(self) -> bool:
-        return True
+        return self._paged
+
+    @property
+    def prefix_cache_enabled(self) -> bool:
+        return self._prefix_on
 
     @property
     def blocks_shared(self) -> int:
         """Pool blocks referenced by MORE THAN ONE live slot's table right
         now (ids are unique within a row, so a count > 1 means > 1
-        slot)."""
+        slot); 0 outside paged mode."""
+        if not self._paged:
+            return 0
         live = [sid for sid, h in enumerate(self._slots) if h is not None]
         if len(live) < 2:
             return 0
@@ -335,11 +398,54 @@ class ServeEngine:
     @property
     def block_table_fill(self) -> float:
         """Mean fraction of live slots' table entries that point at real
-        (non-scratch) blocks."""
+        (non-scratch) blocks; 0.0 outside paged mode."""
+        if not self._paged:
+            return 0.0
         live = [sid for sid, h in enumerate(self._slots) if h is not None]
         if not live:
             return 0.0
         return float((self._tables[live] != 0).mean())
+
+    def resident_kv_report(self) -> dict:
+        """Live-stream KV accounting, comparable across the two modes:
+
+        - ``tokens_resident``: summed depth of every live stream;
+        - ``kv_bytes_used``: device bytes holding that state — the row
+          engine pays each live slot's depth privately plus one pool copy
+          of every cached block; the paged engine pays each distinct
+          referenced block once;
+        - ``kv_bytes_allocated``: the reserved footprint (slot cache +
+          pool, or the paged pool).
+
+        The port's caches hold K/V only: ``kv_bytes_allocated`` is the
+        JAX engine's less its position-counter (and block-table) leaves.
+        """
+        live = [sid for sid, h in enumerate(self._slots) if h is not None]
+        tokens = int(sum(int(self._positions[sid]) for sid in live))
+        allocated = pool_nbytes(self._cache)
+        if self._paged:
+            distinct = set()
+            for sid in live:
+                distinct.update(int(b) for b in self._tables[sid] if b != 0)
+            used = (len(distinct) * self.prefix_block_size
+                    * self._kv_token_bytes)
+            return {"tokens_resident": tokens, "kv_bytes_used": used,
+                    "kv_bytes_allocated": allocated}
+        used = tokens * self._kv_token_bytes
+        if self._prefix_on:
+            used += (self._prefix.blocks_live * self.prefix_block_size
+                     * self._kv_token_bytes)
+            allocated += pool_nbytes(self._pool)
+        return {"tokens_resident": tokens, "kv_bytes_used": used,
+                "kv_bytes_allocated": allocated}
+
+    @property
+    def prefix_pool_nbytes(self) -> int:
+        """Device bytes the KV block pool holds: the row engine's prefix
+        pool (0 with the cache off), or the paged engine's whole pool."""
+        if self._paged:
+            return pool_nbytes(self._cache)
+        return pool_nbytes(self._pool) if self._prefix_on else 0
 
     @property
     def live_slots(self) -> int:
@@ -363,16 +469,19 @@ class ServeEngine:
         self._park_slot(slot_id)
 
     def _park_slot(self, slot_id: int) -> None:
-        """Vacate a slot: its table row goes all-scratch (its next junk
-        writes land in the sink), its PRIVATE blocks — tail and generated
-        tokens, never shared — return to the free list, and its pin on
-        the donated prompt chain is released (the blocks stay cached,
-        LRU-evictable)."""
+        """Vacate a slot at position 0 with greedy parameters, and release
+        its pin on the donated prompt chain (the blocks stay cached,
+        LRU-evictable). A row's next junk writes land at position 0, and
+        the next admission overwrites the whole row. Paged: the table row
+        goes all-scratch (junk lands in the sink) and the slot's PRIVATE
+        blocks — tail and generated tokens, never shared — return to the
+        free list."""
         self._slots[slot_id] = None
         if self._private[slot_id]:
             self._prefix.release(self._private[slot_id])
             self._private[slot_id] = []
-        self._tables[slot_id, :] = 0
+        if self._paged:
+            self._tables[slot_id, :] = 0
         if self._slot_nodes[slot_id] is not None:
             self._prefix.unpin(self._slot_nodes[slot_id])
             self._slot_nodes[slot_id] = None
@@ -410,17 +519,21 @@ class ServeEngine:
         """Admission-budget charge: the UNCACHED suffix length (a pop-time
         estimate; the match at prefill time is authoritative)."""
         prompt = handle.request.prompt
+        if not self._prefix_on:
+            return len(prompt)
         match = self._prefix.match(prompt,
                                    max_blocks=self._match_blocks(prompt))
         return len(prompt) - match.n_blocks * self.prefix_block_size
 
-    def _chunk_loop(self, prompt: np.ndarray, off: int, dispatch):
-        """The suffix chunk loop and its width policy (each forward pays a
-        fixed cost plus per-token compute): a long remainder (>= 3/4 of
-        the wide width) takes the WIDE chunk in one forward, short
-        suffixes — the prefix-hit case — take narrow chunks and pay only
-        for the uncached tail. ``dispatch(chunk_toks, w, off)`` runs one
-        chunk and returns its logits."""
+    def _chunk_loop(self, prompt: np.ndarray, off: int, cache,
+                    table=None):
+        """The suffix chunk loop and its width policy, one for the row and
+        paged admissions (each forward pays a fixed cost plus per-token
+        compute): a long remainder (>= 3/4 of the wide width) takes the
+        WIDE chunk in one forward, short suffixes — the prefix-hit case —
+        take narrow chunks and pay only for the uncached tail. Each chunk
+        continues ``cache`` (the admission row, or the paged pool through
+        ``table``) in place; returns the last chunk's logits."""
         plen = int(prompt.size)
         logits = None
         while off < plen:
@@ -432,9 +545,68 @@ class ServeEngine:
             w = min(width, rem)
             chunk_toks = np.zeros((1, width), np.int32)
             chunk_toks[0, :w] = prompt[off:off + w]
-            logits = dispatch(chunk_toks, w, off)
+            _, logits = prefill_row_from(
+                self.model, torch.from_numpy(chunk_toks).to(self.device), w,
+                cache, off, table)
             off += w
         return logits
+
+    def _prefill_into_row(self, prompt: np.ndarray):
+        """Prefill one prompt into a row cache, reusing any cached prefix:
+        gather the matched chain into the resident admission row,
+        chunk-prefill the suffix, donate the prompt's uncovered full
+        blocks and pin the chain. With the prefix cache off, one padded
+        prefill on a fresh row. Returns ``(row_cache, last_logits,
+        pinned_node_or_None)``."""
+        plen = int(prompt.size)
+        bs = self.prefix_block_size
+        if not self._prefix_on:
+            padded = np.zeros((1, self.prefill_len), np.int32)
+            padded[0, :plen] = prompt
+            row, logits = prefill_row(
+                self.model, torch.from_numpy(padded).to(self.device), plen)
+            return row, logits, None
+        match = self._prefix.match(prompt,
+                                   max_blocks=self._match_blocks(prompt))
+        n_cached = match.n_blocks * bs
+        if n_cached > 0:
+            # Everything past the gathered prefix is stale: the chunks
+            # overwrite it, or it parks past the position the insert
+            # stamps. A full miss gathers nothing.
+            gather_prefix_into_row(self._pool, self._row, match.block_ids)
+            self.metrics.copy_bytes_gathered += n_cached * self._kv_token_bytes
+        logits = self._chunk_loop(prompt, n_cached, self._row)
+        node = self._donate_tail(prompt, match, n_cached)
+        return self._row, logits, node
+
+    def _donate_tail(self, prompt: np.ndarray, match, n_cached: int):
+        """Donate the prompt's uncovered FULL blocks and pin the chain.
+        First descend any chain ALREADY stored past the (capped) gather
+        match — those blocks must not be allocated afresh. Pin before
+        allocating, so this admission's own eviction pass can never free
+        the blocks just gathered from; the pool copy runs before
+        ``extend`` attaches the ids. Returns the pinned node."""
+        bs = self.prefix_block_size
+        node, stored = self._prefix.descend(match.node, prompt,
+                                            match.n_blocks)
+        self._prefix.pin(node)
+        want = len(prompt) // bs - stored
+        if want > 0:
+            new_ids = self._prefix.allocate(min(want, self._donate_cap))
+            if new_ids:
+                donate_prefix_blocks(self._pool, self._row, new_ids, stored)
+                self.metrics.copy_bytes_donated += (
+                    len(new_ids) * bs * self._kv_token_bytes)
+                tip = self._prefix.extend(
+                    node, prompt[stored * bs:(stored + len(new_ids)) * bs],
+                    new_ids)
+                self._prefix.unpin(node)
+                self._prefix.pin(tip)
+                node = tip
+        self.metrics.record_prefix_lookup(
+            n_cached, blocks_live=self._prefix.blocks_live,
+            evictions=self._prefix.evictions)
+        return node
 
     def _paged_match_and_allocate(self, prompt: np.ndarray):
         """match → pin → allocate private suffix blocks → stamp the table
@@ -475,14 +647,7 @@ class ServeEngine:
         node, m, table_row, private = self._paged_match_and_allocate(prompt)
         n_cached = m * self.prefix_block_size
         table = torch.from_numpy(table_row[None]).to(self.device)
-
-        def _dispatch(chunk_toks, w, off):
-            toks = torch.from_numpy(chunk_toks).to(self.device)
-            _, logits = prefill_row_from(self.model, toks, w, self._cache,
-                                         off, table)
-            return logits
-
-        logits = self._chunk_loop(prompt, n_cached, _dispatch)
+        logits = self._chunk_loop(prompt, n_cached, self._cache, table)
         if n_cached > 0:
             self.metrics.record_copy_avoided(
                 n_cached * self._kv_token_bytes)
@@ -551,7 +716,8 @@ class ServeEngine:
 
         # The suffix-priced cost_fn walks the radix tree per pop; only pay
         # that when a budget consumes the result.
-        use_cost = self.scheduler.prefill_token_budget is not None
+        use_cost = (self._prefix_on
+                    and self.scheduler.prefill_token_budget is not None)
         for handle in self.scheduler.admit(
                 len(free), on_cancelled=_queued_cancel,
                 on_expired=_queued_expired, now_fn=self._clock,
@@ -560,23 +726,31 @@ class ServeEngine:
 
     def _admit_one(self, sid: int, handle: RequestHandle) -> None:
         prompt = np.asarray(handle.request.prompt, np.int32)
-        logits, node, table_row, private = self._prefill_paged(prompt)
-        self._install_slot(sid, handle, logits, node, table_row, private)
+        if self._paged:
+            logits, node, table_row, private = self._prefill_paged(prompt)
+            self._install_slot(sid, handle, logits, node,
+                               table_row=table_row, private=private)
+        else:
+            row, logits, node = self._prefill_into_row(prompt)
+            self._install_slot(sid, handle, logits, node, row=row)
 
     def _install_slot(self, sid: int, handle: RequestHandle, logits, node,
-                      table_row, private) -> None:
-        """Make a prefilled request live in slot ``sid``: sample its first
-        token from the prefill logits (TTFT) and stamp the slot's table —
-        the KV already lives in the pool, so installing is host
-        bookkeeping."""
+                      row=None, table_row=None, private=()) -> None:
+        """Make a prefilled request live in slot ``sid``: copy its row into
+        the slot cache (row mode; paged mode stamps the slot's table — the
+        KV already lives in the pool) and sample its first token from the
+        prefill logits (TTFT)."""
         req = handle.request
         plen = len(req.prompt)
         t, k, p = req.sampling.as_arrays()
+        if self._paged:
+            self._tables[sid] = table_row
+            self._private[sid] = list(private)
+        else:
+            insert_cache_slot(self._cache, row, sid)
         first = int(sample_logits_batched(
             self._rng, logits, temperature=np.float32([t]),
             top_k=np.int32([k]), top_p=np.float32([p]))[0])
-        self._tables[sid] = table_row
-        self._private[sid] = list(private)
         self._slot_nodes[sid] = node
         now = self._clock()
         handle.tokens.append(first)
@@ -621,14 +795,18 @@ class ServeEngine:
 
     # --------------------------------------------------------------- tick
     def _tick(self) -> np.ndarray:
-        """One fused decode step for every slot (parked ones write into
-        the scratch sink): returns the sampled next tokens, host-side."""
+        """One fused decode step for every slot (parked ones write junk at
+        position 0 of their row, or into the paged scratch sink): returns
+        the sampled next tokens, host-side. The host owns the positions,
+        so the deepest one bounds every layer's sweep with no sync."""
         dev = self.device
         tokens = torch.from_numpy(self._tokens[:, None]).to(dev)
+        table = (torch.from_numpy(self._tables).to(dev) if self._paged
+                 else None)
         logits = self.model(
             tokens, cache=self._cache,
             cache_index=torch.from_numpy(self._positions).to(dev),
-            block_table=torch.from_numpy(self._tables).to(dev))
+            block_table=table, max_index=int(self._positions.max()))
         nxt = sample_logits_batched(
             self._rng, logits[:, -1], temperature=self._temps,
             top_k=self._top_ks, top_p=self._top_ps)
@@ -645,7 +823,8 @@ class ServeEngine:
         emitted_before = self.metrics.tokens_emitted
         self._reap()
         self._admit()
-        self._paged_append_blocks()
+        if self._paged:
+            self._paged_append_blocks()
         live = [i for i, s in enumerate(self._slots) if s is not None]
         new_tokens = 0
         if live:
@@ -665,8 +844,9 @@ class ServeEngine:
         now = self._clock()
         self.metrics.record_tick(now, self.scheduler.depth, len(live),
                                  self.max_slots, new_tokens, now - t0)
-        self.metrics.record_paged_gauges(self.blocks_shared,
-                                         self.block_table_fill)
+        if self._paged:
+            self.metrics.record_paged_gauges(self.blocks_shared,
+                                             self.block_table_fill)
         emitted = self.metrics.tokens_emitted - emitted_before
         self.telemetry.append({
             "step": cur, "t_s": now, "queue_depth": self.scheduler.depth,

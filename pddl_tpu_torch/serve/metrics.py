@@ -124,6 +124,11 @@ class ServeMetrics:
         self.copy_bytes_avoided = 0
         self.blocks_shared = 0       # gauge, engine-stamped per tick
         self.block_table_fill = 0.0  # gauge, engine-stamped per tick
+        # The row engine's prefix-cache copies (port-only counters, kept
+        # out of the snapshot, which mirrors the JAX one key for key):
+        # pool -> admission row on a hit, admission row -> pool donations.
+        self.copy_bytes_gathered = 0
+        self.copy_bytes_donated = 0
         self._admission_times: Deque[float] = deque(maxlen=32)
         self._first_activity_s: Optional[float] = None
         self._last_activity_s: Optional[float] = None

@@ -388,3 +388,60 @@ def test_flash_kernels_raise_on_what_they_do_not_take(monkeypatch):
                                       before["flash_bwd_dq"] + 1,
                                       "flash_bwd_dkv":
                                       before["flash_bwd_dkv"] + 1}
+
+
+# The ring prefill of a sliding-window Llama-1B (``generate`` on a
+# rolling cache): B 1, H 32/8, a ragged and a round S, window 1024.
+RING_PREFILL = {
+    "s1536": (1, 32, 8, 1536, 1536, 64, torch.bfloat16, True, 1024, 0),
+    "s2048": (1, 32, 8, 2048, 2048, 64, torch.bfloat16, True, 1024, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(RING_PREFILL))
+def test_ring_prefill_shapes_launch_k1_with_its_lse(shape):
+    """``flash_attention_lse`` at the ring prefill's shapes launches K1
+    with its LSE once, within bf16's tolerance of the plain version."""
+    dev = _card()
+    q, k, v, _, _, kw = _flash_case(dev, *RING_PREFILL[shape])
+    _kernels.reset_launch_counts()
+    with torch.no_grad():
+        o, lse = tatt.flash_attention_lse(q, k, v, causal=True,
+                                          window=kw["window"])
+    assert _kernels.launch_counts["flash_fwd"] == 1
+    assert sum(_kernels.launch_counts.values()) == 1
+    ref_o, ref_lse = tatt.flash_forward_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert float((o.float() - ref_o.float()).abs().max()) <= TOL[q.dtype]
+    assert float((lse - ref_lse).abs().max()) <= TOL[q.dtype]
+
+
+@pytest.mark.cuda
+def test_ring_chunked_prefill_on_the_card_matches_the_cpu():
+    """A sliding-window tiny Llama (f32, window 100 under max_len 256: a
+    ring of 128) takes three prefill chunks at nonzero indices, the
+    second and third over a wrapped ring: each layer launches K1 with its
+    LSE once a chunk, and the logits match the CPU twin's within 1e-4."""
+    from pddl_tpu_torch.models.gpt import decode_cache
+    from pddl_tpu_torch.models.llama import tiny_llama
+
+    dev = _card()
+    kw = dict(vocab_size=64, max_len=256, sliding_window=100, embed_dim=64,
+              attention="flash")
+    cpu = tiny_llama(device="cpu", **kw)
+    card = tiny_llama(device=dev, **kw)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, 64, (1, 200),
+                           generator=torch.Generator().manual_seed(3))
+    caches = decode_cache(cpu, 1), decode_cache(card, 1)
+    with torch.no_grad():
+        for lo, hi in ((0, 80), (80, 150), (150, 200)):
+            want = cpu(tokens[:, lo:hi], cache=caches[0], cache_index=lo)
+            _kernels.reset_launch_counts()
+            got = card(tokens[:, lo:hi].to(dev), cache=caches[1],
+                       cache_index=lo)
+            torch.cuda.synchronize()
+            assert _kernels.launch_counts["flash_fwd"] == card.depth
+            err = float((got.cpu() - want).abs().max())
+            assert err <= 1e-4, (lo, hi, err)

@@ -5,8 +5,10 @@ right error, held against the JAX package on the CPU.
   builds and trains: 3 steps of the port's `Trainer` against the JAX
   `Trainer` from the same bridged weights, losses within the tolerances
   of `tests/test_torch_train.py` (sgd rtol 1e-5, adamw rtol 1e-4). The
-  serving engine and the decode cache refuse it with
-  `NotImplementedError`, as the JAX engine does.
+  serving engine and the paged cache refuse it with
+  `NotImplementedError` in the JAX package's words (they need
+  full-length caches), and `generate` decodes it through its ring cache,
+  token-exact with the JAX `generate`.
 - `flash_attention(fused_backward=False)` takes the reference path: its
   output (within 1e-5, f32) and first-order gradients (within 1e-4) match
   the JAX twin's, and so does a second-order gradient (a gradient
@@ -37,12 +39,14 @@ import torch
 
 import pddl_tpu.ops.attention as jatt
 from pddl_tpu.data.synthetic import SyntheticLanguageModeling as JaxLM
+from pddl_tpu.models.gpt import generate as jax_generate
 from pddl_tpu.models.llama import Llama as JaxLlama
 from pddl_tpu.models.llama import tiny_llama as jax_tiny_llama
 from pddl_tpu.serve.engine import ServeEngine as JaxServeEngine
 from pddl_tpu.train.loop import Trainer as JaxTrainer
 from pddl_tpu_torch.bridge import llama_params_from_jax
 from pddl_tpu_torch.data.synthetic import SyntheticLanguageModeling
+from pddl_tpu_torch.models.gpt import generate
 from pddl_tpu_torch.models.llama import tiny_llama
 from pddl_tpu_torch.ops import attention as tatt
 from pddl_tpu_torch.serve.engine import ServeEngine
@@ -91,9 +95,11 @@ def test_windowed_llama_trains_like_jax(optimizer, lr, loss_rtol):
 def test_ring_cache_model_is_refused_where_decode_would_build_one():
     model = tiny_llama(vocab_size=VOCAB, max_len=512, sliding_window=8,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError,
+                       match="engine needs full-length KV caches"):
         ServeEngine(model, device="cpu", max_slots=2, prefill_len=16)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError,
+                       match="requires a full-length cache"):
         paged_decode_cache(model, num_blocks=4, block_size=8)
     with pytest.raises(NotImplementedError, match="ring cache"):
         JaxServeEngine(jax_tiny_llama(vocab_size=VOCAB, max_len=512,
@@ -103,6 +109,24 @@ def test_ring_cache_model_is_refused_where_decode_would_build_one():
                       device="cpu")
     assert not wide.uses_ring_cache
     ServeEngine(wide, device="cpu", max_slots=2, prefill_len=16)
+
+
+def test_ring_cache_model_decodes_through_generate():
+    """The model the engine refuses decodes through `generate`, through
+    its rolling ring cache (ring 128 under max_len 512), token-exact with
+    the JAX `generate` on the same bridged weights."""
+    jm = jax_tiny_llama(vocab_size=VOCAB, max_len=512, sliding_window=8)
+    params = jm.init(jax.random.key(2), jnp.ones((1, 8), jnp.int32),
+                     train=False)["params"]
+    model = tiny_llama(vocab_size=VOCAB, max_len=512, sliding_window=8,
+                       device="cpu")
+    model.load_state_dict(llama_params_from_jax(
+        jax.tree.map(np.asarray, params)))
+    prompt = np.random.RandomState(5).randint(0, VOCAB, (1, 12))
+    ref = jax_generate(jm, {"params": params}, jnp.asarray(prompt, jnp.int32),
+                       8)
+    got = generate(model, prompt, 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 # ------------------------------------------- flash_attention, reference path

@@ -203,7 +203,8 @@ def test_paged_engine_token_exact_vs_jax_engine(llama_pair):
     tm.load_state_dict(sd)
     jeng = JaxServeEngine(jm, variables, paged=True, max_slots=2,
                           prefill_len=16, preempt_cap=0)
-    teng = ServeEngine(tm, device="cpu", max_slots=2, prefill_len=16)
+    teng = ServeEngine(tm, device="cpu", paged=True, max_slots=2,
+                       prefill_len=16)
     base = (np.arange(12) * 5 + 1) % 32
     sibling = np.concatenate([base[:8], (np.arange(6) + 17) % 32])
     trace = {"jax": [], "port": []}
@@ -248,7 +249,8 @@ def test_paged_engine_sampled_request_stays_in_its_filter(llama_pair):
     prompt = (np.arange(10) * 3 + 2) % 32
     streams = []
     for seed in (7, 7):
-        eng = ServeEngine(tm, device="cpu", max_slots=2, prefill_len=16,
+        eng = ServeEngine(tm, device="cpu", paged=True, max_slots=2,
+                          prefill_len=16,
                           rng=torch.Generator().manual_seed(seed))
         top1 = eng.submit(prompt, 6, sampling=SamplingParams(
             temperature=0.9, top_k=1))
