@@ -10,7 +10,8 @@ each against its plain PyTorch version, drives the main paths of the
 port on a full-width Llama-1B — the paged serving engine, the causal-LM
 trainer, the trainer at long context (S 8192, block remat, the
 two-sweep flash backward), KV-cache decoding through ``generate`` (with
-a sliding-window ring cache) and the resident-row serving engine — and
+a sliding-window ring cache), the resident-row serving engine, and
+speculative serving and decoding (n-gram drafts and a draft model) — and
 on a full-width, full-depth ResNet-50, the reference's own workload, and
 prints one line per phase:
 
@@ -116,6 +117,11 @@ prints one line per phase:
     memory, and at B 1 the weight-read bound (the weights' bytes and the
     live K/V over HBM bandwidth) and the ratio to it; no hand-written
     kernel runs there;
+17b. generate spec — phase 17's B 1 leg (same model and prompt) through
+    ``generate_speculative`` (``draft_len`` 7, ``ngram`` 3) beside that
+    leg's ``generate``: tokens/s, ms per token, ticks, tokens per tick;
+    tokens equal unless a tie (the card's top-2 margin at the divergence
+    under 8 bf16 ulps of the top logit);
 18. generate swa — a sliding-window Llama-1B (window 1024, ``max_len``
     4096), bf16, B 1, prompt 2048, 256 new: tokens/s, the prefill's wall,
     16 K1 launches with the LSE in the run (the sliding-window path's
@@ -127,8 +133,28 @@ prints one line per phase:
     tokens/s, TTFT, the tick, the prefix cache's gather and donation
     copy bytes and ``resident_kv_report`` beside the paged engine's; no
     hand-written kernel runs there;
-21. kernels — one JSON object: every ported kernel with its launches on
-    its main path (phase 7, 10, 11 or 18), error, times and bound (K3b's
+21. engine spec serve — phase 7's wave with 128 new tokens through the
+    row and paged engines at ``spec_k`` 0 and 4 and the paged engine with
+    a depth-2 self-draft (the model's embedding, first 2 blocks, final
+    norm and head): tokens/s, TTFT, the decode tick, tokens per tick and
+    per slot window, the acceptance rate, the streams equal to
+    ``spec_k=0``'s and the top-2 margins where they part (no speed gate);
+    K4 launched exactly 2 x 5 times a window on the draft leg (the draft
+    model's single-token steps), never on the n-gram legs (the verify is
+    multi-token);
+22. engine spec parity — speculative serving, ``spec_k`` 4, greedy,
+    full-width Llama-1B at depth 2 in f32 (TF32 off, ``max_len`` 304):
+    4 repetitive prompts x 48 new tokens, one of them ending at
+    ``max_len`` (its windows reach past the cache), on the row engine,
+    the paged engine with n-gram drafts and the paged engine with a
+    depth-1 self-draft: card against CPU and against the card's
+    ``spec_k=0`` engine, token-exact unless a tie as in phase 6, the
+    acceptance counters, K4's launches; then ``generate_speculative``
+    against ``generate`` at B 2 (and the CPU);
+23. kernels — one JSON object: every ported kernel with its launches on
+    its main path (phase 7, 10, 11, 18 or 21; K4's by path under
+    ``launches_by_path``, the parity legs' draft steps included there),
+    error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
     ``library_computes`` says; K4's other timing shapes under
     ``shapes``); the ResNet path adds none (the JAX package runs no
@@ -142,7 +168,9 @@ profiled train step after each of phases 10, 11 and 15 (the last with
 its device time by kernel class: convolutions, BatchNorm, elementwise
 ops and casts, adam, ...), one profiled B 1 ``generate`` of 64 tokens
 in phase 17 (its idle share), a profiled window of the row engine's
-ticks after phase 20, and writes their kernel tables to DIR.
+ticks after phase 20 and of two speculative engines' ticks after phase
+21 (row with n-gram drafts; paged with the depth-2 self-draft), and
+writes their kernel tables to DIR.
 """
 
 from __future__ import annotations
@@ -154,6 +182,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -165,6 +194,7 @@ from pddl_tpu_torch.data.synthetic import (
 )
 from pddl_tpu_torch.models.gpt import decode_cache, fused_lm_loss, generate
 from pddl_tpu_torch.models.llama import Llama_1B, tiny_llama
+from pddl_tpu_torch.models.speculative import generate_speculative
 from pddl_tpu_torch.models.resnet import Conv, ResNet50, tiny_resnet
 from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
@@ -928,21 +958,41 @@ def phase_engine_parity():
 
 
 # -------------------------------------------------------------- phase 7
-def serve_wave(model, prompts, paged: bool):
-    """``engine_serve``'s wave through one engine: 24 greedy requests x 32
-    new tokens on 8 slots. Returns the launches, the metrics snapshot, the
-    engine, the handles, the wall, the live-slot ticks, the pure decode
-    ticks' walls, the largest ``blocks_shared`` and the
+def serve_wave(model, prompts, paged: bool, new: int = 32, **engine_kw):
+    """``engine_serve``'s wave through one engine: 24 greedy requests x
+    ``new`` new tokens on 8 slots (``engine_kw``: the speculative options).
+    Returns the launches, the metrics snapshot, the engine, the handles,
+    the wall, the live-slot ticks, the pure decode ticks' walls (steps that
+    admitted nothing), the largest ``blocks_shared`` and the
     ``resident_kv_report`` at the step with the most live tokens."""
-    eng = ServeEngine(model, paged=paged, max_slots=8, prefix_block_size=16)
+    eng = ServeEngine(model, paged=paged, max_slots=8, prefix_block_size=16,
+                      **engine_kw)
+    host = {"draft": 0.0, "verify": 0.0}
+    if eng.spec_enabled:
+        # Host seconds inside the speculative tick's two halves: drafting
+        # (the n-gram lookup, or the draft model's launches) and the
+        # verify (its launches and the wait for its one device-to-host
+        # copy). Wrapped here; the engine carries no timers.
+        for part, attr in (("draft", "_draft_tokens"), ("verify", "_verify")):
+            def timed(*args, _fn=getattr(eng, attr), _part=part):
+                t = time.perf_counter()
+                out = _fn(*args)
+                host[_part] += time.perf_counter() - t
+                return out
+            setattr(eng, attr, timed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    handles = [eng.submit(p, 32) for p in prompts]
+    handles = [eng.submit(p, new) for p in prompts]
     max_shared, kv = 0, {"tokens_resident": -1}
+    tick_s = []
     while eng.has_work:
+        admitted = eng.metrics.ttft_s.count
         eng.step()
+        rec = eng.telemetry.last()
+        if rec["live_slots"] and eng.metrics.ttft_s.count == admitted:
+            tick_s.append(rec["tick_wall_s"])
         max_shared = max(max_shared, eng.metrics.blocks_shared)
         report = eng.resident_kv_report()
         if report["tokens_resident"] > kv["tokens_resident"]:
@@ -954,18 +1004,14 @@ def serve_wave(model, prompts, paged: bool):
     if eng.telemetry.total_appended > eng.telemetry.capacity:
         raise RuntimeError("telemetry ring wrapped; ticks undercounted")
     for i, h in enumerate(handles):
-        if h.finish_reason is not FinishReason.LENGTH or len(h.tokens) != 32:
+        if h.finish_reason is not FinishReason.LENGTH or len(h.tokens) != new:
             raise RuntimeError(f"request {i}: {h.finish_reason} with "
                                f"{len(h.tokens)} tokens")
         if not all(0 <= tok < VOCAB for tok in h.tokens):
             raise RuntimeError(f"request {i} emitted a token outside vocab")
-    # Steps that admitted nothing emit one token per live slot: the pure
-    # decode ticks.
-    tick_s = [r["tick_wall_s"] for r in eng.telemetry.snapshot()
-              if r["live_slots"] and r["tokens"] == r["live_slots"]]
     return dict(launches=launches, snap=eng.metrics.snapshot(), eng=eng,
                 handles=handles, wall=wall, ticks=ticks, tick_s=tick_s,
-                max_shared=max_shared, kv=kv,
+                max_shared=max_shared, kv=kv, host=host,
                 peak=torch.cuda.max_memory_allocated())
 
 
@@ -1028,19 +1074,22 @@ def device_kernels(prof):
 
 
 def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8,
-                   paged: bool = True) -> None:
+                   paged: bool = True, tag: Optional[str] = None,
+                   **engine_kw) -> None:
     """``--profile``: the wall time of one step that admits 8 requests,
     then a window of steady decode ticks (8 slots live at depth ~390)
     under ``torch.profiler``, for the paged engine (``profile_decode``)
-    or the row engine (``profile_row_decode``). Prints the tick's wall
+    or the row engine (``profile_row_decode``), or with ``engine_kw`` a
+    speculative one (``tag`` names it). Prints the tick's wall
     time, the device-busy share of the window, K4's device time and
     kernel launches per tick (its split and merge kernels; none in the
     row engine) and the largest kernels by device time; writes the whole
     kernel table to ``out_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
-    tag = "profile_decode" if paged else "profile_row_decode"
-    eng = ServeEngine(model, paged=paged, max_slots=8, prefix_block_size=16)
+    tag = tag or ("profile_decode" if paged else "profile_row_decode")
+    eng = ServeEngine(model, paged=paged, max_slots=8, prefix_block_size=16,
+                      **engine_kw)
     for p in prompts[:8]:
         eng.submit(p, 32)
     torch.cuda.synchronize()
@@ -1050,6 +1099,7 @@ def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8,
     admit_ms = 1e3 * (time.perf_counter() - t0)
     eng.step()
     torch.cuda.synchronize()
+    before = eng.metrics.tokens_emitted
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1068,6 +1118,8 @@ def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8,
     k4 = [e for e in kern if "paged_decode" in e.key]
     k4_ms = sum(e.self_device_time_total for e in k4) / 1e3 / n_ticks
     phase(tag, admit_step_ms=f"{admit_ms:.4f}", ticks=n_ticks,
+          tokens_per_tick=(
+              f"{(eng.metrics.tokens_emitted - before) / n_ticks:.4f}"),
           tick_ms=f"{1e3 * wall / n_ticks:.4f}",
           device_busy_ms_per_tick=f"{busy_us / 1e3 / n_ticks:.4f}",
           paged_decode_ms_per_tick=f"{k4_ms:.4f}",
@@ -1711,7 +1763,8 @@ def phase_generate_decode(profile_dir=None, new: int = 256,
     128256, ``max_len`` 1024, bf16 parameters and compute, prompt 64, 256
     new tokens, greedy, B 1 and B 8; the median of 3 timed calls. The
     full-length row cache runs no hand-written kernel (the JAX package's
-    decode runs none either)."""
+    decode runs none either). Returns the model and B 1's prompt, median
+    wall and tokens, for ``generate_spec``."""
     torch.cuda.empty_cache()
     model = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN, dtype=torch.bfloat16,
                      device=DEV, seed=0)
@@ -1720,9 +1773,11 @@ def phase_generate_decode(profile_dir=None, new: int = 256,
     for batch in (1, 8):
         prompt = rng.randint(0, VOCAB, (batch, plen))
         torch.cuda.reset_peak_memory_stats()
-        wall, _, launches = timed_generate(model, prompt, new, 3)
+        wall, out, launches = timed_generate(model, prompt, new, 3)
         if sum(launches.values()):
             raise RuntimeError(f"generate_decode launched {launches}")
+        if batch == 1:
+            b1 = (prompt, wall, out)
         tokens_s = batch * new / wall
         fields = dict(model="Llama_1B_bf16", max_len=MAX_LEN, batch=batch,
                       prompt=plen, new=new, wall_s=f"{wall:.4f}",
@@ -1737,7 +1792,7 @@ def phase_generate_decode(profile_dir=None, new: int = 256,
     if profile_dir:
         profile_generate(model, rng.randint(0, VOCAB, (1, plen)), 64,
                          profile_dir)
-    del model
+    return (model,) + b1
 
 
 def profile_generate(model, prompt, new, out_dir):
@@ -1873,13 +1928,274 @@ def phase_engine_row_serve(model, prompts, paged_kv):
           peak_mem_gib=f"{run['peak'] / 2**30:.3f}")
 
 
+# ---------------------------------------------------------- phase 21-23
+SPEC_K = 4
+SPEC_MAX_LEN = 304      # the parity engines' cache: 256 + 48 ends at it
+SPEC_ENGINE = dict(max_slots=4, prefill_len=256, prefix_block_size=16,
+                   prefix_chunk=32)
+
+
+def self_draft(model, depth: int):
+    """The draft model of the speculative legs: ``model``'s embedding, its
+    first ``depth`` blocks, final norm and head, copied into a
+    depth-``depth`` Llama on the same device and in the same dtype."""
+    draft = Llama_1B(vocab_size=model.vocab_size, max_len=model.max_len,
+                     depth=depth, dtype=model.dtype, device=model.device)
+    draft.load_state_dict({
+        k: v for k, v in model.state_dict().items()
+        if not k.startswith("blocks.") or int(k.split(".")[1]) < depth})
+    return draft
+
+
+def spec_parity_prompts():
+    """4 repetitive prompts (a short random motif repeated, one with a
+    random tail); the last is 256 tokens, so with 48 new tokens it ends
+    at the cache's end and its last windows reach past it."""
+    rng = np.random.RandomState(10)
+
+    def loop(n):
+        return np.resize(rng.randint(0, VOCAB, rng.randint(3, 8)), n)
+    return [loop(40), loop(64),
+            np.concatenate([loop(24), rng.randint(0, VOCAB, 24)]), loop(256)]
+
+
+def spec_streams(model, prompts, new, **kw):
+    """One engine on ``model``'s device over the parity prompts; returns
+    the engine and the streams, every one run to LENGTH."""
+    eng = ServeEngine(model, device=model.device, **SPEC_ENGINE, **kw)
+    handles = [eng.submit(p, new) for p in prompts]
+    eng.run(max_steps=1000)
+    for i, h in enumerate(handles):
+        if h.finish_reason is not FinishReason.LENGTH:
+            raise RuntimeError(f"spec request {i}: {h.finish_reason}")
+    return eng, [h.tokens for h in handles]
+
+
+def spec_fields(snap):
+    return dict(spec_ticks=snap["spec_ticks"],
+                spec_drafted_tokens=snap["spec_drafted_tokens"],
+                spec_accepted_tokens=snap["spec_accepted_tokens"],
+                spec_acceptance_rate=(
+                    "none" if snap["spec_acceptance_rate"] is None
+                    else f"{snap['spec_acceptance_rate']:.4f}"))
+
+
+def phase_engine_spec_parity(new: int = 48):
+    """Speculative serving card against CPU and against the card's
+    ``spec_k=0`` engine, greedy, Llama-1B width at depth 2 in f32 (TF32
+    off), ``max_len`` 304: 4 repetitive prompts x 48 new tokens, ``spec_k``
+    4, on the row engine, the paged engine with n-gram drafts and the
+    paged engine with a draft model (the target's embedding, first block,
+    final norm and head as a depth-1 Llama). Token-exact unless the CPU's
+    top-2 margin at the divergence is < 1e-3. The draft leg's K4 launches
+    are its draft model's single-token steps, ``(spec_k + 1)`` a layer a
+    window; the n-gram legs launch none (the verify is multi-token). Then
+    ``generate_speculative`` against ``generate`` at B 2. Returns the
+    draft leg's launches."""
+    gpu_model, cpu_model = _parity_pair(max_len=SPEC_MAX_LEN, depth=2)
+    prompts = spec_parity_prompts()
+    if len(prompts[-1]) + new != SPEC_MAX_LEN:
+        raise RuntimeError("the edge request does not end at max_len")
+    drafts = {"cuda": self_draft(gpu_model, 1), "cpu": self_draft(cpu_model, 1)}
+    base = {}
+    for paged in (False, True):
+        _, base[paged] = spec_streams(gpu_model, prompts, new, paged=paged)
+    draft_launches = None
+    for leg, paged, with_draft in (("row", False, False),
+                                   ("paged", True, False),
+                                   ("draft", True, True)):
+        streams, snaps = {}, {}
+        for name, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+            kw = dict(paged=paged, spec_k=SPEC_K)
+            if with_draft:
+                kw["spec_draft_model"] = drafts[name]
+            _kernels.reset_launch_counts()
+            eng, streams[name] = spec_streams(model, prompts, new, **kw)
+            if name == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(_kernels.launch_counts)
+            snaps[name] = eng.metrics.snapshot()
+        want = (drafts["cuda"].depth * (SPEC_K + 1) * snaps["cuda"]
+                ["spec_ticks"] if with_draft else 0)
+        if launches["paged_decode"] != want or sum(launches.values()) != want:
+            raise RuntimeError(f"engine_spec_parity {leg}: launches "
+                               f"{launches}, want {want} paged_decode")
+        if with_draft:
+            draft_launches = launches
+        exact, ties = check_streams(f"{leg} request", streams["cuda"],
+                                    streams["cpu"], prompts, cpu_model, new)
+        exact0, ties0 = check_streams(f"{leg} vs spec_k=0 request",
+                                      streams["cuda"], base[paged], prompts,
+                                      cpu_model, new)
+        phase("engine_spec_parity", leg=leg, model="Llama_1B_depth2_f32",
+              allow_tf32=False, max_len=SPEC_MAX_LEN, spec_k=SPEC_K,
+              requests=len(prompts), new=new,
+              edge_request_tokens=len(prompts[-1]) + len(streams["cuda"][-1]),
+              token_exact_vs_cpu=exact, ties_vs_cpu=ties,
+              token_exact_vs_spec0=exact0, ties_vs_spec0=ties0,
+              paged_decode_launches=launches["paged_decode"],
+              **spec_fields(snaps["cuda"]),
+              cpu_spec_accepted_tokens=snaps["cpu"]["spec_accepted_tokens"])
+    # The one-shot loop, B 2: against generate on the card, and the CPU.
+    prompt = np.stack([np.resize(prompts[0], 64), np.resize(prompts[1], 64)])
+    out, stats = generate_speculative(gpu_model, prompt, new,
+                                      return_stats=True)
+    ref = generate(gpu_model, prompt, new)
+    cpu_out = generate_speculative(cpu_model, prompt, new)
+    exact, ties = check_streams("generate_speculative row",
+                                out[:, 64:].cpu().tolist(),
+                                ref[:, 64:].cpu().tolist(), prompt.tolist(),
+                                cpu_model, new)
+    exact_cpu, ties_cpu = check_streams(
+        "generate_speculative cpu row", out[:, 64:].cpu().tolist(),
+        cpu_out[:, 64:].tolist(), prompt.tolist(), cpu_model, new)
+    phase("engine_spec_parity", leg="generate_speculative",
+          model="Llama_1B_depth2_f32", batch=2, prompt=64, new=new,
+          draft_len=7, ngram=3, token_exact_vs_generate=exact,
+          ties_vs_generate=ties, token_exact_vs_cpu=exact_cpu,
+          ties_vs_cpu=ties_cpu, ticks=stats["ticks"],
+          tokens_per_tick=f"{stats['tokens_per_tick']:.4f}")
+    del gpu_model, cpu_model, drafts
+    return draft_launches
+
+
+def parted_streams(model, prompts, streams, base):
+    """Streams equal to ``base``'s, and the card model's top-2 logit margin
+    at each first divergence (the size of the near-tie where bf16's
+    window and one-token computations parted)."""
+    equal, margins = 0, []
+    for prompt, a, b in zip(prompts, streams, base):
+        j = next((i for i in range(len(b)) if a[i] != b[i]), None)
+        if j is None:
+            equal += 1
+        else:
+            margins.append(top2_margin(model, list(prompt) + b[:j]))
+    return equal, (";".join(f"{m:.4g}" for m in margins) or "none")
+
+
+def phase_engine_spec_serve(model, prompts, new: int = 128):
+    """Phase 7's wave (Llama-1B bf16, 24 requests of 384 prompt tokens,
+    256 shared, on 8 slots, ``max_len`` 1024) with 128 new tokens: the row
+    and paged engines at ``spec_k`` 0 and 4, and the paged engine with a
+    depth-2 self-draft. Tokens/s, TTFT p50, the decode tick's p50, tokens
+    per tick and per slot window, the acceptance rate, the streams equal
+    to ``spec_k=0``'s and the margins where they part. The draft leg's K4
+    launches are exactly the draft's ``2 x (spec_k + 1)`` a window; no
+    speed gate. Returns the draft leg's launches."""
+    draft = self_draft(model, 2)
+    runs = {}
+    for leg, paged, kw in (
+            ("row_spec0", False, {}),
+            ("row_spec4", False, dict(spec_k=SPEC_K)),
+            ("paged_spec0", True, {}),
+            ("paged_spec4", True, dict(spec_k=SPEC_K)),
+            ("paged_draft4", True, dict(spec_k=SPEC_K,
+                                        spec_draft_model=draft))):
+        run = serve_wave(model, prompts, paged, new=new,
+                         telemetry_capacity=4096, **kw)
+        runs[leg] = run
+        snap, launches = run["snap"], run["launches"]
+        decode_tokens = snap["tokens_emitted"] - len(prompts)
+        fields = serve_fields(run)
+        spec = {}
+        if kw:
+            windows = snap["spec_drafted_tokens"] // SPEC_K
+            base = runs[leg.replace("spec4", "spec0").replace(
+                "draft4", "spec0")]
+            equal, margins = parted_streams(
+                model, prompts, [h.tokens for h in run["handles"]],
+                [h.tokens for h in base["handles"]])
+            n = snap["spec_ticks"]
+            spec = dict(**spec_fields(snap),
+                        tokens_per_slot_window=(
+                            f"{(windows + snap['spec_accepted_tokens']) / windows:.4f}"),
+                        draft_host_ms_per_tick=(
+                            f"{1e3 * run['host']['draft'] / n:.4f}"),
+                        verify_host_ms_per_tick=(
+                            f"{1e3 * run['host']['verify'] / n:.4f}"),
+                        streams_equal_spec0=f"{equal}/{len(prompts)}",
+                        parted_margins=margins)
+        # K4 runs the paged one-token tick and the draft model's steps;
+        # the verify and every prefill are multi-token (plain path).
+        if leg == "paged_spec0":
+            ok = launches["paged_decode"] >= model.depth * run["ticks"] > 0
+        elif leg == "paged_draft4":
+            ok = launches["paged_decode"] == (
+                draft.depth * (SPEC_K + 1) * snap["spec_ticks"]) > 0
+        else:
+            ok = launches["paged_decode"] == 0
+        if not ok or sum(launches.values()) != launches["paged_decode"]:
+            raise RuntimeError(f"engine_spec_serve {leg}: launches "
+                               f"{launches} over {run['ticks']} ticks")
+        phase("engine_spec_serve", leg=leg, model="Llama_1B_bf16",
+              new=new, **{k: fields[k] for k in (
+                  "requests", "tokens", "wall_s", "tokens_per_s",
+                  "ttft_p50_s", "ticks", "decode_tick_ms_p50")},
+              tokens_per_tick=f"{decode_tokens / run['ticks']:.4f}",
+              paged_decode_launches=launches["paged_decode"], **spec,
+              peak_mem_gib=f"{run['peak'] / 2**30:.3f}")
+    del draft
+    return runs["paged_draft4"]["launches"]
+
+
+def phase_generate_spec(model, prompt, wall, ref):
+    """``generate_decode``'s B 1 leg (Llama-1B bf16, prompt 64, 256 new,
+    the same model and prompt) through ``generate_speculative``
+    (``draft_len`` 7, ``ngram`` 3), the median of 3 timed calls after a
+    warm-up, beside that leg's ``generate`` (its median ``wall`` and
+    tokens ``ref``, timed just before): tokens/s, ms per token, ticks,
+    tokens per tick. Tokens equal unless a tie: the card model's top-2
+    margin at the divergence under 8 bf16 ulps of its top logit."""
+    plen = prompt.shape[1]
+    new = ref.shape[1] - plen
+    spec_out, stats = generate_speculative(model, prompt, new,
+                                           return_stats=True)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        spec_out, stats = generate_speculative(model, prompt, new,
+                                               return_stats=True)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if sum(_kernels.launch_counts.values()):
+        raise RuntimeError(f"generate_spec launched {_kernels.launch_counts}")
+    spec_wall = float(np.median(walls))
+    a, b = spec_out[0, plen:].cpu().tolist(), ref[0, plen:].tolist()
+    j = next((i for i in range(new) if a[i] != b[i]), None)
+    margin = "none"
+    if j is not None:
+        with torch.no_grad():
+            logits = model(torch.tensor([list(prompt[0]) + b[:j]],
+                                        device=DEV))[0, -1].float()
+        top = torch.topk(logits, 2).values
+        ulp = 2.0 ** (np.floor(np.log2(abs(float(top[0])))) - 7)
+        margin = float(top[0] - top[1])
+        if margin >= 8 * ulp:
+            raise RuntimeError(
+                f"generate_speculative parts from generate at token {j} "
+                f"with a top-2 margin of {margin:.4g} >= 8 bf16 ulps "
+                f"({8 * ulp:.4g})")
+    phase("generate_spec", model="Llama_1B_bf16", max_len=MAX_LEN, batch=1,
+          prompt=plen, new=new, draft_len=7, ngram=3,
+          wall_s=f"{spec_wall:.4f}", new_tokens_per_s=f"{new / spec_wall:.2f}",
+          ms_per_token=f"{1e3 * spec_wall / new:.4f}", ticks=stats["ticks"],
+          tokens_per_tick=f"{stats['tokens_per_tick']:.4f}",
+          generate_wall_s=f"{wall:.4f}",
+          generate_new_tokens_per_s=f"{new / wall:.2f}",
+          equal_to_generate=j is None, parted_at=j, parted_margin=margin)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile a window of decode ticks after "
-                         "phases 7 and 20, one train step after each of "
-                         "phases 10, 11 and 15 and one B 1 generate in "
-                         "phase 17, and write their kernel tables to DIR")
+                         "phases 7, 20 and 21 (the last two speculative: "
+                         "row n-gram and paged draft model), one train "
+                         "step after each of phases 10, 11 and 15 and one "
+                         "B 1 generate in phase 17, and write their "
+                         "kernel tables to DIR")
     args = ap.parse_args(argv)
     smi = device_line()
     print(smi, flush=True)
@@ -1915,14 +2231,26 @@ def main(argv=None) -> int:
         profile_resnet(tr, batch_d, args.profile)
     del tr, batch_d
     phase_generate_parity()
-    phase_generate_decode(args.profile)
+    model, *b1 = phase_generate_decode(args.profile)
+    phase_generate_spec(model, *b1)
+    del model
     swa_launches = phase_generate_swa()
     phase_engine_row_parity()
     model, prompts = serve_model_and_prompts()
     phase_engine_row_serve(model, prompts, paged_kv)
     if args.profile:
         profile_decode(model, prompts, args.profile, paged=False)
+    spec_serve_launches = phase_engine_spec_serve(model, prompts)
+    if args.profile:
+        profile_decode(model, prompts, args.profile, paged=False,
+                       tag="profile_row_spec_decode", spec_k=SPEC_K)
+        draft = self_draft(model, 2)
+        profile_decode(model, prompts, args.profile,
+                       tag="profile_draft_spec_decode", spec_k=SPEC_K,
+                       spec_draft_model=draft)
+        del draft
     del model
+    spec_parity_launches = phase_engine_spec_parity()
     src = "pddl_tpu_torch/ops/csrc/"
     att = "pddl_tpu/ops/attention.py:"
     # (name, source, TPU kernel's line, launches on the main paths: the
@@ -1931,7 +2259,8 @@ def main(argv=None) -> int:
     # runs on both training paths and in the ring prefill).
     rows = [
         ("paged_decode", "paged_decode.cu", 1221,
-         serve_launches["paged_decode"]),
+         serve_launches["paged_decode"]
+         + spec_serve_launches["paged_decode"]),
         ("flash_fwd", "flash_fwd.cu", 183,
          train_launches["flash_fwd"] + long_launches["flash_fwd"]
          + swa_launches["flash_fwd"]),
@@ -1946,6 +2275,12 @@ def main(argv=None) -> int:
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": f"{att}{line}", "launches": launches,
                 **timing[name]} for name, file, line, launches in rows]
+    # K4's launches by path: the paged serve run's ticks and the draft
+    # model's steps in the speculative serve run (the parity legs' too).
+    kernels[0]["launches_by_path"] = {
+        "engine_serve": serve_launches["paged_decode"],
+        "engine_spec_serve_draft": spec_serve_launches["paged_decode"],
+        "engine_spec_parity_draft": spec_parity_launches["paged_decode"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

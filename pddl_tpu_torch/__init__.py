@@ -9,9 +9,14 @@ explicit ``device``, ``torch.Generator``\\ s).
 
 What is ported so far:
 
-- the paged serving path: ``ServeEngine`` with ``paged=True`` answering
-  requests on a Llama-lineage model, whose single-token decode attention
-  runs a hand-written CUDA kernel (``ops/csrc/paged_decode.cu``);
+- serving: ``ServeEngine`` answering requests on a Llama-lineage model,
+  on resident rows (``paged=False``, the default) or a paged pool
+  (``paged=True``), whose single-token decode attention runs a
+  hand-written CUDA kernel (``ops/csrc/paged_decode.cu``); with
+  ``spec_k > 0`` each tick drafts and verifies a window of tokens
+  (n-gram drafts, or a draft model on the paged pool);
+- KV-cache decoding: ``models/gpt.generate`` and its speculative twin
+  ``models/speculative.generate_speculative``;
 - causal-LM training on one card: ``Trainer`` fitting a Llama with
   ``attention="flash"``, whose attention forward and backward run
   hand-written CUDA kernels (``ops/csrc/flash_fwd.cu``,

@@ -40,9 +40,12 @@ Three forward modes, chosen by the cache passed:
   — the CUDA kernel for single-token steps on the card).
 
 Keys are cached post-RoPE at their ABSOLUTE positions, so a cached block
-is bit-valid for every row that shares its tokens. Unlike the JAX
-module, which clamps an out-of-range cache write and drops an
-out-of-range scatter, the port raises on a write past the cache.
+is bit-valid for every row that shares its tokens. A per-row (``[B]``
+``cache_index``) block drops its positions at or past the cache's end,
+as the JAX module's scatter does: a speculative verify window near
+``max_len`` writes the positions before the edge and nothing after it.
+A block at a shared (int) index that runs past the cache raises, where
+the JAX module clamps its start, which would lose tokens.
 
 ``remat`` (``"none"``, ``"dots"``, ``"full"``) wraps every block with
 :func:`pddl_tpu_torch.models.vit.remat_block`: under a gradient, with no
@@ -83,6 +86,20 @@ from pddl_tpu_torch.ops.attention import (
 from pddl_tpu_torch.ops.rope import apply_rope_qk
 
 _NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
+
+
+# A multi-token block over a row cache scores its whole sweep in one pass
+# when the f32 scores stay under this many elements (a verify window, a
+# short prompt): every 128-key step of the online softmax costs a dozen
+# eager ops per layer. Longer prefills sweep in 128-key steps.
+_ONE_PASS_SCORES = 1 << 24
+
+
+def _sweep_chunk(q: torch.Tensor, cache_len: int) -> int:
+    b, h, s, _ = q.shape
+    if s == 1 or b * h * s * cache_len <= _ONE_PASS_SCORES:
+        return cache_len
+    return 128
 
 
 def _default_intermediate_dim(embed_dim: int) -> int:
@@ -219,14 +236,15 @@ class LlamaAttention(nn.Module):
             q, k = apply_rope_qk(q, k, pos, theta=self.rope_theta)
             k, v = k.to(self.dtype), v.to(self.dtype)
             if block_table is not None:
-                o = self._paged(q, k, v, cache, i, block_table)
+                o = self._paged(q, k, v, cache, i, block_table, max_index)
             else:
                 o = self._row(q, k, v, cache, i, max_index)
         o = o.transpose(1, 2).reshape(b, s, self.num_heads * hd)
         return self.out(o)
 
-    def _paged(self, q, k, v, cache, i, block_table):
-        """Write K/V into the pool through the table, then attend."""
+    def _paged(self, q, k, v, cache, i, block_table, max_index):
+        """Write K/V into the pool through the table, then attend (a
+        multi-token block's sweep bounded by ``max_index``, a host int)."""
         if self.ring is not None:
             raise NotImplementedError(
                 "paged attention requires a full-length cache; rolling "
@@ -234,45 +252,51 @@ class LlamaAttention(nn.Module):
         kp = paged_cache_insert(cache["cached_key"], k, block_table, i)
         vp = paged_cache_insert(cache["cached_value"], v, block_table, i)
         return paged_decode_attention(q, kp, vp, block_table, i,
-                                      window=self.sliding_window)
+                                      window=self.sliding_window,
+                                      max_index=max_index)
 
     def _row(self, q, k, v, cache, i, max_index):
         """Write K/V into the row cache (in place) and attend over it.
 
         ``i`` is an int, or a ``[B]`` tensor with ``max_index`` its
-        deepest row as a host int (None: the write is checked by a sync
-        and the sweep reads the whole cache)."""
+        deepest row as a host int (None: one sync reads it, and the sweep
+        reads the whole cache)."""
         ck, cv = cache["cached_key"], cache["cached_value"]
         b, _, s, _ = q.shape
         ring, window = self.ring, self.sliding_window
         cache_len = ck.shape[2]
-        if ring is None:
-            deepest = int(i.max()) if max_index is None else max_index
-            if deepest + s > cache_len:
-                # The JAX module clamps a block start past the cache (and
-                # drops a scatter past it): either would lose tokens here.
-                raise ValueError(
-                    f"a {s}-token block at cache_index {deepest} runs past "
-                    f"the cache's {cache_len} positions")
         if isinstance(i, torch.Tensor):
             # Per-row scatter at i[b] + arange(s) (ring rows wrap their
             # slot; s == 1 there). The indexed axes go first: the update
             # is [B, s, H_kv, D].
             rows = torch.arange(b, device=q.device)[:, None]
             slot = i.long()[:, None] + torch.arange(s, device=q.device)
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
             if ring is not None:
                 slot = slot % ring
-            ck[rows, :, slot] = k.transpose(1, 2)
-            cv[rows, :, slot] = v.transpose(1, 2)
+            elif ((int(i.max()) if max_index is None else max_index) + s
+                  > cache_len):
+                # A row near the edge (a verify window's lookahead): its
+                # positions past the cache drop, as the JAX scatter drops
+                # them. Selecting the rest takes one sync.
+                keep = slot < cache_len
+                rows, slot = rows.expand(b, s)[keep], slot[keep]
+                kt, vt = kt[keep], vt[keep]
+            ck[rows, :, slot] = kt
+            cv[rows, :, slot] = vt
             return decode_attention(q, ck, cv, i, window=window,
                                     rolling=ring is not None,
                                     max_index=max_index,
-                                    chunk=128 if s > 1 else 512)
+                                    chunk=_sweep_chunk(q, cache_len))
         if ring is None:
+            if i + s > cache_len:
+                raise ValueError(
+                    f"a {s}-token block at cache_index {i} runs past "
+                    f"the cache's {cache_len} positions")
             ck[:, :, i:i + s] = k
             cv[:, :, i:i + s] = v
             return decode_attention(q, ck, cv, i, window=window,
-                                    chunk=128 if s > 1 else 512)
+                                    chunk=_sweep_chunk(q, cache_len))
         if s == 1:
             ck[:, :, i % ring] = k[:, :, 0]
             cv[:, :, i % ring] = v[:, :, 0]

@@ -813,7 +813,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            scale: Optional[float] = None,
                            blocks_per_chunk: Optional[int] = None,
                            kernel: Optional[bool] = None,
-                           interpret: Optional[bool] = None) -> torch.Tensor:
+                           interpret: Optional[bool] = None,
+                           max_index: Optional[int] = None) -> torch.Tensor:
     """Attention over a paged KV pool through a per-row block table.
 
     Semantically decode attention over the VIRTUAL cache
@@ -839,12 +840,18 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         tensors, its plain version for CPU tensors — and multi-token
         chunks to the plain path; ``False`` forces the plain path;
         ``True`` forces the kernel wrapper (``s == 1`` only).
+      max_index: the deepest row's ``index`` as a host int (a port-only
+        argument, as in :func:`decode_attention`): the plain path then
+        gathers the live blocks with no host sync. An int ``index`` is
+        its own bound; without either, one sync reads the bound.
 
     Returns ``[B, H, s, D]`` in q's dtype.
     """
     b, h, s, d = q.shape
     _gqa_rep(q, k_pool)
     _check_table(block_table, b)
+    if isinstance(index, int):
+        max_index = index
     index = torch.as_tensor(index, dtype=torch.int32, device=q.device)
     if index.ndim > 1 or (index.ndim == 1 and index.shape[0] != b):
         raise ValueError(
@@ -865,16 +872,17 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             q, k_pool, v_pool, block_table, index, scale=scale_v,
             window=window)
     return _paged_attention_plain(q, k_pool, v_pool, block_table, index,
-                                  scale_v, window)
+                                  scale_v, window, max_index)
 
 
 def _paged_attention_plain(q, k_pool, v_pool, block_table, index, scale,
-                           window):
+                           window, max_index=None):
     """The plain PyTorch version: gather each row's live blocks into a
     dense ``[B, H_kv, L, D]`` view (``L`` covers the deepest row's
-    prefix, so traffic is bounded by the live prefix), then one masked
-    softmax in f32. Rounding points follow the kernel: q is cast to the
-    pool's type, p to v's type before the P·V product."""
+    prefix, ``max_index + s`` when the caller knows it on the host, so
+    traffic is bounded by the live prefix), then one masked softmax in
+    f32. Rounding points follow the kernel: q is cast to the pool's
+    type, p to v's type before the P·V product."""
     b, h, s, d = q.shape
     _, hkv, bs, _ = k_pool.shape
     t = block_table.shape[1]
@@ -882,7 +890,8 @@ def _paged_attention_plain(q, k_pool, v_pool, block_table, index, scale,
     index = index.to(torch.long)
     q_pos = index.reshape(-1, 1) + torch.arange(s, device=q.device)  # [B|1, s]
     q_pos = q_pos.expand(b, s)
-    n_live = min(t, int(q_pos.max()) // bs + 1)
+    deepest = int(q_pos.max()) if max_index is None else max_index + s - 1
+    n_live = min(t, deepest // bs + 1)
     ids = block_table[:, :n_live].long()                         # [B, n]
     kc = k_pool[ids].permute(0, 2, 1, 3, 4).reshape(b, hkv, n_live * bs, d)
     vc = v_pool[ids].permute(0, 2, 1, 3, 4).reshape(b, hkv, n_live * bs, d)

@@ -39,15 +39,34 @@ decode needs a rolling ring cache (``Llama.uses_ring_cache``) is
 refused in both modes, as the JAX engine refuses it; it decodes through
 ``models/gpt.generate``.
 
+Speculative serving (``spec_k > 0``, both modes): the tick becomes a
+DRAFT/VERIFY window. Each step proposes ``spec_k`` tokens per slot — the
+shared n-gram drafter (``models/speculative.ngram_drafts``) over a host
+history of each slot's tokens, or (``paged=True`` only) a small draft
+model whose K/V lives in a second cache tree over the target's block ids,
+so it shares the tables and the prefix sharing — and ONE forward of the
+target over the ``[S, spec_k+1]`` block at per-slot positions checks
+them, through the same multi-token path chunked prefill uses. A greedy
+slot emits the longest matching draft prefix plus one token, each the
+argmax given the true prefix, so its stream equals the non-speculative
+one; a sampled slot takes no drafts and ticks one token. A rejected tail
+is undone by the host-owned position alone: its K/V lies past the
+position, where no sweep reads it, until the next window overwrites it.
+On the card the draft model's single-token steps run the paged-decode
+kernel; the verify's multi-token attention takes the plain path, as the
+JAX engine's does.
+
 PyTorch runs eagerly, so the JAX engine's fixed compiled-program set
 (and its ``compile_counts`` pin) has no counterpart here. Not ported yet
 — each raises ``NotImplementedError`` naming its ROADMAP.md item:
-speculative serving (``spec_k`` and its options), tenancy (``tenant``,
-``submit``'s ``adapter``/``constraint``), int8 serving
-(``param_transform``), the host KV tier (``host_tier``), fault injection
-and replay (``fault_plan``, its retry and replay knobs,
-``preempt_cap > 0``), sliced prefill (``prefill_slice_tokens``),
-drain/restore and tracers.
+tenancy (``tenant``, ``submit``'s ``adapter``/``constraint``, and with
+it grammar-constrained speculation), int8 serving (``param_transform``),
+the host KV tier (``host_tier``), fault injection and replay
+(``fault_plan``, its retry and replay knobs, ``preempt_cap > 0``, and
+with it a speculative replay's forced re-feeds), sliced prefill
+(``prefill_slice_tokens``, and with it the draft model's sliced
+prefill), drain/restore (with the speculative streams' fields) and
+tracers.
 """
 
 from __future__ import annotations
@@ -60,6 +79,7 @@ import torch
 
 from pddl_tpu_torch.device import resolve_device
 from pddl_tpu_torch.models.gpt import (
+    _last_logits,
     decode_cache,
     insert_cache_slot,
     prefill_row,
@@ -67,6 +87,7 @@ from pddl_tpu_torch.models.gpt import (
     sample_logits_batched,
     slot_decode_cache,
 )
+from pddl_tpu_torch.models.speculative import ngram_drafts
 from pddl_tpu_torch.obs.ring import TelemetryRing
 from pddl_tpu_torch.serve.kvcache import (
     RadixPrefixCache,
@@ -133,11 +154,19 @@ class ServeEngine:
       preempt_cap: must be 0 (preemption resumes through replay
         admission, not ported).
       telemetry_capacity: size of the per-step :class:`TelemetryRing`.
+      spec_k: speculative serving (module docstring): up to ``spec_k``
+        drafts per greedy slot per step, checked in one ``[S, spec_k+1]``
+        verify forward; 0 (default) keeps the one-token tick.
+      spec_ngram: the n-gram drafter's key length.
+      spec_draft_model: a port Llama that drafts in place of the n-gram
+        lookup (``paged=True`` only; the same vocabulary, ``max_len`` at
+        least the target's, no ring cache); it is moved to ``device``.
+      spec_draft_variables: accepted at ``None`` only, as ``variables``
+        is: the port's draft model carries its weights.
       prefill_slice_tokens / param_transform / host_tier / fault_plan /
       max_retries / retry_backoff_s / backoff_sleep / max_replays /
-      degraded_cooldown_s / tenant / spec_k / spec_ngram /
-      spec_draft_model / spec_draft_variables / tracer: not ported;
-      anything but the JAX engine's defaults raises.
+      degraded_cooldown_s / tenant / tracer: not ported; anything but the
+      JAX engine's defaults raises.
 
     A model with :attr:`~pddl_tpu_torch.models.llama.Llama.uses_ring_cache`
     set is refused, as the JAX engine refuses it.
@@ -193,11 +222,6 @@ class ServeEngine:
                              degraded_cooldown_s != 5.0),
                             ("preempt_cap > 0", preempt_cap > 0),
                             ("tenant", tenant is not None),
-                            ("spec_k > 0", spec_k > 0),
-                            ("spec_ngram", spec_ngram != 3),
-                            ("spec_draft_model", spec_draft_model is not None),
-                            ("spec_draft_variables",
-                             spec_draft_variables is not None),
                             ("tracer", tracer is not None)):
             if given:
                 raise _not_ported(what)
@@ -275,6 +299,8 @@ class ServeEngine:
                 raise ValueError(
                     f"prefix_cache_blocks must be >= 2 (block 0 is the "
                     f"reserved scratch sink), got {pool_blocks}")
+        self._init_spec(model, spec_k, spec_ngram, spec_draft_model,
+                        spec_draft_variables)
         self.prefix_block_size = bs
         self._chunk = chunk
         # The WIDE chunk (the whole prefill_len) serves cold or barely
@@ -290,6 +316,9 @@ class ServeEngine:
                         if self._prefix_on else None)
         if self._paged:
             self._cache = paged_decode_cache(self.model, pool_blocks, bs)
+            # The draft model's K/V: a second tree over the same block ids.
+            self._dcache = (paged_decode_cache(self._draft, pool_blocks, bs)
+                            if self._draft_on else None)
             self._pool = self._row = None
             token_slots = pool_blocks * bs
         else:
@@ -321,6 +350,55 @@ class ServeEngine:
                                  np.int32) if self._paged else None)
         self._private: List[List[int]] = [[] for _ in range(self.max_slots)]
 
+    def _init_spec(self, model, spec_k, spec_ngram, spec_draft_model,
+                   spec_draft_variables) -> None:
+        """The speculative options, checked as the JAX engine checks them
+        (in its words), and the drafter's per-slot token history."""
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        self._spec_k = int(spec_k)
+        self._spec_on = self._spec_k > 0
+        self._spec_ngram = int(spec_ngram)
+        self._draft_on = spec_draft_model is not None
+        self._draft = self._dcache = None
+        if spec_draft_variables is not None:
+            raise _not_ported("a separate spec_draft_variables tree (the "
+                              "port's draft model carries its weights)",
+                              "ROADMAP.md queue 1 item 8 (the fleet)")
+        if self._spec_on:
+            if self._spec_ngram < 1:
+                raise ValueError(
+                    f"spec_ngram must be >= 1, got {spec_ngram}")
+            # Prompt + emitted tokens per slot, on the host: positions past
+            # a slot's live edge hold junk, which verification rejects.
+            self._hist = np.zeros((self.max_slots, model.max_len), np.int32)
+        if not self._draft_on:
+            return
+        if not self._spec_on:
+            raise ValueError(
+                "spec_draft_model needs spec_k >= 1 (the draft "
+                "model only exists to fill the verify window)")
+        if not self._paged:
+            raise ValueError(
+                "spec_draft_model rides the paged KV block pool as "
+                "a second cache tree; pass paged=True (the n-gram "
+                "drafter serves resident-row engines)")
+        if spec_draft_model.vocab_size != model.vocab_size:
+            raise ValueError(
+                f"draft model vocab {spec_draft_model.vocab_size} "
+                f"!= target vocab {model.vocab_size}")
+        if spec_draft_model.max_len < model.max_len:
+            raise ValueError(
+                f"draft model max_len {spec_draft_model.max_len} < "
+                f"target max_len {model.max_len}: the draft cache "
+                "must cover every position a stream can reach")
+        if getattr(spec_draft_model, "uses_ring_cache", False):
+            raise NotImplementedError(
+                "draft models with rolling ring caches are not "
+                "supported (same slot-reuse constraint as the "
+                "target)")
+        self._draft = spec_draft_model.to(self.device)
+
     # -------------------------------------------------------- submission
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                sampling: Optional[SamplingParams] = None,
@@ -334,7 +412,13 @@ class ServeEngine:
         depth. ``adapter`` and ``constraint`` (tenancy) must be None."""
         for what, given in (("adapter", adapter), ("constraint", constraint)):
             if given is not None:
-                raise _not_ported(f"submit({what}=...)")
+                raise _not_ported(
+                    f"submit({what}=...)" + (
+                        " (with spec_k > 0: grammar-constrained "
+                        "speculation, the draft walk under the tenant's "
+                        "FSM)" if self._spec_on and what == "constraint"
+                        else ""),
+                    "ROADMAP.md queue 1 item 3 (engine features: tenancy)")
         priority = Priority(priority)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
@@ -367,10 +451,14 @@ class ServeEngine:
         return handle
 
     def drain(self, path: Optional[str] = None):
-        raise _not_ported("drain")
+        raise _not_ported("drain (with the speculative streams' spec_* "
+                          "fields)", "ROADMAP.md queue 1 item 3 (engine "
+                          "features: drain/restore)")
 
     def restore(self, source):
-        raise _not_ported("restore")
+        raise _not_ported("restore (with the speculative streams' spec_* "
+                          "fields)", "ROADMAP.md queue 1 item 3 (engine "
+                          "features: drain/restore)")
 
     # ------------------------------------------------------------- state
     @property
@@ -380,6 +468,21 @@ class ServeEngine:
     @property
     def prefix_cache_enabled(self) -> bool:
         return self._prefix_on
+
+    @property
+    def spec_enabled(self) -> bool:
+        """True when the tick is the speculative draft/verify window."""
+        return self._spec_on
+
+    @property
+    def spec_k(self) -> int:
+        return self._spec_k
+
+    @property
+    def spec_draft_model_enabled(self) -> bool:
+        """True when a draft model drafts; False means the n-gram drafter
+        (or speculation off)."""
+        return self._draft_on
 
     @property
     def blocks_shared(self) -> int:
@@ -520,10 +623,17 @@ class ServeEngine:
         estimate; the match at prefill time is authoritative)."""
         prompt = handle.request.prompt
         if not self._prefix_on:
-            return len(prompt)
-        match = self._prefix.match(prompt,
-                                   max_blocks=self._match_blocks(prompt))
-        return len(prompt) - match.n_blocks * self.prefix_block_size
+            cost = len(prompt)
+        else:
+            match = self._prefix.match(prompt,
+                                       max_blocks=self._match_blocks(prompt))
+            cost = len(prompt) - match.n_blocks * self.prefix_block_size
+        # A speculative engine charges a replayed stream's re-feed at its
+        # accepted tokens, never the drafted window's compute. A fresh
+        # request has no tokens: this costs nothing until replay exists.
+        if self._spec_on and handle.tokens:
+            cost += len(handle.tokens)
+        return cost
 
     def _chunk_loop(self, prompt: np.ndarray, off: int, cache,
                     table=None):
@@ -648,6 +758,8 @@ class ServeEngine:
         n_cached = m * self.prefix_block_size
         table = torch.from_numpy(table_row[None]).to(self.device)
         logits = self._chunk_loop(prompt, n_cached, self._cache, table)
+        if self._draft_on:
+            self._draft_prefill_loop(prompt, n_cached, table)
         if n_cached > 0:
             self.metrics.record_copy_avoided(
                 n_cached * self._kv_token_bytes)
@@ -656,6 +768,23 @@ class ServeEngine:
             n_cached, blocks_live=self._prefix.blocks_live,
             evictions=self._prefix.evictions)
         return logits, node, table_row, private
+
+    def _draft_prefill_loop(self, prompt: np.ndarray, off: int,
+                            table) -> None:
+        """Chunk-prefill the uncached suffix through the DRAFT model into
+        its tree, narrow chunks only, at the target's offsets and blocks:
+        a donated shared block then carries valid draft K/V for every
+        later hit, beside the target's. Only K/V is wanted: the head is
+        skipped."""
+        plen = int(prompt.size)
+        while off < plen:
+            w = min(self._chunk, plen - off)
+            chunk_toks = np.zeros((1, self._chunk), np.int32)
+            chunk_toks[0, :w] = prompt[off:off + w]
+            self._draft(torch.from_numpy(chunk_toks).to(self.device),
+                        cache=self._dcache, cache_index=int(off),
+                        block_table=table, features_only=True)
+            off += w
 
     def _donate_tail_paged(self, prompt: np.ndarray, node, table_row,
                            private: List[int], m: int):
@@ -716,7 +845,7 @@ class ServeEngine:
 
         # The suffix-priced cost_fn walks the radix tree per pop; only pay
         # that when a budget consumes the result.
-        use_cost = (self._prefix_on
+        use_cost = ((self._prefix_on or self._spec_on)
                     and self.scheduler.prefill_token_budget is not None)
         for handle in self.scheduler.admit(
                 len(free), on_cancelled=_queued_cancel,
@@ -764,6 +893,14 @@ class ServeEngine:
         self._temps[sid] = t
         self._top_ks[sid] = k
         self._top_ps[sid] = p
+        if self._spec_on:
+            # The drafter's history: the prompt and the emitted tokens,
+            # zeroed first so a previous stream's tail never matches.
+            self._hist[sid, :] = 0
+            self._hist[sid, :plen] = np.asarray(req.prompt, np.int32)
+            n = min(len(handle.tokens), self.model.max_len - plen)
+            if n > 0:
+                self._hist[sid, plen:plen + n] = handle.tokens[:n]
         # A one-token request (or an immediate eos) finishes at admission
         # without ever joining a tick.
         if self.eos_token is not None and first == self.eos_token:
@@ -772,26 +909,40 @@ class ServeEngine:
             self._evict(sid, RequestState.FINISHED, FinishReason.LENGTH)
 
     def _paged_append_blocks(self) -> None:
-        """Before a tick: every live slot about to write at a block
-        boundary gets a fresh PRIVATE block appended to its table. The
-        allocation LRU-evicts unpinned cached chains under pressure; with
-        the pool at its validated floor it cannot fail for a live stream
-        (the JAX engine parks and replays the slot if a mis-sized pool
-        ever makes it fail; replay is not ported, so this raises)."""
+        """Before a tick: every block a live slot is about to write — at
+        its position, and with ``spec_k > 0`` through the verify window's
+        ``position + spec_k``, clamped at the table's edge (writes past
+        it land in the scratch sink) — gets a fresh PRIVATE block if it
+        has none. The allocation LRU-evicts unpinned cached chains under
+        pressure; with the pool at its validated floor it cannot fail for
+        a live stream (the JAX engine parks and replays the slot if a
+        mis-sized pool ever makes it fail; replay is not ported, so this
+        raises). A window never reaches a shared block: every position
+        past the prompt lies in a private block, which is checked."""
         bs = self.prefix_block_size
+        span = self._spec_k
         for sid, handle in enumerate(self._slots):
             if handle is None:
                 continue
-            blk = int(self._positions[sid]) // bs
-            if blk >= self._table_width or self._tables[sid, blk] != 0:
-                continue
-            ids = self._prefix.allocate(1)
-            if not ids:
+            pos = int(self._positions[sid])
+            hi = min((pos + span) // bs, self._table_width - 1)
+            need = [blk for blk in range(pos // bs, hi + 1)
+                    if self._tables[sid, blk] == 0]
+            ids = self._prefix.allocate(len(need)) if need else []
+            if len(ids) < len(need):
+                self._prefix.release(ids)
                 raise RuntimeError(
                     f"block pool exhausted appending a block for slot "
                     f"{sid}; slot replay is not ported ({_ROADMAP_FEATURES})")
-            self._tables[sid, blk] = ids[0]
-            self._private[sid].append(ids[0])
+            for blk, bid in zip(need, ids):
+                self._tables[sid, blk] = bid
+                self._private[sid].append(bid)
+            if span and not all(int(self._tables[sid, blk])
+                                in self._private[sid]
+                                for blk in range(pos // bs, hi + 1)):
+                raise RuntimeError(
+                    f"slot {sid}'s verify window at position {pos} reaches "
+                    "a shared block (engine bug)")
 
     # --------------------------------------------------------------- tick
     def _tick(self) -> np.ndarray:
@@ -812,11 +963,139 @@ class ServeEngine:
             top_k=self._top_ks, top_p=self._top_ps)
         return nxt.cpu().numpy()  # per-tick host sync (streaming)
 
+    # ------------------------------------------------- speculative tick
+    def _draft_tokens(self, pos: torch.Tensor, tok: torch.Tensor, table,
+                      forced_tok: np.ndarray,
+                      forced_n: np.ndarray) -> torch.Tensor:
+        """``[S, spec_k]`` drafts: the n-gram lookup over a CPU view of
+        the host history (it never goes to the card), or the draft
+        model's ``spec_k`` greedy single-token steps from the slots'
+        tokens ``tok [S, 1]`` at positions ``pos [S]`` through the shared
+        tables (on the card, the paged-decode kernel), then one more step
+        that writes the last draft's K/V — a fully accepted window would
+        otherwise leave a hole in the draft cache. A row with
+        ``forced_n > j`` takes ``forced_tok[:, j]`` at step ``j`` (replay's
+        known tokens; -1 everywhere until replay is ported)."""
+        k = self._spec_k
+        if not self._draft_on:
+            return ngram_drafts(torch.from_numpy(self._hist),
+                                torch.from_numpy(self._positions),
+                                self._spec_ngram, k)
+        dev = self.device
+        deepest = int(self._positions.max())
+        outs = []
+        for j in range(k):
+            logits = _last_logits(self._draft, tok, 1, cache=self._dcache,
+                                  cache_index=pos + j, block_table=table,
+                                  max_index=deepest + j)
+            nxt = logits.argmax(dim=-1).to(torch.int32)
+            if (forced_n > j).any():
+                nxt = torch.where(
+                    torch.from_numpy(forced_n > j).to(dev),
+                    torch.from_numpy(forced_tok[:, j]).to(dev), nxt)
+            outs.append(nxt)
+            tok = nxt[:, None]
+        self._draft(tok, cache=self._dcache, cache_index=pos + k,
+                    block_table=table, max_index=deepest + k,
+                    features_only=True)
+        return torch.stack(outs, dim=1)
+
+    def _verify(self, block: torch.Tensor, pos: torch.Tensor, table,
+                caps: torch.Tensor, forced: torch.Tensor):
+        """ONE target forward over the ``[S, spec_k+1]`` block at the
+        slots' positions ``pos`` (the multi-token write and sweep; paged:
+        the pool insert and the plain multi-token attention), greedy
+        acceptance as the cumulative product of matches against the
+        block's drafts, capped per row, ``forced >= 0`` taken as given,
+        and position 0 drawn by the batched sampler the one-token tick
+        uses. Returns the window ``[S, spec_k+1]`` and the accepted
+        lengths ``[S]`` on the host, from one device-to-host copy."""
+        logits = self.model(block, cache=self._cache, cache_index=pos,
+                            block_table=table,
+                            max_index=int(self._positions.max()))
+        y = logits.argmax(dim=-1).to(torch.int32)
+        match = (block[:, 1:] == y[:, :-1]).to(torch.int32)
+        acc = torch.minimum(match.cumprod(dim=1).sum(dim=1), caps)
+        acc = torch.where(forced >= 0, forced, acc).to(torch.int32)
+        y[:, 0] = sample_logits_batched(
+            self._rng, logits[:, 0], temperature=self._temps,
+            top_k=self._top_ks, top_p=self._top_ps)
+        out = torch.cat([y, acc[:, None]], dim=1).cpu().numpy()
+        return out[:, :-1], out[:, -1]  # per-tick host sync (streaming)
+
+    def _spec_tick(self, live) -> int:
+        """One speculative step: draft → ONE verify over the ``[S,
+        spec_k+1]`` window → host-side accept and evict. A greedy slot may
+        accept up to ``spec_k`` drafts (its cap); a sampled slot's cap is
+        0, so it ticks one token exactly as the plain tick does. Returns
+        the tokens emitted."""
+        s, k = self.max_slots, self._spec_k
+        w_width = k + 1
+        # Replay's forced re-feeds (not ported): none.
+        forced_tok = np.zeros((s, k), np.int32)
+        forced_n = np.full(s, -1, np.int32)
+        caps = np.zeros(s, np.int32)
+        for sid in live:
+            if self._temps[sid] <= 0:
+                caps[sid] = k
+        drafted_tick = int(caps.sum())
+        # The per-slot state goes to the card in ONE copy, before any
+        # forward is queued (a host-to-device copy waits for the stream).
+        packed = np.concatenate(
+            [np.stack([self._positions, self._tokens, caps, forced_n], 1),
+             self._tables if self._paged else np.zeros((s, 0), np.int32)],
+            axis=1)
+        state = torch.from_numpy(packed).to(self.device)
+        pos, tok = state[:, 0], state[:, 1:2]
+        table = state[:, 4:].contiguous() if self._paged else None
+        drafts = self._draft_tokens(pos, tok, table, forced_tok, forced_n)
+        block = torch.cat([tok, drafts.to(self.device)], dim=1)
+        win, acc = self._verify(block, pos, table, state[:, 2], state[:, 3])
+        new_tokens = 0
+        accepted_tick = 0
+        for sid in live:
+            handle = self._slots[sid]
+            n_emit = int(acc[sid]) + 1
+            if caps[sid] > 0:
+                accepted_tick += int(acc[sid])
+                handle.spec_drafted += int(caps[sid])
+                handle.spec_accepted += int(acc[sid])
+            pos0 = int(self._positions[sid])
+            # The WHOLE window goes into the history, the rejected tail
+            # included (the model's own next-token guesses: a lookup
+            # that crosses the live edge reads them, not zeros); the next
+            # window covers that extent before the edge reaches it.
+            end = min(pos0 + 1 + w_width, self._hist.shape[1])
+            if end > pos0 + 1:
+                self._hist[sid, pos0 + 1:end] = win[sid, :end - pos0 - 1]
+            evicted = False
+            for j in range(n_emit):
+                emitted = int(win[sid, j])
+                handle.tokens.append(emitted)
+                new_tokens += 1
+                if self.eos_token is not None and emitted == self.eos_token:
+                    # Tokens past an in-window eos are never emitted.
+                    self._evict(sid, RequestState.FINISHED, FinishReason.EOS)
+                    evicted = True
+                    break
+                if len(handle.tokens) >= handle.request.max_new_tokens:
+                    self._evict(sid, RequestState.FINISHED,
+                                FinishReason.LENGTH)
+                    evicted = True
+                    break
+            if not evicted:
+                self._positions[sid] += n_emit
+                self._tokens[sid] = int(win[sid, n_emit - 1])
+        self.metrics.record_spec_tick(drafted_tick, accepted_tick)
+        return new_tokens
+
     @torch.no_grad()
     def step(self) -> int:
         """One engine tick: reap → admit → append blocks → one fused
         decode tick for all live slots → evict finished. Returns tokens
-        emitted this step (admission first-tokens included)."""
+        emitted this step (admission first-tokens included). With
+        ``spec_k > 0`` the tick is the draft/verify window
+        (:meth:`_spec_tick`), up to ``spec_k + 1`` tokens a slot."""
         cur = self._step_idx
         self._step_idx = cur + 1
         t0 = self._clock()
@@ -827,7 +1106,9 @@ class ServeEngine:
             self._paged_append_blocks()
         live = [i for i, s in enumerate(self._slots) if s is not None]
         new_tokens = 0
-        if live:
+        if live and self._spec_on:
+            new_tokens = self._spec_tick(live)
+        elif live:
             nxt = self._tick()
             for sid in live:
                 handle = self._slots[sid]

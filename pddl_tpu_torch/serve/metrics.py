@@ -6,7 +6,8 @@ paged engine records).
 - **per-token latency** — the inter-token gap once streaming;
 - **queue depth / slot occupancy** — the load signals;
 - **tokens/s** over the engine's active window;
-- the prefix-cache and paged-sharing counters.
+- the prefix-cache and paged-sharing counters;
+- the speculative window's counters and its acceptance rate.
 """
 
 from __future__ import annotations
@@ -129,6 +130,12 @@ class ServeMetrics:
         # pool -> admission row on a hit, admission row -> pool donations.
         self.copy_bytes_gathered = 0
         self.copy_bytes_donated = 0
+        # Speculative serving (engine ``spec_k > 0``; zero otherwise):
+        # verify windows run, draft tokens offered (the per-slot caps
+        # summed: sampled rows offer none) and draft tokens accepted.
+        self.spec_ticks = 0
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
         self._admission_times: Deque[float] = deque(maxlen=32)
         self._first_activity_s: Optional[float] = None
         self._last_activity_s: Optional[float] = None
@@ -205,6 +212,13 @@ class ServeMetrics:
         self.blocks_shared = int(blocks_shared)
         self.block_table_fill = float(block_table_fill)
 
+    def record_spec_tick(self, drafted: int, accepted: int) -> None:
+        """One speculative verify window: ``drafted`` tokens offered,
+        ``accepted`` of them taken."""
+        self.spec_ticks += 1
+        self.spec_drafted_tokens += int(drafted)
+        self.spec_accepted_tokens += int(accepted)
+
     def snapshot(self) -> Dict[str, object]:
         """The dashboard dict: counters plus latency percentiles (None
         where nothing was recorded yet)."""
@@ -239,6 +253,12 @@ class ServeMetrics:
             "copy_bytes_avoided": self.copy_bytes_avoided,
             "blocks_shared": self.blocks_shared,
             "block_table_fill": round(self.block_table_fill, 6),
+            "spec_ticks": self.spec_ticks,
+            "spec_drafted_tokens": self.spec_drafted_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_acceptance_rate": (
+                self.spec_accepted_tokens / self.spec_drafted_tokens
+                if self.spec_drafted_tokens else None),
             "requests_finished_by_priority": dict(self.finished_by_priority),
             "requests_deadline_shed_by_priority": dict(
                 self.deadline_shed_by_priority),

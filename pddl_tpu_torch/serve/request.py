@@ -129,6 +129,11 @@ class RequestHandle:
         self.finish_reason: Optional[FinishReason] = None
         self.ttft_s: Optional[float] = None  # submit -> first token
         self.finish_s: Optional[float] = None
+        # Speculative serving (engine ``spec_k > 0``): draft tokens offered
+        # for this stream's acceptance and the ones the verifier accepted;
+        # zero on a non-speculative engine.
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         self._cancel = False
 
     def cancel(self) -> None:

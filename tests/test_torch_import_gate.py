@@ -70,7 +70,8 @@ def test_engine_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"max_replays": 4}, {"spec_k": 2}, {"preempt_cap": 1},
+    {"max_replays": 4}, {"spec_k": 2, "prefill_slice_tokens": 8},
+    {"preempt_cap": 1},
     {"prefill_slice_tokens": 8}, {"host_tier": 1 << 20},
     {"fault_plan": object()}, {"tenant": object()}, {"tracer": object()},
 ])

@@ -445,3 +445,54 @@ def test_ring_chunked_prefill_on_the_card_matches_the_cpu():
             assert _kernels.launch_counts["flash_fwd"] == card.depth
             err = float((got.cpu() - want).abs().max())
             assert err <= 1e-4, (lo, hi, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["row", "paged", "draft"])
+def test_spec_engine_on_the_card_matches_the_cpu(mode):
+    """``ServeEngine(spec_k=3)`` on a tiny f32 Llama (width 64, depth 2,
+    ``max_len`` 64) with repetitive prompts, one ending at ``max_len``:
+    the card's streams and acceptance counters equal the CPU twin's. With
+    a draft model (the target's first block as a depth-1 Llama) K4 runs
+    the draft's single-token steps, ``depth x (spec_k + 1)`` launches a
+    window; the n-gram engines launch none (the verify is multi-token)."""
+    from pddl_tpu_torch.models.llama import tiny_llama
+    from pddl_tpu_torch.serve.engine import ServeEngine
+
+    dev = _card()
+    kw = dict(vocab_size=64, max_len=64, embed_dim=64)
+    cpu = tiny_llama(device="cpu", **kw)
+    card = tiny_llama(device=dev, **kw)
+    card.load_state_dict(cpu.state_dict())
+    drafts = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        drafts[name] = tiny_llama(device=model.device, depth=1, **kw)
+        drafts[name].load_state_dict({
+            k: v for k, v in model.state_dict().items()
+            if not k.startswith("blocks.1.")})
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 64, (n,), generator=gen).tolist()
+               for n in (4, 3, 5)]
+    prompts = [(p * 8)[:n] for p, n in zip(prompts, (20, 12, 24))]
+    news = (20, 30, 40)  # the last ends at max_len
+    out = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        ekw = dict(max_slots=3, prefill_len=24, prefix_block_size=4,
+                   spec_k=3, paged=mode != "row")
+        if mode == "draft":
+            ekw["spec_draft_model"] = drafts[name]
+        eng = ServeEngine(model, device=model.device, **ekw)
+        handles = [eng.submit(p, n) for p, n in zip(prompts, news)]
+        _kernels.reset_launch_counts()
+        eng.run()
+        if name == "cuda":
+            torch.cuda.synchronize()
+        snap = eng.metrics.snapshot()
+        out[name] = ([h.tokens for h in handles], snap["spec_ticks"],
+                     snap["spec_accepted_tokens"],
+                     dict(_kernels.launch_counts))
+    assert out["cuda"][:3] == out["cpu"][:3]
+    launches = out["cuda"][3]
+    want = 1 * 4 * out["cuda"][1] if mode == "draft" else 0
+    assert launches["paged_decode"] == want
+    assert sum(launches.values()) == want

@@ -228,8 +228,6 @@ SWEEP = [
     ("engine", "backoff_sleep", lambda s: None),
     ("engine", "max_replays", 1),
     ("engine", "degraded_cooldown_s", 1.0),
-    ("engine", "spec_ngram", 2),
-    ("engine", "spec_draft_model", object()),
     ("engine", "spec_draft_variables", {}),
     ("submit", "adapter", "tenant-a"),
     ("submit", "constraint", {"regex": "[0-9]+"}),
