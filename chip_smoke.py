@@ -10,8 +10,9 @@ each against its plain PyTorch version, drives the main paths of the
 port on a full-width Llama-1B — the paged serving engine, the causal-LM
 trainer, the trainer at long context (S 8192, block remat, the
 two-sweep flash backward), KV-cache decoding through ``generate`` (with
-a sliding-window ring cache), the resident-row serving engine, and
-speculative serving and decoding (n-gram drafts and a draft model) — and
+a sliding-window ring cache), the resident-row serving engine,
+speculative serving and decoding (n-gram drafts and a draft model), and
+multi-tenant serving (LoRA adapters and grammar constraints) — and
 on a full-width, full-depth ResNet-50, the reference's own workload, and
 prints one line per phase:
 
@@ -151,8 +152,32 @@ prints one line per phase:
     ``spec_k=0`` engine, token-exact unless a tie as in phase 6, the
     acceptance counters, K4's launches; then ``generate_speculative``
     against ``generate`` at B 2 (and the CPU);
-23. kernels — one JSON object: every ported kernel with its launches on
-    its main path (phase 7, 10, 11, 18 or 21; K4's by path under
+23. engine tenant serve — phase 7's wave in both modes, ``tenant=None``
+    and ``tenant=TenantConfig(...)`` in turns (plain, tenant, tenant,
+    plain): 16 rank-8 LoRA adapters
+    (``register_random``, seeds 100-115, scale 0.05) on a pool
+    auto-sized to 12 rows, every 4th request on the base model and the
+    rest on 4 popular adapters and a tail of 12, every 3rd request under
+    a JSON schema over a seeded 128,256-string grammar vocabulary (the
+    FSM's states and compile seconds, compiled before the waves):
+    tokens/s, TTFT p50/p99, the tick's p50 and its ratio to the plain
+    tick (over both waves of each, and over 48 ticks of each engine in
+    turns: ``engine_tenant_cost``), adapter hits, loads and evictions, mask restages a tick, the pool's and a tick's
+    gathered factor bytes, K4 exactly once a layer a tick on the paged
+    legs; then a profiled window of 8 ticks of each engine a mode
+    (``profile_plain_*``, ``profile_tenant_*``): device busy, idle share
+    and the LoRA delta's device time a tick;
+24. engine tenant parity — multi-tenant serving card against CPU,
+    Llama-1B width at depth 2 in f32 (TF32 off), phase 6's prompts as a
+    base request, an adapter, an adapter under a bounded JSON schema and
+    the schema alone, both modes: token-exact unless a tie under the
+    slot's adapter and mask, the base slot's logits bitwise equal to the
+    card's ``tenant=None`` engine's, the adapter stream equal to
+    ``generate`` over the merged head, the constrained streams complete
+    (GRAMMAR, accepted), a ``spec_k=4`` leg equal to ``spec_k=0``, K4
+    exactly once a layer a tick on the paged leg;
+25. kernels — one JSON object: every ported kernel with its launches on
+    its main path (phase 7, 10, 11, 18, 21 or 23; K4's by path under
     ``launches_by_path``, the parity legs' draft steps included there),
     error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
@@ -170,7 +195,9 @@ ops and casts, adam, ...), one profiled B 1 ``generate`` of 64 tokens
 in phase 17 (its idle share), a profiled window of the row engine's
 ticks after phase 20 and of two speculative engines' ticks after phase
 21 (row with n-gram drafts; paged with the depth-2 self-draft), and
-writes their kernel tables to DIR.
+writes their kernel tables to DIR. Phase 23's profiled tenant windows
+run with or without it; their tables go to DIR, or to
+``build/profiles``.
 """
 
 from __future__ import annotations
@@ -188,6 +215,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import pddl_tpu_torch.serve.engine as engine_mod
 from pddl_tpu_torch.data.synthetic import (
     SyntheticImageClassification,
     SyntheticLanguageModeling,
@@ -199,9 +227,15 @@ from pddl_tpu_torch.models.resnet import Conv, ResNet50, tiny_resnet
 from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
 from pddl_tpu_torch.ops.augment import standard_augment, standard_eval_transform
+from pddl_tpu_torch.ops.lora import merge_lora_into_head
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.kvcache import pool_nbytes
 from pddl_tpu_torch.serve.request import FinishReason
+from pddl_tpu_torch.serve.tenant import (
+    AdapterRegistry,
+    TenantConfig,
+    compile_constraint,
+)
 from pddl_tpu_torch.train.callbacks import EarlyStopping, ReduceLROnPlateau
 from pddl_tpu_torch.train.loop import Trainer
 from pddl_tpu_torch.train.metrics import sparse_categorical_crossentropy
@@ -958,9 +992,12 @@ def phase_engine_parity():
 
 
 # -------------------------------------------------------------- phase 7
-def serve_wave(model, prompts, paged: bool, new: int = 32, **engine_kw):
+def serve_wave(model, prompts, paged: bool, new: int = 32, submit_kw=None,
+               **engine_kw):
     """``engine_serve``'s wave through one engine: 24 greedy requests x
-    ``new`` new tokens on 8 slots (``engine_kw``: the speculative options).
+    ``new`` new tokens on 8 slots (``engine_kw``: the speculative or the
+    tenant options; ``submit_kw``: each request's adapter and constraint,
+    a constrained stream may end GRAMMAR before ``new`` tokens).
     Returns the launches, the metrics snapshot, the engine, the handles,
     the wall, the live-slot ticks, the pure decode ticks' walls (steps that
     admitted nothing), the largest ``blocks_shared`` and the
@@ -984,7 +1021,8 @@ def serve_wave(model, prompts, paged: bool, new: int = 32, **engine_kw):
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    handles = [eng.submit(p, new) for p in prompts]
+    submit_kw = submit_kw or [{}] * len(prompts)
+    handles = [eng.submit(p, new, **kw) for p, kw in zip(prompts, submit_kw)]
     max_shared, kv = 0, {"tokens_resident": -1}
     tick_s = []
     while eng.has_work:
@@ -1004,7 +1042,10 @@ def serve_wave(model, prompts, paged: bool, new: int = 32, **engine_kw):
     if eng.telemetry.total_appended > eng.telemetry.capacity:
         raise RuntimeError("telemetry ring wrapped; ticks undercounted")
     for i, h in enumerate(handles):
-        if h.finish_reason is not FinishReason.LENGTH or len(h.tokens) != new:
+        grammar = (submit_kw[i].get("constraint") is not None
+                   and h.finish_reason is FinishReason.GRAMMAR)
+        if not (grammar or h.finish_reason is FinishReason.LENGTH) or (
+                len(h.tokens) > new or not grammar and len(h.tokens) != new):
             raise RuntimeError(f"request {i}: {h.finish_reason} with "
                                f"{len(h.tokens)} tokens")
         if not all(0 <= tok < VOCAB for tok in h.tokens):
@@ -1075,7 +1116,7 @@ def device_kernels(prof):
 
 def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8,
                    paged: bool = True, tag: Optional[str] = None,
-                   **engine_kw) -> None:
+                   submit_kw=None, **engine_kw) -> dict:
     """``--profile``: the wall time of one step that admits 8 requests,
     then a window of steady decode ticks (8 slots live at depth ~390)
     under ``torch.profiler``, for the paged engine (``profile_decode``)
@@ -1084,14 +1125,23 @@ def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8,
     time, the device-busy share of the window, K4's device time and
     kernel launches per tick (its split and merge kernels; none in the
     row engine) and the largest kernels by device time; writes the whole
-    kernel table to ``out_dir``."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel table to ``out_dir``. A tenant engine (``submit_kw``: the
+    requests' adapters and constraints) adds the LoRA delta's device time
+    a tick: the profiler's device time of a ``record_function`` range
+    wrapped around the tick's ``batched_lora_delta`` here (the engine
+    carries no annotation). Returns the printed fields."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     tag = tag or ("profile_decode" if paged else "profile_row_decode")
     eng = ServeEngine(model, paged=paged, max_slots=8, prefix_block_size=16,
                       **engine_kw)
-    for p in prompts[:8]:
-        eng.submit(p, 32)
+    for p, kw in zip(prompts[:8], submit_kw or [{}] * 8):
+        eng.submit(p, 32, **kw)
+    real_delta = engine_mod.batched_lora_delta
+
+    def annotated_delta(*args):
+        with record_function("lora_delta"):
+            return real_delta(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.step()  # admits all 8 (one cold prompt, seven prefix hits), ticks
@@ -1100,14 +1150,21 @@ def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8,
     eng.step()
     torch.cuda.synchronize()
     before = eng.metrics.tokens_emitted
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_ticks):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    engine_mod.batched_lora_delta = annotated_delta
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_ticks):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        engine_mod.batched_lora_delta = real_delta
     kern = device_kernels(prof)
+    cuda = torch.autograd.DeviceType.CUDA
+    lora_us = sum(e.device_time_total for e in prof.key_averages()
+                  if e.key == "lora_delta" and e.device_type == cuda)
     busy_us = sum(e.self_device_time_total for e in kern)
     pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)
     (pathlib.Path(out_dir) / f"{tag}.txt").write_text(
@@ -1117,16 +1174,21 @@ def profile_decode(model, prompts, out_dir: str, n_ticks: int = 8,
                    f"x{e.count // n_ticks}" for e in kern[:8])
     k4 = [e for e in kern if "paged_decode" in e.key]
     k4_ms = sum(e.self_device_time_total for e in k4) / 1e3 / n_ticks
-    phase(tag, admit_step_ms=f"{admit_ms:.4f}", ticks=n_ticks,
-          tokens_per_tick=(
-              f"{(eng.metrics.tokens_emitted - before) / n_ticks:.4f}"),
-          tick_ms=f"{1e3 * wall / n_ticks:.4f}",
-          device_busy_ms_per_tick=f"{busy_us / 1e3 / n_ticks:.4f}",
-          paged_decode_ms_per_tick=f"{k4_ms:.4f}",
-          paged_decode_kernels_per_tick=sum(e.count for e in k4) // n_ticks,
-          device_idle_share=(f"{1 - busy_us / 1e6 / wall:.4f}" if busy_us
-                             else "not measured"),
-          top_kernels_per_tick=top)
+    fields = dict(
+        admit_step_ms=f"{admit_ms:.4f}", ticks=n_ticks,
+        tokens_per_tick=(
+            f"{(eng.metrics.tokens_emitted - before) / n_ticks:.4f}"),
+        tick_ms=f"{1e3 * wall / n_ticks:.4f}",
+        device_busy_ms_per_tick=f"{busy_us / 1e3 / n_ticks:.4f}",
+        paged_decode_ms_per_tick=f"{k4_ms:.4f}",
+        paged_decode_kernels_per_tick=sum(e.count for e in k4) // n_ticks,
+        device_idle_share=(f"{1 - busy_us / 1e6 / wall:.4f}" if busy_us
+                           else "not measured"))
+    if eng.tenant_enabled:
+        fields["lora_delta_device_ms_per_tick"] = (
+            f"{lora_us / 1e3 / n_ticks:.4f}" if lora_us else "not measured")
+    phase(tag, **fields, top_kernels_per_tick=top)
+    return fields
 
 
 # ---------------------------------------------------------- phase 8-10
@@ -2187,6 +2249,413 @@ def phase_generate_spec(model, prompt, wall, ref):
           equal_to_generate=j is None, parted_at=j, parted_margin=margin)
 
 
+# ---------------------------------------------------------- phase 24-25
+TENANT_RANK = 8
+VOCAB32 = (list("0123456789") + list('{}[]":,.-') + ["true", "false"]
+           + list("abcdefghijk"))   # tests/test_serve_tenant.py's
+# The serve wave's schema; its integer is open-ended, so a stream may end
+# at LENGTH mid-document. The parity legs' schema is bounded: every
+# stream completes (GRAMMAR) within 32 tokens.
+SERVE_SCHEMA = {"type": "object", "properties": {
+    "id": {"type": "integer"}, "ok": {"type": "boolean"}}}
+PARITY_SCHEMA = {"type": "object", "properties": {
+    "id": {"enum": [7, 42]}, "ok": {"type": "boolean"}}}
+
+
+def tenant_token_strings() -> list:
+    """A token-id -> string vocabulary for every id of ``VOCAB``:
+    ``VOCAB32`` first, then seeded strings of 1-4 printable ASCII
+    characters."""
+    rng = np.random.RandomState(32)
+    chars = np.array([chr(c) for c in range(32, 127)])
+    n = VOCAB - len(VOCAB32)
+    lens = rng.randint(1, 5, n)
+    picks = rng.randint(0, len(chars), (n, 4))
+    return VOCAB32 + ["".join(chars[picks[i, :k]])
+                      for i, k in enumerate(lens)]
+
+
+def tenant_registry(model, n: int) -> AdapterRegistry:
+    reg = AdapterRegistry(model.embed_dim, model.vocab_size,
+                          rank=TENANT_RANK)
+    for i in range(n):
+        reg.register_random(f"adapter{i}", seed=100 + i, scale=0.05)
+    return reg
+
+
+def tenant_margin(model, registry, kw, prompt, prefix) -> float:
+    """The top-2 margin of the logits a tenant slot samples from after
+    ``prompt + prefix``: the merged head for an adapter, masked by the
+    constraint's state there."""
+    if kw.get("adapter"):
+        ad = registry.get(kw["adapter"])
+        model = merge_lora_into_head(model, ad.a, ad.b)
+    with torch.no_grad():
+        logits = model(torch.tensor([list(prompt) + list(prefix)],
+                                    device=model.device))[0, -1].float()
+    if kw.get("constraint"):
+        fsm = compile_constraint(kw["constraint"], tenant_token_strings())
+        mask = fsm.allow_row(fsm.advance_many(prefix))
+        logits[~torch.from_numpy(mask).to(logits.device)] = -torch.inf
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def check_tenant_streams(what, streams, ref, prompts, kws, cpu_model,
+                         registry):
+    """Token-exact, unless the CPU's top-2 margin (under the slot's
+    adapter and mask) at the first divergence is < 1e-3 (a tie). Streams
+    of unequal length that agree throughout fail."""
+    exact, ties = 0, []
+    for i, (a, b) in enumerate(zip(streams, ref)):
+        j = next((t for t in range(min(len(a), len(b))) if a[t] != b[t]),
+                 None)
+        if j is None:
+            if len(a) != len(b):
+                raise RuntimeError(f"{what} {i}: {len(a)} against "
+                                   f"{len(b)} tokens")
+            exact += 1
+            continue
+        margin = tenant_margin(cpu_model, registry, kws[i], prompts[i],
+                               b[:j])
+        if margin >= 1e-3:
+            raise RuntimeError(f"{what} {i} diverges at token {j} with a "
+                               f"CPU top-2 margin of {margin:.3g} >= 1e-3")
+        ties.append(f"req{i}@{j}:margin={margin:.3g}")
+    return exact, ";".join(ties) or "none"
+
+
+def tenant_engine(model, registry, strings, **kw):
+    return ServeEngine(model, device=model.device, max_slots=4,
+                       prefill_len=128, prefix_block_size=16,
+                       tenant=TenantConfig(registry=registry,
+                                           token_strings=strings), **kw)
+
+
+def recorded_run(eng, prompts, kws, news):
+    """Run one engine over the requests, recording every logits tensor it
+    samples from (admissions ``[1, V]``, ticks ``[S, V]``) and its K4
+    launches; returns ``(streams, finishes, logits, launches, ticks)``."""
+    log = []
+    real = engine_mod.sample_logits_batched
+
+    def spy(rng, logits, **skw):
+        log.append(logits.detach().clone())
+        return real(rng, logits, **skw)
+    engine_mod.sample_logits_batched = spy
+    try:
+        _kernels.reset_launch_counts()
+        handles = [eng.submit(p, n, **kw)
+                   for p, kw, n in zip(prompts, kws, news)]
+        eng.run(max_steps=400)
+        launches = dict(_kernels.launch_counts)
+    finally:
+        engine_mod.sample_logits_batched = real
+    ticks = sum(1 for r in eng.telemetry.snapshot() if r["live_slots"] > 0)
+    return ([h.tokens for h in handles], [h.finish_reason for h in handles],
+            log, launches, ticks)
+
+
+def phase_engine_tenant_parity():
+    """Multi-tenant serving card against CPU, greedy, Llama-1B width at
+    depth 2 in f32 (TF32 off), ``engine_parity``'s 4 prompts: a base
+    request, an adapter, an adapter under a bounded JSON schema and the
+    schema alone (rank-8 adapters, scale 0.05, the seeded 128,256-string
+    grammar vocabulary), in both modes. Token-exact card against CPU
+    (unless a tie under the slot's adapter and mask); the base slot's
+    logits bitwise equal to the card's ``tenant=None`` engine's at its
+    admission and at every tick before a stream ends; the adapted
+    streams equal ``generate`` over the merged head; the constrained
+    streams complete their grammar; a ``spec_k=4`` n-gram leg equal to
+    ``spec_k=0``; K4 launched exactly once a layer a tick on the paged
+    legs (none in the speculative leg: its verify is multi-token).
+    Returns the paged legs' launches."""
+    gpu_model, cpu_model = _parity_pair(max_len=MAX_LEN, depth=2)
+    strings = tenant_token_strings()
+    registry = tenant_registry(gpu_model, 2)
+    rng = np.random.RandomState(4)
+    shared = rng.randint(0, VOCAB, 32)
+    prompts = [np.concatenate([shared, rng.randint(0, VOCAB, 16)]),
+               rng.randint(0, VOCAB, 80),
+               np.concatenate([shared, rng.randint(0, VOCAB, 32)]),
+               rng.randint(0, VOCAB, 100)]
+    spec = {"kind": "json_schema", "schema": PARITY_SCHEMA}
+    kws = [{}, {"adapter": "adapter0"},
+           {"adapter": "adapter1", "constraint": spec}, {"constraint": spec}]
+    news = [16, 16, 32, 32]
+    fsm = compile_constraint(spec, strings)
+    paged_launches = {}
+    for paged in (False, True):
+        mode = "paged" if paged else "row"
+        plain = ServeEngine(gpu_model, device=DEV, max_slots=4,
+                            prefill_len=128, prefix_block_size=16,
+                            paged=paged)
+        p_streams, _, p_log, _, _ = recorded_run(plain, prompts,
+                                                 [{}] * 4, news)
+        eng = tenant_engine(gpu_model, registry, strings, paged=paged)
+        streams, finishes, t_log, launches, ticks = recorded_run(
+            eng, prompts, kws, news)
+        torch.cuda.synchronize()
+        want = gpu_model.depth * ticks if paged else 0
+        if launches["paged_decode"] != want or sum(launches.values()) != want:
+            raise RuntimeError(f"engine_tenant_parity {mode}: launches "
+                               f"{launches}, want {want} paged_decode")
+        if paged:
+            paged_launches = launches
+        # The base request holds slot 0 and is admitted first in both.
+        if not torch.equal(t_log[0], p_log[0]):
+            raise RuntimeError(f"{mode}: the base admission's logits differ "
+                               "from the tenant=None engine's")
+        first_end = min(len(t) for t in streams)
+        compared = 0
+        for step, (a, b) in enumerate(zip(t_log[4:], p_log[4:])):
+            if step + 2 > first_end:  # a stream ended: the batches differ
+                break
+            if not torch.equal(a[0], b[0]):
+                raise RuntimeError(f"{mode}: the base slot's tick {step} "
+                                   "logits differ from tenant=None's")
+            compared += 1
+        if compared < 8 or p_streams[0] != streams[0]:
+            raise RuntimeError(f"{mode}: {compared} ticks compared")
+        cpu_eng = tenant_engine(cpu_model, registry, strings, paged=paged)
+        cpu_streams = recorded_run(cpu_eng, prompts, kws, news)[0]
+        exact, ties = check_tenant_streams(
+            f"{mode} request", streams, cpu_streams, prompts, kws,
+            cpu_model, registry)
+        # The unconstrained adapter stream against generate() over the
+        # merged head, on the card.
+        ad = registry.get(kws[1]["adapter"])
+        m = merge_lora_into_head(gpu_model, ad.a, ad.b)
+        out = generate(m, torch.tensor(prompts[1][None], device=DEV),
+                       news[1])
+        merged = [out[0, len(prompts[1]):].cpu().tolist()]
+        del m
+        exact_m, ties_m = check_tenant_streams(
+            f"{mode} merged-head", streams[1:2], merged, prompts[1:2],
+            kws[1:2], cpu_model, registry)
+        for i in (2, 3):
+            if finishes[i] is not FinishReason.GRAMMAR or not fsm.accepts(
+                    streams[i], eos_token=eng.eos_token):
+                raise RuntimeError(f"{mode} constrained request {i}: "
+                                   f"{finishes[i]}, {len(streams[i])} tokens")
+        _kernels.reset_launch_counts()
+        spec_eng = tenant_engine(gpu_model, registry, strings, paged=paged,
+                                 spec_k=SPEC_K)
+        spec_streams = recorded_run(spec_eng, prompts, kws, news)[0]
+        torch.cuda.synchronize()
+        if _kernels.launch_counts["paged_decode"]:
+            raise RuntimeError(f"{mode} spec leg launched "
+                               f"{_kernels.launch_counts}")
+        exact_s, ties_s = check_tenant_streams(
+            f"{mode} spec_k=4 vs spec_k=0", spec_streams, streams, prompts,
+            kws, cpu_model, registry)
+        snap = eng.metrics.snapshot()
+        phase("engine_tenant_parity", mode=mode, model="Llama_1B_depth2_f32",
+              allow_tf32=False, requests=len(prompts),
+              adapters=len(registry), rank=TENANT_RANK,
+              token_exact_vs_cpu=exact, ties_vs_cpu=ties,
+              base_logits_bitwise_ticks=compared,
+              adapter_exact_vs_merged_generate=exact_m,
+              ties_vs_merged=ties_m,
+              grammar_complete=sum(f is FinishReason.GRAMMAR
+                                   for f in finishes),
+              constrained_tokens=",".join(str(len(streams[i]))
+                                          for i in (2, 3)),
+              spec4_token_exact_vs_spec0=exact_s, ties_vs_spec0=ties_s,
+              spec_accepted_tokens=spec_eng.metrics.spec_accepted_tokens,
+              adapter_loads=snap["adapter_loads"],
+              paged_decode_launches=launches["paged_decode"], ticks=ticks)
+    del gpu_model, cpu_model
+    return paged_launches
+
+
+def tenant_submit_kw(n: int) -> list:
+    """The tenant wave's requests: every 4th on the base model, the rest
+    alternately on 4 popular adapters and on a tail of 12 others (13
+    distinct adapters over the wave, more than the 12-row pool's 11
+    usable rows: popular adapters hit, the tail evicts), every 3rd under
+    ``SERVE_SCHEMA``."""
+    kws, k = [], 0
+    for i in range(n):
+        kw = {}
+        if i % 4:
+            kw["adapter"] = (f"adapter{(k // 2) % 4}" if k % 2 == 0
+                             else f"adapter{4 + (k // 2) % 12}")
+            k += 1
+        if i % 3 == 0:
+            kw["constraint"] = {"kind": "json_schema",
+                                "schema": SERVE_SCHEMA}
+        kws.append(kw)
+    return kws
+
+
+def tenant_tick_pairs(model, prompts, paged: bool, strings,
+                      pairs: int = 48):
+    """The tenant tick's host cost against the plain tick's, paired: a
+    plain engine and a tenant engine, each with 8 of the wave's requests
+    live (the tenant one with the wave's adapters, and in place of its
+    schema the open-ended ``([0-9][a-z])+``, whose state alternates, so
+    its mask row changes and restages every tick and no stream ends
+    early), step in turns; returns the median step wall of each over
+    ``pairs`` pairs after 3 warm-up steps (every step is a pure decode
+    tick ending in the tick's device-to-host copy), and the tenant
+    engine's mask restages."""
+    loop = {"kind": "regex", "pattern": "([0-9][a-z])+"}
+    kws = [dict(kw, constraint=loop) if "constraint" in kw else kw
+           for kw in tenant_submit_kw(8)]
+    engines = {
+        "plain": ServeEngine(model, paged=paged, max_slots=8,
+                             prefix_block_size=16),
+        "tenant": ServeEngine(model, paged=paged, max_slots=8,
+                              prefix_block_size=16, tenant=TenantConfig(
+                                  registry=tenant_registry(model, 16),
+                                  token_strings=strings))}
+    for name, eng in engines.items():
+        for p, kw in zip(prompts[:8], kws):
+            eng.submit(p, pairs + 8, **(kw if name == "tenant" else {}))
+        for _ in range(3):
+            eng.step()
+    walls = {name: [] for name in engines}
+    for i in range(pairs):
+        order = ("plain", "tenant") if i % 2 == 0 else ("tenant", "plain")
+        for name in order:
+            eng = engines[name]
+            t0 = time.perf_counter()
+            eng.step()
+            walls[name].append(time.perf_counter() - t0)
+            if eng.live_slots != 8:
+                raise RuntimeError(f"{name}: {eng.live_slots} slots live")
+    restages = engines["tenant"].metrics.mask_restages
+    del engines
+    return ({name: 1e3 * float(np.median(w)) for name, w in walls.items()},
+            restages)
+
+
+def phase_engine_tenant_serve(model, prompts, out_dir: str):
+    """Phase 7's wave (full Llama-1B, bf16, ``max_len`` 1024, 24 greedy
+    requests of 384 prompt tokens, 256 shared, x 32 new on 8 slots) in
+    both modes, ``tenant=None`` and a tenant engine in turns (plain,
+    tenant, tenant, plain): 16 rank-8 adapters, the pool auto-sized to 12
+    rows, every 4th request on the base model and every 3rd under a JSON
+    schema, over the seeded 128,256-string vocabulary (the FSM compiled
+    and timed before the waves). Per wave: tokens/s, the tick's p50, TTFT
+    p50/p99, K4's launches (exactly one a layer a tick on the paged
+    legs); per tenant wave: adapter hits, loads and evictions (the mix
+    must hit and evict), mask restages a tick, the pool's and the tick's
+    gathered factor bytes, the base streams equal to the plain wave's and
+    the margins where they part. Then per mode the tenant tick's median
+    against the plain tick's, over 48 ticks of each in turns
+    (:func:`tenant_tick_pairs`) and over both waves of each, and a
+    profiled window of 8 ticks of each engine (device busy, idle share,
+    the LoRA delta's device time). Constrained streams are mask-legal, and
+    accepted when they end GRAMMAR. Returns the first paged tenant wave's
+    launches."""
+    strings = tenant_token_strings()
+    spec = {"kind": "json_schema", "schema": SERVE_SCHEMA}
+    t0 = time.perf_counter()
+    fsm = compile_constraint(spec, strings)
+    compile_s = time.perf_counter() - t0
+    kws = tenant_submit_kw(len(prompts))
+    base_ids = [i for i, kw in enumerate(kws) if not kw]
+    launches_out = None
+    for paged in (False, True):
+        mode = "paged" if paged else "row"
+        runs = {"plain": [], "tenant": []}
+        for leg in ("plain", "tenant", "tenant", "plain"):
+            registry = tenant_registry(model, 16)
+            tkw = ({} if leg == "plain" else dict(
+                submit_kw=kws, tenant=TenantConfig(registry=registry,
+                                                   token_strings=strings)))
+            run = serve_wave(model, prompts, paged, **tkw)
+            runs[leg].append(run)
+            eng, snap, launches = run["eng"], run["snap"], run["launches"]
+            want = model.depth * run["ticks"] if paged else 0
+            if launches["paged_decode"] != want or \
+                    sum(launches.values()) != want:
+                raise RuntimeError(f"engine_tenant_serve {mode} {leg}: "
+                                   f"launches {launches}, want {want}")
+            fields = serve_fields(run)
+            extra = {}
+            if leg == "tenant":
+                done = 0
+                for h, kw in zip(run["handles"], kws):
+                    if kw.get("constraint") is None:
+                        continue
+                    state = fsm.advance_many(h.tokens)  # raises if illegal
+                    if h.finish_reason is FinishReason.GRAMMAR:
+                        done += 1
+                        if not fsm.accepting[state]:
+                            raise RuntimeError("a GRAMMAR stream is not "
+                                               "accepted")
+                equal, margins = parted_streams(
+                    model, [prompts[i] for i in base_ids],
+                    [run["handles"][i].tokens for i in base_ids],
+                    [runs["plain"][0]["handles"][i].tokens
+                     for i in base_ids])
+                extra = dict(
+                    adapters=len(registry), pool_rows=eng._apool.slots,
+                    adapter_hits=snap["adapter_hits"],
+                    adapter_loads=snap["adapter_loads"],
+                    adapter_evictions=snap["adapter_evictions"],
+                    constrained_requests=snap["constrained_requests"],
+                    grammar_complete=done,
+                    fsm_states=fsm.n_states,
+                    fsm_compile_s=f"{compile_s:.4f}",
+                    mask_restages=eng.metrics.mask_restages,
+                    mask_restages_per_tick=(
+                        f"{eng.metrics.mask_restages / run['ticks']:.4f}"),
+                    pool_bytes=(eng._apool_a.nbytes + eng._apool_b.nbytes),
+                    tick_gathered_b_bytes=(eng.max_slots * TENANT_RANK
+                                           * model.vocab_size * 4),
+                    base_streams_equal_plain=f"{equal}/{len(base_ids)}",
+                    base_parted_margins=margins)
+                if launches_out is None and paged:
+                    launches_out = launches
+            phase("engine_tenant_serve", mode=mode, leg=leg,
+                  model="Llama_1B_bf16", **{k: fields[k] for k in (
+                      "requests", "tokens", "wall_s", "tokens_per_s",
+                      "ttft_p50_s", "ttft_p99_s", "ticks",
+                      "decode_tick_ms_p50")},
+                  paged_decode_launches=launches["paged_decode"], **extra,
+                  peak_mem_gib=f"{run['peak'] / 2**30:.3f}")
+            if leg == "tenant" and (snap["adapter_evictions"] < 1
+                                    or snap["adapter_hits"] < 1):
+                raise RuntimeError(f"the tenant wave evicted "
+                                   f"{snap['adapter_evictions']} adapters "
+                                   f"and hit {snap['adapter_hits']}")
+        wave_tick = {leg: 1e3 * float(np.median(
+            [t for r in rs for t in r["tick_s"]])) for leg, rs in runs.items()}
+        rate = {leg: float(np.mean([float(serve_fields(r)["tokens_per_s"])
+                                    for r in rs])) for leg, rs in runs.items()}
+        tick, pair_restages = tenant_tick_pairs(model, prompts, paged,
+                                                strings)
+        profiled = {}
+        for leg in ("plain", "tenant"):
+            tkw = ({} if leg == "plain" else dict(
+                submit_kw=kws, tenant=TenantConfig(
+                    registry=tenant_registry(model, 16),
+                    token_strings=strings)))
+            profiled[leg] = profile_decode(model, prompts, out_dir,
+                                           paged=paged,
+                                           tag=f"profile_{leg}_{mode}", **tkw)
+        busy = {leg: float(f["device_busy_ms_per_tick"])
+                for leg, f in profiled.items()}
+        phase("engine_tenant_cost", mode=mode, model="Llama_1B_bf16",
+              paired_ticks=48,
+              tick_ms_p50_plain=f"{tick['plain']:.4f}",
+              tick_ms_p50_tenant=f"{tick['tenant']:.4f}",
+              tenant_tick_vs_plain=f"{tick['tenant'] / tick['plain']:.4f}",
+              paired_mask_restages=pair_restages,
+              wave_tick_ms_p50_plain=f"{wave_tick['plain']:.4f}",
+              wave_tick_ms_p50_tenant=f"{wave_tick['tenant']:.4f}",
+              tokens_per_s_plain=f"{rate['plain']:.2f}",
+              tokens_per_s_tenant=f"{rate['tenant']:.2f}",
+              device_busy_ms_per_tick_plain=f"{busy['plain']:.4f}",
+              device_busy_ms_per_tick_tenant=f"{busy['tenant']:.4f}",
+              lora_delta_device_ms_per_tick=profiled["tenant"][
+                  "lora_delta_device_ms_per_tick"])
+    return launches_out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -2241,6 +2710,8 @@ def main(argv=None) -> int:
     if args.profile:
         profile_decode(model, prompts, args.profile, paged=False)
     spec_serve_launches = phase_engine_spec_serve(model, prompts)
+    tenant_serve_launches = phase_engine_tenant_serve(
+        model, prompts, args.profile or "build/profiles")
     if args.profile:
         profile_decode(model, prompts, args.profile, paged=False,
                        tag="profile_row_spec_decode", spec_k=SPEC_K)
@@ -2251,6 +2722,7 @@ def main(argv=None) -> int:
         del draft
     del model
     spec_parity_launches = phase_engine_spec_parity()
+    tenant_parity_launches = phase_engine_tenant_parity()
     src = "pddl_tpu_torch/ops/csrc/"
     att = "pddl_tpu/ops/attention.py:"
     # (name, source, TPU kernel's line, launches on the main paths: the
@@ -2260,7 +2732,8 @@ def main(argv=None) -> int:
     rows = [
         ("paged_decode", "paged_decode.cu", 1221,
          serve_launches["paged_decode"]
-         + spec_serve_launches["paged_decode"]),
+         + spec_serve_launches["paged_decode"]
+         + tenant_serve_launches["paged_decode"]),
         ("flash_fwd", "flash_fwd.cu", 183,
          train_launches["flash_fwd"] + long_launches["flash_fwd"]
          + swa_launches["flash_fwd"]),
@@ -2275,12 +2748,15 @@ def main(argv=None) -> int:
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": f"{att}{line}", "launches": launches,
                 **timing[name]} for name, file, line, launches in rows]
-    # K4's launches by path: the paged serve run's ticks and the draft
-    # model's steps in the speculative serve run (the parity legs' too).
+    # K4's launches by path: the paged serve run's ticks, the draft
+    # model's steps in the speculative serve run and the tenant serve
+    # run's ticks (the parity legs' too).
     kernels[0]["launches_by_path"] = {
         "engine_serve": serve_launches["paged_decode"],
         "engine_spec_serve_draft": spec_serve_launches["paged_decode"],
-        "engine_spec_parity_draft": spec_parity_launches["paged_decode"]}
+        "engine_tenant_serve": tenant_serve_launches["paged_decode"],
+        "engine_spec_parity_draft": spec_parity_launches["paged_decode"],
+        "engine_tenant_parity": tenant_parity_launches["paged_decode"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,11 @@ What is ported so far:
   (``paged=True``), whose single-token decode attention runs a
   hand-written CUDA kernel (``ops/csrc/paged_decode.cu``); with
   ``spec_k > 0`` each tick drafts and verifies a window of tokens
-  (n-gram drafts, or a draft model on the paged pool);
+  (n-gram drafts, or a draft model on the paged pool); with
+  ``tenant=TenantConfig(...)`` it serves per-request LoRA adapters from a
+  paged device pool (``AdapterRegistry``) and grammar-constrained
+  decoding (``compile_constraint``: a regex or JSON schema to a token
+  FSM);
 - KV-cache decoding: ``models/gpt.generate`` and its speculative twin
   ``models/speculative.generate_speculative``;
 - causal-LM training on one card: ``Trainer`` fitting a Llama with
@@ -42,6 +46,10 @@ _LAZY_EXPORTS = {
     "ResNet50": ("pddl_tpu_torch.models.resnet", "ResNet50"),
     "tiny_resnet": ("pddl_tpu_torch.models.resnet", "tiny_resnet"),
     "ServeEngine": ("pddl_tpu_torch.serve.engine", "ServeEngine"),
+    "TenantConfig": ("pddl_tpu_torch.serve.tenant", "TenantConfig"),
+    "AdapterRegistry": ("pddl_tpu_torch.serve.tenant", "AdapterRegistry"),
+    "compile_constraint": ("pddl_tpu_torch.serve.tenant",
+                           "compile_constraint"),
     "Trainer": ("pddl_tpu_torch.train.loop", "Trainer"),
     "SyntheticImageClassification": ("pddl_tpu_torch.data.synthetic",
                                      "SyntheticImageClassification"),

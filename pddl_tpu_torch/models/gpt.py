@@ -173,11 +173,18 @@ def insert_cache_slot(cache: dict, row_cache: dict, slot: int) -> dict:
     return cache
 
 
+def _last_features(model, tokens, length: int, **cache_kw
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's features at the one position ``length - 1`` and the
+    head over them: ``(logits [B, V] f32, features [B, d])``."""
+    feats = model(tokens, features_only=True, **cache_kw)[:, length - 1]
+    return model.head_logits(feats), feats
+
+
 def _last_logits(model, tokens, length: int, **cache_kw) -> torch.Tensor:
-    """The forward's features, and the head over the one position
+    """The head over the forward's features at the one position
     ``length - 1``: ``[B, V]`` f32."""
-    feats = model(tokens, features_only=True, **cache_kw)
-    return model.head_logits(feats[:, length - 1])
+    return _last_features(model, tokens, length, **cache_kw)[0]
 
 
 def prefill_row(model, prompt: torch.Tensor, length: int
@@ -221,6 +228,27 @@ def prefill_row_from(model, tokens: torch.Tensor, length: int, cache: dict,
     return cache, _last_logits(model, tokens, length, cache=cache,
                                cache_index=int(start),
                                block_table=block_table)
+
+
+def prefill_row_features(model, tokens: torch.Tensor, length: int,
+                         cache: Optional[dict] = None, start: int = 0,
+                         block_table: Optional[torch.Tensor] = None
+                         ) -> Tuple[dict, torch.Tensor, torch.Tensor]:
+    """The tenant twin of :func:`prefill_row` / :func:`prefill_row_from`:
+    one prefill chunk that ALSO returns the last position's pre-head
+    features, so the caller can add a LoRA delta to the sampled logits.
+    ``cache=None`` starts a fresh batch-1 row cache (``prefill_row``);
+    otherwise the chunk continues ``cache`` at offset ``start``
+    (``prefill_row_from``). The logits are the same ops as theirs, so a
+    no-adapter admission is bitwise the plain one.
+
+    Returns ``(cache, last_logits [1, V], last_feats [1, d])``."""
+    if cache is None:
+        cache = decode_cache(model, 1)
+    logits, feats = _last_features(model, tokens, length, cache=cache,
+                                   cache_index=int(start),
+                                   block_table=block_table)
+    return cache, logits, feats
 
 
 @torch.no_grad()

@@ -56,11 +56,29 @@ On the card the draft model's single-token steps run the paged-decode
 kernel; the verify's multi-token attention takes the plain path, as the
 JAX engine's does.
 
+Multi-tenant serving (``tenant=TenantConfig(...)``, both modes, with or
+without ``spec_k``; `serve/tenant/`): ``submit(adapter=...)`` serves a
+request through a registered LoRA adapter, whose factors are loaded at
+admission into a fixed-shape device pool (``[P, d, r]`` / ``[P, r, V]``
+f32; pinned while a slot uses them, LRU-evicted when cold, row 0 the
+all-zero identity) and applied to the LM HEAD as a batched gather-matmul
+over the slots' rows (``ops/lora.batched_lora_delta``): K/V stay
+adapter-invariant, so prefix and paged blocks are shared across
+tenants. ``submit(constraint=...)`` compiles a regex or JSON schema into
+a token FSM at submit; each slot's allow mask (``[S, V]`` on the host,
+copied to the card only when a row changed) is applied as
+``where(mask, logits, -inf)`` ahead of the batched sampler, eos is
+allowed exactly in accepting states, and a stream with no legal
+continuation finishes ``FinishReason.GRAMMAR``. A speculative engine
+walks each constrained greedy slot's FSM along its drafts, stamps
+per-position masks ``[S, spec_k+1, V]`` for the verify and caps its
+acceptance at the legal prefix. A slot with no adapter and no constraint
+is bitwise the base model.
+
 PyTorch runs eagerly, so the JAX engine's fixed compiled-program set
 (and its ``compile_counts`` pin) has no counterpart here. Not ported yet
 — each raises ``NotImplementedError`` naming its ROADMAP.md item:
-tenancy (``tenant``, ``submit``'s ``adapter``/``constraint``, and with
-it grammar-constrained speculation), int8 serving (``param_transform``),
+int8 serving (``param_transform``),
 the host KV tier (``host_tier``), fault injection and replay
 (``fault_plan``, its retry and replay knobs, ``preempt_cap > 0``, and
 with it a speculative replay's forced re-feeds), sliced prefill
@@ -72,7 +90,7 @@ tracers.
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -82,13 +100,13 @@ from pddl_tpu_torch.models.gpt import (
     _last_logits,
     decode_cache,
     insert_cache_slot,
-    prefill_row,
-    prefill_row_from,
+    prefill_row_features,
     sample_logits_batched,
     slot_decode_cache,
 )
 from pddl_tpu_torch.models.speculative import ngram_drafts
 from pddl_tpu_torch.obs.ring import TelemetryRing
+from pddl_tpu_torch.ops.lora import adapter_pool_load, batched_lora_delta
 from pddl_tpu_torch.serve.kvcache import (
     RadixPrefixCache,
     donate_prefix_blocks,
@@ -108,6 +126,12 @@ from pddl_tpu_torch.serve.request import (
     SamplingParams,
 )
 from pddl_tpu_torch.serve.scheduler import SLOScheduler
+from pddl_tpu_torch.serve.tenant import (
+    AdapterPool,
+    AdapterRegistry,
+    compile_constraint,
+    constraint_key,
+)
 
 _ROADMAP_FEATURES = "ROADMAP.md queue 1 item 3 (engine features)"
 
@@ -163,18 +187,24 @@ class ServeEngine:
         least the target's, no ring cache); it is moved to ``device``.
       spec_draft_variables: accepted at ``None`` only, as ``variables``
         is: the port's draft model carries its weights.
+      tenant: a :class:`~pddl_tpu_torch.serve.tenant.TenantConfig` turns
+        on multi-tenant serving (module docstring): per-request LoRA
+        adapters and grammar constraints. ``None`` (default) serves the
+        base model only, and ``submit``'s ``adapter``/``constraint`` are
+        refused.
       prefill_slice_tokens / param_transform / host_tier / fault_plan /
       max_retries / retry_backoff_s / backoff_sleep / max_replays /
-      degraded_cooldown_s / tenant / tracer: not ported; anything but the
-      JAX engine's defaults raises.
+      degraded_cooldown_s / tracer: not ported; anything but the JAX
+      engine's defaults raises.
 
     A model with :attr:`~pddl_tpu_torch.models.llama.Llama.uses_ring_cache`
     set is refused, as the JAX engine refuses it.
 
-    ``metrics`` carries two counters the JAX engine lacks, outside its
+    ``metrics`` carries counters the JAX engine lacks, outside its
     snapshot: ``copy_bytes_gathered`` (pool → admission row on a prefix
     hit) and ``copy_bytes_donated`` (admission row → pool), the row
-    engine's copies that the paged one avoids.
+    engine's copies that the paged one avoids, and ``mask_restages``
+    (host-to-device copies of a tenant engine's grammar masks).
     """
 
     def __init__(self, model, variables=None, *, device=None,
@@ -221,7 +251,6 @@ class ServeEngine:
                             ("degraded_cooldown_s",
                              degraded_cooldown_s != 5.0),
                             ("preempt_cap > 0", preempt_cap > 0),
-                            ("tenant", tenant is not None),
                             ("tracer", tracer is not None)):
             if given:
                 raise _not_ported(what)
@@ -301,6 +330,7 @@ class ServeEngine:
                     f"reserved scratch sink), got {pool_blocks}")
         self._init_spec(model, spec_k, spec_ngram, spec_draft_model,
                         spec_draft_variables)
+        self._init_tenant(model, tenant)
         self.prefix_block_size = bs
         self._chunk = chunk
         # The WIDE chunk (the whole prefill_len) serves cold or barely
@@ -399,6 +429,69 @@ class ServeEngine:
                 "target)")
         self._draft = spec_draft_model.to(self.device)
 
+    def _init_tenant(self, model, tenant) -> None:
+        """The multi-tenant state, checked as the JAX engine checks it (in
+        its words): the host-side adapter pool bookkeeping, the device
+        factor pools, per-slot adapter rows, per-slot grammar masks (and
+        per-position ones for the verify window) and the FSM cache. All
+        absent on a plain engine."""
+        self._tenant = tenant
+        self._tenant_on = tenant is not None
+        self._registry = self._apool = None
+        if not self._tenant_on:
+            return
+        registry = tenant.registry
+        if registry is None:
+            registry = AdapterRegistry(model.embed_dim, model.vocab_size)
+            tenant.registry = registry
+        if (registry.embed_dim != model.embed_dim
+                or registry.vocab_size != model.vocab_size):
+            raise ValueError(
+                f"adapter registry shape ({registry.embed_dim}, "
+                f"{registry.vocab_size}) does not match the model "
+                f"({model.embed_dim}, {model.vocab_size})")
+        if tenant.token_strings is not None \
+                and len(tenant.token_strings) != model.vocab_size:
+            raise ValueError(
+                f"token_strings has {len(tenant.token_strings)} "
+                f"entries; the grammar vocabulary must cover every "
+                f"token id (vocab_size {model.vocab_size})")
+        pool_rows = (int(tenant.adapter_pool_slots)
+                     if tenant.adapter_pool_slots is not None
+                     else self.max_slots + 4)
+        if pool_rows < self.max_slots + 1:
+            raise ValueError(
+                f"adapter_pool_slots {pool_rows} is below the live-"
+                f"mix floor max_slots + 1 = {self.max_slots + 1} "
+                "(every slot on a distinct adapter plus the "
+                "identity row 0); see docs/OPERATIONS.md 'Adapter "
+                "pool sizing'")
+        s, v = self.max_slots, model.vocab_size
+        self._registry = registry
+        self._apool = AdapterPool(pool_rows)
+        self._apool_a = torch.zeros((pool_rows, model.embed_dim,
+                                     registry.rank), device=self.device)
+        self._apool_b = torch.zeros((pool_rows, registry.rank, v),
+                                    device=self.device)
+        # Per-slot adapter rows: the host copy, and the card's, restaged
+        # only when a row changed (admission, release).
+        self._arow = np.zeros(s, np.int64)
+        self._arow_dev = None
+        # Per-slot allow masks, all-True (a bitwise pass-through) unless
+        # a constrained stream holds the slot; the card's copy restages
+        # only when a host row changed. A speculative engine adds the
+        # verify window's per-position masks.
+        self._masks = np.ones((s, v), np.bool_)
+        self._masks_dev = None
+        self._masks_dirty = True
+        self._masks_w = (np.ones((s, self._spec_k + 1, v), np.bool_)
+                         if self._spec_on else None)
+        self._masks_w_dev = None
+        self._masks_w_dirty = True
+        # (fsm, state) per constrained slot; None otherwise.
+        self._fsms: List[Optional[tuple]] = [None] * s
+        self._fsm_cache: Dict[str, object] = {}
+
     # -------------------------------------------------------- submission
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                sampling: Optional[SamplingParams] = None,
@@ -409,16 +502,14 @@ class ServeEngine:
         """Queue one request; returns its streaming handle. Raises
         :class:`~pddl_tpu_torch.serve.request.QueueFull` (with a
         priority-aware ``retry_after_s`` hint) when the queue is at
-        depth. ``adapter`` and ``constraint`` (tenancy) must be None."""
-        for what, given in (("adapter", adapter), ("constraint", constraint)):
-            if given is not None:
-                raise _not_ported(
-                    f"submit({what}=...)" + (
-                        " (with spec_k > 0: grammar-constrained "
-                        "speculation, the draft walk under the tenant's "
-                        "FSM)" if self._spec_on and what == "constraint"
-                        else ""),
-                    "ROADMAP.md queue 1 item 3 (engine features: tenancy)")
+        depth.
+
+        Tenant fields (need ``tenant=TenantConfig(...)``): ``adapter``
+        names a registered LoRA adapter (``None`` = base model);
+        ``constraint`` is a grammar/schema spec dict (``{"kind": "regex",
+        "pattern": ...}`` or ``{"kind": "json_schema", "schema": {...}}``)
+        compiled HERE, so a malformed spec rejects the request, never a
+        tick."""
         priority = Priority(priority)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
@@ -434,10 +525,22 @@ class ServeEngine:
             raise ValueError(
                 f"prompt + new tokens {prompt.size + max_new_tokens} "
                 f"exceed max_len {self.model.max_len}")
+        if (adapter is not None or constraint is not None) \
+                and not self._tenant_on:
+            raise ValueError(
+                "adapter/constraint need a tenant-enabled engine "
+                "(ServeEngine(..., tenant=TenantConfig(...)))")
+        if adapter is not None and adapter not in self._registry:
+            raise ValueError(
+                f"adapter {adapter!r} is not registered "
+                f"(known: {self._registry.names})")
+        if constraint is not None:
+            self._compiled_fsm(constraint)  # validate + warm the cache
         req = Request(prompt=prompt.tolist(),
                       max_new_tokens=int(max_new_tokens),
                       sampling=sampling or SamplingParams(),
-                      deadline_s=deadline_s, priority=priority)
+                      deadline_s=deadline_s, priority=priority,
+                      adapter=adapter, constraint=constraint)
         handle = RequestHandle(req, arrival_s=self._clock())
         try:
             self.scheduler.submit(handle)
@@ -448,6 +551,8 @@ class ServeEngine:
                 retry_after_s=self.metrics.estimate_retry_after_s(
                     self.scheduler.depth_at_or_above(priority)),
                 priority=priority) from None
+        if constraint is not None:
+            self.metrics.record_constrained()
         return handle
 
     def drain(self, path: Optional[str] = None):
@@ -483,6 +588,144 @@ class ServeEngine:
         """True when a draft model drafts; False means the n-gram drafter
         (or speculation off)."""
         return self._draft_on
+
+    # ----------------------------------------------------------- tenancy
+    @property
+    def tenant_enabled(self) -> bool:
+        """True when this engine serves per-request LoRA adapters and
+        grammar constraints (`serve/tenant/`)."""
+        return self._tenant_on
+
+    @property
+    def adapter_registry(self):
+        """The engine's :class:`~pddl_tpu_torch.serve.tenant.AdapterRegistry`
+        (``None`` on a plain engine). Adapters registered here become
+        submittable at once; residency is handled at admission."""
+        return self._registry
+
+    @property
+    def adapter_pool_resident(self) -> int:
+        """Adapters currently device-resident (0 on a plain engine)."""
+        return self._apool.resident if self._tenant_on else 0
+
+    def _compiled_fsm(self, spec):
+        """Compile (or fetch) the token FSM for a constraint spec dict,
+        cached by its canonical key (bounded: client-supplied specs must
+        not grow host memory forever). A constraint whose START state
+        allows no token and has no eos escape is refused here."""
+        key = constraint_key(spec)
+        fsm = self._fsm_cache.get(key)
+        if fsm is None:
+            if self._tenant.token_strings is None:
+                raise ValueError(
+                    "constrained decoding needs TenantConfig."
+                    "token_strings (the token-id -> string vocabulary "
+                    "grammar compilation maps masks through)")
+            fsm = compile_constraint(spec, self._tenant.token_strings)
+            if len(self._fsm_cache) >= 256:
+                self._fsm_cache.pop(next(iter(self._fsm_cache)))
+            self._fsm_cache[key] = fsm
+        if fsm.is_dead_end(fsm.start, self.eos_token):
+            raise ValueError(
+                "constraint admits no first token over this engine's "
+                "vocabulary (it matches only the empty string, and the "
+                "engine has no eos token to emit)")
+        return fsm
+
+    def _acquire_adapter(self, name: str) -> int:
+        """Resolve an adapter name to a PINNED device pool row, loading
+        the factors on a cold miss (LRU-evicting an unpinned row under
+        pressure). The pool's floor (``max_slots + 1``) keeps a live mix
+        from exhausting it."""
+        row = self._apool.lookup(name)
+        if row is not None:
+            self.metrics.record_adapter_hit(name, self._apool.resident)
+            self._apool.pin(row)
+            return row
+        adapter = self._registry.get(name)
+        row = self._apool.assign(name)
+        adapter_pool_load(self._apool_a, self._apool_b, row,
+                          torch.from_numpy(adapter.a),
+                          torch.from_numpy(adapter.b))
+        self.metrics.record_adapter_load(name, self._apool.resident,
+                                         self._apool.evictions)
+        self._apool.pin(row)
+        return row
+
+    def _release_adapter(self, row) -> None:
+        """Unpin a slot's (or a failed admission's) adapter row; row 0
+        (identity / no adapter) is a no-op."""
+        if self._tenant_on and int(row) != 0:
+            self._apool.unpin(int(row))
+
+    def _tenant_admit(self, handle):
+        """The tenant half of one admission: ``(pinned_adapter_row,
+        compiled_fsm_or_None)``; ``(0, None)`` on a plain engine."""
+        if not self._tenant_on:
+            return 0, None
+        req = handle.request
+        fsm = (self._compiled_fsm(req.constraint)
+               if req.constraint is not None else None)
+        arow = (self._acquire_adapter(req.adapter)
+                if req.adapter is not None else 0)
+        return arow, fsm
+
+    def _adapted(self, logits: torch.Tensor, feats: torch.Tensor,
+                 rows: Optional[torch.Tensor]) -> torch.Tensor:
+        """``logits`` plus the LoRA deltas of the pool rows ``rows`` (on
+        the card) over ``feats`` (``[B, d]`` or a window ``[B, W, d]``);
+        ``rows=None`` adds nothing (every row is the identity, whose
+        delta is an exact f32 zero)."""
+        if rows is None:
+            return logits
+        return logits + batched_lora_delta(feats, self._apool_a,
+                                           self._apool_b, rows)
+
+    def _stage_rows(self) -> Optional[torch.Tensor]:
+        """The card's copy of the slots' adapter rows, restaged only when
+        one changed; ``None`` when every slot is on the identity row (the
+        host knows it, and the tick then skips the delta). Called before
+        a forward is queued, as :meth:`_stage_masks` is."""
+        if not self._arow.any():
+            return None
+        if self._arow_dev is None:
+            self._arow_dev = torch.from_numpy(self._arow).to(self.device)
+        return self._arow_dev
+
+    def _stage_masks(self, window: bool = False):
+        """The card's copy of the tick's ``[S, V]`` masks (or the verify
+        window's ``[S, spec_k+1, V]``), restaged only when a host row
+        changed; ``None`` when no constrained stream is live, as the
+        all-True masks then pass the logits through unchanged. Called
+        before a forward is queued: a host-to-device copy waits for the
+        stream."""
+        if all(f is None for f in self._fsms):
+            return None
+        if window:
+            if self._masks_w_dev is None or self._masks_w_dirty:
+                self._masks_w_dev = torch.from_numpy(self._masks_w).to(
+                    self.device)
+                self._masks_w_dirty = False
+                self.metrics.mask_restages += 1
+            return self._masks_w_dev
+        if self._masks_dev is None or self._masks_dirty:
+            self._masks_dev = torch.from_numpy(self._masks).to(self.device)
+            self._masks_dirty = False
+            self.metrics.mask_restages += 1
+        return self._masks_dev
+
+    def _set_mask(self, sid: int, row: Optional[np.ndarray]) -> None:
+        """Stamp slot ``sid``'s allow row (``None``: all-True), marking
+        the card's copy stale only when the row changed (a state that
+        loops on itself keeps its row, and the card its copy)."""
+        if row is None:
+            if self._masks[sid].all():
+                return
+            row = True
+        elif np.array_equal(self._masks[sid], row):
+            return
+        self._masks[sid] = row
+        self._masks_dirty = True
 
     @property
     def blocks_shared(self) -> int:
@@ -578,8 +821,21 @@ class ServeEngine:
         the next admission overwrites the whole row. Paged: the table row
         goes all-scratch (junk lands in the sink) and the slot's PRIVATE
         blocks — tail and generated tokens, never shared — return to the
-        free list."""
+        free list. A tenant slot releases its adapter pin (the factors
+        stay resident, LRU-evictable once no live slot needs them) and
+        its masks go back to all-True, a bitwise pass-through."""
         self._slots[slot_id] = None
+        if self._tenant_on:
+            self._release_adapter(self._arow[slot_id])
+            if self._arow[slot_id]:
+                self._arow[slot_id] = 0
+                self._arow_dev = None
+            self._set_mask(slot_id, None)
+            if self._masks_w is not None \
+                    and not self._masks_w[slot_id].all():
+                self._masks_w[slot_id] = True
+                self._masks_w_dirty = True
+            self._fsms[slot_id] = None
         if self._private[slot_id]:
             self._prefix.release(self._private[slot_id])
             self._private[slot_id] = []
@@ -628,6 +884,12 @@ class ServeEngine:
             match = self._prefix.match(prompt,
                                        max_blocks=self._match_blocks(prompt))
             cost = len(prompt) - match.n_blocks * self.prefix_block_size
+        # A COLD adapter load is admission-path work (a host-to-device
+        # factor copy), charged like an uncached suffix; a resident one,
+        # like a cached prefix, costs nothing.
+        if (self._tenant_on and handle.request.adapter is not None
+                and self._apool.row_of(handle.request.adapter) is None):
+            cost += int(self._tenant.adapter_load_tokens)
         # A speculative engine charges a replayed stream's re-feed at its
         # accepted tokens, never the drafted window's compute. A fresh
         # request has no tokens: this costs nothing until replay exists.
@@ -643,9 +905,10 @@ class ServeEngine:
         WIDE chunk in one forward, short suffixes — the prefix-hit case —
         take narrow chunks and pay only for the uncached tail. Each chunk
         continues ``cache`` (the admission row, or the paged pool through
-        ``table``) in place; returns the last chunk's logits."""
+        ``table``) in place; returns the last chunk's logits and features
+        at its last token."""
         plen = int(prompt.size)
-        logits = None
+        logits = feats = None
         while off < plen:
             rem = plen - off
             if self._has_wide and 4 * rem >= 3 * self.prefill_len:
@@ -655,11 +918,11 @@ class ServeEngine:
             w = min(width, rem)
             chunk_toks = np.zeros((1, width), np.int32)
             chunk_toks[0, :w] = prompt[off:off + w]
-            _, logits = prefill_row_from(
+            _, logits, feats = prefill_row_features(
                 self.model, torch.from_numpy(chunk_toks).to(self.device), w,
                 cache, off, table)
             off += w
-        return logits
+        return logits, feats
 
     def _prefill_into_row(self, prompt: np.ndarray):
         """Prefill one prompt into a row cache, reusing any cached prefix:
@@ -667,15 +930,15 @@ class ServeEngine:
         chunk-prefill the suffix, donate the prompt's uncovered full
         blocks and pin the chain. With the prefix cache off, one padded
         prefill on a fresh row. Returns ``(row_cache, last_logits,
-        pinned_node_or_None)``."""
+        last_feats, pinned_node_or_None)``."""
         plen = int(prompt.size)
         bs = self.prefix_block_size
         if not self._prefix_on:
             padded = np.zeros((1, self.prefill_len), np.int32)
             padded[0, :plen] = prompt
-            row, logits = prefill_row(
+            row, logits, feats = prefill_row_features(
                 self.model, torch.from_numpy(padded).to(self.device), plen)
-            return row, logits, None
+            return row, logits, feats, None
         match = self._prefix.match(prompt,
                                    max_blocks=self._match_blocks(prompt))
         n_cached = match.n_blocks * bs
@@ -685,9 +948,9 @@ class ServeEngine:
             # stamps. A full miss gathers nothing.
             gather_prefix_into_row(self._pool, self._row, match.block_ids)
             self.metrics.copy_bytes_gathered += n_cached * self._kv_token_bytes
-        logits = self._chunk_loop(prompt, n_cached, self._row)
+        logits, feats = self._chunk_loop(prompt, n_cached, self._row)
         node = self._donate_tail(prompt, match, n_cached)
-        return self._row, logits, node
+        return self._row, logits, feats, node
 
     def _donate_tail(self, prompt: np.ndarray, match, n_cached: int):
         """Donate the prompt's uncovered FULL blocks and pin the chain.
@@ -752,12 +1015,13 @@ class ServeEngine:
     def _prefill_paged(self, prompt: np.ndarray):
         """A prefix hit PINS the matched chain and points the slot's table
         at it in place; private blocks take the suffix, which the chunks
-        write straight into the pool. Returns ``(last_logits, node,
-        table_row, private_ids)``."""
+        write straight into the pool. Returns ``(last_logits, last_feats,
+        node, table_row, private_ids)``."""
         node, m, table_row, private = self._paged_match_and_allocate(prompt)
         n_cached = m * self.prefix_block_size
         table = torch.from_numpy(table_row[None]).to(self.device)
-        logits = self._chunk_loop(prompt, n_cached, self._cache, table)
+        logits, feats = self._chunk_loop(prompt, n_cached, self._cache,
+                                         table)
         if self._draft_on:
             self._draft_prefill_loop(prompt, n_cached, table)
         if n_cached > 0:
@@ -767,7 +1031,7 @@ class ServeEngine:
         self.metrics.record_prefix_lookup(
             n_cached, blocks_live=self._prefix.blocks_live,
             evictions=self._prefix.evictions)
-        return logits, node, table_row, private
+        return logits, feats, node, table_row, private
 
     def _draft_prefill_loop(self, prompt: np.ndarray, off: int,
                             table) -> None:
@@ -845,7 +1109,7 @@ class ServeEngine:
 
         # The suffix-priced cost_fn walks the radix tree per pop; only pay
         # that when a budget consumes the result.
-        use_cost = ((self._prefix_on or self._spec_on)
+        use_cost = ((self._prefix_on or self._tenant_on or self._spec_on)
                     and self.scheduler.prefill_token_budget is not None)
         for handle in self.scheduler.admit(
                 len(free), on_cancelled=_queued_cancel,
@@ -854,21 +1118,42 @@ class ServeEngine:
             self._admit_one(free.pop(0), handle)
 
     def _admit_one(self, sid: int, handle: RequestHandle) -> None:
+        """Admit one popped request into slot ``sid``. Tenant order: the
+        FSM compile and the adapter pin land FIRST, a prefill failure
+        releases the pin before it propagates, and the install hands the
+        pin to the slot. The adapter's delta is added to the prefill's
+        last logits, so the first token comes from the adapted model."""
         prompt = np.asarray(handle.request.prompt, np.int32)
+        arow, fsm = self._tenant_admit(handle)
+        try:
+            if self._paged:
+                logits, feats, node, table_row, private = \
+                    self._prefill_paged(prompt)
+            else:
+                row, logits, feats, node = self._prefill_into_row(prompt)
+        except BaseException:
+            self._release_adapter(arow)
+            raise
+        if arow:
+            logits = self._adapted(
+                logits, feats, torch.tensor([arow], device=self.device))
         if self._paged:
-            logits, node, table_row, private = self._prefill_paged(prompt)
             self._install_slot(sid, handle, logits, node,
-                               table_row=table_row, private=private)
+                               table_row=table_row, private=private,
+                               arow=arow, fsm=fsm)
         else:
-            row, logits, node = self._prefill_into_row(prompt)
-            self._install_slot(sid, handle, logits, node, row=row)
+            self._install_slot(sid, handle, logits, node, row=row,
+                               arow=arow, fsm=fsm)
 
     def _install_slot(self, sid: int, handle: RequestHandle, logits, node,
-                      row=None, table_row=None, private=()) -> None:
+                      row=None, table_row=None, private=(), arow: int = 0,
+                      fsm=None) -> None:
         """Make a prefilled request live in slot ``sid``: copy its row into
         the slot cache (row mode; paged mode stamps the slot's table — the
         KV already lives in the pool) and sample its first token from the
-        prefill logits (TTFT)."""
+        prefill logits (TTFT). A tenant slot takes over the admission's
+        adapter pin (``arow``), and a constrained one (``fsm``) samples
+        under the start state's mask and advances its FSM."""
         req = handle.request
         plen = len(req.prompt)
         t, k, p = req.sampling.as_arrays()
@@ -877,6 +1162,10 @@ class ServeEngine:
             self._private[sid] = list(private)
         else:
             insert_cache_slot(self._cache, row, sid)
+        if fsm is not None:
+            start = torch.from_numpy(
+                fsm.allow_row(fsm.start, self.eos_token)[None])
+            logits = torch.where(start.to(logits.device), logits, -torch.inf)
         first = int(sample_logits_batched(
             self._rng, logits, temperature=np.float32([t]),
             top_k=np.int32([k]), top_p=np.float32([p]))[0])
@@ -901,10 +1190,35 @@ class ServeEngine:
             n = min(len(handle.tokens), self.model.max_len - plen)
             if n > 0:
                 self._hist[sid, plen:plen + n] = handle.tokens[:n]
-        # A one-token request (or an immediate eos) finishes at admission
-        # without ever joining a tick.
+        fsm_state = None
+        if self._tenant_on:
+            # The slot now owns the adapter pin (released at park) and
+            # the grammar state and mask row the coming ticks read.
+            if arow != self._arow[sid]:
+                self._arow[sid] = arow
+                self._arow_dev = None
+            if fsm is not None:
+                if self.eos_token is not None and first == self.eos_token:
+                    fsm_state = fsm.start  # evicted as EOS below
+                else:
+                    fsm_state = fsm.advance(fsm.start, first)
+                    if fsm_state < 0:  # masked sample: impossible
+                        raise RuntimeError(
+                            "constrained first token escaped its "
+                            "start-state mask (engine bug)")
+                self._fsms[sid] = (fsm, fsm_state)
+                self._set_mask(sid, fsm.allow_row(fsm_state,
+                                                  self.eos_token))
+            else:
+                self._fsms[sid] = None
+                self._set_mask(sid, None)
+        # A one-token request (or an immediate eos, or an immediately
+        # complete grammar) finishes at admission without ever joining a
+        # tick.
         if self.eos_token is not None and first == self.eos_token:
             self._evict(sid, RequestState.FINISHED, FinishReason.EOS)
+        elif fsm is not None and fsm.is_dead_end(fsm_state, self.eos_token):
+            self._evict(sid, RequestState.FINISHED, FinishReason.GRAMMAR)
         elif req.max_new_tokens == 1:
             self._evict(sid, RequestState.FINISHED, FinishReason.LENGTH)
 
@@ -949,17 +1263,30 @@ class ServeEngine:
         """One fused decode step for every slot (parked ones write junk at
         position 0 of their row, or into the paged scratch sink): returns
         the sampled next tokens, host-side. The host owns the positions,
-        so the deepest one bounds every layer's sweep with no sync."""
+        so the deepest one bounds every layer's sweep with no sync. A
+        tenant engine runs the model ``features_only``, applies the head
+        (the same ops as the model's own), adds the slots' LoRA deltas
+        and masks the logits before the same batched sampler."""
         dev = self.device
         tokens = torch.from_numpy(self._tokens[:, None]).to(dev)
         table = (torch.from_numpy(self._tables).to(dev) if self._paged
                  else None)
-        logits = self.model(
+        if self._tenant_on:
+            masks, rows = self._stage_masks(), self._stage_rows()
+        out = self.model(
             tokens, cache=self._cache,
             cache_index=torch.from_numpy(self._positions).to(dev),
-            block_table=table, max_index=int(self._positions.max()))
+            block_table=table, max_index=int(self._positions.max()),
+            features_only=self._tenant_on)
+        if self._tenant_on:
+            logits = self._adapted(self.model.head_logits(out)[:, -1],
+                                   out[:, -1], rows)
+            if masks is not None:
+                logits = torch.where(masks, logits, -torch.inf)
+        else:
+            logits = out[:, -1]
         nxt = sample_logits_batched(
-            self._rng, logits[:, -1], temperature=self._temps,
+            self._rng, logits, temperature=self._temps,
             top_k=self._top_ks, top_p=self._top_ps)
         return nxt.cpu().numpy()  # per-tick host sync (streaming)
 
@@ -1001,18 +1328,30 @@ class ServeEngine:
         return torch.stack(outs, dim=1)
 
     def _verify(self, block: torch.Tensor, pos: torch.Tensor, table,
-                caps: torch.Tensor, forced: torch.Tensor):
+                caps: torch.Tensor, forced: torch.Tensor, masks=None,
+                rows=None):
         """ONE target forward over the ``[S, spec_k+1]`` block at the
         slots' positions ``pos`` (the multi-token write and sweep; paged:
         the pool insert and the plain multi-token attention), greedy
         acceptance as the cumulative product of matches against the
         block's drafts, capped per row, ``forced >= 0`` taken as given,
         and position 0 drawn by the batched sampler the one-token tick
-        uses. Returns the window ``[S, spec_k+1]`` and the accepted
-        lengths ``[S]`` on the host, from one device-to-host copy."""
-        logits = self.model(block, cache=self._cache, cache_index=pos,
-                            block_table=table,
-                            max_index=int(self._positions.max()))
+        uses. A tenant engine judges the drafts under the ADAPTED model
+        (the LoRA deltas of the slots' pool ``rows`` at every window
+        position) and the per-position grammar ``masks``, before the
+        argmax and the position-0 draw. Returns the window ``[S,
+        spec_k+1]`` and the accepted lengths ``[S]`` on the host, from one
+        device-to-host copy."""
+        out = self.model(block, cache=self._cache, cache_index=pos,
+                         block_table=table,
+                         max_index=int(self._positions.max()),
+                         features_only=self._tenant_on)
+        if self._tenant_on:
+            logits = self._adapted(self.model.head_logits(out), out, rows)
+            if masks is not None:
+                logits = torch.where(masks, logits, -torch.inf)
+        else:
+            logits = out
         y = logits.argmax(dim=-1).to(torch.int32)
         match = (block[:, 1:] == y[:, :-1]).to(torch.int32)
         acc = torch.minimum(match.cumprod(dim=1).sum(dim=1), caps)
@@ -1035,10 +1374,21 @@ class ServeEngine:
         forced_tok = np.zeros((s, k), np.int32)
         forced_n = np.full(s, -1, np.int32)
         caps = np.zeros(s, np.int32)
+        walks = []  # constrained greedy slots: capped by the FSM walk
         for sid in live:
-            if self._temps[sid] <= 0:
+            fsm_entry = self._fsms[sid] if self._tenant_on else None
+            if self._temps[sid] > 0:
+                # A sampled row ticks one token (cap 0); a constrained one
+                # draws it under its state's mask, lifted to position 0
+                # of the window.
+                if fsm_entry is not None:
+                    self._masks_w[sid, 0] = self._masks[sid]
+                    self._masks_w[sid, 1:] = True
+                    self._masks_w_dirty = True
+            elif fsm_entry is None:
                 caps[sid] = k
-        drafted_tick = int(caps.sum())
+            else:
+                walks.append(sid)
         # The per-slot state goes to the card in ONE copy, before any
         # forward is queued (a host-to-device copy waits for the stream).
         packed = np.concatenate(
@@ -1046,11 +1396,24 @@ class ServeEngine:
              self._tables if self._paged else np.zeros((s, 0), np.int32)],
             axis=1)
         state = torch.from_numpy(packed).to(self.device)
+        rows = self._stage_rows() if self._tenant_on else None
         pos, tok = state[:, 0], state[:, 1:2]
         table = state[:, 4:].contiguous() if self._paged else None
         drafts = self._draft_tokens(pos, tok, table, forced_tok, forced_n)
+        caps_dev = state[:, 2]
+        if walks:
+            # The walk reads the drafts on the host: the n-gram drafts are
+            # there already, a draft model's cost one more copy.
+            host = drafts.cpu().numpy()
+            for sid in walks:
+                caps[sid] = self._grammar_draft_walk(sid, self._fsms[sid],
+                                                     host[sid])
+            caps_dev = torch.from_numpy(caps).to(self.device)
+        drafted_tick = int(caps.sum())
+        masks = self._stage_masks(window=True) if self._tenant_on else None
         block = torch.cat([tok, drafts.to(self.device)], dim=1)
-        win, acc = self._verify(block, pos, table, state[:, 2], state[:, 3])
+        win, acc = self._verify(block, pos, table, caps_dev, state[:, 3],
+                                masks, rows)
         new_tokens = 0
         accepted_tick = 0
         for sid in live:
@@ -1073,14 +1436,11 @@ class ServeEngine:
                 emitted = int(win[sid, j])
                 handle.tokens.append(emitted)
                 new_tokens += 1
-                if self.eos_token is not None and emitted == self.eos_token:
-                    # Tokens past an in-window eos are never emitted.
-                    self._evict(sid, RequestState.FINISHED, FinishReason.EOS)
-                    evicted = True
-                    break
-                if len(handle.tokens) >= handle.request.max_new_tokens:
-                    self._evict(sid, RequestState.FINISHED,
-                                FinishReason.LENGTH)
+                # Tokens past an in-window eos or grammar end are never
+                # emitted; the live FSM advances by the accepted tokens.
+                reason = self._emit_finish(sid, handle, emitted)
+                if reason is not None:
+                    self._evict(sid, RequestState.FINISHED, reason)
                     evicted = True
                     break
             if not evicted:
@@ -1088,6 +1448,58 @@ class ServeEngine:
                 self._tokens[sid] = int(win[sid, n_emit - 1])
         self.metrics.record_spec_tick(drafted_tick, accepted_tick)
         return new_tokens
+
+    def _grammar_draft_walk(self, sid: int, fsm_entry, drafts_row) -> int:
+        """Walk one constrained greedy slot's FSM along its drafts: stamp
+        the per-position allow masks the verify judges under, and return
+        the accept cap, the longest draft prefix that is a legal
+        continuation (an allowed eos draft is acceptable and ends the
+        walk; past an illegal draft the masks stay pass-through, as the
+        cap discards those positions). The slot's LIVE state is untouched
+        here: it advances by the accepted tokens only."""
+        fsm, state = fsm_entry
+        mw = self._masks_w
+        mw[sid, 0] = self._masks[sid]
+        cap = 0
+        for j in range(1, self._spec_k + 1):
+            d = int(drafts_row[j - 1])
+            if not mw[sid, j - 1][d]:
+                mw[sid, j:] = True
+                break
+            if self.eos_token is not None and d == self.eos_token:
+                cap = j  # an accepted eos finishes the stream in-window
+                mw[sid, j:] = True
+                break
+            state = fsm.advance(state, d)
+            mw[sid, j] = fsm.allow_row(state, self.eos_token)
+            cap = j
+        self._masks_w_dirty = True
+        return cap
+
+    def _emit_finish(self, sid: int, handle: RequestHandle,
+                     tok: int) -> Optional[FinishReason]:
+        """After slot ``sid`` emitted ``tok``: the reason its stream ends
+        there, or None. Eos first (a constrained slot's mask allows eos
+        only in an accepting state, so it is grammar acceptance too);
+        then a constrained slot advances its FSM and ends GRAMMAR at a
+        dead end, or restamps its mask row; then the length."""
+        if self.eos_token is not None and tok == self.eos_token:
+            return FinishReason.EOS
+        fsm_entry = self._fsms[sid] if self._tenant_on else None
+        if fsm_entry is not None:
+            fsm, state = fsm_entry
+            state = fsm.advance(state, tok)
+            if state < 0:  # masked sample: impossible
+                raise RuntimeError(
+                    "constrained token escaped its state mask (engine bug)")
+            self._fsms[sid] = (fsm, state)
+            if fsm.is_dead_end(state, self.eos_token):
+                return FinishReason.GRAMMAR
+            if len(handle.tokens) < handle.request.max_new_tokens:
+                self._set_mask(sid, fsm.allow_row(state, self.eos_token))
+        if len(handle.tokens) >= handle.request.max_new_tokens:
+            return FinishReason.LENGTH
+        return None
 
     @torch.no_grad()
     def step(self) -> int:
@@ -1117,11 +1529,9 @@ class ServeEngine:
                 new_tokens += 1
                 self._positions[sid] += 1
                 self._tokens[sid] = tok
-                if self.eos_token is not None and tok == self.eos_token:
-                    self._evict(sid, RequestState.FINISHED, FinishReason.EOS)
-                elif len(handle.tokens) >= handle.request.max_new_tokens:
-                    self._evict(sid, RequestState.FINISHED,
-                                FinishReason.LENGTH)
+                reason = self._emit_finish(sid, handle, tok)
+                if reason is not None:
+                    self._evict(sid, RequestState.FINISHED, reason)
         now = self._clock()
         self.metrics.record_tick(now, self.scheduler.depth, len(live),
                                  self.max_slots, new_tokens, now - t0)

@@ -7,6 +7,8 @@ paged engine records).
 - **queue depth / slot occupancy** — the load signals;
 - **tokens/s** over the engine's active window;
 - the prefix-cache and paged-sharing counters;
+- the tenant counters: adapter pool hits, loads and evictions, requests
+  per adapter, constrained and grammar-complete requests;
 - the speculative window's counters and its acceptance rate.
 """
 
@@ -130,6 +132,20 @@ class ServeMetrics:
         # pool -> admission row on a hit, admission row -> pool donations.
         self.copy_bytes_gathered = 0
         self.copy_bytes_donated = 0
+        # Port-only too: host-to-device copies of a tenant engine's grammar
+        # masks (restaged only when a host row changed).
+        self.mask_restages = 0
+        # Multi-tenant serving (engine ``tenant=``; zero otherwise):
+        # adapter pool hits vs cold loads, LRU evictions, the residency
+        # gauge, per-adapter admissions (a labeled series), constrained
+        # submissions and grammar-complete finishes.
+        self.adapter_hits = 0
+        self.adapter_loads = 0
+        self.adapter_evictions = 0
+        self.adapter_pool_resident = 0  # gauge, engine-stamped
+        self.requests_by_adapter: Dict[str, int] = {}
+        self.constrained_requests = 0
+        self.requests_grammar_complete = 0
         # Speculative serving (engine ``spec_k > 0``; zero otherwise):
         # verify windows run, draft tokens offered (the per-slot caps
         # summed: sampled rows offer none) and draft tokens accepted.
@@ -175,6 +191,10 @@ class ServeMetrics:
             self.requests_cancelled += 1
         else:
             self.requests_finished += 1
+            if reason_value == "grammar":
+                # A grammar-complete stream is a success, counted inside
+                # finished and on its own.
+                self.requests_grammar_complete += 1
             if priority in self.finished_by_priority:
                 self.finished_by_priority[priority] += 1
 
@@ -211,6 +231,29 @@ class ServeMetrics:
                             block_table_fill: float) -> None:
         self.blocks_shared = int(blocks_shared)
         self.block_table_fill = float(block_table_fill)
+
+    def record_adapter_hit(self, name: str, resident: int) -> None:
+        """One admission found its adapter already device-resident;
+        ``resident`` stamps the pool-residency gauge in passing."""
+        self.adapter_hits += 1
+        self.requests_by_adapter[name] = \
+            self.requests_by_adapter.get(name, 0) + 1
+        self.adapter_pool_resident = int(resident)
+
+    def record_adapter_load(self, name: str, resident: int,
+                            evictions: int) -> None:
+        """One COLD adapter load (a host-to-device factor copy on the
+        admission path); ``evictions`` is the pool's cumulative LRU
+        eviction count."""
+        self.adapter_loads += 1
+        self.requests_by_adapter[name] = \
+            self.requests_by_adapter.get(name, 0) + 1
+        self.adapter_pool_resident = int(resident)
+        self.adapter_evictions = int(evictions)
+
+    def record_constrained(self) -> None:
+        """One submission carried a grammar/schema constraint."""
+        self.constrained_requests += 1
 
     def record_spec_tick(self, drafted: int, accepted: int) -> None:
         """One speculative verify window: ``drafted`` tokens offered,
@@ -253,12 +296,24 @@ class ServeMetrics:
             "copy_bytes_avoided": self.copy_bytes_avoided,
             "blocks_shared": self.blocks_shared,
             "block_table_fill": round(self.block_table_fill, 6),
+            "adapter_hits": self.adapter_hits,
+            "adapter_loads": self.adapter_loads,
+            "adapter_evictions": self.adapter_evictions,
+            "adapter_hit_rate": (
+                self.adapter_hits / (self.adapter_hits + self.adapter_loads)
+                if (self.adapter_hits + self.adapter_loads) else None),
+            "adapter_pool_resident": self.adapter_pool_resident,
+            "constrained_requests": self.constrained_requests,
+            "requests_grammar_complete": self.requests_grammar_complete,
             "spec_ticks": self.spec_ticks,
             "spec_drafted_tokens": self.spec_drafted_tokens,
             "spec_accepted_tokens": self.spec_accepted_tokens,
             "spec_acceptance_rate": (
                 self.spec_accepted_tokens / self.spec_drafted_tokens
                 if self.spec_drafted_tokens else None),
+            # A labeled series with an open label set: an adapter appears
+            # on its first admission and never vanishes.
+            "requests_by_adapter": dict(self.requests_by_adapter),
             "requests_finished_by_priority": dict(self.finished_by_priority),
             "requests_deadline_shed_by_priority": dict(
                 self.deadline_shed_by_priority),

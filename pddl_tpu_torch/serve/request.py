@@ -5,9 +5,8 @@ The engine is single-threaded and caller-driven (``engine.step()``), so
 handles need no locking — cancellation is a flag the engine honors at its
 next tick. Sampling parameters are PER-REQUEST runtime values batched
 into ``[slots]`` arrays each tick, hence the array sentinels on
-:class:`SamplingParams`. The multi-tenant request fields (adapter,
-constraint) and the replay/preemption/speculation bookkeeping belong to
-engine features not ported yet (ROADMAP.md).
+:class:`SamplingParams`. The replay and preemption bookkeeping belongs
+to engine features not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -105,13 +104,22 @@ _ids = itertools.count()
 
 @dataclasses.dataclass
 class Request:
-    """One generate request as the scheduler sees it."""
+    """One generate request as the scheduler sees it.
+
+    ``adapter``/``constraint`` are the multi-tenant fields
+    (`serve/tenant/`): the NAME of a registered LoRA adapter (``None`` =
+    base model) and a JSON-able constraint spec dict (``{"kind":
+    "regex"|"json_schema", ...}``, the input of
+    :func:`pddl_tpu_torch.serve.tenant.compile_constraint`; ``None`` =
+    unconstrained)."""
 
     prompt: Sequence[int]
     max_new_tokens: int
     sampling: SamplingParams = SamplingParams()
     deadline_s: Optional[float] = None  # wall budget from submit()
     priority: Priority = Priority.INTERACTIVE
+    adapter: Optional[str] = None       # registered LoRA adapter name
+    constraint: Optional[dict] = None   # grammar/schema spec dict
     request_id: int = dataclasses.field(default_factory=lambda: next(_ids))
 
 

@@ -26,7 +26,9 @@ def _port_modules():
 
 def test_importing_every_port_module_leaves_jax_out():
     mods = list(_port_modules())
-    assert "pddl_tpu_torch.serve.engine" in mods
+    for mod in ("serve.engine", "serve.tenant", "serve.tenant.adapters",
+                "serve.tenant.grammar", "ops.lora"):
+        assert "pddl_tpu_torch." + mod in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -73,12 +75,42 @@ def test_engine_raises_without_a_card(monkeypatch):
     {"max_replays": 4}, {"spec_k": 2, "prefill_slice_tokens": 8},
     {"preempt_cap": 1},
     {"prefill_slice_tokens": 8}, {"host_tier": 1 << 20},
-    {"fault_plan": object()}, {"tenant": object()}, {"tracer": object()},
+    {"fault_plan": object()}, {"tenant": {"adapter_pool_slots": 2}},
+    {"tracer": object()},
 ])
 def test_unported_engine_options_raise(kw):
+    """Options not ported yet raise, naming their ROADMAP.md item. Tenancy
+    is ported: a ``TenantConfig`` whose adapter pool is under the floor
+    (``max_slots + 1``) raises the JAX engine's ``ValueError``, in both
+    packages."""
     from pddl_tpu_torch.models.llama import tiny_llama
     from pddl_tpu_torch.serve.engine import ServeEngine
+    from pddl_tpu_torch.serve.tenant import TenantConfig
 
     model = tiny_llama(vocab_size=32, max_len=64, device="cpu")
+    if "tenant" in kw:
+        import jax
+        import jax.numpy as jnp
+
+        from pddl_tpu.models.llama import tiny_llama as jax_tiny_llama
+        from pddl_tpu.serve import ServeEngine as JaxServeEngine
+        from pddl_tpu.serve.tenant import TenantConfig as JaxTenantConfig
+
+        jm = jax_tiny_llama(vocab_size=32, max_len=64)
+        params = jm.init(jax.random.key(0), jnp.ones((1, 4), jnp.int32),
+                         train=False)["params"]
+        errors = []
+        for build in (
+                lambda: JaxServeEngine(
+                    jm, {"params": params}, max_slots=2, prefill_len=16,
+                    tenant=JaxTenantConfig(**kw["tenant"])),
+                lambda: ServeEngine(model, device="cpu", max_slots=2,
+                                    prefill_len=16,
+                                    tenant=TenantConfig(**kw["tenant"]))):
+            with pytest.raises(ValueError, match="floor") as info:
+                build()
+            errors.append(str(info.value))
+        assert errors[0] == errors[1]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ServeEngine(model, device="cpu", max_slots=2, prefill_len=16, **kw)

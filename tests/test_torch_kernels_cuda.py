@@ -496,3 +496,65 @@ def test_spec_engine_on_the_card_matches_the_cpu(mode):
     want = 1 * 4 * out["cuda"][1] if mode == "draft" else 0
     assert launches["paged_decode"] == want
     assert sum(launches.values()) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_k", [0, 3])
+@pytest.mark.parametrize("mode", ["row", "paged"])
+def test_tenant_engine_on_the_card_matches_the_cpu(mode, spec_k):
+    """``ServeEngine(tenant=TenantConfig(...))`` on a tiny f32 Llama
+    (width 64, depth 2, vocabulary 64): a base request, two LoRA
+    adapters, a regex constraint and an adapter under a constraint. The
+    card's streams, finish reasons and adapter counters equal the CPU
+    twin's; on the paged one-token engine K4 runs every tenant tick, once
+    a layer (``depth x ticks`` launches); the speculative verify is
+    multi-token and launches none."""
+    from pddl_tpu_torch.models.llama import tiny_llama
+    from pddl_tpu_torch.serve.engine import ServeEngine
+    from pddl_tpu_torch.serve.tenant import AdapterRegistry, TenantConfig
+
+    dev = _card()
+    kw = dict(vocab_size=64, max_len=64, embed_dim=64)
+    cpu = tiny_llama(device="cpu", **kw)
+    card = tiny_llama(device=dev, **kw)
+    card.load_state_dict(cpu.state_dict())
+    strings = (list("0123456789") + list('{}[]":,.-') + ["true", "false"]
+               + list("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ")
+               )[:64]
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, 64, (n,), generator=gen).tolist()
+               for n in (12, 9, 14, 11, 10)]
+    digits = {"kind": "regex", "pattern": "[0-9]+"}
+    subs = [{}, {"adapter": "a0"}, {"adapter": "a1"},
+            {"constraint": {"kind": "regex", "pattern": "[0-9][0-9][0-9]"}},
+            {"adapter": "a0", "constraint": digits}]
+    out = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        reg = AdapterRegistry(64, 64, rank=4)
+        for i in range(2):
+            reg.register_random(f"a{i}", seed=100 + i, scale=0.1)
+        eng = ServeEngine(model, device=model.device, max_slots=4,
+                          prefill_len=16, prefix_block_size=4,
+                          paged=mode == "paged", spec_k=spec_k,
+                          tenant=TenantConfig(registry=reg,
+                                              token_strings=strings))
+        handles = [eng.submit(p, 12, **s) for p, s in zip(prompts, subs)]
+        _kernels.reset_launch_counts()
+        eng.run()
+        if name == "cuda":
+            torch.cuda.synchronize()
+        ticks = sum(1 for r in eng.telemetry.snapshot()
+                    if r["live_slots"] > 0)
+        snap = eng.metrics.snapshot()
+        out[name] = ([h.tokens for h in handles],
+                     [h.finish_reason for h in handles],
+                     (snap["adapter_loads"], snap["adapter_hits"],
+                      snap["requests_grammar_complete"]),
+                     dict(_kernels.launch_counts), ticks)
+        assert eng._apool.pinned_rows() == []
+    assert out["cuda"][:3] == out["cpu"][:3]
+    assert out["cuda"][1][3].value == "grammar"
+    launches, ticks = out["cuda"][3], out["cuda"][4]
+    want = card.depth * ticks if mode == "paged" and not spec_k else 0
+    assert launches["paged_decode"] == want
+    assert sum(launches.values()) == want

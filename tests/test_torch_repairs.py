@@ -22,6 +22,8 @@ right error, held against the JAX package on the CPU.
   accepted at the JAX default and raises `NotImplementedError` naming its
   ROADMAP.md item for any other value (the `Llama`'s `moe_*` options and
   `mesh`, and `ServeEngine`'s second positional `variables`, among them);
+  `submit`'s `adapter` and `constraint`, ported with tenancy, raise the
+  JAX engine's `ValueError` on an engine without a `TenantConfig`;
   `paged_decode_attention` accepts and ignores `blocks_per_chunk`, and
   the four attention entry points the Pallas `interpret` switch.
 - `attention_reference(k_offset=)` gives the JAX twin's output within
@@ -237,6 +239,8 @@ SWEEP = [
     ("model", "moe_eval_dropless", False),
     ("model", "mesh", object()),
 ]
+# Ported since the sweep was written: checked against the JAX engine.
+TENANCY = {("submit", "adapter"), ("submit", "constraint")}
 JAX_FN = {"trainer": JaxTrainer.__init__, "fit": JaxTrainer.fit,
           "engine": JaxServeEngine.__init__, "submit": JaxServeEngine.submit,
           "model": JaxLlama}
@@ -263,9 +267,28 @@ def _call(where, **kw):
                          ids=[f"{w}-{n}" for w, n, _ in SWEEP])
 def test_unported_option_takes_the_jax_default_and_refuses_others(
         where, name, other):
+    """An option not ported yet takes the JAX default and refuses any
+    other value, naming its item. Tenancy is ported: ``submit``'s
+    ``adapter``/``constraint`` on an engine without a ``TenantConfig``
+    raise the JAX engine's ``ValueError``, in both packages."""
     default = _jax_default(JAX_FN[where], name)
     assert default is not inspect.Parameter.empty
     _call(where, **{name: default})
+    if (where, name) in TENANCY:
+        jm = jax_tiny_llama(vocab_size=VOCAB, max_len=64)
+        params = jm.init(jax.random.key(0), jnp.ones((1, 4), jnp.int32),
+                         train=False)["params"]
+        jeng = JaxServeEngine(jm, {"params": params}, max_slots=2,
+                              prefill_len=16)
+        errors = []
+        for call in (lambda: jeng.submit([1, 2, 3], 2, **{name: other}),
+                     lambda: _call(where, **{name: other})):
+            with pytest.raises(ValueError,
+                               match="need a tenant-enabled engine") as info:
+                call()
+            errors.append(str(info.value))
+        assert errors[0] == errors[1]
+        return
     with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
         _call(where, **{name: other})
 

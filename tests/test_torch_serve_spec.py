@@ -14,7 +14,8 @@ norm and head as a depth-1 Llama: the self-draft `chip_smoke.py` uses).
 - Sampled rows never speculate (their cap is 0): a `top_k=1` row equals
   greedy, a sampled row stays in its filter, one seed gives one stream.
 - The configuration errors of the JAX engine, in its words, and the
-  options still refused, each naming its ROADMAP.md item.
+  options still refused, each naming its ROADMAP.md item (tenancy, now
+  ported, is held against the JAX engine there instead).
 """
 
 import jax
@@ -27,11 +28,13 @@ from conftest import ref_greedy
 from pddl_tpu.models.llama import tiny_llama as jax_tiny_llama
 from pddl_tpu.serve import ServeEngine as JaxServeEngine
 from pddl_tpu.serve.request import SamplingParams as JaxSamplingParams
+from pddl_tpu.serve.tenant import TenantConfig as JaxTenantConfig
 from pddl_tpu_torch.bridge import llama_params_from_jax
 from pddl_tpu_torch.models.gpt import filtered_logits
 from pddl_tpu_torch.models.llama import tiny_llama
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.request import FinishReason, SamplingParams
+from pddl_tpu_torch.serve.tenant import TenantConfig
 
 V, MAX_LEN, SLOTS, K = 32, 64, 3, 4
 ENGINE_KW = dict(max_slots=SLOTS, prefill_len=24, prefix_block_size=4,
@@ -249,19 +252,41 @@ def test_spec_config_errors_match_jax(models, kw, err, match):
     "tenant", "constraint", "fault_plan", "prefill_slice_tokens", "drain",
     "restore", "param_transform", "spec_draft_variables"])
 def test_still_refused_options_name_their_item(models, what):
+    """The options a speculative engine still refuses name their
+    ROADMAP.md item. Tenancy is ported: a speculative engine takes a
+    ``TenantConfig`` (grammar-constrained speculation), and without one
+    ``submit(constraint=...)`` raises the JAX engine's ``ValueError``, in
+    both packages."""
     kw = dict(ENGINE_KW, paged=True)
     item = "item 3"
-    if what in ("tenant", "fault_plan", "prefill_slice_tokens",
-                "param_transform"):
+    if what in ("tenant", "constraint"):
+        jeng = JaxServeEngine(models["jm"], models["jv"], preempt_cap=0,
+                              tenant=JaxTenantConfig() if what == "tenant"
+                              else None, **kw)
+        eng = ServeEngine(models["tm"], device="cpu",
+                          tenant=TenantConfig() if what == "tenant"
+                          else None, **kw)
+        if what == "tenant":
+            assert eng.tenant_enabled and eng.spec_enabled
+            assert jeng.tenant_enabled and jeng.spec_enabled
+            return
+        errors = []
+        for engine in (jeng, eng):
+            with pytest.raises(ValueError,
+                               match="need a tenant-enabled engine") as info:
+                engine.submit([1, 2], 2,
+                              constraint={"kind": "regex", "pattern": "1"})
+            errors.append(str(info.value))
+        assert errors[0] == errors[1]
+        return
+    if what in ("fault_plan", "prefill_slice_tokens", "param_transform"):
         kw[what] = 16 if what == "prefill_slice_tokens" else object()
     elif what == "spec_draft_variables":
         kw.update(spec_draft_model=models["td"], spec_draft_variables={})
         item = "item 8"
-    if what in ("constraint", "drain", "restore"):
+    if what in ("drain", "restore"):
         eng = ServeEngine(models["tm"], device="cpu", **kw)
-        call = {"constraint": lambda: eng.submit([1, 2], 2,
-                                                 constraint={"regex": "a"}),
-                "drain": eng.drain,
+        call = {"drain": eng.drain,
                 "restore": lambda: eng.restore({})}[what]
         with pytest.raises(NotImplementedError, match=item):
             call()
