@@ -12,9 +12,12 @@ trainer, the trainer at long context (S 8192, block remat, the
 two-sweep flash backward), KV-cache decoding through ``generate`` (with
 a sliding-window ring cache), the resident-row serving engine,
 speculative serving and decoding (n-gram drafts and a draft model), and
-multi-tenant serving (LoRA adapters and grammar constraints) — and
-on a full-width, full-depth ResNet-50, the reference's own workload, and
-prints one line per phase:
+multi-tenant serving (LoRA adapters and grammar constraints) — on a
+full-width, full-depth ResNet-50, the reference's own workload, on
+GPT-2-small (training, ``generate``, both engines, speculation), on
+int8 weights (Llama-1B and GPT-2-small served through
+``param_transform=dequantize``) and on ViT-S/16 (training), and prints
+one line per phase:
 
 1. device — ``nvidia-smi``'s card name and power limit;
 2. build — every kernel compiled by ``nvcc``, one process per source, all
@@ -24,18 +27,21 @@ prints one line per phase:
    D 128), the CPU tests' tiny shape, and the edges of K4's split of the
    table: depths at a split boundary and one past it, a window across
    it, a table far wider than the rows, rep 1 and rep 8, D 256 with bs
-   64, table entries outside [0, N); two runs bitwise equal at the
-   Llama-1B shape; then the kernel's time, the plain version's, an SDPA
-   yardstick's and the bound, on CUDA events, at three shapes (mixed
-   depths, the engine's steady tick, one row at depth 4095);
+   64, table entries outside [0, N), GPT-2-small's tick (H 12/12, rep
+   1); two runs bitwise equal at the Llama-1B shape; then the kernel's
+   time, the plain version's, an SDPA yardstick's and the bound, on CUDA
+   events, at four shapes (mixed depths, the engine's steady tick, one
+   row at depth 4095, GPT-2-small's tick at mixed depths);
 4. flash_fwd vs plain — K1 with and without its LSE write at Llama-1B's
    training shape (B 4, H 32/8, S 2048, D 64, bf16, causal), with a
    512 window, MHA, rep 3 at D 128, a ragged S of 1000, offset keys, f32,
    and the edges of the bf16 kernel's tiles (S 129, no mask with Sq 200 x
    Sk 136, a window of 6) and of the kv sweep's 128-key blocks (S 257,
-   with and without a window of 12); two K1 runs bitwise equal (remat
-   relies on it);
-   then times and bound at the Llama-1B shape (SDPA the yardstick);
+   with and without a window of 12), and at the GPT-2-small (B 8, H 12/12,
+   S 1024, causal) and ViT-S/16 (B 256, H 6/6, S 196, non-causal) train
+   shapes; two K1 runs bitwise equal (remat relies on it);
+   then times and bound at the Llama-1B shape (SDPA the yardstick), and
+   K1's and K2's at the GPT and ViT shapes (``flash_new_shapes_time``);
 5. flash_bwd vs plain — K2's dq, dk, dv at the same shapes (two of them
    with an LSE cotangent too), relative to each gradient's max-abs; two K2
    runs' dk and dv bitwise equal at Llama-1B's shape; then times and bound
@@ -176,14 +182,51 @@ prints one line per phase:
     ``generate`` over the merged head, the constrained streams complete
     (GRAMMAR, accepted), a ``spec_k=4`` leg equal to ``spec_k=0``, K4
     exactly once a layer a tick on the paged leg;
-25. kernels — one JSON object: every ported kernel with its launches on
-    its main path (phase 7, 10, 11, 18, 21 or 23; K4's by path under
-    ``launches_by_path``, the parity legs' draft steps included there),
-    error, times and bound (K3b's
+25. gpt parity — GPT-2-small width at depth 2 in f32 (TF32 off), card
+    against CPU: 3 adamw ``Trainer`` steps (losses within rtol 1e-4,
+    parameters within 2·lr·steps, K1 and K2 once a layer a step),
+    ``generate`` (B 4, prompt 64) and both engine modes on phase 6's
+    prompts x 16 tokens (token-exact unless a tie; K4 once a layer a paged
+    tick), and ``spec_k=4`` n-gram legs in both modes at ``max_len`` 304,
+    one stream ending there, against the CPU and ``spec_k=0``;
+26. gpt serve — full GPT-2-small (HF ``gpt2``'s configuration: 768 wide,
+    12 layers, 12 heads, 1024 positions, LayerNorm eps 1e-5, vocabulary
+    50257 padded to 50304), bf16, seeded weights: phase 7's wave on the
+    row and the paged engine (tokens/s, TTFT p50/p99, tick p50, K4 once a
+    layer a paged tick), then ``generate`` at B 1, prompt 64, 256 new
+    against the weight-read bound (``gpt_generate``);
+27. gpt train — the same model, bf16 compute over f32 parameters, adamw,
+    B 8 x S 1024 through ``Trainer.fit``: 2 warm-up then 5 timed steps;
+    tokens/s, ms a step, 6ND MFU (N the blocks and the LM head's weight,
+    123.7 M), peak memory, exactly 12 K1 and 12 K2 a step;
+28. int8 serve — Llama-1B and GPT-2-small in bf16 with
+    ``quantize_int8(min_elems=65536)`` and ``param_transform=dequantize``:
+    ``quantized_bytes`` against the dense tree and the ``memory_allocated``
+    the model and a paged engine on it add, int8 against bf16
+    (``int8_memory``: the int8 model within 1% of its tree, the saving at
+    least 95% of the trees' difference); the serve wave on both engines,
+    bf16 and int8 in turns (each wave's peak less the other model's bytes,
+    int8's no higher than bf16's); the tick's p50 ratio and B 1 ``generate``
+    (prompt 64, 128 new) int8 against bf16 (``int8_cost``);
+29. int8 parity — depth 2 in f32 on both widths: the card's int8 tree
+    bitwise the CPU's; the paged int8 engine card against CPU
+    (token-exact unless a tie) and equal to the card's engine over the
+    dense dequantized weights; on Llama a tenant leg (two adapters) under
+    int8, card against CPU; K4 once a layer a tick;
+30. vit — ViT-S/16 (1000 classes): at depth 2 in f32, B 4 x 224, the eval
+    logits card against CPU within 1e-4 and 3 adam steps (losses within
+    rtol 1e-4, parameters within 2·lr·steps); then bf16 compute over f32
+    parameters, adam, B 256 x 224 on a batch resident on the card through
+    ``Trainer.train_step``, 2 warm-up and 10 timed steps: images/s, MFU of
+    6 x the forward's MACs, exactly 12 non-causal K1 and 12 K2 a step;
+31. kernels — one JSON object: every ported kernel with its launches on
+    its main paths (phases 7, 10, 11, 18, 21, 23, 26, 27, 28 and 30;
+    K4's, K1's and K2's by path under ``launches_by_path``, the parity
+    legs' included there for K4), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
-    ``library_computes`` says; K4's other timing shapes under
-    ``shapes``); the ResNet path adds none (the JAX package runs no
-    Pallas kernel there);
+    ``library_computes`` says; other timing shapes under ``shapes``: K4's
+    and, for K1 and K2, the GPT and ViT train shapes); the ResNet path
+    adds none (the JAX package runs no Pallas kernel there);
 
 and, as its last line, ``{"ok": true, "device": {...}}``. Any failure
 raises: the script exits non-zero and prints no result. It needs the
@@ -204,6 +247,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import gc
+import itertools
 import json
 import pathlib
 import subprocess
@@ -220,14 +266,26 @@ from pddl_tpu_torch.data.synthetic import (
     SyntheticImageClassification,
     SyntheticLanguageModeling,
 )
-from pddl_tpu_torch.models.gpt import decode_cache, fused_lm_loss, generate
+from pddl_tpu_torch.models.gpt import (
+    GPT_Small,
+    decode_cache,
+    fused_lm_loss,
+    generate,
+)
 from pddl_tpu_torch.models.llama import Llama_1B, tiny_llama
 from pddl_tpu_torch.models.speculative import generate_speculative
 from pddl_tpu_torch.models.resnet import Conv, ResNet50, tiny_resnet
+from pddl_tpu_torch.models.vit import ViT_S16
 from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
 from pddl_tpu_torch.ops.augment import standard_augment, standard_eval_transform
 from pddl_tpu_torch.ops.lora import merge_lora_into_head
+from pddl_tpu_torch.ops.quant import (
+    dequantize,
+    install_params,
+    quantize_int8,
+    quantized_bytes,
+)
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.kvcache import pool_nbytes
 from pddl_tpu_torch.serve.request import FinishReason
@@ -396,11 +454,14 @@ def sdpa_fn(cases):
 # row at Llama_1B's max_len 4096 (T 256), where one block per (row, kv
 # head) would leave most of the card idle.
 LLAMA_DECODE = dict(b=8, h=32, hkv=8, d=64, bs=16, t=64)
+MIXED_DEPTHS = [0, 7, 16, 100, 391, 512, 777, 64 * 16 - 1]
+# GPT-2-small's paged tick: MHA (rep 1), 12 heads, the same table.
+GPT_DECODE = dict(b=8, h=12, hkv=12, d=64, bs=16, t=64, depths=MIXED_DEPTHS)
 PAGED_TIMING = {
-    "mixed": dict(LLAMA_DECODE, depths=[0, 7, 16, 100, 391, 512, 777,
-                                        64 * 16 - 1]),
+    "mixed": dict(LLAMA_DECODE, depths=MIXED_DEPTHS),
     "tick": dict(LLAMA_DECODE, depths=[390] * 8),
     "long_row": dict(LLAMA_DECODE, b=1, t=256, depths=[4095]),
+    "gpt2_small_mixed": GPT_DECODE,
 }
 
 
@@ -488,6 +549,10 @@ def phase_paged_decode():
         odd = paged_case(gen, b=4, h=12, hkv=4, d=128, bs=16, t=8,
                          depths=[0, 5, 70, 127], dtype=dtype)
         errs[f"rep3_d128_{dn}"] = (compare(odd, None), TOL[dtype])
+        gpt = paged_case(gen, dtype=dtype, **GPT_DECODE)
+        for window in (None, 128):
+            errs[f"gpt2_small_{dn}_w{window}"] = (compare(gpt, window),
+                                                  TOL[dtype])
     tiny = paged_case(gen, b=3, h=4, hkv=2, d=8, bs=4, t=6,
                       depths=[23, 0, 9], dtype=torch.float32)
     for window in (None, 6):
@@ -528,6 +593,8 @@ def phase_paged_decode():
               **{k: (f"{v:.5f}" if isinstance(v, float) else v)
                  for k, v in t.items()})
     err = max(e for k, (e, _) in errs.items() if k.startswith("llama1b_bf16"))
+    timings["gpt2_small_mixed"]["max_abs_err"] = max(
+        e for k, (e, _) in errs.items() if k.startswith("gpt2_small_bf16"))
     return {**timings["mixed"], "max_abs_err": err,
             "shapes": {k: v for k, v in timings.items() if k != "mixed"}}
 
@@ -547,6 +614,9 @@ FLASH_CASES = {
     "window6": (2, 8, 2, 300, 300, 64, torch.bfloat16, True, 6, 0),
     "sk257": (2, 8, 2, 257, 257, 64, torch.bfloat16, True, None, 0),
     "sk257_window12": (2, 8, 2, 257, 257, 64, torch.bfloat16, True, 12, 0),
+    # The GPT-2-small and ViT-S/16 train steps (MHA; ViT non-causal).
+    "gpt2_small": (8, 12, 12, 1024, 1024, 64, torch.bfloat16, True, None, 0),
+    "vit_s16": (256, 6, 6, 196, 196, 64, torch.bfloat16, False, None, 0),
 }
 WITH_DLSE = ("llama1b", "k_offset")
 
@@ -562,24 +632,25 @@ def flash_case(gen, b, h, hkv, sq, sk, d, dtype, causal, window, k_offset):
     return (q, k, v), do, dlse, kw
 
 
-def flash_fwd_bound_ms(q, k, want_lse=True):
-    """Least time of one causal forward and what sets it: 2·B·H·S²·D
-    flops over the bf16 tensor-core peak, or the bytes of q, k, v read
-    once and o (and lse) written once over HBM bandwidth."""
+def flash_fwd_bound_ms(q, k, want_lse=True, causal=True):
+    """Least time of one forward and what sets it: 2·B·H·S²·D flops
+    causal (4·B·H·S²·D full) over the bf16 tensor-core peak, or the bytes
+    of q, k, v read once and o (and lse) written once over HBM
+    bandwidth."""
     b, h, s, d = q.shape
     nbytes = ((2 * q.numel() + 2 * k.numel()) * q.element_size()
               + (b * h * s * 4 if want_lse else 0))
-    flops = 2 * b * h * s * s * d
+    flops = (2 if causal else 4) * b * h * s * s * d
     return _bound(nbytes, flops, q.dtype)
 
 
-def flash_bwd_bound_ms(q, k):
+def flash_bwd_bound_ms(q, k, causal=True):
     """As :func:`flash_fwd_bound_ms` for the backward: 5·B·H·S²·D causal
-    flops; q, o, do read and dq written, k, v read and dk, dv written,
-    lse read."""
+    flops (10·B·H·S²·D full); q, o, do read and dq written, k, v read and
+    dk, dv written, lse read."""
     b, h, s, d = q.shape
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + b * h * s * 4
-    flops = 5 * b * h * s * s * d
+    flops = (5 if causal else 10) * b * h * s * s * d
     return _bound(nbytes, flops, q.dtype)
 
 
@@ -959,17 +1030,22 @@ def check_streams(what, streams_gpu, streams_cpu, prompts, cpu_model, n):
                            ) or "none"
 
 
+def parity_prompts(vocab: int = VOCAB):
+    """The parity legs' 4 prompts: two share a 32-token prefix."""
+    rng = np.random.RandomState(4)
+    shared = rng.randint(0, vocab, 32)
+    return [np.concatenate([shared, rng.randint(0, vocab, 16)]),
+            rng.randint(0, vocab, 80),
+            np.concatenate([shared, rng.randint(0, vocab, 32)]),
+            rng.randint(0, vocab, 100)]
+
+
 def engine_parity_legs(tag, legs):
     """4 greedy requests x 16 tokens through engines on the card and on
     the CPU (Llama-1B width, depth 2, f32), one line per leg of engine
     keywords."""
     gpu_model, cpu_model = _parity_pair(max_len=MAX_LEN, depth=2)
-    rng = np.random.RandomState(4)
-    shared = rng.randint(0, VOCAB, 32)
-    prompts = [np.concatenate([shared, rng.randint(0, VOCAB, 16)]),
-               rng.randint(0, VOCAB, 80),
-               np.concatenate([shared, rng.randint(0, VOCAB, 32)]),
-               rng.randint(0, VOCAB, 100)]
+    prompts = parity_prompts()
     for leg, engine_kw in legs:
         streams = {}
         for name, model in (("cuda", gpu_model), ("cpu", cpu_model)):
@@ -1048,7 +1124,7 @@ def serve_wave(model, prompts, paged: bool, new: int = 32, submit_kw=None,
                 len(h.tokens) > new or not grammar and len(h.tokens) != new):
             raise RuntimeError(f"request {i}: {h.finish_reason} with "
                                f"{len(h.tokens)} tokens")
-        if not all(0 <= tok < VOCAB for tok in h.tokens):
+        if not all(0 <= tok < model.vocab_size for tok in h.tokens):
             raise RuntimeError(f"request {i} emitted a token outside vocab")
     return dict(launches=launches, snap=eng.metrics.snapshot(), eng=eng,
                 handles=handles, wall=wall, ticks=ticks, tick_s=tick_s,
@@ -1067,15 +1143,19 @@ def serve_fields(run):
                     f"{1e3 * float(np.median(run['tick_s'])):.4f}"))
 
 
+def serve_prompts(vocab: int = VOCAB):
+    """The serve wave: 24 prompts of 384 tokens, 256 of them shared."""
+    rng = np.random.RandomState(5)
+    shared = rng.randint(0, vocab, 256)
+    return [np.concatenate([shared, rng.randint(0, vocab, 128)])
+            for _ in range(24)]
+
+
 def serve_model_and_prompts():
     torch.cuda.empty_cache()
     model = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN,
                      dtype=torch.bfloat16, device=DEV, seed=0)
-    rng = np.random.RandomState(5)
-    shared = rng.randint(0, VOCAB, 256)
-    prompts = [np.concatenate([shared, rng.randint(0, VOCAB, 128)])
-               for _ in range(24)]
-    return model, prompts
+    return model, serve_prompts()
 
 
 def phase_engine_serve(model=None, prompts=None):
@@ -1197,18 +1277,22 @@ FLASH_COUNTERS = ("flash_fwd", "flash_fwd_nolse", "flash_bwd_fused",
 LM_KEYS = dict(input_key="tokens", target_key="targets")
 
 
-def _train_both(optimizer: str, lr: float, steps: int, **model_kw):
-    """One seeded Llama-1B (depth 2, f32) trained ``steps`` steps by the
-    port's Trainer on the card (kernels) and on the CPU (plain versions),
-    on the same batches. Returns the per-step losses of each, their
-    largest relative difference and, per parameter, the card's and the
-    CPU's trained value and last step's gradient."""
-    cfg = dict(vocab_size=VOCAB, depth=2, dtype=torch.float32, **model_kw)
-    cpu_model = Llama_1B(**cfg, device="cpu", seed=2)
-    gpu_model = Llama_1B(**cfg, device=DEV, seed=2)
+def _train_both(optimizer: str, lr: float, steps: int, factory=None,
+                **model_kw):
+    """One seeded model (``factory``, default Llama-1B; depth 2, f32)
+    trained ``steps`` steps by the port's Trainer on the card (kernels)
+    and on the CPU (plain versions), on the same batches. Returns the
+    per-step losses of each, their largest relative difference and, per
+    parameter, the card's and the CPU's trained value and last step's
+    gradient."""
+    factory = factory or Llama_1B
+    cfg = dict(dict(vocab_size=VOCAB, depth=2, dtype=torch.float32),
+               **model_kw)
+    cpu_model = factory(**cfg, device="cpu", seed=2)
+    gpu_model = factory(**cfg, device=DEV, seed=2)
     gpu_model.load_state_dict(cpu_model.state_dict())
     data = SyntheticLanguageModeling(batch_size=2, seq_len=256,
-                                     vocab_size=VOCAB, seed=1)
+                                     vocab_size=cfg["vocab_size"], seed=1)
     losses = {}
     for name, model in (("cuda", gpu_model), ("cpu", cpu_model)):
         tr = Trainer(model, optimizer=optimizer, learning_rate=lr,
@@ -1311,19 +1395,29 @@ def phase_train_converge():
                            f"{launches}")
 
 
+def matmul_params(model) -> int:
+    """N of 6ND: every parameter but the embeddings (Llama-1B's 1.236 B);
+    for a GPT the blocks and the LM head's weight (GPT-2-small's
+    123.7 M: 12 x 7.088 M + 768 x 50,304)."""
+    if hasattr(model.stem, "token_embed"):
+        return (sum(p.numel() for p in model.blocks.parameters())
+                + model.head.lm_head.weight.numel())
+    return (sum(p.numel() for p in model.parameters())
+            - model.stem.embed.weight.numel())
+
+
 def _timed_fit(model, batch: int, seq: int, warmup: int, steps: int):
     """adamw at lr 1e-4 on the synthetic LM task: ``warmup`` steps, then
     ``steps`` timed ones (host clock around ``Trainer.fit``, ending in a
     sync) with the launch counts set to 0 just before and the peak memory
     reset. Returns the trainer, the data, the history, the wall seconds,
-    the launches, tokens/s, the 6ND MFU over the non-embedding parameters
-    and the peak memory."""
-    n_matmul = sum(p.numel() for p in model.parameters()) \
-        - model.stem.embed.weight.numel()
+    the launches, tokens/s, the 6ND MFU over :func:`matmul_params` and
+    the peak memory."""
+    n_matmul = matmul_params(model)
     tr = Trainer(model, optimizer="adamw", learning_rate=1e-4, device=DEV,
                  **LM_KEYS)
     data = SyntheticLanguageModeling(batch_size=batch, seq_len=seq,
-                                     vocab_size=VOCAB, seed=0)
+                                     vocab_size=model.vocab_size, seed=0)
     tr.fit(data, epochs=1, steps_per_epoch=warmup, verbose=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1343,8 +1437,7 @@ def _timed_fit(model, batch: int, seq: int, warmup: int, steps: int):
 def _train_fields(model, batch, seq, steps, hist, wall, counts, tokens_s,
                   mfu, peak):
     n_params = sum(p.numel() for p in model.parameters())
-    return dict(params=n_params,
-                matmul_params=n_params - model.stem.embed.weight.numel(),
+    return dict(params=n_params, matmul_params=matmul_params(model),
                 batch=batch, seq=seq, steps=steps,
                 wall_s=f"{wall:.4f}", ms_per_step=f"{1e3 * wall / steps:.3f}",
                 tokens_per_s=f"{tokens_s:.2f}", mfu_6nd=f"{mfu:.4f}",
@@ -1787,10 +1880,12 @@ def weight_read_bound_tokens_s(model, prompt_len: int, new: int) -> float:
     """``decode_bench._roofline_tokens_per_sec`` for the card: every
     decoded token reads each matmul weight once (the embedding table is
     gathered, one row a token) and the live K/V prefix, averaged over the
-    decode, at the HBM rate."""
+    decode, at the HBM rate. An int8 model's weights count at their
+    stored bytes (int8 and the f32 scales)."""
     params = sum(p.numel() * p.element_size()
-                 for name, p in model.named_parameters()
-                 if name != "stem.embed.weight")
+                 for name, p in itertools.chain(model.named_parameters(),
+                                                model.named_buffers())
+                 if "embed" not in name)
     item = torch.finfo(model.dtype).bits // 8
     kv = (2 * model.depth * model.num_kv_heads * model.head_dim * item
           * (prompt_len + new / 2))
@@ -1813,7 +1908,7 @@ def timed_generate(model, prompt, new, repeats):
     out = out.cpu()
     plen = prompt.shape[1]
     if out.shape != (prompt.shape[0], plen + new) or not (
-            (out[:, plen:] >= 0) & (out[:, plen:] < VOCAB)).all():
+            (out[:, plen:] >= 0) & (out[:, plen:] < model.vocab_size)).all():
         raise RuntimeError(f"generate gave {tuple(out.shape)} or a token "
                            "outside the vocabulary")
     return float(np.median(walls)), out, dict(_kernels.launch_counts)
@@ -2009,16 +2104,16 @@ def self_draft(model, depth: int):
     return draft
 
 
-def spec_parity_prompts():
+def spec_parity_prompts(vocab: int = VOCAB):
     """4 repetitive prompts (a short random motif repeated, one with a
     random tail); the last is 256 tokens, so with 48 new tokens it ends
     at the cache's end and its last windows reach past it."""
     rng = np.random.RandomState(10)
 
     def loop(n):
-        return np.resize(rng.randint(0, VOCAB, rng.randint(3, 8)), n)
+        return np.resize(rng.randint(0, vocab, rng.randint(3, 8)), n)
     return [loop(40), loop(64),
-            np.concatenate([loop(24), rng.randint(0, VOCAB, 24)]), loop(256)]
+            np.concatenate([loop(24), rng.randint(0, vocab, 24)]), loop(256)]
 
 
 def spec_streams(model, prompts, new, **kw):
@@ -2262,13 +2357,13 @@ PARITY_SCHEMA = {"type": "object", "properties": {
     "id": {"enum": [7, 42]}, "ok": {"type": "boolean"}}}
 
 
-def tenant_token_strings() -> list:
-    """A token-id -> string vocabulary for every id of ``VOCAB``:
+def tenant_token_strings(vocab: int = VOCAB) -> list:
+    """A token-id -> string vocabulary for every id of ``vocab``:
     ``VOCAB32`` first, then seeded strings of 1-4 printable ASCII
     characters."""
     rng = np.random.RandomState(32)
     chars = np.array([chr(c) for c in range(32, 127)])
-    n = VOCAB - len(VOCAB32)
+    n = vocab - len(VOCAB32)
     lens = rng.randint(1, 5, n)
     picks = rng.randint(0, len(chars), (n, 4))
     return VOCAB32 + ["".join(chars[picks[i, :k]])
@@ -2373,12 +2468,7 @@ def phase_engine_tenant_parity():
     gpu_model, cpu_model = _parity_pair(max_len=MAX_LEN, depth=2)
     strings = tenant_token_strings()
     registry = tenant_registry(gpu_model, 2)
-    rng = np.random.RandomState(4)
-    shared = rng.randint(0, VOCAB, 32)
-    prompts = [np.concatenate([shared, rng.randint(0, VOCAB, 16)]),
-               rng.randint(0, VOCAB, 80),
-               np.concatenate([shared, rng.randint(0, VOCAB, 32)]),
-               rng.randint(0, VOCAB, 100)]
+    prompts = parity_prompts()
     spec = {"kind": "json_schema", "schema": PARITY_SCHEMA}
     kws = [{}, {"adapter": "adapter0"},
            {"adapter": "adapter1", "constraint": spec}, {"constraint": spec}]
@@ -2656,6 +2746,608 @@ def phase_engine_tenant_serve(model, prompts, out_dir: str):
                   "lora_delta_device_ms_per_tick"])
     return launches_out
 
+# ------------------------------------------------------- phases 25-30
+# GPT-2 small as HF `gpt2`'s config.json gives it: n_embd 768, n_layer 12,
+# n_head 12, n_positions 1024, layer_norm_epsilon 1e-5, vocabulary 50257
+# (the head padded to 50304).
+GPT_VOCAB = 50257
+GPT_CFG = dict(vocab_size=GPT_VOCAB, vocab_multiple=128, max_len=1024,
+               ln_eps=1e-5)
+INT8_MIN_ELEMS = 65536   # quantize_int8's default
+# The new train paths' K1/K2 shapes, timed beside their plain versions.
+NEW_FLASH_SHAPES = {"gpt2_small_train": "gpt2_small",
+                    "vit_s16_train": "vit_s16"}
+
+
+def time_flash_shapes():
+    """K1 (with and without its LSE) and K2 at the GPT-2-small and
+    ViT-S/16 train shapes (``FLASH_CASES``' agreement cases hold their
+    errors): each kernel's time on CUDA events over two input sets, the
+    plain version's, SDPA's (forward; forward+backward minus forward for
+    K2) and the bound, causal or not. Returns ``{kernel: {shape:
+    fields}}``."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    out = {"flash_fwd": {}, "flash_fwd_nolse": {}, "flash_bwd_fused": {}}
+    for tag, case in NEW_FLASH_SHAPES.items():
+        shape = FLASH_CASES[case]
+        causal = shape[7]
+        cases = []
+        for _ in range(2):
+            qkv, do, _, kw = flash_case(gen, *shape)
+            o, lse = tatt.flash_forward(*qkv, **kw)
+            cases.append((qkv, o, lse, do))
+        ref_o, ref_lse = tatt.flash_forward_plain(*cases[0][0], **kw)
+        got = tatt.flash_backward(*cases[0][0], ref_o, ref_lse, cases[0][3],
+                                  **kw)
+        want = tatt.flash_backward_plain(*cases[0][0], ref_o, ref_lse,
+                                         cases[0][3], **kw)
+        nolse_o, _ = tatt.flash_forward(*cases[0][0], want_lse=False, **kw)
+        torch.cuda.synchronize()
+        errs = {
+            "flash_fwd": max(float((cases[0][1].float() - ref_o.float())
+                                   .abs().max()),
+                             float((cases[0][2] - ref_lse).abs().max())),
+            "flash_fwd_nolse": float((nolse_o.float() - ref_o.float())
+                                     .abs().max()),
+            "flash_bwd_fused": max(float((g.float() - w.float()).abs().max())
+                                   for g, w in zip(got, want))}
+        del got, want, ref_o, ref_lse, nolse_o
+        fwd = {
+            "flash_fwd": cuda_ms(lambda i: tatt.flash_forward(
+                *cases[i][0], **kw), 2, iters=20),
+            "flash_fwd_nolse": cuda_ms(lambda i: tatt.flash_forward(
+                *cases[i][0], want_lse=False, **kw), 2, iters=20)}
+        plain_fwd = cuda_ms(lambda i: tatt.flash_forward_plain(
+            *cases[i][0], **kw), 2, iters=4)
+        sdpa_f = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            *cases[i][0], is_causal=causal, enable_gqa=True), 2, iters=20)
+        bwd = cuda_ms(lambda i: tatt.flash_backward(
+            *cases[i][0], *cases[i][1:], **kw), 2, iters=10)
+        plain_bwd = cuda_ms(lambda i: tatt.flash_backward_plain(
+            *cases[i][0], *cases[i][1:], **kw), 2, iters=2)
+        leaves = [[x.detach().requires_grad_() for x in c[0]] for c in cases]
+
+        def sdpa(i, backward):
+            o = F.scaled_dot_product_attention(*leaves[i], is_causal=causal,
+                                               enable_gqa=True)
+            if backward:
+                o.backward(cases[i][3])
+        sdpa_fb = cuda_ms(lambda i: sdpa(i, True), 2, iters=10)
+        q, k = cases[0][0][:2]
+        for name in ("flash_fwd", "flash_fwd_nolse"):
+            bound_ms, bound_by = flash_fwd_bound_ms(
+                q, k, want_lse=name == "flash_fwd", causal=causal)
+            out[name][tag] = dict(ms=fwd[name], plain_ms=plain_fwd,
+                                  library_ms=sdpa_f, bound_ms=bound_ms,
+                                  bound_by=bound_by, max_abs_err=errs[name])
+        bound_ms, bound_by = flash_bwd_bound_ms(q, k, causal=causal)
+        out["flash_bwd_fused"][tag] = dict(
+            ms=bwd, plain_ms=plain_bwd, library_ms=sdpa_fb - sdpa_f,
+            bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=errs["flash_bwd_fused"])
+        b, h, hkv, sq = shape[:4]
+        phase("flash_new_shapes_time", shape=f"{tag}_B{b}_H{h}_Hkv{hkv}_"
+              f"S{sq}_D{shape[5]}_bf16_{'causal' if causal else 'full'}",
+              **{f"{n}_{k}": (f"{v:.5f}" if isinstance(v, float) else v)
+                 for n in out for k, v in out[n][tag].items()})
+        del cases, leaves
+    return out
+
+
+def gpt_parity_pair(max_len: int = SPEC_MAX_LEN):
+    """One seeded GPT-2-small weight set at depth 2 on the CPU and copied
+    to the card, f32 with TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(GPT_CFG, max_len=max_len, depth=2, dtype=torch.float32, seed=1)
+    cpu_model = GPT_Small(device="cpu", **kw)
+    gpu_model = GPT_Small(device=DEV, **kw)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    return gpu_model, cpu_model
+
+
+def engine_streams(model, prompts, new, **kw):
+    """Greedy streams of ``prompts`` x ``new`` through one engine on the
+    model's device (4 slots, prefill 128, blocks of 16), every one run to
+    LENGTH; with the launches and the ticks of the run."""
+    eng = ServeEngine(model, device=model.device, max_slots=4,
+                      prefill_len=128, prefix_block_size=16, **kw)
+    _kernels.reset_launch_counts()
+    handles = [eng.submit(p, new) for p in prompts]
+    eng.run(max_steps=400)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    for i, h in enumerate(handles):
+        if h.finish_reason is not FinishReason.LENGTH:
+            raise RuntimeError(f"request {i}: {h.finish_reason}")
+    ticks = sum(1 for r in eng.telemetry.snapshot() if r["live_slots"] > 0)
+    return [h.tokens for h in handles], dict(_kernels.launch_counts), ticks
+
+
+def check_launches(what, launches, **want):
+    """Every counter as ``want`` names it, the rest 0."""
+    got = {k: v for k, v in launches.items() if v or k in want}
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got}, want {want}")
+
+
+def phase_gpt_parity(steps: int = 3, lr: float = 1e-4, new: int = 16):
+    """GPT-2-small width at depth 2 in f32 (TF32 off), one seeded weight
+    set on the card (kernels) and on the CPU (plain versions): 3 adamw
+    ``Trainer`` steps (losses within rtol 1e-4, parameters within
+    2·lr·steps; K1 with its LSE and K2 once a layer a step); ``generate``
+    (B 4, prompt 64) and both engine modes over the parity prompts x 16
+    tokens, token-exact unless a tie (K4 once a layer a paged tick, none
+    elsewhere); then ``spec_k=4`` n-gram legs in both modes over the spec
+    prompts at ``max_len`` 304, the last stream ending there (its windows
+    reach past the cache, where the position lookup is clamped), against
+    the CPU and the card's ``spec_k=0`` engine. Returns the paged engine
+    leg's launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _kernels.reset_launch_counts()
+    losses, rel, params = _train_both(
+        "adamw", lr, steps, factory=GPT_Small,
+        **dict(GPT_CFG, max_len=SPEC_MAX_LEN))
+    check_launches("gpt_parity train", dict(_kernels.launch_counts),
+                   flash_fwd=2 * steps, flash_bwd_fused=2 * steps)
+    max_diff = max(float((g - c).abs().max())
+                   for g, c, _, _ in params.values())
+    phase("gpt_parity", leg="train_adamw", model="GPT_Small_depth2_f32",
+          allow_tf32=False, lr=lr, steps=steps,
+          losses_cuda="/".join(f"{x:.7f}" for x in losses["cuda"]),
+          losses_cpu="/".join(f"{x:.7f}" for x in losses["cpu"]),
+          max_loss_rel_diff=f"{rel:.3g}", max_param_diff=f"{max_diff:.3g}",
+          param_bound=f"{2 * lr * steps:g}", flash_fwd_launches=2 * steps,
+          flash_bwd_fused_launches=2 * steps)
+    if not rel <= 1e-4:
+        raise RuntimeError(f"GPT train losses disagree: {losses}")
+    if not max_diff <= 2 * lr * steps:
+        raise RuntimeError(f"GPT trained parameters differ by {max_diff}")
+    del params
+    gpu_model, cpu_model = gpt_parity_pair()
+    prompts = parity_prompts(GPT_VOCAB)
+    batch = np.stack([np.resize(p, 64) for p in prompts])
+    _kernels.reset_launch_counts()
+    out = generate(gpu_model, batch, new)
+    torch.cuda.synchronize()
+    check_launches("gpt_parity generate", dict(_kernels.launch_counts))
+    ref = generate(cpu_model, batch, new)
+    exact, ties = check_streams("GPT generate row", out[:, 64:].cpu().tolist(),
+                                ref[:, 64:].tolist(), batch.tolist(),
+                                cpu_model, new)
+    phase("gpt_parity", leg="generate", model="GPT_Small_depth2_f32",
+          batch=len(batch), prompt=64, new=new, token_exact=exact, ties=ties)
+    paged_launches = None
+    for leg, kw in (("engine_row", {}), ("engine_paged", {"paged": True})):
+        streams, launches, ticks = engine_streams(gpu_model, prompts, new,
+                                                  **kw)
+        want = gpu_model.depth * ticks if kw else 0
+        check_launches(f"gpt_parity {leg}", launches,
+                       **({"paged_decode": want} if want else {}))
+        if kw:
+            paged_launches = launches
+        cpu_streams = engine_streams(cpu_model, prompts, new, **kw)[0]
+        exact, ties = check_streams(f"GPT {leg} request", streams,
+                                    cpu_streams, prompts, cpu_model, new)
+        phase("gpt_parity", leg=leg, model="GPT_Small_depth2_f32",
+              requests=len(prompts), new=new, token_exact=exact, ties=ties,
+              ticks=ticks, paged_decode_launches=launches["paged_decode"])
+    sprompts = spec_parity_prompts(GPT_VOCAB)
+    for leg, paged in (("spec_row", False), ("spec_paged", True)):
+        _kernels.reset_launch_counts()
+        eng, streams = spec_streams(gpu_model, sprompts, 48, paged=paged,
+                                    spec_k=SPEC_K)
+        torch.cuda.synchronize()
+        check_launches(f"gpt_parity {leg}", dict(_kernels.launch_counts))
+        _, base = spec_streams(gpu_model, sprompts, 48, paged=paged)
+        _, cpu_streams = spec_streams(cpu_model, sprompts, 48, paged=paged,
+                                      spec_k=SPEC_K)
+        exact, ties = check_streams(f"GPT {leg} request", streams,
+                                    cpu_streams, sprompts, cpu_model, 48)
+        exact0, ties0 = check_streams(f"GPT {leg} vs spec_k=0 request",
+                                      streams, base, sprompts, cpu_model, 48)
+        edge = len(sprompts[-1]) + len(streams[-1])
+        if edge != SPEC_MAX_LEN:
+            raise RuntimeError(f"the edge stream ends at {edge}")
+        phase("gpt_parity", leg=leg, model="GPT_Small_depth2_f32",
+              max_len=SPEC_MAX_LEN, spec_k=SPEC_K, requests=len(sprompts),
+              new=48, edge_request_tokens=edge, token_exact_vs_cpu=exact,
+              ties_vs_cpu=ties, token_exact_vs_spec0=exact0,
+              ties_vs_spec0=ties0, **spec_fields(eng.metrics.snapshot()))
+    del gpu_model, cpu_model
+    return paged_launches
+
+
+def gpt_serve_model():
+    torch.cuda.empty_cache()
+    return GPT_Small(**GPT_CFG, dtype=torch.bfloat16, device=DEV, seed=0)
+
+
+def serve_wave_fields(run, model, paged: bool):
+    """One wave's line: the serve fields, K4's launches (exactly once a
+    layer a tick on a paged engine, none on a row one) and the peak."""
+    launches, ticks = run["launches"], run["ticks"]
+    want = model.depth * ticks if paged else 0
+    check_launches(f"serve wave paged={paged}", launches,
+                   **({"paged_decode": want} if want else {}))
+    return dict(serve_fields(run), paged=paged,
+                paged_decode_launches=launches["paged_decode"],
+                prefix_hits=run["snap"]["prefix_hits"],
+                peak_mem_gib=f"{run['peak'] / 2**30:.3f}")
+
+
+def phase_gpt_serve(new: int = 256, plen: int = 64):
+    """Full GPT-2-small (HF ``gpt2``'s configuration, seeded weights) in
+    bf16: the serve wave (24 requests of 384 prompt tokens, 256 shared,
+    x 32 new on 8 slots) on the row and the paged engine, then
+    ``generate`` at B 1, prompt 64, 256 new (one warm-up, one timed call)
+    against the weight-read bound. Returns the paged wave's launches."""
+    model = gpt_serve_model()
+    prompts = serve_prompts(GPT_VOCAB)
+    paged_launches = None
+    for paged in (False, True):
+        run = serve_wave(model, prompts, paged=paged)
+        phase("gpt_serve", model="GPT_Small_bf16",
+              **serve_wave_fields(run, model, paged))
+        if paged:
+            paged_launches = run["launches"]
+        del run
+    bound = weight_read_bound_tokens_s(model, plen, new)
+    prompt = np.random.RandomState(7).randint(0, GPT_VOCAB, (1, plen))
+    wall, _, launches = timed_generate(model, prompt, new, 1)
+    check_launches("gpt generate", launches)
+    tokens_s = new / wall
+    phase("gpt_generate", model="GPT_Small_bf16", batch=1, prompt=plen,
+          new=new, wall_s=f"{wall:.4f}", new_tokens_per_s=f"{tokens_s:.2f}",
+          ms_per_token=f"{1e3 * wall / new:.4f}",
+          weight_read_bound_tokens_per_s=f"{bound:.2f}",
+          ratio_to_bound=f"{tokens_s / bound:.4f}")
+    del model
+    return paged_launches
+
+
+def phase_gpt_train(batch: int = 8, seq: int = 1024, warmup: int = 2,
+                    steps: int = 5):
+    """Full GPT-2-small, bf16 compute over f32 parameters, adamw, B 8 x
+    S 1024 through ``Trainer.fit``: 2 warm-up and 5 timed steps; tokens/s,
+    ms a step, 6ND MFU (N = the blocks and the LM head's weight), the peak
+    memory, and exactly 12 K1 (with its LSE) and 12 K2 a step."""
+    torch.cuda.empty_cache()
+    model = GPT_Small(**GPT_CFG, dtype=torch.bfloat16,
+                      param_dtype=torch.float32, device=DEV, seed=0)
+    tr, data, hist, wall, counts, tokens_s, mfu, peak = _timed_fit(
+        model, batch, seq, warmup, steps)
+    check_launches("gpt_train", counts, flash_fwd=model.depth * steps,
+                   flash_bwd_fused=model.depth * steps)
+    phase("gpt_train", model="GPT_Small_bf16_compute_f32_params",
+          **_train_fields(model, batch, seq, steps, hist, wall, counts,
+                          tokens_s, mfu, peak))
+    if not all(np.isfinite(hist.history["loss"])):
+        raise RuntimeError(f"GPT train losses {hist.history['loss']}")
+    del tr, data, model
+    return counts
+
+
+def int8_install(model):
+    """Quantize ``model`` (``min_elems`` 65536) and install the int8 tree
+    with ``param_transform=dequantize``, in place; returns the tree's
+    ``quantized_bytes``."""
+    q = quantize_int8(model, min_elems=INT8_MIN_ELEMS)
+    stats = quantized_bytes(q)
+    install_params(model, q, dequantize)
+    return stats
+
+
+INT8_FAMILIES = {
+    "Llama_1B": lambda: Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN,
+                                 dtype=torch.bfloat16, device=DEV, seed=0),
+    "GPT_Small": lambda: GPT_Small(**GPT_CFG, dtype=torch.bfloat16,
+                                   device=DEV, seed=0),
+}
+
+
+def int8_serve_family(name, build):
+    """One family's int8 legs (see :func:`phase_int8_serve`); returns the
+    paged int8 wave's launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    a0 = torch.cuda.memory_allocated()
+    dense = build()
+    a1 = torch.cuda.memory_allocated()
+    dense_bytes = quantized_bytes(dense.state_dict())["bytes"]
+    eng = ServeEngine(dense, paged=True, max_slots=8, prefix_block_size=16)
+    engine_bf16 = torch.cuda.memory_allocated() - a0
+    del eng
+    gc.collect()
+    a2 = torch.cuda.memory_allocated()
+    int8 = build()
+    stats = int8_install(int8)
+    gc.collect()
+    a3 = torch.cuda.memory_allocated()
+    eng = ServeEngine(int8, paged=True, max_slots=8, prefix_block_size=16)
+    engine_int8 = torch.cuda.memory_allocated() - a2
+    del eng
+    gc.collect()
+    model_bf16, model_int8 = a1 - a0, a3 - a2
+    want = dense_bytes - stats["bytes"]
+    phase("int8_memory", model=f"{name}_bf16", min_elems=INT8_MIN_ELEMS,
+          quantized_leaves=stats["quantized_leaves"],
+          dense_tree_bytes=dense_bytes, int8_tree_bytes=stats["bytes"],
+          tree_bytes_saved=want, model_bytes_bf16=model_bf16,
+          model_bytes_int8=model_int8,
+          model_bytes_saved=model_bf16 - model_int8,
+          engine_bytes_bf16=engine_bf16, engine_bytes_int8=engine_int8,
+          engine_bytes_saved=engine_bf16 - engine_int8,
+          int8_param_dtypes=",".join(sorted({
+              str(p.dtype).split(".")[1] for p in int8.parameters()})))
+    # The card holds the int8 tree and nothing dense beside it (the
+    # allocator rounds each tensor up to 512 bytes: within 1%), and the
+    # model saves what the trees differ by (the bf16 build may leave a few
+    # MB of the allocator's own beside its tree: at least 95%).
+    if not (model_int8 <= 1.01 * stats["bytes"]
+            and model_bf16 - model_int8 >= 0.95 * want):
+        raise RuntimeError(f"{name}: the int8 model holds {model_int8} "
+                           f"bytes (its tree {stats['bytes']}) against the "
+                           f"bf16 one's {model_bf16}; the trees differ by "
+                           f"{want}")
+    prompts = serve_prompts(dense.vocab_size)
+    ticks, footprint = {}, {}
+    paged_launches = None
+    # In turns across the modes: row bf16, row int8, paged int8, paged bf16.
+    # Both models stay resident, so a wave's own peak is its peak less the
+    # other model's bytes.
+    other_bytes = {"bf16": model_int8, "int8": model_bf16}
+    for paged, order in ((False, ("bf16", "int8")), (True, ("int8", "bf16"))):
+        for kind in order:
+            model = int8 if kind == "int8" else dense
+            run = serve_wave(model, prompts, paged=paged)
+            ticks[(paged, kind)] = float(np.median(run["tick_s"]))
+            footprint[(paged, kind)] = run["peak"] - other_bytes[kind]
+            phase("int8_serve", model=f"{name}_{kind}",
+                  peak_without_other_model_gib=(
+                      f"{footprint[(paged, kind)] / 2**30:.3f}"),
+                  **serve_wave_fields(run, model, paged))
+            if paged and kind == "int8":
+                paged_launches = run["launches"]
+            del run
+    # int8 is there to save memory: at its peak too (each leaf's dense
+    # copy is made at its product, block by block, and freed after it).
+    for paged in (False, True):
+        if footprint[(paged, "int8")] > footprint[(paged, "bf16")]:
+            raise RuntimeError(
+                f"{name} paged={paged}: the int8 wave peaks at "
+                f"{footprint[(paged, 'int8')]} bytes, the bf16 one at "
+                f"{footprint[(paged, 'bf16')]}")
+    plen, new = 64, 128
+    prompt = np.random.RandomState(7).randint(0, dense.vocab_size, (1, plen))
+    walls = {}
+    for kind, model in (("bf16", dense), ("int8", int8)):
+        walls[kind], _, launches = timed_generate(model, prompt, new, 1)
+        check_launches(f"{name} {kind} generate", launches)
+    ratio = {paged: ticks[(paged, "int8")] / ticks[(paged, "bf16")]
+             for paged in (False, True)}
+    phase("int8_cost", model=name, tick_ratio_row=f"{ratio[False]:.4f}",
+          tick_ratio_paged=f"{ratio[True]:.4f}",
+          generate_b1_tokens_per_s_bf16=f"{new / walls['bf16']:.2f}",
+          generate_b1_tokens_per_s_int8=f"{new / walls['int8']:.2f}",
+          generate_ratio=f"{walls['int8'] / walls['bf16']:.4f}",
+          generate_new=new,
+          int8_weight_read_bound_tokens_per_s=(
+              f"{weight_read_bound_tokens_s(int8, plen, new):.2f}"))
+    del dense, int8
+    return paged_launches
+
+
+def phase_int8_serve():
+    """int8 serving on full Llama-1B and full GPT-2-small (bf16 compute,
+    ``quantize_int8(min_elems=65536)``, ``param_transform=dequantize``):
+    ``quantized_bytes`` of the int8 tree against the dense tree's, and the
+    ``memory_allocated`` that the model adds (the int8 model within 1% of
+    its tree, the saving at least 95% of the trees' difference) and the
+    model with a paged engine, int8 against bf16; the serve wave
+    on the row and the paged engine, bf16 and int8 in turns (K4 once a
+    layer a paged tick; each wave's peak less the other model's bytes,
+    int8's no higher than bf16's); the tick p50 ratio int8 / bf16 per
+    mode; then
+    ``generate`` at B 1 (prompt 64, 128 new), bf16 then int8. Returns the
+    paged int8 waves' launches by family."""
+    return {name: int8_serve_family(name, build)
+            for name, build in INT8_FAMILIES.items()}
+
+
+def dense_twin(model, qtree):
+    """A model of ``model``'s configuration on its device holding the
+    dense dequantized weights of ``qtree``."""
+    twin = copy.deepcopy(model)
+    return install_params(twin, dequantize(qtree))
+
+
+def phase_int8_parity(new: int = 16):
+    """int8 at depth 2 in f32 (TF32 off), ``min_elems`` 65536, on
+    Llama-1B and GPT-2-small widths: the card's int8 tree bitwise the
+    CPU's; the paged int8 engine on the card against the CPU's (token-exact
+    unless a tie) and bitwise the card's engine over the dense dequantized
+    weights (the same weights, so the same streams); K4 once a layer a
+    tick. Then, on Llama, a tenant leg under int8: a base request and two
+    adapters, card against CPU. Returns the paged legs' launches."""
+    launches_all = {}
+    pairs = (("Llama_1B_depth2_f32",
+              lambda: _parity_pair(max_len=MAX_LEN, depth=2), VOCAB),
+             ("GPT_Small_depth2_f32",
+              lambda: gpt_parity_pair(max_len=MAX_LEN), GPT_VOCAB))
+    for name, pair, vocab in pairs:
+        gpu_model, cpu_model = pair()
+        qg = quantize_int8(gpu_model, min_elems=INT8_MIN_ELEMS)
+        qc = quantize_int8(cpu_model, min_elems=INT8_MIN_ELEMS)
+        leaves = [k for k, v in qc.items() if isinstance(v, dict)]
+        same = all(torch.equal(qg[k][f].cpu(), qc[k][f]) for k in leaves
+                   for f in ("qvalue", "scale"))
+        if not same:
+            raise RuntimeError(f"{name}: the card's int8 tree differs")
+        twin = dense_twin(gpu_model, qg)
+        cpu_twin = dense_twin(cpu_model, qc)
+        install_params(gpu_model, qg, dequantize)
+        install_params(cpu_model, qc, dequantize)
+        prompts = parity_prompts(vocab)
+        streams, launches, ticks = engine_streams(gpu_model, prompts, new,
+                                                  paged=True)
+        check_launches(f"int8_parity {name}", launches,
+                       paged_decode=gpu_model.depth * ticks)
+        launches_all[name] = launches
+        cpu_streams = engine_streams(cpu_model, prompts, new, paged=True)[0]
+        dense_streams = engine_streams(twin, prompts, new, paged=True)[0]
+        exact, ties = check_streams(f"{name} int8 request", streams,
+                                    cpu_streams, prompts, cpu_twin, new)
+        if streams != dense_streams:
+            raise RuntimeError(f"{name}: the int8 engine's streams differ "
+                               "from the dense dequantized engine's")
+        phase("int8_parity", model=name, allow_tf32=False, paged=True,
+              quantized_leaves=len(leaves), card_tree_equals_cpu=same,
+              requests=len(prompts), new=new, token_exact_vs_cpu=exact,
+              ties_vs_cpu=ties, equal_to_dense_dequantized=True, ticks=ticks,
+              paged_decode_launches=launches["paged_decode"])
+        if vocab == VOCAB:
+            strings = tenant_token_strings(vocab)
+            registry = tenant_registry(gpu_model, 2)
+            kws = [{}, {"adapter": "adapter0"}, {"adapter": "adapter1"}, {}]
+            news = [new] * 4
+            eng = tenant_engine(gpu_model, registry, strings, paged=True)
+            t_streams, _, _, t_launches, t_ticks = recorded_run(
+                eng, prompts, kws, news)
+            torch.cuda.synchronize()
+            check_launches(f"int8_parity {name} tenant", t_launches,
+                           paged_decode=gpu_model.depth * t_ticks)
+            launches_all[name + "_tenant"] = t_launches
+            cpu_eng = tenant_engine(cpu_model, registry, strings, paged=True)
+            c_streams = recorded_run(cpu_eng, prompts, kws, news)[0]
+            exact, ties = check_tenant_streams(
+                f"{name} int8 tenant request", t_streams, c_streams, prompts,
+                kws, cpu_twin, registry)
+            phase("int8_parity", model=name, leg="tenant", paged=True,
+                  adapters=len(registry), rank=TENANT_RANK,
+                  token_exact_vs_cpu=exact, ties_vs_cpu=ties,
+                  adapter_loads=eng.metrics.snapshot()["adapter_loads"],
+                  paged_decode_launches=t_launches["paged_decode"],
+                  ticks=t_ticks)
+        del gpu_model, cpu_model, twin, cpu_twin, qg, qc
+    return launches_all
+
+
+def vit_macs(model, image: int = 224) -> int:
+    """Multiply-accumulates of one image's forward, from the model's
+    shapes: the patch embed, each block's q, k, v, out and MLP products
+    and its two attention products (``QKᵀ`` and ``PV``), the head."""
+    p, e = model.patch_size, model.embed_dim
+    n = (image // p) ** 2
+    block = 4 * n * e * e + 2 * n * n * e + 2 * n * e * (4 * e)
+    return n * p * p * 3 * e + model.depth * block + e * model.num_classes
+
+
+def phase_vit_parity(steps: int = 3, lr: float = 1e-4, batch: int = 4):
+    """ViT-S/16 (1000 classes) at depth 2 in f32 (TF32 off), one seeded
+    weight set on the card (K1, K2) and on the CPU (plain versions), B 4 x
+    224: the eval logits at init within 1e-4 (K1 without its LSE, once a
+    layer), then 3 adam steps through ``Trainer.fit`` (losses within rtol
+    1e-4, parameters within 2·lr·steps; K1 with its LSE and K2 once a
+    layer a step)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(depth=2, num_classes=1000, dtype=torch.float32, seed=2)
+    cpu_model = ViT_S16(device="cpu", **cfg)
+    gpu_model = ViT_S16(device=DEV, **cfg)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    data = SyntheticImageClassification(batch_size=batch, image_size=224,
+                                        num_classes=1000, seed=1)
+    images = data.batch(0)["image"]
+    _kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = gpu_model(torch.as_tensor(images, device=DEV), train=False)
+        torch.cuda.synchronize()
+        check_launches("vit_parity eval", dict(_kernels.launch_counts),
+                       flash_fwd_nolse=gpu_model.depth)
+        want = cpu_model(torch.as_tensor(images), train=False)
+    logit_err = float((got.cpu() - want).abs().max())
+    losses = {}
+    for name, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        tr = Trainer(model, optimizer="adam", learning_rate=lr,
+                     device=model.device)
+        _kernels.reset_launch_counts()
+        losses[name] = tr.fit(data, epochs=steps, steps_per_epoch=1,
+                              verbose=0).history["loss"]
+        if name == "cuda":
+            torch.cuda.synchronize()
+            check_launches("vit_parity train", dict(_kernels.launch_counts),
+                           flash_fwd=gpu_model.depth * steps,
+                           flash_bwd_fused=gpu_model.depth * steps)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    cpu_params = dict(cpu_model.named_parameters())
+    max_diff = max(float((p.detach().cpu() - cpu_params[n].detach())
+                         .abs().max())
+                   for n, p in gpu_model.named_parameters())
+    phase("vit_parity", model="ViT_S16_depth2_f32", allow_tf32=False,
+          batch=batch, image=224, logits_max_abs_err=f"{logit_err:.3g}",
+          optimizer="adam", lr=lr, steps=steps,
+          losses_cuda="/".join(f"{x:.7f}" for x in losses["cuda"]),
+          losses_cpu="/".join(f"{x:.7f}" for x in losses["cpu"]),
+          max_loss_rel_diff=f"{rel:.3g}", max_param_diff=f"{max_diff:.3g}",
+          param_bound=f"{2 * lr * steps:g}")
+    if not logit_err <= 1e-4:
+        raise RuntimeError(f"ViT logits differ by {logit_err}")
+    if not rel <= 1e-4 or not max_diff <= 2 * lr * steps:
+        raise RuntimeError(f"ViT training disagrees: {losses}, {max_diff}")
+    del gpu_model, cpu_model
+
+
+def phase_vit_train(batch: int = 256, warmup: int = 2, steps: int = 10):
+    """ViT-S/16 (1000 classes), bf16 compute over f32 parameters, adam at
+    1e-3, B 256 x 224 on a batch resident on the card, through
+    ``Trainer.train_step``: 2 warm-up then 10 timed steps; images/s, ms a
+    step, the peak memory and the MFU of 6 x the forward's MACs per image;
+    exactly 12 non-causal K1 (with the LSE) and 12 K2 a step."""
+    torch.cuda.empty_cache()
+    model = ViT_S16(num_classes=1000, dtype=torch.bfloat16,
+                    param_dtype=torch.float32, device=DEV, seed=0)
+    macs = vit_macs(model)
+    tr = Trainer(model, optimizer="adam", learning_rate=1e-3, metrics=(),
+                 device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    batch_d = {"image": torch.randn(batch, 224, 224, 3, generator=gen,
+                                    device=DEV),
+               "label": torch.randint(0, 1000, (batch,), generator=gen,
+                                      device=DEV, dtype=torch.int32)}
+    for _ in range(warmup):
+        tr.train_step(batch_d)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logs = tr.train_step(batch_d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_kernels.launch_counts)
+    check_launches("vit_train", counts, flash_fwd=model.depth * steps,
+                   flash_bwd_fused=model.depth * steps)
+    loss = float(logs["loss"])
+    images_s = batch * steps / wall
+    phase("vit_train", model="ViT_S16_bf16_compute_f32_params",
+          optimizer="adam", lr=1e-3, batch=batch, image=224, warmup=warmup,
+          steps=steps, wall_s=f"{wall:.4f}",
+          ms_per_step=f"{1e3 * wall / steps:.3f}",
+          images_per_s=f"{images_s:.2f}",
+          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+          last_loss=f"{loss:.5f}", fwd_gmac_per_image=f"{macs / 1e9:.4f}",
+          mfu=f"{6 * macs * images_s / PEAK_FLOPS[torch.bfloat16]:.4f}",
+          flash_per_step="/".join(f"{k}:{counts[k] / steps:g}"
+                                  for k in FLASH_COUNTERS))
+    if not np.isfinite(loss):
+        raise RuntimeError(f"non-finite ViT loss {loss}")
+    del tr, batch_d, model
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -2676,6 +3368,8 @@ def main(argv=None) -> int:
     timing = {"paged_decode": phase_paged_decode(), **phase_flash_fwd(),
               "flash_bwd_fused": phase_flash_bwd(),
               **phase_flash_bwd_two_sweep()}
+    for name, shapes in time_flash_shapes().items():
+        timing[name]["shapes"] = shapes
     phase_engine_parity()
     model, prompts = serve_model_and_prompts()
     serve_launches, paged_kv = phase_engine_serve(model, prompts)
@@ -2723,24 +3417,42 @@ def main(argv=None) -> int:
     del model
     spec_parity_launches = phase_engine_spec_parity()
     tenant_parity_launches = phase_engine_tenant_parity()
+    gpt_parity_launches = phase_gpt_parity()
+    gpt_serve_launches = phase_gpt_serve()
+    gpt_train_launches = phase_gpt_train()
+    int8_serve_launches = phase_int8_serve()
+    int8_parity_launches = phase_int8_parity()
+    phase_vit_parity()
+    vit_train_launches = phase_vit_train()
     src = "pddl_tpu_torch/ops/csrc/"
     att = "pddl_tpu/ops/attention.py:"
+    # Each kernel's launches by main path (the Llama, GPT and ViT train
+    # steps, the serve waves: Llama's, GPT's and the int8 ones).
+    k4_paths = {
+        "engine_serve": serve_launches["paged_decode"],
+        "engine_spec_serve_draft": spec_serve_launches["paged_decode"],
+        "engine_tenant_serve": tenant_serve_launches["paged_decode"],
+        "gpt_serve": gpt_serve_launches["paged_decode"],
+        **{f"int8_serve_{name}": launches["paged_decode"]
+           for name, launches in int8_serve_launches.items()}}
+    k1_paths = {"train_step": train_launches["flash_fwd"],
+                "train_long": long_launches["flash_fwd"],
+                "generate_swa": swa_launches["flash_fwd"],
+                "gpt_train": gpt_train_launches["flash_fwd"],
+                "vit_train": vit_train_launches["flash_fwd"]}
+    k2_paths = {"train_step": train_launches["flash_bwd_fused"],
+                "gpt_train": gpt_train_launches["flash_bwd_fused"],
+                "vit_train": vit_train_launches["flash_bwd_fused"]}
     # (name, source, TPU kernel's line, launches on the main paths: the
-    # paged serve run, the train step with its eval batch, the
-    # long-context run, or the sliding-window generate; K1 with the LSE
-    # runs on both training paths and in the ring prefill).
+    # paged serve runs, the train steps (Llama, GPT, ViT) with the Llama
+    # eval batch, the long-context run, or the sliding-window generate; K1
+    # with the LSE runs on every training path and in the ring prefill).
     rows = [
-        ("paged_decode", "paged_decode.cu", 1221,
-         serve_launches["paged_decode"]
-         + spec_serve_launches["paged_decode"]
-         + tenant_serve_launches["paged_decode"]),
-        ("flash_fwd", "flash_fwd.cu", 183,
-         train_launches["flash_fwd"] + long_launches["flash_fwd"]
-         + swa_launches["flash_fwd"]),
+        ("paged_decode", "paged_decode.cu", 1221, sum(k4_paths.values())),
+        ("flash_fwd", "flash_fwd.cu", 183, sum(k1_paths.values())),
         ("flash_fwd_nolse", "flash_fwd.cu", 389,
          train_launches["flash_fwd_nolse"]),
-        ("flash_bwd_fused", "flash_bwd.cu", 617,
-         train_launches["flash_bwd_fused"]),
+        ("flash_bwd_fused", "flash_bwd.cu", 617, sum(k2_paths.values())),
         ("flash_bwd_dq", "flash_bwd.cu", 551, long_launches["flash_bwd_dq"]),
         ("flash_bwd_dkv", "flash_bwd.cu", 578,
          long_launches["flash_bwd_dkv"]),
@@ -2748,15 +3460,18 @@ def main(argv=None) -> int:
     kernels = [{"name": name, "route": "cuda", "source": src + file,
                 "replaces": f"{att}{line}", "launches": launches,
                 **timing[name]} for name, file, line, launches in rows]
-    # K4's launches by path: the paged serve run's ticks, the draft
-    # model's steps in the speculative serve run and the tenant serve
-    # run's ticks (the parity legs' too).
+    # K4's launches by path: the paged ticks of the serve, tenant, GPT and
+    # int8 serve runs and the draft model's steps in the speculative serve
+    # run (the parity legs' too, outside the total).
     kernels[0]["launches_by_path"] = {
-        "engine_serve": serve_launches["paged_decode"],
-        "engine_spec_serve_draft": spec_serve_launches["paged_decode"],
-        "engine_tenant_serve": tenant_serve_launches["paged_decode"],
+        **k4_paths,
         "engine_spec_parity_draft": spec_parity_launches["paged_decode"],
-        "engine_tenant_parity": tenant_parity_launches["paged_decode"]}
+        "engine_tenant_parity": tenant_parity_launches["paged_decode"],
+        "gpt_parity_paged": gpt_parity_launches["paged_decode"],
+        **{f"int8_parity_{name}": launches["paged_decode"]
+           for name, launches in int8_parity_launches.items()}}
+    kernels[1]["launches_by_path"] = k1_paths
+    kernels[3]["launches_by_path"] = k2_paths
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""Weight bridge between a flax parameter tree (a Llama's, or a ResNet's
-with its ``batch_stats``) and the port's ``state_dict``, both ways.
+"""Weight bridge between a flax parameter tree (a Llama's, a GPT's, a
+ViT's, or a ResNet's with its ``batch_stats``) and the port's
+``state_dict``, both ways.
 
 The JAX package's params are taken and given as NUMPY arrays
 (``jax.tree.map(np.asarray, params)`` on the JAX side), so this module
@@ -13,6 +14,13 @@ model's ``param_dtype``). The mapping:
 - ``out``, ``mlp_*`` and ``lm_head`` kernels ``[in, out]`` are
   transposed to ``[out, in]``;
 - ``embed`` and the RMSNorm ``scale``\\ s carry over as they are.
+
+GPT and ViT blocks (:func:`gpt_params_from_jax`, :func:`vit_params_from_jax`)
+map their biased ``query``/``key``/``value``/``out``, ``mlp1``/``mlp2``
+and LayerNorm ``scale``/``bias`` (the port's ``weight``/``bias``) the same
+way; GPT's ``token_embed`` and ``pos_embed`` and the ViT's ``pos_embed``
+carry over, and the ViT's ``patch_embed`` conv kernel ``[p, p, C, E]``
+becomes ``[E, C, p, p]``. MoE blocks raise (ROADMAP.md queue 1 item 5).
 
 For a ResNet (:func:`resnet_params_from_jax`): conv kernels ``[kh, kw,
 in, out]`` become ``[out, in, kh, kw]``, the dense head's ``[in, out]``
@@ -107,6 +115,132 @@ def llama_params_to_jax(model) -> Dict[str, Any]:
         for name in ("mlp_gate", "mlp_up", "mlp_down"):
             blk[name] = {"kernel": _array(sd[pre + f"{name}.weight"]).T.copy()}
         out[f"block{i}"] = blk
+    return out
+
+
+def _ln(leaf) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _tensor(leaf["scale"]), _tensor(leaf["bias"])
+
+
+def _transformer_blocks_from_jax(params: Mapping, sd: Dict) -> None:
+    """The ``block{i}`` subtrees of a flax GPT or ViT into ``sd``."""
+    depth = sum(1 for k in params if k.startswith("block"))
+    for i in range(depth):
+        blk = params[f"block{i}"]
+        if "moe" in blk:
+            raise NotImplementedError(
+                "MoE blocks are not ported yet (ROADMAP.md queue 1 item 5)")
+        pre = f"blocks.{i}."
+        for ln in ("ln1", "ln2"):
+            sd[pre + ln + ".weight"], sd[pre + ln + ".bias"] = _ln(blk[ln])
+        attn = blk["attn"]
+        for name in ("query", "key", "value"):
+            kern = np.asarray(attn[name]["kernel"])          # [E, H, D]
+            sd[pre + f"attn.{name}.weight"] = _tensor(
+                kern.reshape(kern.shape[0], -1).T)           # [H*D, E]
+            sd[pre + f"attn.{name}.bias"] = _tensor(
+                np.asarray(attn[name]["bias"]).reshape(-1))
+        named = [("attn.out", attn["out"]), ("mlp1", blk["mlp1"]),
+                 ("mlp2", blk["mlp2"])]
+        for name, leaf in named:
+            sd[pre + name + ".weight"] = _tensor(np.asarray(leaf["kernel"]).T)
+            sd[pre + name + ".bias"] = _tensor(leaf["bias"])
+
+
+def _transformer_blocks_to_jax(model, sd, out: Dict) -> None:
+    e, h = model.embed_dim, model.num_heads
+    for i in range(model.depth):
+        pre = f"blocks.{i}."
+        attn: Dict[str, Any] = {}
+        for name in ("query", "key", "value"):
+            w = _array(sd[pre + f"attn.{name}.weight"])      # [H*D, E]
+            attn[name] = {
+                "kernel": w.T.reshape(e, h, -1).copy(),
+                "bias": _array(sd[pre + f"attn.{name}.bias"]).reshape(h, -1)}
+        blk: Dict[str, Any] = {"attn": attn}
+        for name in ("ln1", "ln2"):
+            blk[name] = {"scale": _array(sd[pre + name + ".weight"]),
+                         "bias": _array(sd[pre + name + ".bias"])}
+        for name, key in (("attn.out", None), ("mlp1", "mlp1"),
+                          ("mlp2", "mlp2")):
+            leaf = {"kernel": _array(sd[pre + name + ".weight"]).T.copy(),
+                    "bias": _array(sd[pre + name + ".bias"])}
+            if key is None:
+                attn["out"] = leaf
+            else:
+                blk[key] = leaf
+        out[f"block{i}"] = blk
+
+
+def gpt_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax ``GPT`` param tree (numpy leaves, the ``params``
+    collection) to a state_dict for :class:`pddl_tpu_torch.models.gpt.GPT`.
+    Raises on MoE blocks."""
+    sd: Dict[str, torch.Tensor] = {
+        "stem.token_embed.weight": _tensor(params["token_embed"]["embedding"]),
+        "stem.pos_embed": _tensor(params["pos_embed"]),
+        "head.lm_head.weight": _tensor(
+            np.asarray(params["lm_head"]["kernel"]).T),
+        "head.lm_head.bias": _tensor(params["lm_head"]["bias"]),
+    }
+    sd["head.ln_final.weight"], sd["head.ln_final.bias"] = _ln(
+        params["ln_final"])
+    _transformer_blocks_from_jax(params, sd)
+    return sd
+
+
+def gpt_params_to_jax(model) -> Dict[str, Any]:
+    """The inverse of :func:`gpt_params_from_jax`: a port ``GPT``'s
+    parameters as a flax-layout tree of numpy arrays."""
+    sd = model.state_dict()
+    out: Dict[str, Any] = {
+        "token_embed": {"embedding": _array(sd["stem.token_embed.weight"])},
+        "pos_embed": _array(sd["stem.pos_embed"]),
+        "ln_final": {"scale": _array(sd["head.ln_final.weight"]),
+                     "bias": _array(sd["head.ln_final.bias"])},
+        "lm_head": {"kernel": _array(sd["head.lm_head.weight"]).T.copy(),
+                    "bias": _array(sd["head.lm_head.bias"])},
+    }
+    _transformer_blocks_to_jax(model, sd, out)
+    return out
+
+
+def vit_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax ``ViT`` param tree (numpy leaves, the ``params``
+    collection) to a state_dict for :class:`pddl_tpu_torch.models.vit.ViT`.
+    Raises on MoE blocks."""
+    sd: Dict[str, torch.Tensor] = {
+        "stem.patch_embed.weight": _tensor(np.asarray(
+            params["patch_embed"]["kernel"]).transpose(3, 2, 0, 1)),
+        "stem.patch_embed.bias": _tensor(params["patch_embed"]["bias"]),
+        "stem.pos_embed": _tensor(params["pos_embed"]),
+    }
+    sd["head.ln_final.weight"], sd["head.ln_final.bias"] = _ln(
+        params["ln_final"])
+    if "head" in params:
+        sd["head.head.weight"] = _tensor(np.asarray(
+            params["head"]["kernel"]).T)
+        sd["head.head.bias"] = _tensor(params["head"]["bias"])
+    _transformer_blocks_from_jax(params, sd)
+    return sd
+
+
+def vit_params_to_jax(model) -> Dict[str, Any]:
+    """The inverse of :func:`vit_params_from_jax`."""
+    sd = model.state_dict()
+    out: Dict[str, Any] = {
+        "patch_embed": {
+            "kernel": np.ascontiguousarray(
+                _array(sd["stem.patch_embed.weight"]).transpose(2, 3, 1, 0)),
+            "bias": _array(sd["stem.patch_embed.bias"])},
+        "pos_embed": _array(sd["stem.pos_embed"]),
+        "ln_final": {"scale": _array(sd["head.ln_final.weight"]),
+                     "bias": _array(sd["head.ln_final.bias"])},
+    }
+    if "head.head.weight" in sd:
+        out["head"] = {"kernel": _array(sd["head.head.weight"]).T.copy(),
+                       "bias": _array(sd["head.head.bias"])}
+    _transformer_blocks_to_jax(model, sd, out)
     return out
 
 

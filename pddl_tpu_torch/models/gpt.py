@@ -1,6 +1,21 @@
-"""Sampling, KV-cache decoding and the serving hooks shared by the
-decoder families, and the fused LM loss (subset of
+"""The GPT family, and the sampling, KV-cache decoding, serving hooks and
+fused LM loss shared by the decoder families (the port of
 :mod:`pddl_tpu.models.gpt`, in PyTorch).
+
+:class:`GPT` is the decoder-only LM of the JAX package: token and learned
+position embeddings, causal :class:`~pddl_tpu_torch.models.vit.TransformerBlock`
+(MHA: ``num_kv_heads == num_heads``), a final LayerNorm and a biased LM
+head over the ``vocab_multiple``-padded vocabulary, sliced back to
+``vocab_size`` before the f32 cast. Its forward takes the decode keywords
+of the port's Llama (``cache``, ``cache_index`` — the JAX embed's
+``pos_index`` —, ``block_table``, ``max_index``), so ``generate``, the
+speculative paths and both serving engines drive either family. A
+per-row (``[B]``) position past ``max_len`` — a verify window at the
+cache's end — reads the last position's embedding: the JAX ``jnp.take``
+fills such rows with NaN, which torch's indexing cannot do (it raises on
+the CPU and asserts on the card). Those rows' K/V drop past a row cache
+and land in the scratch block of a paged pool, both behind every live
+position, and their logits are never sampled.
 
 The JAX package keeps the decode cache in a flax collection and stamps
 the engine-owned per-slot positions and block tables into it
@@ -19,13 +34,25 @@ sampled token stays on the device and feeds the next step).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
+from pddl_tpu_torch.device import resolve_device
+from pddl_tpu_torch.models.layers import LayerNorm, linear
 from pddl_tpu_torch.models.llama import ring_len
+from pddl_tpu_torch.models.vit import (
+    TransformerBlock,
+    check_unported,
+    init_transformer_weights,
+    remat_block,
+)
 from pddl_tpu_torch.ops.attention import cache_slot_insert
 from pddl_tpu_torch.ops.large_vocab import chunked_cross_entropy
+from pddl_tpu_torch.ops.quant import with_params
 
 _NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
 
@@ -36,6 +63,176 @@ _NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
 # cache tree holds K/V pools only.
 CACHE_INDEX_KEYS = frozenset({"pos_index", "cache_index"})
 BLOCK_TABLE_KEY = "block_table"
+
+
+def _padded(vocab_size: int, vocab_multiple: int) -> int:
+    return -(-vocab_size // vocab_multiple) * vocab_multiple
+
+
+class _GPTEmbed(nn.Module):
+    """Token + learned position embedding, in the compute dtype."""
+
+    def __init__(self, vocab_size: int, max_len: int, embed_dim: int,
+                 vocab_multiple: int, dtype, param_dtype, device):
+        super().__init__()
+        self.max_len = max_len
+        self.dtype = dtype
+        self.token_embed = nn.Embedding(_padded(vocab_size, vocab_multiple),
+                                        embed_dim, dtype=param_dtype,
+                                        device=device)
+        self.pos_embed = nn.Parameter(torch.zeros(
+            1, max_len, embed_dim, dtype=param_dtype, device=device))
+
+    def forward(self, tokens: torch.Tensor,
+                index: Union[int, torch.Tensor, None]) -> torch.Tensor:
+        s = tokens.shape[1]
+        if s > self.max_len:
+            raise ValueError(f"sequence {s} exceeds max_len {self.max_len}")
+        x = self.token_embed(tokens)
+        if isinstance(index, torch.Tensor) and index.ndim:
+            # Per-row positions; past max_len, clamped (module docstring).
+            pos = index[:, None] + torch.arange(s, device=tokens.device)
+            step = self.pos_embed[0][pos.clamp(max=self.max_len - 1)]
+        else:
+            i = int(index or 0)
+            if i + s > self.max_len:
+                raise ValueError(
+                    f"a {s}-token block at position {i} runs past max_len "
+                    f"{self.max_len}")
+            step = self.pos_embed[:, i:i + s]
+        return x.to(self.dtype) + step.to(self.dtype)
+
+
+class _GPTHead(nn.Module):
+    """Final LayerNorm + biased LM head; the padded vocabulary is sliced
+    off and logits come back in f32."""
+
+    def __init__(self, vocab_size: int, embed_dim: int, vocab_multiple: int,
+                 ln_eps: float, dtype, param_dtype, device):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.dtype = dtype
+        self.ln_final = LayerNorm(embed_dim, ln_eps, param_dtype, device)
+        self.lm_head = linear(embed_dim, _padded(vocab_size, vocab_multiple),
+                              bias=True, dtype=dtype, param_dtype=param_dtype,
+                              device=device)
+
+    def features(self, x):
+        return self.ln_final(x).to(self.dtype)
+
+    def logits(self, feats):
+        """The product, then the bias in the compute dtype, then the slice
+        and the f32 cast, as the JAX ``Dense`` and ``lm_head_logits``."""
+        head, dt = self.lm_head, self.dtype
+        out = F.linear(feats.to(dt), head.weight.to(dt))
+        out = out + head.bias.to(dt)
+        return out[..., :self.vocab_size].float()
+
+
+class GPT(nn.Module):
+    """Decoder-only transformer LM: tokens ``[B, S]`` → f32 logits
+    ``[B, S, vocab_size]`` (or post-norm features with
+    ``features_only=True``; :meth:`head_logits` finishes them).
+
+    Weights come from :func:`~pddl_tpu_torch.models.vit.init_transformer_weights`
+    seeded with ``seed`` on ``device`` (``None`` means ``cuda``; a host
+    without a card passes ``device="cpu"``). ``dtype`` is the compute type
+    and ``param_dtype`` (default: ``dtype``) the parameters' storage type.
+    ``ln_eps`` defaults to flax's 1e-6; HF GPT-2 checkpoints use 1e-5.
+    Not ported yet (each raises ``NotImplementedError``): Switch-MoE blocks
+    (``moe_experts > 0``, ROADMAP.md queue 1 item 5), ring /
+    sequence-parallel attention and ``mesh`` (item 7).
+    """
+
+    def __init__(self, vocab_size: int, max_len: int = 1024,
+                 embed_dim: int = 256, depth: int = 4, num_heads: int = 4,
+                 mlp_ratio: int = 4, attention: str = "flash", mesh=None,
+                 dropout: float = 0.0, moe_experts: int = 0,
+                 moe_top_k: int = 1, moe_every: int = 2,
+                 remat: str = "none", vocab_multiple: int = 1,
+                 ln_eps: float = 1e-6, dtype=torch.float32,
+                 param_dtype=None, device=None, seed: int = 0):
+        super().__init__()
+        check_unported(attention=attention, mesh=mesh,
+                       moe_experts=moe_experts)
+        device = resolve_device(device)
+        param_dtype = param_dtype or dtype
+        self.vocab_size = vocab_size
+        self.max_len = max_len
+        self.embed_dim = embed_dim
+        self.depth = depth
+        self.num_heads = self.num_kv_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.sliding_window = None
+        self.uses_ring_cache = False
+        self.attention = attention
+        self.remat = remat
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.stem = _GPTEmbed(vocab_size, max_len, embed_dim, vocab_multiple,
+                              dtype, param_dtype, device)
+        block_cls = remat_block(TransformerBlock, remat)
+        self.blocks = nn.ModuleList(
+            block_cls(embed_dim, num_heads, mlp_ratio=mlp_ratio,
+                      attention=attention, causal=True, dropout=dropout,
+                      ln_eps=ln_eps, dtype=dtype, param_dtype=param_dtype,
+                      device=device)
+            for _ in range(depth))
+        self.head = _GPTHead(vocab_size, embed_dim, vocab_multiple, ln_eps,
+                             dtype, param_dtype, device)
+        self.init_weights(seed)
+
+    @property
+    def device(self) -> torch.device:
+        # The final norm's scale: 1-D, so never int8 (``ops/quant.py``).
+        return self.head.ln_final.weight.device
+
+    def init_weights(self, seed: int) -> None:
+        """Redraw every weight from a generator seeded with ``seed``."""
+        init_transformer_weights(self, seed)
+
+    def forward(self, tokens: torch.Tensor, *, train: bool = True,
+                cache: Optional[dict] = None,
+                cache_index: Union[int, torch.Tensor, None] = None,
+                block_table: Optional[torch.Tensor] = None,
+                max_index: Optional[int] = None,
+                features_only: bool = False) -> torch.Tensor:
+        """With no cache, the training forward at positions ``arange(S)``
+        (``train`` turns dropout on where ``dropout > 0``); with a cache,
+        ``cache_index`` is an int or a ``[B]`` tensor with ``max_index``
+        its largest entry as a host int, as in the port's Llama."""
+        if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
+            cache_index = cache_index.to(tokens.device)  # once, not per layer
+        x = self.stem(tokens, cache_index if cache is not None else 0)
+        for i, block in enumerate(self.blocks):
+            if cache is None:
+                x = block(x, train)
+            else:
+                x = block(x, False, cache=cache[f"block{i}"]["attn"],
+                          cache_index=cache_index, block_table=block_table,
+                          max_index=max_index)
+        feats = self.head.features(x)
+        return feats if features_only else self.head.logits(feats)
+
+    def head_logits(self, feats: torch.Tensor) -> torch.Tensor:
+        """The LM head over ``features_only`` output: vocab logits, f32."""
+        return self.head.logits(feats)
+
+
+# GPT-2 small (12 x 768, 12 heads).
+GPT_Small = functools.partial(GPT, embed_dim=768, depth=12, num_heads=12)
+
+
+def tiny_gpt(vocab_size: int = 64, **kwargs) -> GPT:
+    """Miniature GPT for tests."""
+    kwargs.setdefault("max_len", 128)
+    kwargs.setdefault("embed_dim", 32)
+    kwargs.setdefault("depth", 2)
+    kwargs.setdefault("num_heads", 4)
+    kwargs.setdefault("attention", "reference")
+    return GPT(vocab_size=vocab_size, **kwargs)
+
+
 
 
 def filtered_logits(logits: torch.Tensor, *, temperature: float,
@@ -251,17 +448,38 @@ def prefill_row_features(model, tokens: torch.Tensor, length: int,
     return cache, logits, feats
 
 
+def load_variables(model, variables, param_transform=None, *,
+                   role: str = "variables"):
+    """The JAX entry points' ``variables`` / ``param_transform`` pair,
+    applied to the port's model, which carries its weights: ``None``
+    returns ``model``; ``{"params": tree}`` returns a copy of ``model``
+    holding the tree (the model's ``state_dict`` names; int8 leaves of
+    :func:`~pddl_tpu_torch.ops.quant.quantize_int8` stay int8 on the
+    device, ``param_transform`` applied at each use) and sharing every
+    other tensor with it: ``model`` itself is left as it was
+    (:func:`~pddl_tpu_torch.ops.quant.with_params`). A
+    ``param_transform`` without variables raises: it transforms them."""
+    if variables is None:
+        if param_transform is not None:
+            raise ValueError(
+                f"param_transform transforms {role}; pass them "
+                "({'params': tree})")
+        return model
+    return with_params(model, variables["params"], param_transform,
+                       role=role)
+
+
 @torch.no_grad()
 def generate(model, prompt, max_new_tokens: int, *,
              temperature: float = 0.0, top_k: Optional[int] = None,
              top_p: Optional[float] = None,
              generator: Optional[torch.Generator] = None, strategy=None,
-             param_transform=None) -> torch.Tensor:
+             variables=None, param_transform=None) -> torch.Tensor:
     """Autoregressive sampling with a KV cache (the port of the JAX
     package's ``generate``).
 
     Args:
-      model: a port Llama; it decodes on its own device. With
+      model: a port Llama or GPT; it decodes on its own device. With
         :attr:`~pddl_tpu_torch.models.llama.Llama.uses_ring_cache` its
         cache is the rolling ring of the window, and its prefill runs K1
         with its LSE on the card.
@@ -274,7 +492,11 @@ def generate(model, prompt, max_new_tokens: int, *,
         ``top_k`` and/or nucleus ``top_p`` (:func:`sample_logits`).
       strategy: must be None (sharded inference, ROADMAP.md queue 1
         item 7).
-      param_transform: must be None (int8 serving, queue 1 item 3).
+      variables / param_transform: the JAX function's weights and their
+        transform, for this call only (:func:`load_variables`: ``model``
+        keeps its own weights); ``None`` decodes with the model's own.
+        ``variables={"params": quantize_int8(model)}`` with
+        ``param_transform=dequantize`` decodes from int8 weights.
 
     Returns int32 ``[B, P + max_new_tokens]`` (prompt + continuation) on
     the model's device. One batched prefill of the whole prompt, then one
@@ -285,10 +507,7 @@ def generate(model, prompt, max_new_tokens: int, *,
         raise NotImplementedError(
             "generate(strategy=...) (sharded inference) is "
             + _NOT_PORTED.format("7 (distributed)"))
-    if param_transform is not None:
-        raise NotImplementedError(
-            "generate(param_transform=...) (int8 serving) is "
-            + _NOT_PORTED.format("3 (engine features)"))
+    model = load_variables(model, variables, param_transform)
     dev = model.device
     prompt = torch.as_tensor(prompt).to(dev, torch.int32)
     b, p = prompt.shape
@@ -334,8 +553,9 @@ def fused_lm_loss(model, tokens: torch.Tensor, targets: torch.Tensor, *,
     whole unpadded vocab in one step (fastest: one transient
     ``[tokens, V]`` f32 chunk); a smaller chunk is the memory valve for
     long context or a large vocabulary. ``train`` is forwarded to the
-    model. The model (a :class:`~pddl_tpu_torch.models.llama.Llama`)
-    takes the place of the JAX function's ``model`` and ``variables``.
+    model. The model (a :class:`~pddl_tpu_torch.models.llama.Llama` or a
+    :class:`GPT`, whose head bias joins the chunks in f32) takes the place
+    of the JAX function's ``model`` and ``variables``.
     """
     feats = model(tokens, train=train, features_only=True)
     head = model.head.lm_head

@@ -74,32 +74,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from pddl_tpu_torch.device import resolve_device
+from pddl_tpu_torch.models.layers import linear as _linear
+from pddl_tpu_torch.models.layers import paged_attend, row_attend
 from pddl_tpu_torch.models.vit import remat_block
-from pddl_tpu_torch.ops.attention import (
-    attention_reference,
-    decode_attention,
-    flash_attention,
-    flash_attention_lse,
-    paged_cache_insert,
-    paged_decode_attention,
-)
+from pddl_tpu_torch.ops.attention import attention_reference, flash_attention
 from pddl_tpu_torch.ops.rope import apply_rope_qk
 
 _NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
-
-
-# A multi-token block over a row cache scores its whole sweep in one pass
-# when the f32 scores stay under this many elements (a verify window, a
-# short prompt): every 128-key step of the online softmax costs a dozen
-# eager ops per layer. Longer prefills sweep in 128-key steps.
-_ONE_PASS_SCORES = 1 << 24
-
-
-def _sweep_chunk(q: torch.Tensor, cache_len: int) -> int:
-    b, h, s, _ = q.shape
-    if s == 1 or b * h * s * cache_len <= _ONE_PASS_SCORES:
-        return cache_len
-    return 128
 
 
 def _default_intermediate_dim(embed_dim: int) -> int:
@@ -138,35 +119,6 @@ def _rms_norm(dim: int, eps: float, param_dtype, device) -> _RMSNorm:
     return _RMSNorm(dim, eps, param_dtype, device)
 
 
-class _Linear(nn.Linear):
-    """``nn.Linear`` whose parameters live in ``param_dtype`` and whose
-    product runs in the compute ``dtype`` (flax ``Dense`` semantics:
-    input, kernel and bias cast to ``dtype`` at use)."""
-
-    def __init__(self, in_features: int, out_features: int, *, bias: bool,
-                 dtype, param_dtype, device):
-        super().__init__(in_features, out_features, bias=bias,
-                         dtype=param_dtype, device=device)
-        self.compute_dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
-
-
-def _linear(in_features: int, out_features: int, *, bias: bool, dtype,
-            param_dtype, device) -> nn.Linear:
-    """A plain ``nn.Linear`` when the parameters are stored in the compute
-    dtype (serving: no casts on the host-bound decode tick), else a
-    :class:`_Linear` that casts at use."""
-    if param_dtype == dtype:
-        return nn.Linear(in_features, out_features, bias=bias, dtype=dtype,
-                         device=device)
-    return _Linear(in_features, out_features, bias=bias, dtype=dtype,
-                   param_dtype=param_dtype, device=device)
-
-
 class LlamaAttention(nn.Module):
     """Causal GQA with RoPE: ``query``/``key``/``value``/``out`` linears
     (bias-free except Qwen2-style q/k/v biases), K/V at ``num_kv_heads``
@@ -203,6 +155,12 @@ class LlamaAttention(nn.Module):
         self.key = lin(embed_dim, num_kv_heads * hd, bias=qkv_bias)
         self.value = lin(embed_dim, num_kv_heads * hd, bias=qkv_bias)
         self.out = lin(num_heads * hd, embed_dim, bias=False)
+        # The JAX module's q/k/v biases are DenseGeneral [H, D]: 2-D there,
+        # flat here (``layers.jax_shapes``).
+        self.jax_shapes = ({"query.bias": (num_heads, hd),
+                            "key.bias": (num_kv_heads, hd),
+                            "value.bias": (num_kv_heads, hd)}
+                           if qkv_bias else {})
 
     def forward(self, x: torch.Tensor, *,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -243,85 +201,16 @@ class LlamaAttention(nn.Module):
         return self.out(o)
 
     def _paged(self, q, k, v, cache, i, block_table, max_index):
-        """Write K/V into the pool through the table, then attend (a
-        multi-token block's sweep bounded by ``max_index``, a host int)."""
         if self.ring is not None:
             raise NotImplementedError(
                 "paged attention requires a full-length cache; rolling "
                 "sliding-window caches are not paged")
-        kp = paged_cache_insert(cache["cached_key"], k, block_table, i)
-        vp = paged_cache_insert(cache["cached_value"], v, block_table, i)
-        return paged_decode_attention(q, kp, vp, block_table, i,
-                                      window=self.sliding_window,
-                                      max_index=max_index)
+        return paged_attend(q, k, v, cache, i, block_table, max_index,
+                            window=self.sliding_window)
 
     def _row(self, q, k, v, cache, i, max_index):
-        """Write K/V into the row cache (in place) and attend over it.
-
-        ``i`` is an int, or a ``[B]`` tensor with ``max_index`` its
-        deepest row as a host int (None: one sync reads it, and the sweep
-        reads the whole cache)."""
-        ck, cv = cache["cached_key"], cache["cached_value"]
-        b, _, s, _ = q.shape
-        ring, window = self.ring, self.sliding_window
-        cache_len = ck.shape[2]
-        if isinstance(i, torch.Tensor):
-            # Per-row scatter at i[b] + arange(s) (ring rows wrap their
-            # slot; s == 1 there). The indexed axes go first: the update
-            # is [B, s, H_kv, D].
-            rows = torch.arange(b, device=q.device)[:, None]
-            slot = i.long()[:, None] + torch.arange(s, device=q.device)
-            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-            if ring is not None:
-                slot = slot % ring
-            elif ((int(i.max()) if max_index is None else max_index) + s
-                  > cache_len):
-                # A row near the edge (a verify window's lookahead): its
-                # positions past the cache drop, as the JAX scatter drops
-                # them. Selecting the rest takes one sync.
-                keep = slot < cache_len
-                rows, slot = rows.expand(b, s)[keep], slot[keep]
-                kt, vt = kt[keep], vt[keep]
-            ck[rows, :, slot] = kt
-            cv[rows, :, slot] = vt
-            return decode_attention(q, ck, cv, i, window=window,
-                                    rolling=ring is not None,
-                                    max_index=max_index,
-                                    chunk=_sweep_chunk(q, cache_len))
-        if ring is None:
-            if i + s > cache_len:
-                raise ValueError(
-                    f"a {s}-token block at cache_index {i} runs past "
-                    f"the cache's {cache_len} positions")
-            ck[:, :, i:i + s] = k
-            cv[:, :, i:i + s] = v
-            return decode_attention(q, ck, cv, i, window=window,
-                                    chunk=_sweep_chunk(q, cache_len))
-        if s == 1:
-            ck[:, :, i % ring] = k[:, :, 0]
-            cv[:, :, i % ring] = v[:, :, 0]
-            return decode_attention(q, ck, cv, i, window=window,
-                                    rolling=True)
-        # A block on the ring (chunked prefill of a sliding-window model):
-        # it attends to itself through K1 with its LSE and to the history
-        # through the ring as it was BEFORE this block's writes, which may
-        # overwrite in-window slots that its early queries still need.
-        # The two normalized partials merge in logsumexp space; at i == 0
-        # the history lse is ~NEG_INF and its o 0, so it weighs 0.
-        o_blk, lse_blk = flash_attention_lse(q, k, v, causal=True,
-                                             window=window)
-        o_hist, lse_hist = decode_attention(
-            q, ck, cv, i, window=window, rolling=True, history_only=True,
-            return_lse=True, chunk=128)
-        keep = min(s, ring)  # only the last `ring` tokens survive
-        slots = (i + torch.arange(s - keep, s, device=q.device)) % ring
-        ck[:, :, slots] = k[:, :, s - keep:]
-        cv[:, :, slots] = v[:, :, s - keep:]
-        m = torch.maximum(lse_blk, lse_hist)
-        w_blk = torch.exp(lse_blk - m)[..., None]
-        w_hist = torch.exp(lse_hist - m)[..., None]
-        return ((o_blk.float() * w_blk + o_hist.float() * w_hist)
-                / (w_blk + w_hist)).to(q.dtype)
+        return row_attend(q, k, v, cache, i, max_index, ring=self.ring,
+                          window=self.sliding_window)
 
 
 class LlamaBlock(nn.Module):
@@ -474,7 +363,9 @@ class Llama(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.head.lm_head.weight.device
+        # The final norm's scale: 1-D, so never int8 (``ops/quant.py``);
+        # reading a quantized weight would dequantize it.
+        return self.head.ln_final.weight.device
 
     @property
     def uses_ring_cache(self) -> bool:

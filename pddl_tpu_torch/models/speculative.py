@@ -46,6 +46,7 @@ from pddl_tpu_torch.models.gpt import (
     _last_logits,
     decode_cache,
     filtered_logits,
+    load_variables,
     sample_logits,
 )
 
@@ -149,13 +150,13 @@ def generate_speculative(model, prompt, max_new_tokens: int, *,
                          generator: Optional[torch.Generator] = None,
                          draft_len: int = 7, ngram: int = 3,
                          return_stats: bool = False, strategy=None,
-                         param_transform=None):
+                         variables=None, param_transform=None):
     """Speculative generation: equal to ``generate()`` under greedy, its
     distribution under sampling, in fewer forwards (module docstring).
 
     Args:
-      model: a port Llama with a full-length KV cache; it decodes on its
-        own device.
+      model: a port Llama or GPT with a full-length KV cache; it decodes
+        on its own device.
       prompt: int ``[B, P]``, ``P >= 1`` (a tensor or an array).
       max_new_tokens: tokens to append (exactly, as ``generate``).
       temperature / top_k / top_p / generator: ``generate()``'s sampling
@@ -169,7 +170,9 @@ def generate_speculative(model, prompt, max_new_tokens: int, *,
         "tokens_per_tick"}``, counting delivered tokens only.
       strategy: must be None (sharded inference, ROADMAP.md queue 1
         item 7).
-      param_transform: must be None (int8 serving, queue 1 item 3).
+      variables / param_transform: as ``generate``'s
+        (:func:`~pddl_tpu_torch.models.gpt.load_variables`): int8 weights
+        with ``param_transform=dequantize``.
 
     Returns int32 ``[B, P + max_new_tokens]`` on the model's device, or
     ``(tokens, stats)``. The prompt and the token buffer stay on the
@@ -179,10 +182,7 @@ def generate_speculative(model, prompt, max_new_tokens: int, *,
         raise NotImplementedError(
             "generate_speculative(strategy=...) (sharded inference) is "
             + _NOT_PORTED.format("7 (distributed)"))
-    if param_transform is not None:
-        raise NotImplementedError(
-            "generate_speculative(param_transform=...) (int8 serving) is "
-            + _NOT_PORTED.format("3 (engine features)"))
+    model = load_variables(model, variables, param_transform)
     dev = model.device
     prompt = torch.as_tensor(prompt).to(dev, torch.int32)
     b, p = prompt.shape

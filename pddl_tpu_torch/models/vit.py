@@ -1,9 +1,39 @@
-"""Block rematerialization for the transformer families (the port of the
-remat helpers of :mod:`pddl_tpu.models.vit`).
+"""The transformer blocks shared by the GPT and ViT families, the Vision
+Transformer itself, and block rematerialization (the port of
+:mod:`pddl_tpu.models.vit`).
 
-Only :data:`REMAT_POLICIES` and :func:`remat_block` live here so far; the
-ViT itself comes with ROADMAP.md queue 1 item 4. The policies trade
-FLOPs for device memory, so longer sequences and deeper stacks fit:
+:class:`MultiHeadAttention` and :class:`TransformerBlock` are the flax
+modules' twins: pre-LayerNorm (f32 statistics by flax's fast variance,
+:class:`~pddl_tpu_torch.models.layers.LayerNorm`), biased ``query``,
+``key``, ``value`` and ``out`` linears (the JAX ``query`` kernel is
+``[E, H, D]`` and its bias ``[H, D]``; here ``[H·D, E]`` and ``[H·D]``),
+and a two-layer MLP through flax's ``nn.gelu``, whose default is the tanh
+approximation (``F.gelu(approximate="tanh")``, not torch's default).
+Dropout runs only when ``dropout > 0`` on the training forward (no cache,
+``train`` true, the module in training mode), from torch's global
+generator. Attention takes three paths, chosen by the cache passed:
+
+- no cache: :func:`~pddl_tpu_torch.ops.attention.flash_attention` with
+  ``causal`` (``attention="flash"``: K1, and K2 under a gradient, on the
+  card) or :func:`~pddl_tpu_torch.ops.attention.attention_reference`;
+- a row cache plus ``cache_index``: the block's K/V written at its
+  positions, attention through the plain ``decode_attention``
+  (:func:`~pddl_tpu_torch.models.layers.row_attend`);
+- a paged pool plus ``cache_index`` and ``block_table``:
+  ``paged_cache_insert`` and ``paged_decode_attention``, K4 on the card
+  for single-token steps (:func:`~pddl_tpu_torch.models.layers.paged_attend`).
+
+:class:`ViT` takes NHWC images ``[B, H, W, C]``, the layout of the port's
+ResNet and its data: a stride-``p`` patch embed (a conv, computed as one
+product over the flattened patches), ``pos_embed [1, (H/p)(W/p), E]``,
+non-causal blocks, then the head: LayerNorm (flax's default eps 1e-6),
+the mean over tokens and the classifier, f32 logits. Not ported yet (each
+raises ``NotImplementedError``): Switch-MoE blocks (``moe_experts > 0``,
+ROADMAP.md queue 1 item 5), ring / sequence-parallel attention and
+``mesh`` (item 7), and ``GPipeViT`` (item 7).
+
+The remat policies trade FLOPs for device memory, so longer sequences
+and deeper stacks fit:
 
 - ``none``: store every activation (fastest, most memory);
 - ``dots``: save the matmul outputs, recompute the rest of the block in
@@ -22,15 +52,28 @@ ops, so their forward runs again in the backward.
 from __future__ import annotations
 
 import functools
-from typing import Type
+import math
+from typing import Dict, Optional, Type, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
 )
+
+from pddl_tpu_torch.device import resolve_device
+from pddl_tpu_torch.models.layers import (
+    LayerNorm,
+    linear,
+    paged_attend,
+    row_attend,
+)
+from pddl_tpu_torch.ops.attention import attention_reference, flash_attention
+
+_NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
 
 _DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
                    torch.ops.aten.bmm.default})
@@ -78,3 +121,265 @@ def remat_block(block_cls: Type[nn.Module], remat: str) -> Type[nn.Module]:
 
     Remat.__name__ = Remat.__qualname__ = f"Remat{block_cls.__name__}"
     return Remat
+
+
+def check_unported(*, attention: str, mesh, moe_experts: int) -> None:
+    """Refuse the options of the GPT and ViT families that are not ported
+    yet, each naming its ROADMAP.md item."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh (sharded attention) is " + _NOT_PORTED.format(
+                "7 (distributed)"))
+    if attention in ("ring", "ring_flash"):
+        raise NotImplementedError(
+            f"attention={attention!r} (sequence parallelism) is "
+            + _NOT_PORTED.format("7 (distributed)"))
+    if attention not in ("flash", "reference"):
+        raise ValueError(f"unknown attention {attention!r}")
+    if moe_experts:
+        raise NotImplementedError(
+            "moe_experts > 0 (Switch-MoE blocks) is "
+            + _NOT_PORTED.format("5 (ops/moe.py)"))
+
+
+class MultiHeadAttention(nn.Module):
+    """MHA over the port's attention ops (``[B, S, E]`` in and out; module
+    docstring). ``jax_shapes`` names the parameters whose JAX shape has
+    another rank: the q/k/v biases, DenseGeneral ``[H, D]`` there."""
+
+    def __init__(self, embed_dim: int, num_heads: int, *,
+                 attention: str = "flash", causal: bool = False,
+                 dtype=torch.float32, param_dtype=None, device=None):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(
+                f"embed dim {embed_dim} not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.attention = attention
+        self.causal = causal
+        self.dtype = dtype
+        lin = functools.partial(linear, bias=True, dtype=dtype,
+                                param_dtype=param_dtype or dtype,
+                                device=device)
+        self.query = lin(embed_dim, embed_dim)
+        self.key = lin(embed_dim, embed_dim)
+        self.value = lin(embed_dim, embed_dim)
+        self.out = lin(embed_dim, embed_dim)
+        hd = (num_heads, self.head_dim)
+        self.jax_shapes = {"query.bias": hd, "key.bias": hd,
+                           "value.bias": hd}
+
+    def forward(self, x: torch.Tensor, *,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_index: Union[int, torch.Tensor, None] = None,
+                block_table: Optional[torch.Tensor] = None,
+                max_index: Optional[int] = None) -> torch.Tensor:
+        b, s, e = x.shape
+        h, hd = self.num_heads, self.head_dim
+        q, k, v = (lin(x).view(b, s, h, hd).transpose(1, 2)
+                   for lin in (self.query, self.key, self.value))
+        if cache is None:
+            attend = (flash_attention if self.attention == "flash"
+                      else attention_reference)
+            o = attend(q, k, v, causal=self.causal)
+        else:
+            if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
+                i = cache_index.to(x.device)
+            else:
+                i = max_index = int(cache_index)
+            k, v = k.to(self.dtype), v.to(self.dtype)
+            if block_table is not None:
+                o = paged_attend(q, k, v, cache, i, block_table, max_index)
+            else:
+                o = row_attend(q, k, v, cache, i, max_index)
+        return self.out(o.transpose(1, 2).reshape(b, s, e))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN residual block: LayerNorm → attention → (dropout) → residual,
+    LayerNorm → ``mlp1`` → tanh GELU → ``mlp2`` → (dropout) → residual.
+    ``train`` is positional (as in the JAX block, and so the remat
+    wrapper passes it through); the cache keywords go to the attention."""
+
+    def __init__(self, embed_dim: int, num_heads: int, *, mlp_ratio: int = 4,
+                 attention: str = "flash", causal: bool = False,
+                 dropout: float = 0.0, ln_eps: float = 1e-6,
+                 dtype=torch.float32, param_dtype=None, device=None):
+        super().__init__()
+        param_dtype = param_dtype or dtype
+        self.dtype = dtype
+        self.ln1 = LayerNorm(embed_dim, ln_eps, param_dtype, device)
+        self.attn = MultiHeadAttention(
+            embed_dim, num_heads, attention=attention, causal=causal,
+            dtype=dtype, param_dtype=param_dtype, device=device)
+        self.ln2 = LayerNorm(embed_dim, ln_eps, param_dtype, device)
+        lin = functools.partial(linear, bias=True, dtype=dtype,
+                                param_dtype=param_dtype, device=device)
+        self.mlp1 = lin(embed_dim, embed_dim * mlp_ratio)
+        self.mlp2 = lin(embed_dim * mlp_ratio, embed_dim)
+        self.drop = nn.Dropout(dropout) if dropout else None
+
+    def _dropout(self, h, train: bool, cached: bool):
+        if self.drop is None or not train or cached or not self.training:
+            return h
+        return self.drop(h)
+
+    def forward(self, x, train: bool = True, **cache_kw):
+        cached = bool(cache_kw)
+        h = self.attn(self.ln1(x).to(self.dtype), **cache_kw)
+        x = x + self._dropout(h, train, cached)
+        h = self.mlp1(self.ln2(x).to(self.dtype))
+        h = self.mlp2(F.gelu(h, approximate="tanh"))
+        return x + self._dropout(h, train, cached)
+
+
+def init_transformer_weights(model: nn.Module, seed: int) -> None:
+    """Draw a GPT's or ViT's weights from a generator seeded with ``seed``:
+    every product's weight normal with std ``fan_in ** -0.5`` (the token
+    embedding's fan-in is its width), ``pos_embed`` normal with std 0.02
+    (flax's initializer), biases 0 and LayerNorm scales 1."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            owner = model.get_submodule(name.rsplit(".", 1)[0]) \
+                if "." in name else model
+            if isinstance(owner, LayerNorm):
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("pos_embed"):
+                p.normal_(0.0, 0.02, generator=gen)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                fan_in = p[0].numel()
+                p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
+
+
+class _ViTEmbed(nn.Module):
+    """Patch embed + positional embedding. The stride-``p`` VALID conv is
+    one product of the flattened ``(p, p, C)`` patches with the kernel,
+    stored torch-style ``[E, C, p, p]``."""
+
+    def __init__(self, image_size: int, patch_size: int, channels: int,
+                 embed_dim: int, dtype, param_dtype, device):
+        super().__init__()
+        self.patch_size = patch_size
+        self.dtype = dtype
+        self.patch_embed = nn.Conv2d(channels, embed_dim, patch_size,
+                                     stride=patch_size, dtype=param_dtype,
+                                     device=device)
+        grid = image_size // patch_size
+        self.pos_embed = nn.Parameter(torch.zeros(
+            1, grid * grid, embed_dim, dtype=param_dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, hh, ww, c = x.shape
+        p = self.patch_size
+        if hh % p or ww % p:
+            raise ValueError(f"image {hh}x{ww} not divisible by patch {p}")
+        gh, gw = hh // p, ww // p
+        if gh * gw != self.pos_embed.shape[1]:
+            raise ValueError(
+                f"image {hh}x{ww} gives {gh * gw} patches; pos_embed holds "
+                f"{self.pos_embed.shape[1]}")
+        dt = self.dtype
+        patches = (x.to(dt).reshape(b, gh, p, gw, p, c)
+                   .permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * c))
+        conv = self.patch_embed
+        kernel = conv.weight.permute(0, 2, 3, 1).reshape(conv.out_channels, -1)
+        x = F.linear(patches, kernel.to(dt), conv.bias.to(dt))
+        return x + self.pos_embed.to(dt)
+
+
+class _ViTHead(nn.Module):
+    """Final LayerNorm (flax's default eps 1e-6) → mean over tokens →
+    classifier, f32 logits (the pooled features with ``num_classes=0``)."""
+
+    def __init__(self, embed_dim: int, num_classes: int, dtype, param_dtype,
+                 device):
+        super().__init__()
+        self.dtype = dtype
+        self.ln_final = LayerNorm(embed_dim, 1e-6, param_dtype, device)
+        self.head = (linear(embed_dim, num_classes, bias=True, dtype=dtype,
+                            param_dtype=param_dtype, device=device)
+                     if num_classes else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ln_final(x).mean(dim=1)
+        if self.head is not None:
+            x = self.head(x.to(self.dtype))
+        return x.float()
+
+
+class ViT(nn.Module):
+    """Vision Transformer: NHWC images ``[B, H, W, C]`` → f32 logits
+    ``[B, num_classes]`` (module docstring). ``image_size`` and
+    ``channels`` size the patch grid and the patch embed, which flax
+    infers at ``init``. Weights come from :func:`init_transformer_weights`
+    on ``device`` (``None`` means ``cuda``)."""
+
+    def __init__(self, patch_size: int = 16, embed_dim: int = 384,
+                 depth: int = 12, num_heads: int = 6,
+                 num_classes: int = 1000, mlp_ratio: int = 4,
+                 attention: str = "flash", mesh=None, dropout: float = 0.0,
+                 moe_experts: int = 0, moe_top_k: int = 1,
+                 moe_every: int = 2, remat: str = "none",
+                 image_size: int = 224, channels: int = 3,
+                 dtype=torch.float32, param_dtype=None, device=None,
+                 seed: int = 0):
+        super().__init__()
+        check_unported(attention=attention, mesh=mesh,
+                       moe_experts=moe_experts)
+        device = resolve_device(device)
+        param_dtype = param_dtype or dtype
+        self.patch_size = patch_size
+        self.embed_dim = embed_dim
+        self.depth = depth
+        self.num_heads = num_heads
+        self.num_classes = num_classes
+        self.attention = attention
+        self.remat = remat
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.stem = _ViTEmbed(image_size, patch_size, channels, embed_dim,
+                              dtype, param_dtype, device)
+        block_cls = remat_block(TransformerBlock, remat)
+        self.blocks = nn.ModuleList(
+            block_cls(embed_dim, num_heads, mlp_ratio=mlp_ratio,
+                      attention=attention, dropout=dropout, dtype=dtype,
+                      param_dtype=param_dtype, device=device)
+            for _ in range(depth))
+        self.head = _ViTHead(embed_dim, num_classes, dtype, param_dtype,
+                             device)
+        self.init_weights(seed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.head.ln_final.weight.device
+
+    def init_weights(self, seed: int) -> None:
+        """Redraw every weight from a generator seeded with ``seed``."""
+        init_transformer_weights(self, seed)
+
+    def forward(self, x: torch.Tensor, *, train: bool = True) -> torch.Tensor:
+        x = self.stem(x)
+        for block in self.blocks:
+            x = block(x, train)
+        return self.head(x)
+
+
+ViT_S16 = functools.partial(ViT, patch_size=16, embed_dim=384, depth=12,
+                            num_heads=6)
+ViT_B16 = functools.partial(ViT, patch_size=16, embed_dim=768, depth=12,
+                            num_heads=12)
+
+
+def tiny_vit(num_classes: int = 10, **kwargs) -> ViT:
+    """Miniature ViT for tests (8x8 patches on 32px inputs)."""
+    kwargs.setdefault("patch_size", 8)
+    kwargs.setdefault("embed_dim", 32)
+    kwargs.setdefault("depth", 2)
+    kwargs.setdefault("num_heads", 4)
+    kwargs.setdefault("attention", "reference")
+    kwargs.setdefault("image_size", 32)
+    return ViT(num_classes=num_classes, **kwargs)

@@ -31,6 +31,7 @@ import copy
 
 import numpy as np
 import torch
+from torch.nn.utils import parametrize
 
 # The reserved identity pool row (all-zero factors = base model); the
 # host-side adapter pool never assigns it.
@@ -78,13 +79,18 @@ def adapter_pool_load(pool_a: torch.Tensor, pool_b: torch.Tensor, row: int,
 
 @torch.no_grad()
 def merge_lora_into_head(model, a, b):
-    """TEST ORACLE: a copy of the port ``Llama`` ``model`` with one adapter
-    folded into its LM head (``W' = W + A @ B``, scale already folded into
-    ``b`` as the pool stores it). The port's head weight is ``[V_pad, d]``
-    (``nn.Linear``'s ``[out, in]``), the transpose of the JAX
-    ``lm_head.kernel [d, V_pad]``, so ``(A @ B)^T`` lands on its first
-    ``V`` rows. The batched pooled apply must be token-exact against
-    ``generate()`` over the merged copy."""
+    """TEST ORACLE: a copy of the port ``model`` (a Llama, or a GPT, whose
+    head's bias stays as it is) with one adapter folded into its LM head
+    (``W' = W + A @ B``, scale already folded into ``b`` as the pool
+    stores it). The port's head weight is ``[V_pad, d]`` (``nn.Linear``'s
+    ``[out, in]``), the transpose of the JAX ``lm_head.kernel [d, V_pad]``,
+    so ``(A @ B)^T`` lands on its first ``V`` rows. The batched pooled
+    apply must be token-exact against ``generate()`` over the merged
+    copy. The head must be dense: merge into the dequantized weights of
+    an int8 model."""
+    if parametrize.is_parametrized(model.head.lm_head, "weight"):
+        raise ValueError("merge_lora_into_head needs a dense LM head; "
+                         "install the dequantized weights first")
     merged = copy.deepcopy(model)
     weight = merged.head.lm_head.weight
     dt = weight.dtype

@@ -32,12 +32,13 @@ appended before a slot writes across a block boundary, and each layer
 attends through the table — on the card the hand-written paged-decode
 kernel (``ops/csrc/paged_decode.cu``).
 
-Token-exactness of shared blocks is structural: Llama caches post-RoPE
-keys at their absolute positions, so a block computed by one request is
-bit-valid for every request with the same prompt tokens. A model whose
-decode needs a rolling ring cache (``Llama.uses_ring_cache``) is
-refused in both modes, as the JAX engine refuses it; it decodes through
-``models/gpt.generate``.
+Token-exactness of shared blocks is structural: both families' caches
+are position-absolute (Llama caches post-RoPE keys; GPT adds its
+position embeddings before the blocks), so a block computed by one
+request is bit-valid for every request with the same prompt tokens. A
+model whose decode needs a rolling ring cache (``Llama.uses_ring_cache``)
+is refused in both modes, as the JAX engine refuses it; it decodes
+through ``models/gpt.generate``.
 
 Speculative serving (``spec_k > 0``, both modes): the tick becomes a
 DRAFT/VERIFY window. Each step proposes ``spec_k`` tokens per slot — the
@@ -75,10 +76,19 @@ per-position masks ``[S, spec_k+1, V]`` for the verify and caps its
 acceptance at the legal prefix. A slot with no adapter and no constraint
 is bitwise the base model.
 
+int8 serving composes as in the JAX engine: ``ServeEngine(model,
+{"params": quantize_int8(model)}, param_transform=dequantize)`` serves
+a copy of the model holding the int8 weights (``ops/quant.with_params``;
+the caller's model keeps its own, so drop it to free them), each
+dequantized at its product in every forward — the prefill chunks, the
+tick, the verify and the tenant tick's head outside the module — so
+int8 is what the card holds; the pool stores K/V, which weight storage
+never touches. A draft model's ``spec_draft_variables`` load as given,
+with no transform, as the JAX engine applies none to them.
+
 PyTorch runs eagerly, so the JAX engine's fixed compiled-program set
 (and its ``compile_counts`` pin) has no counterpart here. Not ported yet
 — each raises ``NotImplementedError`` naming its ROADMAP.md item:
-int8 serving (``param_transform``),
 the host KV tier (``host_tier``), fault injection and replay
 (``fault_plan``, its retry and replay knobs, ``preempt_cap > 0``, and
 with it a speculative replay's forced re-feeds), sliced prefill
@@ -100,6 +110,7 @@ from pddl_tpu_torch.models.gpt import (
     _last_logits,
     decode_cache,
     insert_cache_slot,
+    load_variables,
     prefill_row_features,
     sample_logits_batched,
     slot_decode_cache,
@@ -147,11 +158,13 @@ class ServeEngine:
     """Online multiplexer of generate requests onto one fused decode tick.
 
     Args:
-      model: a port Llama (``pddl_tpu_torch.models.llama``); it is moved
-        to ``device`` in place.
-      variables: accepted for the JAX signature at ``None`` only: the
-        port's model carries its weights (anything else raises, naming
-        the fleet's ROADMAP.md item).
+      model: a port Llama or GPT (``pddl_tpu_torch.models``); it is
+        moved to ``device`` in place.
+      variables: ``None`` serves the model's own weights; ``{"params":
+        tree}`` serves a copy of the model holding the tree (dense, or
+        the int8 tree of ``ops/quant.quantize_int8`` with
+        ``param_transform``: ``models/gpt.load_variables``), leaving
+        ``model``'s own weights as they were.
       device: where the engine runs — ``None`` means ``cuda`` (raises on
         a host without a card), ``"cpu"`` runs the plain PyTorch paths.
       max_slots: batch slots ``S`` — the max concurrent requests in one
@@ -182,20 +195,24 @@ class ServeEngine:
         drafts per greedy slot per step, checked in one ``[S, spec_k+1]``
         verify forward; 0 (default) keeps the one-token tick.
       spec_ngram: the n-gram drafter's key length.
-      spec_draft_model: a port Llama that drafts in place of the n-gram
-        lookup (``paged=True`` only; the same vocabulary, ``max_len`` at
-        least the target's, no ring cache); it is moved to ``device``.
-      spec_draft_variables: accepted at ``None`` only, as ``variables``
-        is: the port's draft model carries its weights.
+      spec_draft_model: a port Llama or GPT that drafts in place of the
+        n-gram lookup (``paged=True`` only; the same vocabulary,
+        ``max_len`` at least the target's, no ring cache); it is moved to
+        ``device``.
+      spec_draft_variables: ``None`` keeps the draft model's weights;
+        ``{"params": tree}`` drafts from a copy of it holding a dense
+        tree, untransformed (``param_transform`` is the target's, as in
+        the JAX engine).
       tenant: a :class:`~pddl_tpu_torch.serve.tenant.TenantConfig` turns
         on multi-tenant serving (module docstring): per-request LoRA
         adapters and grammar constraints. ``None`` (default) serves the
         base model only, and ``submit``'s ``adapter``/``constraint`` are
         refused.
-      prefill_slice_tokens / param_transform / host_tier / fault_plan /
-      max_retries / retry_backoff_s / backoff_sleep / max_replays /
-      degraded_cooldown_s / tracer: not ported; anything but the JAX
-      engine's defaults raises.
+      param_transform: applied to each int8 leaf of ``variables`` at
+        each use (``ops/quant.dequantize``).
+      prefill_slice_tokens / host_tier / fault_plan / max_retries /
+      retry_backoff_s / backoff_sleep / max_replays / degraded_cooldown_s /
+      tracer: not ported; anything but the JAX engine's defaults raises.
 
     A model with :attr:`~pddl_tpu_torch.models.llama.Llama.uses_ring_cache`
     set is refused, as the JAX engine refuses it.
@@ -229,11 +246,6 @@ class ServeEngine:
                  spec_ngram: int = 3, spec_draft_model=None,
                  spec_draft_variables=None, tracer=None,
                  telemetry_capacity: int = 512):
-        if variables is not None:
-            # The port's model carries its weights; the JAX engine takes
-            # them apart, and its fleet workers pass them so.
-            raise _not_ported("a separate variables tree",
-                              "ROADMAP.md queue 1 item 8 (the fleet)")
         if getattr(model, "uses_ring_cache", False):
             raise NotImplementedError(
                 "the serving engine needs full-length KV caches; "
@@ -241,7 +253,6 @@ class ServeEngine:
                 "rolling ring cache whose slot reuse is not supported yet")
         for what, given in (("prefill_slice_tokens",
                              prefill_slice_tokens is not None),
-                            ("param_transform", param_transform is not None),
                             ("host_tier", host_tier is not None),
                             ("fault_plan", fault_plan is not None),
                             ("max_retries", max_retries != 3),
@@ -257,7 +268,8 @@ class ServeEngine:
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.model = load_variables(model.to(self.device), variables,
+                                    param_transform)
         self.max_slots = int(max_slots)
         self.prefill_len = int(prefill_len if prefill_len is not None
                                else model.max_len // 2)
@@ -391,10 +403,9 @@ class ServeEngine:
         self._spec_ngram = int(spec_ngram)
         self._draft_on = spec_draft_model is not None
         self._draft = self._dcache = None
-        if spec_draft_variables is not None:
-            raise _not_ported("a separate spec_draft_variables tree (the "
-                              "port's draft model carries its weights)",
-                              "ROADMAP.md queue 1 item 8 (the fleet)")
+        if spec_draft_variables is not None and not self._draft_on:
+            raise ValueError(
+                "spec_draft_variables without spec_draft_model")
         if self._spec_on:
             if self._spec_ngram < 1:
                 raise ValueError(
@@ -427,7 +438,9 @@ class ServeEngine:
                 "draft models with rolling ring caches are not "
                 "supported (same slot-reuse constraint as the "
                 "target)")
-        self._draft = spec_draft_model.to(self.device)
+        self._draft = load_variables(spec_draft_model.to(self.device),
+                                     spec_draft_variables,
+                                     role="spec_draft_variables")
 
     def _init_tenant(self, model, tenant) -> None:
         """The multi-tenant state, checked as the JAX engine checks it (in

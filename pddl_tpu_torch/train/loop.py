@@ -105,8 +105,8 @@ class Trainer:
         _refuse(options, _UNPORTED)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.optimizer = make_optimizer(model.parameters(), optimizer,
-                                        learning_rate)
+        # The model itself, so the decay mask reads the JAX leaves' ranks.
+        self.optimizer = make_optimizer(model, optimizer, learning_rate)
         self.loss_fn = metrics_lib.resolve_loss(loss)
         self.metric_fns = dict(metrics_lib.resolve_metric(m) for m in metrics)
         self.seed = seed

@@ -18,7 +18,7 @@ weights and the same seeded numpy prompts.
   per-row `[B]` index and a single-token ring step) against the JAX
   decode module's cache;
 - the argument checks, with the JAX function's messages, and the
-  refusals of `strategy=` and `param_transform=`;
+  the refusal of `strategy=`, and `param_transform=` over `variables=`;
 - sampled tokens lie in their filter (`top_k`, `top_p`), `top_k=1`
   equals greedy, and one seed gives one stream.
 """
@@ -216,7 +216,19 @@ def test_argument_errors_match_jax(kw, match):
     (dict(param_transform=lambda p: p), "queue 1 item 3"),
 ])
 def test_unported_options_are_refused(kw, item):
+    """``strategy`` is still refused. ``param_transform`` (queue 1 item 3,
+    int8 serving) is ported: it transforms the ``variables`` passed with
+    it — an identity over the model's own weights decodes as ``generate``
+    does — and alone it raises, having nothing to transform."""
     _, _, tm = _pair(max_len=64)
+    if "param_transform" in kw:
+        want = generate(tm, _prompt(1, 5), 4)
+        got = generate(tm, _prompt(1, 5), 4,
+                       variables={"params": tm.state_dict()}, **kw)
+        assert torch.equal(got, want)
+        with pytest.raises(ValueError, match="param_transform transforms"):
+            generate(tm, _prompt(1, 5), 4, **kw)
+        return
     with pytest.raises(NotImplementedError, match=item):
         generate(tm, _prompt(1, 5), 4, **kw)
 

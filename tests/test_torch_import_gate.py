@@ -27,7 +27,9 @@ def _port_modules():
 def test_importing_every_port_module_leaves_jax_out():
     mods = list(_port_modules())
     for mod in ("serve.engine", "serve.tenant", "serve.tenant.adapters",
-                "serve.tenant.grammar", "ops.lora"):
+                "serve.tenant.grammar", "ops.lora", "ops.quant",
+                "models.gpt", "models.vit", "models.layers",
+                "train.optimizers"):
         assert "pddl_tpu_torch." + mod in mods
     code = (
         "import importlib, sys\n"

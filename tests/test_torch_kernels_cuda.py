@@ -44,6 +44,9 @@ SHAPES = {
     "rep8": (4, 32, 4, 64, 16, 64, [1, 127, 128, 1023]),
     "d256_bs64": (2, 8, 2, 256, 64, 16, [63, 1023]),
     "long_row": (1, 32, 8, 64, 16, 256, [4095]),
+    # GPT-2-small's paged tick: MHA (rep 1), 12 heads.
+    "gpt_tick": (8, 12, 12, 64, 16, 64, [0, 7, 16, 100, 391, 512, 777,
+                                         1023]),
 }
 
 
@@ -148,6 +151,10 @@ FLASH = {
     "window6": (2, 8, 2, 300, 300, 64, torch.bfloat16, True, 6, 0),
     "sk257": (2, 8, 2, 257, 257, 64, torch.bfloat16, True, None, 0),
     "sk257_window12": (2, 8, 2, 257, 257, 64, torch.bfloat16, True, 12, 0),
+    # The GPT-2-small train step (MHA, causal) and ViT-S/16's (non-causal,
+    # 196 patches).
+    "gpt_train": (8, 12, 12, 1024, 1024, 64, torch.bfloat16, True, None, 0),
+    "vit_s16": (256, 6, 6, 196, 196, 64, torch.bfloat16, False, None, 0),
 }
 
 
@@ -558,3 +565,70 @@ def test_tenant_engine_on_the_card_matches_the_cpu(mode, spec_k):
     want = card.depth * ticks if mode == "paged" and not spec_k else 0
     assert launches["paged_decode"] == want
     assert sum(launches.values()) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["row", "paged", "int8_paged"])
+def test_gpt_engine_on_the_card_matches_the_cpu(mode):
+    """``ServeEngine`` on a tiny f32 GPT (width 64, 4 heads, depth 2,
+    ``max_len`` 64), both modes and int8 weights
+    (``quantize_int8(min_elems=1024)``, ``param_transform=dequantize``):
+    the card's streams equal the CPU twin's; the paged engine runs K4 once
+    a layer a tick (``depth x ticks``), at rep 1; the row engine none."""
+    from pddl_tpu_torch.models.gpt import tiny_gpt
+    from pddl_tpu_torch.ops.quant import dequantize, quantize_int8
+    from pddl_tpu_torch.serve.engine import ServeEngine
+
+    dev = _card()
+    kw = dict(vocab_size=64, max_len=64, embed_dim=64)
+    cpu = tiny_gpt(device="cpu", **kw)
+    card = tiny_gpt(device=dev, **kw)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, 64, (n,), generator=gen).tolist()
+               for n in (12, 9, 20)]
+    out = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        ekw = dict(max_slots=3, prefill_len=24, prefix_block_size=4,
+                   paged=mode != "row")
+        if mode == "int8_paged":
+            ekw.update(variables={"params": quantize_int8(
+                model, min_elems=1024)}, param_transform=dequantize)
+        eng = ServeEngine(model, device=model.device, **ekw)
+        handles = [eng.submit(p, 16) for p in prompts]
+        _kernels.reset_launch_counts()
+        eng.run()
+        if name == "cuda":
+            torch.cuda.synchronize()
+        ticks = sum(1 for r in eng.telemetry.snapshot()
+                    if r["live_slots"] > 0)
+        out[name] = ([h.tokens for h in handles],
+                     dict(_kernels.launch_counts), ticks)
+    assert out["cuda"][0] == out["cpu"][0]
+    launches, ticks = out["cuda"][1], out["cuda"][2]
+    want = card.depth * ticks if mode != "row" else 0
+    assert launches["paged_decode"] == want
+    assert sum(launches.values()) == want
+
+
+@pytest.mark.cuda
+def test_quantize_int8_on_the_card_equals_the_cpu():
+    """``quantize_int8`` on the card gives the CPU's ``qvalue`` and scales
+    bit for bit (IEEE division for the scale, as in the JAX package), and
+    ``dequantize`` the CPU's dense weights."""
+    from pddl_tpu_torch.models.gpt import tiny_gpt
+    from pddl_tpu_torch.ops.quant import dequantize, quantize_int8
+
+    dev = _card()
+    cpu = tiny_gpt(vocab_size=512, max_len=64, embed_dim=128, device="cpu")
+    card = tiny_gpt(vocab_size=512, max_len=64, embed_dim=128, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    qc, qg = (quantize_int8(m, min_elems=64) for m in (cpu, card))
+    leaves = [k for k, v in qc.items() if isinstance(v, dict)]
+    assert len(leaves) > 13  # the [H, D] q/k/v biases too
+    for k in leaves:
+        for f in ("qvalue", "scale"):
+            assert torch.equal(qg[k][f].cpu(), qc[k][f]), (k, f)
+    dc, dg = dequantize(qc), dequantize(qg)
+    for k in qc:
+        assert torch.equal(dg[k].cpu(), dc[k]), k

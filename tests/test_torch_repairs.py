@@ -21,9 +21,11 @@ right error, held against the JAX package on the CPU.
 - Every other option of the JAX signatures that the port lacks is
   accepted at the JAX default and raises `NotImplementedError` naming its
   ROADMAP.md item for any other value (the `Llama`'s `moe_*` options and
-  `mesh`, and `ServeEngine`'s second positional `variables`, among them);
-  `submit`'s `adapter` and `constraint`, ported with tenancy, raise the
-  JAX engine's `ValueError` on an engine without a `TenantConfig`;
+  `mesh` among them); `submit`'s `adapter` and `constraint`, ported with
+  tenancy, raise the JAX engine's `ValueError` on an engine without a
+  `TenantConfig`; `ServeEngine`'s `variables`, `param_transform` and
+  `spec_draft_variables`, ported with int8 serving, load or transform
+  the weights passed;
   `paged_decode_attention` accepts and ignores `blocks_per_chunk`, and
   the four attention entry points the Pallas `interpret` switch.
 - `attention_reference(k_offset=)` gives the JAX twin's output within
@@ -241,6 +243,9 @@ SWEEP = [
 ]
 # Ported since the sweep was written: checked against the JAX engine.
 TENANCY = {("submit", "adapter"), ("submit", "constraint")}
+# Ported since too (int8 serving): each transforms or loads the weights
+# passed with it, and raises the JAX engine's error without them.
+WEIGHTS = {("engine", "param_transform"), ("engine", "spec_draft_variables")}
 JAX_FN = {"trainer": JaxTrainer.__init__, "fit": JaxTrainer.fit,
           "engine": JaxServeEngine.__init__, "submit": JaxServeEngine.submit,
           "model": JaxLlama}
@@ -289,8 +294,45 @@ def test_unported_option_takes_the_jax_default_and_refuses_others(
             errors.append(str(info.value))
         assert errors[0] == errors[1]
         return
+    if (where, name) in WEIGHTS:
+        _check_ported_weights(name, other)
+        return
     with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
         _call(where, **{name: other})
+
+
+def _check_ported_weights(name, other):
+    """``param_transform`` applies to the ``variables`` passed with it (an
+    identity over the model's own weights serves as the plain engine
+    does) and alone raises; ``spec_draft_variables`` without a draft model
+    raises the JAX engine's ``ValueError`` in both packages."""
+    model = tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu")
+    kw = dict(device="cpu", max_slots=2, prefill_len=16)
+    if name == "param_transform":
+        with pytest.raises(ValueError, match="param_transform transforms"):
+            _call("engine", param_transform=other)
+        streams = []
+        for extra in ({}, dict(param_transform=other)):
+            eng = ServeEngine(model, {"params": model.state_dict()}, **kw,
+                              **extra)
+            handle = eng.submit([1, 2, 3], 4)
+            eng.run(max_steps=20)
+            streams.append(handle.tokens)
+        assert streams[0] == streams[1]
+        return
+    jm = jax_tiny_llama(vocab_size=VOCAB, max_len=64)
+    params = jm.init(jax.random.key(0), jnp.ones((1, 4), jnp.int32),
+                     train=False)["params"]
+    errors = []
+    for call in (lambda: JaxServeEngine(jm, {"params": params}, max_slots=2,
+                                        prefill_len=16,
+                                        spec_draft_variables=other),
+                 lambda: _call("engine", spec_draft_variables=other)):
+        with pytest.raises(ValueError,
+                           match="without spec_draft_model") as info:
+            call()
+        errors.append(str(info.value))
+    assert errors[0] == errors[1]
 
 
 def test_jax_defaults_of_the_sweep():
@@ -317,15 +359,35 @@ def test_paged_decode_ignores_blocks_per_chunk():
 
 
 def test_engine_takes_the_jax_second_positional_variables_at_none():
+    """``None`` serves the model's own weights. A tree, once refused
+    (queue 1 item 8), now loads for the engine: its own ``state_dict``
+    serves the same tokens, another model's weights that model's stream
+    while the given model keeps its own, and a tree that is not the
+    model's raises."""
     params = list(inspect.signature(JaxServeEngine.__init__).parameters)
     assert params[:3] == ["self", "model", "variables"]
     model = tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu")
-    eng = ServeEngine(model, None, device="cpu", max_slots=2,
-                      prefill_len=16)
-    assert eng.submit([1, 2, 3], 2) is not None
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 8"):
-        ServeEngine(model, {"params": {}}, device="cpu", max_slots=2,
-                    prefill_len=16)
+    kw = dict(device="cpu", max_slots=2, prefill_len=16)
+    streams = []
+    for variables in (None, {"params": model.state_dict()}):
+        eng = ServeEngine(model, variables, **kw)
+        handle = eng.submit([1, 2, 3], 6)
+        eng.run(max_steps=20)
+        streams.append(handle.tokens)
+    assert streams[0] == streams[1]
+    other = tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu", seed=4)
+    own = model.head.lm_head.weight.clone()
+    want = []
+    for eng in (ServeEngine(model, {"params": other.state_dict()}, **kw),
+                ServeEngine(other, **kw)):
+        handle = eng.submit([1, 2, 3], 6)
+        eng.run(max_steps=20)
+        want.append(handle.tokens)
+    assert want[0] == want[1]
+    torch.testing.assert_close(model.head.lm_head.weight, own, rtol=0,
+                               atol=0)
+    with pytest.raises(ValueError, match="do not match"):
+        ServeEngine(model, {"params": {}}, **kw)
 
 
 def _qkv(seed, h=4, hkv=2, s=12, d=8, dtype=torch.float32):

@@ -15,8 +15,12 @@ norm and head as a depth-1 Llama: the self-draft `chip_smoke.py` uses).
   greedy, a sampled row stays in its filter, one seed gives one stream.
 - The configuration errors of the JAX engine, in its words, and the
   options still refused, each naming its ROADMAP.md item (tenancy, now
-  ported, is held against the JAX engine there instead).
+  ported, is held against the JAX engine there instead; int8 weights
+  through `param_transform` and `spec_draft_variables`, ported too, are
+  held to what they do).
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -30,8 +34,9 @@ from pddl_tpu.serve import ServeEngine as JaxServeEngine
 from pddl_tpu.serve.request import SamplingParams as JaxSamplingParams
 from pddl_tpu.serve.tenant import TenantConfig as JaxTenantConfig
 from pddl_tpu_torch.bridge import llama_params_from_jax
-from pddl_tpu_torch.models.gpt import filtered_logits
+from pddl_tpu_torch.models.gpt import filtered_logits, generate
 from pddl_tpu_torch.models.llama import tiny_llama
+from pddl_tpu_torch.ops.quant import dequantize, install_params, quantize_int8
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.request import FinishReason, SamplingParams
 from pddl_tpu_torch.serve.tenant import TenantConfig
@@ -75,6 +80,12 @@ def _engines(models, mode, **kw):
     return {"jax": JaxServeEngine(models["jm"], models["jv"], preempt_cap=0,
                                   **jkw),
             "port": ServeEngine(models["tm"], device="cpu", **tkw)}
+
+
+def _dense_greedy(model, q, prompt, n):
+    """``generate`` over the dense dequantized weights of ``q``."""
+    dense = install_params(copy.deepcopy(model), dequantize(q))
+    return generate(dense, prompt[None], n)[0, len(prompt):].tolist()
 
 
 def _loop(motif_seed, n):
@@ -256,7 +267,9 @@ def test_still_refused_options_name_their_item(models, what):
     ROADMAP.md item. Tenancy is ported: a speculative engine takes a
     ``TenantConfig`` (grammar-constrained speculation), and without one
     ``submit(constraint=...)`` raises the JAX engine's ``ValueError``, in
-    both packages."""
+    both packages. ``param_transform`` (int8 serving) and
+    ``spec_draft_variables`` are ported too: each is held to what it
+    does."""
     kw = dict(ENGINE_KW, paged=True)
     item = "item 3"
     if what in ("tenant", "constraint"):
@@ -279,11 +292,31 @@ def test_still_refused_options_name_their_item(models, what):
             errors.append(str(info.value))
         assert errors[0] == errors[1]
         return
-    if what in ("fault_plan", "prefill_slice_tokens", "param_transform"):
+    if what == "param_transform":
+        # Ported (int8 serving): it transforms the int8 variables passed
+        # with it, in a speculative engine as in the JAX one.
+        q = quantize_int8(models["tm"], min_elems=128)
+        eng = ServeEngine(copy.deepcopy(models["tm"]), {"params": q},
+                          device="cpu", param_transform=dequantize, **kw)
+        handle = eng.submit(_loop(1, 12), 6)
+        eng.run(max_steps=50)
+        assert handle.tokens == _dense_greedy(models["tm"], q,
+                                              _loop(1, 12), 6)
+        return
+    if what == "spec_draft_variables":
+        # Ported: a dense tree loads into the draft model; a tree that
+        # is not the draft's raises, as the JAX engine cannot apply it.
+        draft = copy.deepcopy(models["td"])
+        eng = ServeEngine(models["tm"], device="cpu", spec_draft_model=draft,
+                          spec_draft_variables={
+                              "params": models["td"].state_dict()}, **kw)
+        assert eng.spec_draft_model_enabled
+        with pytest.raises(ValueError, match="do not match"):
+            ServeEngine(models["tm"], device="cpu", spec_draft_model=draft,
+                        spec_draft_variables={"params": {}}, **kw)
+        return
+    if what in ("fault_plan", "prefill_slice_tokens"):
         kw[what] = 16 if what == "prefill_slice_tokens" else object()
-    elif what == "spec_draft_variables":
-        kw.update(spec_draft_model=models["td"], spec_draft_variables={})
-        item = "item 8"
     if what in ("drain", "restore"):
         eng = ServeEngine(models["tm"], device="cpu", **kw)
         call = {"drain": eng.drain,

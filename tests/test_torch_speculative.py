@@ -14,8 +14,8 @@ weights and the same seeded numpy inputs.
   (df + 6·sqrt(2·df), over bins of expected count >= 5) of the exact
   filtered distributions; one seed gives one stream;
 - the argument checks in the JAX words, the ring-cache refusal, a
-  full-cache sliding-window model accepted, and the refusals of
-  `strategy=` and `param_transform=`;
+  full-cache sliding-window model accepted, the refusal of `strategy=`,
+  and `param_transform=` over `variables=`;
 - the decode module at the cache's edge: a `[B]` index with one row at
   `max_len - 2` and a 5-token block writes the positions before the edge
   and drops the rest, as the JAX scatter does (logits and caches against
@@ -276,6 +276,20 @@ def test_ring_cache_refused_and_full_cache_window_accepted():
 @pytest.mark.parametrize("kw,item", [(dict(strategy=object()), "item 7"),
                                      (dict(param_transform=abs), "item 3")])
 def test_unported_options_refused(pair64, kw, item):
+    """``strategy`` is still refused. ``param_transform`` (item 3, int8
+    serving) is ported: it transforms the ``variables`` passed with it (an
+    identity over the model's own weights speculates as without it) and
+    alone raises, having nothing to transform."""
+    if "param_transform" in kw:
+        tm = pair64[2]
+        want = generate_speculative(tm, _random(1, 4), 6, draft_len=3)
+        got = generate_speculative(tm, _random(1, 4), 6, draft_len=3,
+                                   variables={"params": tm.state_dict()},
+                                   param_transform=lambda p: p)
+        assert torch.equal(got, want)
+        with pytest.raises(ValueError, match="param_transform transforms"):
+            generate_speculative(tm, _random(1, 4), 2, **kw)
+        return
     with pytest.raises(NotImplementedError, match=item):
         generate_speculative(pair64[2], _random(1, 4), 2, **kw)
 
