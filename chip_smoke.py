@@ -11,8 +11,9 @@ port on a full-width Llama-1B — the paged serving engine, the causal-LM
 trainer, the trainer at long context (S 8192, block remat, the
 two-sweep flash backward), KV-cache decoding through ``generate`` (with
 a sliding-window ring cache), the resident-row serving engine,
-speculative serving and decoding (n-gram drafts and a draft model), and
-multi-tenant serving (LoRA adapters and grammar constraints) — on a
+speculative serving and decoding (n-gram drafts and a draft model),
+multi-tenant serving (LoRA adapters and grammar constraints), and fault
+recovery, preemption and the host KV tier in the engine — on a
 full-width, full-depth ResNet-50, the reference's own workload, on
 GPT-2-small (training, ``generate``, both engines, speculation), on
 int8 weights (Llama-1B and GPT-2-small served through
@@ -219,8 +220,34 @@ one line per phase:
     parameters, adam, B 256 x 224 on a batch resident on the card through
     ``Trainer.train_step``, 2 warm-up and 10 timed steps: images/s, MFU of
     6 x the forward's MACs, exactly 12 non-causal K1 and 12 K2 a step;
-31. kernels — one JSON object: every ported kernel with its launches on
-    its main paths (phases 7, 10, 11, 18, 21, 23, 26, 27, 28 and 30;
+31. engine fault parity — fault recovery card against CPU, Llama-1B width
+    at depth 2 in f32 (TF32 off), phase 6's prompts x 16: a scheduled tick
+    exhaustion (every live slot replays) in both modes, an OOM at the
+    first donation (degraded, flushed, re-armed under a fake clock), a
+    seeded mixed plan with a verify exhaustion at ``spec_k`` 4 (the forced
+    re-feeds), a tenant leg and a preemption leg: the injections equal card
+    against CPU, the streams token-exact card against CPU and equal to the
+    fault-free engine's unless a tie, K4 exactly 2 x the paged ticks;
+32. engine fault serve — phase 7's wave in both modes fault-free, under a
+    seeded plan (transient, OOM and latency faults with the real backoff),
+    under a tick exhaustion at step 6 and with a real
+    ``torch.OutOfMemoryError`` from the allocator: the injections by kind,
+    retries, replays, degraded entries, tokens/s and TTFT p99 against
+    fault-free, the streams equal unless a bf16 tie (8 ulps), the K4
+    launches beyond the fault-free wave's;
+33. host tier serve — 32 distinct 384-token prompts in 3 rounds of 16 new
+    through pools too small for them (paged: 514 blocks; row: 193) over a
+    512 MiB host tier: spills, hits, promotions, each promotion's bytes,
+    ms (CUDA events) and GB/s, the demotion's host ms, the TTFT p50 of
+    rounds 2-3 against the untiered engine (recompute), the streams equal
+    to a pool that holds every chain unless a bf16 tie;
+34. engine preempt serve — 8 best-effort serve prompts x 128 new, then 8
+    interactive 64-token prompts x 32 after 4 steps, at ``preempt_cap`` 2
+    and 0 in turns: the interactive TTFT p50/p99, the best-effort
+    completion wall, preemptions, the best-effort streams equal;
+35. kernels — one JSON object: every ported kernel with its launches on
+    its main paths (phases 7, 10, 11, 18, 21, 23, 26, 27, 28, 30 and
+    32-34;
     K4's, K1's and K2's by path under ``launches_by_path``, the parity
     legs' included there for K4), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
@@ -287,8 +314,9 @@ from pddl_tpu_torch.ops.quant import (
     quantized_bytes,
 )
 from pddl_tpu_torch.serve.engine import ServeEngine
-from pddl_tpu_torch.serve.kvcache import pool_nbytes
-from pddl_tpu_torch.serve.request import FinishReason
+from pddl_tpu_torch.serve.faults import FaultKind, FaultPlan, FaultSpec
+from pddl_tpu_torch.serve.kvcache import HostTierConfig, pool_nbytes
+from pddl_tpu_torch.serve.request import FinishReason, Priority
 from pddl_tpu_torch.serve.tenant import (
     AdapterRegistry,
     TenantConfig,
@@ -1069,7 +1097,7 @@ def phase_engine_parity():
 
 # -------------------------------------------------------------- phase 7
 def serve_wave(model, prompts, paged: bool, new: int = 32, submit_kw=None,
-               **engine_kw):
+               prepare=None, **engine_kw):
     """``engine_serve``'s wave through one engine: 24 greedy requests x
     ``new`` new tokens on 8 slots (``engine_kw``: the speculative or the
     tenant options; ``submit_kw``: each request's adapter and constraint,
@@ -1077,9 +1105,12 @@ def serve_wave(model, prompts, paged: bool, new: int = 32, submit_kw=None,
     Returns the launches, the metrics snapshot, the engine, the handles,
     the wall, the live-slot ticks, the pure decode ticks' walls (steps that
     admitted nothing), the largest ``blocks_shared`` and the
-    ``resident_kv_report`` at the step with the most live tokens."""
+    ``resident_kv_report`` at the step with the most live tokens.
+    ``prepare(engine)``, if given, runs before the first submit."""
     eng = ServeEngine(model, paged=paged, max_slots=8, prefix_block_size=16,
                       **engine_kw)
+    if prepare is not None:
+        prepare(eng)
     host = {"draft": 0.0, "verify": 0.0}
     if eng.spec_enabled:
         # Host seconds inside the speculative tick's two halves: drafting
@@ -3348,6 +3379,504 @@ def phase_vit_train(batch: int = 256, warmup: int = 2, steps: int = 10):
     return counts
 
 
+# ---------------------------------------------------------- phase 31-34
+FAULT_NEW = 16
+TICK_EXHAUST = [(3, "tick", "transient", 4)]  # max_retries 3, then replay
+
+
+def recording_plan(spec, sleep_fn=time.sleep):
+    """A seeded ``FaultPlan`` from ``spec`` (its keywords, ``scheduled`` as
+    ``(step, site, kind, count)`` tuples) whose latency faults wait with
+    ``sleep_fn``, and the list its ``on_inject`` fills with ``(step, site,
+    kind)``."""
+    spec = dict(spec)
+    plan = FaultPlan(sleep_fn=sleep_fn, scheduled=[
+        FaultSpec(step, site, FaultKind(kind), count)
+        for step, site, kind, count in spec.pop("scheduled", ())], **spec)
+    log = []
+    plan.on_inject = lambda step, site, kind: log.append((step, site, kind))
+    return plan, log
+
+
+def faulted_run(model, prompts, spec=None, kws=None, late=(), new=FAULT_NEW,
+                **engine_kw):
+    """``engine_parity``'s engine shape (4 slots, prefill 128, blocks of
+    16) under a fault plan (``spec``; ``None`` for none), a no-op backoff
+    and a fake clock a second a step; ``late`` submits ``(step, prompt,
+    new, keywords)`` at that step. Returns the streams of the requests in
+    submit order (``late`` last), the injections, the snapshot, the K4
+    launches and the ticks that ran (the telemetry's ``tick`` site), and
+    the handles (a speculative window counts as a tick)."""
+    plan, log = (recording_plan(spec, lambda s: None) if spec is not None
+                 else (None, []))
+    clock = [0.0]
+    eng = ServeEngine(model, device=model.device, max_slots=4,
+                      prefill_len=128, prefix_block_size=16, fault_plan=plan,
+                      backoff_sleep=lambda s: None, clock=lambda: clock[0],
+                      **engine_kw)
+    kws = kws or [{}] * len(prompts)
+    _kernels.reset_launch_counts()
+    handles = [eng.submit(p, new, **kw) for p, kw in zip(prompts, kws)]
+    late = list(late)
+    for step in range(400):
+        for when, p, n, kw in late:
+            if when == step:
+                handles.append(eng.submit(p, n, **kw))
+        if not eng.has_work and step > max((w for w, *_ in late),
+                                           default=-1):
+            break
+        eng.step()
+        clock[0] += 1.0
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    ticks = sum(1 for r in eng.telemetry.snapshot()
+                if {"tick", "verify"} & set(r["site_wall_s"]))
+    if eng.telemetry.total_appended > eng.telemetry.capacity:
+        raise RuntimeError("telemetry ring wrapped; ticks undercounted")
+    return dict(streams=[list(h.tokens) for h in handles], log=log,
+                snap=eng.metrics.snapshot(), eng=eng, handles=handles,
+                launches=dict(_kernels.launch_counts), ticks=ticks)
+
+
+def phase_engine_fault_parity():
+    """Fault recovery card against CPU, greedy, Llama-1B width at depth 2
+    in f32 (TF32 off), ``engine_parity``'s 4 prompts x 16 tokens: a
+    scheduled tick exhaustion (4 transients past ``max_retries`` 3: every
+    live slot replays) in both modes; an OOM at the first donation (row:
+    degraded, flushed, re-armed under the fake clock); a rate-drawn mixed
+    plan (seed 0) with a scheduled verify exhaustion at ``spec_k=4``
+    (n-gram, paged: forced re-feeds); a tenant leg (an adapter, an adapter
+    under the bounded schema, the schema alone) under the tick
+    exhaustion; a preemption leg (4 best-effort streams, an interactive
+    arrival at step 2). Gates: the injections equal card against CPU, the
+    streams token-exact card against CPU and equal to the card's
+    fault-free engine (unless a tie, the CPU's top-2 margin < 1e-3), K4
+    exactly twice a paged tick that ran (none on the speculative leg).
+    Returns the paged legs' launches."""
+    gpu_model, cpu_model = _parity_pair(max_len=MAX_LEN, depth=2)
+    prompts = parity_prompts()
+    strings = tenant_token_strings()
+    registry = tenant_registry(gpu_model, 2)
+    schema = {"kind": "json_schema", "schema": PARITY_SCHEMA}
+    tenant_kws = [{}, {"adapter": "adapter0"},
+                  {"adapter": "adapter1", "constraint": schema},
+                  {"constraint": schema}]
+    tenant = dict(tenant=TenantConfig(registry=registry,
+                                      token_strings=strings))
+    base = faulted_run(gpu_model, prompts, paged=True)["streams"]
+    tbase = faulted_run(gpu_model, prompts, kws=tenant_kws, paged=True,
+                        **tenant)["streams"]
+    be = [{"priority": Priority.BEST_EFFORT}] * 4
+    legs = [
+        ("tick_exhaust_row", dict(scheduled=TICK_EXHAUST), {},
+         dict(paged=False)),
+        ("tick_exhaust_paged", dict(scheduled=TICK_EXHAUST), {},
+         dict(paged=True)),
+        ("donate_oom_row", dict(scheduled=[(0, "donate", "oom", 1)]), {},
+         dict(paged=False, degraded_cooldown_s=5.0)),
+        ("mixed_spec_ngram", dict(
+            seed=0, transient_rate=0.05, oom_rate=0.02, latency_rate=0.1,
+            latency_s=1e-4, max_random_injections=20,
+            scheduled=[(3, "verify", "transient", 4)]), {},
+         dict(paged=True, spec_k=SPEC_K)),
+        ("tenant_paged", dict(scheduled=TICK_EXHAUST),
+         dict(kws=tenant_kws), dict(paged=True, **tenant)),
+        ("preempt_paged", None, dict(kws=be, late=[
+            (2, prompts[1], FAULT_NEW, {"priority": Priority.INTERACTIVE})]),
+         dict(paged=True)),
+    ]
+    paged_launches = {"paged_decode": 0}
+    for leg, spec, run_kw, engine_kw in legs:
+        runs = {name: faulted_run(model, prompts, spec, **run_kw,
+                                  **engine_kw)
+                for name, model in (("cuda", gpu_model), ("cpu", cpu_model))}
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        if gpu["log"] != cpu["log"]:
+            raise RuntimeError(f"engine_fault_parity {leg}: injections "
+                               f"{gpu['log']} on the card, {cpu['log']} on "
+                               "the CPU")
+        n = len(gpu["streams"])
+        if leg == "tenant_paged":
+            exact, ties = check_tenant_streams(
+                f"{leg} request", gpu["streams"], cpu["streams"], prompts,
+                tenant_kws, cpu_model, registry)
+            exact_b, ties_b = check_tenant_streams(
+                f"{leg} vs fault-free", gpu["streams"], tbase, prompts,
+                tenant_kws, cpu_model, registry)
+        else:
+            want = base + [base[1]] * (n - len(base))
+            all_prompts = list(prompts) + [prompts[1]] * (n - len(prompts))
+            exact, ties = check_streams(f"{leg} request", gpu["streams"],
+                                        cpu["streams"], all_prompts,
+                                        cpu_model, FAULT_NEW)
+            exact_b, ties_b = check_streams(f"{leg} vs fault-free",
+                                            gpu["streams"], want,
+                                            all_prompts, cpu_model,
+                                            FAULT_NEW)
+        snap, eng = gpu["snap"], gpu["eng"]
+        launches = gpu["launches"]["paged_decode"]
+        want_k4 = (0 if not engine_kw["paged"] or "spec_k" in engine_kw
+                   else gpu_model.depth * gpu["ticks"])
+        if launches != want_k4 or sum(gpu["launches"].values()) != launches:
+            raise RuntimeError(f"engine_fault_parity {leg}: launches "
+                               f"{gpu['launches']}, want {want_k4} K4")
+        if engine_kw["paged"]:
+            paged_launches["paged_decode"] += launches
+        checks = {
+            "tick_exhaust_row": snap["replays"] == 4,
+            "tick_exhaust_paged": snap["replays"] == 4,
+            "donate_oom_row": (snap["degraded_entries"] == 1
+                               and snap["degraded_time_s"] > 0
+                               and not eng.degraded and snap["replays"] >= 1),
+            "mixed_spec_ngram": snap["replays"] > 0 and len(gpu["log"]) > 4,
+            "tenant_paged": (snap["replays"] == 4
+                             and snap["requests_by_adapter"]
+                             == {"adapter0": 1, "adapter1": 1}),
+            "preempt_paged": snap["preemptions"] > 0,
+        }
+        if not checks[leg] or snap["requests_failed"]:
+            raise RuntimeError(f"engine_fault_parity {leg}: {snap}")
+        kinds = {}
+        for _, _, kind in gpu["log"]:
+            kinds[kind] = kinds.get(kind, 0) + 1
+        phase("engine_fault_parity", leg=leg, model="Llama_1B_depth2_f32",
+              allow_tf32=False, requests=n, injections=len(gpu["log"]),
+              by_kind=",".join(f"{k}:{v}" for k, v in sorted(kinds.items()))
+              or "none", injections_equal_cpu=True,
+              token_exact_vs_cpu=exact, ties_vs_cpu=ties,
+              equal_fault_free=exact_b, ties_vs_fault_free=ties_b,
+              retries=snap["retries"], replays=snap["replays"],
+              preemptions=snap["preemptions"],
+              degraded_entries=snap["degraded_entries"],
+              degraded_time_s=snap["degraded_time_s"],
+              paged_decode_launches=launches, ticks=gpu["ticks"])
+    del gpu_model, cpu_model
+    return paged_launches
+
+
+def bf16_ties(model, prompts, streams, base, what):
+    """Streams equal to ``base``'s, and each first divergence's top-2
+    margin on the card model; a divergence whose margin reaches 8 bf16
+    ulps of the top logit raises (the script's bf16 tie rule)."""
+    equal, ties = 0, []
+    for i, (prompt, a, b) in enumerate(zip(prompts, streams, base)):
+        if len(a) != len(b):
+            raise RuntimeError(f"{what} {i}: {len(a)} against {len(b)}")
+        j = next((t for t in range(len(b)) if a[t] != b[t]), None)
+        if j is None:
+            equal += 1
+            continue
+        with torch.no_grad():
+            logits = model(torch.tensor([list(prompt) + b[:j]],
+                                        device=DEV))[0, -1].float()
+        top = torch.topk(logits, 2).values
+        ulp = 2.0 ** (np.floor(np.log2(abs(float(top[0])))) - 7)
+        margin = float(top[0] - top[1])
+        if margin >= 8 * ulp:
+            raise RuntimeError(f"{what} {i} parts at token {j} with a top-2 "
+                               f"margin of {margin:.4g} >= 8 bf16 ulps")
+        ties.append(f"req{i}@{j}:margin={margin:.4g}")
+    return equal, ";".join(ties) or "none"
+
+
+def oom_on_tick(n: int):
+    """A ``serve_wave`` hook: the engine's ``n``-th tick first allocates
+    more than the card holds (its cached free segments could satisfy a
+    request sized by ``mem_get_info``'s free bytes), so the caching
+    allocator raises a real ``torch.OutOfMemoryError`` inside the guarded
+    call."""
+    def prepare(eng):
+        real, calls = eng._tick, [0]
+        total = torch.cuda.get_device_properties(DEV).total_memory
+
+        def tick():
+            calls[0] += 1
+            if calls[0] == n:
+                torch.empty(total + (1 << 30), dtype=torch.uint8, device=DEV)
+            return real()
+        eng._tick = tick
+    return prepare
+
+
+SERVE_FAULTS = dict(seed=0, transient_rate=0.03, oom_rate=0.01,
+                    latency_rate=0.02, latency_s=0.002,
+                    max_random_injections=24)
+
+
+def phase_engine_fault_serve(model, prompts):
+    """Phase 7's wave (Llama-1B bf16, 24 x 384 prompt tokens, 256 shared,
+    x 32 new, 8 slots) in both modes, with the engine's real backoff and
+    latency sleeps: fault-free, under the seeded ``SERVE_FAULTS`` plan,
+    under a scheduled tick exhaustion at step 6 and with a real
+    ``torch.OutOfMemoryError`` raised by the allocator at the 6th tick.
+    Gates: every stream equal to the fault-free wave's (bf16 tie rule,
+    reported); the real OOM comes out as a degraded entry with no request
+    failed; K4 once a layer a paged tick that ran. Prints the injections
+    by kind, retries by site, replays, degraded entries and time, tokens/s
+    and TTFT p99 against fault-free, and the K4 launches beyond the
+    fault-free wave's. Returns the paged legs' launches."""
+    total = {"paged_decode": 0}
+    for paged in (False, True):
+        mode = "paged" if paged else "row"
+        runs = {}
+        for leg, spec, prepare in (
+                ("fault_free", None, None),
+                ("seeded_plan", SERVE_FAULTS, None),
+                ("tick_exhaust", dict(scheduled=[(6, "tick", "transient",
+                                                  4)]), None),
+                ("real_oom", None, oom_on_tick(6))):
+            plan, log = (recording_plan(spec) if spec is not None
+                         else (None, []))
+            run = serve_wave(model, prompts, paged, fault_plan=plan,
+                             prepare=prepare, telemetry_capacity=4096)
+            runs[leg] = run
+            snap, launches = run["snap"], run["launches"]
+            ticks_ran = sum(1 for r in run["eng"].telemetry.snapshot()
+                            if "tick" in r["site_wall_s"])
+            want = model.depth * ticks_ran if paged else 0
+            if (launches["paged_decode"] != want
+                    or sum(launches.values()) != want):
+                raise RuntimeError(f"engine_fault_serve {mode} {leg}: "
+                                   f"launches {launches}, want {want}")
+            total["paged_decode"] += launches["paged_decode"]
+            if snap["requests_failed"]:
+                raise RuntimeError(f"engine_fault_serve {mode} {leg}: "
+                                   f"{snap['requests_failed']} failed")
+            if leg == "real_oom" and snap["degraded_entries"] < 1:
+                raise RuntimeError(f"engine_fault_serve {mode}: the real "
+                                   "OOM did not degrade the engine")
+            if leg == "tick_exhaust" and snap["replays"] < 1:
+                raise RuntimeError(f"engine_fault_serve {mode}: no replay")
+            equal, ties = bf16_ties(
+                model, prompts, [h.tokens for h in run["handles"]],
+                [h.tokens for h in runs["fault_free"]["handles"]],
+                f"engine_fault_serve {mode} {leg} request")
+            kinds = {}
+            for _, _, kind in log:
+                kinds[kind] = kinds.get(kind, 0) + 1
+            fields = serve_fields(run)
+            clean = runs["fault_free"]
+            phase("engine_fault_serve", mode=mode, leg=leg,
+                  model="Llama_1B_bf16", **{k: fields[k] for k in (
+                      "requests", "tokens", "wall_s", "tokens_per_s",
+                      "ttft_p50_s", "ttft_p99_s", "ticks")},
+                  tokens_per_s_fault_free=serve_fields(clean)["tokens_per_s"],
+                  ttft_p99_s_fault_free=serve_fields(clean)["ttft_p99_s"],
+                  injections=len(log),
+                  by_kind=",".join(f"{k}:{v}" for k, v in
+                                   sorted(kinds.items())) or "none",
+                  retries=snap["retries"],
+                  retry_sites=",".join(f"{k}:{v}" for k, v in sorted(
+                      snap["retry_sites"].items())) or "none",
+                  replays=snap["replays"],
+                  degraded_entries=snap["degraded_entries"],
+                  degraded_time_s=snap["degraded_time_s"],
+                  degraded_at_end=run["eng"].degraded,
+                  equal_fault_free=f"{equal}/{len(prompts)}", ties=ties,
+                  paged_decode_launches=launches["paged_decode"],
+                  k4_beyond_fault_free=(launches["paged_decode"]
+                                        - clean["launches"]["paged_decode"]),
+                  ticks_ran=ticks_ran)
+    return total
+
+
+def tier_prompts(vocab: int = VOCAB):
+    """32 distinct 384-token prompts: 24-block chains, 12 MiB of bf16 K/V
+    each at Llama-1B's width."""
+    rng = np.random.RandomState(6)
+    return [rng.randint(0, vocab, 384) for _ in range(32)]
+
+
+def tier_run(model, prompts, paged, rounds=3, new=16, promote=None,
+             demote=None, **engine_kw):
+    """The prompts served in ``rounds`` rounds, 8 at a time (one slot-full,
+    run to empty before the next 8, so TTFT is the admission's own time).
+    ``promote`` / ``demote`` collect each promotion's (bytes, CUDA-event
+    ms) and each reclaim's demotion host ms. Returns the streams, the TTFT
+    per round, the engine, the K4 launches per round and the ticks."""
+    eng = ServeEngine(model, paged=paged, max_slots=8, prefix_block_size=16,
+                      telemetry_capacity=4096, **engine_kw)
+    if promote is not None:
+        real_promote = eng._promote_rows
+
+        def timed_promote(rows, ids):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            real_promote(rows, ids)
+            end.record()
+            end.synchronize()
+            promote.append((rows.numel() * rows.element_size(),
+                            start.elapsed_time(end)))
+        eng._promote_rows = timed_promote
+    if demote is not None:
+        real_demote = eng._prefix.on_evict
+
+        def timed_demote(victims):
+            t0 = time.perf_counter()
+            real_demote(victims)
+            demote.append(1e3 * (time.perf_counter() - t0))
+        eng._prefix.on_evict = timed_demote
+    streams, ttft, launches, ticks = [], [], [], []
+    for _ in range(rounds):
+        _kernels.reset_launch_counts()
+        before = eng.telemetry.total_appended
+        handles = []
+        for i in range(0, len(prompts), 8):
+            wave = [eng.submit(p, new) for p in prompts[i:i + 8]]
+            eng.run()
+            handles += wave
+        torch.cuda.synchronize()
+        streams.append([h.tokens for h in handles])
+        ttft.append([h.ttft_s for h in handles])
+        launches.append(_kernels.launch_counts["paged_decode"])
+        ticks.append(sum(1 for r in eng.telemetry.snapshot()[
+            before - eng.telemetry.total_appended:] if r["live_slots"]))
+    return dict(streams=streams, ttft=ttft, eng=eng, launches=launches,
+                ticks=ticks)
+
+
+def phase_host_tier_serve(model, budget: int = 512 << 20):
+    """The host KV tier at full width (Llama-1B bf16, ``max_len`` 1024):
+    32 distinct 384-token prompts in 3 rounds of 16 new tokens on 8 slots,
+    a 512 MiB host budget, device pools too small for them (paged: its
+    floor + 1, 514 blocks; row: 193 blocks, 8 chains and scratch). Gates:
+    every stream equal to the same engine's over a pool that holds every
+    chain (bf16 tie rule, reported); spills, hits and promotions > 0, no
+    host pin outstanding; K4 once a layer a paged tick. Prints each
+    promotion's bytes and CUDA-event ms and their GB/s, the demotion's
+    host ms per reclaim, the TTFT p50 of rounds 2-3 against the untiered
+    engine of the same pool (recompute), in turns, and the K4 launches of
+    rounds 2-3 (over promoted blocks). Returns the paged tiered run's K4
+    launches."""
+    prompts = tier_prompts()
+    total = {"paged_decode": 0}
+    for paged, small, big in ((False, 193, 32 * 24 + 32),
+                              (True, 8 * 64 + 2, None)):
+        mode = "paged" if paged else "row"
+        ref = tier_run(model, prompts, paged, prefix_cache_blocks=big)
+        promote, demote = [], []
+        tiered = tier_run(model, prompts, paged, promote=promote,
+                          demote=demote, prefix_cache_blocks=small,
+                          host_tier=HostTierConfig(byte_budget=budget))
+        untiered = tier_run(model, prompts, paged, prefix_cache_blocks=small)
+        eng = tiered["eng"]
+        snap = eng.metrics.snapshot()
+        if not (snap["host_tier_spills"] > 0 and snap["host_tier_hits"] > 0
+                and snap["host_tier_promotions"] > 0
+                and eng._host.pins_outstanding == 0):
+            raise RuntimeError(f"host_tier_serve {mode}: {snap}")
+        ties_all = []
+        for r in range(3):
+            equal, ties = bf16_ties(model, prompts, tiered["streams"][r],
+                                    ref["streams"][r],
+                                    f"host_tier_serve {mode} round {r}")
+            if ties != "none":
+                ties_all.append(f"r{r}:{ties}")
+        for r, (k4, ticks) in enumerate(zip(tiered["launches"],
+                                            tiered["ticks"])):
+            want = model.depth * ticks if paged else 0
+            if k4 != want:
+                raise RuntimeError(f"host_tier_serve {mode} round {r}: "
+                                   f"{k4} K4 launches, want {want}")
+        if paged:
+            total["paged_decode"] += sum(tiered["launches"])
+        nbytes = sum(b for b, _ in promote)
+        ms = sum(t for _, t in promote)
+        late = [t for r in (1, 2) for t in tiered["ttft"][r]]
+        late_u = [t for r in (1, 2) for t in untiered["ttft"][r]]
+        phase("host_tier_serve", mode=mode, model="Llama_1B_bf16",
+              prompts=len(prompts), prompt_tokens=384, rounds=3, new=16,
+              device_pool_blocks=small, host_budget_mib=budget >> 20,
+              spills=snap["host_tier_spills"], hits=snap["host_tier_hits"],
+              promotions=snap["host_tier_promotions"],
+              promote_tokens_charged=snap["host_tier_promote_tokens_charged"],
+              host_bytes_resident=snap["host_tier_bytes_resident"],
+              prefix_evictions=snap["prefix_evictions"],
+              promote_calls=len(promote), promote_bytes=nbytes,
+              promote_ms_p50=(
+                  f"{float(np.median([t for _, t in promote])):.4f}"),
+              promote_gb_per_s=f"{nbytes / ms / 1e6:.3f}",
+              demote_reclaims=len(demote),
+              demote_host_ms_p50=f"{float(np.median(demote)):.4f}",
+              demote_host_ms_max=f"{max(demote):.4f}",
+              ttft_p50_rounds23_s=f"{float(np.median(late)):.5f}",
+              ttft_p50_rounds23_untiered_s=f"{float(np.median(late_u)):.5f}",
+              equal_full_pool="all" if not ties_all else "ties",
+              ties=";".join(ties_all) or "none",
+              paged_decode_launches_rounds23=sum(tiered["launches"][1:]),
+              ticks_rounds23=sum(tiered["ticks"][1:]))
+        del ref, tiered, untiered, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_engine_preempt_serve(model, prompts, be_new: int = 128,
+                               ia_new: int = 32):
+    """Preemption at full width (Llama-1B bf16, the paged engine, 8
+    slots): 8 BEST_EFFORT serve prompts x 128 new fill the slots; after 4
+    steps 8 INTERACTIVE 64-token prompts x 32 new arrive. At
+    ``preempt_cap=2`` (the default) and 0, in turns (2, 0, 0, 2). Gates:
+    the best-effort streams equal across the runs (bf16 tie rule),
+    ``preemptions > 0`` at the default and 0 at 0, K4 once a layer a tick.
+    Prints the interactive TTFT p50/p99, the best-effort completion wall,
+    preemptions and replays. Returns the K4 launches of the default runs."""
+    rng = np.random.RandomState(7)
+    ia_prompts = [rng.randint(0, VOCAB, 64) for _ in range(8)]
+    be_prompts = prompts[:8]
+    total, runs = {"paged_decode": 0}, {}
+    for i, cap in enumerate((2, 0, 0, 2)):
+        eng = ServeEngine(model, paged=True, max_slots=8,
+                          prefix_block_size=16, preempt_cap=cap,
+                          telemetry_capacity=4096)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        be = [eng.submit(p, be_new, priority=Priority.BEST_EFFORT)
+              for p in be_prompts]
+        for _ in range(4):
+            eng.step()
+        ia = [eng.submit(p, ia_new, priority=Priority.INTERACTIVE)
+              for p in ia_prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = eng.metrics.snapshot()
+        ticks = sum(1 for r in eng.telemetry.snapshot() if r["live_slots"])
+        launches = _kernels.launch_counts["paged_decode"]
+        if launches != model.depth * ticks:
+            raise RuntimeError(f"engine_preempt_serve: {launches} K4 over "
+                               f"{ticks} ticks")
+        if (snap["preemptions"] > 0) != (cap > 0) or snap["requests_failed"]:
+            raise RuntimeError(f"engine_preempt_serve cap {cap}: {snap}")
+        for h, n in [(h, be_new) for h in be] + [(h, ia_new) for h in ia]:
+            if h.finish_reason is not FinishReason.LENGTH or len(
+                    h.tokens) != n:
+                raise RuntimeError(f"engine_preempt_serve: {h}")
+        if cap:
+            total["paged_decode"] += launches
+        runs.setdefault("cap2", [h.tokens for h in be])
+        equal, ties = bf16_ties(model, be_prompts, [h.tokens for h in be],
+                                runs["cap2"], "engine_preempt_serve "
+                                f"cap {cap} best-effort vs cap 2")
+        ia_ttft = [h.ttft_s for h in ia]
+        be_wall = [h.finish_s - h.arrival_s for h in be]
+        phase("engine_preempt_serve", turn=i, preempt_cap=cap,
+              model="Llama_1B_bf16", best_effort=len(be), best_effort_new=
+              be_new, interactive=len(ia), interactive_new=ia_new,
+              wall_s=f"{wall:.4f}",
+              interactive_ttft_p50_s=f"{float(np.median(ia_ttft)):.5f}",
+              interactive_ttft_p99_s=(
+                  f"{float(np.percentile(ia_ttft, 99)):.5f}"),
+              best_effort_wall_mean_s=f"{float(np.mean(be_wall)):.4f}",
+              best_effort_wall_max_s=f"{max(be_wall):.4f}",
+              preemptions=snap["preemptions"], replays=snap["replays"],
+              best_effort_equal_cap2=f"{equal}/{len(be)}", ties=ties,
+              paged_decode_launches=launches, ticks=ticks)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -3406,6 +3935,18 @@ def main(argv=None) -> int:
     spec_serve_launches = phase_engine_spec_serve(model, prompts)
     tenant_serve_launches = phase_engine_tenant_serve(
         model, prompts, args.profile or "build/profiles")
+    t0 = time.perf_counter()
+    fault_serve_launches = phase_engine_fault_serve(model, prompts)
+    phase("phase_seconds", name="engine_fault_serve",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    tier_launches = phase_host_tier_serve(model)
+    phase("phase_seconds", name="host_tier_serve",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    preempt_launches = phase_engine_preempt_serve(model, prompts)
+    phase("phase_seconds", name="engine_preempt_serve",
+          seconds=f"{time.perf_counter() - t0:.2f}")
     if args.profile:
         profile_decode(model, prompts, args.profile, paged=False,
                        tag="profile_row_spec_decode", spec_k=SPEC_K)
@@ -3417,6 +3958,10 @@ def main(argv=None) -> int:
     del model
     spec_parity_launches = phase_engine_spec_parity()
     tenant_parity_launches = phase_engine_tenant_parity()
+    t0 = time.perf_counter()
+    fault_parity_launches = phase_engine_fault_parity()
+    phase("phase_seconds", name="engine_fault_parity",
+          seconds=f"{time.perf_counter() - t0:.2f}")
     gpt_parity_launches = phase_gpt_parity()
     gpt_serve_launches = phase_gpt_serve()
     gpt_train_launches = phase_gpt_train()
@@ -3434,7 +3979,10 @@ def main(argv=None) -> int:
         "engine_tenant_serve": tenant_serve_launches["paged_decode"],
         "gpt_serve": gpt_serve_launches["paged_decode"],
         **{f"int8_serve_{name}": launches["paged_decode"]
-           for name, launches in int8_serve_launches.items()}}
+           for name, launches in int8_serve_launches.items()},
+        "engine_fault_serve": fault_serve_launches["paged_decode"],
+        "host_tier_serve": tier_launches["paged_decode"],
+        "engine_preempt_serve": preempt_launches["paged_decode"]}
     k1_paths = {"train_step": train_launches["flash_fwd"],
                 "train_long": long_launches["flash_fwd"],
                 "generate_swa": swa_launches["flash_fwd"],
@@ -3468,6 +4016,7 @@ def main(argv=None) -> int:
         "engine_spec_parity_draft": spec_parity_launches["paged_decode"],
         "engine_tenant_parity": tenant_parity_launches["paged_decode"],
         "gpt_parity_paged": gpt_parity_launches["paged_decode"],
+        "engine_fault_parity": fault_parity_launches["paged_decode"],
         **{f"int8_parity_{name}": launches["paged_decode"]
            for name, launches in int8_parity_launches.items()}}
     kernels[1]["launches_by_path"] = k1_paths

@@ -2,7 +2,8 @@
 port's own copy of :mod:`pddl_tpu.obs.ring`).
 
 The engine appends one record per ``step()`` (occupancy, queue depth,
-tokens emitted, tick wall time); capacity is fixed at construction and
+tokens emitted, tick wall time, retries, the degraded flag and the
+per-site wall time of its guarded device calls); capacity is fixed at construction and
 the oldest record is overwritten in place. Host-side only: records are
 plain dicts of scalars the engine already computed.
 """
@@ -40,27 +41,32 @@ class TelemetryRing:
         self._count += 1
 
     def snapshot(self) -> List[Dict[str, object]]:
-        """Oldest→newest copy of the current window (safe to mutate)."""
+        """Oldest→newest copy of the current window (safe to mutate: the
+        nested ``site_wall_s`` dict is copied too)."""
         if self._count < self.capacity:
             window = self._slots[:self._count]
         else:
             window = self._slots[self._next:] + self._slots[:self._next]
-        return [dict(r) for r in window]
+        return [_copy(r) for r in window]
 
     def last(self) -> Optional[Dict[str, object]]:
-        """Newest record, copied."""
+        """Newest record, copied like :meth:`snapshot`."""
         if self._count == 0:
             return None
-        return dict(self._slots[(self._next - 1) % self.capacity])
+        return _copy(self._slots[(self._next - 1) % self.capacity])
 
     def summary(self) -> Dict[str, object]:
         """The window collapsed to gauges: tick-wall percentiles, mean
-        queue/occupancy and totals."""
+        queue/occupancy, totals and per-site wall-time sums."""
         window = self.snapshot()
         if not window:
             return {"ticks": 0}
         walls = sorted(float(r.get("tick_wall_s", 0.0)) for r in window)
         n = len(walls)
+        site_wall: Dict[str, float] = {}
+        for r in window:
+            for site, w in (r.get("site_wall_s") or {}).items():
+                site_wall[site] = site_wall.get(site, 0.0) + float(w)
         return {
             "ticks": n,
             "window_first_step": window[0].get("step"),
@@ -72,4 +78,15 @@ class TelemetryRing:
             "mean_live_slots": (sum(float(r.get("live_slots", 0))
                                     for r in window) / n),
             "tokens_emitted": sum(int(r.get("tokens", 0)) for r in window),
+            "retries": sum(int(r.get("retries", 0)) for r in window),
+            "degraded_ticks": sum(bool(r.get("degraded")) for r in window),
+            "site_wall_s": {k: round(v, 6)
+                            for k, v in sorted(site_wall.items())},
         }
+
+
+def _copy(record: Dict[str, object]) -> Dict[str, object]:
+    out = dict(record)
+    if isinstance(out.get("site_wall_s"), dict):
+        out["site_wall_s"] = dict(out["site_wall_s"])
+    return out

@@ -70,9 +70,9 @@ def adapter_pool_load(pool_a: torch.Tensor, pool_b: torch.Tensor, row: int,
                       a, b) -> None:
     """Write one adapter's factors ``a [d, r]`` / ``b [r, V]`` into pool
     row ``row``, in place. The engine owns the pools. The JAX function
-    copies the pools instead (a faulted load retries against the intact
-    old pool); fault injection is not ported, so an in-place copy of the
-    row is all a load needs here."""
+    copies the pools instead; here a load that fails midway (the engine's
+    ``adapter_load`` site) leaves its row unassigned, and the next load
+    into that row rewrites it whole."""
     pool_a[int(row)].copy_(torch.as_tensor(a, dtype=pool_a.dtype))
     pool_b[int(row)].copy_(torch.as_tensor(b, dtype=pool_b.dtype))
 

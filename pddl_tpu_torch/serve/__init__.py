@@ -1,1 +1,60 @@
-"""Paged serving: engine, scheduler, requests, metrics, KV cache."""
+"""Online serving (the port of :mod:`pddl_tpu.serve`): ``engine.py`` the
+step loop (resident rows or a paged pool, speculation, tenancy, fault
+recovery, preemption, the host KV tier), ``scheduler.py`` the admission
+policy, ``request.py`` the per-request lifecycle, ``metrics.py`` the
+telemetry, ``faults.py`` seeded fault injection, ``kvcache/`` the prefix
+cache (block pool, radix index, host tier) and ``tenant/`` the
+multi-tenant layer."""
+
+from pddl_tpu_torch.serve.engine import ServeEngine
+from pddl_tpu_torch.serve.faults import (
+    FaultKind,
+    FaultPlan,
+    FaultSpec,
+    InjectedResourceExhausted,
+    InjectedTransientError,
+    KillPoint,
+)
+from pddl_tpu_torch.serve.kvcache import (
+    HostTierCache,
+    HostTierConfig,
+    RadixPrefixCache,
+)
+from pddl_tpu_torch.serve.metrics import ServeMetrics
+from pddl_tpu_torch.serve.request import (
+    AdmissionRejected,
+    FinishReason,
+    Priority,
+    QueueFull,
+    Request,
+    RequestHandle,
+    RequestState,
+    SamplingParams,
+)
+from pddl_tpu_torch.serve.scheduler import SLOScheduler
+from pddl_tpu_torch.serve.tenant import AdapterRegistry, TenantConfig
+
+__all__ = [
+    "AdapterRegistry",
+    "AdmissionRejected",
+    "FaultKind",
+    "FaultPlan",
+    "FaultSpec",
+    "FinishReason",
+    "HostTierCache",
+    "HostTierConfig",
+    "InjectedResourceExhausted",
+    "InjectedTransientError",
+    "KillPoint",
+    "Priority",
+    "QueueFull",
+    "RadixPrefixCache",
+    "Request",
+    "RequestHandle",
+    "RequestState",
+    "SLOScheduler",
+    "SamplingParams",
+    "ServeEngine",
+    "ServeMetrics",
+    "TenantConfig",
+]

@@ -86,21 +86,51 @@ int8 is what the card holds; the pool stores K/V, which weight storage
 never touches. A draft model's ``spec_draft_variables`` load as given,
 with no transform, as the JAX engine applies none to them.
 
+Fault tolerance (``serve/faults.py``): every device call goes through
+one guarded boundary (``_device_call``), with the JAX engine's sites at
+the same points in the control flow, so a seeded
+:class:`~pddl_tpu_torch.serve.faults.FaultPlan` fires at the same ``(step,
+site)`` coordinates in both packages. Transient errors retry with bounded
+exponential backoff; when retries run out (or a real error struck a call
+that writes a cache in place) the affected slots' K/V is declared LOST
+and the requests REPLAY: the prompt re-prefills through the normal
+admission and the emitted tokens are re-fed through the coming ticks
+(``spec_k + 1`` a window on a speculative engine), never re-sampled, so
+every stream stays token-exact. An allocation failure — the CUDA caching
+allocator's ``torch.OutOfMemoryError``, or an injected one — flips the
+engine DEGRADED: unpinned prefix blocks are flushed from the index,
+donations stop, serving continues on the cold path, and the cache re-arms
+after ``degraded_cooldown_s``. A rebuild after a real error zeroes the
+resident tensors in place (the same shapes, the JAX engine's fresh
+zeros), so it never holds two copies. A request past ``max_replays``
+fails alone (``FinishReason.ERROR``). Preemption (``preempt_cap``, 2 by
+default as in the JAX engine) parks a running BEST_EFFORT stream for
+queued interactive work and resumes it through the same replay.
+
+The host KV tier (``host_tier=``, ``kvcache/hosttier.py``): with a tier
+armed, the radix index's LRU eviction DEMOTES reuse-worthy chains — one
+``cache_blocks_gather`` per leaf over the reclaim's victims and one
+device-to-host copy — into a byte-budgeted host pool, and an admission
+that misses the device pool but hits the tier PROMOTES the chain back
+(one host-to-device copy and one ``cache_blocks_scatter`` per leaf, the
+``host_promote`` site), charged against the prefill budget at
+``promote_tokens_per_block`` a block. Degraded mode bypasses the tier in
+both directions; a disabled tier leaves the engine bit-identical to an
+untiered one.
+
 PyTorch runs eagerly, so the JAX engine's fixed compiled-program set
 (and its ``compile_counts`` pin) has no counterpart here. Not ported yet
-— each raises ``NotImplementedError`` naming its ROADMAP.md item:
-the host KV tier (``host_tier``), fault injection and replay
-(``fault_plan``, its retry and replay knobs, ``preempt_cap > 0``, and
-with it a speculative replay's forced re-feeds), sliced prefill
-(``prefill_slice_tokens``, and with it the draft model's sliced
-prefill), drain/restore (with the speculative streams' fields) and
-tracers.
+— each raises ``NotImplementedError`` naming its ROADMAP.md item: sliced
+prefill (``prefill_slice_tokens``, and with it the draft model's sliced
+prefill), drain/restore (with the speculative streams' fields; the
+``drained`` property stays False) and tracers.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -117,12 +147,24 @@ from pddl_tpu_torch.models.gpt import (
 )
 from pddl_tpu_torch.models.speculative import ngram_drafts
 from pddl_tpu_torch.obs.ring import TelemetryRing
+from pddl_tpu_torch.ops.attention import (
+    cache_blocks_gather,
+    cache_blocks_scatter,
+)
 from pddl_tpu_torch.ops.lora import adapter_pool_load, batched_lora_delta
+from pddl_tpu_torch.serve.faults import (
+    InjectedResourceExhausted,
+    InjectedTransientError,
+    classify,
+)
 from pddl_tpu_torch.serve.kvcache import (
+    HostTierCache,
+    HostTierConfig,
     RadixPrefixCache,
     donate_prefix_blocks,
     gather_prefix_into_row,
     kv_block_pool,
+    kv_leaf_items,
     paged_decode_cache,
     pool_nbytes,
 )
@@ -139,6 +181,7 @@ from pddl_tpu_torch.serve.request import (
 from pddl_tpu_torch.serve.scheduler import SLOScheduler
 from pddl_tpu_torch.serve.tenant import (
     AdapterPool,
+    AdapterPoolExhausted,
     AdapterRegistry,
     compile_constraint,
     constraint_key,
@@ -152,6 +195,56 @@ def _not_ported(what: str, item: str = _ROADMAP_FEATURES
     return NotImplementedError(
         f"{what} is not ported yet ({item}); the port's engine serves "
         "paged=False and paged=True without it")
+
+
+def _zero(tree: dict) -> None:
+    """Zero every K/V leaf of a cache or pool tree in place."""
+    for _, leaf in kv_leaf_items(tree):
+        leaf.zero_()
+
+
+class _SlotStateLost(RuntimeError):
+    """Internal escalation: a device call outlasted its retry budget (or
+    failed in a way that may have written part of a resident tensor), so
+    whatever slot or row state it touched must be rebuilt, not reused.
+    Never escapes the engine: admission turns it into a request replay or
+    failure, the tick into a full live-slot replay. ``consumed`` names the
+    resident resource (``cache``/``row``/``pool``) a REAL mid-call error
+    may have left half-written; ``None`` for injected faults, which fire
+    before the call runs and touch nothing."""
+
+    def __init__(self, site: str, cause: BaseException,
+                 consumed: Optional[str] = None):
+        self.site = site
+        self.consumed = consumed
+        super().__init__(f"device call {site!r} lost after retries: {cause}")
+
+
+# Which resident tree each site's call writes in place (the JAX engine's
+# donated trees: PyTorch donates nothing, but a call that raises midway
+# may have written part of its K/V). A REAL error from one of these is
+# never re-dispatched — the escalation rebuilds the resource instead.
+# ``prefill`` and ``sample_first`` write nothing resident.
+_DONATED_BY_SITE = {
+    "tick": "cache", "insert": "cache",
+    "gather": "row", "chunk_prefill": "row", "chunk_prefill_wide": "row",
+    "donate": "pool",
+}
+
+# The paged engine's map: the pool IS the cache, and every paged call that
+# writes K/V writes it, so recovery is always the full pool rebuild and a
+# live-slot replay.
+_PAGED_DONATED_BY_SITE = {
+    "tick": "pool", "chunk_prefill": "pool", "chunk_prefill_wide": "pool",
+}
+
+# Speculative additions: ``verify`` replaces ``tick``; the draft model's
+# admission chunk writes the draft tree, which shares the paged pool's
+# block ids. The n-gram ``draft`` writes nothing (a lost draft call falls
+# back to repeat-last-token drafts), so the ``draft`` entry is stamped per
+# engine, only when a draft model drafts.
+_SPEC_DONATED_ROW = {"verify": "cache"}
+_SPEC_DONATED_PAGED = {"verify": "pool", "draft_prefill": "pool"}
 
 
 class ServeEngine:
@@ -188,8 +281,25 @@ class ServeEngine:
         ``max(prefix_block_size, prefill_len // 4)``).
       paged: False (default) for the resident-row engine, True for the
         paged one (module docstring).
-      preempt_cap: must be 0 (preemption resumes through replay
-        admission, not ported).
+      host_tier: the host KV tier (module docstring): a
+        :class:`~pddl_tpu_torch.serve.kvcache.HostTierConfig` or a plain
+        int byte budget. Needs the prefix machinery; refused beside
+        ``spec_draft_model`` (a promoted block carries target K/V only).
+        ``None`` (default) or budget 0 disables it.
+      fault_plan: an optional :class:`~pddl_tpu_torch.serve.faults.
+        FaultPlan` consulted before every guarded device call; ``None``
+        in production (real device errors take the same recovery paths).
+      max_retries: transient-error retries per device call before the
+        touched slot state is declared lost and requests replay.
+      retry_backoff_s / backoff_sleep: the bounded exponential backoff
+        (``base * 2**attempt``) between retries, and how it waits.
+      max_replays: slot-state rebuilds per request before it fails
+        terminally with ``FinishReason.ERROR``.
+      degraded_cooldown_s: how long an OOM keeps the prefix cache
+        degraded before re-arming; a repeat OOM pushes it out again.
+      preempt_cap: times one BEST_EFFORT stream may be parked (slot
+        freed, requeued, resumed token-exactly through replay) for queued
+        interactive work; 0 disables preemption.
       telemetry_capacity: size of the per-step :class:`TelemetryRing`.
       spec_k: speculative serving (module docstring): up to ``spec_k``
         drafts per greedy slot per step, checked in one ``[S, spec_k+1]``
@@ -210,9 +320,8 @@ class ServeEngine:
         refused.
       param_transform: applied to each int8 leaf of ``variables`` at
         each use (``ops/quant.dequantize``).
-      prefill_slice_tokens / host_tier / fault_plan / max_retries /
-      retry_backoff_s / backoff_sleep / max_replays / degraded_cooldown_s /
-      tracer: not ported; anything but the JAX engine's defaults raises.
+      prefill_slice_tokens / tracer: not ported; anything but ``None``
+        raises.
 
     A model with :attr:`~pddl_tpu_torch.models.llama.Llama.uses_ring_cache`
     set is refused, as the JAX engine refuses it.
@@ -242,7 +351,7 @@ class ServeEngine:
                  host_tier=None, fault_plan=None, max_retries: int = 3,
                  retry_backoff_s: float = 0.02, backoff_sleep=time.sleep,
                  max_replays: int = 3, degraded_cooldown_s: float = 5.0,
-                 preempt_cap: int = 0, tenant=None, spec_k: int = 0,
+                 preempt_cap: int = 2, tenant=None, spec_k: int = 0,
                  spec_ngram: int = 3, spec_draft_model=None,
                  spec_draft_variables=None, tracer=None,
                  telemetry_capacity: int = 512):
@@ -253,20 +362,17 @@ class ServeEngine:
                 "rolling ring cache whose slot reuse is not supported yet")
         for what, given in (("prefill_slice_tokens",
                              prefill_slice_tokens is not None),
-                            ("host_tier", host_tier is not None),
-                            ("fault_plan", fault_plan is not None),
-                            ("max_retries", max_retries != 3),
-                            ("retry_backoff_s", retry_backoff_s != 0.02),
-                            ("backoff_sleep", backoff_sleep is not time.sleep),
-                            ("max_replays", max_replays != 3),
-                            ("degraded_cooldown_s",
-                             degraded_cooldown_s != 5.0),
-                            ("preempt_cap > 0", preempt_cap > 0),
                             ("tracer", tracer is not None)):
             if given:
                 raise _not_ported(what)
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        if max_replays < 0:
+            raise ValueError(f"max_replays must be >= 0, got {max_replays}")
+        if preempt_cap < 0:
+            raise ValueError(f"preempt_cap must be >= 0, got {preempt_cap}")
         self.device = resolve_device(device)
         self.model = load_variables(model.to(self.device), variables,
                                     param_transform)
@@ -287,6 +393,21 @@ class ServeEngine:
         self.metrics = ServeMetrics()
         self.telemetry = TelemetryRing(telemetry_capacity)
         self._step_idx = 0
+        self._site_wall: Dict[str, float] = {}
+        # Resilience state (``serve/faults.py``).
+        self._faults = fault_plan
+        self._max_retries = int(max_retries)
+        self._retry_backoff_s = float(retry_backoff_s)
+        self._backoff_sleep = backoff_sleep
+        self._max_replays = int(max_replays)
+        self._degraded_cooldown_s = float(degraded_cooldown_s)
+        self._degraded = False
+        self._degraded_entered_s = 0.0
+        self._degraded_until_s = 0.0
+        self._preempt_cap = int(preempt_cap)
+        # Handles popped from the queue but not yet slotted: a kill
+        # mid-admission leaves its handle here, first in line next step.
+        self._admitting: Deque[RequestHandle] = deque()
 
         bs = int(prefix_block_size)
         if bs < 1:
@@ -375,6 +496,17 @@ class ServeEngine:
         # KV bytes one token occupies across every layer: what a gathered,
         # donated or avoided copy of one token is worth.
         self._kv_token_bytes = pool_nbytes(self._cache) // token_slots
+        # The recovery class of each guarded site (module tables above).
+        self._donated_by_site = dict(_PAGED_DONATED_BY_SITE if self._paged
+                                     else _DONATED_BY_SITE)
+        if self._spec_on:
+            self._donated_by_site.update(
+                _SPEC_DONATED_PAGED if self._paged else _SPEC_DONATED_ROW)
+            if self._draft_on:
+                # The draft model's steps write the draft tree: a real
+                # mid-call error escalates to the pool-class rebuild,
+                # which rebuilds both trees.
+                self._donated_by_site["draft"] = "pool"
 
         # One handle per occupied slot; the other per-slot state lives in
         # the host arrays below, stamped into every tick.
@@ -391,6 +523,50 @@ class ServeEngine:
         self._tables = (np.zeros((self.max_slots, self._table_width),
                                  np.int32) if self._paged else None)
         self._private: List[List[int]] = [[] for _ in range(self.max_slots)]
+        self._init_host_tier(host_tier)
+
+    def _init_host_tier(self, host_tier) -> None:
+        """Arm the host KV tier (the ``host_tier`` argument): the
+        byte-budgeted :class:`HostTierCache` with this engine's per-leaf
+        block spec, and the demotion hook on the radix index's eviction
+        path. ``None`` or a zero budget installs nothing: the engine stays
+        bit-identical to an untiered one. Refused in the JAX engine's
+        words where it refuses."""
+        self._host = None
+        self._host_promote_tokens = 0
+        if host_tier is None:
+            return
+        cfg = (host_tier if isinstance(host_tier, HostTierConfig)
+               else HostTierConfig(byte_budget=int(host_tier)))
+        if cfg.byte_budget == 0:
+            return
+        if not self._prefix_on:
+            raise ValueError(
+                "host_tier needs the prefix-cache machinery (the radix "
+                "eviction path is what demotes); leave "
+                "prefix_cache_blocks enabled or pass host_tier=None")
+        if self._draft_on:
+            raise NotImplementedError(
+                "host_tier with spec_draft_model is not supported yet: "
+                "a promoted block carries target K/V only, and the "
+                "draft tree's twin block would be junk — mirroring the "
+                "second cache tree through the tier is follow-on work")
+        bs = self.prefix_block_size
+        spec = {key: ((1,) + tuple(leaf.shape[1:-2]) + (bs, leaf.shape[-1]),
+                      leaf.dtype)
+                for key, leaf in kv_leaf_items(self._tier_target())}
+        self._host = HostTierCache(bs, cfg.byte_budget,
+                                   min_chain_blocks=cfg.min_chain_blocks,
+                                   leaf_spec=spec)
+        self._host_promote_tokens = int(cfg.promote_tokens_per_block)
+        # A real mid-call promotion error may have half-written the pool:
+        # the pool-class rebuild (paged: the full live-slot replay).
+        self._donated_by_site["host_promote"] = "pool"
+        self._prefix.on_evict = self._demote_blocks
+
+    def _tier_target(self) -> dict:
+        """The pool tree the host tier spills from and promotes into."""
+        return self._cache if self._paged else self._pool
 
     def _init_spec(self, model, spec_k, spec_ngram, spec_draft_model,
                    spec_draft_variables) -> None:
@@ -588,6 +764,36 @@ class ServeEngine:
         return self._prefix_on
 
     @property
+    def host_tier_enabled(self) -> bool:
+        """True when the host KV tier is armed (``host_tier=`` with a
+        nonzero byte budget)."""
+        return self._host is not None
+
+    @property
+    def host_tier_bytes_resident(self) -> int:
+        """Host bytes the tier holds now (0 with the tier off)."""
+        return self._host.bytes_resident if self._host is not None else 0
+
+    @property
+    def host_tier_blocks_resident(self) -> int:
+        """Demoted blocks resident in the host tier now."""
+        return (self._host.blocks_resident if self._host is not None
+                else 0)
+
+    @property
+    def degraded(self) -> bool:
+        """True while an OOM has the prefix cache shed and donations off
+        (serving continues on the cold path); re-arms after
+        ``degraded_cooldown_s`` without another OOM."""
+        return self._degraded
+
+    @property
+    def drained(self) -> bool:
+        """Always False: drain/restore is not ported yet (ROADMAP.md
+        queue 1 item 3)."""
+        return False
+
+    @property
     def spec_enabled(self) -> bool:
         """True when the tick is the speculative draft/verify window."""
         return self._spec_on
@@ -645,23 +851,38 @@ class ServeEngine:
                 "engine has no eos token to emit)")
         return fsm
 
-    def _acquire_adapter(self, name: str) -> int:
+    def _acquire_adapter(self, name: str, fresh: bool = True) -> int:
         """Resolve an adapter name to a PINNED device pool row, loading
         the factors on a cold miss (LRU-evicting an unpinned row under
         pressure). The pool's floor (``max_slots + 1``) keeps a live mix
-        from exhausting it."""
+        from exhausting it. ``fresh=False`` marks a replay re-admission
+        (pool traffic counted, per-tenant request volume not). An
+        unresolvable shortfall escalates as :class:`_SlotStateLost`, so
+        admission charges a replay instead of crashing the step."""
         row = self._apool.lookup(name)
         if row is not None:
-            self.metrics.record_adapter_hit(name, self._apool.resident)
+            self.metrics.record_adapter_hit(name, self._apool.resident,
+                                            fresh=fresh)
             self._apool.pin(row)
             return row
-        adapter = self._registry.get(name)
-        row = self._apool.assign(name)
-        adapter_pool_load(self._apool_a, self._apool_b, row,
-                          torch.from_numpy(adapter.a),
-                          torch.from_numpy(adapter.b))
+        try:
+            adapter = self._registry.get(name)
+        except KeyError as e:
+            raise _SlotStateLost("adapter_admit", e) from e
+        try:
+            row = self._apool.assign(name)
+        except AdapterPoolExhausted as e:
+            raise _SlotStateLost("adapter_admit", e) from e
+        try:
+            self._device_call("adapter_load", adapter_pool_load,
+                              self._apool_a, self._apool_b, row,
+                              torch.from_numpy(adapter.a),
+                              torch.from_numpy(adapter.b))
+        except _SlotStateLost:
+            self._apool.unassign(row)
+            raise
         self.metrics.record_adapter_load(name, self._apool.resident,
-                                         self._apool.evictions)
+                                         self._apool.evictions, fresh=fresh)
         self._apool.pin(row)
         return row
 
@@ -673,13 +894,22 @@ class ServeEngine:
 
     def _tenant_admit(self, handle):
         """The tenant half of one admission: ``(pinned_adapter_row,
-        compiled_fsm_or_None)``; ``(0, None)`` on a plain engine."""
+        compiled_fsm_or_None)``; ``(0, None)`` on a plain engine. Raises
+        :class:`_SlotStateLost` (self-unwound) on unresolvable specs or
+        pools."""
         if not self._tenant_on:
             return 0, None
         req = handle.request
-        fsm = (self._compiled_fsm(req.constraint)
-               if req.constraint is not None else None)
-        arow = (self._acquire_adapter(req.adapter)
+        fsm = None
+        if req.constraint is not None:
+            try:
+                fsm = self._compiled_fsm(req.constraint)
+            except ValueError as e:
+                raise _SlotStateLost("constraint_admit", e) from e
+        # "Fresh" means this request's FIRST service: a replay charged
+        # before its first token has no tokens but a replay count.
+        fresh = not handle.tokens and not handle.replays
+        arow = (self._acquire_adapter(req.adapter, fresh=fresh)
                 if req.adapter is not None else 0)
         return arow, fsm
 
@@ -812,7 +1042,8 @@ class ServeEngine:
 
     @property
     def has_work(self) -> bool:
-        return self.live_slots > 0 or self.scheduler.depth > 0
+        return (self.live_slots > 0 or self.scheduler.depth > 0
+                or bool(self._admitting))
 
     def _free_slot_ids(self) -> List[int]:
         return [i for i, s in enumerate(self._slots) if s is None]
@@ -863,6 +1094,156 @@ class ServeEngine:
         self._top_ks[slot_id] = 0
         self._top_ps[slot_id] = 2.0
 
+    # ---------------------------------------------------- fault handling
+    def _device_call(self, site: str, fn, *args):
+        """The ONE guarded device-call boundary: consult the fault plan,
+        classify failures, retry transients with bounded exponential
+        backoff, flip degraded on OOM (never a blind retry: an allocation
+        failure will not pass until memory is shed), and escalate to
+        :class:`_SlotStateLost` when the budget runs out. ``KillPoint`` is
+        a BaseException and passes through. Injected faults fire BEFORE
+        ``fn`` runs, so a retry never meets a half-written tensor; a REAL
+        error from a call that writes a resident tree in place is never
+        re-dispatched — it escalates at once, tagged with that tree, so
+        the recovery rebuilds it. Errors :func:`classify` does not know
+        (a CUDA error other than the allocator's OOM, a bug) propagate."""
+        attempt = 0
+        while True:
+            try:
+                if self._faults is not None:
+                    self._faults.check(site)
+                t0 = time.perf_counter()
+                out = fn(*args)
+                # Host wall time of the call (an asynchronous launch's
+                # enqueue, plus any copy to the host it waits for),
+                # summed per site into the step's telemetry record.
+                self._site_wall[site] = (self._site_wall.get(site, 0.0)
+                                         + time.perf_counter() - t0)
+                return out
+            except Exception as e:
+                kind = classify(e)
+                if kind is None:
+                    raise  # not a device fault: bugs stay loud
+                injected = isinstance(e, (InjectedTransientError,
+                                          InjectedResourceExhausted))
+                consumed = (None if injected
+                            else self._donated_by_site.get(site))
+                if kind == "oom":
+                    self._enter_degraded()
+                    raise _SlotStateLost(site, e, consumed) from e
+                if consumed is not None:
+                    raise _SlotStateLost(site, e, consumed) from e
+                attempt += 1
+                if attempt > self._max_retries:
+                    raise _SlotStateLost(site, e) from e
+                self.metrics.record_retry(site)
+                self._backoff_sleep(
+                    self._retry_backoff_s * (2 ** (attempt - 1)))
+
+    def _enter_degraded(self) -> None:
+        """OOM response: flush every unpinned prefix block from the index
+        (the sheddable consumer; the freed ids' storage stays allocated,
+        as in the JAX engine), stop donations, keep serving on the cold
+        path. A repeat OOM pushes the re-arm time out."""
+        now = self._clock()
+        if not self._degraded:
+            self._degraded = True
+            self._degraded_entered_s = now
+            self.metrics.record_degraded_entry()
+            if self._prefix_on:
+                self._prefix.flush_unpinned()
+        self._degraded_until_s = now + self._degraded_cooldown_s
+
+    def _maybe_rearm_degraded(self) -> None:
+        now = self._clock()
+        if self._degraded and now >= self._degraded_until_s:
+            self._degraded = False
+            self.metrics.record_degraded_exit(now - self._degraded_entered_s)
+
+    def _reset_prefix_pool(self) -> None:
+        """A REAL failure of a call that writes the row engine's pool may
+        have left it half-written: zero it in place (the JAX engine's
+        fresh zeros, without a second allocation) and start a fresh index,
+        since every stored chain points into it. Live slots keep decoding
+        from their private rows; their pins die with the old index."""
+        if not self._prefix_on:
+            return
+        _zero(self._pool)
+        self._prefix = RadixPrefixCache(self.prefix_block_size,
+                                        self._prefix.num_blocks)
+        self._slot_nodes = [None] * self.max_slots
+        if self._host is not None:
+            # The old index died without demoting; the fresh one demotes.
+            # The tier's host copies survive and stay promotable.
+            self._prefix.on_evict = self._demote_blocks
+
+    def _reset_paged_pool(self) -> None:
+        """Rebuild the paged world after its one tree may have been
+        half-written (or live K/V presumed lost): the pool (and a draft
+        model's tree) zeroed in place, a fresh index, every table back to
+        scratch, all private ownership dropped. Callers park and replay
+        the live slots FIRST — their K/V lived here."""
+        _zero(self._cache)
+        if self._draft_on:
+            _zero(self._dcache)
+        self._prefix = RadixPrefixCache(self.prefix_block_size,
+                                        self._prefix.num_blocks)
+        self._tables[:] = 0
+        self._private = [[] for _ in range(self.max_slots)]
+        self._slot_nodes = [None] * self.max_slots
+        if self._host is not None:
+            self._prefix.on_evict = self._demote_blocks
+
+    def _recover_consumed(self, lost: _SlotStateLost) -> None:
+        """Rebuild whatever resident tree a real mid-call error may have
+        half-written (``_SlotStateLost.consumed``). The admission row is
+        rebuilt by the admission unwind; the slot cache's rebuild is a
+        full live-slot replay; in paged mode every such tree is the one
+        pool holding all live K/V, so recovery is the live-slot replay."""
+        if lost.consumed == "cache":
+            self._lose_live_slots()
+        elif lost.consumed == "pool":
+            if self._paged:
+                self._lose_live_slots()
+            else:
+                self._reset_prefix_pool()
+
+    def _mark_replay(self, handle: RequestHandle) -> bool:
+        """Charge one replay against ``handle``; True = requeue it for a
+        slot-state rebuild, False = replay budget exhausted, the request
+        settled FAILED/ERROR (the engine keeps serving everyone else)."""
+        handle.replays += 1
+        handle.replay_pending = []
+        if handle.replays > self._max_replays:
+            handle.state = RequestState.FAILED
+            handle.finish_reason = FinishReason.ERROR
+            handle.finish_s = self._clock()
+            self.metrics.record_finish(FinishReason.ERROR.value,
+                                       handle.request.priority.value)
+            return False
+        self.metrics.record_replay()
+        return True
+
+    def _lose_live_slots(self) -> None:
+        """The tick's (or a cache-writing call's) retry budget ran out:
+        every live slot's K/V must be presumed gone. Park every live slot
+        (releasing its pins into the old index), rebuild the slot cache
+        or the paged world in place, and requeue the live requests in the
+        front lane for replay; each rebuilds token-exactly from its prompt
+        and emitted tokens at re-admission."""
+        requeue: List[RequestHandle] = []
+        for sid, handle in enumerate(self._slots):
+            if handle is None:
+                continue
+            self._park_slot(sid)
+            if self._mark_replay(handle):
+                requeue.append(handle)
+        if self._paged:
+            self._reset_paged_pool()
+        else:
+            _zero(self._cache)
+        self.scheduler.requeue_front(requeue)
+
     def _expired(self, handle: RequestHandle, now: float) -> bool:
         return (handle.request.deadline_s is not None
                 and now - handle.arrival_s > handle.request.deadline_s)
@@ -889,14 +1270,24 @@ class ServeEngine:
 
     def _prefill_cost(self, handle) -> int:
         """Admission-budget charge: the UNCACHED suffix length (a pop-time
-        estimate; the match at prefill time is authoritative)."""
+        estimate; the match at prefill time is authoritative). Blocks the
+        host tier will promote charge ``promote_tokens_per_block`` each
+        instead of ``block_size``; degraded mode charges the whole prompt
+        (the cache is not consulted on the cold path)."""
         prompt = handle.request.prompt
-        if not self._prefix_on:
+        if self._degraded or not self._prefix_on:
             cost = len(prompt)
         else:
             match = self._prefix.match(prompt,
                                        max_blocks=self._match_blocks(prompt))
             cost = len(prompt) - match.n_blocks * self.prefix_block_size
+            if self._host is not None:
+                h = self._host.match_depth(
+                    prompt, match.n_blocks,
+                    self._match_blocks(prompt) - match.n_blocks)
+                if h > 0:
+                    cost -= h * self.prefix_block_size
+                    cost += h * self._host_promote_tokens
         # A COLD adapter load is admission-path work (a host-to-device
         # factor copy), charged like an uncached suffix; a resident one,
         # like a cached prefix, costs nothing.
@@ -904,19 +1295,147 @@ class ServeEngine:
                 and self._apool.row_of(handle.request.adapter) is None):
             cost += int(self._tenant.adapter_load_tokens)
         # A speculative engine charges a replayed stream's re-feed at its
-        # accepted tokens, never the drafted window's compute. A fresh
-        # request has no tokens: this costs nothing until replay exists.
+        # accepted (emitted) tokens, never the drafted window's compute.
         if self._spec_on and handle.tokens:
             cost += len(handle.tokens)
         return cost
+
+    # ---------------------------------------------------- host KV tier
+    def _demote_blocks(self, victims) -> None:
+        """``radix.on_evict`` hook — eviction becomes demotion: spill the
+        dying blocks' K/V into the host tier when their chains are
+        reuse-worthy, the whole reclaim in one gather and one
+        device-to-host copy (:meth:`_gather_blocks_host`). Opportunistic:
+        a refused or failed spill degrades to free-and-recompute, never to
+        an error, and degraded mode spills nothing."""
+        if self._degraded:
+            return
+        keep = []
+        for node in victims:
+            if not self._host.spill_worthy(self._prefix.chain_depth(node)):
+                continue
+            tokens = self._prefix.chain_tokens(node)
+            if self._host.has_block(tokens):
+                continue  # kept across a promotion: nothing to move
+            keep.append((tokens, node.block_id))
+        if not keep:
+            return
+        try:
+            blocks = self._gather_blocks_host([bid for _, bid in keep])
+        except Exception as e:  # noqa: BLE001 - device faults only
+            if classify(e) is None:
+                raise  # not a device fault: bugs stay loud
+            return
+        for (tokens, _), data in zip(keep, blocks):
+            if self._host.store(tokens, data):
+                self.metrics.record_host_spill(self._host.bytes_resident)
+
+    def _gather_blocks_host(self, block_ids) -> List[Dict[str, torch.Tensor]]:
+        """Pool blocks ``block_ids`` as per-block host payload dicts keyed
+        by leaf path: one ``cache_blocks_gather`` per leaf into one stacked
+        tensor, ONE device-to-host copy (complete on return, before any of
+        the freed ids can be reallocated and overwritten), then host-side
+        per-block copies (so a shed sibling cannot keep the batch buffer
+        alive)."""
+        bs = self.prefix_block_size
+        items = list(kv_leaf_items(self._tier_target()))
+        ids = torch.as_tensor(list(block_ids), dtype=torch.int64)
+        host = torch.stack([cache_blocks_gather(leaf, ids)
+                            for _, leaf in items]).cpu()
+        return [{key: host[i, ..., j * bs:(j + 1) * bs, :].clone()
+                 for i, (key, _) in enumerate(items)}
+                for j in range(len(block_ids))]
+
+    def _assemble_promote_rows(self, blocks) -> torch.Tensor:
+        """The ``host_promote`` scatter's source on the host: per KV leaf a
+        row ``[1, H_kv, match_cap*bs, D]`` with the promoted payloads at
+        ``[0, k*bs)`` and ZEROS beyond (those positions scatter into the
+        padded scratch ids, and the paged scratch block stays zero), all
+        leaves stacked into one tensor for one host-to-device copy."""
+        bs = self.prefix_block_size
+        items = list(kv_leaf_items(self._tier_target()))
+        _, first = items[0]
+        rows = torch.zeros((len(items), 1) + tuple(first.shape[1:-2])
+                           + (self._match_cap * bs, first.shape[-1]),
+                           dtype=first.dtype)
+        for j, block in enumerate(blocks):
+            for i, (key, _) in enumerate(items):
+                rows[i, ..., j * bs:(j + 1) * bs, :] = block[key]
+        return rows
+
+    def _promote_rows(self, rows: torch.Tensor, ids: np.ndarray) -> None:
+        """The promotion's device half: one host-to-device copy of the
+        stacked rows, then one ``cache_blocks_scatter`` per leaf into the
+        pool blocks ``ids`` (scratch-padded)."""
+        dev = rows.to(self.device)
+        for i, (_, leaf) in enumerate(kv_leaf_items(self._tier_target())):
+            cache_blocks_scatter(leaf, dev[i], ids, 0)
+
+    def _promote_host_chain(self, prompt: np.ndarray) -> int:
+        """Promotion: extend the device match with host-tier blocks —
+        allocate device ids under the ANCHOR's pin, scatter the payloads
+        (the ``host_promote`` site) and attach the ids to the radix index,
+        so the admission that follows matches a deeper chain. Every exit
+        (allocator shortfall, injected fault, real error) releases its ids
+        and both pins exactly. Returns the promoted block count."""
+        if self._degraded:
+            return 0
+        cap = self._match_blocks(prompt)
+        match = self._prefix.match(prompt, max_blocks=cap)
+        if match.n_blocks >= cap:
+            return 0
+        tip = self._host.pin_chain(prompt, match.n_blocks,
+                                   cap - match.n_blocks)
+        promoted = 0
+        if tip is not None:
+            try:
+                promoted = self._promote_pinned(prompt, match, tip)
+            finally:
+                self._host.unpin(tip)
+        return promoted
+
+    def _promote_pinned(self, prompt: np.ndarray, match, tip) -> int:
+        """The host-to-device half of a promotion under the caller's
+        host-tier pin: allocate device ids beneath the ANCHOR's pin
+        (eviction must not steal the chain the ids extend), dispatch the
+        scatter, attach the ids."""
+        bs = self.prefix_block_size
+        m = match.n_blocks
+        anchor = match.node
+        self._prefix.pin(anchor)
+        try:
+            ids = self._prefix.allocate(tip.depth - m)
+            k = len(ids)
+            if k == 0:
+                return 0
+            node = tip
+            while node.depth > m + k:  # the allocator came up short:
+                node = node.parent     # promote the prefix that fits
+            rows = self._assemble_promote_rows(
+                self._host.chain_data(node, k))
+            dids = np.zeros(self._match_cap, np.int64)
+            dids[:k] = ids
+            try:
+                self._device_call("host_promote", self._promote_rows, rows,
+                                  dids)
+            except _SlotStateLost:
+                self._prefix.release(ids)
+                raise
+            self._prefix.extend(anchor, prompt[m * bs:(m + k) * bs], ids)
+            self.metrics.record_host_promotion(
+                k, k * self._host_promote_tokens, self._host.bytes_resident)
+            return k
+        finally:
+            self._prefix.unpin(anchor)
 
     def _chunk_loop(self, prompt: np.ndarray, off: int, cache,
                     table=None):
         """The suffix chunk loop and its width policy, one for the row and
         paged admissions (each forward pays a fixed cost plus per-token
         compute): a long remainder (>= 3/4 of the wide width) takes the
-        WIDE chunk in one forward, short suffixes — the prefix-hit case —
-        take narrow chunks and pay only for the uncached tail. Each chunk
+        WIDE chunk in one forward (the ``chunk_prefill_wide`` site), short
+        suffixes — the prefix-hit case — take narrow chunks
+        (``chunk_prefill``) and pay only for the uncached tail. Each chunk
         continues ``cache`` (the admission row, or the paged pool through
         ``table``) in place; returns the last chunk's logits and features
         at its last token."""
@@ -925,43 +1444,55 @@ class ServeEngine:
         while off < plen:
             rem = plen - off
             if self._has_wide and 4 * rem >= 3 * self.prefill_len:
-                width = self.prefill_len
+                width, site = self.prefill_len, "chunk_prefill_wide"
             else:
-                width = self._chunk
+                width, site = self._chunk, "chunk_prefill"
             w = min(width, rem)
             chunk_toks = np.zeros((1, width), np.int32)
             chunk_toks[0, :w] = prompt[off:off + w]
-            _, logits, feats = prefill_row_features(
-                self.model, torch.from_numpy(chunk_toks).to(self.device), w,
-                cache, off, table)
+            _, logits, feats = self._device_call(
+                site, prefill_row_features, self.model,
+                torch.from_numpy(chunk_toks).to(self.device), w, cache, off,
+                table)
             off += w
         return logits, feats
 
     def _prefill_into_row(self, prompt: np.ndarray):
         """Prefill one prompt into a row cache, reusing any cached prefix:
-        gather the matched chain into the resident admission row,
-        chunk-prefill the suffix, donate the prompt's uncovered full
-        blocks and pin the chain. With the prefix cache off, one padded
-        prefill on a fresh row. Returns ``(row_cache, last_logits,
-        last_feats, pinned_node_or_None)``."""
+        promote a host-tier continuation first, gather the matched chain
+        into the resident admission row, chunk-prefill the suffix, donate
+        the prompt's uncovered full blocks and pin the chain. With the
+        prefix cache off, one padded prefill on a fresh row; degraded, a
+        cold chunked prefill that neither reads nor grows the cache.
+        Returns ``(row_cache, last_logits, last_feats,
+        pinned_node_or_None)``."""
         plen = int(prompt.size)
         bs = self.prefix_block_size
         if not self._prefix_on:
             padded = np.zeros((1, self.prefill_len), np.int32)
             padded[0, :plen] = prompt
-            row, logits, feats = prefill_row_features(
-                self.model, torch.from_numpy(padded).to(self.device), plen)
+            row, logits, feats = self._device_call(
+                "prefill", prefill_row_features, self.model,
+                torch.from_numpy(padded).to(self.device), plen)
             return row, logits, feats, None
-        match = self._prefix.match(prompt,
-                                   max_blocks=self._match_blocks(prompt))
-        n_cached = match.n_blocks * bs
+        if self._host is not None:
+            self._promote_host_chain(prompt)
+        use_prefix = not self._degraded
+        match, n_cached = None, 0
+        if use_prefix:
+            match = self._prefix.match(prompt,
+                                       max_blocks=self._match_blocks(prompt))
+            n_cached = match.n_blocks * bs
         if n_cached > 0:
             # Everything past the gathered prefix is stale: the chunks
             # overwrite it, or it parks past the position the insert
             # stamps. A full miss gathers nothing.
-            gather_prefix_into_row(self._pool, self._row, match.block_ids)
+            self._device_call("gather", gather_prefix_into_row, self._pool,
+                              self._row, match.block_ids)
             self.metrics.copy_bytes_gathered += n_cached * self._kv_token_bytes
         logits, feats = self._chunk_loop(prompt, n_cached, self._row)
+        if not use_prefix:
+            return self._row, logits, feats, None
         node = self._donate_tail(prompt, match, n_cached)
         return self._row, logits, feats, node
 
@@ -970,8 +1501,9 @@ class ServeEngine:
         First descend any chain ALREADY stored past the (capped) gather
         match — those blocks must not be allocated afresh. Pin before
         allocating, so this admission's own eviction pass can never free
-        the blocks just gathered from; the pool copy runs before
-        ``extend`` attaches the ids. Returns the pinned node."""
+        the blocks just gathered from; the pool copy (the ``donate`` site)
+        runs before ``extend`` attaches the ids, so a fault leaves the
+        index pointing at no junk. Returns the pinned node."""
         bs = self.prefix_block_size
         node, stored = self._prefix.descend(match.node, prompt,
                                             match.n_blocks)
@@ -980,7 +1512,13 @@ class ServeEngine:
         if want > 0:
             new_ids = self._prefix.allocate(min(want, self._donate_cap))
             if new_ids:
-                donate_prefix_blocks(self._pool, self._row, new_ids, stored)
+                try:
+                    self._device_call("donate", donate_prefix_blocks,
+                                      self._pool, self._row, new_ids, stored)
+                except _SlotStateLost:
+                    self._prefix.release(new_ids)
+                    self._prefix.unpin(node)
+                    raise
                 self.metrics.copy_bytes_donated += (
                     len(new_ids) * bs * self._kv_token_bytes)
                 tip = self._prefix.extend(
@@ -995,73 +1533,96 @@ class ServeEngine:
         return node
 
     def _paged_match_and_allocate(self, prompt: np.ndarray):
-        """match → pin → allocate private suffix blocks → stamp the table
-        row. The pin lands BEFORE any allocation, so an eviction during
-        this admission can never take a matched block from under it.
-        Returns ``(pinned_node_or_None, n_matched_blocks, table_row [T],
-        private_ids)``."""
+        """promote → match → pin → allocate private suffix blocks → stamp
+        the table row. The pin lands BEFORE any allocation, so an eviction
+        during this admission can never take a matched block from under
+        it; degraded mode skips the index (every block private). Returns
+        ``(pinned_node_or_None, n_matched_blocks, table_row [T],
+        private_ids)``; raises :class:`_SlotStateLost` unwound on a
+        shortfall."""
         plen = int(prompt.size)
         bs = self.prefix_block_size
         table_row = np.zeros(self._table_width, np.int32)
-        node = None
-        match = self._prefix.match(prompt,
-                                   max_blocks=self._match_blocks(prompt))
-        m = match.n_blocks
-        if m > 0:
-            node = match.node
-            self._prefix.pin(node)
-            table_row[:m] = match.block_ids
+        node, m = None, 0
+        if self._host is not None:
+            self._promote_host_chain(prompt)
+        if not self._degraded:
+            match = self._prefix.match(prompt,
+                                       max_blocks=self._match_blocks(prompt))
+            m = match.n_blocks
+            if m > 0:
+                node = match.node
+                self._prefix.pin(node)
+                table_row[:m] = match.block_ids
         need = -(-plen // bs) - m
         private = list(self._prefix.allocate(need)) if need > 0 else []
         if len(private) < need:
+            # Everything unpinned is gone and it still does not fit: undo
+            # and escalate; the unwind charges a replay.
             self._prefix.release(private)
             if node is not None:
                 self._prefix.unpin(node)
-            # The pool's validated floor rules this out; the JAX engine's
-            # answer (requeue for replay) is not ported.
-            raise RuntimeError(
-                f"block pool exhausted ({need} blocks needed, "
-                f"{len(private)} free/evictable)")
+            raise _SlotStateLost(
+                "paged_alloc",
+                RuntimeError(f"block pool exhausted ({need} blocks needed, "
+                             f"{len(private)} free/evictable)"))
         table_row[m:m + len(private)] = private
         return node, m, table_row, private
 
     def _prefill_paged(self, prompt: np.ndarray):
         """A prefix hit PINS the matched chain and points the slot's table
         at it in place; private blocks take the suffix, which the chunks
-        write straight into the pool. Returns ``(last_logits, last_feats,
-        node, table_row, private_ids)``."""
+        write straight into the pool. A lost chunk hands the private
+        blocks and the pin back before it propagates. Returns
+        ``(last_logits, last_feats, node, table_row, private_ids)``."""
         node, m, table_row, private = self._paged_match_and_allocate(prompt)
         n_cached = m * self.prefix_block_size
+        use_prefix = not self._degraded
         table = torch.from_numpy(table_row[None]).to(self.device)
-        logits, feats = self._chunk_loop(prompt, n_cached, self._cache,
-                                         table)
-        if self._draft_on:
-            self._draft_prefill_loop(prompt, n_cached, table)
+        try:
+            logits, feats = self._chunk_loop(prompt, n_cached, self._cache,
+                                             table)
+            if self._draft_on:
+                self._draft_prefill_loop(prompt, n_cached, table)
+        except _SlotStateLost:
+            # An injected fault wrote nothing: hand the resources back. A
+            # real error resets the whole paged world right after (the
+            # unwind's _recover_consumed), so releasing first is harmless.
+            self._prefix.release(private)
+            if node is not None:
+                self._prefix.unpin(node)
+            raise
         if n_cached > 0:
             self.metrics.record_copy_avoided(
                 n_cached * self._kv_token_bytes)
-        node = self._donate_tail_paged(prompt, node, table_row, private, m)
-        self.metrics.record_prefix_lookup(
-            n_cached, blocks_live=self._prefix.blocks_live,
-            evictions=self._prefix.evictions)
+        if use_prefix:
+            node = self._donate_tail_paged(prompt, node, table_row, private,
+                                           m)
+            self.metrics.record_prefix_lookup(
+                n_cached, blocks_live=self._prefix.blocks_live,
+                evictions=self._prefix.evictions)
         return logits, feats, node, table_row, private
 
     def _draft_prefill_loop(self, prompt: np.ndarray, off: int,
                             table) -> None:
         """Chunk-prefill the uncached suffix through the DRAFT model into
-        its tree, narrow chunks only, at the target's offsets and blocks:
-        a donated shared block then carries valid draft K/V for every
-        later hit, beside the target's. Only K/V is wanted: the head is
-        skipped."""
+        its tree (the ``draft_prefill`` site), narrow chunks only, at the
+        target's offsets and blocks: a donated shared block then carries
+        valid draft K/V for every later hit, beside the target's. Only K/V
+        is wanted: the head is skipped."""
         plen = int(prompt.size)
         while off < plen:
             w = min(self._chunk, plen - off)
             chunk_toks = np.zeros((1, self._chunk), np.int32)
             chunk_toks[0, :w] = prompt[off:off + w]
-            self._draft(torch.from_numpy(chunk_toks).to(self.device),
-                        cache=self._dcache, cache_index=int(off),
-                        block_table=table, features_only=True)
+            self._device_call("draft_prefill", self._draft_chunk,
+                              torch.from_numpy(chunk_toks).to(self.device),
+                              int(off), table)
             off += w
+
+    def _draft_chunk(self, tokens: torch.Tensor, off: int, table) -> None:
+        self._draft(tokens, cache=self._dcache, cache_index=off,
+                    block_table=table, features_only=True)
 
     def _donate_tail_paged(self, prompt: np.ndarray, node, table_row,
                            private: List[int], m: int):
@@ -1107,7 +1668,9 @@ class ServeEngine:
     def _admit(self) -> None:
         free = self._free_slot_ids()
         if not free:
-            return
+            free = self._preempt_for_interactive()
+            if not free:
+                return
 
         def _queued_cancel(handle):
             handle.finish_s = self._clock()
@@ -1124,18 +1687,111 @@ class ServeEngine:
         # that when a budget consumes the result.
         use_cost = ((self._prefix_on or self._tenant_on or self._spec_on)
                     and self.scheduler.prefill_token_budget is not None)
-        for handle in self.scheduler.admit(
-                len(free), on_cancelled=_queued_cancel,
-                on_expired=_queued_expired, now_fn=self._clock,
-                cost_fn=self._prefill_cost if use_cost else None):
-            self._admit_one(free.pop(0), handle)
+        # A kill mid-admission can leave a handle in `_admitting`: it owns
+        # the first free slot before anything new is popped.
+        self._admitting.extend(self.scheduler.admit(
+            len(free) - len(self._admitting), on_cancelled=_queued_cancel,
+            on_expired=_queued_expired, now_fn=self._clock,
+            cost_fn=self._prefill_cost if use_cost else None))
+        while self._admitting and free:
+            handle = self._admitting[0]
+            sid = free.pop(0)
+            try:
+                self._admit_one(sid, handle)
+            except _SlotStateLost as lost:
+                free.insert(0, sid)
+                self._unwind_admission(lost, handle)
+            self._admitting.popleft()
+
+    def _paged_append_blocks(self) -> None:
+        """Before a tick: every block a live slot is about to write — at
+        its position, and with ``spec_k > 0`` through the verify window's
+        ``position + spec_k``, clamped at the table's edge (writes past
+        it land in the scratch sink) — gets a fresh PRIVATE block if it
+        has none. The allocation LRU-evicts unpinned cached chains under
+        pressure; with the pool at its validated floor it cannot fail for
+        a live stream, and if a mis-sized pool ever makes it fail, the
+        slot is parked and REPLAYED. A window never reaches a shared
+        block: every position past the prompt lies in a private block,
+        which is checked."""
+        bs = self.prefix_block_size
+        span = self._spec_k
+        for sid, handle in enumerate(self._slots):
+            if handle is None:
+                continue
+            pos = int(self._positions[sid])
+            hi = min((pos + span) // bs, self._table_width - 1)
+            need = [blk for blk in range(pos // bs, hi + 1)
+                    if self._tables[sid, blk] == 0]
+            if need:
+                ids = self._prefix.allocate(len(need))
+                if len(ids) < len(need):
+                    self._prefix.release(ids)
+                    self._park_slot(sid)
+                    if self._mark_replay(handle):
+                        self.scheduler.requeue_front([handle])
+                    continue
+                for blk, bid in zip(need, ids):
+                    self._tables[sid, blk] = bid
+                    self._private[sid].append(bid)
+            if span and not all(int(self._tables[sid, blk])
+                                in self._private[sid]
+                                for blk in range(pos // bs, hi + 1)):
+                raise RuntimeError(
+                    f"slot {sid}'s verify window at position {pos} reaches "
+                    "a shared block (engine bug)")
+
+    def _preempt_for_interactive(self) -> List[int]:
+        """Every slot is busy and ``interactive`` work is queued: park
+        running BEST_EFFORT streams (fewest tokens first, the cheapest
+        replay) and requeue them through the normal lane; each resumes
+        token-exactly later through the replay admission. A handle is
+        preempted at most ``preempt_cap`` times, and only ACTUAL
+        interactive submissions trigger this (aging promotions and
+        replay-lane entries do not), so preemption cannot cascade.
+        Returns the freed slot ids."""
+        if self._preempt_cap < 1:
+            return []
+        want = self.scheduler.queued_of_class(Priority.INTERACTIVE)
+        if want < 1:
+            return []
+        victims = sorted(
+            ((sid, h) for sid, h in enumerate(self._slots)
+             if h is not None
+             and h.request.priority is Priority.BEST_EFFORT
+             and h.preemptions < self._preempt_cap
+             and not h.replay_pending),
+            key=lambda p: len(p[1].tokens))
+        freed: List[int] = []
+        for sid, victim in victims[:want]:
+            victim.preemptions += 1
+            self.metrics.record_preemption()
+            self._park_slot(sid)
+            self.scheduler.requeue(victim)
+            freed.append(sid)
+        return freed
+
+    def _unwind_admission(self, lost: _SlotStateLost,
+                          handle: RequestHandle) -> None:
+        """A call died during this handle's admission; the per-request
+        unwind already released its pins and the slot never became live.
+        Zero the resident admission row (a real error may have
+        half-written it), rebuild anything else the failed call wrote (the
+        slot cache: live-slot replay; the block pool: pool and index), and
+        charge the request a replay."""
+        if not self._paged and self._prefix_on:
+            _zero(self._row)
+        self._recover_consumed(lost)
+        if self._mark_replay(handle):
+            self.scheduler.requeue_front([handle])
 
     def _admit_one(self, sid: int, handle: RequestHandle) -> None:
         """Admit one popped request into slot ``sid``. Tenant order: the
         FSM compile and the adapter pin land FIRST, a prefill failure
         releases the pin before it propagates, and the install hands the
         pin to the slot. The adapter's delta is added to the prefill's
-        last logits, so the first token comes from the adapted model."""
+        last logits, so the first token comes from the adapted model (a
+        replay samples none)."""
         prompt = np.asarray(handle.request.prompt, np.int32)
         arow, fsm = self._tenant_admit(handle)
         try:
@@ -1147,7 +1803,7 @@ class ServeEngine:
         except BaseException:
             self._release_adapter(arow)
             raise
-        if arow:
+        if arow and not handle.tokens:
             logits = self._adapted(
                 logits, feats, torch.tensor([arow], device=self.device))
         if self._paged:
@@ -1158,37 +1814,76 @@ class ServeEngine:
             self._install_slot(sid, handle, logits, node, row=row,
                                arow=arow, fsm=fsm)
 
-    def _install_slot(self, sid: int, handle: RequestHandle, logits, node,
-                      row=None, table_row=None, private=(), arow: int = 0,
-                      fsm=None) -> None:
-        """Make a prefilled request live in slot ``sid``: copy its row into
-        the slot cache (row mode; paged mode stamps the slot's table — the
-        KV already lives in the pool) and sample its first token from the
-        prefill logits (TTFT). A tenant slot takes over the admission's
-        adapter pin (``arow``), and a constrained one (``fsm``) samples
-        under the start state's mask and advances its FSM."""
-        req = handle.request
-        plen = len(req.prompt)
-        t, k, p = req.sampling.as_arrays()
-        if self._paged:
-            self._tables[sid] = table_row
-            self._private[sid] = list(private)
-        else:
-            insert_cache_slot(self._cache, row, sid)
+    def _sample_first(self, logits, fsm, t, k, p) -> int:
+        """The first token from the prefill logits, under the FSM's start
+        mask for a constrained request."""
         if fsm is not None:
             start = torch.from_numpy(
                 fsm.allow_row(fsm.start, self.eos_token)[None])
             logits = torch.where(start.to(logits.device), logits, -torch.inf)
-        first = int(sample_logits_batched(
+        return int(sample_logits_batched(
             self._rng, logits, temperature=np.float32([t]),
             top_k=np.int32([k]), top_p=np.float32([p]))[0])
+
+    def _install_slot(self, sid: int, handle: RequestHandle, logits, node,
+                      row=None, table_row=None, private=(), arow: int = 0,
+                      fsm=None) -> None:
+        """Make a prefilled request live in slot ``sid``: copy its row into
+        the slot cache (row mode, the ``insert`` site; paged mode stamps
+        the slot's table — the K/V already lives in the pool). A FRESH
+        request samples its first token from the prefill logits
+        (``sample_first``, that is TTFT); a REPLAYED one (``handle.tokens``
+        non-empty) rebuilt its K/V from the prompt and re-feeds the
+        emitted tokens through the coming ticks, so no token is
+        re-sampled or streamed twice. A tenant slot takes over the
+        admission's adapter pin (``arow``); a constrained one (``fsm``)
+        samples under the start state's mask, or on a replay re-derives
+        its FSM state from the emitted tokens. Every failure releases the
+        admission's pins and private blocks before it propagates."""
+        req = handle.request
+        plen = len(req.prompt)
+        replay = bool(handle.tokens)
+        t, k, p = req.sampling.as_arrays()
+
+        def _unwind():
+            if self._paged and private:
+                self._prefix.release(list(private))
+            if node is not None:
+                self._prefix.unpin(node)
+            self._release_adapter(arow)
+
+        fsm_state = None
+        if fsm is not None and replay:
+            try:
+                fsm_state = fsm.advance_many(handle.tokens,
+                                             eos_token=self.eos_token)
+            except ValueError as e:
+                _unwind()
+                raise _SlotStateLost("constraint_admit", e) from e
+        try:
+            if not self._paged:
+                self._device_call("insert", insert_cache_slot, self._cache,
+                                  row, sid)
+            if replay:
+                first = handle.tokens[0]
+                handle.replay_pending = list(handle.tokens[1:])
+            else:
+                first = self._device_call("sample_first", self._sample_first,
+                                          logits, fsm, t, k, p)
+        except _SlotStateLost:
+            _unwind()
+            raise
+        if self._paged:
+            self._tables[sid] = table_row
+            self._private[sid] = list(private)
         self._slot_nodes[sid] = node
-        now = self._clock()
-        handle.tokens.append(first)
-        handle.ttft_s = now - handle.arrival_s
-        self.metrics.record_first_token(handle.ttft_s,
-                                        handle.request.priority.value)
-        self.metrics.record_admission(now)
+        if not replay:
+            now = self._clock()
+            handle.tokens.append(first)
+            handle.ttft_s = now - handle.arrival_s
+            self.metrics.record_first_token(handle.ttft_s,
+                                            handle.request.priority.value)
+            self.metrics.record_admission(now)
         self._slots[sid] = handle
         self._positions[sid] = plen
         self._tokens[sid] = first
@@ -1196,14 +1891,14 @@ class ServeEngine:
         self._top_ks[sid] = k
         self._top_ps[sid] = p
         if self._spec_on:
-            # The drafter's history: the prompt and the emitted tokens,
-            # zeroed first so a previous stream's tail never matches.
+            # The drafter's history: the prompt and the emitted tokens (one
+            # for a fresh admission, the whole stream for a replay), zeroed
+            # first so a previous stream's tail never matches.
             self._hist[sid, :] = 0
             self._hist[sid, :plen] = np.asarray(req.prompt, np.int32)
             n = min(len(handle.tokens), self.model.max_len - plen)
             if n > 0:
                 self._hist[sid, plen:plen + n] = handle.tokens[:n]
-        fsm_state = None
         if self._tenant_on:
             # The slot now owns the adapter pin (released at park) and
             # the grammar state and mask row the coming ticks read.
@@ -1211,20 +1906,35 @@ class ServeEngine:
                 self._arow[sid] = arow
                 self._arow_dev = None
             if fsm is not None:
-                if self.eos_token is not None and first == self.eos_token:
-                    fsm_state = fsm.start  # evicted as EOS below
-                else:
-                    fsm_state = fsm.advance(fsm.start, first)
-                    if fsm_state < 0:  # masked sample: impossible
-                        raise RuntimeError(
-                            "constrained first token escaped its "
-                            "start-state mask (engine bug)")
+                # A replay's state was re-derived from its stream above.
+                if not replay:
+                    if self.eos_token is not None \
+                            and first == self.eos_token:
+                        fsm_state = fsm.start  # evicted as EOS below
+                    else:
+                        fsm_state = fsm.advance(fsm.start, first)
+                        if fsm_state < 0:  # masked sample: impossible
+                            raise RuntimeError(
+                                "constrained first token escaped its "
+                                "start-state mask (engine bug)")
                 self._fsms[sid] = (fsm, fsm_state)
                 self._set_mask(sid, fsm.allow_row(fsm_state,
                                                   self.eos_token))
             else:
                 self._fsms[sid] = None
                 self._set_mask(sid, None)
+        if replay:
+            # Every re-fed token's finish conditions were evaluated before
+            # the fault; only the live edge is re-checked.
+            if self.eos_token is not None \
+                    and handle.tokens[-1] == self.eos_token:
+                self._evict(sid, RequestState.FINISHED, FinishReason.EOS)
+            elif fsm is not None and fsm_state is not None \
+                    and fsm.is_dead_end(fsm_state, self.eos_token):
+                self._evict(sid, RequestState.FINISHED, FinishReason.GRAMMAR)
+            elif len(handle.tokens) >= req.max_new_tokens:
+                self._evict(sid, RequestState.FINISHED, FinishReason.LENGTH)
+            return
         # A one-token request (or an immediate eos, or an immediately
         # complete grammar) finishes at admission without ever joining a
         # tick.
@@ -1234,42 +1944,6 @@ class ServeEngine:
             self._evict(sid, RequestState.FINISHED, FinishReason.GRAMMAR)
         elif req.max_new_tokens == 1:
             self._evict(sid, RequestState.FINISHED, FinishReason.LENGTH)
-
-    def _paged_append_blocks(self) -> None:
-        """Before a tick: every block a live slot is about to write — at
-        its position, and with ``spec_k > 0`` through the verify window's
-        ``position + spec_k``, clamped at the table's edge (writes past
-        it land in the scratch sink) — gets a fresh PRIVATE block if it
-        has none. The allocation LRU-evicts unpinned cached chains under
-        pressure; with the pool at its validated floor it cannot fail for
-        a live stream (the JAX engine parks and replays the slot if a
-        mis-sized pool ever makes it fail; replay is not ported, so this
-        raises). A window never reaches a shared block: every position
-        past the prompt lies in a private block, which is checked."""
-        bs = self.prefix_block_size
-        span = self._spec_k
-        for sid, handle in enumerate(self._slots):
-            if handle is None:
-                continue
-            pos = int(self._positions[sid])
-            hi = min((pos + span) // bs, self._table_width - 1)
-            need = [blk for blk in range(pos // bs, hi + 1)
-                    if self._tables[sid, blk] == 0]
-            ids = self._prefix.allocate(len(need)) if need else []
-            if len(ids) < len(need):
-                self._prefix.release(ids)
-                raise RuntimeError(
-                    f"block pool exhausted appending a block for slot "
-                    f"{sid}; slot replay is not ported ({_ROADMAP_FEATURES})")
-            for blk, bid in zip(need, ids):
-                self._tables[sid, blk] = bid
-                self._private[sid].append(bid)
-            if span and not all(int(self._tables[sid, blk])
-                                in self._private[sid]
-                                for blk in range(pos // bs, hi + 1)):
-                raise RuntimeError(
-                    f"slot {sid}'s verify window at position {pos} reaches "
-                    "a shared block (engine bug)")
 
     # --------------------------------------------------------------- tick
     def _tick(self) -> np.ndarray:
@@ -1314,8 +1988,9 @@ class ServeEngine:
         tables (on the card, the paged-decode kernel), then one more step
         that writes the last draft's K/V — a fully accepted window would
         otherwise leave a hole in the draft cache. A row with
-        ``forced_n > j`` takes ``forced_tok[:, j]`` at step ``j`` (replay's
-        known tokens; -1 everywhere until replay is ported)."""
+        ``forced_n > j`` takes ``forced_tok[:, j]`` at step ``j`` (a
+        replay's known tokens, teacher-forced so the draft cache stays
+        exact through recovery; ``forced_n`` is -1 for other rows)."""
         k = self._spec_k
         if not self._draft_on:
             return ngram_drafts(torch.from_numpy(self._hist),
@@ -1375,20 +2050,50 @@ class ServeEngine:
         out = torch.cat([y, acc[:, None]], dim=1).cpu().numpy()
         return out[:, :-1], out[:, -1]  # per-tick host sync (streaming)
 
+    def _dispatch_draft(self, pos, tok, table, forced_tok,
+                        forced_n) -> torch.Tensor:
+        """The ``draft`` site. A draft failure is never fatal to the
+        streams: when the retry budget runs out with nothing written (an
+        injected fault, or the n-gram lookup, which writes nothing) the
+        window falls back to repeat-last-token drafts — the n-gram
+        drafter's own no-match fallback — and pays acceptance, not
+        correctness. Only a real error in the draft model's steps, which
+        write its tree, escalates (a full live-slot replay)."""
+        try:
+            return self._device_call("draft", self._draft_tokens, pos, tok,
+                                     table, forced_tok, forced_n)
+        except _SlotStateLost as lost:
+            if lost.consumed is not None:
+                raise
+            return torch.from_numpy(
+                np.repeat(self._tokens[:, None], self._spec_k, axis=1))
+
     def _spec_tick(self, live) -> int:
         """One speculative step: draft → ONE verify over the ``[S,
         spec_k+1]`` window → host-side accept and evict. A greedy slot may
         accept up to ``spec_k`` drafts (its cap); a sampled slot's cap is
-        0, so it ticks one token exactly as the plain tick does. Returns
-        the tokens emitted."""
+        0, so it ticks one token exactly as the plain tick does. A
+        replaying slot re-feeds up to ``spec_k + 1`` known tokens a window
+        (forced, never sampled; the last one stays as the next window's
+        current token). Returns the tokens emitted; raises
+        :class:`_SlotStateLost` to the caller like the plain tick."""
         s, k = self.max_slots, self._spec_k
         w_width = k + 1
-        # Replay's forced re-feeds (not ported): none.
         forced_tok = np.zeros((s, k), np.int32)
         forced_n = np.full(s, -1, np.int32)
+        for sid in live:
+            pend = self._slots[sid].replay_pending
+            if pend:
+                j = min(k, len(pend) - 1)
+                if j > 0:
+                    forced_tok[sid, :j] = pend[:j]
+                forced_n[sid] = j
+        forced = forced_n >= 0
         caps = np.zeros(s, np.int32)
         walks = []  # constrained greedy slots: capped by the FSM walk
         for sid in live:
+            if forced[sid]:
+                continue
             fsm_entry = self._fsms[sid] if self._tenant_on else None
             if self._temps[sid] > 0:
                 # A sampled row ticks one token (cap 0); a constrained one
@@ -1412,7 +2117,14 @@ class ServeEngine:
         rows = self._stage_rows() if self._tenant_on else None
         pos, tok = state[:, 0], state[:, 1:2]
         table = state[:, 4:].contiguous() if self._paged else None
-        drafts = self._draft_tokens(pos, tok, table, forced_tok, forced_n)
+        drafts = self._dispatch_draft(pos, tok, table, forced_tok, forced_n)
+        if forced.any():
+            # A replaying row's window is its known tokens, zeros past
+            # them, whatever was drafted.
+            drafts = torch.where(
+                torch.from_numpy(forced[:, None]).to(drafts.device),
+                torch.from_numpy(forced_tok).to(drafts.device),
+                drafts.to(torch.int32))
         caps_dev = state[:, 2]
         if walks:
             # The walk reads the drafts on the host: the n-gram drafts are
@@ -1425,12 +2137,19 @@ class ServeEngine:
         drafted_tick = int(caps.sum())
         masks = self._stage_masks(window=True) if self._tenant_on else None
         block = torch.cat([tok, drafts.to(self.device)], dim=1)
-        win, acc = self._verify(block, pos, table, caps_dev, state[:, 3],
-                                masks, rows)
+        win, acc = self._device_call("verify", self._verify, block, pos,
+                                     table, caps_dev, state[:, 3], masks,
+                                     rows)
         new_tokens = 0
         accepted_tick = 0
         for sid in live:
             handle = self._slots[sid]
+            if forced[sid]:
+                j = int(forced_n[sid])
+                del handle.replay_pending[:j]
+                self._positions[sid] += j + 1
+                self._tokens[sid] = handle.replay_pending.pop(0)
+                continue
             n_emit = int(acc[sid]) + 1
             if caps[sid] > 0:
                 accepted_tick += int(acc[sid])
@@ -1516,15 +2235,22 @@ class ServeEngine:
 
     @torch.no_grad()
     def step(self) -> int:
-        """One engine tick: reap → admit → append blocks → one fused
-        decode tick for all live slots → evict finished. Returns tokens
-        emitted this step (admission first-tokens included). With
+        """One engine tick: re-arm check → reap → admit → append blocks →
+        one fused decode tick for all live slots → evict finished. Returns
+        tokens emitted this step (admission first-tokens included; replay
+        re-feeds emit nothing — those tokens were already streamed). With
         ``spec_k > 0`` the tick is the draft/verify window
-        (:meth:`_spec_tick`), up to ``spec_k + 1`` tokens a slot."""
+        (:meth:`_spec_tick`), up to ``spec_k + 1`` tokens a slot. The step
+        index is the fault plan's step coordinate."""
         cur = self._step_idx
+        if self._faults is not None:
+            self._faults.on_step(cur)
         self._step_idx = cur + 1
+        self._site_wall = {}
+        retries_before = self.metrics.retries
         t0 = self._clock()
         emitted_before = self.metrics.tokens_emitted
+        self._maybe_rearm_degraded()
         self._reap()
         self._admit()
         if self._paged:
@@ -1532,11 +2258,28 @@ class ServeEngine:
         live = [i for i, s in enumerate(self._slots) if s is not None]
         new_tokens = 0
         if live and self._spec_on:
-            new_tokens = self._spec_tick(live)
+            try:
+                new_tokens = self._spec_tick(live)
+            except _SlotStateLost:
+                # The window writes the resident tree as the tick does
+                # (and a draft model's tree shares the paged pool's
+                # fate): every live slot replays.
+                self._lose_live_slots()
         elif live:
-            nxt = self._tick()
-            for sid in live:
+            try:
+                nxt = self._device_call("tick", self._tick)
+            except _SlotStateLost:
+                self._lose_live_slots()
+                nxt = None
+            for sid in live if nxt is not None else ():
                 handle = self._slots[sid]
+                if handle.replay_pending:
+                    # Rebuilding lost K/V: the tick just re-wrote this
+                    # row's next known token — feed the following one and
+                    # discard the sampled output.
+                    self._tokens[sid] = handle.replay_pending.pop(0)
+                    self._positions[sid] += 1
+                    continue
                 tok = int(nxt[sid])
                 handle.tokens.append(tok)
                 new_tokens += 1
@@ -1556,6 +2299,9 @@ class ServeEngine:
             "step": cur, "t_s": now, "queue_depth": self.scheduler.depth,
             "live_slots": len(live), "tokens": emitted,
             "tick_wall_s": now - t0,
+            "retries": self.metrics.retries - retries_before,
+            "degraded": self._degraded,
+            "site_wall_s": self._site_wall,
         })
         return emitted
 

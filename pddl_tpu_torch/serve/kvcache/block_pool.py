@@ -78,6 +78,14 @@ def _leaves(tree):
             yield val
 
 
+def kv_leaf_items(tree: dict):
+    """``(key, leaf)`` for every K/V leaf of a cache or pool tree, in tree
+    order; ``key`` is the leaf's path (``"block0/attn/cached_key"``)."""
+    for blk, leaves in tree.items():
+        for name, leaf in leaves["attn"].items():
+            yield f"{blk}/attn/{name}", leaf
+
+
 def _kv_pairs(pool: dict, row_cache: dict):
     """``(pool_leaf, row_leaf)`` for every K/V leaf of two cache trees of
     one model."""

@@ -1,6 +1,6 @@
 """Host-side radix index over prompt token ids → KV block chains (the
 port's own copy of :mod:`pddl_tpu.serve.kvcache.radix`, same block-id and
-LRU-eviction behaviour; the host-tier demotion hook is not ported).
+LRU-eviction behaviour, with the host tier's demotion hook ``on_evict``).
 
 A tree whose every node owns exactly ONE pool block — the K/V of
 ``block_size`` tokens — keyed by those tokens, so a root-to-node path
@@ -84,6 +84,13 @@ class RadixPrefixCache:
         self._root = _Node(None, None, None)
         self._clock = itertools.count(1)
         self.evictions = 0
+        # Demotion hook (``kvcache/hosttier.py``): called once per reclaim
+        # with the LIST of victims BEFORE their ids are freed — each still
+        # attached, its chain walkable — so the engine can spill their K/V
+        # to the host tier in one batched gather. It must not touch this
+        # index. ``None`` keeps eviction a plain free; the degraded flush
+        # never calls it (``flush_unpinned``).
+        self.on_evict = None
 
     @property
     def blocks_free(self) -> int:
@@ -136,6 +143,24 @@ class RadixPrefixCache:
             j += 1
         return node, j
 
+    def chain_tokens(self, node: _Node) -> List[int]:
+        """Root-path token ids of ``node`` (``depth * block_size`` of them):
+        the chain identity the host tier keys a demoted block under."""
+        keys: List[tuple] = []
+        while node is not self._root:
+            keys.append(node.key)
+            node = node.parent
+        keys.reverse()
+        return [int(t) for key in keys for t in key]
+
+    def chain_depth(self, node: _Node) -> int:
+        """Block count of ``node``'s root path (0 for the root)."""
+        depth = 0
+        while node is not self._root:
+            depth += 1
+            node = node.parent
+        return depth
+
     def chain_ids(self, node: _Node) -> List[int]:
         """Root-path block ids of ``node``, root-first."""
         ids: List[int] = []
@@ -161,6 +186,16 @@ class RadixPrefixCache:
             node.ref -= 1
             node = node.parent
 
+    def flush_unpinned(self) -> int:
+        """Degraded-mode flush: evict EVERY unpinned block (chains live
+        slots still pin stay). Returns the number of blocks freed. It
+        bypasses demotion: this runs inside the OOM response, where a
+        spill per evicted block would spend transfers and host memory
+        exactly when the engine is shedding work."""
+        before = self.blocks_free
+        self._reclaim(self.blocks_live, demote=False)
+        return self.blocks_free - before
+
     def release(self, block_ids: List[int]) -> None:
         """Return ids from :meth:`allocate` that were never attached via
         :meth:`extend` (a slot's private blocks)."""
@@ -177,12 +212,15 @@ class RadixPrefixCache:
         take = min(n, len(self._free))
         return [self._free.popleft() for _ in range(take)]
 
-    def _reclaim(self, need: int) -> None:
+    def _reclaim(self, need: int, demote: bool = True) -> None:
         """Evict up to ``need`` unpinned LEAVES, least recently accessed
         first. One DFS collects the evictable set per pass; evicting a
         leaf can expose its parent as a new leaf, so passes repeat until
         satisfied or nothing is evictable. Victims are marked between
-        passes and detached together at the end."""
+        passes and detached together at the end. With ``on_evict`` set
+        (and ``demote``), the whole reclaim's victim set, in eviction
+        order, is offered to it in ONE call before any id is freed."""
+        call_hook = demote and self.on_evict is not None
         all_taken: List[_Node] = []
         marked = set()
         while need > 0:
@@ -203,6 +241,8 @@ class RadixPrefixCache:
             all_taken.extend(taken)
             marked.update(id(v) for v in taken)
             need -= min(need, len(victims))
+        if all_taken and call_hook:
+            self.on_evict(all_taken)
         for victim in all_taken:
             del victim.parent.children[victim.key]
             self._free.append(victim.block_id)

@@ -9,7 +9,10 @@ paged engine records).
 - the prefix-cache and paged-sharing counters;
 - the tenant counters: adapter pool hits, loads and evictions, requests
   per adapter, constrained and grammar-complete requests;
-- the speculative window's counters and its acceptance rate.
+- the speculative window's counters and its acceptance rate;
+- the resilience counters (retries by site, replays, preemptions,
+  failed requests, degraded entries and time) and the host KV tier's
+  (spills, hits, promotions, their budget charge, resident bytes).
 """
 
 from __future__ import annotations
@@ -127,6 +130,15 @@ class ServeMetrics:
         self.copy_bytes_avoided = 0
         self.blocks_shared = 0       # gauge, engine-stamped per tick
         self.block_table_fill = 0.0  # gauge, engine-stamped per tick
+        # The host KV tier (engine ``host_tier=``; zero otherwise): blocks
+        # demoted into it, admissions whose host match promoted >= 1
+        # block, blocks promoted back, the prefill-budget tokens those
+        # promotions were charged, and the resident-byte gauge.
+        self.host_tier_spills = 0
+        self.host_tier_hits = 0
+        self.host_tier_promotions = 0
+        self.host_tier_promote_tokens_charged = 0
+        self.host_tier_bytes_resident = 0  # gauge, engine-stamped
         # The row engine's prefix-cache copies (port-only counters, kept
         # out of the snapshot, which mirrors the JAX one key for key):
         # pool -> admission row on a hit, admission row -> pool donations.
@@ -152,6 +164,16 @@ class ServeMetrics:
         self.spec_ticks = 0
         self.spec_drafted_tokens = 0
         self.spec_accepted_tokens = 0
+        # Resilience (``serve/faults.py``, the engine's retry, replay,
+        # preemption and degraded paths): zero on a fault-free engine.
+        self.retries = 0             # failed device calls retried
+        self.retry_sites: Dict[str, int] = {}
+        self.replays = 0             # slot-state rebuilds (K/V recomputed)
+        self.preemptions = 0         # best_effort slots parked for
+        #                              queued interactive work
+        self.requests_failed = 0     # terminal FinishReason.ERROR
+        self.degraded_entries = 0    # times the engine flipped degraded
+        self.degraded_time_s = 0.0   # closed degraded intervals
         self._admission_times: Deque[float] = deque(maxlen=32)
         self._first_activity_s: Optional[float] = None
         self._last_activity_s: Optional[float] = None
@@ -189,6 +211,8 @@ class ServeMetrics:
                 self.deadline_shed_by_priority[priority] += 1
         elif reason_value == "cancelled":
             self.requests_cancelled += 1
+        elif reason_value == "error":
+            self.requests_failed += 1
         else:
             self.requests_finished += 1
             if reason_value == "grammar":
@@ -197,6 +221,22 @@ class ServeMetrics:
                 self.requests_grammar_complete += 1
             if priority in self.finished_by_priority:
                 self.finished_by_priority[priority] += 1
+
+    def record_retry(self, site: str) -> None:
+        self.retries += 1
+        self.retry_sites[site] = self.retry_sites.get(site, 0) + 1
+
+    def record_replay(self) -> None:
+        self.replays += 1
+
+    def record_preemption(self) -> None:
+        self.preemptions += 1
+
+    def record_degraded_entry(self) -> None:
+        self.degraded_entries += 1
+
+    def record_degraded_exit(self, seconds: float) -> None:
+        self.degraded_time_s += max(0.0, float(seconds))
 
     def record_rejected(self, priority: Optional[str] = None) -> None:
         self.requests_rejected += 1
@@ -232,22 +272,44 @@ class ServeMetrics:
         self.blocks_shared = int(blocks_shared)
         self.block_table_fill = float(block_table_fill)
 
-    def record_adapter_hit(self, name: str, resident: int) -> None:
+    def record_host_spill(self, bytes_resident: int) -> None:
+        """One block entered the host tier (a demoted LRU victim);
+        ``bytes_resident`` stamps the residency gauge in passing."""
+        self.host_tier_spills += 1
+        self.host_tier_bytes_resident = int(bytes_resident)
+
+    def record_host_promotion(self, blocks: int, tokens_charged: int,
+                              bytes_resident: int) -> None:
+        """One admission promoted ``blocks`` host-tier blocks back into
+        the device pool, charged ``tokens_charged`` against the prefill
+        budget."""
+        self.host_tier_hits += 1
+        self.host_tier_promotions += int(blocks)
+        self.host_tier_promote_tokens_charged += int(tokens_charged)
+        self.host_tier_bytes_resident = int(bytes_resident)
+
+    def record_adapter_hit(self, name: str, resident: int, *,
+                           fresh: bool = True) -> None:
         """One admission found its adapter already device-resident;
-        ``resident`` stamps the pool-residency gauge in passing."""
+        ``resident`` stamps the pool-residency gauge in passing.
+        ``fresh=False`` (a replay or preemption-resume re-admission) still
+        counts pool traffic but not per-tenant request volume:
+        ``requests_by_adapter`` counts each request once."""
         self.adapter_hits += 1
-        self.requests_by_adapter[name] = \
-            self.requests_by_adapter.get(name, 0) + 1
+        if fresh:
+            self.requests_by_adapter[name] = \
+                self.requests_by_adapter.get(name, 0) + 1
         self.adapter_pool_resident = int(resident)
 
     def record_adapter_load(self, name: str, resident: int,
-                            evictions: int) -> None:
+                            evictions: int, *, fresh: bool = True) -> None:
         """One COLD adapter load (a host-to-device factor copy on the
         admission path); ``evictions`` is the pool's cumulative LRU
-        eviction count."""
+        eviction count; ``fresh`` as in :meth:`record_adapter_hit`."""
         self.adapter_loads += 1
-        self.requests_by_adapter[name] = \
-            self.requests_by_adapter.get(name, 0) + 1
+        if fresh:
+            self.requests_by_adapter[name] = \
+                self.requests_by_adapter.get(name, 0) + 1
         self.adapter_pool_resident = int(resident)
         self.adapter_evictions = int(evictions)
 
@@ -274,7 +336,6 @@ class ServeMetrics:
             "requests_rejected": self.requests_rejected,
             "requests_timed_out": self.requests_timed_out,
             "requests_cancelled": self.requests_cancelled,
-            "requests_deadline_shed": self.requests_deadline_shed,
             "tokens_emitted": self.tokens_emitted,
             "tokens_per_s": (self.tokens_emitted / window
                              if window else None),
@@ -296,6 +357,12 @@ class ServeMetrics:
             "copy_bytes_avoided": self.copy_bytes_avoided,
             "blocks_shared": self.blocks_shared,
             "block_table_fill": round(self.block_table_fill, 6),
+            "host_tier_spills": self.host_tier_spills,
+            "host_tier_hits": self.host_tier_hits,
+            "host_tier_promotions": self.host_tier_promotions,
+            "host_tier_promote_tokens_charged":
+                self.host_tier_promote_tokens_charged,
+            "host_tier_bytes_resident": self.host_tier_bytes_resident,
             "adapter_hits": self.adapter_hits,
             "adapter_loads": self.adapter_loads,
             "adapter_evictions": self.adapter_evictions,
@@ -314,6 +381,14 @@ class ServeMetrics:
             # A labeled series with an open label set: an adapter appears
             # on its first admission and never vanishes.
             "requests_by_adapter": dict(self.requests_by_adapter),
+            "retries": self.retries,
+            "retry_sites": dict(self.retry_sites),
+            "replays": self.replays,
+            "preemptions": self.preemptions,
+            "requests_failed": self.requests_failed,
+            "requests_deadline_shed": self.requests_deadline_shed,
+            "degraded_entries": self.degraded_entries,
+            "degraded_time_s": round(self.degraded_time_s, 6),
             "requests_finished_by_priority": dict(self.finished_by_priority),
             "requests_deadline_shed_by_priority": dict(
                 self.deadline_shed_by_priority),

@@ -5,8 +5,8 @@ The engine is single-threaded and caller-driven (``engine.step()``), so
 handles need no locking — cancellation is a flag the engine honors at its
 next tick. Sampling parameters are PER-REQUEST runtime values batched
 into ``[slots]`` arrays each tick, hence the array sentinels on
-:class:`SamplingParams`. The replay and preemption bookkeeping belongs
-to engine features not ported yet (ROADMAP.md).
+:class:`SamplingParams`. A handle carries the engine's replay and
+preemption bookkeeping (:class:`RequestHandle`).
 """
 
 from __future__ import annotations
@@ -51,6 +51,28 @@ class QueueFull(RuntimeError):
         super().__init__(
             f"serving queue full ({queue_depth}/{max_queue_depth}); "
             f"shed load upstream or raise max_queue_depth{hint}")
+
+
+class AdmissionRejected(QueueFull):
+    """Router-level admission-control rejection (a :class:`QueueFull`
+    subclass, so every backpressure path handles it): the request was
+    refused before any engine queue was consulted — a per-priority token
+    bucket ran dry, or a brownout is shedding this class (``reason`` says
+    which). Carries the same ``retry_after_s`` contract."""
+
+    def __init__(self, reason: str, retry_after_s: Optional[float] = None,
+                 priority: Optional[Priority] = None,
+                 queue_depth: int = 0, max_queue_depth: int = 0):
+        super().__init__(queue_depth, max_queue_depth,
+                         retry_after_s=retry_after_s, priority=priority)
+        self.reason = reason
+        hint = (f"; retry after ~{retry_after_s:.3f}s"
+                if retry_after_s is not None else "")
+        # Replace the queue-full message: no engine queue was involved.
+        self.args = (
+            f"fleet admission rejected ({reason}"
+            f"{', ' + priority.value if priority is not None else ''})"
+            f"{hint}",)
 
 
 class RequestState(enum.Enum):
@@ -127,7 +149,16 @@ class RequestHandle:
     """The caller's view of a submitted request: ``tokens`` grows as the
     engine streams (eos included when hit); ``state``/``finish_reason``
     settle when the request leaves its slot; ``cancel()`` is honored at
-    the engine's next step."""
+    the engine's next step.
+
+    ``replays`` counts the engine's rebuilds of this request's slot state
+    after a device fault (each re-prefills the prompt and re-feeds
+    ``tokens`` through the ticks: the caller's stream never repeats or
+    loses a token); past the engine's ``max_replays`` the request settles
+    FAILED/ERROR. ``replay_pending`` is engine-internal: the emitted
+    tokens still to re-feed. ``preemptions`` counts slot evictions in
+    favour of queued interactive work (the stream resumes through the
+    same replay); the engine's ``preempt_cap`` bounds it."""
 
     def __init__(self, request: Request, arrival_s: float):
         self.request = request
@@ -137,6 +168,9 @@ class RequestHandle:
         self.finish_reason: Optional[FinishReason] = None
         self.ttft_s: Optional[float] = None  # submit -> first token
         self.finish_s: Optional[float] = None
+        self.replays = 0
+        self.replay_pending: List[int] = []
+        self.preemptions = 0
         # Speculative serving (engine ``spec_k > 0``): draft tokens offered
         # for this stream's acceptance and the ones the verifier accepted;
         # zero on a non-speculative engine.

@@ -1,7 +1,7 @@
 """Admission control for the serving engine: SLO-aware pop order (the
-port's own copy of :mod:`pddl_tpu.serve.scheduler`, without the
-preemption and drain/restore lanes, which the port's engine does not
-have yet).
+port's own copy of :mod:`pddl_tpu.serve.scheduler`, with the replay
+lane and the preemption requeue; the drain/restore lanes wait for the
+engine's drain, ROADMAP.md queue 1 item 3).
 
 - **max_queue_depth** sheds load: a full queue rejects at ``submit()``
   with a typed :class:`~pddl_tpu_torch.serve.request.QueueFull`.
@@ -14,12 +14,16 @@ have yet).
   ``aging_s`` waited (the anti-starvation bound). Cancelled queued
   handles are dropped at pop time, expired ones shed before they cost a
   prefill.
+- Replayed handles bypass the ordering entirely (a separate front lane:
+  they were admitted once already and are owed the next free slots
+  regardless of class); a preempted one re-enters the normal queue.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from collections import deque
+from typing import Deque, List, Optional, Tuple
 
 from pddl_tpu_torch.serve.request import (
     FinishReason,
@@ -62,17 +66,21 @@ class SLOScheduler:
         # (effective rank, deadline) key.
         self._queue: List[Tuple[int, RequestHandle]] = []
         self._seq = 0
+        # The bypass lane for replayed handles: popped before any key is
+        # computed (they were admitted once already).
+        self._front: Deque[RequestHandle] = deque()
 
     @property
     def depth(self) -> int:
-        return len(self._queue)
+        return len(self._queue) + len(self._front)
 
     def depth_at_or_above(self, priority: Priority) -> int:
         """Queued handles an arrival of ``priority`` would wait behind:
-        everything at its own or a more urgent class."""
+        everything at its own or a more urgent class (the bypass lane
+        outranks every class)."""
         rank = priority.rank
-        return sum(1 for _, h in self._queue
-                   if h.request.priority.rank <= rank)
+        return len(self._front) + sum(
+            1 for _, h in self._queue if h.request.priority.rank <= rank)
 
     def submit(self, handle: RequestHandle) -> None:
         """Enqueue, or shed load with a typed rejection."""
@@ -100,16 +108,24 @@ class SLOScheduler:
             deadline = math.inf
         return rank, deadline, seq
 
-    def _peek_best(self, now: Optional[float]) -> int:
-        """Index of the next pop, WITHOUT removing it — an over-budget
-        head must stay exactly where it is."""
+    def _peek_best(self, now: Optional[float]) -> Tuple[int, RequestHandle]:
+        """Index (into the main queue; -1 = the front lane) and handle of
+        the next pop, WITHOUT removing it — an over-budget head must stay
+        exactly where it is."""
+        if self._front:
+            return -1, self._front[0]
         best_i = 0
         best_key = self._key(*self._queue[0], now)
         for i in range(1, len(self._queue)):
             key = self._key(*self._queue[i], now)
             if key < best_key:
                 best_i, best_key = i, key
-        return best_i
+        return best_i, self._queue[best_i][1]
+
+    def _pop_at(self, index: int) -> RequestHandle:
+        if index < 0:
+            return self._front.popleft()
+        return self._queue.pop(index)[1]
 
     def admit(self, free_slots: int, on_cancelled=None, on_expired=None,
               now_fn=None, cost_fn=None) -> List[RequestHandle]:
@@ -125,11 +141,10 @@ class SLOScheduler:
         budget = self.prefill_token_budget
         spent = 0
         now = now_fn() if now_fn is not None else None
-        while self._queue and len(admitted) < free_slots:
-            idx = self._peek_best(now)
-            head = self._queue[idx][1]
+        while self.depth and len(admitted) < free_slots:
+            idx, head = self._peek_best(now)
             if head.cancelled:
-                self._queue.pop(idx)
+                self._pop_at(idx)
                 head.state = RequestState.CANCELLED
                 head.finish_reason = FinishReason.CANCELLED
                 if on_cancelled is not None:
@@ -137,7 +152,7 @@ class SLOScheduler:
                 continue
             if (now is not None and head.request.deadline_s is not None
                     and now - head.arrival_s > head.request.deadline_s):
-                self._queue.pop(idx)
+                self._pop_at(idx)
                 head.state = RequestState.TIMED_OUT
                 head.finish_reason = FinishReason.DEADLINE
                 if on_expired is not None:
@@ -147,8 +162,33 @@ class SLOScheduler:
                     else len(head.request.prompt))
             if budget is not None and admitted and spent + cost > budget:
                 break  # leave the head in place: next tick re-ranks it
-            self._queue.pop(idx)
+            self._pop_at(idx)
             head.state = RequestState.RUNNING
             admitted.append(head)
             spent += cost
         return admitted
+
+    def queued_of_class(self, priority: Priority) -> int:
+        """Main-queue handles whose ACTUAL class is ``priority`` (the
+        bypass lane and aging promotions excluded): the engine's
+        preemption trigger, so a replayed best_effort handle in the bypass
+        lane cannot preempt its own class."""
+        return sum(1 for _, h in self._queue
+                   if h.request.priority is priority)
+
+    def requeue(self, handle: RequestHandle) -> None:
+        """Re-enter a PREEMPTED running handle through the NORMAL queue
+        (not the bypass lane: it must not outrank the interactive work it
+        was parked for). Depth limits do not apply: it was admitted once."""
+        handle.state = RequestState.QUEUED
+        self._queue.append((self._seq, handle))
+        self._seq += 1
+
+    def requeue_front(self, handles: List[RequestHandle]) -> None:
+        """Put replayed handles back in the bypass lane in the given order,
+        ahead of every class. Bypasses ``max_queue_depth``: these requests
+        were accepted once, and shedding them now would turn a device
+        fault into a visible rejection."""
+        for handle in reversed(handles):
+            handle.state = RequestState.QUEUED
+            self._front.appendleft(handle)

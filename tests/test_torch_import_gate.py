@@ -77,19 +77,23 @@ def test_engine_raises_without_a_card(monkeypatch):
     {"max_replays": 4}, {"spec_k": 2, "prefill_slice_tokens": 8},
     {"preempt_cap": 1},
     {"prefill_slice_tokens": 8}, {"host_tier": 1 << 20},
-    {"fault_plan": object()}, {"tenant": {"adapter_pool_slots": 2}},
+    {"fault_plan": "scheduled"}, {"tenant": {"adapter_pool_slots": 2}},
     {"tracer": object()},
 ])
 def test_unported_engine_options_raise(kw):
     """Options not ported yet raise, naming their ROADMAP.md item. Tenancy
     is ported: a ``TenantConfig`` whose adapter pool is under the floor
     (``max_slots + 1``) raises the JAX engine's ``ValueError``, in both
-    packages."""
+    packages. Fault recovery, preemption and the host tier are ported:
+    each option is held to what it does (``_check_ported_resilience``)."""
     from pddl_tpu_torch.models.llama import tiny_llama
     from pddl_tpu_torch.serve.engine import ServeEngine
     from pddl_tpu_torch.serve.tenant import TenantConfig
 
     model = tiny_llama(vocab_size=32, max_len=64, device="cpu")
+    if set(kw) & {"max_replays", "preempt_cap", "host_tier", "fault_plan"}:
+        _check_ported_resilience(model, kw)
+        return
     if "tenant" in kw:
         import jax
         import jax.numpy as jnp
@@ -116,3 +120,53 @@ def test_unported_engine_options_raise(kw):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ServeEngine(model, device="cpu", max_slots=2, prefill_len=16, **kw)
+
+
+def _check_ported_resilience(model, kw):
+    """``max_replays`` bounds the rebuilds before a request fails;
+    ``preempt_cap`` lets an interactive arrival park a best-effort stream
+    (which resumes token-exactly); ``host_tier`` arms the tier without
+    changing a stream; a ``fault_plan``'s transient is retried in place."""
+    from pddl_tpu_torch.serve.engine import ServeEngine
+    from pddl_tpu_torch.serve.faults import FaultKind, FaultPlan, FaultSpec
+    from pddl_tpu_torch.serve.request import Priority, RequestState
+
+    base = dict(device="cpu", max_slots=2, prefill_len=16,
+                backoff_sleep=lambda s: None)
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+    plain = ServeEngine(model, **base)
+    want = plain.submit(prompt, 6)
+    plain.run(max_steps=50)
+    if "max_replays" in kw:
+        eng = ServeEngine(model, max_retries=0, fault_plan=FaultPlan(
+            sites=("tick",), transient_rate=1.0), **base, **kw)
+        h = eng.submit(prompt, 6)
+        eng.run(max_steps=50)
+        assert h.state is RequestState.FAILED
+        assert h.replays == kw["max_replays"] + 1
+        return
+    if "preempt_cap" in kw:
+        eng = ServeEngine(model, **base, **kw)
+        be = [eng.submit(prompt, 6, priority=Priority.BEST_EFFORT),
+              eng.submit(prompt[::-1], 6, priority=Priority.BEST_EFFORT)]
+        eng.step()
+        eng.submit([7, 7, 7], 2, priority=Priority.INTERACTIVE)
+        eng.step()
+        assert eng.metrics.preemptions == 1
+        eng.run(max_steps=50)
+        assert be[0].tokens == want.tokens
+        assert max(h.preemptions for h in be) == 1
+        return
+    if "host_tier" in kw:
+        eng = ServeEngine(model, **base, **kw)
+        assert eng.host_tier_enabled
+        assert eng._host.byte_budget == kw["host_tier"]
+    else:
+        eng = ServeEngine(model, fault_plan=FaultPlan(scheduled=[
+            FaultSpec(1, "tick", FaultKind.TRANSIENT)]), **base)
+    h = eng.submit(prompt, 6)
+    eng.run(max_steps=50)
+    assert h.tokens == want.tokens
+    if "fault_plan" in kw:
+        assert eng.metrics.retry_sites == {"tick": 1}
+        assert eng.metrics.replays == 0

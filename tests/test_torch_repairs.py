@@ -246,6 +246,11 @@ TENANCY = {("submit", "adapter"), ("submit", "constraint")}
 # Ported since too (int8 serving): each transforms or loads the weights
 # passed with it, and raises the JAX engine's error without them.
 WEIGHTS = {("engine", "param_transform"), ("engine", "spec_draft_variables")}
+# Ported since too (fault recovery): each retry or replay knob is held to
+# what it does under a seeded fault plan.
+RESILIENCE = {("engine", "max_retries"), ("engine", "retry_backoff_s"),
+              ("engine", "backoff_sleep"), ("engine", "max_replays"),
+              ("engine", "degraded_cooldown_s")}
 JAX_FN = {"trainer": JaxTrainer.__init__, "fit": JaxTrainer.fit,
           "engine": JaxServeEngine.__init__, "submit": JaxServeEngine.submit,
           "model": JaxLlama}
@@ -297,8 +302,71 @@ def test_unported_option_takes_the_jax_default_and_refuses_others(
     if (where, name) in WEIGHTS:
         _check_ported_weights(name, other)
         return
+    if (where, name) in RESILIENCE:
+        _check_ported_resilience(name, other)
+        return
     with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
         _call(where, **{name: other})
+
+
+def _check_ported_resilience(name, other):
+    """Under a fault plan, on the port's engine: ``max_retries`` is the
+    in-place retries before a replay, ``retry_backoff_s`` the base of the
+    doubling waits, ``backoff_sleep`` what waits them, ``max_replays``
+    the rebuilds before a request fails, ``degraded_cooldown_s`` how long
+    an OOM keeps the engine degraded. Every surviving stream equals the
+    fault-free one."""
+    from pddl_tpu_torch.serve.faults import FaultKind, FaultPlan, FaultSpec
+    from pddl_tpu_torch.serve.request import RequestState
+
+    model = tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu")
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+    plain = ServeEngine(model, device="cpu", max_slots=2, prefill_len=16)
+    want = plain.submit(prompt, 6)
+    plain.run(max_steps=50)
+    slept = []
+    kw = dict(device="cpu", max_slots=2, prefill_len=16,
+              backoff_sleep=slept.append)
+    clock = [0.0]
+    if name == "backoff_sleep":
+        kw["backoff_sleep"] = lambda s: (slept.append(s), other(s))
+    elif name == "degraded_cooldown_s":
+        kw["clock"] = lambda: clock[0]
+    if name != "backoff_sleep":
+        kw[name] = other
+    if name == "max_replays":
+        plan = FaultPlan(sites=("tick",), transient_rate=1.0)
+        eng = ServeEngine(model, fault_plan=plan, max_retries=0, **kw)
+        h = eng.submit(prompt, 6)
+        eng.run(max_steps=50)
+        assert h.state is RequestState.FAILED
+        assert h.replays == other + 1
+        return
+    kind, count = ((FaultKind.OOM, 1) if name == "degraded_cooldown_s"
+                   else (FaultKind.TRANSIENT, 5 if name == "max_retries"
+                         else 2))
+    eng = ServeEngine(model, fault_plan=FaultPlan(scheduled=[
+        FaultSpec(1, "tick", kind, count)]), **kw)
+    h = eng.submit(prompt, 6)
+    eng.step()
+    eng.step()
+    if name == "degraded_cooldown_s":
+        assert eng.degraded and eng.metrics.replays == 1
+        clock[0] = 0.5 * other
+        eng.step()
+        assert eng.degraded
+        clock[0] = 1.5 * other
+        eng.step()
+        assert not eng.degraded
+        assert eng.metrics.degraded_time_s == 1.5 * other
+    eng.run(max_steps=50)
+    assert h.tokens == want.tokens
+    if name == "max_retries":
+        assert eng.metrics.retries == other and eng.metrics.replays == 0
+    elif name == "retry_backoff_s":
+        assert slept == [other, 2 * other]
+    elif name == "backoff_sleep":
+        assert slept == [0.02, 0.04] and eng.metrics.replays == 0
 
 
 def _check_ported_weights(name, other):

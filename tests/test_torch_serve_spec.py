@@ -315,8 +315,25 @@ def test_still_refused_options_name_their_item(models, what):
             ServeEngine(models["tm"], device="cpu", spec_draft_model=draft,
                         spec_draft_variables={"params": {}}, **kw)
         return
-    if what in ("fault_plan", "prefill_slice_tokens"):
-        kw[what] = 16 if what == "prefill_slice_tokens" else object()
+    if what == "fault_plan":
+        # Ported: a verify exhausted past its retries replays every live
+        # stream, re-fed spec_k + 1 tokens a window, token-exact.
+        from pddl_tpu_torch.serve.faults import (FaultKind, FaultPlan,
+                                                 FaultSpec)
+        streams = []
+        for plan in (None, FaultPlan(scheduled=[
+                FaultSpec(3, "verify", FaultKind.TRANSIENT, 3)])):
+            eng = ServeEngine(models["tm"], device="cpu", fault_plan=plan,
+                              max_retries=1, backoff_sleep=lambda s: None,
+                              **kw)
+            handles = [eng.submit(_loop(i, 12), 16) for i in range(2)]
+            eng.run(max_steps=100)
+            streams.append([h.tokens for h in handles])
+        assert streams[0] == streams[1]
+        assert eng.metrics.replays == 2 and eng.metrics.retries == 1
+        return
+    if what == "prefill_slice_tokens":
+        kw[what] = 16
     if what in ("drain", "restore"):
         eng = ServeEngine(models["tm"], device="cpu", **kw)
         call = {"drain": eng.drain,
