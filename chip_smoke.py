@@ -13,7 +13,8 @@ two-sweep flash backward), KV-cache decoding through ``generate`` (with
 a sliding-window ring cache), the resident-row serving engine,
 speculative serving and decoding (n-gram drafts and a draft model),
 multi-tenant serving (LoRA adapters and grammar constraints), and fault
-recovery, preemption and the host KV tier in the engine — on a
+recovery, preemption, the host KV tier, sliced prefill, drain/restore
+and request tracing in the engine — on a
 full-width, full-depth ResNet-50, the reference's own workload, on
 GPT-2-small (training, ``generate``, both engines, speculation), on
 int8 weights (Llama-1B and GPT-2-small served through
@@ -245,9 +246,33 @@ one line per phase:
     interactive 64-token prompts x 32 after 4 steps, at ``preempt_cap`` 2
     and 0 in turns: the interactive TTFT p50/p99, the best-effort
     completion wall, preemptions, the best-effort streams equal;
-35. kernels — one JSON object: every ported kernel with its launches on
-    its main paths (phases 7, 10, 11, 18, 21, 23, 26, 27, 28, 30 and
-    32-34;
+35. engine drain restore — phase 7's wave drained at step 10 to a file
+    under ``build/`` and restored into a fresh engine (row, paged,
+    ``spec_k=4`` n-gram, a row snapshot into a paged engine): the
+    snapshot's bytes, the drain's ms, the restore's seconds to the first
+    resumed token, every request finished, the tokens streamed before the
+    drain kept, the streams equal to the undrained wave's (bf16 tie rule),
+    K4 once a layer a paged restore tick; then an f32 depth-2 leg
+    token-exact against the undrained engine and the CPU's restore;
+36. engine trace serve — phase 7's wave on the paged engine with a
+    ``RequestTracer`` and with ``NULL_TRACER`` in turns: the tokens/s and
+    tick p50 ratios, 24 finished spans holding their streams' tokens; the
+    f32 depth-2 run's span events per request equal to the CPU's;
+37. engine slice serve — Llama-1B bf16 at ``max_len`` 8192, ``prefill_len``
+    4096: 7 streams of 384 prompt tokens x 256 new and a cold 4096-token
+    prompt at step 16, with ``prefill_slice_tokens`` 512 and ``None`` in
+    both modes: the running streams' largest gap between tokens during
+    the cold admission and its p99, the cold TTFT, tokens/s, K4's
+    launches, the streams equal (bf16 tie rule);
+38. engine slice parity — sliced prefill card against CPU, Llama-1B width
+    at depth 2 in f32 (TF32 off), phase 6's prompts at
+    ``prefill_slice_tokens=8``: row, paged, ``spec_k=4`` with a depth-1
+    draft model (its tree sliced in lockstep) and a tenant engine;
+    token-exact against the CPU and against whole-prompt admission, K4
+    exactly 2 x the paged ticks (the draft leg: its draft steps);
+39. kernels — one JSON object: every ported kernel with its launches on
+    its main paths (phases 7, 10, 11, 18, 21, 23, 26, 27, 28, 30,
+    32-34 and 35-37;
     K4's, K1's and K2's by path under ``launches_by_path``, the parity
     legs' included there for K4), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
@@ -303,6 +328,7 @@ from pddl_tpu_torch.models.llama import Llama_1B, tiny_llama
 from pddl_tpu_torch.models.speculative import generate_speculative
 from pddl_tpu_torch.models.resnet import Conv, ResNet50, tiny_resnet
 from pddl_tpu_torch.models.vit import ViT_S16
+from pddl_tpu_torch.obs import RequestTracer
 from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
 from pddl_tpu_torch.ops.augment import standard_augment, standard_eval_transform
@@ -333,9 +359,12 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}  # of max |grad|
 VOCAB, MAX_LEN = 128256, 1024          # as benchmarks/decode_bench.py builds it
 DEV = torch.device("cuda", 0)
+_T0 = time.perf_counter()
 
 
 def phase(tag: str, **fields) -> None:
+    """One result line, ending with the script's seconds so far."""
+    fields["at_s"] = f"{time.perf_counter() - _T0:.1f}"
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -3405,8 +3434,9 @@ def faulted_run(model, prompts, spec=None, kws=None, late=(), new=FAULT_NEW,
     and a fake clock a second a step; ``late`` submits ``(step, prompt,
     new, keywords)`` at that step. Returns the streams of the requests in
     submit order (``late`` last), the injections, the snapshot, the K4
-    launches and the ticks that ran (the telemetry's ``tick`` site), and
-    the handles (a speculative window counts as a tick)."""
+    launches and the ticks that ran (the telemetry's ``tick`` site), the
+    handles (a speculative window counts as a tick) and the steps that
+    ended with a sliced admission parked."""
     plan, log = (recording_plan(spec, lambda s: None) if spec is not None
                  else (None, []))
     clock = [0.0]
@@ -3418,6 +3448,7 @@ def faulted_run(model, prompts, spec=None, kws=None, late=(), new=FAULT_NEW,
     _kernels.reset_launch_counts()
     handles = [eng.submit(p, new, **kw) for p, kw in zip(prompts, kws)]
     late = list(late)
+    parked = 0
     for step in range(400):
         for when, p, n, kw in late:
             if when == step:
@@ -3426,6 +3457,7 @@ def faulted_run(model, prompts, spec=None, kws=None, late=(), new=FAULT_NEW,
                                            default=-1):
             break
         eng.step()
+        parked += eng._slice is not None
         clock[0] += 1.0
     if model.device.type == "cuda":
         torch.cuda.synchronize()
@@ -3435,7 +3467,8 @@ def faulted_run(model, prompts, spec=None, kws=None, late=(), new=FAULT_NEW,
         raise RuntimeError("telemetry ring wrapped; ticks undercounted")
     return dict(streams=[list(h.tokens) for h in handles], log=log,
                 snap=eng.metrics.snapshot(), eng=eng, handles=handles,
-                launches=dict(_kernels.launch_counts), ticks=ticks)
+                launches=dict(_kernels.launch_counts), ticks=ticks,
+                parked=parked)
 
 
 def phase_engine_fault_parity():
@@ -3614,8 +3647,10 @@ def phase_engine_fault_serve(model, prompts):
     failed; K4 once a layer a paged tick that ran. Prints the injections
     by kind, retries by site, replays, degraded entries and time, tokens/s
     and TTFT p99 against fault-free, and the K4 launches beyond the
-    fault-free wave's. Returns the paged legs' launches."""
+    fault-free wave's. Returns the paged legs' launches and the fault-free
+    waves' streams by mode (``engine_drain_restore``'s undrained waves)."""
     total = {"paged_decode": 0}
+    clean_streams = {}
     for paged in (False, True):
         mode = "paged" if paged else "row"
         runs = {}
@@ -3677,7 +3712,9 @@ def phase_engine_fault_serve(model, prompts):
                   k4_beyond_fault_free=(launches["paged_decode"]
                                         - clean["launches"]["paged_decode"]),
                   ticks_ran=ticks_ran)
-    return total
+        clean_streams[paged] = [h.tokens for h in runs["fault_free"]
+                                ["handles"]]
+    return total, clean_streams
 
 
 def tier_prompts(vocab: int = VOCAB):
@@ -3877,6 +3914,448 @@ def phase_engine_preempt_serve(model, prompts, be_new: int = 128,
     return total
 
 
+# ---------------------------------------------------------- phase 35-38
+SLICE_TOKENS = 8         # engine_slice_parity: at most one 32-token chunk a step
+SLICE_SERVE = dict(max_slots=8, prefill_len=4096, prefix_block_size=16,
+                   prefix_chunk=512, telemetry_capacity=4096)
+DRAIN_STEP = 10
+
+
+def phase_engine_slice_parity(pair):
+    """Sliced prefill card against CPU, greedy, Llama-1B width at depth 2
+    in f32 (TF32 off), ``engine_parity``'s 4 prompts x 16 tokens at
+    ``prefill_slice_tokens=8`` (one 32-token chunk a step, the tick between
+    slices): the row and the paged engine, ``spec_k=4`` with a depth-1
+    self-draft (paged; its tree advancing chunk for chunk) and a tenant
+    engine (paged: a base stream, an adapter stream, a constrained one).
+    Gates: token-exact card against CPU and sliced against the card's
+    whole-prompt engine (unless a tie: the CPU's top-2 margin < 1e-3),
+    admissions parked across steps, K4 exactly 2 x the paged ticks that
+    ran (the draft leg: exactly its draft steps, ``(spec_k + 1)`` a
+    window, none on the verify). Returns the paged legs' launches."""
+    gpu_model, cpu_model = pair
+    prompts = parity_prompts()
+    registry = tenant_registry(gpu_model, 1)
+    strings = tenant_token_strings()
+    schema = {"kind": "json_schema", "schema": PARITY_SCHEMA}
+    tenant_kws = [{}, {"adapter": "adapter0"}, {"constraint": schema}, {}]
+    drafts = {"cuda": self_draft(gpu_model, 1),
+              "cpu": self_draft(cpu_model, 1)}
+    total = {"paged_decode": 0}
+    for leg, kws, engine_kw in (
+            ("row", None, dict(paged=False)),
+            ("paged", None, dict(paged=True)),
+            ("spec_draft_paged", None, dict(paged=True, spec_k=SPEC_K)),
+            ("tenant_paged", tenant_kws, dict(paged=True))):
+        runs = {}
+        for name, model, sliced in (("cuda", gpu_model, SLICE_TOKENS),
+                                    ("cpu", cpu_model, SLICE_TOKENS),
+                                    ("whole", gpu_model, None)):
+            ekw = dict(engine_kw, prefill_slice_tokens=sliced)
+            if leg.startswith("spec"):
+                ekw["spec_draft_model"] = drafts["cpu" if name == "cpu"
+                                                 else "cuda"]
+            if leg.startswith("tenant"):
+                ekw["tenant"] = TenantConfig(registry=registry,
+                                             token_strings=strings)
+            runs[name] = faulted_run(model, prompts, kws=kws, **ekw)
+        gpu = runs["cuda"]
+        if kws is None:
+            exact, ties = check_streams(f"{leg} request", gpu["streams"],
+                                        runs["cpu"]["streams"], prompts,
+                                        cpu_model, FAULT_NEW)
+            exact_w, ties_w = check_streams(
+                f"{leg} sliced vs whole", gpu["streams"],
+                runs["whole"]["streams"], prompts, cpu_model, FAULT_NEW)
+        else:
+            exact, ties = check_tenant_streams(
+                f"{leg} request", gpu["streams"], runs["cpu"]["streams"],
+                prompts, kws, cpu_model, registry)
+            exact_w, ties_w = check_tenant_streams(
+                f"{leg} sliced vs whole", gpu["streams"],
+                runs["whole"]["streams"], prompts, kws, cpu_model, registry)
+        snap, launches = gpu["snap"], gpu["launches"]
+        if leg.startswith("spec"):
+            want = drafts["cuda"].depth * (SPEC_K + 1) * snap["spec_ticks"]
+        else:
+            want = gpu_model.depth * gpu["ticks"] if engine_kw["paged"] \
+                else 0
+        if launches["paged_decode"] != want or sum(launches.values()) != want:
+            raise RuntimeError(f"engine_slice_parity {leg}: launches "
+                               f"{launches}, want {want} paged_decode")
+        if gpu["parked"] < len(prompts) or snap["requests_failed"]:
+            raise RuntimeError(f"engine_slice_parity {leg}: {gpu['parked']} "
+                               f"parked steps, {snap}")
+        if engine_kw["paged"]:
+            total["paged_decode"] += launches["paged_decode"]
+        phase("engine_slice_parity", leg=leg, model="Llama_1B_depth2_f32",
+              allow_tf32=False, prefill_slice_tokens=SLICE_TOKENS,
+              requests=len(prompts), token_exact_vs_cpu=exact,
+              ties_vs_cpu=ties, equal_whole_prompt=exact_w,
+              ties_vs_whole=ties_w, parked_steps=gpu["parked"],
+              whole_parked_steps=runs["whole"]["parked"],
+              paged_decode_launches=launches["paged_decode"],
+              ticks=gpu["ticks"], spec_ticks=snap["spec_ticks"])
+    del drafts
+    return total
+
+
+def slice_serve_prompts(vocab: int = VOCAB):
+    """7 running prompts of 384 tokens (256 shared) and one cold 4096-token
+    prompt."""
+    rng = np.random.RandomState(8)
+    shared = rng.randint(0, vocab, 256)
+    running = [np.concatenate([shared, rng.randint(0, vocab, 128)])
+               for _ in range(7)]
+    return running, rng.randint(0, vocab, 4096)
+
+
+def slice_serve_run(model, running, cold, paged, slice_tokens, new=256,
+                    cold_new=16, arrive=16):
+    """The running prompts decode ``new`` tokens each; the cold prompt is
+    submitted before step ``arrive``. Host times of every token (the tick
+    copies the tokens to the host) give each running stream's gaps; the
+    gaps that end between the cold submit and its first token are the
+    admission's. Returns the streams, the gaps, TTFT, tokens/s, launches,
+    ticks and the telemetry record of the admission's slowest step."""
+    eng = ServeEngine(model, paged=paged, prefill_slice_tokens=slice_tokens,
+                      **SLICE_SERVE)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, new) for p in running]
+    stamps = [[] for _ in handles]
+    cold_h, t_cold, t_first, step = None, None, None, 0
+    while eng.has_work or cold_h is None:
+        if step == arrive:
+            cold_h = eng.submit(cold, cold_new)
+            t_cold = time.perf_counter()
+        eng.step()
+        now = time.perf_counter()
+        step += 1
+        for s, h in zip(stamps, handles):
+            s.extend([now] * (len(h.tokens) - len(s)))
+        if cold_h is not None and cold_h.tokens and t_first is None:
+            t_first, first_step = now, step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gaps = [b - a for s in stamps for a, b in zip(s, s[1:])
+            if t_cold < b <= t_first]
+    all_gaps = [b - a for s in stamps for a, b in zip(s, s[1:])]
+    handles.append(cold_h)
+    for h in handles:
+        if h.finish_reason is not FinishReason.LENGTH:
+            raise RuntimeError(f"engine_slice_serve: {h} {h.finish_reason}")
+    records = eng.telemetry.snapshot()
+    ticks = sum(1 for r in records if "tick" in r["site_wall_s"])
+    # The slowest step of the cold admission, by its host ms a site.
+    slowest = max((r for r in records if arrive <= r["step"] < first_step),
+                  key=lambda r: r["tick_wall_s"])
+    return dict(streams=[h.tokens for h in handles], gaps=gaps,
+                slowest=slowest,
+                all_gaps=all_gaps, ttft=cold_h.ttft_s, wall=wall,
+                tokens=sum(len(h.tokens) for h in handles),
+                launches=dict(_kernels.launch_counts), ticks=ticks,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def phase_engine_slice_serve():
+    """Sliced prefill at full width: Llama-1B bf16, ``max_len`` 8192,
+    ``prefill_len`` 4096, ``prefix_chunk`` 512, 8 slots. 7 streams of 384
+    prompt tokens (256 shared) decode 256 tokens; a cold 4096-token prompt
+    arrives at step 16. ``prefill_slice_tokens=512`` against ``None``, in
+    turns (row: sliced, whole; paged: whole, sliced). Gates: sliced
+    streams equal whole-prompt ones unless a bf16 tie (reported), K4 once a
+    layer a paged tick. Prints the running streams' largest gap between
+    tokens during the cold admission and its p99 there, the cold request's
+    TTFT, tokens/s and K4's launches. Returns the paged runs' launches."""
+    torch.cuda.empty_cache()
+    model = Llama_1B(vocab_size=VOCAB, max_len=8192, dtype=torch.bfloat16,
+                     device=DEV, seed=0)
+    running, cold = slice_serve_prompts()
+    total = {"paged_decode": 0}
+    for paged, order in ((False, (512, None)), (True, (None, 512))):
+        mode = "paged" if paged else "row"
+        runs = {}
+        for slice_tokens in order:
+            run = slice_serve_run(model, running, cold, paged, slice_tokens)
+            runs[slice_tokens] = run
+            want = model.depth * run["ticks"] if paged else 0
+            if (run["launches"]["paged_decode"] != want
+                    or sum(run["launches"].values()) != want):
+                raise RuntimeError(f"engine_slice_serve {mode}: launches "
+                                   f"{run['launches']}, want {want}")
+            total["paged_decode"] += run["launches"]["paged_decode"]
+        for slice_tokens in (512, None):
+            run = runs[slice_tokens]
+            equal, ties = bf16_ties(
+                model, running + [cold], run["streams"],
+                runs[None]["streams"], f"engine_slice_serve {mode} request")
+            phase("engine_slice_serve", mode=mode,
+                  prefill_slice_tokens=slice_tokens, model="Llama_1B_bf16",
+                  max_len=8192, running=len(running), running_new=256,
+                  cold_prompt=len(cold), tokens=run["tokens"],
+                  wall_s=f"{run['wall']:.4f}",
+                  tokens_per_s=f"{run['tokens'] / run['wall']:.2f}",
+                  cold_ttft_s=f"{run['ttft']:.5f}",
+                  admission_gaps=len(run["gaps"]),
+                  admission_gap_max_ms=f"{1e3 * max(run['gaps']):.3f}",
+                  admission_gap_p99_ms=(
+                      f"{1e3 * float(np.percentile(run['gaps'], 99)):.3f}"),
+                  gap_p50_ms=(
+                      f"{1e3 * float(np.median(run['all_gaps'])):.3f}"),
+                  equal_whole=f"{equal}/{len(run['streams'])}", ties=ties,
+                  paged_decode_launches=run["launches"]["paged_decode"],
+                  ticks=run["ticks"],
+                  peak_mem_gib=f"{run['peak'] / 2**30:.3f}",
+                  slowest_admission_step_ms=(
+                      f"{1e3 * run['slowest']['tick_wall_s']:.3f}"),
+                  its_host_ms_by_site=",".join(
+                      f"{k}:{1e3 * v:.3f}" for k, v in sorted(
+                          run["slowest"]["site_wall_s"].items())))
+    del model
+    return total
+
+
+def drained_run(model, prompts, paged, path, new=32, **engine_kw):
+    """The serve wave on one engine, drained at step ``DRAIN_STEP`` to
+    ``path``; returns the tokens each request had then, the drain's ms and
+    the snapshot's bytes."""
+    eng = ServeEngine(model, paged=paged, max_slots=8, prefix_block_size=16,
+                      **engine_kw)
+    handles = [eng.submit(p, new) for p in prompts]
+    for _ in range(DRAIN_STEP):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = eng.drain(path)
+    drain_ms = 1e3 * (time.perf_counter() - t0)
+    running = sum(1 for e in snap["requests"] if e["tokens"])
+    if not eng.drained or running == 0 or eng.step() != 0:
+        raise RuntimeError(f"engine_drain_restore: drained {running} running")
+    return ([list(h.tokens) for h in handles], drain_ms,
+            pathlib.Path(path).stat().st_size, running)
+
+
+def restored_run(model, prompts, paged, path, **engine_kw):
+    """A fresh engine restores ``path`` and runs to the end; returns the
+    streams in ``prompts``' order, the seconds from the restore call to the
+    first token a resumed stream emits, the launches and the ticks (a
+    speculative window counts as one)."""
+    eng = ServeEngine(model, device=model.device, paged=paged, max_slots=8,
+                      prefix_block_size=16, telemetry_capacity=4096,
+                      **engine_kw)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    restored = eng.restore(path)
+    resumed = {id(h): len(h.tokens) for h in restored if h.tokens}
+    first = None
+    while eng.has_work:
+        eng.step()
+        if first is None and any(len(h.tokens) > resumed[id(h)]
+                                 for h in restored if id(h) in resumed):
+            first = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    by_prompt = {tuple(int(t) for t in h.request.prompt): h
+                 for h in restored}
+    handles = [by_prompt[tuple(int(t) for t in p)] for p in prompts]
+    for h in handles:
+        if not h.done or h.finish_reason is not FinishReason.LENGTH:
+            raise RuntimeError(f"engine_drain_restore: {h} unfinished")
+    ticks = sum(1 for r in eng.telemetry.snapshot()
+                if {"tick", "verify"} & set(r["site_wall_s"]))
+    return ([list(h.tokens) for h in handles], first,
+            dict(_kernels.launch_counts), ticks)
+
+
+def phase_engine_drain_restore(model, prompts, pair, ref,
+                               out_dir="build"):
+    """Drain and restore at full width: phase 7's wave (Llama-1B bf16, 24 x
+    384 prompt tokens, 256 shared, x 32 new, 8 slots) drained at step 10
+    to a file under ``build/`` and restored into a fresh engine: row,
+    paged, ``spec_k=4`` n-gram (paged), and the row snapshot into a paged
+    engine. Gates: every request finished with 32 tokens, the tokens
+    emitted before the drain kept, the streams equal to the undrained
+    wave's unless a bf16 tie (reported), K4 once a layer a paged restore
+    tick. Prints the snapshot's bytes, the drain's ms and the restore's
+    seconds to the first resumed token. Then an f32 depth-2 leg
+    (``engine_parity``'s prompts x 16, paged, drained at step 3): restored
+    streams token-exact against the undrained card engine and against the
+    CPU's drained-and-restored engine. ``ref``: the undrained wave's
+    streams by mode (``paged``), from ``engine_fault_serve``'s fault-free
+    waves. Returns the paged restores' launches."""
+    total = {"paged_decode": 0}
+    drained = {}
+    for leg, source, restore_paged, engine_kw in (
+            ("row", "row", False, {}),
+            ("paged", "paged", True, {}),
+            ("spec_ngram_paged", "spec_ngram_paged", True,
+             dict(spec_k=SPEC_K)),
+            ("row_to_paged", "row", True, {})):
+        path = str(pathlib.Path(out_dir) / f"drain_{source}.json")
+        if source not in drained:
+            drained[source] = drained_run(model, prompts, leg != "row",
+                                          path, **engine_kw)
+        partial, drain_ms, nbytes, running = drained[source]
+        streams, first, launches, ticks = restored_run(
+            model, prompts, restore_paged, path, **engine_kw)
+        for part, s in zip(partial, streams):
+            if s[:len(part)] != part:
+                raise RuntimeError(f"engine_drain_restore {leg}: a resumed "
+                                   "stream re-sampled a streamed token")
+        want = model.depth * ticks if restore_paged and not engine_kw else 0
+        if (launches["paged_decode"] != want
+                or sum(launches.values()) != want):
+            raise RuntimeError(f"engine_drain_restore {leg}: launches "
+                               f"{launches}, want {want}")
+        total["paged_decode"] += launches["paged_decode"]
+        equal, ties = bf16_ties(model, prompts, streams, ref[restore_paged],
+                                f"engine_drain_restore {leg} request")
+        phase("engine_drain_restore", leg=leg, model="Llama_1B_bf16",
+              requests=len(prompts), drain_step=DRAIN_STEP, source=source,
+              running_at_drain=running, snapshot_bytes=nbytes,
+              drain_ms=f"{drain_ms:.3f}",
+              restore_to_first_token_s=f"{first:.4f}",
+              finished=f"{len(streams)}/{len(prompts)}",
+              equal_undrained=f"{equal}/{len(prompts)}", ties=ties,
+              paged_decode_launches=launches["paged_decode"], ticks=ticks)
+    # f32 depth 2: card against CPU, and against the undrained card.
+    gpu_model, cpu_model = pair
+    f32_prompts = parity_prompts()
+    f32_path = str(pathlib.Path(out_dir) / "drain_snapshot_f32.json")
+    undrained = faulted_run(gpu_model, f32_prompts, paged=True)["streams"]
+    streams = {}
+    for name, model_ in (("cuda", gpu_model), ("cpu", cpu_model)):
+        eng = ServeEngine(model_, device=model_.device, paged=True,
+                          max_slots=4, prefill_len=128, prefix_block_size=16)
+        for p in f32_prompts:
+            eng.submit(p, FAULT_NEW)
+        for _ in range(3):
+            eng.step()
+        eng.drain(f32_path)
+        fresh = ServeEngine(model_, device=model_.device, paged=True,
+                            max_slots=4, prefill_len=128,
+                            prefix_block_size=16, telemetry_capacity=4096)
+        _kernels.reset_launch_counts()
+        restored = fresh.restore(f32_path)
+        fresh.run(max_steps=400)
+        by_prompt = {tuple(int(t) for t in h.request.prompt): h.tokens
+                     for h in restored}
+        streams[name] = [by_prompt[tuple(int(t) for t in p)]
+                         for p in f32_prompts]
+        if name == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(_kernels.launch_counts)
+            ticks = sum(1 for r in fresh.telemetry.snapshot()
+                        if "tick" in r["site_wall_s"])
+    if launches["paged_decode"] != gpu_model.depth * ticks:
+        raise RuntimeError(f"engine_drain_restore f32: launches {launches} "
+                           f"over {ticks} ticks")
+    exact, ties = check_streams("drain f32 request", streams["cuda"],
+                                streams["cpu"], f32_prompts, cpu_model,
+                                FAULT_NEW)
+    exact_u, ties_u = check_streams("drain f32 vs undrained",
+                                    streams["cuda"], undrained, f32_prompts,
+                                    cpu_model, FAULT_NEW)
+    phase("engine_drain_restore", leg="f32_paged",
+          model="Llama_1B_depth2_f32", allow_tf32=False,
+          requests=len(f32_prompts), drain_step=3, token_exact_vs_cpu=exact,
+          ties_vs_cpu=ties, equal_undrained=exact_u, ties_vs_undrained=ties_u,
+          paged_decode_launches=launches["paged_decode"], ticks=ticks)
+    return total
+
+
+def traced_parity_names(pair):
+    """The event names of each request's span, card and CPU, paged, f32 at
+    depth 2 (``engine_parity``'s prompts x 16); equal or it raises."""
+    names = {}
+    for name, model in zip(("cuda", "cpu"), pair):
+        tracer = RequestTracer()
+        eng = ServeEngine(model, device=model.device, paged=True,
+                          max_slots=4, prefill_len=128, prefix_block_size=16,
+                          tracer=tracer)
+        handles = [eng.submit(p, FAULT_NEW) for p in parity_prompts()]
+        eng.run(max_steps=400)
+        spans = {s["request_id"]: s for s in tracer.finished}
+        names[name] = [[e["name"] for e in spans[h.request.request_id]
+                        ["events"]] for h in handles]
+    if names["cuda"] != names["cpu"]:
+        raise RuntimeError("engine_trace_serve: the card's span events "
+                           f"{names['cuda']} differ from the CPU's")
+    return sum(len(n) for n in names["cuda"])
+
+
+def phase_engine_trace_serve(model, prompts, pair):
+    """Tracing at full width: phase 7's wave on the paged engine with a
+    ``RequestTracer`` (a list sink) and with the default ``NULL_TRACER``,
+    two waves each in turns (null, traced, traced, null): the tokens/s and
+    decode-tick p50 ratios, traced over null. Gates: 24 finished spans
+    reach the sink, each with its stream's tokens (``tokens_emitted``, and
+    one ``decode`` event a token after the first, within the per-span
+    decode budget); K4 once a layer a tick; the f32 depth-2 card run's
+    event names per request equal the CPU run's. Returns the traced waves'
+    launches."""
+    runs = {"null": [], "traced": []}
+    total = {"paged_decode": 0}
+    order = ("null", "traced", "traced", "null")
+    for kind in order:
+        sink = []
+        tracer = RequestTracer(sink=sink.append) if kind == "traced" else None
+        run = serve_wave(model, prompts, paged=True, tracer=tracer,
+                         telemetry_capacity=4096)
+        if run["launches"]["paged_decode"] != model.depth * run["ticks"]:
+            raise RuntimeError(f"engine_trace_serve: launches "
+                               f"{run['launches']} over {run['ticks']} ticks")
+        runs[kind].append(run)
+        if kind == "null":
+            continue
+        total["paged_decode"] += run["launches"]["paged_decode"]
+        spans = [r for r in sink if r["kind"] == "span"]
+        by_id = {s["request_id"]: s for s in spans}
+        budget = tracer._max_decode
+        for h in run["handles"]:
+            span = by_id[h.request.request_id]
+            decode = sum(e["name"] == "decode" for e in span["events"])
+            if (span["attrs"]["tokens_emitted"] != len(h.tokens)
+                    or decode != min(len(h.tokens) - 1, budget)
+                    or span["finish_reason"] != "length"):
+                raise RuntimeError(f"engine_trace_serve: span {span}")
+        if len(spans) != len(prompts) or tracer.spans_finished != len(prompts):
+            raise RuntimeError(f"engine_trace_serve: {len(spans)} spans")
+    events = traced_parity_names(pair)
+
+    def mean(kind, fn):
+        return float(np.mean([fn(r) for r in runs[kind]]))
+
+    def tokens_s(run):
+        return sum(len(h.tokens) for h in run["handles"]) / run["wall"]
+
+    def tick_p50(run):
+        return float(np.median(run["tick_s"]))
+
+    equal, ties = bf16_ties(model, prompts,
+                            [h.tokens for h in runs["traced"][0]["handles"]],
+                            [h.tokens for h in runs["null"][0]["handles"]],
+                            "engine_trace_serve request")
+    waves = iter(runs["null"][:1] + runs["traced"] + runs["null"][1:])
+    phase("engine_trace_serve", model="Llama_1B_bf16", requests=len(prompts),
+          tokens_per_s_by_wave=",".join(
+              f"{kind}:{tokens_s(next(waves)):.2f}" for kind in order),
+          tokens_per_s_null=f"{mean('null', tokens_s):.2f}",
+          tokens_per_s_traced=f"{mean('traced', tokens_s):.2f}",
+          tokens_per_s_ratio=(
+              f"{mean('traced', tokens_s) / mean('null', tokens_s):.4f}"),
+          tick_ms_p50_null=f"{1e3 * mean('null', tick_p50):.4f}",
+          tick_ms_p50_traced=f"{1e3 * mean('traced', tick_p50):.4f}",
+          tick_p50_ratio=(
+              f"{mean('traced', tick_p50) / mean('null', tick_p50):.4f}"),
+          spans_finished=len(prompts), equal_null=f"{equal}/{len(prompts)}",
+          ties=ties, f32_span_events_equal_cpu=events,
+          paged_decode_launches=total["paged_decode"])
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -3936,7 +4415,8 @@ def main(argv=None) -> int:
     tenant_serve_launches = phase_engine_tenant_serve(
         model, prompts, args.profile or "build/profiles")
     t0 = time.perf_counter()
-    fault_serve_launches = phase_engine_fault_serve(model, prompts)
+    fault_serve_launches, undrained = phase_engine_fault_serve(model,
+                                                               prompts)
     phase("phase_seconds", name="engine_fault_serve",
           seconds=f"{time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
@@ -3955,7 +4435,26 @@ def main(argv=None) -> int:
                        tag="profile_draft_spec_decode", spec_k=SPEC_K,
                        spec_draft_model=draft)
         del draft
+    pair = _parity_pair(max_len=MAX_LEN, depth=2)
+    t0 = time.perf_counter()
+    drain_launches = phase_engine_drain_restore(model, prompts, pair,
+                                                undrained)
+    phase("phase_seconds", name="engine_drain_restore",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    trace_launches = phase_engine_trace_serve(model, prompts, pair)
+    phase("phase_seconds", name="engine_trace_serve",
+          seconds=f"{time.perf_counter() - t0:.2f}")
     del model
+    t0 = time.perf_counter()
+    slice_serve_launches = phase_engine_slice_serve()
+    phase("phase_seconds", name="engine_slice_serve",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    slice_parity_launches = phase_engine_slice_parity(pair)
+    phase("phase_seconds", name="engine_slice_parity",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    del pair
     spec_parity_launches = phase_engine_spec_parity()
     tenant_parity_launches = phase_engine_tenant_parity()
     t0 = time.perf_counter()
@@ -3982,7 +4481,10 @@ def main(argv=None) -> int:
            for name, launches in int8_serve_launches.items()},
         "engine_fault_serve": fault_serve_launches["paged_decode"],
         "host_tier_serve": tier_launches["paged_decode"],
-        "engine_preempt_serve": preempt_launches["paged_decode"]}
+        "engine_preempt_serve": preempt_launches["paged_decode"],
+        "engine_slice_serve": slice_serve_launches["paged_decode"],
+        "engine_drain_restore": drain_launches["paged_decode"],
+        "engine_trace_serve": trace_launches["paged_decode"]}
     k1_paths = {"train_step": train_launches["flash_fwd"],
                 "train_long": long_launches["flash_fwd"],
                 "generate_swa": swa_launches["flash_fwd"],
@@ -4017,6 +4519,7 @@ def main(argv=None) -> int:
         "engine_tenant_parity": tenant_parity_launches["paged_decode"],
         "gpt_parity_paged": gpt_parity_launches["paged_decode"],
         "engine_fault_parity": fault_parity_launches["paged_decode"],
+        "engine_slice_parity": slice_parity_launches["paged_decode"],
         **{f"int8_parity_{name}": launches["paged_decode"]
            for name, launches in int8_parity_launches.items()}}
     kernels[1]["launches_by_path"] = k1_paths

@@ -118,16 +118,40 @@ that misses the device pool but hits the tier PROMOTES the chain back
 both directions; a disabled tier leaves the engine bit-identical to an
 untiered one.
 
+Sliced prefill (``prefill_slice_tokens``, both modes, the prefix
+machinery on): an admission prefills at most that many prompt tokens a
+``step()`` in narrow chunks (the wide chunk, one head-of-line block, is
+never taken), and the decode tick runs between slices, so one long cold
+prompt no longer stalls every running stream. One slice is in flight at a
+time; it parks across steps in ``_slice`` (the row engine's admission
+row, or the paged engine's pinned chain and private blocks), a draft
+model's tree advancing chunk for chunk beside it. Cancel and deadline
+land mid-slice; a lost chunk unwinds it like any admission.
+
+Drain and restore (``serve/drain.py``, the JAX package's snapshot v5 byte
+for byte): :meth:`ServeEngine.install_drain_handler` arms a SIGTERM
+handler that only sets a flag; the next ``step()`` drains at its
+boundary: every running, mid-admission and queued request's host state
+is snapshotted (atomically to a file, if given), admission stops and
+``step()`` returns 0. :meth:`ServeEngine.restore` resubmits a snapshot,
+drained by either package, into a fresh engine of either mode, and each
+running stream resumes token-exactly through the replay path.
+
+Tracing (``tracer=`` / :meth:`ServeEngine.set_tracer`,
+``obs/trace.py``): the JAX engine's per-request span hooks, at the same
+points with the same arguments, every argument a host scalar the engine
+already holds; the default :data:`~pddl_tpu_torch.obs.trace.NULL_TRACER`
+costs one no-op call a hook and allocates nothing.
+
 PyTorch runs eagerly, so the JAX engine's fixed compiled-program set
-(and its ``compile_counts`` pin) has no counterpart here. Not ported yet
-— each raises ``NotImplementedError`` naming its ROADMAP.md item: sliced
-prefill (``prefill_slice_tokens``, and with it the draft model's sliced
-prefill), drain/restore (with the speculative streams' fields; the
-``drained`` property stays False) and tracers.
+(its ``warmup`` and ``compile_counts``) has no counterpart here; its
+fleet-worker methods (``export_prefix_chain``/``import_prefix_chain``)
+come with the fleet (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import signal
 import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence
@@ -147,11 +171,13 @@ from pddl_tpu_torch.models.gpt import (
 )
 from pddl_tpu_torch.models.speculative import ngram_drafts
 from pddl_tpu_torch.obs.ring import TelemetryRing
+from pddl_tpu_torch.obs.trace import NULL_TRACER
 from pddl_tpu_torch.ops.attention import (
     cache_blocks_gather,
     cache_blocks_scatter,
 )
 from pddl_tpu_torch.ops.lora import adapter_pool_load, batched_lora_delta
+from pddl_tpu_torch.serve import drain as drain_io
 from pddl_tpu_torch.serve.faults import (
     InjectedResourceExhausted,
     InjectedTransientError,
@@ -186,16 +212,6 @@ from pddl_tpu_torch.serve.tenant import (
     compile_constraint,
     constraint_key,
 )
-
-_ROADMAP_FEATURES = "ROADMAP.md queue 1 item 3 (engine features)"
-
-
-def _not_ported(what: str, item: str = _ROADMAP_FEATURES
-                ) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet ({item}); the port's engine serves "
-        "paged=False and paged=True without it")
-
 
 def _zero(tree: dict) -> None:
     """Zero every K/V leaf of a cache or pool tree in place."""
@@ -320,8 +336,14 @@ class ServeEngine:
         refused.
       param_transform: applied to each int8 leaf of ``variables`` at
         each use (``ops/quant.dequantize``).
-      prefill_slice_tokens / tracer: not ported; anything but ``None``
-        raises.
+      prefill_slice_tokens: sliced prefill (module docstring): at most
+        this many prompt tokens prefilled a ``step()``, in narrow chunks,
+        the decode tick between slices; needs the prefix machinery.
+        ``None`` (default) admits whole prompts.
+      tracer: a per-request tracer
+        (:class:`~pddl_tpu_torch.obs.trace.RequestTracer`); ``None``
+        installs the no-op :data:`~pddl_tpu_torch.obs.trace.NULL_TRACER`.
+        Swap at run time with :meth:`set_tracer`.
 
     A model with :attr:`~pddl_tpu_torch.models.llama.Llama.uses_ring_cache`
     set is refused, as the JAX engine refuses it.
@@ -360,11 +382,6 @@ class ServeEngine:
                 "the serving engine needs full-length KV caches; "
                 f"sliding_window={model.sliding_window} allocates a "
                 "rolling ring cache whose slot reuse is not supported yet")
-        for what, given in (("prefill_slice_tokens",
-                             prefill_slice_tokens is not None),
-                            ("tracer", tracer is not None)):
-            if given:
-                raise _not_ported(what)
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if max_retries < 0:
@@ -391,9 +408,16 @@ class ServeEngine:
             max_queue_depth=max_queue_depth,
             prefill_token_budget=prefill_token_budget, aging_s=aging_s)
         self.metrics = ServeMetrics()
+        # The tracer defaults to the shared no-op object: a hook is one
+        # method call that allocates nothing.
+        self._tracer = NULL_TRACER
         self.telemetry = TelemetryRing(telemetry_capacity)
         self._step_idx = 0
+        # The step coordinate the fault plan, the trace events and the
+        # telemetry record all stamp.
+        self._cur_step = 0
         self._site_wall: Dict[str, float] = {}
+        self._last_wall_s = 0.0
         # Resilience state (``serve/faults.py``).
         self._faults = fault_plan
         self._max_retries = int(max_retries)
@@ -406,8 +430,14 @@ class ServeEngine:
         self._degraded_until_s = 0.0
         self._preempt_cap = int(preempt_cap)
         # Handles popped from the queue but not yet slotted: a kill
-        # mid-admission leaves its handle here, first in line next step.
+        # mid-admission (or a parked slice) leaves its handle here, first
+        # in line next step and in the drain snapshot.
         self._admitting: Deque[RequestHandle] = deque()
+        self._drain_flag = False
+        self._drained = False
+        self._drain_path: Optional[str] = None
+        self._snapshot: Optional[dict] = None
+        self._prev_handlers: Dict[int, object] = {}
 
         bs = int(prefix_block_size)
         if bs < 1:
@@ -461,6 +491,24 @@ class ServeEngine:
                 raise ValueError(
                     f"prefix_cache_blocks must be >= 2 (block 0 is the "
                     f"reserved scratch sink), got {pool_blocks}")
+        # Sliced prefill: one slice in flight at a time (the admission
+        # row, or one pinned chain, is the single admission pipeline);
+        # `_slice` holds its resumable state across steps.
+        if prefill_slice_tokens is not None:
+            if not self._prefix_on:
+                raise ValueError(
+                    "prefill_slice_tokens requires the prefix-cache "
+                    "engine (its chunk programs are the slicing "
+                    "mechanism); leave prefix_cache_blocks enabled or "
+                    "unset prefill_slice_tokens")
+            if prefill_slice_tokens < 1:
+                raise ValueError(
+                    f"prefill_slice_tokens must be >= 1, got "
+                    f"{prefill_slice_tokens}")
+        self._slice_tokens = (int(prefill_slice_tokens)
+                              if prefill_slice_tokens is not None else None)
+        self._slice: Optional[dict] = None
+        self._slice_budget_left = 0
         self._init_spec(model, spec_k, spec_ngram, spec_draft_model,
                         spec_draft_variables)
         self._init_tenant(model, tenant)
@@ -524,6 +572,8 @@ class ServeEngine:
                                  np.int32) if self._paged else None)
         self._private: List[List[int]] = [[] for _ in range(self.max_slots)]
         self._init_host_tier(host_tier)
+        if tracer is not None:
+            self.set_tracer(tracer)
 
     def _init_host_tier(self, host_tier) -> None:
         """Arm the host KV tier (the ``host_tier`` argument): the
@@ -681,6 +731,24 @@ class ServeEngine:
         self._fsms: List[Optional[tuple]] = [None] * s
         self._fsm_cache: Dict[str, object] = {}
 
+    # ----------------------------------------------------- observability
+    @property
+    def tracer(self):
+        """The installed tracer (the shared no-op object when tracing is
+        off: check ``tracer.enabled``)."""
+        return self._tracer
+
+    def set_tracer(self, tracer) -> None:
+        """Install (or, with ``None``, remove) a per-request tracer. Also
+        wires the fault plan's injection observer, while the tracer is
+        enabled, so every injected fault (latency ones included, which
+        raise nothing) surfaces at the ``(step, site)`` it fired at."""
+        self._tracer = NULL_TRACER if tracer is None else tracer
+        if self._faults is not None:
+            self._faults.on_inject = (
+                self._tracer.on_fault_injected if self._tracer.enabled
+                else None)
+
     # -------------------------------------------------------- submission
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                sampling: Optional[SamplingParams] = None,
@@ -698,7 +766,11 @@ class ServeEngine:
         ``constraint`` is a grammar/schema spec dict (``{"kind": "regex",
         "pattern": ...}`` or ``{"kind": "json_schema", "schema": {...}}``)
         compiled HERE, so a malformed spec rejects the request, never a
-        tick."""
+        tick. After :meth:`drain` the engine accepts nothing."""
+        if self._drained:
+            raise RuntimeError(
+                "engine is drained (snapshot taken, admission stopped); "
+                "restore the snapshot into a fresh engine")
         priority = Priority(priority)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
@@ -742,17 +814,8 @@ class ServeEngine:
                 priority=priority) from None
         if constraint is not None:
             self.metrics.record_constrained()
+        self._tracer.on_submit(handle, self.scheduler.depth)
         return handle
-
-    def drain(self, path: Optional[str] = None):
-        raise _not_ported("drain (with the speculative streams' spec_* "
-                          "fields)", "ROADMAP.md queue 1 item 3 (engine "
-                          "features: drain/restore)")
-
-    def restore(self, source):
-        raise _not_ported("restore (with the speculative streams' spec_* "
-                          "fields)", "ROADMAP.md queue 1 item 3 (engine "
-                          "features: drain/restore)")
 
     # ------------------------------------------------------------- state
     @property
@@ -789,9 +852,9 @@ class ServeEngine:
 
     @property
     def drained(self) -> bool:
-        """Always False: drain/restore is not ported yet (ROADMAP.md
-        queue 1 item 3)."""
-        return False
+        """True once :meth:`drain` snapshotted the engine: admission is
+        stopped and ``step()`` returns 0 (restore into a fresh engine)."""
+        return self._drained
 
     @property
     def spec_enabled(self) -> bool:
@@ -1042,6 +1105,8 @@ class ServeEngine:
 
     @property
     def has_work(self) -> bool:
+        if self._drained:
+            return False
         return (self.live_slots > 0 or self.scheduler.depth > 0
                 or bool(self._admitting))
 
@@ -1056,6 +1121,7 @@ class ServeEngine:
         handle.finish_s = self._clock()
         self.metrics.record_finish(reason.value,
                                    handle.request.priority.value)
+        self._tracer.on_finish(handle, reason.value)
         self._park_slot(slot_id)
 
     def _park_slot(self, slot_id: int) -> None:
@@ -1116,9 +1182,11 @@ class ServeEngine:
                 out = fn(*args)
                 # Host wall time of the call (an asynchronous launch's
                 # enqueue, plus any copy to the host it waits for),
-                # summed per site into the step's telemetry record.
-                self._site_wall[site] = (self._site_wall.get(site, 0.0)
-                                         + time.perf_counter() - t0)
+                # summed per site into the step's telemetry record and
+                # handed to the tracer's prefill-chunk events.
+                dt = time.perf_counter() - t0
+                self._site_wall[site] = self._site_wall.get(site, 0.0) + dt
+                self._last_wall_s = dt
                 return out
             except Exception as e:
                 kind = classify(e)
@@ -1137,6 +1205,7 @@ class ServeEngine:
                 if attempt > self._max_retries:
                     raise _SlotStateLost(site, e) from e
                 self.metrics.record_retry(site)
+                self._tracer.on_retry(self._cur_step, site, attempt)
                 self._backoff_sleep(
                     self._retry_backoff_s * (2 ** (attempt - 1)))
 
@@ -1150,6 +1219,7 @@ class ServeEngine:
             self._degraded = True
             self._degraded_entered_s = now
             self.metrics.record_degraded_entry()
+            self._tracer.on_degraded_entry(self._cur_step)
             if self._prefix_on:
                 self._prefix.flush_unpinned()
         self._degraded_until_s = now + self._degraded_cooldown_s
@@ -1159,6 +1229,8 @@ class ServeEngine:
         if self._degraded and now >= self._degraded_until_s:
             self._degraded = False
             self.metrics.record_degraded_exit(now - self._degraded_entered_s)
+            self._tracer.on_degraded_exit(
+                self._cur_step, now - self._degraded_entered_s)
 
     def _reset_prefix_pool(self) -> None:
         """A REAL failure of a call that writes the row engine's pool may
@@ -1220,8 +1292,11 @@ class ServeEngine:
             handle.finish_s = self._clock()
             self.metrics.record_finish(FinishReason.ERROR.value,
                                        handle.request.priority.value)
+            self._tracer.on_replay(handle, self._cur_step, False)
+            self._tracer.on_finish(handle, FinishReason.ERROR.value)
             return False
         self.metrics.record_replay()
+        self._tracer.on_replay(handle, self._cur_step, True)
         return True
 
     def _lose_live_slots(self) -> None:
@@ -1239,6 +1314,15 @@ class ServeEngine:
             if self._mark_replay(handle):
                 requeue.append(handle)
         if self._paged:
+            # A parked slice holds private ids and a pinned node of the
+            # index about to be retired: drop it without releasing them
+            # (a release would double-own the ids in the fresh free list).
+            # Its handle is still at the head of `_admitting`, so the next
+            # step admits it again from scratch against the fresh pool.
+            # Its adapter pin outlives the reset and unwinds now.
+            if self._slice is not None:
+                self._release_adapter(self._slice["arow"])
+            self._slice = None
             self._reset_paged_pool()
         else:
             _zero(self._cache)
@@ -1371,13 +1455,14 @@ class ServeEngine:
         for i, (_, leaf) in enumerate(kv_leaf_items(self._tier_target())):
             cache_blocks_scatter(leaf, dev[i], ids, 0)
 
-    def _promote_host_chain(self, prompt: np.ndarray) -> int:
+    def _promote_host_chain(self, prompt: np.ndarray, handle) -> int:
         """Promotion: extend the device match with host-tier blocks —
         allocate device ids under the ANCHOR's pin, scatter the payloads
         (the ``host_promote`` site) and attach the ids to the radix index,
         so the admission that follows matches a deeper chain. Every exit
         (allocator shortfall, injected fault, real error) releases its ids
-        and both pins exactly. Returns the promoted block count."""
+        and both pins exactly. ``handle`` is the admission's request (for
+        the tracer). Returns the promoted block count."""
         if self._degraded:
             return 0
         cap = self._match_blocks(prompt)
@@ -1389,12 +1474,14 @@ class ServeEngine:
         promoted = 0
         if tip is not None:
             try:
-                promoted = self._promote_pinned(prompt, match, tip)
+                promoted = self._promote_pinned(prompt, match, tip,
+                                                handle)
             finally:
                 self._host.unpin(tip)
         return promoted
 
-    def _promote_pinned(self, prompt: np.ndarray, match, tip) -> int:
+    def _promote_pinned(self, prompt: np.ndarray, match, tip,
+                        handle) -> int:
         """The host-to-device half of a promotion under the caller's
         host-tier pin: allocate device ids beneath the ANCHOR's pin
         (eviction must not steal the chain the ids extend), dispatch the
@@ -1424,11 +1511,13 @@ class ServeEngine:
             self._prefix.extend(anchor, prompt[m * bs:(m + k) * bs], ids)
             self.metrics.record_host_promotion(
                 k, k * self._host_promote_tokens, self._host.bytes_resident)
+            self._tracer.on_prefill_chunk(handle, "host_promote", m * bs,
+                                          k * bs, self._last_wall_s)
             return k
         finally:
             self._prefix.unpin(anchor)
 
-    def _chunk_loop(self, prompt: np.ndarray, off: int, cache,
+    def _chunk_loop(self, prompt: np.ndarray, off: int, handle, cache,
                     table=None):
         """The suffix chunk loop and its width policy, one for the row and
         paged admissions (each forward pays a fixed cost plus per-token
@@ -1454,17 +1543,20 @@ class ServeEngine:
                 site, prefill_row_features, self.model,
                 torch.from_numpy(chunk_toks).to(self.device), w, cache, off,
                 table)
+            self._tracer.on_prefill_chunk(handle, site, off, w,
+                                          self._last_wall_s)
             off += w
         return logits, feats
 
-    def _prefill_into_row(self, prompt: np.ndarray):
+    def _prefill_into_row(self, prompt: np.ndarray, handle):
         """Prefill one prompt into a row cache, reusing any cached prefix:
         promote a host-tier continuation first, gather the matched chain
         into the resident admission row, chunk-prefill the suffix, donate
         the prompt's uncovered full blocks and pin the chain. With the
         prefix cache off, one padded prefill on a fresh row; degraded, a
         cold chunked prefill that neither reads nor grows the cache.
-        Returns ``(row_cache, last_logits, last_feats,
+        ``handle`` is the admission's request (each call lands on its
+        span). Returns ``(row_cache, last_logits, last_feats,
         pinned_node_or_None)``."""
         plen = int(prompt.size)
         bs = self.prefix_block_size
@@ -1474,30 +1566,45 @@ class ServeEngine:
             row, logits, feats = self._device_call(
                 "prefill", prefill_row_features, self.model,
                 torch.from_numpy(padded).to(self.device), plen)
+            self._tracer.on_prefill_chunk(handle, "prefill", 0, plen,
+                                          self._last_wall_s)
             return row, logits, feats, None
         if self._host is not None:
-            self._promote_host_chain(prompt)
+            self._promote_host_chain(prompt, handle)
         use_prefix = not self._degraded
         match, n_cached = None, 0
         if use_prefix:
             match = self._prefix.match(prompt,
                                        max_blocks=self._match_blocks(prompt))
             n_cached = match.n_blocks * bs
+            self._tracer.on_prefix_match(handle, match.n_blocks, n_cached)
         if n_cached > 0:
             # Everything past the gathered prefix is stale: the chunks
             # overwrite it, or it parks past the position the insert
             # stamps. A full miss gathers nothing.
-            self._device_call("gather", gather_prefix_into_row, self._pool,
-                              self._row, match.block_ids)
-            self.metrics.copy_bytes_gathered += n_cached * self._kv_token_bytes
-        logits, feats = self._chunk_loop(prompt, n_cached, self._row)
+            self._gather_row(match, handle)
+        logits, feats = self._chunk_loop(prompt, n_cached, handle,
+                                         self._row)
         if not use_prefix:
             return self._row, logits, feats, None
         node = self._donate_tail(prompt, match, n_cached)
         return self._row, logits, feats, node
 
+    def _gather_row(self, match, handle) -> None:
+        """Copy the matched chain's pool blocks into the admission row
+        (the ``gather`` site)."""
+        n_cached = match.n_blocks * self.prefix_block_size
+        self._device_call("gather", gather_prefix_into_row, self._pool,
+                          self._row, match.block_ids)
+        self.metrics.copy_bytes_gathered += n_cached * self._kv_token_bytes
+        self._tracer.on_prefill_chunk(handle, "gather", 0, n_cached,
+                                      self._last_wall_s)
+
     def _donate_tail(self, prompt: np.ndarray, match, n_cached: int):
         """Donate the prompt's uncovered FULL blocks and pin the chain.
+        ``match`` must be CURRENT (a sliced admission matches again at its
+        finish: ticks ran between its slices, and an OOM flush may have
+        detached a node matched at its start).
         First descend any chain ALREADY stored past the (capped) gather
         match — those blocks must not be allocated afresh. Pin before
         allocating, so this admission's own eviction pass can never free
@@ -1532,7 +1639,7 @@ class ServeEngine:
             evictions=self._prefix.evictions)
         return node
 
-    def _paged_match_and_allocate(self, prompt: np.ndarray):
+    def _paged_match_and_allocate(self, prompt: np.ndarray, handle):
         """promote → match → pin → allocate private suffix blocks → stamp
         the table row. The pin lands BEFORE any allocation, so an eviction
         during this admission can never take a matched block from under
@@ -1545,7 +1652,7 @@ class ServeEngine:
         table_row = np.zeros(self._table_width, np.int32)
         node, m = None, 0
         if self._host is not None:
-            self._promote_host_chain(prompt)
+            self._promote_host_chain(prompt, handle)
         if not self._degraded:
             match = self._prefix.match(prompt,
                                        max_blocks=self._match_blocks(prompt))
@@ -1554,6 +1661,7 @@ class ServeEngine:
                 node = match.node
                 self._prefix.pin(node)
                 table_row[:m] = match.block_ids
+            self._tracer.on_prefix_match(handle, m, m * bs)
         need = -(-plen // bs) - m
         private = list(self._prefix.allocate(need)) if need > 0 else []
         if len(private) < need:
@@ -1569,19 +1677,20 @@ class ServeEngine:
         table_row[m:m + len(private)] = private
         return node, m, table_row, private
 
-    def _prefill_paged(self, prompt: np.ndarray):
+    def _prefill_paged(self, prompt: np.ndarray, handle):
         """A prefix hit PINS the matched chain and points the slot's table
         at it in place; private blocks take the suffix, which the chunks
         write straight into the pool. A lost chunk hands the private
         blocks and the pin back before it propagates. Returns
         ``(last_logits, last_feats, node, table_row, private_ids)``."""
-        node, m, table_row, private = self._paged_match_and_allocate(prompt)
+        node, m, table_row, private = self._paged_match_and_allocate(
+            prompt, handle)
         n_cached = m * self.prefix_block_size
         use_prefix = not self._degraded
         table = torch.from_numpy(table_row[None]).to(self.device)
         try:
-            logits, feats = self._chunk_loop(prompt, n_cached, self._cache,
-                                             table)
+            logits, feats = self._chunk_loop(prompt, n_cached, handle,
+                                             self._cache, table)
             if self._draft_on:
                 self._draft_prefill_loop(prompt, n_cached, table)
         except _SlotStateLost:
@@ -1666,6 +1775,17 @@ class ServeEngine:
         return node
 
     def _admit(self) -> None:
+        if self._slice_tokens is not None:
+            # The per-STEP prefill allowance: every chunk an admission
+            # runs this step draws from it, so the decode tick below is
+            # never more than one allowance away.
+            self._slice_budget_left = self._slice_tokens
+        if self._slice is not None:
+            # A prefill parked in an earlier step owns the admission
+            # pipeline: advance it first; only once it settles may new
+            # admissions start.
+            if not self._continue_slice():
+                return
         free = self._free_slot_ids()
         if not free:
             free = self._preempt_for_interactive()
@@ -1676,12 +1796,15 @@ class ServeEngine:
             handle.finish_s = self._clock()
             self.metrics.record_finish(FinishReason.CANCELLED.value,
                                        handle.request.priority.value)
+            self._tracer.on_finish(handle, FinishReason.CANCELLED.value)
 
         def _queued_expired(handle):
             # Died in the queue: never pay its prefill.
             handle.finish_s = self._clock()
             self.metrics.record_finish(FinishReason.DEADLINE.value,
                                        handle.request.priority.value)
+            self._tracer.on_deadline_shed(handle)
+            self._tracer.on_finish(handle, FinishReason.DEADLINE.value)
 
         # The suffix-priced cost_fn walks the radix tree per pop; only pay
         # that when a budget consumes the result.
@@ -1694,10 +1817,17 @@ class ServeEngine:
             on_expired=_queued_expired, now_fn=self._clock,
             cost_fn=self._prefill_cost if use_cost else None))
         while self._admitting and free:
+            if (self._slice_tokens is not None
+                    and self._slice_budget_left <= 0):
+                break  # this step's prefill allowance is spent
             handle = self._admitting[0]
             sid = free.pop(0)
             try:
-                self._admit_one(sid, handle)
+                if self._slice_tokens is not None:
+                    if not self._start_slice(sid, handle):
+                        return  # parked: the handle stays in _admitting
+                else:
+                    self._admit_one(sid, handle)
             except _SlotStateLost as lost:
                 free.insert(0, sid)
                 self._unwind_admission(lost, handle)
@@ -1766,6 +1896,7 @@ class ServeEngine:
         for sid, victim in victims[:want]:
             victim.preemptions += 1
             self.metrics.record_preemption()
+            self._tracer.on_preempt(victim, self._cur_step)
             self._park_slot(sid)
             self.scheduler.requeue(victim)
             freed.append(sid)
@@ -1775,10 +1906,16 @@ class ServeEngine:
                           handle: RequestHandle) -> None:
         """A call died during this handle's admission; the per-request
         unwind already released its pins and the slot never became live.
+        A parked slice still owns its adapter pin and, paged, its chain
+        pin and private blocks: released here (the whole-prompt paths
+        release their own before raising, and then no slice was set).
         Zero the resident admission row (a real error may have
         half-written it), rebuild anything else the failed call wrote (the
         slot cache: live-slot replay; the block pool: pool and index), and
         charge the request a replay."""
+        sl, self._slice = self._slice, None
+        if sl is not None:
+            self._release_slice(sl)
         if not self._paged and self._prefix_on:
             _zero(self._row)
         self._recover_consumed(lost)
@@ -1791,21 +1928,21 @@ class ServeEngine:
         releases the pin before it propagates, and the install hands the
         pin to the slot. The adapter's delta is added to the prefill's
         last logits, so the first token comes from the adapted model (a
-        replay samples none)."""
+        replay samples none). The sliced path is :meth:`_start_slice`."""
+        self._tracer.on_admit(handle, sid, bool(handle.tokens))
         prompt = np.asarray(handle.request.prompt, np.int32)
         arow, fsm = self._tenant_admit(handle)
         try:
             if self._paged:
                 logits, feats, node, table_row, private = \
-                    self._prefill_paged(prompt)
+                    self._prefill_paged(prompt, handle)
             else:
-                row, logits, feats, node = self._prefill_into_row(prompt)
+                row, logits, feats, node = self._prefill_into_row(prompt,
+                                                                  handle)
         except BaseException:
             self._release_adapter(arow)
             raise
-        if arow and not handle.tokens:
-            logits = self._adapted(
-                logits, feats, torch.tensor([arow], device=self.device))
+        logits = self._first_logits(logits, feats, arow, handle)
         if self._paged:
             self._install_slot(sid, handle, logits, node,
                                table_row=table_row, private=private,
@@ -1813,6 +1950,188 @@ class ServeEngine:
         else:
             self._install_slot(sid, handle, logits, node, row=row,
                                arow=arow, fsm=fsm)
+
+    def _first_logits(self, logits, feats, arow: int, handle):
+        """The prefill's last logits a fresh request samples its first
+        token from: the adapter's delta added on an adapter row (a replay
+        samples none, so its logits pass through)."""
+        if arow and not handle.tokens:
+            return self._adapted(logits, feats,
+                                 torch.tensor([arow], device=self.device))
+        return logits
+
+    # ---------------------------------------------------- sliced admission
+    def _start_slice(self, sid: int, handle: RequestHandle) -> bool:
+        """Begin a sliced admission: the tenant half, then (paged) match,
+        pin and allocate every private block now, or (row) promote, match
+        and gather now, then chunk-prefill under the step's allowance.
+        Returns True when the admission completed within this step's
+        allowance; False parks it in ``self._slice`` for the next step,
+        the decode tick running in between."""
+        prompt = np.asarray(handle.request.prompt, np.int32)
+        self._tracer.on_admit(handle, sid, bool(handle.tokens))
+        arow, fsm = self._tenant_admit(handle)
+        # The adapter pin's owner: before the slice exists nobody else
+        # unwinds it; once it exists, the slice does (`_unwind_admission`)
+        # or, after it finished, the install's own failure path.
+        created = False
+        try:
+            sl = {"handle": handle, "sid": sid, "prompt": prompt,
+                  "logits": None, "feats": None, "arow": arow, "fsm": fsm,
+                  "node": None, "table": None, "table_dev": None,
+                  "private": []}
+            if self._paged:
+                # Host-only: the matched blocks are referenced in place,
+                # and the pin keeps the chain under this admission across
+                # the ticks between slices.
+                node, m, table_row, private = \
+                    self._paged_match_and_allocate(prompt, handle)
+                sl.update(node=node, table=table_row, private=private,
+                          table_dev=torch.from_numpy(table_row[None]).to(
+                              self.device))
+                n_cached = m * self.prefix_block_size
+            else:
+                if self._host is not None:
+                    # Promote before the gather, so the match below sees
+                    # the host tier's blocks.
+                    self._promote_host_chain(prompt, handle)
+                n_cached = 0
+                if not self._degraded:
+                    match = self._prefix.match(
+                        prompt, max_blocks=self._match_blocks(prompt))
+                    n_cached = match.n_blocks * self.prefix_block_size
+                    self._tracer.on_prefix_match(handle, match.n_blocks,
+                                                 n_cached)
+                if n_cached > 0:
+                    # The gathered copy is private: later evictions cannot
+                    # reach it.
+                    self._gather_row(match, handle)
+            sl.update(off=n_cached, n_cached=n_cached)
+            self._slice = sl
+            created = True
+            return self._advance_slice(sl)
+        except _SlotStateLost:
+            if not created:
+                self._release_adapter(arow)
+            raise
+
+    def _release_slice(self, sl: dict) -> None:
+        """Hand back what a parked slice owns: its adapter pin and, paged,
+        its private blocks and chain pin."""
+        self._release_adapter(sl["arow"])
+        if sl["private"]:
+            self._prefix.release(sl["private"])
+        if sl["node"] is not None:
+            self._prefix.unpin(sl["node"])
+
+    def _continue_slice(self) -> bool:
+        """Resume the parked slice. Returns True once it settled
+        (installed, cancelled, expired or unwound), so admission may go on,
+        and False while it still has chunks to go."""
+        sl = self._slice
+        handle = sl["handle"]
+        now = self._clock()
+        if handle.cancelled or self._expired(handle, now):
+            # Not in a slot yet, so `_reap` cannot see it: settle here.
+            # The half-prefilled row is junk the next admission
+            # overwrites; paged, the private blocks go back to the free
+            # list, unreachable until reallocated and rewritten.
+            self._release_slice(sl)
+            self._slice = None
+            if handle.cancelled:
+                handle.state = RequestState.CANCELLED
+                handle.finish_reason = FinishReason.CANCELLED
+            else:
+                handle.state = RequestState.TIMED_OUT
+                handle.finish_reason = FinishReason.TIMED_OUT
+            handle.finish_s = now
+            self.metrics.record_finish(handle.finish_reason.value,
+                                       handle.request.priority.value)
+            self._tracer.on_finish(handle, handle.finish_reason.value)
+            self._admitting.popleft()
+            return True
+        try:
+            done = self._advance_slice(sl)
+        except _SlotStateLost as lost:
+            self._unwind_admission(lost, handle)
+            self._admitting.popleft()
+            return True
+        if done:
+            self._admitting.popleft()
+        return done
+
+    def _advance_slice(self, sl: dict) -> bool:
+        """Run narrow chunks (the ``chunk_prefill`` site) until the prompt
+        is prefilled or the step's allowance is spent, always at least one
+        chunk. The wide chunk is never taken: one huge forward is the
+        head-of-line block slicing exists to break up. A draft model's
+        tree advances chunk for chunk beside the target's (the
+        ``draft_prefill`` site), at the same offsets and blocks."""
+        handle, prompt = sl["handle"], sl["prompt"]
+        cache = self._cache if self._paged else self._row
+        plen = int(prompt.size)
+        spent = 0
+        while sl["off"] < plen:
+            if spent and self._slice_budget_left <= 0:
+                return False
+            off = int(sl["off"])
+            w = min(self._chunk, plen - off)
+            chunk_toks = np.zeros((1, self._chunk), np.int32)
+            chunk_toks[0, :w] = prompt[off:off + w]
+            toks = torch.from_numpy(chunk_toks).to(self.device)
+            _, sl["logits"], sl["feats"] = self._device_call(
+                "chunk_prefill", prefill_row_features, self.model, toks, w,
+                cache, off, sl["table_dev"])
+            if self._draft_on:
+                self._device_call("draft_prefill", self._draft_chunk, toks,
+                                  off, sl["table_dev"])
+            self._tracer.on_prefill_chunk(handle, "chunk_prefill", off, w,
+                                          self._last_wall_s)
+            sl["off"] = off + w
+            spent += w
+            self._slice_budget_left -= w
+        self._finish_slice(sl)
+        return True
+
+    def _finish_slice(self, sl: dict) -> None:
+        """The prompt is prefilled: donate and pin (row: off a FRESH
+        match, as ticks, and perhaps an OOM flush, ran between the
+        slices), then install the slot as the whole-prompt path does."""
+        handle, sid, prompt = sl["handle"], sl["sid"], sl["prompt"]
+        n_cached = int(sl["n_cached"])
+        logits = self._first_logits(sl["logits"], sl["feats"], sl["arow"],
+                                    handle)
+        if self._paged:
+            node = sl["node"]
+            if n_cached > 0:
+                # Counted at the finish, as the whole-prompt path counts
+                # it, so a mid-slice unwind and replay never count twice.
+                self.metrics.record_copy_avoided(
+                    n_cached * self._kv_token_bytes)
+            if not self._degraded:
+                # The start's pin survived the ticks between the slices
+                # (a flush spares pinned chains), so donation descends
+                # from it. While degraded the matched blocks stay pinned
+                # and undonated: the table references them in place.
+                node = self._donate_tail_paged(
+                    prompt, node, sl["table"], sl["private"],
+                    n_cached // self.prefix_block_size)
+                self.metrics.record_prefix_lookup(
+                    n_cached, blocks_live=self._prefix.blocks_live,
+                    evictions=self._prefix.evictions)
+            self._slice = None
+            self._install_slot(sid, handle, logits, node,
+                               table_row=sl["table"], private=sl["private"],
+                               arow=sl["arow"], fsm=sl["fsm"])
+            return
+        node = None
+        if not self._degraded:
+            match = self._prefix.match(prompt,
+                                       max_blocks=self._match_blocks(prompt))
+            node = self._donate_tail(prompt, match, n_cached)
+        self._slice = None
+        self._install_slot(sid, handle, logits, node, row=self._row,
+                           arow=sl["arow"], fsm=sl["fsm"])
 
     def _sample_first(self, logits, fsm, t, k, p) -> int:
         """The first token from the prefill logits, under the FSM's start
@@ -1884,6 +2203,7 @@ class ServeEngine:
             self.metrics.record_first_token(handle.ttft_s,
                                             handle.request.priority.value)
             self.metrics.record_admission(now)
+            self._tracer.on_first_token(handle, handle.ttft_s)
         self._slots[sid] = handle
         self._positions[sid] = plen
         self._tokens[sid] = first
@@ -2168,6 +2488,7 @@ class ServeEngine:
                 emitted = int(win[sid, j])
                 handle.tokens.append(emitted)
                 new_tokens += 1
+                self._tracer.on_token(handle, self._cur_step)
                 # Tokens past an in-window eos or grammar end are never
                 # emitted; the live FSM advances by the accepted tokens.
                 reason = self._emit_finish(sid, handle, emitted)
@@ -2235,14 +2556,22 @@ class ServeEngine:
 
     @torch.no_grad()
     def step(self) -> int:
-        """One engine tick: re-arm check → reap → admit → append blocks →
-        one fused decode tick for all live slots → evict finished. Returns
-        tokens emitted this step (admission first-tokens included; replay
-        re-feeds emit nothing — those tokens were already streamed). With
-        ``spec_k > 0`` the tick is the draft/verify window
+        """One engine tick: (drain check) → re-arm check → reap → admit →
+        append blocks → one fused decode tick for all live slots → evict
+        finished. Returns tokens emitted this step (admission first-tokens
+        included; replay re-feeds emit nothing — those tokens were already
+        streamed). With ``spec_k > 0`` the tick is the draft/verify window
         (:meth:`_spec_tick`), up to ``spec_k + 1`` tokens a slot. The step
-        index is the fault plan's step coordinate."""
+        index is the fault plan's and the tracer's step coordinate. After a
+        drain this returns 0 and does nothing."""
+        if self._drain_flag and not self._drained:
+            # The drain handler's flag: snapshot and stop at this step
+            # boundary, a consistent request set.
+            self.drain(self._drain_path)
+        if self._drained:
+            return 0
         cur = self._step_idx
+        self._cur_step = cur
         if self._faults is not None:
             self._faults.on_step(cur)
         self._step_idx = cur + 1
@@ -2285,6 +2614,7 @@ class ServeEngine:
                 new_tokens += 1
                 self._positions[sid] += 1
                 self._tokens[sid] = tok
+                self._tracer.on_token(handle, cur)
                 reason = self._emit_finish(sid, handle, tok)
                 if reason is not None:
                     self._evict(sid, RequestState.FINISHED, reason)
@@ -2303,6 +2633,8 @@ class ServeEngine:
             "degraded": self._degraded,
             "site_wall_s": self._site_wall,
         })
+        self._tracer.on_tick(cur, self.scheduler.depth, len(live), emitted,
+                             now - t0)
         return emitted
 
     def run(self, max_steps: Optional[int] = None) -> None:
@@ -2314,3 +2646,97 @@ class ServeEngine:
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
+
+    # ------------------------------------------------------ drain/restore
+    def install_drain_handler(self, path: Optional[str] = None,
+                              signals=(signal.SIGTERM,)) -> None:
+        """Arm checkpoint-on-SIGTERM: the handler only sets a flag
+        (async-signal-safe); the :meth:`drain` itself (snapshot to
+        ``path``, admission stopped) runs at the next ``step()`` boundary,
+        so the snapshot is a consistent request set."""
+        self._drain_path = path
+
+        def _on_signal(signum, frame):  # flag only: async-signal-safe
+            self._drain_flag = True
+
+        for sig in signals:
+            self._prev_handlers[sig] = signal.signal(sig, _on_signal)
+
+    def uninstall_drain_handler(self) -> None:
+        """Put the previous signal handlers back."""
+        for sig, old in self._prev_handlers.items():
+            signal.signal(sig, old)
+        self._prev_handlers.clear()
+
+    def drain(self, path: Optional[str] = None) -> dict:
+        """Snapshot every in-flight request's host state and stop.
+
+        Running slots first, oldest first (the restore owes them the
+        earliest re-admission), then any handle caught mid-admission (a
+        parked slice's included), then the queue: each as prompt, tokens
+        so far, sampling parameters, remaining deadline budget, class,
+        tenant fields and draft accounting (``serve/drain.py``, snapshot
+        v5). No device state is saved: K/V is a pure function of the
+        weights and tokens, and the restore recomputes it through the
+        replay path. A paged engine records each running slot's block
+        table (postmortem context). Idempotent; with ``path`` the
+        snapshot is also written atomically. Afterwards the engine admits
+        nothing and ``step()`` returns 0."""
+        if self._drained:
+            return self._snapshot
+        now = self._clock()
+        handles = sorted((h for h in self._slots if h is not None),
+                         key=lambda h: h.arrival_s)
+        handles.extend(self._admitting)
+        handles.extend(self.scheduler.drain())
+        tables = {}
+        if self._paged:
+            for sid, h in enumerate(self._slots):
+                if h is not None:
+                    row = self._tables[sid]
+                    tables[id(h)] = [int(b) for b in row[row != 0]]
+        self._snapshot = {
+            "version": drain_io.SNAPSHOT_VERSION,
+            "drained_unix_s": time.time(),
+            "paged": self._paged,
+            "spec_k": self._spec_k,
+            "requests": [drain_io.encode_handle(
+                h, now, block_table=tables.get(id(h))) for h in handles],
+            # Last-moments telemetry, postmortem context the restore
+            # ignores.
+            "telemetry": self.telemetry.summary(),
+        }
+        self._tracer.on_drain(self._cur_step, len(handles))
+        self._drained = True
+        self._drain_flag = True
+        if path is not None:
+            drain_io.save_snapshot(self._snapshot, path)
+        return self._snapshot
+
+    def restore(self, source) -> List[RequestHandle]:
+        """Resubmit a drain snapshot (a dict or a path), drained by either
+        package, into THIS engine (a fresh one, of either mode). Running
+        requests resume token-exactly: their handles re-enter the queue's
+        bypass lane with the tokens so far, and the replay admission
+        rebuilds their K/V before the stream goes on (a finished
+        restored handle holds the request's FULL stream). Depth limits do
+        not apply. Returns the new handles in service order."""
+        if isinstance(source, str):
+            source = drain_io.load_snapshot(source)
+        handles = drain_io.restored_handles(source, self._clock())
+        if not self._tenant_on:
+            # A tenant stream on a plain engine would silently serve the
+            # base model: refuse instead (v1-v3 entries carry neither
+            # field and restore here unchanged).
+            bad = [h for h in handles
+                   if h.request.adapter is not None
+                   or h.request.constraint is not None]
+            if bad:
+                raise ValueError(
+                    f"snapshot carries {len(bad)} tenant request(s) "
+                    "(adapter/constraint) but this engine has no "
+                    "tenant=TenantConfig(...)")
+        self.scheduler.restore(handles)
+        for h in handles:
+            self._tracer.on_restored(h, len(h.tokens))
+        return handles

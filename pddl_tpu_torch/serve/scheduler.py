@@ -1,7 +1,5 @@
 """Admission control for the serving engine: SLO-aware pop order (the
-port's own copy of :mod:`pddl_tpu.serve.scheduler`, with the replay
-lane and the preemption requeue; the drain/restore lanes wait for the
-engine's drain, ROADMAP.md queue 1 item 3).
+port's own copy of :mod:`pddl_tpu.serve.scheduler`).
 
 - **max_queue_depth** sheds load: a full queue rejects at ``submit()``
   with a typed :class:`~pddl_tpu_torch.serve.request.QueueFull`.
@@ -17,6 +15,9 @@ engine's drain, ROADMAP.md queue 1 item 3).
 - Replayed handles bypass the ordering entirely (a separate front lane:
   they were admitted once already and are owed the next free slots
   regardless of class); a preempted one re-enters the normal queue.
+- A drain pops everything queued (the bypass lane first, then submit
+  order); a restore puts the snapshot's handles in the bypass lane, in
+  its order, with no depth limit.
 """
 
 from __future__ import annotations
@@ -192,3 +193,19 @@ class SLOScheduler:
         for handle in reversed(handles):
             handle.state = RequestState.QUEUED
             self._front.appendleft(handle)
+
+    def drain(self) -> List[RequestHandle]:
+        """Pop every queued handle for a drain snapshot: the bypass lane
+        first, then submit order. The queue is left empty, so a step after
+        the drain admits nothing."""
+        out = list(self._front)
+        out.extend(h for _, h in self._queue)
+        self._front.clear()
+        self._queue.clear()
+        return out
+
+    def restore(self, handles: List[RequestHandle]) -> None:
+        """Re-enqueue restored handles in snapshot order ahead of any new
+        traffic (the bypass lane). Depth limits do not apply: the drained
+        engine admitted every one of them."""
+        self._front.extend(handles)

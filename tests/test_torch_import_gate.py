@@ -29,7 +29,7 @@ def test_importing_every_port_module_leaves_jax_out():
     for mod in ("serve.engine", "serve.tenant", "serve.tenant.adapters",
                 "serve.tenant.grammar", "ops.lora", "ops.quant",
                 "models.gpt", "models.vit", "models.layers",
-                "train.optimizers"):
+                "train.optimizers", "obs.trace", "serve.drain"):
         assert "pddl_tpu_torch." + mod in mods
     code = (
         "import importlib, sys\n"
@@ -81,11 +81,12 @@ def test_engine_raises_without_a_card(monkeypatch):
     {"tracer": object()},
 ])
 def test_unported_engine_options_raise(kw):
-    """Options not ported yet raise, naming their ROADMAP.md item. Tenancy
-    is ported: a ``TenantConfig`` whose adapter pool is under the floor
+    """Every engine option here is ported now, each held to what it does.
+    Tenancy: a ``TenantConfig`` whose adapter pool is under the floor
     (``max_slots + 1``) raises the JAX engine's ``ValueError``, in both
-    packages. Fault recovery, preemption and the host tier are ported:
-    each option is held to what it does (``_check_ported_resilience``)."""
+    packages. Fault recovery, preemption and the host tier:
+    ``_check_ported_resilience``. Sliced prefill and the tracer:
+    ``_check_ported_features``."""
     from pddl_tpu_torch.models.llama import tiny_llama
     from pddl_tpu_torch.serve.engine import ServeEngine
     from pddl_tpu_torch.serve.tenant import TenantConfig
@@ -93,6 +94,9 @@ def test_unported_engine_options_raise(kw):
     model = tiny_llama(vocab_size=32, max_len=64, device="cpu")
     if set(kw) & {"max_replays", "preempt_cap", "host_tier", "fault_plan"}:
         _check_ported_resilience(model, kw)
+        return
+    if set(kw) & {"prefill_slice_tokens", "tracer"}:
+        _check_ported_features(model, kw)
         return
     if "tenant" in kw:
         import jax
@@ -117,9 +121,48 @@ def test_unported_engine_options_raise(kw):
                 build()
             errors.append(str(info.value))
         assert errors[0] == errors[1]
+
+
+def _check_ported_features(model, kw):
+    """``prefill_slice_tokens`` admits a prompt over several steps, the
+    tick running between the slices (with ``spec_k`` too), and the streams
+    equal whole-prompt admission's; a ``tracer`` (the case's placeholder
+    becomes a ``RequestTracer``) records each request's span, and an
+    object without the hooks fails at the first hook."""
+    from pddl_tpu_torch.obs import RequestTracer
+    from pddl_tpu_torch.serve.engine import ServeEngine
+
+    base = dict(device="cpu", max_slots=2, prefill_len=16,
+                spec_k=kw.get("spec_k", 0))
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5], [2, 7, 1, 8]]
+    plain = ServeEngine(model, **base)
+    want = [plain.submit(p, 6) for p in prompts]
+    plain.run(max_steps=50)
+    if "prefill_slice_tokens" in kw:
+        eng = ServeEngine(model, prefix_chunk=4, **base,
+                          prefill_slice_tokens=4)
+        first = eng.submit(prompts[0], 6)
+        steps = 0
+        while not first.tokens:
+            eng.step()
+            steps += 1
+        assert steps == 3  # 11 tokens at 4 a step
+        second = eng.submit(prompts[1], 6)
+        eng.run(max_steps=50)
+        assert [first.tokens, second.tokens] == [h.tokens for h in want]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeEngine(model, device="cpu", max_slots=2, prefill_len=16, **kw)
+    tracer = RequestTracer()
+    eng = ServeEngine(model, tracer=tracer, **base)
+    assert eng.tracer is tracer
+    handles = [eng.submit(p, 6) for p in prompts]
+    eng.run(max_steps=50)
+    assert [h.tokens for h in handles] == [h.tokens for h in want]
+    spans = {s["request_id"]: s for s in tracer.finished}
+    for h in handles:
+        assert spans[h.request.request_id]["attrs"]["tokens_emitted"] == 6
+    bare = ServeEngine(model, tracer=kw["tracer"], **base)
+    with pytest.raises(AttributeError, match="on_submit"):
+        bare.submit(prompts[0], 2)
 
 
 def _check_ported_resilience(model, kw):

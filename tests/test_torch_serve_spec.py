@@ -263,15 +263,14 @@ def test_spec_config_errors_match_jax(models, kw, err, match):
     "tenant", "constraint", "fault_plan", "prefill_slice_tokens", "drain",
     "restore", "param_transform", "spec_draft_variables"])
 def test_still_refused_options_name_their_item(models, what):
-    """The options a speculative engine still refuses name their
-    ROADMAP.md item. Tenancy is ported: a speculative engine takes a
+    """Every option a speculative engine once refused is ported now, each
+    held to what it does. Tenancy: a speculative engine takes a
     ``TenantConfig`` (grammar-constrained speculation), and without one
     ``submit(constraint=...)`` raises the JAX engine's ``ValueError``, in
-    both packages. ``param_transform`` (int8 serving) and
-    ``spec_draft_variables`` are ported too: each is held to what it
-    does."""
+    both packages. ``param_transform`` (int8 serving),
+    ``spec_draft_variables``, ``fault_plan``, sliced prefill and
+    drain/restore are checked below."""
     kw = dict(ENGINE_KW, paged=True)
-    item = "item 3"
     if what in ("tenant", "constraint"):
         jeng = JaxServeEngine(models["jm"], models["jv"], preempt_cap=0,
                               tenant=JaxTenantConfig() if what == "tenant"
@@ -332,14 +331,41 @@ def test_still_refused_options_name_their_item(models, what):
         assert streams[0] == streams[1]
         assert eng.metrics.replays == 2 and eng.metrics.retries == 1
         return
+    prompts = [_loop(i, 12 + 5 * i) for i in range(3)]
+    whole = ServeEngine(models["tm"], device="cpu", **kw)
+    want = [whole.submit(p, 16) for p in prompts]
+    whole.run(max_steps=100)
     if what == "prefill_slice_tokens":
-        kw[what] = 16
-    if what in ("drain", "restore"):
-        eng = ServeEngine(models["tm"], device="cpu", **kw)
-        call = {"drain": eng.drain,
-                "restore": lambda: eng.restore({})}[what]
-        with pytest.raises(NotImplementedError, match=item):
-            call()
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            ServeEngine(models["tm"], device="cpu", **kw)
+        # Ported: a speculative engine prefills at most 4 prompt tokens
+        # a step, ticking between the slices, and emits the same streams.
+        eng = ServeEngine(models["tm"], device="cpu",
+                          prefill_slice_tokens=4, **kw)
+        handles = [eng.submit(p, 16) for p in prompts]
+        parked = 0
+        while eng.has_work:
+            eng.step()
+            parked += eng._slice is not None
+        assert parked >= 3
+        assert [h.tokens for h in handles] == [h.tokens for h in want]
+        return
+    # Ported: a drain mid-stream snapshots the draft accounting (v5), and
+    # the restore resumes every stream token-exactly in a fresh
+    # speculative engine.
+    eng = ServeEngine(models["tm"], device="cpu", **kw)
+    for p in prompts:
+        eng.submit(p, 16)
+    for _ in range(2):
+        eng.step()
+    snap = eng.drain()
+    assert eng.drained and not eng.has_work and eng.step() == 0
+    if what == "drain":
+        assert snap["version"] == 5 and snap["spec_k"] == K
+        assert sum(e["spec"]["drafted"] for e in snap["requests"]) \
+            == eng.metrics.spec_drafted_tokens
+        with pytest.raises(RuntimeError, match="drained"):
+            eng.submit(prompts[0], 2)
+        return
+    fresh = ServeEngine(models["tm"], device="cpu", **kw)
+    restored = fresh.restore(snap)
+    fresh.run(max_steps=100)
+    assert [h.tokens for h in restored] == [h.tokens for h in want]
