@@ -17,6 +17,8 @@ recovery, preemption, the host KV tier, sliced prefill, drain/restore
 and request tracing in the engine — on a
 full-width, full-depth ResNet-50, the reference's own workload, on
 GPT-2-small (training, ``generate``, both engines, speculation), on
+ResNet-50 under the reference's distribution modes (world size 1 on
+NCCL, and two processes sharing the card over gloo), on
 int8 weights (Llama-1B and GPT-2-small served through
 ``param_transform=dequantize``) and on ViT-S/16 (training), and prints
 one line per phase:
@@ -95,8 +97,8 @@ one line per phase:
     ``torch.backends.cudnn.benchmark`` False), one seeded weight set
     trained by the port's Trainer on the card (cuDNN) and on the CPU with
     SGD at lr 0.005 and the gradient norm logged, B 4 x 224, for each
-    stem: 3 free-running steps (printed; the first gated: a BatchNorm net
-    at init parts the two sides' runs after it), then 3 steps each from
+    stem: 1 free-running step (gated: a BatchNorm net at init parts the
+    two sides' free runs after it), then 3 steps each from
     the CPU's state copied to the card: losses within rtol 1e-4, gradient
     norms within 1e-3 relative, parameters within 2·lr·steps, each
     BatchNorm buffer within 1e-4 of its max-abs;
@@ -114,6 +116,23 @@ one line per phase:
     device memory, the last loss, the forward's multiply-accumulates per
     image (from the model's conv and dense shapes) and the MFU of
     6 x MACs per image;
+15b. dp parity — the reference's distribution modes at world size 1 on
+    NCCL (a process group of one over the card): full-width ResNet-50 in
+    f32 (TF32 off, cuDNN deterministic), B 32 x 224, 3 SGD steps and 1
+    Adam step through ``Trainer.fit`` under ``single``, ``mirrored``,
+    ``multiworker``, ``ps`` (min 256 KiB) and the hvd workflow
+    (``DistributedOptimizer``, broadcast, metric-average and warmup
+    callbacks), each bitwise ``strategy=None`` in its losses, parameters
+    and BatchNorm buffers;
+15c. dp parity gloo2 — two processes on the one card joined over gloo
+    with CUDA tensors (``--dp-gloo2-child``), mirrored and ps at 2 x 16
+    rows against the single-device step at 32 rows (1 SGD, 1 Adam step):
+    the loss, gradient norm, parameter and buffer errors against their
+    stated tolerances, both processes' states equal, ps's optimizer-state
+    bytes a process against mirrored's and its capped leaves;
+15d. dp train — phase 15's space-to-depth step under ``mirrored`` at
+    world size 1 beside ``strategy=None`` in turns: images/s of each and
+    their ratio (a record);
 16. generate parity — ``generate`` on the card against the CPU, greedy,
     full-width Llama-1B at depth 2 in f32 (TF32 off): a full-length cache
     (B 2, prompt 64, 32 new) and a sliding window of 256 (ring 256 under
@@ -259,7 +278,7 @@ one line per phase:
     tick p50 ratios, 24 finished spans holding their streams' tokens; the
     f32 depth-2 run's span events per request equal to the CPU's;
 37. engine slice serve — Llama-1B bf16 at ``max_len`` 8192, ``prefill_len``
-    4096: 7 streams of 384 prompt tokens x 256 new and a cold 4096-token
+    4096: 7 streams of 384 prompt tokens x 96 new and a cold 4096-token
     prompt at step 16, with ``prefill_slice_tokens`` 512 and ``None`` in
     both modes: the running streams' largest gap between tokens during
     the cold admission and its p99, the cold TTFT, tokens/s, K4's
@@ -304,6 +323,7 @@ import gc
 import itertools
 import json
 import pathlib
+import socket
 import subprocess
 import sys
 import time
@@ -313,6 +333,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import pddl_tpu_torch.compat.hvd as hvd
 import pddl_tpu_torch.serve.engine as engine_mod
 from pddl_tpu_torch.data.synthetic import (
     SyntheticImageClassification,
@@ -339,6 +360,8 @@ from pddl_tpu_torch.ops.quant import (
     quantize_int8,
     quantized_bytes,
 )
+from pddl_tpu_torch.parallel import MirroredStrategy, get_strategy
+from pddl_tpu_torch.parallel.ps import optimizer_state_bytes
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.faults import FaultKind, FaultPlan, FaultSpec
 from pddl_tpu_torch.serve.kvcache import HostTierConfig, pool_nbytes
@@ -1645,11 +1668,11 @@ def phase_resnet_parity(steps: int = 3, lr: float = 0.005, batch: int = 4):
     Trainer on the card (cuDNN/ATen) and on the CPU with SGD at
     ``_train_1step``'s rate and the gradient norm logged, for each stem.
 
-    First ``steps`` free-running steps on each side, printed: a BatchNorm
-    net at init amplifies the two sides' rounding (cuDNN's and oneDNN's
-    convs differ by ~1e-7), so after the first step the runs part, as
-    ``__graft_entry__._train_1step`` notes of multi-step trajectories;
-    only the first step is gated. Then ``steps`` steps each from one
+    First one free-running step on each side, gated: a BatchNorm net at
+    init amplifies the two sides' rounding (cuDNN's and oneDNN's convs
+    differ by ~1e-7), so after the first step free-running runs part, as
+    ``__graft_entry__._train_1step`` notes of multi-step trajectories.
+    Then ``steps`` steps each from one
     state, the CPU model's copied to the card, all gated: losses within
     rtol 1e-4, gradient norms within 1e-3 relative, parameters within
     2·lr·steps, each BatchNorm buffer within 1e-4 of its max-abs."""
@@ -1668,17 +1691,17 @@ def phase_resnet_parity(steps: int = 3, lr: float = 0.005, batch: int = 4):
                     for m in (gpu_model, cpu_model)}
         free = {"loss": [], "grad_norm": []}
         synced = {"loss": [], "grad_norm": [], "param": [], "buffer": []}
-        for step in range(2 * steps):
-            if step >= steps:  # from here on each step starts from one state
+        for step in range(1 + steps):
+            if step >= 1:  # from here on each step starts from one state
                 gpu_model.load_state_dict(cpu_model.state_dict())
             b = data.batch(step)
             g, c = (trainers[m].train_step(b) for m in (gpu_model, cpu_model))
             rel = {k: abs(float(g[k]) - float(c[k])) / abs(float(c[k]))
                    for k in ("loss", "grad_norm")}
-            out = free if step < steps else synced
+            out = free if step < 1 else synced
             for k in rel:
                 out[k].append((float(g[k]), float(c[k]), rel[k]))
-            if step < steps:
+            if step < 1:
                 continue
             cpu_sd = cpu_model.state_dict()
             synced["param"].append(max(
@@ -1762,7 +1785,7 @@ def phase_resnet_converge(epochs: int = 8, steps: int = 16):
 
 
 def _timed_resnet(stem: str, batch: int, warmup: int, steps: int,
-                  image: int = 224):
+                  image: int = 224, strategy=None):
     """``bench.py``'s step through ``Trainer.train_step``: ResNet-50, bf16
     compute over f32 parameters, BatchNorm in train mode, adam at 1e-3,
     on a batch resident on the card; ``warmup`` steps, then ``steps``
@@ -1772,7 +1795,7 @@ def _timed_resnet(stem: str, batch: int, warmup: int, steps: int,
                      device=DEV, seed=0)
     macs = resnet_macs(model, image)
     tr = Trainer(model, optimizer="adam", learning_rate=1e-3, metrics=(),
-                 device=DEV)
+                 device=DEV, strategy=strategy)
     gen = torch.Generator(device=DEV).manual_seed(0)
     batch_d = {"image": torch.randn(batch, image, image, 3, generator=gen,
                                     device=DEV),
@@ -1874,6 +1897,293 @@ def profile_resnet(tr, batch_d, out_dir: str) -> None:
                             sorted(by_class.items(), key=lambda x: -x[1][0])),
           other=";".join(f"{k}:{v:.3f}ms" for k, v in other.items()),
           top_kernels=top)
+
+
+# ------------------------------------------------------------ phase 15b-d
+DP_STRATEGIES = ("single", "mirrored", "multiworker", "ps", "hvd")
+DP_RUNS = (("sgd", 0.005, 3), ("adam", 1e-3, 1))
+DP_WARMUP_EPOCHS = 2  # the hvd workflow's LearningRateWarmupCallback
+
+
+@contextlib.contextmanager
+def nccl_group_of_one():
+    """The default process group, NCCL over this one card (world size 1):
+    the data-parallel strategies' collectives run on it."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+        device_id=DEV)
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_batches(n: int, rows: int, start: int = 0):
+    """``n`` card-resident batches of ``rows`` 224² images (the synthetic
+    set of phase 13), rows ``start`` to ``start + rows`` of each global
+    batch of 32."""
+    data = SyntheticImageClassification(batch_size=32, image_size=224,
+                                        num_classes=1000, seed=1)
+    return [{k: torch.from_numpy(v[start:start + rows]).to(DEV)
+             for k, v in data.batch(i).items()} for i in range(n)]
+
+
+def dp_strategy(name: str, backend=None):
+    """The strategy ``name``, and the hvd workflow's optimizer wrapper and
+    callbacks (``imagenet-resnet50-hvd.py``: ``DistributedOptimizer``,
+    broadcast, metric average, warmup) when ``name`` is ``hvd``."""
+    if name == "hvd":
+        hvd.init(device=DEV, backend=backend)
+        return MirroredStrategy(device=DEV, backend=backend)
+    return get_strategy(name, device=DEV, **(
+        {"backend": backend} if name in ("mirrored", "multiworker", "ps")
+        else {}))
+
+
+def dp_fit(strategy, name, opt, lr, steps, batches, log_grad_norm=False):
+    """ResNet-50 (f32, seed 3) through ``Trainer.fit``, one batch an
+    epoch; the hvd workflow (and its reference, ``name`` ``hvd_ref``) with
+    the warmup callback. Returns the trainer and the loss history."""
+    model = ResNet50(num_classes=1000, device=strategy.device
+                     if strategy is not None else DEV, seed=3)
+    optimizer = opt
+    callbacks = []
+    if name in ("hvd", "hvd_ref"):
+        callbacks = [hvd.callbacks.LearningRateWarmupCallback(
+            warmup_epochs=DP_WARMUP_EPOCHS)]
+    if name == "hvd":
+        optimizer = hvd.DistributedOptimizer(opt, learning_rate=lr)
+        callbacks = [hvd.callbacks.BroadcastGlobalVariablesCallback(0),
+                     hvd.callbacks.MetricAverageCallback()] + callbacks
+    tr = Trainer(model, optimizer=optimizer, learning_rate=lr,
+                 device=model.device, strategy=strategy,
+                 log_grad_norm=log_grad_norm)
+    hist = tr.fit(batches, epochs=steps, steps_per_epoch=1,
+                  callbacks=callbacks, verbose=0)
+    return tr, hist.history
+
+
+def phase_dp_parity(batch: int = 32):
+    """The reference's distribution modes at world size 1 on NCCL, each
+    bitwise ``strategy=None``: full-width ResNet-50 in f32 (TF32 off,
+    cuDNN deterministic), B ``batch`` x 224, 3 SGD steps and 1 Adam step
+    through ``Trainer.fit`` under ``single``, ``mirrored``,
+    ``multiworker``, ``ps`` (min 256 KiB, the reference's) and the hvd
+    workflow (``DistributedOptimizer`` with its three callbacks, against
+    ``strategy=None`` with the same warmup): the loss history, every
+    parameter and every BatchNorm buffer. ``strategy=None`` runs twice
+    first: the bitwise gate needs the step to repeat itself."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    batches = dp_batches(3, batch)
+    try:
+        for opt, lr, steps in DP_RUNS:
+            refs = {}
+            for name in ("none", "none_again", "hvd_ref"):
+                tr, hist = dp_fit(None, name, opt, lr, steps, batches)
+                refs[name] = (hist["loss"], tr.model.state_dict())
+                del tr
+            ok_repeat = _bitwise(refs["none"], refs["none_again"])
+            results = {}
+            for name in DP_STRATEGIES:
+                strategy = dp_strategy(name)
+                tr, hist = dp_fit(strategy, name, opt, lr, steps, batches)
+                ref = refs["hvd_ref" if name == "hvd" else "none"]
+                results[name] = _bitwise(ref, (hist["loss"],
+                                               tr.model.state_dict()))
+                del tr
+            phase("dp_parity", model="ResNet50_f32", allow_tf32=False,
+                  cudnn_deterministic=True, world_size=1, backend="nccl",
+                  batch=batch, image=224, optimizer=opt, lr=lr, steps=steps,
+                  ref_losses="/".join(f"{x:.7f}" for x in refs["none"][0]),
+                  ref_repeats_bitwise=ok_repeat,
+                  **{f"{k}_bitwise": v for k, v in results.items()})
+            bad = [k for k, v in results.items() if not v]
+            if not ok_repeat or bad:
+                raise RuntimeError(
+                    f"dp_parity ({opt}): not bitwise strategy=None's: "
+                    f"{bad or 'strategy=None against itself'}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del batches
+    torch.cuda.empty_cache()
+
+
+def _bitwise(a, b) -> bool:
+    (la, sa), (lb, sb) = a, b
+    return la == lb and sa.keys() == sb.keys() and all(
+        torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def _rel_buffers(sd, ref) -> float:
+    return max(float((sd[k] - ref[k]).abs().max() / ref[k].abs().max())
+               for k in ref if "running" in k)
+
+
+def dp_gloo2_child(rank: int, port: int, out_dir: str) -> None:
+    """One of two processes on the one card, joined over gloo with CUDA
+    tensors: mirrored and ps (min 256 KiB), 1 SGD step and 1 Adam step at
+    16 rows each (``rank``'s half of the global 32), from the same seeded
+    ResNet-50; rank 0 also takes the single-device step at 32 rows. Writes
+    what it saw to ``out_dir/dp_gloo2_{rank}.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+        rank=rank)
+    out = {"rank": rank}
+    # Mirrored's one feeder: every process reads the global batch and
+    # takes its rows; ps's processes each read their part.
+    feeds = {"mirrored": dp_batches(1, 32),
+             "ps": dp_batches(1, 16, start=16 * rank)}
+    try:
+        for opt, lr, _ in DP_RUNS:
+            ref = None
+            if rank == 0:
+                tr, hist = dp_fit(None, "none", opt, lr, 1,
+                                  feeds["mirrored"], log_grad_norm=True)
+                ref = (hist, {k: v.clone() for k, v in
+                              tr.model.state_dict().items()})
+                out[f"{opt}_state_bytes_single"] = optimizer_state_bytes(
+                    tr.optimizer)
+                del tr
+            for name in ("mirrored", "ps"):
+                strategy = dp_strategy(name, backend="gloo")
+                tr, hist = dp_fit(strategy, name, opt, lr, 1, feeds[name],
+                                  log_grad_norm=True)
+                sd = tr.model.state_dict()
+                # Both processes end with the same state (gloo gathers
+                # host tensors only).
+                sums = torch.stack([v.double().sum()
+                                    for v in sd.values()]).cpu()
+                both = [torch.empty_like(sums) for _ in range(2)]
+                torch.distributed.all_gather(both, sums)
+                tag = f"{name}_{opt}"
+                out[f"{tag}_ranks_equal"] = bool(torch.equal(*both))
+                out[f"{tag}_state_bytes"] = optimizer_state_bytes(
+                    tr.optimizer)
+                if name == "ps":
+                    out[f"{tag}_capped_leaves"] = strategy.capped_leaves
+                    out[f"{tag}_sharded_leaves"] = sum(
+                        pl.count > 1 for pl in strategy.placements(
+                            tr.model).values())
+                if ref is not None:
+                    rh, rsd = ref
+                    out[f"{tag}_loss_rel"] = abs(
+                        hist["loss"][0] - rh["loss"][0]) / rh["loss"][0]
+                    out[f"{tag}_grad_norm_rel"] = abs(
+                        hist["grad_norm"][0] - rh["grad_norm"][0]) / \
+                        rh["grad_norm"][0]
+                    out[f"{tag}_param_diff"] = max(
+                        float((sd[k] - rsd[k]).abs().max())
+                        for k in rsd if "running" not in k)
+                    out[f"{tag}_buffer_rel"] = _rel_buffers(sd, rsd)
+                del tr
+    finally:
+        torch.distributed.destroy_process_group()
+    path = pathlib.Path(out_dir) / f"dp_gloo2_{rank}.json"
+    path.write_text(json.dumps(out))
+
+
+def phase_dp_parity_gloo2(timeout: float = 300.0):
+    """Two processes on the one card over gloo with CUDA tensors
+    (``dp_gloo2_child``), mirrored and ps against the single-device step:
+    the loss within rtol 1e-4; the gradient norm within 5e-2 relative
+    (``__graft_entry__._assert_matches_oracle``'s: a BatchNorm net at init
+    amplifies the reduction order's f32 noise into ~1e-3 of the norm);
+    every parameter within 2·lr (SGD) or 3·lr (Adam: a near-zero gradient
+    whose sign flips moves its parameter 2·lr); each BatchNorm buffer
+    within 1e-3 of its max-abs; both processes' states equal; ps's
+    optimizer-state bytes a process against mirrored's, and its capped
+    leaves. A child that fails fails the phase."""
+    out_dir = pathlib.Path("build")
+    out_dir.mkdir(exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--dp-gloo2-child", str(rank), str(port),
+         str(out_dir)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(2)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(
+                    timeout=max(0.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                logs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log_) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"dp_parity_gloo2: process {rank} exited "
+                               f"{p.returncode}:\n{log_[-4000:]}")
+    seen = [json.loads((out_dir / f"dp_gloo2_{r}.json").read_text())
+            for r in range(2)]
+    bad = []
+    for opt, lr, _ in DP_RUNS:
+        for name in ("mirrored", "ps"):
+            tag = f"{name}_{opt}"
+            r0 = seen[0]
+            gates = {"loss_rel": 1e-4, "grad_norm_rel": 5e-2,
+                     "param_diff": 3 * lr if opt == "adam" else 2 * lr,
+                     "buffer_rel": 1e-3}
+            fields = {k: f"{r0[f'{tag}_{k}']:.3g}" for k in gates}
+            extra = {}
+            if name == "ps":
+                extra = dict(
+                    capped_leaves=r0[f"{tag}_capped_leaves"],
+                    sharded_leaves=r0[f"{tag}_sharded_leaves"],
+                    state_bytes_per_rank="/".join(
+                        str(x[f"{tag}_state_bytes"]) for x in seen),
+                    mirrored_state_bytes=r0[f"mirrored_{opt}_state_bytes"])
+            phase("dp_parity_gloo2", model="ResNet50_f32", processes=2,
+                  backend="gloo", device="cuda:0 (shared)", rows=16,
+                  global_batch=32, strategy=name, optimizer=opt, lr=lr,
+                  steps=1, ranks_equal=all(x[f"{tag}_ranks_equal"]
+                                           for x in seen),
+                  **fields, **{f"{k}_bound": f"{v:g}"
+                               for k, v in gates.items()}, **extra)
+            bad += [f"{tag}_{k}" for k, lim in gates.items()
+                    if not r0[f"{tag}_{k}"] <= lim]
+            bad += [f"{tag}_ranks_equal" for x in seen
+                    if not x[f"{tag}_ranks_equal"]]
+    if bad:
+        raise RuntimeError(f"dp_parity_gloo2 out of tolerance: {bad}")
+
+
+def phase_dp_train(batch: int = 256, warmup: int = 3, steps: int = 10):
+    """Phase 15's space-to-depth step at B ``batch`` under ``mirrored`` at
+    world size 1 on NCCL beside ``strategy=None``, in turns (none,
+    mirrored, mirrored, none): images/s of each and their ratio, the cost
+    of the gradient all-reduce over a group of one and the rest of the
+    strategy's step. A record, not a claim."""
+    torch.backends.cudnn.benchmark = True
+    rates = {"none": [], "mirrored": []}
+    for name in ("none", "mirrored", "mirrored", "none"):
+        strategy = None if name == "none" else MirroredStrategy(device=DEV)
+        tr, _, fields = _timed_resnet("space_to_depth", batch, warmup, steps,
+                                      strategy=strategy)
+        rates[name].append(float(fields["images_per_s"]))
+        phase("dp_train_leg", strategy=name, **fields)
+        del tr
+    mean = {k: sum(v) / len(v) for k, v in rates.items()}
+    phase("dp_train", model="ResNet50_bf16_compute_f32_params",
+          stem="space_to_depth", batch=batch, world_size=1, backend="nccl",
+          images_per_s_none="/".join(f"{x:.2f}" for x in rates["none"]),
+          images_per_s_mirrored="/".join(f"{x:.2f}"
+                                         for x in rates["mirrored"]),
+          ratio_mirrored_over_none=f"{mean['mirrored'] / mean['none']:.4f}")
 
 
 def profile_train(tr, data, out_dir: str, tag: str = "train") -> None:
@@ -3223,7 +3533,7 @@ def dense_twin(model, qtree):
     return install_params(twin, dequantize(qtree))
 
 
-def phase_int8_parity(new: int = 16):
+def phase_int8_parity(new: int = 8):
     """int8 at depth 2 in f32 (TF32 off), ``min_elems`` 65536, on
     Llama-1B and GPT-2-small widths: the card's int8 tree bitwise the
     CPU's; the paged int8 engine on the card against the CPU's (token-exact
@@ -3919,6 +4229,10 @@ SLICE_TOKENS = 8         # engine_slice_parity: at most one 32-token chunk a ste
 SLICE_SERVE = dict(max_slots=8, prefill_len=4096, prefix_block_size=16,
                    prefix_chunk=512, telemetry_capacity=4096)
 DRAIN_STEP = 10
+# engine_slice_serve's running streams' new tokens: the cold prompt's
+# admission (steps 16-24 sliced at 512) and its 16 new tokens end by step
+# ~40, well inside them.
+SLICE_RUNNING_NEW = 96
 
 
 def phase_engine_slice_parity(pair):
@@ -4010,7 +4324,8 @@ def slice_serve_prompts(vocab: int = VOCAB):
     return running, rng.randint(0, vocab, 4096)
 
 
-def slice_serve_run(model, running, cold, paged, slice_tokens, new=256,
+def slice_serve_run(model, running, cold, paged, slice_tokens,
+                    new=SLICE_RUNNING_NEW,
                     cold_new=16, arrive=16):
     """The running prompts decode ``new`` tokens each; the cold prompt is
     submitted before step ``arrive``. Host times of every token (the tick
@@ -4062,8 +4377,9 @@ def slice_serve_run(model, running, cold, paged, slice_tokens, new=256,
 def phase_engine_slice_serve():
     """Sliced prefill at full width: Llama-1B bf16, ``max_len`` 8192,
     ``prefill_len`` 4096, ``prefix_chunk`` 512, 8 slots. 7 streams of 384
-    prompt tokens (256 shared) decode 256 tokens; a cold 4096-token prompt
-    arrives at step 16. ``prefill_slice_tokens=512`` against ``None``, in
+    prompt tokens (256 shared) decode ``SLICE_RUNNING_NEW`` tokens; a cold
+    4096-token prompt arrives at step 16. ``prefill_slice_tokens=512``
+    against ``None``, in
     turns (row: sliced, whole; paged: whole, sliced). Gates: sliced
     streams equal whole-prompt ones unless a bf16 tie (reported), K4 once a
     layer a paged tick. Prints the running streams' largest gap between
@@ -4093,7 +4409,8 @@ def phase_engine_slice_serve():
                 runs[None]["streams"], f"engine_slice_serve {mode} request")
             phase("engine_slice_serve", mode=mode,
                   prefill_slice_tokens=slice_tokens, model="Llama_1B_bf16",
-                  max_len=8192, running=len(running), running_new=256,
+                  max_len=8192, running=len(running),
+                  running_new=SLICE_RUNNING_NEW,
                   cold_prompt=len(cold), tokens=run["tokens"],
                   wall_s=f"{run['wall']:.4f}",
                   tokens_per_s=f"{run['tokens'] / run['wall']:.2f}",
@@ -4358,6 +4675,9 @@ def phase_engine_trace_serve(model, prompts, pair):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dp-gloo2-child", nargs=3, metavar=("RANK", "PORT",
+                                                           "DIR"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile a window of decode ticks after "
                          "phases 7, 20 and 21 (the last two speculative: "
@@ -4366,6 +4686,10 @@ def main(argv=None) -> int:
                          "B 1 generate in phase 17, and write their "
                          "kernel tables to DIR")
     args = ap.parse_args(argv)
+    if args.dp_gloo2_child:
+        rank, port, out_dir = args.dp_gloo2_child
+        dp_gloo2_child(int(rank), int(port), out_dir)
+        return 0
     smi = device_line()
     print(smi, flush=True)
     phase("device", name=torch.cuda.get_device_name(0),
@@ -4401,6 +4725,15 @@ def main(argv=None) -> int:
     if args.profile:
         profile_resnet(tr, batch_d, args.profile)
     del tr, batch_d
+    torch.cuda.empty_cache()
+    with nccl_group_of_one():
+        for name, fn in (("dp_parity", phase_dp_parity),
+                         ("dp_parity_gloo2", phase_dp_parity_gloo2),
+                         ("dp_train", phase_dp_train)):
+            t0 = time.perf_counter()
+            fn()
+            phase("phase_seconds", name=name,
+                  seconds=f"{time.perf_counter() - t0:.2f}")
     phase_generate_parity()
     model, *b1 = phase_generate_decode(args.profile)
     phase_generate_spec(model, *b1)

@@ -34,7 +34,12 @@ What is ported so far:
   on-device augmentation of ``ops/augment.py`` and the reference's
   callbacks; its convolutions, BatchNorm and pooling go through torch to
   cuDNN and ATen (the JAX package runs no Pallas kernel there); and a ViT
-  on the same image batches, its attention on the flash kernels.
+  on the same image batches, its attention on the flash kernels;
+- the reference's distribution modes: ``Trainer(strategy=...)`` with the
+  single, mirrored, multi-worker and parameter-server strategies
+  (``parallel/``) and the Horovod shim (``compat/hvd.py``), one process
+  per device on ``torch.distributed`` (``core/``), with BatchNorm over the
+  global batch.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no ``device="cpu"`` they raise.
@@ -63,6 +68,11 @@ _LAZY_EXPORTS = {
     "compile_constraint": ("pddl_tpu_torch.serve.tenant",
                            "compile_constraint"),
     "Trainer": ("pddl_tpu_torch.train.loop", "Trainer"),
+    "MeshConfig": ("pddl_tpu_torch.core.mesh", "MeshConfig"),
+    "build_mesh": ("pddl_tpu_torch.core.mesh", "build_mesh"),
+    "MinSizePartitioner": ("pddl_tpu_torch.core.sharding",
+                           "MinSizePartitioner"),
+    "get_strategy": ("pddl_tpu_torch.parallel", "get_strategy"),
     "SyntheticImageClassification": ("pddl_tpu_torch.data.synthetic",
                                      "SyntheticImageClassification"),
     "SyntheticLanguageModeling": ("pddl_tpu_torch.data.synthetic",

@@ -26,8 +26,14 @@ Flax semantics kept:
   scale 1, bias 0, mean 0, var 1 — drawn from a ``torch.Generator``
   seeded with ``seed``.
 
-Per-replica BatchNorm over a named axis (``axis_name``) belongs to the
-distributed strategies (ROADMAP.md queue 1 item 7) and is refused.
+Under a data-parallel strategy every process holds its rows of the global
+batch, and :class:`BatchNorm` takes its statistics over the **global**
+batch, as flax's does under the JAX trainer's ``jit`` over a data-sharded
+batch: the strategy binds its data group to every BatchNorm
+(:func:`bind_data_group`), which then reduces each channel's sum and
+centred sum of squares over the group (:class:`_SyncBatchNorm`).
+``axis_name`` names that group: ``None`` or ``"data"``; another axis is
+item 7's (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import math
 from typing import Optional, Sequence, Tuple, Type, Union
 
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 
@@ -95,6 +102,57 @@ class Conv(nn.Module):
                         stride, pad)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """flax's training-mode BatchNorm over the rows of every process of
+    ``group``: each channel's sum (with the row count), then its centred
+    sum of squares, is all-reduced (two passes, so the variance loses nothing to a large
+    mean), the variance is the biased one, and ``y = (x - mean) ·
+    (scale · rsqrt(var + eps)) + bias`` as flax writes it. The backward
+    all-reduces each channel's ``Σ dy`` and ``Σ dy · x̂``, so every
+    process's input gradient is the gradient of the sum of every
+    process's loss; the scale and bias gradients stay this process's own
+    sums, which the strategy's gradient average completes."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group):
+        dims = (0, 2, 3)
+        xf = x.float()
+        # The count in f64, exact past f32's 2^24 (B·H·W of the stem).
+        stats = torch.cat([xf.sum(dims).double(),
+                           xf.new_full((1,), xf[:, 0].numel(),
+                                       dtype=torch.float64)])
+        tdist.all_reduce(stats, group=group)
+        count = stats[-1]
+        mean = (stats[:-1] / count).float()
+        d = xf - mean[:, None, None]
+        m2 = d.square().sum(dims)
+        tdist.all_reduce(m2, group=group)
+        var = (m2 / count).float()
+        invstd = torch.rsqrt(var + BN_EPSILON)
+        y = d * (invstd * weight.float())[:, None, None] \
+            + bias.float()[:, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        dims = (0, 2, 3)
+        dyf = dy.float()
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
+        sums = local.clone()
+        tdist.all_reduce(sums, group=ctx.group)
+        c = mean.numel()
+        mdy, mdyx = (sums[:c] / count).float(), (sums[c:] / count).float()
+        dx = (dyf - mdy[:, None, None] - xhat * mdyx[:, None, None]) \
+            * (invstd * weight.float())[:, None, None]
+        return (dx.to(x.dtype), local[c:].to(weight.dtype),
+                local[:c].to(weight.dtype), None)
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over the channels of an NCHW tensor.
 
@@ -107,6 +165,10 @@ class BatchNorm(nn.Module):
     the buffers and leaves them as they are; scale and bias stay
     differentiable either way. The output has the input's type: the
     affine runs in f32 and is rounded once, as flax computes it.
+
+    With a ``sync_group`` of more than one process (bound by
+    :func:`bind_data_group`) the statistics are the global batch's
+    (:class:`_SyncBatchNorm`); over a group of one, the call above.
     """
 
     def __init__(self, features: int, *, momentum: float = BN_MOMENTUM,
@@ -122,20 +184,39 @@ class BatchNorm(nn.Module):
             features, dtype=torch.float32, device=device))
         self.register_buffer("running_var", torch.ones(
             features, dtype=torch.float32, device=device))
+        self.sync_group: Optional[tdist.ProcessGroup] = None
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         if not train or self.frozen:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 BN_EPSILON)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, BN_EPSILON)
+        if self.sync_group is not None:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                                self.sync_group)
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, BN_EPSILON)
+            with torch.no_grad():
+                var = (invstd.double().pow(-2) - BN_EPSILON).clamp_min(0.0)
         with torch.no_grad():
-            var = (invstd.double().pow(-2) - BN_EPSILON).clamp_min(0.0)
             m = self.momentum
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var.float(), alpha=1.0 - m)
         return y
+
+
+def bind_data_group(model: nn.Module,
+                    group: Optional[tdist.ProcessGroup]) -> None:
+    """Make every :class:`BatchNorm` of ``model`` take its training
+    statistics over the processes of ``group`` (the data-parallel
+    strategies call this); ``None`` or a group of one process leaves each
+    on its own rows."""
+    if group is not None and tdist.get_world_size(group) == 1:
+        group = None
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.sync_group = group
 
 
 class BottleneckBlock(nn.Module):
@@ -226,10 +307,11 @@ class ResNet(nn.Module):
                  axis_name: Optional[str] = None, device=None,
                  seed: int = 0):
         super().__init__()
-        if axis_name is not None:
+        if axis_name not in (None, "data"):
             raise NotImplementedError(
-                f"axis_name={axis_name!r} (per-replica BatchNorm) is not "
-                "ported yet: ROADMAP.md queue 1 item 7 (distributed)")
+                f"axis_name={axis_name!r} (BatchNorm over a mesh axis other "
+                "than data) is not ported yet: ROADMAP.md queue 1 item 7 "
+                "(distributed)")
         if bn_mode not in ("train", "frozen"):
             raise ValueError(f"unknown bn_mode {bn_mode!r}")
         if stem not in ("keras", "space_to_depth"):

@@ -1,7 +1,9 @@
 """Callbacks of the port's trainer: the reference's two (the port of
 :class:`pddl_tpu.train.callbacks.ReduceLROnPlateau` and
 :class:`~pddl_tpu.train.callbacks.EarlyStopping`, with the reference's
-defaults, ``imagenet-resnet50.py:64-65``) and their base class.
+defaults, ``imagenet-resnet50.py:64-65``), Horovod's learning-rate warmup
+(:class:`~pddl_tpu.train.callbacks.LearningRateWarmup`,
+``imagenet-resnet50-hvd.py:114-115``) and their base class.
 
 The JAX trainer's state is a value that hooks may replace; the port's
 lives in the trainer's model and optimizer, which hooks change in place.
@@ -127,3 +129,45 @@ class EarlyStopping(_Monitor):
             self.trainer.stop_training = True
             if self.restore_best_weights and self.best_state is not None:
                 model.load_state_dict(self.best_state)
+
+
+class LearningRateWarmup(Callback):
+    """Linear LR warmup over the first epochs, Horovod-style.
+
+    Equivalent of ``hvd.callbacks.LearningRateWarmupCallback(warmup_epochs=3)``
+    (``imagenet-resnet50-hvd.py:114-115``): ramps from ``initial_lr/world``
+    (or a given start) to the target LR over ``warmup_epochs`` epochs,
+    stepping each batch.
+    """
+
+    def __init__(self, warmup_epochs: int = 3,
+                 steps_per_epoch: Optional[int] = None,
+                 start_lr: Optional[float] = None, verbose: int = 0):
+        self.warmup_epochs = warmup_epochs
+        self.steps_per_epoch = steps_per_epoch
+        self.start_lr = start_lr
+        self.verbose = verbose
+        self.target_lr: Optional[float] = None
+        self._warmup_steps: Optional[int] = None
+
+    def on_train_begin(self):
+        optimizer = self.trainer.optimizer
+        self.target_lr = get_learning_rate(optimizer)
+        spe = self.steps_per_epoch or self.trainer.steps_per_epoch
+        if spe is None:
+            raise ValueError("LearningRateWarmup needs steps_per_epoch")
+        self._warmup_steps = max(1, self.warmup_epochs * spe)
+        start = (self.start_lr if self.start_lr is not None
+                 else self.target_lr / self._warmup_steps)
+        set_learning_rate(optimizer, start)
+
+    def on_train_batch_end(self, step, logs):
+        if step >= self._warmup_steps:
+            return
+        start = self.start_lr if self.start_lr is not None else 0.0
+        frac = (step + 1) / self._warmup_steps
+        set_learning_rate(self.trainer.optimizer,
+                          start + (self.target_lr - start) * frac)
+        if self.verbose and step + 1 == self._warmup_steps:
+            print(f"LearningRateWarmup: reached target lr "
+                  f"{self.target_lr:.2e}", file=sys.stderr)

@@ -1,4 +1,4 @@
-"""The Trainer on one card: the port of :class:`pddl_tpu.train.loop.Trainer`'s
+"""The Trainer: the port of :class:`pddl_tpu.train.loop.Trainer`'s
 ``compile``/``fit``/``evaluate``/``predict`` surface, for the causal-LM
 step and the image-classification step (ResNet).
 
@@ -26,6 +26,21 @@ The trainer runs on ``cuda`` unless asked for the CPU (``device="cpu"``),
 and moves the model there. A batch field that is already a tensor on that
 device is used as it is. Options of the JAX trainer that the port has
 not taken over raise ``NotImplementedError`` naming their ROADMAP.md item.
+
+``strategy`` (:mod:`pddl_tpu_torch.parallel`) trains data-parallel, one
+process per device, to the JAX trainer's numbers: each process takes its
+rows of each batch (``Strategy.distribute_batch``), BatchNorm takes its
+statistics over the global batch, the gradients are averaged over the
+strategy's data group after the backward, and the strategy steps the
+optimizer (the ps strategy on its slices of the state). The augment's
+generator draws for the global batch on every process, each keeping its
+rows' draws, so a data-parallel run with the augment is the single-device
+run's. Each epoch's per-step logs are all-reduced to the global mean
+before they are fetched, ``evaluate`` returns the global metrics,
+``predict`` gathers every process's rows in order, and only the
+coordinator prints. The strategy's device is the trainer's; without one
+the trainer takes ``SingleDeviceStrategy(device)``, as the JAX trainer
+does.
 """
 
 from __future__ import annotations
@@ -39,18 +54,18 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from pddl_tpu_torch.device import resolve_device
+from pddl_tpu_torch.core import collectives
+from pddl_tpu_torch.parallel.base import Strategy
+from pddl_tpu_torch.parallel.single import SingleDeviceStrategy
 from pddl_tpu_torch.train import metrics as metrics_lib
 from pddl_tpu_torch.train.callbacks import Callback
 from pddl_tpu_torch.train.history import History
-from pddl_tpu_torch.train.state import make_optimizer
 
 log = logging.getLogger(__name__)
 
 # JAX-trainer options the port does not take yet: name -> (the JAX
 # default, which is accepted, and the ROADMAP.md item that ports it).
 _UNPORTED = {
-    "strategy": (None, "queue 1 item 7 (distributed strategies)"),
     "ema_decay": (None, "queue 1 item 5 (EMA)"),
     "gradient_accumulation_steps": (None, "queue 1 item 5 (accumulation)"),
     "lr_schedule": (None, "queue 1 item 5 (schedules)"),
@@ -83,7 +98,8 @@ def _refuse(options: Dict[str, object], table) -> None:
 
 
 class Trainer:
-    """Single-card training orchestrator.
+    """Training orchestrator: one card, or one process a card under a
+    data-parallel ``strategy``.
 
     >>> trainer = Trainer(model, optimizer="adamw", learning_rate=1e-4,
     ...                   input_key="tokens", target_key="targets")
@@ -101,12 +117,25 @@ class Trainer:
                  seed: int = 0, augment: Optional[Callable] = None,
                  eval_transform: Optional[Callable] = None,
                  input_key: str = "image", target_key: str = "label",
-                 log_grad_norm: bool = False, device=None, **options):
+                 log_grad_norm: bool = False, device=None,
+                 strategy: Optional[Strategy] = None, **options):
         _refuse(options, _UNPORTED)
-        self.device = resolve_device(device)
+        if strategy is None:
+            strategy = SingleDeviceStrategy(device)
+        elif not isinstance(strategy, Strategy):
+            raise TypeError("strategy must be a pddl_tpu_torch.parallel "
+                            f"Strategy, got {type(strategy).__name__}")
+        self.strategy = strategy
+        self.device = strategy.setup().device
+        if device is not None and torch.device(device) not in (
+                self.device, torch.device(self.device.type)):
+            raise ValueError(f"device={device!r} but the strategy's "
+                             f"process trains on {self.device}")
         self.model = model.to(self.device)
+        strategy.bind(self.model)
         # The model itself, so the decay mask reads the JAX leaves' ranks.
-        self.optimizer = make_optimizer(model, optimizer, learning_rate)
+        self.optimizer = strategy.make_optimizer(model, optimizer,
+                                                 learning_rate)
         self.loss_fn = metrics_lib.resolve_loss(loss)
         self.metric_fns = dict(metrics_lib.resolve_metric(m) for m in metrics)
         self.seed = seed
@@ -117,6 +146,7 @@ class Trainer:
         self.log_grad_norm = log_grad_norm
         self.step = 0  # optimizer steps taken: the augment's stream index
         self.global_step = 0
+        self.steps_per_epoch: Optional[int] = None
         self.stop_training = False
         self.history: Optional[History] = None
 
@@ -127,6 +157,8 @@ class Trainer:
         return value.to(self.device, non_blocking=True)
 
     def _batch(self, batch) -> tuple:
+        batch = self.strategy.distribute_batch(
+            {k: batch[k] for k in (self.input_key, self.target_key)})
         return (self._tensor(batch[self.input_key]),
                 self._tensor(batch[self.target_key]))
 
@@ -136,6 +168,18 @@ class Trainer:
         seed = np.random.SeedSequence((self.seed + 1, self.step))
         return torch.Generator(device=self.device).manual_seed(
             int(seed.generate_state(1, np.uint64)[0]))
+
+    def _augment(self, x: torch.Tensor) -> torch.Tensor:
+        """The augment with the global batch's draws: with ``n`` replicas
+        this process's rows sit at their offset of a global-shaped batch
+        (zeros elsewhere), and it keeps its rows of the result."""
+        n = self.strategy.num_replicas_in_sync
+        if n == 1:
+            return self.augment(self._generator(), x)
+        b, i = x.shape[0], self.strategy.mesh.index
+        full = x.new_zeros((n * b,) + tuple(x.shape[1:]))
+        full[i * b:(i + 1) * b] = x
+        return self.augment(self._generator(), full)[i * b:(i + 1) * b]
 
     def _logs(self, loss, logits, labels) -> Dict[str, torch.Tensor]:
         logs = {"loss": loss.detach()}
@@ -147,19 +191,22 @@ class Trainer:
         """One optimizer step on ``batch``; logs stay on the device."""
         x, y = self._batch(batch)
         if self.augment is not None:
-            x = self.augment(self._generator(), x)
+            x = self._augment(x)
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        # The model's, not the optimizer's: under the ps strategy the
+        # optimizer holds slices, not the whole parameters.
+        self.model.zero_grad(set_to_none=True)
         logits = self.model(x)
         loss = self.loss_fn(logits, y)
         loss.backward()
+        self.strategy.reduce_gradients(self.model)
         with torch.no_grad():
             logs = self._logs(loss, logits.detach(), y)
             if self.log_grad_norm:
                 logs["grad_norm"] = torch.nn.utils.get_total_norm(
                     [p.grad for p in self.model.parameters()
                      if p.grad is not None])
-        self.optimizer.step()
+        self.strategy.optimizer_step(self.optimizer)
         self.step += 1
         return logs
 
@@ -178,8 +225,14 @@ class Trainer:
 
     def predict(self, images) -> np.ndarray:
         """Forward pass in inference mode on a batch of images; the
-        logits come back as a host array."""
-        return self._eval_logits(self._tensor(images)).cpu().numpy()
+        logits come back as a host array (with a strategy, every
+        process's rows in order)."""
+        x = self.strategy.distribute_batch({"x": images})["x"]
+        logits = self._eval_logits(self._tensor(x))
+        if self.strategy.group is not None:
+            logits = collectives.all_gather(logits, self.strategy.group,
+                                            tiled=True)
+        return logits.cpu().numpy()
 
     # ------------------------------------------------------------------- fit
     def fit(self, train_data: Iterable[Dict[str, np.ndarray]],
@@ -202,6 +255,7 @@ class Trainer:
         history = History()
         self.stop_training = False
         self.global_step = 0
+        self.steps_per_epoch = steps_per_epoch
         for cb in callbacks:
             cb.set_trainer(self)
         final_logs: Dict[str, float] = {}
@@ -244,7 +298,7 @@ class Trainer:
                     raise ValueError("empty training dataset/epoch")
                 if stopped_mid_epoch:
                     break
-                epoch_logs = _mean_logs(step_logs)
+                epoch_logs = _mean_logs(step_logs, self.strategy.group)
                 dt = time.perf_counter() - t0
                 if validation_data is not None:
                     epoch_logs.update(self.evaluate(
@@ -252,7 +306,7 @@ class Trainer:
                         _prefix="val_"))
                 epoch_logs["images_per_sec"] = samples / dt if dt > 0 else 0.0
                 history.append(epoch, epoch_logs)
-                if verbose:
+                if verbose and self.strategy.is_coordinator:
                     print(" - ".join(
                         [f"Epoch {epoch + 1}/{epochs}", f"{dt:.1f}s"]
                         + [f"{k}: {v:.4f}" for k, v in epoch_logs.items()
@@ -301,20 +355,28 @@ class Trainer:
                      for batch in itertools.islice(data, steps)]
         if not logs_list:
             raise ValueError("empty evaluation dataset")
-        out = {_prefix + k: v for k, v in _mean_logs(logs_list).items()}
-        if verbose:
+        out = {_prefix + k: v
+               for k, v in _mean_logs(logs_list, self.strategy.group).items()}
+        if verbose and self.strategy.is_coordinator:
             print(" - ".join(f"{k}: {v:.4f}" for k, v in out.items()),
                   file=sys.stderr)
         return out
 
 
-def _mean_logs(logs_list) -> Dict[str, float]:
-    """Fetch once (one device sync), average on the host in float64. The
-    exact key ``"perplexity"`` is logged in log space per batch, so its
-    epoch value is the exp of the mean (``metrics.log_perplexity``)."""
+def _mean_logs(logs_list, group=None) -> Dict[str, float]:
+    """Fetch once (one device sync), average on the host in float64. With
+    a data ``group`` each step's logs are first averaged over it, in one
+    all-reduce. The exact key ``"perplexity"`` is logged in log space per
+    batch, so its epoch value is the exp of the mean
+    (``metrics.log_perplexity``)."""
+    keys = list(logs_list[0])
+    steps = torch.stack([torch.stack([d[k].float() for d in logs_list])
+                         for k in keys])
+    if group is not None:
+        steps = collectives.pmean(steps, group)
+    steps = steps.cpu().numpy().astype(np.float64)
     out = {}
-    for k in logs_list[0]:
-        mean = float(np.mean(torch.stack([d[k].float() for d in logs_list])
-                             .cpu().numpy().astype(np.float64)))
+    for k, row in zip(keys, steps):
+        mean = float(np.mean(row))
         out[k] = float(np.exp(mean)) if k == "perplexity" else mean
     return out

@@ -20,7 +20,7 @@ Each follows its optax chain step for step, not torch's namesake:
   0), times the learning rate, then a momentum trace.
 
 Norms are over each parameter as a whole, as optax takes them over each
-leaf. A parameter group's ``weight_decay`` (LAMB, LARS) and
+leaf (over the whole tensor when a parameter is one shard of it). A parameter group's ``weight_decay`` (LAMB, LARS) and
 ``trust_ratio`` (LARS) flags carry optax's masks.
 """
 
@@ -37,7 +37,22 @@ def _trust(param_norm: torch.Tensor, update_norm: torch.Tensor,
 
 class _Rule(torch.optim.Optimizer):
     """Shared loop: ``_update(group, p, g, state)`` returns the additive
-    update of ``p`` (optax's ``updates``, learning rate included)."""
+    update of ``p`` (optax's ``updates``, learning rate included).
+
+    ``shard_sums`` maps a parameter that holds one shard of a larger tensor
+    (:mod:`pddl_tpu_torch.parallel.ps`) to a function that sums a value over
+    the tensor's shards, so that :meth:`_norm` reads the whole tensor's
+    norm, as optax takes it per leaf."""
+
+    def __init__(self, params, defaults):
+        super().__init__(params, defaults)
+        self.shard_sums = {}
+
+    def _norm(self, p, x: torch.Tensor) -> torch.Tensor:
+        total = self.shard_sums.get(p)
+        if total is None:
+            return torch.linalg.vector_norm(x)
+        return total(x.square().sum()).sqrt()
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -131,7 +146,7 @@ class LAMB(_Rule):
             torch.sqrt(nu / (1 - b2 ** t) + group["eps_root"]) + group["eps"])
         if group["weight_decay"]:
             u = u + group["weight_decay"] * p
-        pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        pn, un = self._norm(p, p), self._norm(p, u)
         return -group["lr"] * (u * _trust(pn, un, pn / un))
 
 
@@ -150,7 +165,7 @@ class LARS(_Rule):
             state["trace"] = torch.zeros_like(p)
         u = g + group["weight_decay"] * p if group["weight_decay"] else g
         if group["trust_ratio"]:
-            pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+            pn, un = self._norm(p, p), self._norm(p, u)
             ratio = group["trust_coefficient"] * pn / (un + group["eps"])
             u = u * _trust(pn, un, ratio)
         u = -group["lr"] * u

@@ -21,7 +21,7 @@ decay everything. The learning rate sits in each parameter group, where
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Tuple, Union
+from typing import Callable, Iterable, List, Optional, Tuple, Union
 
 import torch
 
@@ -74,7 +74,8 @@ def _mask(spec, params) -> List[bool]:
 
 def make_optimizer(params: Union[torch.nn.Module,
                                  Iterable[torch.nn.Parameter]],
-                   name: str = "adam", learning_rate: float = 1e-3, *,
+                   name: Union[str, Callable] = "adam",
+                   learning_rate: float = 1e-3, *,
                    schedule=None, schedule_options=None,
                    weight_decay: Optional[float] = None,
                    grad_clip_norm: Optional[float] = None,
@@ -82,7 +83,10 @@ def make_optimizer(params: Union[torch.nn.Module,
                    param_update: str = "plain", update_seed: int = 0,
                    **kwargs) -> torch.optim.Optimizer:
     """An optimizer over ``params`` (a port model, or its parameters) at a
-    constant rate (module docstring)."""
+    constant rate (module docstring). ``name`` may instead be a prebuilt
+    optimizer, ``params -> torch.optim.Optimizer``, as
+    :func:`pddl_tpu_torch.compat.hvd.DistributedOptimizer` returns: it is
+    built over ``params`` with its own learning rate."""
     for what, given, item in (
             ("learning-rate schedules", schedule is not None, "schedules"),
             ("schedule_options", schedule_options is not None, "schedules"),
@@ -95,6 +99,15 @@ def make_optimizer(params: Union[torch.nn.Module,
             ("update_seed", update_seed != 0, "mixed_precision.py")):
         if given:
             raise NotImplementedError(f"{what} is " + _NOT_PORTED.format(item))
+    if callable(name):
+        # A prebuilt optimizer (hvd.DistributedOptimizer's result): the
+        # JAX package takes a prebuilt optax chain as it is.
+        if weight_decay is not None or "decay_mask" in kwargs:
+            raise ValueError(
+                "weight_decay/decay_mask cannot be applied to a prebuilt "
+                "optimizer — build it with them, or pass the optimizer by "
+                "name")
+        return name(params)
     if not isinstance(name, str) or name.lower() not in _OPTIMIZERS:
         raise ValueError(f"unknown optimizer {name!r}; known: "
                          f"{sorted(_OPTIMIZERS)}")

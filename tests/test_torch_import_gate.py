@@ -29,7 +29,12 @@ def test_importing_every_port_module_leaves_jax_out():
     for mod in ("serve.engine", "serve.tenant", "serve.tenant.adapters",
                 "serve.tenant.grammar", "ops.lora", "ops.quant",
                 "models.gpt", "models.vit", "models.layers",
-                "train.optimizers", "obs.trace", "serve.drain"):
+                "train.optimizers", "obs.trace", "serve.drain",
+                "core", "core.dist", "core.mesh", "core.collectives",
+                "core.sharding", "parallel", "parallel.base",
+                "parallel.single", "parallel.mirrored",
+                "parallel.multiworker", "parallel.ps", "compat",
+                "compat.hvd"):
         assert "pddl_tpu_torch." + mod in mods
     code = (
         "import importlib, sys\n"

@@ -32,7 +32,7 @@ bridge, `SyntheticImageClassification` and the image-classification
   within 1e-4;
 - `SyntheticImageClassification` gives the JAX package's batches bitwise;
 - the entry points run on `cuda` unless asked for the CPU, and
-  `axis_name` is refused.
+  `axis_name` takes `"data"` only.
 """
 
 import jax
@@ -372,7 +372,14 @@ def test_resnet_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_axis_name_is_refused():
-    tres.tiny_resnet(device="cpu", axis_name=None)
+    """``"data"`` is ported (BatchNorm over the strategy's data group,
+    ``tests/test_torch_strategies.py``): alone it normalizes each batch as
+    ``None`` does. Any other axis is still item 7's."""
+    x = torch.tensor(_images((4, 16, 16, 3)))
+    models = [tres.tiny_resnet(device="cpu", axis_name=name, seed=1)
+              for name in (None, "data")]
+    out = [m(x) for m in models]
+    assert torch.equal(out[0], out[1])
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP\.md queue 1 item 7"):
         tres.tiny_resnet(device="cpu", axis_name="batch")

@@ -33,6 +33,7 @@ from pddl_tpu.train.loop import Trainer as JaxTrainer
 from pddl_tpu_torch.bridge import llama_params_from_jax, llama_params_to_jax
 from pddl_tpu_torch.data.synthetic import SyntheticLanguageModeling
 from pddl_tpu_torch.models.llama import Llama, tiny_llama
+from pddl_tpu_torch.parallel import get_strategy
 from pddl_tpu_torch.train.callbacks import Callback
 from pddl_tpu_torch.train.loop import Trainer
 from pddl_tpu_torch.train.state import (
@@ -216,6 +217,16 @@ def test_adamw_decays_matrices_only():
 def test_unported_options_raise(where, kw):
     model = tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu")
     trainer_kw = dict(device="cpu", input_key="tokens", target_key="targets")
+    if "strategy" in kw:
+        # Ported: the data-parallel strategies take a Strategy (anything
+        # else is a TypeError); the model-parallel ones are still item 7.
+        with pytest.raises(TypeError, match="Strategy"):
+            Trainer(model, **trainer_kw, **kw)
+        for name in ("tensor_parallel", "expert_parallel", "pipeline"):
+            with pytest.raises(NotImplementedError,
+                               match=r"ROADMAP\.md queue 1 item 7"):
+                get_strategy(name)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         if where == "model":
             tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu", **kw)
