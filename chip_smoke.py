@@ -8,14 +8,16 @@ toolkit::
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version, drives the main paths of the
 port on a full-width Llama-1B — the paged serving engine, the causal-LM
-trainer, the trainer at long context (S 8192, block remat, the
+trainer (and under its options: schedules, clipping, accumulation, EMA,
+the bf16 update rules, the callbacks), the trainer at long context (S 8192, block remat, the
 two-sweep flash backward), KV-cache decoding through ``generate`` (with
 a sliding-window ring cache), the resident-row serving engine,
 speculative serving and decoding (n-gram drafts and a draft model),
 multi-tenant serving (LoRA adapters and grammar constraints), and fault
 recovery, preemption, the host KV tier, sliced prefill, drain/restore
 and request tracing in the engine — on a
-full-width, full-depth ResNet-50, the reference's own workload, on
+full-width, full-depth ResNet-50, the reference's own workload (and its
+trainer's fault recovery, verified checkpoints, resume and prefetch), on
 GPT-2-small (training, ``generate``, both engines, speculation), on
 ResNet-50 under the reference's distribution modes (world size 1 on
 NCCL, and two processes sharing the card over gloo), on
@@ -69,11 +71,11 @@ one line per phase:
    tokens/s, TTFT p50, peak device memory (the serving path's launches);
 8. train parity — full-width Llama-1B at depth 2 in f32 (TF32 off), one
    seeded weight set trained by the port's Trainer on the card (kernels)
-   and on the CPU (plain versions), 3 adamw steps (losses within rtol
-   1e-4, parameters within 2·lr·steps), then 3 sgd steps (losses within
+   and on the CPU (plain versions), 2 adamw steps (losses within rtol
+   1e-4, parameters within 2·lr·steps), then 2 sgd steps (losses within
    rtol 1e-5, each parameter's last-step gradient within 1e-3 of its
    max-abs: the check that holds K2's gradients on the training path),
-   then 3 sgd steps with ``remat="dots"`` and the backward's threshold at
+   then 2 sgd steps with ``remat="dots"`` and the backward's threshold at
    0 on both sides (the same check for K3a, K3b and remat);
 9. train converge — a width-64 tiny Llama with flash attention learns
    the synthetic next-token task on the card (last loss < 0.7 x first);
@@ -161,7 +163,7 @@ one line per phase:
     tokens/s, TTFT, the tick, the prefix cache's gather and donation
     copy bytes and ``resident_kv_report`` beside the paged engine's; no
     hand-written kernel runs there;
-21. engine spec serve — phase 7's wave with 128 new tokens through the
+21. engine spec serve — phase 7's wave with 64 new tokens through the
     row and paged engines at ``spec_k`` 0 and 4 and the paged engine with
     a depth-2 self-draft (the model's embedding, first 2 blocks, final
     norm and head): tokens/s, TTFT, the decode tick, tokens per tick and
@@ -228,7 +230,7 @@ one line per phase:
     least 95% of the trees' difference); the serve wave on both engines,
     bf16 and int8 in turns (each wave's peak less the other model's bytes,
     int8's no higher than bf16's); the tick's p50 ratio and B 1 ``generate``
-    (prompt 64, 128 new) int8 against bf16 (``int8_cost``);
+    (prompt 64, 64 new) int8 against bf16 (``int8_cost``);
 29. int8 parity — depth 2 in f32 on both widths: the card's int8 tree
     bitwise the CPU's; the paged int8 engine card against CPU
     (token-exact unless a tie) and equal to the card's engine over the
@@ -240,6 +242,33 @@ one line per phase:
     parameters, adam, B 256 x 224 on a batch resident on the card through
     ``Trainer.train_step``, 2 warm-up and 10 timed steps: images/s, MFU of
     6 x the forward's MACs, exactly 12 non-causal K1 and 12 K2 a step;
+30b. train options parity — the trainer's options card against the
+    port's CPU run, f32 with TF32 off: every schedule name with and without
+    warmup (the rate at each step equal), Llama-1B width at depth 2 under
+    a cosine schedule, a clip at 1.0, 2-step accumulation and an EMA at 0.9
+    (4 micro-steps, then eval on the shadows: losses within rtol 1e-4,
+    parameters and shadows within 2·lr·updates), 2 x B 2 accumulated
+    against one B 4 step on the card (sgd, the updates within 1e-3 of the
+    largest, the train parity legs' gradient tolerance), bf16 storage (f32 moments under ``plain``, ``f32_master``'s
+    stored parameters exactly the cast of the master) and
+    ``stochastic_round`` on the card (on the two bf16 neighbours, the mean
+    of 4,096 draws within 4 sigma, bitwise the CPU's rounding given the
+    bits);
+30c. train options step — phase 10's model and tokens a step (B 4 x S 2048
+    as 2 x B 2 micro-batches) under warmup_cosine, a clip at 1.0, an EMA at
+    0.999 and the CSVLogger, TensorBoard, Timing and ModelSummary
+    callbacks, bf16 storage under ``plain``, ``stochastic_round`` and
+    ``f32_master`` in turns beside f32 storage: tokens/s, ms an update,
+    peak memory, optimizer-state, EMA and total bytes a parameter, exactly
+    depth x 2 K1 and K2 an update;
+30d. train resilience — ResNet-50 f32, B 32, cuDNN deterministic, adam, 8
+    steps with a verified save every 2: a transient retried in place,
+    spent retries (restore and replay), an injected OOM, a torn newest save
+    (the previous one restored, 3 steps replayed) and a child process
+    SIGKILLed at step 5 then ``fit(resume=)``, each bitwise the clean run
+    in the losses and every leaf of ``Trainer.state_dict()``; each save's
+    MB, ms and GB/s and a restore's ms; host-fed images/s of phase 15's
+    step at B 64 (cuDNN's search off) with ``prefetch`` 0 and 2 in turns;
 31. engine fault parity — fault recovery card against CPU, Llama-1B width
     at depth 2 in f32 (TF32 off), phase 6's prompts x 16: a scheduled tick
     exhaustion (every live slot replays) in both modes, an OOM at the
@@ -255,11 +284,11 @@ one line per phase:
     retries, replays, degraded entries, tokens/s and TTFT p99 against
     fault-free, the streams equal unless a bf16 tie (8 ulps), the K4
     launches beyond the fault-free wave's;
-33. host tier serve — 32 distinct 384-token prompts in 3 rounds of 16 new
+33. host tier serve — 32 distinct 384-token prompts in 2 rounds of 16 new
     through pools too small for them (paged: 514 blocks; row: 193) over a
     512 MiB host tier: spills, hits, promotions, each promotion's bytes,
     ms (CUDA events) and GB/s, the demotion's host ms, the TTFT p50 of
-    rounds 2-3 against the untiered engine (recompute), the streams equal
+    round 2 against the untiered engine (recompute), the streams equal
     to a pool that holds every chain unless a bf16 tie;
 34. engine preempt serve — 8 best-effort serve prompts x 128 new, then 8
     interactive 64-token prompts x 32 after 4 steps, at ``preempt_cap`` 2
@@ -290,7 +319,7 @@ one line per phase:
     token-exact against the CPU and against whole-prompt admission, K4
     exactly 2 x the paged ticks (the draft leg: its draft steps);
 39. kernels — one JSON object: every ported kernel with its launches on
-    its main paths (phases 7, 10, 11, 18, 21, 23, 26, 27, 28, 30,
+    its main paths (phases 7, 10, 11, 18, 21, 23, 26, 27, 28, 30, 30c,
     32-34 and 35-37;
     K4's, K1's and K2's by path under ``launches_by_path``, the parity
     legs' included there for K4), error, times and bound (K3b's
@@ -322,10 +351,13 @@ import copy
 import gc
 import itertools
 import json
+import os
 import pathlib
+import signal
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -360,8 +392,8 @@ from pddl_tpu_torch.ops.quant import (
     quantize_int8,
     quantized_bytes,
 )
+from pddl_tpu_torch.ckpt import CheckpointEveryN, Checkpointer, tree_checksums
 from pddl_tpu_torch.parallel import MirroredStrategy, get_strategy
-from pddl_tpu_torch.parallel.ps import optimizer_state_bytes
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.faults import FaultKind, FaultPlan, FaultSpec
 from pddl_tpu_torch.serve.kvcache import HostTierConfig, pool_nbytes
@@ -371,8 +403,25 @@ from pddl_tpu_torch.serve.tenant import (
     TenantConfig,
     compile_constraint,
 )
-from pddl_tpu_torch.train.callbacks import EarlyStopping, ReduceLROnPlateau
+from pddl_tpu_torch.train.callbacks import (
+    Callback,
+    CSVLogger,
+    EarlyStopping,
+    LambdaCallback,
+    ModelSummary,
+    ReduceLROnPlateau,
+    TensorBoard,
+    Timing,
+)
+from pddl_tpu_torch.train.faults import TrainFaultPlan
 from pddl_tpu_torch.train.loop import Trainer
+from pddl_tpu_torch.train.mixed_precision import _sr_to_bf16, stochastic_round
+from pddl_tpu_torch.train.state import (
+    get_learning_rate,
+    make_optimizer,
+    make_schedule,
+    optimizer_state_bytes,
+)
 from pddl_tpu_torch.train.metrics import sparse_categorical_crossentropy
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
@@ -382,6 +431,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}  # of max |grad|
 VOCAB, MAX_LEN = 128256, 1024          # as benchmarks/decode_bench.py builds it
 DEV = torch.device("cuda", 0)
+BUILD = pathlib.Path(__file__).resolve().parent / "build"
 _T0 = time.perf_counter()
 
 
@@ -1391,7 +1441,7 @@ def _train_both(optimizer: str, lr: float, steps: int, factory=None,
     return losses, rel, params
 
 
-def phase_train_parity(steps: int = 3, lr: float = 1e-4, sgd_lr: float = 1e-2):
+def phase_train_parity(steps: int = 2, lr: float = 1e-4, sgd_lr: float = 1e-2):
     """AdamW (the optimizer path), then plain SGD, which keeps the two
     sides' parameters closest: the last step's gradient of every
     parameter on the card must equal the CPU's within GRAD_TOL of its
@@ -2600,9 +2650,9 @@ def parted_streams(model, prompts, streams, base):
     return equal, (";".join(f"{m:.4g}" for m in margins) or "none")
 
 
-def phase_engine_spec_serve(model, prompts, new: int = 128):
+def phase_engine_spec_serve(model, prompts, new: int = 64):
     """Phase 7's wave (Llama-1B bf16, 24 requests of 384 prompt tokens,
-    256 shared, on 8 slots, ``max_len`` 1024) with 128 new tokens: the row
+    256 shared, on 8 slots, ``max_len`` 1024) with 64 new tokens: the row
     and paged engines at ``spec_k`` 0 and 4, and the paged engine with a
     depth-2 self-draft. Tokens/s, TTFT p50, the decode tick's p50, tokens
     per tick and per slot window, the acceptance rate, the streams equal
@@ -3489,7 +3539,7 @@ def int8_serve_family(name, build):
                 f"{name} paged={paged}: the int8 wave peaks at "
                 f"{footprint[(paged, 'int8')]} bytes, the bf16 one at "
                 f"{footprint[(paged, 'bf16')]}")
-    plen, new = 64, 128
+    plen, new = 64, 64
     prompt = np.random.RandomState(7).randint(0, dense.vocab_size, (1, plen))
     walls = {}
     for kind, model in (("bf16", dense), ("int8", int8)):
@@ -3520,7 +3570,7 @@ def phase_int8_serve():
     layer a paged tick; each wave's peak less the other model's bytes,
     int8's no higher than bf16's); the tick p50 ratio int8 / bf16 per
     mode; then
-    ``generate`` at B 1 (prompt 64, 128 new), bf16 then int8. Returns the
+    ``generate`` at B 1 (prompt 64, 64 new), bf16 then int8. Returns the
     paged int8 waves' launches by family."""
     return {name: int8_serve_family(name, build)
             for name, build in INT8_FAMILIES.items()}
@@ -3716,6 +3766,471 @@ def phase_vit_train(batch: int = 256, warmup: int = 2, steps: int = 10):
         raise RuntimeError(f"non-finite ViT loss {loss}")
     del tr, batch_d, model
     return counts
+
+
+# -------------------------------------------------------- phase 30b-30d
+# The schedules held card against CPU: every name, with and without
+# warmup (tests/test_torch_train_options.py holds them against optax).
+SCHEDULE_CASES = (
+    ("cosine", dict(decay_steps=10, alpha=0.1)),
+    ("cosine", dict(decay_steps=10, warmup_steps=3)),
+    ("warmup_cosine", dict(decay_steps=12, warmup_steps=4)),
+    ("exponential", dict(decay_steps=3, decay_rate=0.5)),
+    ("exponential", dict(decay_steps=3, decay_rate=0.7, warmup_steps=2)),
+    ("linear", dict(decay_steps=10, end_value=0.01)),
+    ("linear", dict(decay_steps=10, warmup_steps=4)),
+    ("piecewise", dict(boundaries_and_scales={3: 0.5, 7: 0.1})),
+    ("piecewise", dict(warmup_steps=2, boundaries_and_scales={4: 0.3})),
+    ("constant", {}),
+    ("constant", dict(warmup_steps=5)),
+)
+
+
+def _options_parity_schedules(steps: int = 12) -> None:
+    for name, kw in SCHEDULE_CASES:
+        want = [float(make_schedule(name, 0.3, **kw)(i)) for i in range(steps)]
+        for dev in (DEV, torch.device("cpu")):
+            p = torch.nn.Parameter(torch.ones(4, device=dev))
+            opt = make_optimizer([p], "sgd", 0.3, schedule=name,
+                                 schedule_options=kw)
+            seen = []
+            for _ in range(steps):
+                p.grad = torch.ones_like(p)
+                opt.step()
+                seen.append(get_learning_rate(opt))
+            if seen != want:
+                raise RuntimeError(f"schedule {name} {kw} on {dev}: {seen} "
+                                   f"!= {want}")
+    phase("train_options_parity", leg="schedules",
+          cases=len(SCHEDULE_CASES), steps=steps, equal_card_cpu=True)
+
+
+def _options_parity_chain(lr: float = 1e-4) -> None:
+    """A cosine schedule, a clip at 1.0 (a prebuilt optimizer), 2-step
+    accumulation and an EMA at 0.9, Llama-1B width at depth 2 in f32: 4
+    micro-steps (2 updates) and one eval batch on the shadows, card against
+    CPU."""
+    cfg = dict(vocab_size=VOCAB, depth=2, dtype=torch.float32)
+    cpu_model = Llama_1B(**cfg, device="cpu", seed=2)
+    gpu_model = Llama_1B(**cfg, device=DEV, seed=2)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    data = SyntheticLanguageModeling(batch_size=2, seq_len=128,
+                                     vocab_size=VOCAB, seed=1)
+    val = data.with_offset(100)
+    out = {}
+    for side, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        tr = Trainer(model, optimizer=lambda p: make_optimizer(
+            p, "adamw", lr, schedule="cosine",
+            schedule_options=dict(decay_steps=4), grad_clip_norm=1.0),
+            gradient_accumulation_steps=2,
+            ema_decay=0.9, log_grad_norm=True, device=model.device,
+            **LM_KEYS)
+        lrs = []
+        hist = tr.fit(data, epochs=2, steps_per_epoch=2, verbose=0,
+                      callbacks=[LambdaCallback(
+                          on_train_batch_end=lambda s, logs, tr=tr:
+                          lrs.append(get_learning_rate(tr.optimizer)))])
+        out[side] = dict(loss=hist.history["loss"],
+                         grad_norm=hist.history["grad_norm"], lrs=lrs,
+                         val=tr.evaluate(val, steps=1)["loss"],
+                         params={n: p.detach().cpu() for n, p in
+                                 model.named_parameters()},
+                         ema={n: t.cpu() for n, t in tr.ema.items()})
+        del tr
+    g, c = out["cuda"], out["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(g["loss"] + [g["val"]],
+                                                  c["loss"] + [c["val"]]))
+    diff = {k: max(float((g[k][n] - c[k][n]).abs().max()) for n in g[k])
+            for k in ("params", "ema")}
+    bound = 2 * lr * 2
+    phase("train_options_parity", leg="schedule_clip_accumulation_ema",
+          model="Llama_1B_depth2_f32", allow_tf32=False, optimizer="adamw",
+          lr=lr, micro_steps=4, updates=2,
+          losses_cuda="/".join(f"{x:.7f}" for x in g["loss"]),
+          losses_cpu="/".join(f"{x:.7f}" for x in c["loss"]),
+          grad_norm_cuda="/".join(f"{x:.5f}" for x in g["grad_norm"]),
+          eval_on_ema_cuda=f"{g['val']:.7f}", eval_on_ema_cpu=f"{c['val']:.7f}",
+          lrs="/".join(f"{x:.4g}" for x in g["lrs"]),
+          max_loss_rel_diff=f"{rel:.3g}",
+          max_param_diff=f"{diff['params']:.3g}",
+          max_ema_diff=f"{diff['ema']:.3g}", bound=f"{bound:g}")
+    if g["lrs"] != c["lrs"] or not rel <= 1e-4 or not max(
+            diff.values()) <= bound:
+        raise RuntimeError(f"options leg disagrees: lrs {g['lrs']} / "
+                           f"{c['lrs']}, rel {rel}, {diff}")
+
+
+def _options_parity_accumulation(lr: float = 1e-2) -> None:
+    """2 x B 2 accumulated against one B 4 step (sgd), on the card: the
+    updates (lr x the gradients) agree within the train parity legs'
+    gradient tolerance, GRAD_TOL of the largest (the f32 flash kernels
+    and the GEMMs sum the two batches' rows in another order; a sum where
+    the mean belongs would be 100% off)."""
+    batch = SyntheticLanguageModeling(batch_size=4, seq_len=256,
+                                      vocab_size=VOCAB, seed=1).batch(0)
+    runs = []
+    for acc, parts in ((2, [slice(0, 2), slice(2, 4)]), (None, [slice(0, 4)])):
+        model = Llama_1B(vocab_size=VOCAB, depth=2, dtype=torch.float32,
+                         device=DEV, seed=2)
+        start = [p.detach().clone() for p in model.parameters()]
+        tr = Trainer(model, optimizer="sgd", learning_rate=lr,
+                     gradient_accumulation_steps=acc, device=DEV, **LM_KEYS)
+        for part in parts:
+            tr.train_step({k: v[part] for k, v in batch.items()})
+        runs.append([p.detach() - s for p, s in zip(model.parameters(),
+                                                    start)])
+        del tr, model, start
+    scale = max(float(d.abs().max()) for d in runs[1])
+    err = max(float((a - b).abs().max()) for a, b in zip(*runs)) / scale
+    bound = GRAD_TOL[torch.float32]
+    phase("train_options_parity", leg="accumulation_2xB2_vs_B4",
+          optimizer="sgd", lr=lr, max_update=f"{scale:.4g}",
+          max_rel_update_diff=f"{err:.3g}", bound=f"{bound:g}")
+    if not err <= bound:
+        raise RuntimeError(f"accumulated update off by {err:.3g}")
+    del runs
+
+
+def _options_parity_bf16(n: int = 4096) -> None:
+    """bf16 storage on the card: ``plain`` keeps f32 moments (the repair),
+    ``f32_master``'s stored parameters are exactly the cast of its master
+    after 2 adamw steps; ``stochastic_round`` lands on a value's two bf16
+    neighbours with a mean within 4 sigma over 4,096 draws, and with given
+    bits equals the CPU's rounding bit for bit."""
+    data = SyntheticLanguageModeling(batch_size=2, seq_len=256,
+                                     vocab_size=VOCAB, seed=1)
+    fields = {}
+    for mode in ("plain", "f32_master"):
+        model = Llama_1B(vocab_size=VOCAB, depth=2, param_dtype=torch.bfloat16,
+                         device=DEV, seed=2)
+        tr = Trainer(model, optimizer="adamw", learning_rate=1e-3,
+                     param_update=mode, device=DEV, **LM_KEYS)
+        tr.fit(data, epochs=2, steps_per_epoch=1, verbose=0)
+        dtypes = {t.dtype for s in tr.optimizer.state.values()
+                  for t in s.values()
+                  if isinstance(t, torch.Tensor) and t.ndim}
+        fields[f"{mode}_moment_dtypes"] = ",".join(sorted(map(str, dtypes)))
+        if dtypes != {torch.float32}:
+            raise RuntimeError(f"{mode}: optimizer state in {dtypes}")
+        if mode == "f32_master":
+            masters = tr.optimizer.masters()
+            cast = all(torch.equal(p, masters[p].to(torch.bfloat16))
+                       for p in model.parameters())
+            fields["master_count"] = len(masters)
+            fields["stored_is_cast_of_master"] = cast
+            if not cast or len(masters) != len(list(model.parameters())):
+                raise RuntimeError("f32_master: stored != cast(master)")
+        del tr, model
+    ulp = float(np.spacing(np.float32(1.0))) * 2 ** 16
+    x = torch.full((n,), float(np.float32(1.0 + 0.3 * ulp)), device=DEV)
+    r = stochastic_round(x, torch.Generator(device=DEV).manual_seed(0))
+    r = r.float().cpu()
+    sigma = ulp * float(np.sqrt(0.3 * 0.7 / n))
+    mean_err = abs(float(r.mean()) - float(x[0]))
+    neighbours = set(r.unique().tolist()) <= {1.0, 1.0 + ulp}
+    gen = torch.Generator().manual_seed(1)
+    vals = torch.randn(1 << 20, generator=gen) * torch.exp(
+        torch.randn(1 << 20, generator=gen) * 8)
+    bits = torch.randint(0, 1 << 16, vals.shape, generator=gen,
+                         dtype=torch.int32)
+    bitwise = torch.equal(_sr_to_bf16(vals.to(DEV), bits.to(DEV)).cpu(),
+                          _sr_to_bf16(vals, bits))
+    phase("train_options_parity", leg="bf16_storage", **fields,
+          sr_draws=n, sr_mean_err=f"{mean_err:.3g}",
+          sr_4sigma=f"{4 * sigma:.3g}", sr_on_neighbours=neighbours,
+          sr_given_bits_bitwise_cpu=bitwise, sr_values=vals.numel())
+    if not (neighbours and mean_err < 4 * sigma and bitwise):
+        raise RuntimeError("stochastic_round on the card failed its gates")
+
+
+def phase_train_options_parity() -> None:
+    """The trainer's options on the card against the port's CPU run, f32
+    with TF32 off: the schedules, the clip, accumulation and EMA (eval on
+    the shadows), accumulation against a big batch, bf16 storage's update
+    rules and stochastic rounding."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _options_parity_schedules()
+    _options_parity_chain()
+    _options_parity_accumulation()
+    _options_parity_bf16()
+    torch.cuda.empty_cache()
+
+
+def _options_step(param_dtype, mode: str, log_dir: str, warmup: int = 1,
+                  updates: int = 3):
+    """Full-width Llama-1B, bf16 compute over ``param_dtype`` storage,
+    adamw at 1e-4 under warmup_cosine and a clip at 1.0, B 4 x S 2048 as
+    2 x B 2 micro-batches, EMA 0.999, ``param_update=mode``, with
+    CSVLogger, TensorBoard, Timing and ModelSummary: ``warmup`` updates,
+    then ``updates`` timed ones through ``Trainer.fit``."""
+    torch.cuda.empty_cache()
+    model = Llama_1B(vocab_size=VOCAB, dtype=torch.bfloat16,
+                     param_dtype=param_dtype, device=DEV, seed=0)
+    n = sum(p.numel() for p in model.parameters())
+    tr = Trainer(model, optimizer=lambda p: make_optimizer(
+        p, "adamw", 1e-4, schedule="warmup_cosine",
+        schedule_options=dict(decay_steps=1000, warmup_steps=10),
+        grad_clip_norm=1.0), gradient_accumulation_steps=2,
+        param_update=mode, ema_decay=0.999, device=DEV, **LM_KEYS)
+    data = SyntheticLanguageModeling(batch_size=2, seq_len=2048,
+                                     vocab_size=VOCAB, seed=0)
+    tr.fit(data, epochs=warmup, steps_per_epoch=2, verbose=0)
+    tag = f"{str(param_dtype).split('.')[-1]}_{mode}"
+    timing = Timing(verbose=0)
+    callbacks = [CSVLogger(f"{log_dir}/{tag}.csv"),
+                 TensorBoard(f"{log_dir}/{tag}"), timing, ModelSummary()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = tr.fit(data.with_offset(2 * warmup), epochs=updates,
+                  steps_per_epoch=2, verbose=0, callbacks=callbacks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_kernels.launch_counts)
+    check_launches(f"train_options_step {tag}", counts,
+                   flash_fwd=model.depth * 2 * updates,
+                   flash_bwd_fused=model.depth * 2 * updates)
+    state = optimizer_state_bytes(tr.optimizer)
+    ema = sum(t.numel() * t.element_size() for t in tr.ema.values())
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    losses = hist.history["loss"]
+    csv_rows = len(open(f"{log_dir}/{tag}.csv").read().splitlines())
+    tb_bytes = sum(os.path.getsize(os.path.join(root, f))
+                   for root, _, files in os.walk(f"{log_dir}/{tag}")
+                   for f in files)
+    fields = dict(
+        storage=str(param_dtype).split(".")[-1], param_update=mode,
+        micro_batch=2, accumulate=2, seq=2048, updates=updates,
+        wall_s=f"{wall:.4f}", ms_per_step=f"{1e3 * wall / updates:.3f}",
+        tokens_per_s=f"{4 * 2048 * updates / wall:.2f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        params=n, opt_state_bytes_per_param=f"{state / n:.4f}",
+        ema_bytes_per_param=f"{ema / n:.4f}",
+        total_bytes_per_param=f"{(params + state + ema) / n:.4f}",
+        losses="/".join(f"{x:.5f}" for x in losses),
+        last_lr=f"{get_learning_rate(tr.optimizer):.4g}",
+        timing_total_s=f"{timing.total:.4f}", csv_rows=csv_rows,
+        tensorboard_bytes=tb_bytes,
+        flash_fwd=counts["flash_fwd"], flash_bwd_fused=counts["flash_bwd_fused"])
+    if not all(np.isfinite(losses)) or csv_rows != updates + 1 or not tb_bytes:
+        raise RuntimeError(f"train_options_step {tag}: {fields}")
+    del tr, model
+    return counts, fields
+
+
+def phase_train_options_step():
+    """Phase 10's model and tokens a step under the trainer's options
+    (:func:`_options_step`), bf16 storage under each ``param_update`` mode
+    in turns beside f32 storage (f32, plain, stochastic_round, f32_master,
+    f32). Returns the flash launches of all five runs."""
+    total = {}
+    with tempfile.TemporaryDirectory(dir=BUILD) as log_dir:
+        for dtype, mode in ((torch.float32, "plain"),
+                            (torch.bfloat16, "plain"),
+                            (torch.bfloat16, "stochastic_round"),
+                            (torch.bfloat16, "f32_master"),
+                            (torch.float32, "plain")):
+            counts, fields = _options_step(dtype, mode, log_dir)
+            phase("train_options_step", model="Llama_1B_bf16_compute",
+                  **fields)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+RESILIENCE_EPOCHS, RESILIENCE_SPE = 2, 4  # 8 steps, saves every 2
+
+
+def _resilience_trainer(**kw):
+    model = ResNet50(num_classes=1000, device=DEV, seed=3)
+    return Trainer(model, optimizer="adam", learning_rate=1e-3, device=DEV,
+                   retry_sleep=lambda s: None, **kw)
+
+
+def _resilience_fit(tr, batches, directory, extra=(), **fit_kw):
+    """8 steps with a save every 2; the per-step losses by step, and the
+    saves' (bytes, wall s, host copy s, write s) in order."""
+    losses, saves = {}, []
+    cb = CheckpointEveryN(directory, every_n_steps=2, async_save=False)
+
+    def record(step, logs):
+        losses[tr.step - 1] = float(logs["loss"])
+        if cb.saves > len(saves):
+            saves.append((cb.ckpt.last_save_bytes, cb.last_save_wall_s,
+                          cb.ckpt.last_copy_s, cb.ckpt.last_write_s))
+
+    tr.fit(batches, epochs=RESILIENCE_EPOCHS,
+           steps_per_epoch=RESILIENCE_SPE, verbose=0,
+           callbacks=[cb, *extra, LambdaCallback(on_train_batch_end=record)],
+           **fit_kw)
+    return losses, saves
+
+
+def resilience_child(directory: str) -> None:
+    """``--resilience-child DIR``: the clean run in a process of its own,
+    which SIGKILLs itself at the end of step 5 (saves at 2 and 4); its
+    losses so far go to ``DIR/losses.json`` as it runs."""
+    _deterministic()
+    tr = _resilience_trainer()
+    losses = {}
+
+    def record(step, logs):
+        losses[tr.step - 1] = float(logs["loss"])
+        with open(os.path.join(directory, "losses.json"), "w") as f:
+            json.dump(losses, f)
+        if tr.step == 5:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    tr.fit(dp_batches(8, 32), epochs=RESILIENCE_EPOCHS,
+           steps_per_epoch=RESILIENCE_SPE, verbose=0, callbacks=[
+               CheckpointEveryN(os.path.join(directory, "ckpt"),
+                                every_n_steps=2, async_save=False),
+               LambdaCallback(on_train_batch_end=record)])
+
+
+def _deterministic() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+
+
+def _prefetch_rates(batch: int = 64, steps: int = 4) -> dict:
+    """Host-fed images/s: ``bench.py``'s step (bf16 compute, s2d stem,
+    adam) fed from ``SyntheticImageClassification``'s host batches through
+    ``Trainer.fit`` at ``prefetch`` 0 and 2, in turns (0, 2, 2, 0). The
+    host makes each batch in a few hundred ms, so cuDNN's algorithm search
+    stays off: it would cost more than the window it could speed up."""
+    torch.backends.cudnn.benchmark = False
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                     stem="space_to_depth", device=DEV, seed=0)
+    tr = Trainer(model, optimizer="adam", learning_rate=1e-3, metrics=(),
+                 device=DEV)
+    data = SyntheticImageClassification(batch_size=batch, image_size=224,
+                                        num_classes=1000, seed=0)
+    tr.fit(data, steps_per_epoch=2, verbose=0)
+    rates = {0: [], 2: []}
+    offset = 2
+    for depth in (0, 2, 2, 0):
+        stamps = []
+        torch.cuda.synchronize()
+        tr.fit(data.with_offset(offset), steps_per_epoch=steps, verbose=0,
+               prefetch=depth, callbacks=[LambdaCallback(
+                   on_train_batch_end=lambda s, logs: stamps.append(
+                       time.perf_counter()))])
+        # Between the first and the last batch end: the lookahead's fill
+        # and the batches it stages past the end are outside the window.
+        rates[depth].append(batch * (steps - 1) / (stamps[-1] - stamps[0]))
+        offset += steps
+    t0 = time.perf_counter()
+    data.batch(0)
+    gen_s = time.perf_counter() - t0
+    del tr, model
+    torch.cuda.empty_cache()
+    return dict(batch=batch, steps=steps,
+                host_batch_gen_s=f"{gen_s:.4f}",
+                images_per_s_prefetch0="/".join(f"{x:.2f}" for x in rates[0]),
+                images_per_s_prefetch2="/".join(f"{x:.2f}" for x in rates[2]))
+
+
+def phase_train_resilience() -> None:
+    """ResNet-50 f32, B 32 (``dp_parity``'s setup, cuDNN deterministic),
+    adam, 8 steps with ``CheckpointEveryN(every_n_steps=2)``: a transient
+    retried in place, spent retries (restore and replay), an injected OOM,
+    a torn newest save (the previous one restored), and a child process
+    SIGKILLed at step 5 then ``fit(resume=)`` here; each bitwise the clean
+    run in its losses and every leaf of ``Trainer.state_dict()``. Then the
+    saves' MB, ms and GB/s, a restore's ms, and the host-fed images/s at
+    prefetch 0 and 2."""
+    _deterministic()
+    batches = dp_batches(8, 32)
+    os.makedirs(BUILD, exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=BUILD) as root:
+            tr = _resilience_trainer()
+            want_losses, saves = _resilience_fit(tr, batches, f"{root}/clean")
+            want = tree_checksums(tr.state_dict())
+            del tr
+            t0 = time.perf_counter()
+            state, _ = Checkpointer(f"{root}/clean").restore()
+            fresh = _resilience_trainer()
+            fresh.load_state_dict(state)
+            torch.cuda.synchronize()
+            restore_ms = 1e3 * (time.perf_counter() - t0)
+            del fresh, state
+
+            class Tear(Callback):
+                def on_train_batch_end(self, step, logs):
+                    if self.trainer.step == 6:
+                        path = f"{root}/torn_newest/6/state.pt"
+                        with open(path, "r+b") as f:
+                            f.truncate(os.path.getsize(path) // 2)
+
+            legs = {
+                "transient_retried": ([FaultSpec(3, "train_step",
+                                                 FaultKind.TRANSIENT, 2)], ()),
+                "retries_spent": ([FaultSpec(5, "train_step",
+                                             FaultKind.TRANSIENT, 4)], ()),
+                "oom": ([FaultSpec(7, "train_step", FaultKind.OOM)], ()),
+                "torn_newest": ([FaultSpec(7, "train_step", FaultKind.OOM)],
+                                (Tear(),)),
+            }
+            results = {}
+            for name, (specs, extra) in legs.items():
+                tr = _resilience_trainer(
+                    fault_plan=TrainFaultPlan(scheduled=specs))
+                losses, _ = _resilience_fit(tr, batches, f"{root}/{name}",
+                                            extra)
+                ok = (losses == want_losses
+                      and tree_checksums(tr.state_dict()) == want)
+                stats = tr.fault_stats
+                results[name] = (ok, int(stats["retries"]),
+                                 int(stats["recoveries"]),
+                                 int(stats["replayed_steps"]))
+                del tr
+            child_dir = f"{root}/child"
+            os.makedirs(child_dir)
+            proc = subprocess.run(
+                [sys.executable, __file__, "--resilience-child", child_dir],
+                timeout=600)
+            with open(f"{child_dir}/losses.json") as f:
+                child_losses = {int(k): v for k, v in json.load(f).items()}
+            tr = _resilience_trainer()
+            resumed, _ = _resilience_fit(tr, batches, f"{child_dir}/ckpt",
+                                         resume=f"{child_dir}/ckpt")
+            ok = ({**child_losses, **resumed} == want_losses
+                  and tree_checksums(tr.state_dict()) == want)
+            results["sigkill_resume"] = (ok, proc.returncode,
+                                         min(resumed), len(resumed))
+            del tr
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del batches
+    torch.cuda.empty_cache()
+    phase("train_resilience", model="ResNet50_f32", batch=32, image=224,
+          optimizer="adam", lr=1e-3, steps=8, every_n_steps=2,
+          cudnn_deterministic=True,
+          losses="/".join(f"{want_losses[s]:.7f}" for s in sorted(want_losses)),
+          **{f"{k}_bitwise": v[0] for k, v in results.items()},
+          **{f"{k}_retries_recoveries_replayed": f"{v[1]}/{v[2]}/{v[3]}"
+             for k, v in results.items() if k != "sigkill_resume"},
+          child_returncode=results["sigkill_resume"][1],
+          resumed_from_step=results["sigkill_resume"][2],
+          resumed_steps=results["sigkill_resume"][3])
+    for i, (nbytes, wall, copy_s, write_s) in enumerate(saves):
+        phase("train_resilience_save", save=i + 1, mb=f"{nbytes / 1e6:.2f}",
+              ms=f"{1e3 * wall:.2f}", gb_per_s=f"{nbytes / wall / 1e9:.3f}",
+              host_copy_ms=f"{1e3 * copy_s:.2f}",
+              write_ms=f"{1e3 * write_s:.2f}")
+    phase("train_resilience_restore", ms=f"{restore_ms:.2f}")
+    phase("train_resilience_prefetch", model="ResNet50_bf16_s2d",
+          **_prefetch_rates())
+    bad = [k for k, v in results.items() if not v[0]]
+    if bad or results["sigkill_resume"][1] != -signal.SIGKILL:
+        raise RuntimeError(f"train_resilience: not bitwise the clean run: "
+                           f"{bad}; child exit {results['sigkill_resume'][1]}")
 
 
 # ---------------------------------------------------------- phase 31-34
@@ -4034,7 +4549,7 @@ def tier_prompts(vocab: int = VOCAB):
     return [rng.randint(0, vocab, 384) for _ in range(32)]
 
 
-def tier_run(model, prompts, paged, rounds=3, new=16, promote=None,
+def tier_run(model, prompts, paged, rounds=2, new=16, promote=None,
              demote=None, **engine_kw):
     """The prompts served in ``rounds`` rounds, 8 at a time (one slot-full,
     run to empty before the next 8, so TTFT is the admission's own time).
@@ -4085,16 +4600,16 @@ def tier_run(model, prompts, paged, rounds=3, new=16, promote=None,
 
 def phase_host_tier_serve(model, budget: int = 512 << 20):
     """The host KV tier at full width (Llama-1B bf16, ``max_len`` 1024):
-    32 distinct 384-token prompts in 3 rounds of 16 new tokens on 8 slots,
+    32 distinct 384-token prompts in 2 rounds of 16 new tokens on 8 slots,
     a 512 MiB host budget, device pools too small for them (paged: its
     floor + 1, 514 blocks; row: 193 blocks, 8 chains and scratch). Gates:
     every stream equal to the same engine's over a pool that holds every
     chain (bf16 tie rule, reported); spills, hits and promotions > 0, no
     host pin outstanding; K4 once a layer a paged tick. Prints each
     promotion's bytes and CUDA-event ms and their GB/s, the demotion's
-    host ms per reclaim, the TTFT p50 of rounds 2-3 against the untiered
+    host ms per reclaim, the TTFT p50 of round 2 against the untiered
     engine of the same pool (recompute), in turns, and the K4 launches of
-    rounds 2-3 (over promoted blocks). Returns the paged tiered run's K4
+    round 2 (over promoted blocks). Returns the paged tiered run's K4
     launches."""
     prompts = tier_prompts()
     total = {"paged_decode": 0}
@@ -4114,7 +4629,7 @@ def phase_host_tier_serve(model, budget: int = 512 << 20):
                 and eng._host.pins_outstanding == 0):
             raise RuntimeError(f"host_tier_serve {mode}: {snap}")
         ties_all = []
-        for r in range(3):
+        for r in range(len(tiered["streams"])):
             equal, ties = bf16_ties(model, prompts, tiered["streams"][r],
                                     ref["streams"][r],
                                     f"host_tier_serve {mode} round {r}")
@@ -4130,10 +4645,11 @@ def phase_host_tier_serve(model, budget: int = 512 << 20):
             total["paged_decode"] += sum(tiered["launches"])
         nbytes = sum(b for b, _ in promote)
         ms = sum(t for _, t in promote)
-        late = [t for r in (1, 2) for t in tiered["ttft"][r]]
-        late_u = [t for r in (1, 2) for t in untiered["ttft"][r]]
+        late = [t for r in tiered["ttft"][1:] for t in r]
+        late_u = [t for r in untiered["ttft"][1:] for t in r]
         phase("host_tier_serve", mode=mode, model="Llama_1B_bf16",
-              prompts=len(prompts), prompt_tokens=384, rounds=3, new=16,
+              prompts=len(prompts), prompt_tokens=384,
+              rounds=len(tiered["streams"]), new=16,
               device_pool_blocks=small, host_budget_mib=budget >> 20,
               spills=snap["host_tier_spills"], hits=snap["host_tier_hits"],
               promotions=snap["host_tier_promotions"],
@@ -4147,12 +4663,12 @@ def phase_host_tier_serve(model, budget: int = 512 << 20):
               demote_reclaims=len(demote),
               demote_host_ms_p50=f"{float(np.median(demote)):.4f}",
               demote_host_ms_max=f"{max(demote):.4f}",
-              ttft_p50_rounds23_s=f"{float(np.median(late)):.5f}",
-              ttft_p50_rounds23_untiered_s=f"{float(np.median(late_u)):.5f}",
+              ttft_p50_revisit_s=f"{float(np.median(late)):.5f}",
+              ttft_p50_revisit_untiered_s=f"{float(np.median(late_u)):.5f}",
               equal_full_pool="all" if not ties_all else "ties",
               ties=";".join(ties_all) or "none",
-              paged_decode_launches_rounds23=sum(tiered["launches"][1:]),
-              ticks_rounds23=sum(tiered["ticks"][1:]))
+              paged_decode_launches_revisit=sum(tiered["launches"][1:]),
+              ticks_revisit=sum(tiered["ticks"][1:]))
         del ref, tiered, untiered, eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -4678,6 +5194,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-gloo2-child", nargs=3, metavar=("RANK", "PORT",
                                                            "DIR"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--resilience-child", metavar="DIR",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile a window of decode ticks after "
                          "phases 7, 20 and 21 (the last two speculative: "
@@ -4689,6 +5207,9 @@ def main(argv=None) -> int:
     if args.dp_gloo2_child:
         rank, port, out_dir = args.dp_gloo2_child
         dp_gloo2_child(int(rank), int(port), out_dir)
+        return 0
+    if args.resilience_child:
+        resilience_child(args.resilience_child)
         return 0
     smi = device_line()
     print(smi, flush=True)
@@ -4801,6 +5322,18 @@ def main(argv=None) -> int:
     int8_parity_launches = phase_int8_parity()
     phase_vit_parity()
     vit_train_launches = phase_vit_train()
+    t0 = time.perf_counter()
+    phase_train_options_parity()
+    phase("phase_seconds", name="train_options_parity",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    options_launches = phase_train_options_step()
+    phase("phase_seconds", name="train_options_step",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    phase_train_resilience()
+    phase("phase_seconds", name="train_resilience",
+          seconds=f"{time.perf_counter() - t0:.2f}")
     src = "pddl_tpu_torch/ops/csrc/"
     att = "pddl_tpu/ops/attention.py:"
     # Each kernel's launches by main path (the Llama, GPT and ViT train
@@ -4822,10 +5355,12 @@ def main(argv=None) -> int:
                 "train_long": long_launches["flash_fwd"],
                 "generate_swa": swa_launches["flash_fwd"],
                 "gpt_train": gpt_train_launches["flash_fwd"],
-                "vit_train": vit_train_launches["flash_fwd"]}
+                "vit_train": vit_train_launches["flash_fwd"],
+                "train_options_step": options_launches["flash_fwd"]}
     k2_paths = {"train_step": train_launches["flash_bwd_fused"],
                 "gpt_train": gpt_train_launches["flash_bwd_fused"],
-                "vit_train": vit_train_launches["flash_bwd_fused"]}
+                "vit_train": vit_train_launches["flash_bwd_fused"],
+                "train_options_step": options_launches["flash_bwd_fused"]}
     # (name, source, TPU kernel's line, launches on the main paths: the
     # paged serve runs, the train steps (Llama, GPT, ViT) with the Llama
     # eval batch, the long-context run, or the sliding-window generate; K1

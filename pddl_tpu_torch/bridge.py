@@ -27,11 +27,17 @@ in, out]`` become ``[out, in, kh, kw]``, the dense head's ``[in, out]``
 becomes ``[out, in]``, BatchNorm ``scale``/``bias`` become its weight and
 bias, and the ``batch_stats`` ``mean``/``var`` its running buffers;
 ``stage{s}_block{b}`` modules sit under ``blocks.``.
+
+A trainer's shadows go the same way (:func:`ema_to_jax`: the EMA
+shadows, ResNet's with its ``batch_stats`` shadow; :func:`master_to_jax`:
+an ``f32_master`` rule's masters, f32 leaves standing for their own), so
+a test compares them leaf by leaf with the JAX ``TrainState``'s
+``ema_params``/``ema_batch_stats`` and ``F32MasterState.master``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,11 +91,14 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
-def llama_params_to_jax(model) -> Dict[str, Any]:
+def llama_params_to_jax(model, state_dict: Optional[Mapping] = None
+                        ) -> Dict[str, Any]:
     """The inverse of :func:`llama_params_from_jax`: a port ``Llama``'s
-    parameters as a flax-layout tree of numpy arrays (the ``params``
-    collection), e.g. to compare trained weights with the JAX package's."""
-    sd = model.state_dict()
+    parameters (or ``state_dict``, a tree of its names, such as the
+    trainer's EMA shadows) as a flax-layout tree of numpy arrays (the
+    ``params`` collection), e.g. to compare trained weights with the JAX
+    package's."""
+    sd = model.state_dict() if state_dict is None else state_dict
     e = model.embed_dim
     out: Dict[str, Any] = {
         "embed": {"embedding": _array(sd["stem.embed.weight"])},
@@ -189,10 +198,11 @@ def gpt_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def gpt_params_to_jax(model) -> Dict[str, Any]:
+def gpt_params_to_jax(model, state_dict: Optional[Mapping] = None
+                      ) -> Dict[str, Any]:
     """The inverse of :func:`gpt_params_from_jax`: a port ``GPT``'s
     parameters as a flax-layout tree of numpy arrays."""
-    sd = model.state_dict()
+    sd = model.state_dict() if state_dict is None else state_dict
     out: Dict[str, Any] = {
         "token_embed": {"embedding": _array(sd["stem.token_embed.weight"])},
         "pos_embed": _array(sd["stem.pos_embed"]),
@@ -225,9 +235,10 @@ def vit_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def vit_params_to_jax(model) -> Dict[str, Any]:
+def vit_params_to_jax(model, state_dict: Optional[Mapping] = None
+                      ) -> Dict[str, Any]:
     """The inverse of :func:`vit_params_from_jax`."""
-    sd = model.state_dict()
+    sd = model.state_dict() if state_dict is None else state_dict
     out: Dict[str, Any] = {
         "patch_embed": {
             "kernel": np.ascontiguousarray(
@@ -317,3 +328,42 @@ def resnet_params_to_jax(state_dict: Mapping[str, torch.Tensor]
         put(params, path, {"kernel": np.ascontiguousarray(w.transpose(perm)),
                            "bias": _array(leaf["bias"])})
     return params, stats
+
+
+def state_to_jax(model, state_dict: Mapping):
+    """``state_dict`` (names of ``model``) in the JAX layout of the
+    model's family: a params tree, or for a ResNet ``(params,
+    batch_stats)``."""
+    kind = type(model).__name__
+    if kind == "ResNet":
+        return resnet_params_to_jax(state_dict)
+    convert = {"Llama": llama_params_to_jax, "GPT": gpt_params_to_jax,
+               "ViT": vit_params_to_jax}.get(kind)
+    if convert is None:
+        raise TypeError(f"no JAX layout for a {kind}")
+    return convert(model, state_dict)
+
+
+def ema_to_jax(trainer):
+    """The trainer's EMA shadows in the JAX layout (the ``ema_params``,
+    and for a ResNet ``(ema_params, ema_batch_stats)``)."""
+    if trainer.ema is None:
+        raise ValueError("the trainer keeps no EMA (ema_decay=None)")
+    sd = {**trainer.model.state_dict(), **trainer.ema}
+    return state_to_jax(trainer.model, sd)
+
+
+def master_to_jax(trainer):
+    """The ``f32_master`` rule's masters in the JAX layout (a ResNet's
+    params tree only): a bf16 parameter's master, and an f32 parameter
+    itself, as the JAX rule's master tree holds every leaf in f32."""
+    rule = trainer.optimizer
+    while not hasattr(rule, "masters"):
+        rule = rule.inner
+    masters = rule.masters()
+    model = trainer.model
+    sd = dict(model.state_dict())
+    for name, p in model.named_parameters():
+        sd[name] = masters.get(p, p.detach().float())
+    out = state_to_jax(model, sd)
+    return out[0] if type(model).__name__ == "ResNet" else out

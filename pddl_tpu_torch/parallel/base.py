@@ -147,8 +147,11 @@ class Strategy:
         bind_data_group(model, self.group)
 
     def make_optimizer(self, model: torch.nn.Module, optimizer,
-                       learning_rate: float) -> torch.optim.Optimizer:
-        return make_optimizer(model, optimizer, learning_rate)
+                       learning_rate: float, **options):
+        """:func:`pddl_tpu_torch.train.state.make_optimizer` over the
+        model; ``options`` are its keywords (schedule, clipping,
+        accumulation, ``param_update``, ``update_seed``)."""
+        return make_optimizer(model, optimizer, learning_rate, **options)
 
     def reduce_gradients(self, model: torch.nn.Module) -> None:
         """Average every gradient over the data axis (the NCCL all-reduce

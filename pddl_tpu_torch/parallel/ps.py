@@ -43,13 +43,6 @@ log = logging.getLogger(__name__)
 _Shard = Tuple[torch.nn.Parameter, torch.Tensor, Placement, int]
 
 
-def optimizer_state_bytes(optimizer: torch.optim.Optimizer) -> int:
-    """Bytes of the tensors ``optimizer`` keeps beside the parameters."""
-    return sum(t.numel() * t.element_size()
-               for state in optimizer.state.values()
-               for t in state.values() if isinstance(t, torch.Tensor))
-
-
 @register_strategy("ps")
 class ParameterServerStrategy(Strategy):
     """Sharded-state data parallelism (the PS capability, sync).
@@ -101,11 +94,15 @@ class ParameterServerStrategy(Strategy):
                                                 p.dtype)
                 for name, p in model.named_parameters()}
 
-    def make_optimizer(self, model, optimizer, learning_rate):
+    def make_optimizer(self, model, optimizer, learning_rate, **options):
         """The optimizer over the whole parameters, each sharded one then
         swapped for this process's slice of it: the state the optimizer
-        makes at its first step is the slice's."""
-        opt = super().make_optimizer(model, optimizer, learning_rate)
+        makes at its first step is the slice's, and so are an
+        ``f32_master`` rule's masters and the accumulator. The global
+        clip norm sums each slice's squared norm over its tensor's
+        slices, as ``lamb``/``lars`` do for their trust ratios."""
+        opt = super().make_optimizer(model, optimizer, learning_rate,
+                                     **options)
         part, n = self.partitioner, self.num_replicas_in_sync
         swap = {}
         for name, pl in self.placements(model).items():
@@ -125,7 +122,7 @@ class ParameterServerStrategy(Strategy):
             self._shards.append((p, shard, pl, start))
         for group in opt.param_groups:
             group["params"] = [swap.get(q, q) for q in group["params"]]
-        if hasattr(opt, "shard_sums"):  # lamb, lars: whole-leaf norms
+        if hasattr(opt, "shard_sums"):  # lamb, lars, clip: whole norms
             opt.shard_sums = {s: self._shard_sum(pl)
                               for _, s, pl, _ in self._shards}
         return opt

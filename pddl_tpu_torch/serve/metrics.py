@@ -19,35 +19,16 @@ from __future__ import annotations
 
 import random
 from collections import deque
-from typing import Any, Deque, Dict, Iterable, List, Optional
+from typing import Deque, Dict, Iterable, List, Optional
 
 import numpy as np
 
 from pddl_tpu_torch.serve.request import Priority
+from pddl_tpu_torch.utils.summary import format_table
 
 # Every class is always present in the per-priority splits (zeros
 # included), so the label sets never appear or vanish with traffic.
 PRIORITY_CLASSES = tuple(p.value for p in Priority)
-
-
-def format_table(title: str, rows: Dict[str, Any]) -> str:
-    """Aligned two-column text table (the port's copy of
-    ``pddl_tpu.utils.summary.format_table``): thousands separators for
-    numbers, 3 decimals for floats."""
-    def _fmt(v: Any) -> str:
-        if isinstance(v, bool):
-            return str(v)
-        if isinstance(v, int):
-            return f"{v:,}"
-        if isinstance(v, float):
-            return f"{v:,.3f}"
-        return str(v)
-
-    lines = [title]
-    width = max((len(k) for k in rows), default=10)
-    for key, value in rows.items():
-        lines.append(f"  {key:<{width}}  {_fmt(value):>14}")
-    return "\n".join(lines)
 
 
 def _pct(values, q: float) -> Optional[float]:

@@ -3,7 +3,10 @@
 :class:`~pddl_tpu.train.callbacks.EarlyStopping`, with the reference's
 defaults, ``imagenet-resnet50.py:64-65``), Horovod's learning-rate warmup
 (:class:`~pddl_tpu.train.callbacks.LearningRateWarmup`,
-``imagenet-resnet50-hvd.py:114-115``) and their base class.
+``imagenet-resnet50-hvd.py:114-115``), the JAX package's other five
+(:class:`ModelSummary`, :class:`LambdaCallback`, :class:`CSVLogger`,
+:class:`TensorBoard`, :class:`Timing`) and their base class. The
+checkpoint callbacks live in :mod:`pddl_tpu_torch.ckpt`.
 
 The JAX trainer's state is a value that hooks may replace; the port's
 lives in the trainer's model and optimizer, which hooks change in place.
@@ -11,17 +14,31 @@ So a hook takes the hook's other arguments and returns nothing:
 ``on_train_begin()``, ``on_epoch_begin(epoch)``,
 ``on_train_batch_end(step, logs)``, ``on_epoch_end(epoch, logs)`` and
 ``on_train_end(logs)``, in the order of the JAX ``Trainer.fit``. A hook
-stops training by setting ``trainer.stop_training``.
+stops training by setting ``trainer.stop_training``. The callbacks that
+print or write do so on the coordinator only.
+
+:class:`TensorBoard` writes the event files itself (no TensorFlow): the
+TFRecord framing (length, masked CRC32C of the length, the record, its
+masked CRC32C) around hand-encoded ``Event`` protos, with the records
+TensorFlow's ``tf.summary.scalar`` writes for the JAX callback — a
+``brain.Event:2`` version event, then per epoch and metric an event at
+``step=epoch`` holding a scalar f32 tensor under the ``scalars`` plugin.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import os
+import socket
+import struct
 import sys
-from typing import Dict, Optional
+import time
+from typing import Callable, Dict, List, Optional
 
+from pddl_tpu_torch.core import dist
 from pddl_tpu_torch.train.state import get_learning_rate, set_learning_rate
+from pddl_tpu_torch.utils.summary import param_summary
 
 
 class Callback:
@@ -171,3 +188,229 @@ class LearningRateWarmup(Callback):
         if self.verbose and step + 1 == self._warmup_steps:
             print(f"LearningRateWarmup: reached target lr "
                   f"{self.target_lr:.2e}", file=sys.stderr)
+
+
+class ModelSummary(Callback):
+    """Print the parameter table once at train start, coordinator-only —
+    the reference's rank-0 ``print(model.summary())``
+    (``imagenet-resnet50-hvd.py:95-96``)."""
+
+    def on_train_begin(self):
+        if dist.is_coordinator():
+            print(param_summary(self.trainer.model), file=sys.stderr)
+
+
+class LambdaCallback(Callback):
+    """Hooks from plain functions, with the port's hook signatures."""
+
+    def __init__(self, on_epoch_end: Optional[Callable] = None,
+                 on_train_batch_end: Optional[Callable] = None,
+                 on_train_begin: Optional[Callable] = None,
+                 on_train_end: Optional[Callable] = None):
+        self._fns = {"on_epoch_end": on_epoch_end,
+                     "on_train_batch_end": on_train_batch_end,
+                     "on_train_begin": on_train_begin,
+                     "on_train_end": on_train_end}
+
+    def _call(self, hook, *args):
+        if self._fns[hook] is not None:
+            self._fns[hook](*args)
+
+    def on_train_begin(self):
+        self._call("on_train_begin")
+
+    def on_train_end(self, logs):
+        self._call("on_train_end", logs)
+
+    def on_epoch_end(self, epoch, logs):
+        self._call("on_epoch_end", epoch, logs)
+
+    def on_train_batch_end(self, step, logs):
+        self._call("on_train_batch_end", step, logs)
+
+
+class CSVLogger(Callback):
+    """Epoch metrics to CSV on the coordinator — the History-file analogue."""
+
+    def __init__(self, path: str, append: bool = False):
+        self.path = path
+        self.append = append
+        self._file = None
+        self._keys: Optional[List[str]] = None
+
+    def on_train_begin(self):
+        if dist.is_coordinator():
+            self._file = open(self.path, "a" if self.append else "w")
+
+    def on_epoch_end(self, epoch, logs):
+        if self._file is None:
+            return
+        if self._keys is None:
+            self._keys = sorted(logs)
+            self._file.write(",".join(["epoch"] + self._keys) + "\n")
+        row = [str(epoch)] + [f"{logs.get(k, float('nan')):.6g}"
+                              for k in self._keys]
+        self._file.write(",".join(row) + "\n")
+        self._file.flush()
+
+    def on_train_end(self, logs):
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
+
+def _crc32c_table() -> List[int]:
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table.append(c)
+    return table
+
+
+_CRC32C = _crc32c_table()
+
+
+def _masked_crc32c(data: bytes) -> int:
+    """TFRecord's checksum: CRC32C (Castagnoli), rotated and offset."""
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc = _CRC32C[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    crc ^= 0xFFFFFFFF
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _field(number: int, payload: bytes) -> bytes:
+    """A length-delimited protobuf field."""
+    return _varint(number << 3 | 2) + _varint(len(payload)) + payload
+
+
+def _event(wall_time: float, step: Optional[int] = None, **what) -> bytes:
+    """An ``Event`` proto: wall_time (1, double), step (2, int64), and
+    file_version (3) or summary (5)."""
+    out = b"\x09" + struct.pack("<d", wall_time)
+    if step is not None:
+        out += b"\x10" + _varint(step)
+    if "file_version" in what:
+        out += _field(3, what["file_version"].encode())
+        out += _field(10, _field(1, b"tensorflow.core.util.events_writer"))
+    else:
+        out += _field(5, what["summary"])
+    return out
+
+
+def _scalar_summary(tag: str, value: float) -> bytes:
+    """A ``Summary`` with one value: the tag, a scalar DT_FLOAT tensor and
+    the ``scalars`` plugin's metadata, as ``tf.summary.scalar`` writes."""
+    tensor = (b"\x08\x01" + _field(2, b"")
+              + _field(4, struct.pack("<f", value)))
+    metadata = _field(1, _field(1, b"scalars"))
+    return _field(1, _field(1, tag.encode()) + _field(8, tensor)
+                  + _field(9, metadata))
+
+
+class _EventWriter:
+    """One ``events.out.tfevents.*`` file of TFRecord-framed events."""
+
+    _count = 0
+
+    def __init__(self, log_dir: str):
+        os.makedirs(log_dir, exist_ok=True)
+        now = time.time()
+        _EventWriter._count += 1
+        name = (f"events.out.tfevents.{int(now)}.{socket.gethostname()}."
+                f"{os.getpid()}.{_EventWriter._count}.v2")
+        self._file = open(os.path.join(log_dir, name), "wb")
+        self.write(_event(float(int(now)), file_version="brain.Event:2"))
+
+    def write(self, record: bytes) -> None:
+        header = struct.pack("<Q", len(record))
+        self._file.write(header + struct.pack("<I", _masked_crc32c(header))
+                         + record
+                         + struct.pack("<I", _masked_crc32c(record)))
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        self.write(_event(time.time(), step,
+                          summary=_scalar_summary(tag, value)))
+
+    def flush(self) -> None:
+        self._file.flush()
+
+    def close(self) -> None:
+        self._file.close()
+
+
+class TensorBoard(Callback):
+    """Epoch metrics (and the learning rate) as TensorBoard event files,
+    coordinator-only, in ``train``/``validation`` subdirectories as
+    Keras's callback writes them: ``val_``-prefixed metrics land in
+    ``validation`` under their bare name, so both curves overlay on one
+    chart."""
+
+    def __init__(self, log_dir: str, write_lr: bool = True):
+        self.log_dir = log_dir
+        self.write_lr = write_lr
+        self._writers: Optional[Dict[str, _EventWriter]] = None
+
+    def on_train_begin(self):
+        if not dist.is_coordinator():
+            return
+        self._writers = {split: _EventWriter(os.path.join(self.log_dir,
+                                                          split))
+                         for split in ("train", "validation")}
+
+    def on_epoch_end(self, epoch, logs):
+        if self._writers is None:
+            return
+        by_split: Dict[str, Dict[str, float]] = {"train": {},
+                                                  "validation": {}}
+        for key, value in logs.items():
+            if key.startswith("val_"):
+                by_split["validation"][key[4:]] = value
+            else:
+                by_split["train"][key] = value
+        if self.write_lr:
+            by_split["train"]["learning_rate"] = get_learning_rate(
+                self.trainer.optimizer)
+        for split, metrics in by_split.items():
+            for key, value in metrics.items():
+                self._writers[split].scalar(key, float(value), epoch)
+            if metrics:
+                self._writers[split].flush()
+
+    def on_train_end(self, logs):
+        if self._writers is not None:
+            for w in self._writers.values():
+                w.close()
+            self._writers = None
+
+
+class Timing(Callback):
+    """Wall-clock timing like the Horovod script's rank-0 ``Total time``
+    print (``imagenet-resnet50-hvd.py:119-126``)."""
+
+    def __init__(self, verbose: int = 1):
+        self.verbose = verbose
+        self.start: Optional[float] = None
+        self.total: Optional[float] = None
+
+    def on_train_begin(self):
+        self.start = time.perf_counter()
+
+    def on_train_end(self, logs):
+        self.total = time.perf_counter() - self.start
+        if self.verbose and dist.is_coordinator():
+            print(f"Total time: {self.total:.1f}s", file=sys.stderr)

@@ -23,7 +23,7 @@ from pddl_tpu_torch.parallel import (
     MultiWorkerMirroredStrategy,
     ParameterServerStrategy,
 )
-from pddl_tpu_torch.parallel.ps import optimizer_state_bytes
+from pddl_tpu_torch.train.state import make_optimizer, optimizer_state_bytes
 from pddl_tpu_torch.train.loop import Trainer
 
 CPU = "cpu"
@@ -90,6 +90,21 @@ def main() -> None:
         model.load_state_dict(init)
         train(out, f"{name}/lamb", model, strategy(name, min_shard_bytes=1),
               images(name, n, rank), "lamb", 1e-3, 1)
+
+    # The optimizer's options over sharded state: the clip's global norm
+    # sums each slice's square over its tensor's slices, and the
+    # accumulator is sliced like the moments. SGD, whose update scales
+    # with the clip (Adam's nearly does not).
+    for name in ("mirrored", "ps"):
+        model = tiny_resnet(device=CPU)
+        model.load_state_dict(init)
+        tr = train(out, f"{name}/options", model,
+                   strategy(name, min_shard_bytes=1), images(name, n, rank),
+                   lambda p: make_optimizer(p, "sgd", 0.05,
+                                            grad_clip_norm=0.5),
+                   0.05, 4, gradient_accumulation_steps=2)
+        out[f"{name}/options/state_bytes"] = optimizer_state_bytes(
+            tr.optimizer)
 
     # The capped leaf: a 5-wide head bias splits under TF's partitioner
     # but no divisor of the axis divides 5.

@@ -1,7 +1,8 @@
 """The port stands alone: `pddl_tpu_torch`, `chip_smoke.py` and
 `serve_tick_ab.py` import no
-`jax`, no `flax` and nothing of the JAX package, and the engine refuses
-to run on a host without a card unless asked for the CPU."""
+`jax`, no `flax`, no `optax`, `orbax` or `tensorflow` and nothing of the
+JAX package, and the engine refuses to run on a host without a card
+unless asked for the CPU."""
 
 import ast
 import os
@@ -14,7 +15,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "pddl_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "pddl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow",
+             "pddl_tpu")
 
 
 def _port_modules():
@@ -34,7 +36,9 @@ def test_importing_every_port_module_leaves_jax_out():
                 "core.sharding", "parallel", "parallel.base",
                 "parallel.single", "parallel.mirrored",
                 "parallel.multiworker", "parallel.ps", "compat",
-                "compat.hvd"):
+                "compat.hvd", "train.mixed_precision", "train.faults",
+                "train.callbacks", "ckpt", "ckpt.checkpoint",
+                "utils.preemption", "utils.summary"):
         assert "pddl_tpu_torch." + mod in mods
     code = (
         "import importlib, sys\n"

@@ -8,8 +8,9 @@ parameters within 2·lr·steps) and, since such a bound would pass a LARS
 that never moved, each leaf's change within 1% of the JAX change's
 largest element; the keywords the JAX function passes to
 its optax factory reach the rule, `decay_mask` overrides the default
-matrices-only decay, and `schedule_options` / `update_seed` still raise,
-naming ROADMAP.md queue 1 item 5.
+matrices-only decay, `schedule_options` without a schedule leaves the
+rate constant (as in JAX), and `update_seed` seeds the stochastic
+rounding (equal seeds round alike, another seed otherwise).
 """
 
 import jax
@@ -124,7 +125,17 @@ def test_registry_keywords_and_masks():
         make_optimizer(model, "rmsprop", weight_decay=0.1)
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer(model, "adafactor")
-    for kw in (dict(schedule_options={"warmup_steps": 2}),
-               dict(update_seed=3)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            make_optimizer(model, "adam", **kw)
+    # Ported since: as in JAX, schedule_options without a schedule leave
+    # the rate constant, and update_seed seeds the stochastic rounding.
+    opt = make_optimizer(model, "adam", schedule_options={"warmup_steps": 2})
+    assert isinstance(opt, torch.optim.Adam)
+    rounded = []
+    for seed in (3, 3, 4):
+        p = torch.nn.Parameter(torch.ones(256, dtype=torch.bfloat16))
+        opt = make_optimizer([p], "sgd", 1e-3, param_update="stochastic_round",
+                             update_seed=seed)
+        p.grad = torch.ones_like(p)
+        opt.step()
+        rounded.append(p.detach().clone())
+    assert torch.equal(rounded[0], rounded[1])
+    assert not torch.equal(rounded[0], rounded[2])

@@ -21,7 +21,9 @@ right error, held against the JAX package on the CPU.
 - Every other option of the JAX signatures that the port lacks is
   accepted at the JAX default and raises `NotImplementedError` naming its
   ROADMAP.md item for any other value (the `Llama`'s `moe_*` options and
-  `mesh` among them); `submit`'s `adapter` and `constraint`, ported with
+  `mesh` among them); the trainer's `donate_state`, `eval_with_ema`, retry
+  and recovery knobs and `fit(prefetch=)`, ported with the rest of the
+  trainer, are held to what each does; `submit`'s `adapter` and `constraint`, ported with
   tenancy, raise the JAX engine's `ValueError` on an engine without a
   `TenantConfig`; `ServeEngine`'s `variables`, `param_transform` and
   `spec_draft_variables`, ported with int8 serving, load or transform
@@ -30,9 +32,14 @@ right error, held against the JAX package on the CPU.
   the four attention entry points the Pallas `interpret` switch.
 - `attention_reference(k_offset=)` gives the JAX twin's output within
   1e-5 (f32), with GQA and with a window.
+- bf16 parameter storage: `adam` keeps f32 moments as the JAX
+  `make_optimizer` does, and 5 steps over a 64x64 bf16 weight give the
+  JAX package's parameters but for at most 1 bf16 ulp in at most 16 of
+  the 4,096 elements (the test states why).
 """
 
 import inspect
+import tempfile
 import time
 
 import jax
@@ -251,6 +258,12 @@ WEIGHTS = {("engine", "param_transform"), ("engine", "spec_draft_variables")}
 RESILIENCE = {("engine", "max_retries"), ("engine", "retry_backoff_s"),
               ("engine", "backoff_sleep"), ("engine", "max_replays"),
               ("engine", "degraded_cooldown_s")}
+# Ported since too (the trainer's EMA, fault boundary and prefetch): each
+# is held to what it does on the port's trainer.
+TRAINER = {("trainer", "donate_state"), ("trainer", "eval_with_ema"),
+           ("trainer", "max_retries"), ("trainer", "retry_backoff_s"),
+           ("trainer", "max_recoveries"), ("trainer", "retry_sleep"),
+           ("fit", "prefetch")}
 JAX_FN = {"trainer": JaxTrainer.__init__, "fit": JaxTrainer.fit,
           "engine": JaxServeEngine.__init__, "submit": JaxServeEngine.submit,
           "model": JaxLlama}
@@ -305,8 +318,91 @@ def test_unported_option_takes_the_jax_default_and_refuses_others(
     if (where, name) in RESILIENCE:
         _check_ported_resilience(name, other)
         return
+    if (where, name) in TRAINER:
+        _check_ported_trainer(name, other)
+        return
     with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
         _call(where, **{name: other})
+
+
+def _lm_fit(epochs=2, fit_kw=None, **kw):
+    """A tiny Llama trained by sgd for ``epochs`` x 2 steps; the trainer and
+    its loss history."""
+    tr = Trainer(tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu"),
+                 device="cpu", optimizer="sgd", learning_rate=0.1, **KEYS,
+                 **kw)
+    hist = tr.fit(SyntheticLanguageModeling(**LM), epochs=epochs,
+                  steps_per_epoch=2, verbose=0, **(fit_kw or {}))
+    return tr, hist.history["loss"]
+
+
+def _check_ported_trainer(name, other):
+    """On the port's trainer: ``donate_state`` and ``prefetch`` change no
+    number; ``eval_with_ema=False`` evaluates the live weights, not the
+    shadows; under a fault plan ``max_retries`` is the in-place retries
+    before the state is lost, ``retry_backoff_s`` the base of the doubling
+    waits, ``retry_sleep`` what waits them, and ``max_recoveries`` the
+    restore-and-replay attempts before the step gives up."""
+    from pddl_tpu_torch.ckpt import CheckpointEveryN
+    from pddl_tpu_torch.train.callbacks import LambdaCallback
+    from pddl_tpu_torch.train.faults import (FaultKind, FaultSpec,
+                                             TrainFaultPlan,
+                                             TrainStateLost)
+
+    if name in ("donate_state", "prefetch"):
+        kw = {name: other} if name == "donate_state" else {}
+        fit_kw = {name: other} if name == "prefetch" else {"prefetch": 0}
+        a, la = _lm_fit()
+        b, lb = _lm_fit(fit_kw=fit_kw, **kw)
+        assert la == lb
+        for p, q in zip(a.model.parameters(), b.model.parameters()):
+            assert torch.equal(p, q)
+        return
+    if name == "eval_with_ema":
+        val = SyntheticLanguageModeling(**{**LM, "seed": 9})
+        shadowed, _ = _lm_fit(ema_decay=0.5)
+        live, _ = _lm_fit(ema_decay=0.5, eval_with_ema=other)
+        plain, _ = _lm_fit()
+        assert live.evaluate(val, steps=1) == plain.evaluate(val, steps=1)
+        assert shadowed.evaluate(val, steps=1) != plain.evaluate(val,
+                                                                steps=1)
+        return
+    slept = []
+    if name == "max_recoveries":
+        def fail_from_now(step, logs):
+            if step == 2:
+                plan._rates = (1.0, 0.0, 0.0)  # every later check fails
+
+        plan = TrainFaultPlan()
+        with tempfile.TemporaryDirectory() as d:
+            with pytest.raises(RuntimeError, match=r"budget exhausted \(2"):
+                _lm_fit(fault_plan=plan, max_retries=0, max_recoveries=other,
+                        retry_sleep=slept.append,
+                        fit_kw={"callbacks": [
+                            CheckpointEveryN(d, every_n_steps=2,
+                                             async_save=False),
+                            LambdaCallback(on_train_batch_end=fail_from_now)]})
+        return
+    kw = {"retry_sleep": slept.append}
+    count = 2
+    if name == "retry_sleep":
+        kw["retry_sleep"] = lambda s: (slept.append(s), other(s))
+    else:
+        kw[name] = other
+    if name == "max_retries":
+        count = other
+    plan = TrainFaultPlan(scheduled=[FaultSpec(1, "train_step",
+                                               FaultKind.TRANSIENT, count)])
+    tr, losses = _lm_fit(fault_plan=plan, **kw)
+    _, clean = _lm_fit()
+    assert losses == clean and tr.fault_stats["retries"] == count
+    backoff = kw.get("retry_backoff_s", 0.02)
+    assert slept == [backoff * 2 ** i for i in range(count)]
+    if name == "max_retries":  # one more is past the budget
+        plan = TrainFaultPlan(scheduled=[FaultSpec(
+            1, "train_step", FaultKind.TRANSIENT, count + 1)])
+        with pytest.raises(TrainStateLost):
+            _lm_fit(fault_plan=plan, **kw)
 
 
 def _check_ported_resilience(name, other):
@@ -501,3 +597,44 @@ def test_attention_reference_k_offset_matches_jax(k_offset, window):
                                    window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
+
+
+# ------------------------------------- bf16 storage: the rule runs in f32
+def test_bf16_adam_keeps_f32_moments_like_jax():
+    """A 64x64 bf16 weight, 5 gradients x 1e-2 (both from
+    ``default_rng(0)``), ``adam`` at 1e-3 in both packages. The JAX
+    ``make_optimizer`` pins the moments to f32 and rounds the f32 sum into
+    the bf16 parameter once; the port, which handed bf16 parameters
+    straight to ``torch.optim.Adam`` (bf16 moments and arithmetic, 29 of
+    the 4,096 parameters apart after 5 steps), now runs the rule on an f32
+    proxy. The moments are f32 and the parameters equal JAX's but for at
+    most 1 bf16 ulp in at most 16 elements: JAX squares the bf16 gradient
+    in bf16 (optax's ``g ** 2`` on a bf16 leaf) where the port squares its
+    f32 proxy's, and torch's Adam divides by ``sqrt(v)/sqrt(1-b2^t) + eps``
+    where optax takes ``sqrt(v/(1-b2^t)) + eps``; both move the f32 update
+    in its last bits, which flips the rounding of a sum that sits at a
+    bf16 tie."""
+    from pddl_tpu.train.state import make_optimizer as jax_make_optimizer
+    from pddl_tpu_torch.train.state import make_optimizer
+
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((64, 64)).astype(np.float32)
+    grads = [rng.standard_normal((64, 64)).astype(np.float32) * 1e-2
+             for _ in range(5)]
+    tree = {"w": jnp.asarray(w, jnp.bfloat16)}
+    tx = jax_make_optimizer("adam", 1e-3)
+    st = tx.init(tree)
+    p = torch.nn.Parameter(torch.tensor(w).to(torch.bfloat16))
+    opt = make_optimizer([p], "adam", 1e-3)
+    for g in grads:
+        u, st = tx.update({"w": jnp.asarray(g, jnp.bfloat16)}, st, tree)
+        tree = jax.tree.map(lambda a, b: (a + b).astype(a.dtype), tree, u)
+        p.grad = torch.tensor(g).to(torch.bfloat16)
+        opt.step()
+    assert {t.dtype for t in opt.state[p].values()} == {torch.float32}
+    assert p.dtype == torch.bfloat16
+    want = np.asarray(tree["w"], np.float32)
+    got = p.detach().float().numpy()
+    ulp = np.spacing(np.abs(want)) * 2 ** 16
+    assert np.all(np.abs(got - want) <= ulp)
+    assert np.count_nonzero(got != want) <= 16

@@ -17,7 +17,9 @@ a conv bias before BatchNorm by ±lr whatever its rounding-noise gradient,
 1e-5. Every process ends with the same state, bitwise. The ps strategy's
 sharded update is elementwise the replicated one, so ps equals mirrored
 bitwise for adam and sgd, and within 1e-6 for lamb (its whole-leaf norms
-are sums over shards). Synchronized BatchNorm alone matches flax's
+are sums over shards) and for sgd under a global-norm clip and 2-step
+accumulation (the clip's norm sums over shards; the accumulator, like the
+moments, is this process's slice). Synchronized BatchNorm alone matches flax's
 `BatchNorm` over the global batch within 1e-5 (outputs, gradients,
 running averages). `__graft_entry__.py:217-235`'s DP+ZeRO ResNet shape
 against the port's one-device run: `_assert_matches_oracle`'s tolerances
@@ -183,6 +185,12 @@ def test_ps_sharded_update_equals_mirrored(runs, n):
     # Adam's moments of the sharded leaves are this process's slices.
     assert out["ps/adam/state_bytes"] < out["mirrored/adam/state_bytes"]
     assert _max_diff(_sd(out, "ps/lamb"), _sd(out, "mirrored/lamb")) <= 1e-6
+    # A clipped, accumulated sgd: the global norm summed over the slices
+    # (in another order: to f32 rounding), the accumulator sliced (2
+    # updates of 2 micro-steps).
+    assert _max_diff(_sd(out, "ps/options"), _sd(out, "mirrored/options")) \
+        <= 1e-6
+    assert out["ps/options/state_bytes"] < out["mirrored/options/state_bytes"]
 
 
 @pytest.mark.parametrize("n", SIZES)

@@ -16,8 +16,10 @@
   gradient's size, so a near-zero gradient whose sign differs between the
   two (their sums run in another order) puts them 2·lr apart per step;
 - the `adamw` decay mask leaves 1-D parameters undecayed;
-- unported options raise `NotImplementedError` naming ROADMAP.md, and
-  `augment` and `callbacks`, once among them, now run;
+- unported options (MoE, ring attention, the model-parallel strategies)
+  raise `NotImplementedError` naming ROADMAP.md; `augment`, `callbacks`
+  and the optimizer, EMA, fault and `fit` options, once among them, now
+  run, each checked for what it does;
 - the trainer runs on `cuda` unless given `device="cpu"`.
 """
 
@@ -198,6 +200,94 @@ def test_adamw_decays_matrices_only():
     assert {g["lr"] for g in opt.param_groups} == {0.25}
 
 
+def _lm_trainer(**kw):
+    return Trainer(tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu"),
+                   device="cpu", input_key="tokens", target_key="targets",
+                   optimizer="sgd", learning_rate=0.1, **kw)
+
+
+def _params(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def _moved(before, model):
+    return [not torch.equal(b, p) for b, p in zip(before,
+                                                   model.parameters())]
+
+
+def _check_ema(kw):
+    tr = _lm_trainer(**kw)
+    init = {n: t.clone() for n, t in tr.ema.items()}
+    tr.train_step(SyntheticLanguageModeling(**LM).batch(0))
+    d = kw["ema_decay"]
+    for name, p in tr.model.named_parameters():
+        torch.testing.assert_close(tr.ema[name],
+                                   init[name] * d + p.detach() * (1 - d),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def _check_accumulation(kw, steps):
+    tr = _lm_trainer(**kw)
+    data = SyntheticLanguageModeling(**LM)
+    for i in range(steps):
+        before = _params(tr.model)
+        tr.train_step(data.batch(i))
+        assert any(_moved(before, tr.model)) == (i == steps - 1)
+    assert tr.step == steps
+
+
+def _check_fault_plan():
+    from pddl_tpu_torch.train.faults import (FaultKind, FaultSpec,
+                                             TrainFaultPlan)
+    plan = TrainFaultPlan(scheduled=[FaultSpec(0, "train_step",
+                                               FaultKind.TRANSIENT)])
+    tr = _lm_trainer(fault_plan=plan, retry_sleep=lambda s: None)
+    tr.fit(SyntheticLanguageModeling(**LM), steps_per_epoch=1, verbose=0)
+    assert tr.fault_stats["retries"] == 1 and plan.total_injected == 1
+
+
+def _check_fit_option(kw, tmp_path):
+    """``prefetch`` gives the losses of no lookahead; ``resume`` of an
+    empty directory starts fresh."""
+    if "resume" in kw:
+        kw = {"resume": str(tmp_path / kw["resume"])}
+    losses = []
+    for fit_kw in ({"prefetch": 0}, kw):
+        torch.manual_seed(0)
+        tr = _lm_trainer()
+        losses.append(tr.fit(SyntheticLanguageModeling(**LM), epochs=2,
+                             steps_per_epoch=2, verbose=0,
+                             **fit_kw).history["loss"])
+    assert losses[0] == losses[1]
+
+
+def _check_optimizer_option(kw):
+    p = torch.nn.Parameter(torch.ones(4))
+    if "schedule" in kw:
+        opt = make_optimizer([p], "sgd", 0.5, schedule_options={
+            "decay_steps": 4}, **kw)
+        lrs = []
+        for _ in range(5):
+            p.grad = torch.ones(4)
+            opt.step()
+            lrs.append(get_learning_rate(opt))
+        want = [0.5 * 0.5 * (1 + np.cos(np.pi * min(i, 4) / 4))
+                for i in range(5)]
+        np.testing.assert_allclose(lrs, want, rtol=1e-6, atol=1e-7)
+    elif "grad_clip_norm" in kw:
+        opt = make_optimizer([p], "sgd", 1.0, **kw)
+        p.grad = torch.full((4,), 3.0)  # norm 6: scaled to norm 1
+        opt.step()
+        torch.testing.assert_close(p.detach(), torch.full((4,), 0.5))
+    else:
+        opt = make_optimizer([p], "sgd", 1.0, **kw)
+        for i in range(kw["accumulate_steps"]):
+            p.grad = torch.full((4,), float(i))
+            opt.step()
+        # Moved once, by the mean gradient (0 + 1 + 2 + 3) / 4.
+        torch.testing.assert_close(p.detach(), torch.full((4,), -0.5))
+
+
 @pytest.mark.parametrize("where,kw", [
     ("trainer", {"strategy": object()}),
     ("trainer", {"ema_decay": 0.99}),
@@ -214,7 +304,15 @@ def test_adamw_decays_matrices_only():
     ("model", {"moe_experts": 4}),
     ("model", {"attention": "ring"}),
 ])
-def test_unported_options_raise(where, kw):
+def test_unported_options_raise(where, kw, tmp_path):
+    """The options still unported raise naming their ROADMAP.md item (MoE,
+    ring attention: item 7; the model-parallel strategies). The rest were
+    ported since, and each is checked for what it does: the EMA shadow
+    after a step, the parameters moving once a window under
+    accumulation, the schedule's rate, stochastic rounding over bf16
+    storage, a fault plan's retry, ``lr_schedule_options`` ignored
+    without a schedule (as in JAX), the ``prefetch`` and empty-``resume``
+    losses equal to a plain fit's, and the optimizer's clip."""
     model = tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu")
     trainer_kw = dict(device="cpu", input_key="tokens", target_key="targets")
     if "strategy" in kw:
@@ -227,17 +325,46 @@ def test_unported_options_raise(where, kw):
                                match=r"ROADMAP\.md queue 1 item 7"):
                 get_strategy(name)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if where == "model":
+    if where == "model":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu", **kw)
-        elif where == "optimizer":
-            make_optimizer(model.parameters(), "adam", **kw)
-        elif where == "trainer":
-            Trainer(model, **trainer_kw, **kw)
-        else:
-            Trainer(model, **trainer_kw).fit(
-                SyntheticLanguageModeling(**LM), steps_per_epoch=1,
-                verbose=0, **kw)
+        return
+    if where == "optimizer":
+        return _check_optimizer_option(kw)
+    if where == "fit":
+        return _check_fit_option(kw, tmp_path)
+    name = next(iter(kw))
+    if name == "ema_decay":
+        _check_ema(kw)
+    elif name == "gradient_accumulation_steps":
+        _check_accumulation(kw, kw[name])
+    elif name == "lr_schedule":
+        # As in JAX, a cosine needs its horizon.
+        with pytest.raises(ValueError, match="requires decay_steps"):
+            _lm_trainer(**kw)
+        tr = _lm_trainer(lr_schedule="cosine",
+                         lr_schedule_options={"decay_steps": 2})
+        tr.train_step(SyntheticLanguageModeling(**LM).batch(0))
+        assert get_learning_rate(tr.optimizer) == pytest.approx(0.1)
+        tr.train_step(SyntheticLanguageModeling(**LM).batch(1))
+        assert get_learning_rate(tr.optimizer) == pytest.approx(0.05)
+    elif name == "param_update":
+        bf16 = tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu",
+                          dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+        tr = Trainer(bf16, **trainer_kw, **kw)
+        before = _params(bf16)
+        tr.train_step(SyntheticLanguageModeling(**LM).batch(0))
+        assert any(_moved(before, bf16))
+        assert all(p.dtype == torch.bfloat16 for p in bf16.parameters())
+        assert all(t.dtype == torch.float32
+                   for s in tr.optimizer.state.values() for t in s.values()
+                   if t.is_floating_point() and t.ndim)
+    elif name == "fault_plan":
+        _check_fault_plan()
+    else:  # lr_schedule_options without a schedule: a constant rate
+        tr = _lm_trainer(**kw)
+        tr.train_step(SyntheticLanguageModeling(**LM).batch(0))
+        assert get_learning_rate(tr.optimizer) == pytest.approx(0.1)
 
 
 def test_augment_and_callbacks_are_accepted():
@@ -266,7 +393,7 @@ def test_jax_trainer_defaults_are_accepted():
     hist = tr.fit(SyntheticLanguageModeling(**LM), steps_per_epoch=1,
                   verbose=0, callbacks=(), resume=None, initial_epoch=0)
     assert len(hist.history["loss"]) == 1
-    with pytest.raises(TypeError, match="unexpected argument"):
+    with pytest.raises(TypeError, match="unexpected keyword argument"):
         Trainer(tr.model, device="cpu", no_such_option=1)
 
 
