@@ -17,7 +17,9 @@ multi-tenant serving (LoRA adapters and grammar constraints), and fault
 recovery, preemption, the host KV tier, sliced prefill, drain/restore
 and request tracing in the engine — on a
 full-width, full-depth ResNet-50, the reference's own workload (and its
-trainer's fault recovery, verified checkpoints, resume and prefetch), on
+trainer's fault recovery, verified checkpoints, resume and prefetch; its
+pretrained mode from Keras weights, trained from packed files through
+the native loader), on
 GPT-2-small (training, ``generate``, both engines, speculation), on
 ResNet-50 under the reference's distribution modes (world size 1 on
 NCCL, and two processes sharing the card over gloo), on
@@ -100,7 +102,7 @@ one line per phase:
     trained by the port's Trainer on the card (cuDNN) and on the CPU with
     SGD at lr 0.005 and the gradient norm logged, B 4 x 224, for each
     stem: 1 free-running step (gated: a BatchNorm net at init parts the
-    two sides' free runs after it), then 3 steps each from
+    two sides' free runs after it), then 2 steps each from
     the CPU's state copied to the card: losses within rtol 1e-4, gradient
     norms within 1e-3 relative, parameters within 2·lr·steps, each
     BatchNorm buffer within 1e-4 of its max-abs;
@@ -118,6 +120,25 @@ one line per phase:
     device memory, the last loss, the forward's multiply-accumulates per
     image (from the model's conv and dense shapes) and the MFU of
     6 x MACs per image;
+15e. keras roundtrip — the reference's pretrained mode through the
+    mapping layer of ``ckpt/keras_import.py`` (no h5py on the card):
+    ResNet-50 f32 (TF32 off, cuDNN deterministic), a seeded model's Keras
+    weight dict into a model of another seed (state_dicts and eval logits
+    on 8 x 224 bitwise equal), into a space-to-depth model (logits within
+    1e-4 of the largest) and, without ``predictions``, into a 10-class
+    model (backbone equal, head kept; ``require_head=True`` raises): the
+    export and load ms, no kernel launched;
+15f. native loader — the loader's library built from
+    ``pddl_tpu_torch/data/csrc/`` with the host compiler (seconds, path),
+    a seeded packed file of 2,048 x 224 x 224 x 3 uint8 (308 MB) under
+    ``build/``, one shuffled epoch holding every sample once with the
+    file's bytes and labels, then an epoch's read time (warm);
+15g. resnet host fed — phase 15's space-to-depth step (bf16, adam, B 256)
+    on notop Keras weights with a fresh head, through ``Trainer.fit`` from
+    the ``NativeLoader`` at ``prefetch`` 0 and 2 in turns: images/s, the
+    step wall, the losses, the device's idle share (a profiled epoch's,
+    and the steady step's), beside phase 15's card-resident images/s; no
+    kernel launched; the file is deleted and every loader closed;
 15b. dp parity — the reference's distribution modes at world size 1 on
     NCCL (a process group of one over the card): full-width ResNet-50 in
     f32 (TF32 off, cuDNN deterministic), B 32 x 224, 3 SGD steps and 1
@@ -182,18 +203,17 @@ one line per phase:
     acceptance counters, K4's launches; then ``generate_speculative``
     against ``generate`` at B 2 (and the CPU);
 23. engine tenant serve — phase 7's wave in both modes, ``tenant=None``
-    and ``tenant=TenantConfig(...)`` in turns (plain, tenant, tenant,
-    plain): 16 rank-8 LoRA adapters
+    and ``tenant=TenantConfig(...)`` one wave each: 16 rank-8 LoRA adapters
     (``register_random``, seeds 100-115, scale 0.05) on a pool
     auto-sized to 12 rows, every 4th request on the base model and the
     rest on 4 popular adapters and a tail of 12, every 3rd request under
     a JSON schema over a seeded 128,256-string grammar vocabulary (the
     FSM's states and compile seconds, compiled before the waves):
     tokens/s, TTFT p50/p99, the tick's p50 and its ratio to the plain
-    tick (over both waves of each, and over 48 ticks of each engine in
+    tick (over the two waves, and over 48 ticks of each engine in
     turns: ``engine_tenant_cost``), adapter hits, loads and evictions, mask restages a tick, the pool's and a tick's
     gathered factor bytes, K4 exactly once a layer a tick on the paged
-    legs; then a profiled window of 8 ticks of each engine a mode
+    legs; then a profiled window of 4 ticks of each engine a mode
     (``profile_plain_*``, ``profile_tenant_*``): device busy, idle share
     and the LoRA delta's device time a tick;
 24. engine tenant parity — multi-tenant serving card against CPU,
@@ -325,8 +345,9 @@ one line per phase:
     legs' included there for K4), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
     ``library_computes`` says; other timing shapes under ``shapes``: K4's
-    and, for K1 and K2, the GPT and ViT train shapes); the ResNet path
-    adds none (the JAX package runs no Pallas kernel there);
+    and, for K1 and K2, the GPT and ViT train shapes); the ResNet path,
+    the Keras import and export and the loader add none (the JAX package
+    runs no Pallas kernel there);
 
 and, as its last line, ``{"ok": true, "device": {...}}``. Any failure
 raises: the script exits non-zero and prints no result. It needs the
@@ -393,6 +414,15 @@ from pddl_tpu_torch.ops.quant import (
     quantized_bytes,
 )
 from pddl_tpu_torch.ckpt import CheckpointEveryN, Checkpointer, tree_checksums
+from pddl_tpu_torch.ckpt.keras_import import (
+    keras_weights_from_resnet,
+    keras_weights_to_resnet,
+)
+from pddl_tpu_torch.data.native_loader import (
+    NativeLoader,
+    build_native,
+    write_packed,
+)
 from pddl_tpu_torch.parallel import MirroredStrategy, get_strategy
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.faults import FaultKind, FaultPlan, FaultSpec
@@ -1712,7 +1742,7 @@ def resnet_macs(model, image: int) -> int:
                         else 0)
 
 
-def phase_resnet_parity(steps: int = 3, lr: float = 0.005, batch: int = 4):
+def phase_resnet_parity(steps: int = 2, lr: float = 0.005, batch: int = 4):
     """Full-width, full-depth ResNet-50 in f32 (TF32 off, cuDNN's
     algorithm search off), one seeded weight set trained by the port's
     Trainer on the card (cuDNN/ATen) and on the CPU with SGD at
@@ -1882,7 +1912,7 @@ def phase_resnet_train(batch: int = 256):
     """``bench.py``'s configuration at B 256 x 224: a shorter leg with the
     Keras stem (2 warm-up and 10 timed steps), then the space-to-depth
     stem (bench.py's default; 3 warm-up and 20 timed steps), whose trainer
-    and batch it returns. cuDNN's algorithm search is on
+    and batch it returns with its images/s. cuDNN's algorithm search is on
     (``torch.backends.cudnn.benchmark = True``): every step has the same
     shapes, so the search runs in the warm-up."""
     torch.backends.cudnn.benchmark = True
@@ -1890,7 +1920,7 @@ def phase_resnet_train(batch: int = 256):
     phase("resnet_train", **fields)
     tr, batch_d, fields = _timed_resnet("space_to_depth", batch, 3, 20)
     phase("resnet_train", **fields)
-    return tr, batch_d
+    return tr, batch_d, float(fields["images_per_s"])
 
 
 # Kernel classes of the ResNet step's profile, by kernel name; the first
@@ -1947,6 +1977,267 @@ def profile_resnet(tr, batch_d, out_dir: str) -> None:
                             sorted(by_class.items(), key=lambda x: -x[1][0])),
           other=";".join(f"{k}:{v:.3f}ms" for k, v in other.items()),
           top_kernels=top)
+
+
+# ------------------------------------------------------------ phase 15e-g
+LOADER_SAMPLES = 2048     # 2,048 x 224 x 224 x 3 uint8: 308 MB of samples
+LOADER_IMAGE = 224
+HOST_FED_BATCH = 256      # bench.py's batch
+
+
+def phase_keras_roundtrip(batch: int = 8):
+    """The reference's pretrained mode at full width and depth: ResNet-50,
+    1000 classes, f32 (TF32 off, cuDNN deterministic), on the card,
+    through the mapping layer of ``ckpt/keras_import.py`` (no h5py: the
+    file layer is the CPU tests'). A seeded model's Keras weight dict
+    loads into a model of another seed: state_dicts and eval logits on a
+    seeded batch of ``batch`` x 224 bitwise equal. The same dict loads
+    into a space-to-depth model through ``s2d_stem_kernel``: logits within
+    1e-4 of the largest logit (the same function in f32, the 4x4 stem
+    summing the 7x7 taps in another order; the rounding differences, ~1e-7
+    of a value, do not grow past 1e-5 through eval-mode BatchNorm). The
+    dict without ``predictions`` loads into ``ResNet50(num_classes=10)``:
+    the backbone equal, the head its own initialisation; with
+    ``require_head=True`` it raises. Returns the notop dict."""
+    _deterministic()
+    torch.cuda.empty_cache()
+    src = ResNet50(num_classes=1000, device=DEV, seed=0).eval()
+    dst = ResNet50(num_classes=1000, device=DEV, seed=1).eval()
+    _kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    weights = keras_weights_from_resnet(src)
+    export_ms = 1e3 * (time.perf_counter() - t0)
+    nbytes = sum(a.nbytes for w in weights.values() for a in w.values())
+    t0 = time.perf_counter()
+    keras_weights_to_resnet(weights, dst, require_head=True)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    bad = [k for k, v in dst.state_dict().items()
+           if not torch.equal(v, src.state_dict()[k])]
+    if bad:
+        raise RuntimeError(f"keras round trip changed {len(bad)} tensors: "
+                           f"{bad[:5]}")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    x = torch.rand(batch, 224, 224, 3, generator=gen, device=DEV)
+    with torch.no_grad():
+        ref = src(x, train=False)
+        got = dst(x, train=False)
+        s2d = keras_weights_to_resnet(weights, ResNet50(
+            num_classes=1000, stem="space_to_depth", device=DEV,
+            seed=2).eval())
+        s2d_out = s2d(x, train=False)
+    if not torch.equal(ref, got):
+        raise RuntimeError("keras round trip: logits not bitwise equal")
+    scale = float(ref.abs().max())
+    s2d_err = float((s2d_out - ref).abs().max())
+    if not s2d_err <= 1e-4 * max(1.0, scale):
+        raise RuntimeError(f"space-to-depth import: logits {s2d_err:.3e} "
+                           f"from the Keras stem's (scale {scale:.3e})")
+    notop = {k: v for k, v in weights.items() if k != "predictions"}
+    head10 = ResNet50(num_classes=10, device=DEV, seed=3)
+    head = {k: v.clone() for k, v in head10.head.state_dict().items()}
+    keras_weights_to_resnet(notop, head10)
+    backbone = [k for k, v in head10.state_dict().items()
+                if not k.startswith("head.")
+                and not torch.equal(v, src.state_dict()[k])]
+    head_kept = all(torch.equal(v, head[k])
+                    for k, v in head10.head.state_dict().items())
+    if backbone or not head_kept:
+        raise RuntimeError(f"notop import: backbone differs at "
+                           f"{backbone[:5]}, head kept {head_kept}")
+    try:
+        keras_weights_to_resnet(notop, head10, require_head=True)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise RuntimeError("require_head=True accepted notop weights")
+    launches = sum(_kernels.launch_counts.values())
+    if launches:
+        raise RuntimeError(f"the keras path launched {launches} kernels")
+    phase("keras_roundtrip", model="ResNet50_f32", classes=1000,
+          layers=len(weights), mbytes=f"{nbytes / 1e6:.2f}",
+          export_ms=f"{export_ms:.2f}", load_ms=f"{load_ms:.2f}",
+          state_bitwise=True, logits_bitwise=True, batch=batch,
+          logit_scale=f"{scale:.4e}", s2d_max_abs_err=f"{s2d_err:.3e}",
+          s2d_tol=f"{1e-4 * max(1.0, scale):.3e}", notop_backbone_equal=True,
+          notop_head_kept=True, require_head_raises=refused[-40:],
+          kernel_launches=launches)
+    del src, dst, s2d, head10
+    torch.cuda.empty_cache()
+    return notop
+
+
+def write_loader_file(path: str, n: int = LOADER_SAMPLES,
+                      image: int = LOADER_IMAGE):
+    """A seeded packed file of ``n`` samples: sample ``i``'s first 4 bytes
+    are ``i`` (little-endian) and its label is ``i`` mod 1000 (a class of
+    ResNet-50's head); the rest is random. Returns the images."""
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (n, image, image, 3), np.uint8)
+    images.reshape(n, -1)[:, :4] = np.arange(n, dtype="<u4").view(
+        np.uint8).reshape(n, 4)
+    write_packed(path, images, np.arange(n, dtype=np.int32) % 1000)
+    return images
+
+
+def phase_native_loader(path: str, batch: int = HOST_FED_BATCH,
+                        workers: int = 4):
+    """Builds the loader's library from ``pddl_tpu_torch/data/csrc/``,
+    writes the packed file at ``path`` (``LOADER_SAMPLES`` x 224 x 224 x 3
+    uint8) and reads one shuffled epoch: every sample exactly once, with
+    the file's bytes and label (its index in its first bytes). A second
+    epoch, unchecked, times the loader alone (the file in the page
+    cache: a warm read)."""
+    t0 = time.perf_counter()
+    lib = build_native()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    images = write_loader_file(path)
+    write_s = time.perf_counter() - t0
+    seen = []
+    with NativeLoader([path], batch_size=batch, shuffle=True, seed=0,
+                      num_workers=workers) as loader:
+        for b in loader:
+            index = b["image"].reshape(len(b["label"]), -1)[:, :4].copy(
+            ).view("<u4")[:, 0].astype(np.int64)
+            if not (np.array_equal(b["image"], images[index])
+                    and np.array_equal(b["label"], index % 1000)):
+                raise RuntimeError("native loader: a batch's bytes or "
+                                   "labels differ from the file's")
+            seen.append(index)
+        t0 = time.perf_counter()
+        n_read = sum(len(b["label"]) for b in loader)
+        epoch_s = time.perf_counter() - t0
+        shape = loader.image_shape
+    seen = np.concatenate(seen)
+    if not np.array_equal(np.sort(seen), np.arange(len(images))):
+        raise RuntimeError(f"native loader: an epoch gave {len(seen)} "
+                           f"samples, {len(np.unique(seen))} distinct")
+    if np.array_equal(seen, np.arange(len(images))):
+        raise RuntimeError("native loader: shuffle=True kept file order")
+    nbytes = n_read * images[0].nbytes
+    phase("native_loader", library=str(lib), build_s=f"{build_s:.2f}",
+          samples=len(images), shape="x".join(map(str, shape)),
+          file_mb=f"{os.path.getsize(path) / 1e6:.2f}",
+          write_s=f"{write_s:.3f}", batch=batch, workers=workers,
+          timed_epoch_s=f"{epoch_s:.3f}",
+          host_gb_s=f"{nbytes / epoch_s / 1e9:.3f}",
+          every_sample_once=True, bytes_equal=True)
+
+
+def _host_fed_leg(tr, loader, prefetch: int, prof=None):
+    """One epoch of ``tr.fit`` from ``loader``: images/s and the step wall
+    between the first and the last batch end, and the last loss."""
+    stamps = []
+    torch.cuda.synchronize()
+    hist = tr.fit(loader, epochs=1, verbose=0, prefetch=prefetch,
+                  callbacks=[LambdaCallback(
+                      on_train_batch_end=lambda s, logs: stamps.append(
+                          time.perf_counter()))])
+    torch.cuda.synchronize()
+    wall = stamps[-1] - stamps[0]
+    return (loader.batch_size * (len(stamps) - 1) / wall,
+            wall / (len(stamps) - 1), hist.history["loss"][-1])
+
+
+def _idle_share(tr, loader, prefetch: int):
+    """One profiled epoch: the share of its wall with no kernel on the
+    device (copies, which overlap kernels at ``prefetch`` > 0, are
+    counted apart), its kernel and copy ms and its wall. The wall holds
+    the epoch's start (the loader's reset and first batch) and the
+    profiler's own cost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.fit(loader, epochs=1, verbose=0, prefetch=prefetch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = device_kernels(prof)
+    copy_us = sum(e.self_device_time_total for e in kern
+                  if e.key.startswith(("Memcpy", "Memset")))
+    busy_us = sum(e.self_device_time_total for e in kern) - copy_us
+    return (f"{1 - busy_us / 1e6 / wall:.4f}" if busy_us else
+            "not measured"), busy_us / 1e3, copy_us / 1e3, wall
+
+
+def phase_resnet_host_fed(path: str, notop: dict, resident_images_s: float,
+                          workers: int = 4):
+    """The reference's pretrained fine-tune from packed files: a notop
+    Keras dict (``phase_keras_roundtrip``'s) loads into bench.py's model
+    (ResNet-50, bf16 compute over f32 parameters, space-to-depth stem,
+    1000 classes, a fresh head), and ``Trainer.fit`` (adam at 1e-3) takes
+    the ``NativeLoader``'s uint8 batches of 256 from ``path`` at
+    ``prefetch`` 0 and 2 in turns (0, 2, 2, 0), one epoch each after a
+    warm-up epoch: images/s, the step wall and the loss, then one
+    profiled epoch at each: its idle share, and the steady step's (its
+    kernel ms a step against the legs' step wall). Beside them, the
+    card-resident figure of ``resnet_train`` in this run."""
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.empty_cache()
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                     stem="space_to_depth", device=DEV, seed=0)
+    head = model.head.weight.detach().clone()
+    t0 = time.perf_counter()
+    keras_weights_to_resnet(notop, model)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(model.head.weight, head):
+        raise RuntimeError("notop import changed the fresh head")
+    tr = Trainer(model, optimizer="adam", learning_rate=1e-3, metrics=(),
+                 device=DEV)
+    rates = {0: [], 2: []}
+    walls = {0: [], 2: []}
+    losses = []
+    _kernels.reset_launch_counts()
+    with NativeLoader([path], batch_size=HOST_FED_BATCH, shuffle=True,
+                      seed=0, num_workers=workers) as loader:
+        _host_fed_leg(tr, loader, 0)  # warm-up: cuDNN's search, the pool
+        for depth in (0, 2, 2, 0):
+            rate, wall, loss = _host_fed_leg(tr, loader, depth)
+            rates[depth].append(rate)
+            walls[depth].append(wall)
+            losses.append(loss)
+        idle = {depth: _idle_share(tr, loader, depth) for depth in (0, 2)}
+        steps = loader.batches_per_epoch
+    launches = sum(_kernels.launch_counts.values())
+    if launches:
+        raise RuntimeError(f"the host-fed path launched {launches} kernels")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite host-fed losses {losses}")
+    fields = {}
+    for depth in (0, 2):
+        share, busy_ms, copy_ms, wall = idle[depth]
+        # The steady step's idle share: the profiled epoch's kernel time a
+        # step against the unprofiled legs' step wall.
+        step_idle = "/".join(f"{1 - busy_ms / 1e3 / steps / x:.4f}"
+                             for x in walls[depth]) if busy_ms else (
+                                 "not measured")
+        fields.update({
+            f"idle_share_step_prefetch{depth}": step_idle,
+            f"images_per_s_prefetch{depth}": "/".join(
+                f"{x:.2f}" for x in rates[depth]),
+            f"step_ms_prefetch{depth}": "/".join(
+                f"{1e3 * x:.3f}" for x in walls[depth]),
+            f"idle_share_profiled_epoch_prefetch{depth}": share,
+            f"profiled_epoch_s_prefetch{depth}": f"{wall:.3f}",
+            f"kernel_ms_prefetch{depth}": f"{busy_ms:.3f}",
+            f"copy_ms_prefetch{depth}": f"{copy_ms:.3f}"})
+    best = max(rates[0] + rates[2])
+    phase("resnet_host_fed", model="ResNet50_bf16_compute_f32_params",
+          stem="space_to_depth", init="keras_notop_fresh_head",
+          load_ms=f"{load_ms:.2f}", optimizer="adam", lr=1e-3,
+          batch=HOST_FED_BATCH, image=LOADER_IMAGE, workers=workers,
+          steps_per_epoch=steps, **fields,
+          losses="/".join(f"{x:.5f}" for x in losses),
+          resident_images_per_s=f"{resident_images_s:.2f}",
+          host_fed_over_resident=f"{best / resident_images_s:.4f}",
+          kernel_launches=launches)
+    del tr, model
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ phase 15b-d
@@ -2338,9 +2629,9 @@ def phase_generate_decode(profile_dir=None, new: int = 256,
                           plen: int = 64):
     """``benchmarks/decode_bench.py``'s configuration: Llama-1B, vocab
     128256, ``max_len`` 1024, bf16 parameters and compute, prompt 64, 256
-    new tokens, greedy, B 1 and B 8; the median of 3 timed calls. The
+    new tokens, greedy, B 1 and B 8; one timed call after a warm-up. The
     full-length row cache runs no hand-written kernel (the JAX package's
-    decode runs none either). Returns the model and B 1's prompt, median
+    decode runs none either). Returns the model and B 1's prompt,
     wall and tokens, for ``generate_spec``."""
     torch.cuda.empty_cache()
     model = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN, dtype=torch.bfloat16,
@@ -2350,7 +2641,7 @@ def phase_generate_decode(profile_dir=None, new: int = 256,
     for batch in (1, 8):
         prompt = rng.randint(0, VOCAB, (batch, plen))
         torch.cuda.reset_peak_memory_stats()
-        wall, out, launches = timed_generate(model, prompt, new, 3)
+        wall, out, launches = timed_generate(model, prompt, new, 1)
         if sum(launches.values()):
             raise RuntimeError(f"generate_decode launched {launches}")
         if batch == 1:
@@ -2718,8 +3009,8 @@ def phase_engine_spec_serve(model, prompts, new: int = 64):
 def phase_generate_spec(model, prompt, wall, ref):
     """``generate_decode``'s B 1 leg (Llama-1B bf16, prompt 64, 256 new,
     the same model and prompt) through ``generate_speculative``
-    (``draft_len`` 7, ``ngram`` 3), the median of 3 timed calls after a
-    warm-up, beside that leg's ``generate`` (its median ``wall`` and
+    (``draft_len`` 7, ``ngram`` 3), one timed call after a warm-up,
+    beside that leg's ``generate`` (its ``wall`` and
     tokens ``ref``, timed just before): tokens/s, ms per token, ticks,
     tokens per tick. Tokens equal unless a tie: the card model's top-2
     margin at the divergence under 8 bf16 ulps of its top logit."""
@@ -2727,18 +3018,15 @@ def phase_generate_spec(model, prompt, wall, ref):
     new = ref.shape[1] - plen
     spec_out, stats = generate_speculative(model, prompt, new,
                                            return_stats=True)
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        _kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        spec_out, stats = generate_speculative(model, prompt, new,
-                                               return_stats=True)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    spec_out, stats = generate_speculative(model, prompt, new,
+                                           return_stats=True)
+    torch.cuda.synchronize()
+    spec_wall = time.perf_counter() - t0
     if sum(_kernels.launch_counts.values()):
         raise RuntimeError(f"generate_spec launched {_kernels.launch_counts}")
-    spec_wall = float(np.median(walls))
     a, b = spec_out[0, plen:].cpu().tolist(), ref[0, plen:].tolist()
     j = next((i for i in range(new) if a[i] != b[i]), None)
     margin = "none"
@@ -3044,8 +3332,8 @@ def tenant_tick_pairs(model, prompts, paged: bool, strings,
 def phase_engine_tenant_serve(model, prompts, out_dir: str):
     """Phase 7's wave (full Llama-1B, bf16, ``max_len`` 1024, 24 greedy
     requests of 384 prompt tokens, 256 shared, x 32 new on 8 slots) in
-    both modes, ``tenant=None`` and a tenant engine in turns (plain,
-    tenant, tenant, plain): 16 rank-8 adapters, the pool auto-sized to 12
+    both modes, ``tenant=None`` and a tenant engine, one wave each: 16
+    rank-8 adapters, the pool auto-sized to 12
     rows, every 4th request on the base model and every 3rd under a JSON
     schema, over the seeded 128,256-string vocabulary (the FSM compiled
     and timed before the waves). Per wave: tokens/s, the tick's p50, TTFT
@@ -3055,8 +3343,8 @@ def phase_engine_tenant_serve(model, prompts, out_dir: str):
     gathered factor bytes, the base streams equal to the plain wave's and
     the margins where they part. Then per mode the tenant tick's median
     against the plain tick's, over 48 ticks of each in turns
-    (:func:`tenant_tick_pairs`) and over both waves of each, and a
-    profiled window of 8 ticks of each engine (device busy, idle share,
+    (:func:`tenant_tick_pairs`) and over the two waves, and a
+    profiled window of 4 ticks of each engine (device busy, idle share,
     the LoRA delta's device time). Constrained streams are mask-legal, and
     accepted when they end GRAMMAR. Returns the first paged tenant wave's
     launches."""
@@ -3071,7 +3359,7 @@ def phase_engine_tenant_serve(model, prompts, out_dir: str):
     for paged in (False, True):
         mode = "paged" if paged else "row"
         runs = {"plain": [], "tenant": []}
-        for leg in ("plain", "tenant", "tenant", "plain"):
+        for leg in ("plain", "tenant"):
             registry = tenant_registry(model, 16)
             tkw = ({} if leg == "plain" else dict(
                 submit_kw=kws, tenant=TenantConfig(registry=registry,
@@ -3146,7 +3434,7 @@ def phase_engine_tenant_serve(model, prompts, out_dir: str):
                     registry=tenant_registry(model, 16),
                     token_strings=strings)))
             profiled[leg] = profile_decode(model, prompts, out_dir,
-                                           paged=paged,
+                                           n_ticks=4, paged=paged,
                                            tag=f"profile_{leg}_{mode}", **tkw)
         busy = {leg: float(f["device_busy_ms_per_tick"])
                 for leg, f in profiled.items()}
@@ -4100,7 +4388,7 @@ def _deterministic() -> None:
 def _prefetch_rates(batch: int = 64, steps: int = 4) -> dict:
     """Host-fed images/s: ``bench.py``'s step (bf16 compute, s2d stem,
     adam) fed from ``SyntheticImageClassification``'s host batches through
-    ``Trainer.fit`` at ``prefetch`` 0 and 2, in turns (0, 2, 2, 0). The
+    ``Trainer.fit`` at ``prefetch`` 0 and 2, in turns (0, 2). The
     host makes each batch in a few hundred ms, so cuDNN's algorithm search
     stays off: it would cost more than the window it could speed up."""
     torch.backends.cudnn.benchmark = False
@@ -4113,7 +4401,7 @@ def _prefetch_rates(batch: int = 64, steps: int = 4) -> dict:
     tr.fit(data, steps_per_epoch=2, verbose=0)
     rates = {0: [], 2: []}
     offset = 2
-    for depth in (0, 2, 2, 0):
+    for depth in (0, 2):
         stamps = []
         torch.cuda.synchronize()
         tr.fit(data.with_offset(offset), steps_per_epoch=steps, verbose=0,
@@ -5242,11 +5530,20 @@ def main(argv=None) -> int:
     phase_fused_loss()
     phase_resnet_parity()
     phase_resnet_converge()
-    tr, batch_d = phase_resnet_train()
+    tr, batch_d, resident_images_s = phase_resnet_train()
     if args.profile:
         profile_resnet(tr, batch_d, args.profile)
     del tr, batch_d
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    notop = phase_keras_roundtrip()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        packed = os.path.join(tmp, "train.pdl")
+        phase_native_loader(packed)
+        phase_resnet_host_fed(packed, notop, resident_images_s)
+    del notop
+    phase("phase_seconds", name="keras_loader_host_fed",
+          seconds=f"{time.perf_counter() - t0:.2f}")
     with nccl_group_of_one():
         for name, fn in (("dp_parity", phase_dp_parity),
                          ("dp_parity_gloo2", phase_dp_parity_gloo2),

@@ -48,58 +48,37 @@ Like :mod:`pddl_tpu`, importing the bare package imports nothing heavy:
 the public names below resolve lazily (PEP 562).
 """
 
-_LAZY_EXPORTS = {
-    "Llama": ("pddl_tpu_torch.models.llama", "Llama"),
-    "Llama_1B": ("pddl_tpu_torch.models.llama", "Llama_1B"),
-    "GPT": ("pddl_tpu_torch.models.gpt", "GPT"),
-    "GPT_Small": ("pddl_tpu_torch.models.gpt", "GPT_Small"),
-    "tiny_gpt": ("pddl_tpu_torch.models.gpt", "tiny_gpt"),
-    "ViT": ("pddl_tpu_torch.models.vit", "ViT"),
-    "ViT_S16": ("pddl_tpu_torch.models.vit", "ViT_S16"),
-    "tiny_vit": ("pddl_tpu_torch.models.vit", "tiny_vit"),
-    "quantize_int8": ("pddl_tpu_torch.ops.quant", "quantize_int8"),
-    "dequantize": ("pddl_tpu_torch.ops.quant", "dequantize"),
-    "tiny_llama": ("pddl_tpu_torch.models.llama", "tiny_llama"),
-    "ResNet50": ("pddl_tpu_torch.models.resnet", "ResNet50"),
-    "tiny_resnet": ("pddl_tpu_torch.models.resnet", "tiny_resnet"),
-    "ServeEngine": ("pddl_tpu_torch.serve.engine", "ServeEngine"),
-    "TenantConfig": ("pddl_tpu_torch.serve.tenant", "TenantConfig"),
-    "AdapterRegistry": ("pddl_tpu_torch.serve.tenant", "AdapterRegistry"),
-    "compile_constraint": ("pddl_tpu_torch.serve.tenant",
-                           "compile_constraint"),
-    "Trainer": ("pddl_tpu_torch.train.loop", "Trainer"),
-    "MeshConfig": ("pddl_tpu_torch.core.mesh", "MeshConfig"),
-    "build_mesh": ("pddl_tpu_torch.core.mesh", "build_mesh"),
-    "MinSizePartitioner": ("pddl_tpu_torch.core.sharding",
-                           "MinSizePartitioner"),
-    "get_strategy": ("pddl_tpu_torch.parallel", "get_strategy"),
-    "SyntheticImageClassification": ("pddl_tpu_torch.data.synthetic",
-                                     "SyntheticImageClassification"),
-    "SyntheticLanguageModeling": ("pddl_tpu_torch.data.synthetic",
-                                  "SyntheticLanguageModeling"),
-    "llama_params_from_jax": ("pddl_tpu_torch.bridge",
-                              "llama_params_from_jax"),
-    "resnet_params_from_jax": ("pddl_tpu_torch.bridge",
-                               "resnet_params_from_jax"),
-    "gpt_params_from_jax": ("pddl_tpu_torch.bridge", "gpt_params_from_jax"),
-    "vit_params_from_jax": ("pddl_tpu_torch.bridge", "vit_params_from_jax"),
+from pddl_tpu_torch._lazy import lazy_exports
+
+_EXPORTS = {
+    "Llama": "models.llama",
+    "Llama_1B": "models.llama",
+    "GPT": "models.gpt",
+    "GPT_Small": "models.gpt",
+    "tiny_gpt": "models.gpt",
+    "ViT": "models.vit",
+    "ViT_S16": "models.vit",
+    "tiny_vit": "models.vit",
+    "quantize_int8": "ops.quant",
+    "dequantize": "ops.quant",
+    "tiny_llama": "models.llama",
+    "ResNet50": "models.resnet",
+    "tiny_resnet": "models.resnet",
+    "ServeEngine": "serve.engine",
+    "TenantConfig": "serve.tenant",
+    "AdapterRegistry": "serve.tenant",
+    "compile_constraint": "serve.tenant",
+    "Trainer": "train.loop",
+    "MeshConfig": "core.mesh",
+    "build_mesh": "core.mesh",
+    "MinSizePartitioner": "core.sharding",
+    "get_strategy": "parallel",
+    "SyntheticImageClassification": "data.synthetic",
+    "SyntheticLanguageModeling": "data.synthetic",
+    "llama_params_from_jax": "bridge",
+    "resnet_params_from_jax": "bridge",
+    "gpt_params_from_jax": "bridge",
+    "vit_params_from_jax": "bridge",
 }
-
-__all__ = sorted(_LAZY_EXPORTS)
-
-
-def __getattr__(name):
-    try:
-        module_name, attr = _LAZY_EXPORTS[name]
-    except KeyError:
-        raise AttributeError(
-            f"module {__name__!r} has no attribute {name!r}") from None
-    import importlib
-
-    value = getattr(importlib.import_module(module_name), attr)
-    globals()[name] = value  # cache: next access skips __getattr__
-    return value
-
-
-def __dir__():
-    return sorted(set(globals()) | set(__all__))
+__all__ = sorted(_EXPORTS)
+__getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)

@@ -38,6 +38,19 @@ trainer's in-process recovery restores from the same saves.
 a thread; :meth:`Checkpointer.wait` joins it (a restore waits first).
 Checkpoints are a single process's: the callbacks refuse a trainer whose
 strategy spans processes (ROADMAP.md queue 1 item 6).
+
+**The call forms against the JAX package's.** :meth:`Checkpointer.save`
+takes the JAX form, ``save(state, epoch=None, metrics=None, force=False,
+loader=None, checksum=True)``. The JAX ``force`` overrides Orbax's
+save-interval policy; the port has no such policy, so every save writes
+and ``force`` is accepted and changes nothing. :meth:`Checkpointer.restore`
+keeps the port's form, ``restore(step=None, verify=True) -> (state,
+metadata)``, which the trainer's recovery and ``fit(resume=)`` call: the
+JAX ``restore(target, step=None, verify=True)`` lays the state out like
+``target``, while a ``Trainer.state_dict()`` needs no target. A JAX-form
+call, which passes its target tree where the step goes, raises a
+``TypeError`` naming the port's form instead of reading the tree as a
+step (so does any step that is not an integer).
 """
 
 from __future__ import annotations
@@ -156,12 +169,14 @@ class Checkpointer:
 
     # ---------------------------------------------------------------- save
     def save(self, state: dict, epoch: Optional[int] = None,
-             metrics: Optional[Dict[str, float]] = None,
+             metrics: Optional[Dict[str, float]] = None, force: bool = False,
              loader: Optional[Dict[str, Any]] = None,
              checksum: bool = True) -> int:
         """Save ``state`` (a ``Trainer.state_dict()``) at its step, with
         the epoch, metrics and loader position, and with the checksums
-        unless ``checksum=False``. Returns the step."""
+        unless ``checksum=False``. Returns the step. ``force`` is the JAX
+        call form's: every save writes here (module docstring)."""
+        del force
         if self.read_only:
             raise RuntimeError(f"{self.directory} is opened read-only")
         self.wait()
@@ -274,6 +289,12 @@ class Checkpointer:
         loads and verifies (module docstring); the state's tensors are on
         the CPU. An explicit ``step`` raises instead of falling back:
         :class:`CheckpointCorruptError` on a checksum mismatch."""
+        if step is not None and not isinstance(step, (int, np.integer)):
+            raise TypeError(
+                "Checkpointer.restore(step=None, verify=True) -> (state, "
+                "metadata) takes no target tree (the JAX package's "
+                "restore(target, step, verify) form): load the returned "
+                "state with Trainer.load_state_dict")
         self.wait()
         if step is not None:
             return self._restore_verified(step, verify)

@@ -432,6 +432,12 @@ def tiny_llama(vocab_size: int = 64, **kwargs) -> Llama:
 Llama_Small = functools.partial(
     Llama, embed_dim=768, depth=12, num_heads=12, num_kv_heads=4)
 
+# ~300M-parameter mid-size shape (GQA 20/4), the JAX package's
+# f32-against-bf16 convergence shape.
+Llama_300M = functools.partial(
+    Llama, embed_dim=1280, depth=16, num_heads=20, num_kv_heads=4,
+    intermediate_dim=3456)
+
 # Llama-3.2-1B-shaped config (RoPE theta 500k, GQA 32/8, SwiGLU 8192).
 Llama_1B = functools.partial(
     Llama, embed_dim=2048, depth=16, num_heads=32, num_kv_heads=8,

@@ -372,6 +372,8 @@ ViT_S16 = functools.partial(ViT, patch_size=16, embed_dim=384, depth=12,
                             num_heads=6)
 ViT_B16 = functools.partial(ViT, patch_size=16, embed_dim=768, depth=12,
                             num_heads=12)
+ViT_L16 = functools.partial(ViT, patch_size=16, embed_dim=1024, depth=24,
+                            num_heads=16)
 
 
 def tiny_vit(num_classes: int = 10, **kwargs) -> ViT:

@@ -1,1 +1,17 @@
-"""Attention, RoPE and the hand-written CUDA kernels of the port."""
+"""Device-side ops of the port (the port of :mod:`pddl_tpu.ops`): the
+augment, attention (with the hand-written CUDA kernels behind it, built
+at first launch by ``_kernels.py``) and the chunked cross-entropy.
+
+The names resolve lazily. ``ring_attention``, ``ring_attention_flash``
+and ``sequence_parallel_attention`` wait for ROADMAP.md queue 1 item 7."""
+
+from pddl_tpu_torch._lazy import lazy_exports
+
+_EXPORTS = {
+    "augment": "augment",
+    **dict.fromkeys(("attention_reference", "decode_attention",
+                     "flash_attention", "flash_attention_lse"), "attention"),
+    "chunked_cross_entropy": "large_vocab",
+}
+__all__ = sorted(_EXPORTS)
+__getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)

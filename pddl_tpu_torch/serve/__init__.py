@@ -37,12 +37,13 @@ from pddl_tpu_torch.serve.request import (
     RequestState,
     SamplingParams,
 )
-from pddl_tpu_torch.serve.scheduler import SLOScheduler
+from pddl_tpu_torch.serve.scheduler import FCFSScheduler, SLOScheduler
 from pddl_tpu_torch.serve.tenant import AdapterRegistry, TenantConfig
 
 __all__ = [
     "AdapterRegistry",
     "AdmissionRejected",
+    "FCFSScheduler",
     "FaultKind",
     "FaultPlan",
     "FaultSpec",

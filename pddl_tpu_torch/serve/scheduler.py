@@ -209,3 +209,8 @@ class SLOScheduler:
         traffic (the bypass lane). Depth limits do not apply: the drained
         engine admitted every one of them."""
         self._front.extend(handles)
+
+
+# The JAX package's other name for it: the SLO scheduler with every
+# request at the default class and no deadlines is FCFS.
+FCFSScheduler = SLOScheduler

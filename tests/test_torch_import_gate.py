@@ -38,7 +38,8 @@ def test_importing_every_port_module_leaves_jax_out():
                 "parallel.multiworker", "parallel.ps", "compat",
                 "compat.hvd", "train.mixed_precision", "train.faults",
                 "train.callbacks", "ckpt", "ckpt.checkpoint",
-                "utils.preemption", "utils.summary"):
+                "utils.preemption", "utils.summary", "ckpt.keras_import",
+                "ckpt.fetch", "data.native_loader", "_lazy"):
         assert "pddl_tpu_torch." + mod in mods
     code = (
         "import importlib, sys\n"
@@ -222,3 +223,62 @@ def _check_ported_resilience(model, kw):
     if "fault_plan" in kw:
         assert eng.metrics.retry_sites == {"tick": 1}
         assert eng.metrics.replays == 0
+
+
+# JAX names whose modules wait for their ROADMAP.md queue 1 items (the
+# flax TrainState has no twin: the port's trainer state is a state_dict).
+WAITING = {
+    "train": {"TrainState"},
+    "models": {"GPipeLlama", "get_model", "register_model", "list_models"},
+    "ops": {"ring_attention", "ring_attention_flash",
+            "sequence_parallel_attention"},
+    "data": {"ImageNetConfig", "ImageNetDataset", "load_imagenet",
+             "TFRecordReader", "TokenFileDataset", "load_token_corpus"},
+    "serve": set(),
+    "ckpt": {"load_hf_gpt2"},
+}
+
+
+def _jax_all(sub):
+    """The JAX subpackage's ``__all__``, read from its source (no jax)."""
+    path = REPO / "pddl_tpu" / sub / "__init__.py"
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"no __all__ in {path}")
+
+
+@pytest.mark.parametrize("sub", sorted(WAITING))
+def test_subpackage_names_pinned_against_jax(sub):
+    import importlib
+
+    port = importlib.import_module(f"pddl_tpu_torch.{sub}")
+    want = _jax_all(sub) - WAITING[sub]
+    assert WAITING[sub] <= _jax_all(sub)
+    if sub in ("serve", "ckpt"):  # these add names of their own
+        assert want <= set(port.__all__)
+    else:
+        assert set(port.__all__) == want
+    for name in want:
+        assert name in dir(port)
+
+
+def test_data_and_ckpt_import_no_jax_and_build_nothing():
+    code = (
+        "import sys\n"
+        "import pddl_tpu_torch.data, pddl_tpu_torch.ckpt\n"
+        "import pddl_tpu_torch.train, pddl_tpu_torch.models\n"
+        "import pddl_tpu_torch.ops\n"
+        "from pddl_tpu_torch.ops import _kernels\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "assert 'h5py' not in sys.modules\n"
+        "assert 'pddl_tpu_torch.data.native_loader' not in sys.modules\n"
+        "assert not _kernels._libs\n"
+        "from pddl_tpu_torch.data import NativeLoader\n"
+        "import pddl_tpu_torch.data.native_loader as nl\n"
+        "assert nl._lib is None\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True, timeout=120)
