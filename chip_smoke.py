@@ -153,9 +153,39 @@ one line per phase:
     the loss, gradient norm, parameter and buffer errors against their
     stated tolerances, both processes' states equal, ps's optimizer-state
     bytes a process against mirrored's and its capped leaves;
+15h. dp ckpt gloo2 — checkpoints of a strategy over processes: phase
+    15c's two processes (``ps``, ResNet-50 f32, cuDNN deterministic,
+    adam, 2 x 16 rows) run 4 steps, then 2 under ``CheckpointEveryN``
+    (rank 0 writes one world-size free save at step 2, the Adam slices
+    gathered whole); fresh processes (``--dp-ckpt-child``) resume it to
+    step 4, each process's state bitwise the uninterrupted run's; the same
+    save restores into this one process (moments whole, the state as
+    saved) and 2 more steps land within 3·lr a step of ``strategy=None``'s
+    4: the save's MB, the runs' seconds, the restore's ms;
 15d. dp train — phase 15's space-to-depth step under ``mirrored`` at
     world size 1 beside ``strategy=None`` in turns: images/s of each and
     their ratio (a record);
+15i. hf llama roundtrip — full Llama-1B (bf16) through ``export_hf_llama``
+    (``LlamaForCausalLM`` keys, f32 numpy, no ``transformers`` here) and
+    ``load_hf_llama`` into a model of another seed: state_dicts bitwise;
+    the imported model's paged engine (K4 once a layer a tick) emits the
+    source model's tokens for phase 6's 4 requests x 16; export and
+    import ms, host bytes;
+15j. k1 op cost — K1 with the LSE at the decode artifacts' ring prefill
+    and at phase 10's shape, three ways in turns: the eager
+    ``flash_forward`` (a direct ``ctypes`` launch), the ``torch.library``
+    op ``pddl_tpu_torch::flash_fwd`` that exported programs call, and the
+    wrapper as before the registration: the outputs bitwise equal, ms a
+    call each;
+15k. export artifacts — ``ckpt/export.py`` on the card: ResNet-50 (f32,
+    eval, B 8 x 224) as an inference artifact exported on the card
+    (logits within 1e-6 of the largest) and on the CPU listing the card,
+    moved at load (within 1e-4); Llama-1B decode artifacts (bf16, B 2,
+    prompt 128, 32 new, greedy), full and sliding-window (window 1024,
+    ``max_len`` 4096): tokens equal to ``generate``'s (the bf16 tie rule),
+    the zip's bytes against the weights', export, load, prefill and
+    decode ms, and the windowed prefill launching K1 once a layer through
+    the op;
 16. generate parity — ``generate`` on the card against the CPU, greedy,
     full-width Llama-1B at depth 2 in f32 (TF32 off): a full-length cache
     (B 2, prompt 64, 32 new) and a sliding window of 256 (ring 256 under
@@ -163,8 +193,9 @@ one line per phase:
     prefill and in decode, and the prefill runs K1 with its LSE on the
     card, once a layer); token-exact unless a tie, as in phase 6;
 17. generate decode — ``benchmarks/decode_bench.py``'s configuration
-    (full Llama-1B, vocab 128256, ``max_len`` 1024, bf16, prompt 64, 256
-    new, greedy) at B 1 and B 8: new tokens/s, ms per token, peak device
+    (full Llama-1B, vocab 128256, ``max_len`` 1024, bf16, prompt 64,
+    greedy; 128 new, the bench's 256 cut for time) at B 1 and B 8: new
+    tokens/s, ms per token, peak device
     memory, and at B 1 the weight-read bound (the weights' bytes and the
     live K/V over HBM bandwidth) and the ratio to it; no hand-written
     kernel runs there;
@@ -174,7 +205,7 @@ one line per phase:
     tokens equal unless a tie (the card's top-2 margin at the divergence
     under 8 bf16 ulps of the top logit);
 18. generate swa — a sliding-window Llama-1B (window 1024, ``max_len``
-    4096), bf16, B 1, prompt 2048, 256 new: tokens/s, the prefill's wall,
+    4096), bf16, B 1, prompt 2048, 128 new: tokens/s, the prefill's wall,
     16 K1 launches with the LSE in the run (the sliding-window path's
     launches), the ring's cache bytes against a full-length cache's; K1
     at this shape against its plain version, with its times and bound;
@@ -236,7 +267,7 @@ one line per phase:
     12 layers, 12 heads, 1024 positions, LayerNorm eps 1e-5, vocabulary
     50257 padded to 50304), bf16, seeded weights: phase 7's wave on the
     row and the paged engine (tokens/s, TTFT p50/p99, tick p50, K4 once a
-    layer a paged tick), then ``generate`` at B 1, prompt 64, 256 new
+    layer a paged tick), then ``generate`` at B 1, prompt 64, 128 new
     against the weight-read bound (``gpt_generate``);
 27. gpt train — the same model, bf16 compute over f32 parameters, adamw,
     B 8 x S 1024 through ``Trainer.fit``: 2 warm-up then 5 timed steps;
@@ -339,8 +370,8 @@ one line per phase:
     token-exact against the CPU and against whole-prompt admission, K4
     exactly 2 x the paged ticks (the draft leg: its draft steps);
 39. kernels — one JSON object: every ported kernel with its launches on
-    its main paths (phases 7, 10, 11, 18, 21, 23, 26, 27, 28, 30, 30c,
-    32-34 and 35-37;
+    its main paths (phases 7, 10, 11, 15i, 15k, 18, 21, 23, 26, 27, 28,
+    30, 30c, 32-34 and 35-37;
     K4's, K1's and K2's by path under ``launches_by_path``, the parity
     legs' included there for K4), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
@@ -413,7 +444,18 @@ from pddl_tpu_torch.ops.quant import (
     quantize_int8,
     quantized_bytes,
 )
-from pddl_tpu_torch.ckpt import CheckpointEveryN, Checkpointer, tree_checksums
+from pddl_tpu_torch.ckpt import (
+    CheckpointEveryN,
+    Checkpointer,
+    export_hf_llama,
+    load_decode_artifact,
+    load_hf_llama,
+    load_inference_artifact,
+    save_decode_artifact,
+    save_inference_artifact,
+    tree_checksums,
+)
+from pddl_tpu_torch.ckpt.checkpoint import local_state
 from pddl_tpu_torch.ckpt.keras_import import (
     keras_weights_from_resnet,
     keras_weights_to_resnet,
@@ -2371,7 +2413,8 @@ def dp_gloo2_child(rank: int, port: int, out_dir: str) -> None:
     tensors: mirrored and ps (min 256 KiB), 1 SGD step and 1 Adam step at
     16 rows each (``rank``'s half of the global 32), from the same seeded
     ResNet-50; rank 0 also takes the single-device step at 32 rows. Writes
-    what it saw to ``out_dir/dp_gloo2_{rank}.json``."""
+    what it saw to ``out_dir/dp_gloo2_{rank}.json``; then runs
+    ``dp_ckpt_runs("run")`` for ``dp_ckpt_gloo2``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.distributed.init_process_group(
@@ -2425,13 +2468,15 @@ def dp_gloo2_child(rank: int, port: int, out_dir: str) -> None:
                         for k in rsd if "running" not in k)
                     out[f"{tag}_buffer_rel"] = _rel_buffers(sd, rsd)
                 del tr
+        # dp_ckpt_gloo2's uninterrupted and cut runs, in these processes.
+        dp_ckpt_runs("run", rank, out_dir)
     finally:
         torch.distributed.destroy_process_group()
     path = pathlib.Path(out_dir) / f"dp_gloo2_{rank}.json"
     path.write_text(json.dumps(out))
 
 
-def phase_dp_parity_gloo2(timeout: float = 300.0):
+def phase_dp_parity_gloo2(out_dir: str, timeout: float = 300.0):
     """Two processes on the one card over gloo with CUDA tensors
     (``dp_gloo2_child``), mirrored and ps against the single-device step:
     the loss within rtol 1e-4; the gradient norm within 5e-2 relative
@@ -2441,34 +2486,12 @@ def phase_dp_parity_gloo2(timeout: float = 300.0):
     whose sign flips moves its parameter 2·lr); each BatchNorm buffer
     within 1e-3 of its max-abs; both processes' states equal; ps's
     optimizer-state bytes a process against mirrored's, and its capped
-    leaves. A child that fails fails the phase."""
-    out_dir = pathlib.Path("build")
-    out_dir.mkdir(exist_ok=True)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, "--dp-gloo2-child", str(rank), str(port),
-         str(out_dir)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for rank in range(2)]
-    deadline = time.monotonic() + timeout
-    logs = []
-    try:
-        for p in procs:
-            try:
-                logs.append(p.communicate(
-                    timeout=max(0.0, deadline - time.monotonic()))[0])
-            except subprocess.TimeoutExpired:
-                logs.append("timed out")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, log_) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise RuntimeError(f"dp_parity_gloo2: process {rank} exited "
-                               f"{p.returncode}:\n{log_[-4000:]}")
+    leaves. A child that fails fails the phase. The children also run
+    ``dp_ckpt_gloo2``'s first runs into ``out_dir``."""
+    out_dir = pathlib.Path(out_dir)
+    _two_processes(lambda rank, port: ("--dp-gloo2-child", str(rank),
+                                       str(port), str(out_dir)),
+                   timeout, "dp_parity_gloo2")
     seen = [json.loads((out_dir / f"dp_gloo2_{r}.json").read_text())
             for r in range(2)]
     bad = []
@@ -2625,11 +2648,12 @@ def timed_generate(model, prompt, new, repeats):
     return float(np.median(walls)), out, dict(_kernels.launch_counts)
 
 
-def phase_generate_decode(profile_dir=None, new: int = 256,
+def phase_generate_decode(profile_dir=None, new: int = 128,
                           plen: int = 64):
     """``benchmarks/decode_bench.py``'s configuration: Llama-1B, vocab
-    128256, ``max_len`` 1024, bf16 parameters and compute, prompt 64, 256
-    new tokens, greedy, B 1 and B 8; one timed call after a warm-up. The
+    128256, ``max_len`` 1024, bf16 parameters and compute, prompt 64,
+    greedy, B 1 and B 8, with 128 new tokens (the bench's 256, cut for
+    time); one timed call after a warm-up. The
     full-length row cache runs no hand-written kernel (the JAX package's
     decode runs none either). Returns the model and B 1's prompt,
     wall and tokens, for ``generate_spec``."""
@@ -2702,10 +2726,10 @@ def windowed_fwd_bound_ms(q, k, window):
     return _bound(nbytes, 4 * b * h * d * pairs, q.dtype)
 
 
-def phase_generate_swa(plen: int = 2048, new: int = 256,
+def phase_generate_swa(plen: int = 2048, new: int = 128,
                        window: int = 1024, max_len: int = 4096):
     """A sliding-window Llama-1B (window 1024, ``max_len`` 4096: ring 1024),
-    bf16, B 1, prompt 2048, 256 new: the prefill runs K1 with its LSE once
+    bf16, B 1, prompt 2048, 128 new: the prefill runs K1 with its LSE once
     a layer (16 launches, counted from zero around the call) merged with
     the pre-write ring's history. Prints tokens/s, the prefill's wall,
     K1's launches, the ring's cache bytes against a full-length cache's,
@@ -3007,7 +3031,7 @@ def phase_engine_spec_serve(model, prompts, new: int = 64):
 
 
 def phase_generate_spec(model, prompt, wall, ref):
-    """``generate_decode``'s B 1 leg (Llama-1B bf16, prompt 64, 256 new,
+    """``generate_decode``'s B 1 leg (Llama-1B bf16, prompt 64, 128 new,
     the same model and prompt) through ``generate_speculative``
     (``draft_len`` 7, ``ngram`` 3), one timed call after a warm-up,
     beside that leg's ``generate`` (its ``wall`` and
@@ -3685,11 +3709,11 @@ def serve_wave_fields(run, model, paged: bool):
                 peak_mem_gib=f"{run['peak'] / 2**30:.3f}")
 
 
-def phase_gpt_serve(new: int = 256, plen: int = 64):
+def phase_gpt_serve(new: int = 128, plen: int = 64):
     """Full GPT-2-small (HF ``gpt2``'s configuration, seeded weights) in
     bf16: the serve wave (24 requests of 384 prompt tokens, 256 shared,
     x 32 new on 8 slots) on the row and the paged engine, then
-    ``generate`` at B 1, prompt 64, 256 new (one warm-up, one timed call)
+    ``generate`` at B 1, prompt 64, 128 new (one warm-up, one timed call)
     against the weight-read bound. Returns the paged wave's launches."""
     model = gpt_serve_model()
     prompts = serve_prompts(GPT_VOCAB)
@@ -4383,6 +4407,23 @@ def _deterministic() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
+
+
+@contextlib.contextmanager
+def deterministic_block():
+    """:func:`_deterministic`'s settings for a block, and the TF32 and
+    cuDNN flags as they were after it (the later timed phases')."""
+    flags = (torch.backends.cuda.matmul, "allow_tf32"), \
+        (torch.backends.cudnn, "allow_tf32"), \
+        (torch.backends.cudnn, "benchmark"), \
+        (torch.backends.cudnn, "deterministic")
+    saved = [getattr(obj, name) for obj, name in flags]
+    _deterministic()
+    try:
+        yield
+    finally:
+        for (obj, name), value in zip(flags, saved):
+            setattr(obj, name, value)
 
 
 def _prefetch_rates(batch: int = 64, steps: int = 4) -> dict:
@@ -5477,12 +5518,444 @@ def phase_engine_trace_serve(model, prompts, pair):
     return total
 
 
+# ------------------------------------------- checkpoint formats (40-42)
+class _StateDictHolder:
+    """What ``load_hf_llama`` reads from a source with no config: its
+    ``state_dict()`` (here ``export_hf_llama``'s numpy dict)."""
+
+    def __init__(self, sd):
+        self.sd = sd
+
+    def state_dict(self):
+        return self.sd
+
+
+def phase_hf_llama_roundtrip(new: int = 16):
+    """Llama-1B at full width and depth (bf16, ``max_len`` 1024): a seeded
+    model through ``export_hf_llama`` (``LlamaForCausalLM`` keys, f32
+    numpy) and back through ``load_hf_llama`` (a state-dict holder: no
+    ``transformers`` here) into a model of another seed, state_dicts
+    bitwise equal; then the imported model serves phase 6's 4 requests x
+    ``new`` through ``ServeEngine(paged=True)`` (K4 once a layer a tick),
+    token-equal to the source model's. Prints the export and import ms and
+    the host bytes. Returns the imported model's launches."""
+    torch.cuda.empty_cache()
+    src = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN, dtype=torch.bfloat16,
+                   device=DEV, seed=0)
+    dst = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN, dtype=torch.bfloat16,
+                   device=DEV, seed=7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = export_hf_llama(src)
+    export_ms = 1e3 * (time.perf_counter() - t0)
+    host_bytes = sum(a.nbytes for a in sd.values())
+    t0 = time.perf_counter()
+    load_hf_llama(_StateDictHolder(sd), dst)
+    torch.cuda.synchronize()
+    import_ms = 1e3 * (time.perf_counter() - t0)
+    n_keys = len(sd)
+    del sd
+    gc.collect()
+    want_sd = src.state_dict()
+    bad = [k for k, v in dst.state_dict().items()
+           if not torch.equal(v, want_sd[k])]
+    if bad:
+        raise RuntimeError(f"hf round trip changed {len(bad)} tensors: "
+                           f"{bad[:5]}")
+    prompts = parity_prompts()
+    want, _, _ = engine_streams(src, prompts, new, paged=True)
+    got, launches, ticks = engine_streams(dst, prompts, new, paged=True)
+    check_launches("hf_llama_roundtrip", launches,
+                   paged_decode=dst.depth * ticks)
+    if got != want:
+        raise RuntimeError("the imported model's streams differ from the "
+                           "source model's")
+    phase("hf_llama_roundtrip", model="Llama_1B_bf16", keys=n_keys,
+          host_mbytes=f"{host_bytes / 1e6:.2f}", export_ms=f"{export_ms:.2f}",
+          import_ms=f"{import_ms:.2f}", state_bitwise=True,
+          requests=len(prompts), new=new, streams_equal=True,
+          paged_decode_launches=launches["paged_decode"], ticks=ticks)
+    del src, dst
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _k1_before(q, k, v, *, causal, scale, window, k_offset):
+    """``flash_forward`` as it was before the op's registration: the
+    checks, then the launch through ``ctypes``."""
+    return tatt._flash_fwd_launch(q, k, v, bool(causal), float(scale),
+                                  int(window or 0), int(k_offset), True)
+
+
+def _k1_op(q, k, v, *, causal, scale, window, k_offset):
+    """K1 through the registered op, as an exported program calls it."""
+    return torch.ops.pddl_tpu_torch.flash_fwd(
+        q, k, v, bool(causal), float(scale), int(window or 0), int(k_offset))
+
+
+def _k1_call_ms(qkv, kw, calls: int = 200):
+    """Wall ms of one K1 call with the LSE, launched ``calls`` times back
+    to back (host and device), in turns: the eager ``flash_forward``, the
+    registered op and the wrapper as before the registration."""
+    fns = {"eager": lambda: tatt.flash_forward(*qkv, **kw),
+           "op": lambda: _k1_op(*qkv, **kw),
+           "before": lambda: _k1_before(*qkv, **kw)}
+    out = {name: [] for name in fns}
+    for _ in range(2):
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            out[name].append(1e3 * (time.perf_counter() - t0) / calls)
+    return {name: min(v) for name, v in out.items()}
+
+
+def phase_k1_op_cost():
+    """K1's call three ways, in turns in this process: the eager
+    ``flash_forward`` (a direct ``ctypes`` launch), the ``torch.library``
+    op that exported programs call, and the wrapper as it was before the
+    registration; at the decode artifacts' ring prefill (B 2, H 32/8, S
+    128, D 64, window 1024) and at phase 10's training shape. The three
+    outputs bitwise equal."""
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    fields = {}
+    for tag, shape in (("prefill", (2, 32, 8, 128, 128, 64, torch.bfloat16,
+                                    True, 1024, 0)),
+                       ("train", (4, 32, 8, 2048, 2048, 64, torch.bfloat16,
+                                  True, None, 0))):
+        qkv, _, _, kw = flash_case(gen, *shape)
+        ref = _k1_before(*qkv, **kw)
+        for fn in (tatt.flash_forward, _k1_op):
+            got = fn(*qkv, **kw)
+            if not (torch.equal(got[0], ref[0])
+                    and torch.equal(got[1], ref[1])):
+                raise RuntimeError(f"K1 through {fn.__name__} differs at "
+                                   f"{tag}")
+        ms = _k1_call_ms(qkv, kw, calls=200 if tag == "prefill" else 50)
+        for name, v in ms.items():
+            fields[f"{tag}_{name}_ms"] = f"{v:.5f}"
+        fields[f"{tag}_op_extra_us"] = \
+            f"{1e3 * (ms['op'] - ms['before']):.2f}"
+    phase("k1_op_cost", op="pddl_tpu_torch::flash_fwd", bitwise=True,
+          **fields)
+
+
+def _resnet_artifact_leg(tag, model, x, ref, export_device, tol_rel):
+    """One ResNet-50 inference artifact: exported on ``export_device``
+    (the CPU's listing the card too), saved under ``build/``, loaded onto
+    the card; its logits against the card's eager ``ref``."""
+    cpu = export_device == "cpu"
+    src = copy.deepcopy(model).to("cpu") if cpu else model
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        path = os.path.join(tmp, "resnet50.pt2")
+        t0 = time.perf_counter()
+        save_inference_artifact(path, src, None, tuple(x.shape),
+                                platforms=("cpu", "cuda") if cpu else None)
+        export_ms = 1e3 * (time.perf_counter() - t0)
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        call, _ = load_inference_artifact(path, device=DEV)
+        load_ms = 1e3 * (time.perf_counter() - t0)
+    got = call(x)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if not (torch.isfinite(got).all() and err <= tol_rel * max(1.0, scale)):
+        raise RuntimeError(f"resnet artifact ({tag}): logits {err:.3e} from "
+                           f"the eager forward's (scale {scale:.3e})")
+    phase("export_artifacts", leg=tag, model="ResNet50_f32", batch=x.shape[0],
+          image=x.shape[1], exported_on=export_device, loaded_on="cuda",
+          artifact_mbytes=f"{nbytes / 1e6:.2f}", export_ms=f"{export_ms:.2f}",
+          load_ms=f"{load_ms:.2f}", max_abs_err=f"{err:.3e}",
+          tol=f"{tol_rel * max(1.0, scale):.3e}", bitwise=err == 0.0)
+    del src
+
+
+def _decode_artifact_leg(tag, model, prompt, new):
+    """A greedy decode artifact of ``model`` exported on the card, saved
+    under ``build/`` and loaded: its tokens against eager ``generate``'s
+    (the bf16 tie rule where they part; its wall beside the loaded
+    programs', the first call of each), the zip's bytes against the
+    weights', and the K1 launches of the loaded prefill alone."""
+    params = dict(model.state_dict())
+    weights = sum(t.numel() * t.element_size() for t in params.values())
+    plen = prompt.shape[1]
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        path = os.path.join(tmp, f"{tag}.zip")
+        t0 = time.perf_counter()
+        save_decode_artifact(path, model, None, batch=prompt.shape[0],
+                             prompt_len=plen, max_new_tokens=new)
+        export_ms = 1e3 * (time.perf_counter() - t0)
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        prefill, decode, manifest = load_decode_artifact(path, device=DEV)
+        load_ms = 1e3 * (time.perf_counter() - t0)
+    tokens = torch.as_tensor(prompt, dtype=torch.int32, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = generate(model, tokens, new)[:, plen:].cpu().tolist()
+    eager_ms = 1e3 * (time.perf_counter() - t0)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cache, logits = prefill(params, tokens)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    prefill_launches = dict(_kernels.launch_counts)
+    t0 = time.perf_counter()
+    out = decode(params, cache, logits, 0)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(_kernels.launch_counts)
+    got = out.cpu().tolist()
+    equal, ties = bf16_ties(model, prompt.tolist(), got, ref,
+                            f"decode artifact {tag}")
+    if nbytes >= weights:
+        raise RuntimeError(f"the {tag} decode artifact holds {nbytes} bytes, "
+                           f"the weights {weights}")
+    phase("export_artifacts", leg=tag, batch=prompt.shape[0], prompt=plen,
+          new=new, zip_mbytes=f"{nbytes / 1e6:.2f}",
+          weights_mbytes=f"{weights / 1e6:.2f}",
+          export_ms=f"{export_ms:.2f}", load_ms=f"{load_ms:.2f}",
+          prefill_ms=f"{prefill_ms:.2f}", decode_ms=f"{decode_ms:.2f}",
+          ms_per_token=f"{decode_ms / new:.3f}",
+          eager_generate_ms=f"{eager_ms:.2f}", streams_equal=equal,
+          ties=ties, needs_pddl_tpu_torch=manifest["needs_pddl_tpu_torch"],
+          prefill_flash_fwd_launches=prefill_launches["flash_fwd"],
+          launches=sum(launches.values()))
+    return prefill_launches
+
+
+def phase_export_artifacts(batch: int = 8, prompt_len: int = 128,
+                           new: int = 32, window: int = 1024):
+    """The serving artifacts of ``ckpt/export.py`` on the card. ResNet-50
+    (1000 classes, f32, TF32 off, cuDNN deterministic), eval, B ``batch``
+    x 224: an inference artifact exported on the card (its logits within
+    1e-6 of the largest: the same ATen graph, so expected bitwise) and one
+    exported on the CPU listing the card, moved there at load (within 1e-4
+    of the largest: the CPU traces a strided 1x1 conv as a subsample then
+    a 1x1 conv, ``models/resnet.py``, the same function in another cuDNN
+    algorithm, ~1e-7 relative a layer through 53 eval-mode layers, as in
+    ``keras_roundtrip``'s gate). Then greedy decode artifacts of Llama-1B
+    (bf16, ``max_len`` 1024) and of a sliding-window Llama-1B (window
+    1024, ``max_len`` 4096: the ring), B 2, prompt ``prompt_len``,
+    ``new`` new tokens: tokens equal to ``generate``'s (the bf16 tie rule
+    where they part), the zip smaller than the weights, and the
+    sliding-window prefill launching K1 once a layer through the
+    registered op. Returns the sliding-window prefill's launches."""
+    torch.cuda.empty_cache()
+    with deterministic_block():
+        model = ResNet50(num_classes=1000, device=DEV, seed=0).eval()
+        gen = torch.Generator(device=DEV).manual_seed(3)
+        x = torch.rand(batch, 224, 224, 3, generator=gen, device=DEV)
+        with torch.no_grad():
+            ref = model(x, train=False)
+        _resnet_artifact_leg("resnet_card", model, x, ref, "cuda", 1e-6)
+        _resnet_artifact_leg("resnet_cpu_moved", model, x, ref, "cpu", 1e-4)
+    del model, ref, x
+    torch.cuda.empty_cache()
+    prompt = np.random.RandomState(21).randint(0, VOCAB, (2, prompt_len))
+    llama = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN, dtype=torch.bfloat16,
+                     device=DEV, seed=0)
+    launches = _decode_artifact_leg("llama1b_decode", llama, prompt, new)
+    check_launches("llama1b decode artifact prefill", launches)
+    del llama
+    torch.cuda.empty_cache()
+    swa = Llama_1B(vocab_size=VOCAB, max_len=4096, sliding_window=window,
+                   dtype=torch.bfloat16, device=DEV, seed=0)
+    launches = _decode_artifact_leg(f"llama1b_window{window}_decode", swa,
+                                    prompt, new)
+    check_launches("sliding-window decode artifact prefill", launches,
+                   flash_fwd=swa.depth)
+    del swa
+    torch.cuda.empty_cache()
+    return launches
+
+
+DP_CKPT_STEPS, DP_CKPT_SAVE, DP_CKPT_LR = 4, 2, 1e-3
+
+
+class _Stopped(Exception):
+    """The end of a run cut short on purpose."""
+
+
+class _StopAt(Callback):
+    def __init__(self, n):
+        self.n = n
+
+    def on_train_batch_end(self, step, logs):
+        if self.trainer.step == self.n:
+            raise _Stopped
+
+
+def _dp_ckpt_trainer(strategy):
+    return Trainer(ResNet50(num_classes=1000, device=DEV, seed=3),
+                   optimizer="adam", learning_rate=DP_CKPT_LR, device=DEV,
+                   strategy=strategy)
+
+
+def dp_ckpt_runs(mode: str, rank: int, out_dir: str) -> None:
+    """One of two processes on the card over gloo (the group open) under
+    ``ps`` (min 256 KiB), ResNet-50 f32 (cuDNN deterministic), adam,
+    ``rank``'s 16 rows of each global 32. ``run`` (in
+    ``dp_gloo2_child``'s processes, after its parity legs): 4 steps
+    uninterrupted, then 2 under ``CheckpointEveryN`` (stopped after its
+    save at step 2); ``resume`` (fresh processes, ``dp_ckpt_child``): a
+    fresh trainer through ``fit(resume=)`` to step 4. Writes the
+    checksums of its state to ``out_dir``."""
+    _deterministic()
+    batches = dp_batches(DP_CKPT_STEPS, 16, start=16 * rank)
+    directory = os.path.join(out_dir, "ckpt")
+    out = {}
+    fit = dict(epochs=1, steps_per_epoch=DP_CKPT_STEPS, verbose=0)
+    if mode == "run":
+        clean = _dp_ckpt_trainer(dp_strategy("ps", backend="gloo"))
+        clean.fit(batches, **fit)
+        out["clean"] = tree_checksums(clean.state_dict())
+        del clean
+        cut = _dp_ckpt_trainer(dp_strategy("ps", backend="gloo"))
+        t0 = time.perf_counter()
+        try:
+            cut.fit(batches, callbacks=[
+                CheckpointEveryN(directory, every_n_steps=DP_CKPT_SAVE,
+                                 async_save=False),
+                _StopAt(DP_CKPT_SAVE)], **fit)
+            raise RuntimeError("the cut run was not stopped")
+        except _Stopped:
+            pass
+        out["cut_s"] = time.perf_counter() - t0
+    else:
+        resumed = _dp_ckpt_trainer(dp_strategy("ps", backend="gloo"))
+        t0 = time.perf_counter()
+        resumed.fit(batches, resume=directory, **fit)
+        out["resume_s"] = time.perf_counter() - t0
+        out["resumed"] = tree_checksums(resumed.state_dict())
+        out["step"] = resumed.step
+    pathlib.Path(out_dir, f"dp_ckpt_{mode}_{rank}.json").write_text(
+        json.dumps(out))
+
+
+def dp_ckpt_child(rank: int, port: int, out_dir: str) -> None:
+    """``--dp-ckpt-child RANK PORT DIR``: a fresh process of the two that
+    resume ``dp_ckpt_runs``'s save."""
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+        rank=rank)
+    try:
+        dp_ckpt_runs("resume", rank, out_dir)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _two_processes(args, timeout: float, what: str) -> None:
+    """Two children of this script, under one deadline that kills every
+    survivor; a child that fails fails the phase."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, *args(rank, port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(
+                    timeout=max(0.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                logs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log_) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{what}: process {rank} exited "
+                               f"{p.returncode}:\n{log_[-4000:]}")
+
+
+def phase_dp_ckpt_gloo2(out_dir: str, timeout: float = 300.0):
+    """Checkpoints of a strategy over two processes (``dp_ckpt_runs``):
+    two processes share the card over gloo under ``ps`` (``dp_parity_gloo2``'s,
+    which ran the uninterrupted and the cut run into ``out_dir``); the save
+    at step 2 is rank 0's, world-size free (ps's Adam slices gathered
+    whole). Fresh processes resume from it to step 4: each process's state
+    bitwise the uninterrupted run's. The same save restores into this one
+    process (``strategy=None``): every Adam moment whole, the state as
+    saved, then 2 steps on the global batch of 32, its parameters within
+    3·lr a step of a ``strategy=None`` run of the 4 steps
+    (``dp_parity_gloo2``'s Adam bound: a near-zero gradient whose sign
+    flips moves its parameter 2·lr). Prints the save's MB, the runs'
+    seconds and the restore's ms."""
+    _two_processes(lambda rank, port: (
+        "--dp-ckpt-child", str(rank), str(port), out_dir),
+        timeout, "dp_ckpt_gloo2 resume")
+    seen = {(mode, r): json.loads(pathlib.Path(
+        out_dir, f"dp_ckpt_{mode}_{r}.json").read_text())
+        for mode in ("run", "resume") for r in range(2)}
+    bitwise = [seen[("run", r)]["clean"] == seen[("resume", r)]["resumed"]
+               for r in range(2)]
+    if not all(bitwise) or seen[("resume", 0)]["step"] != DP_CKPT_STEPS:
+        raise RuntimeError(f"dp_ckpt_gloo2: resumed run bitwise {bitwise}")
+    ckpt = Checkpointer(os.path.join(out_dir, "ckpt"), read_only=True)
+    steps = ckpt.all_steps()
+    if steps != [DP_CKPT_SAVE]:
+        raise RuntimeError(f"dp_ckpt_gloo2: saves {steps}")
+    save_mb = sum(f.stat().st_size for f in pathlib.Path(
+        ckpt.directory, str(DP_CKPT_SAVE)).iterdir()) / 1e6
+    with deterministic_block():
+        one = _dp_ckpt_trainer(None)
+        t0 = time.perf_counter()
+        state, meta = ckpt.restore(step=DP_CKPT_SAVE)
+        one.load_state_dict(local_state(one, state, meta))
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        params = dict(one.model.named_parameters())
+        whole = all(one.optimizer.state[p]["exp_avg"].shape == p.shape
+                    for p in params.values())
+        as_saved = tree_checksums(one.state_dict()) == tree_checksums(state)
+        if not (whole and as_saved):
+            raise RuntimeError(f"dp_ckpt_gloo2 into one process: moments "
+                               f"whole {whole}, state as saved {as_saved}")
+        one.fit(dp_batches(DP_CKPT_STEPS, 32)[DP_CKPT_SAVE:], epochs=1,
+                steps_per_epoch=DP_CKPT_STEPS - DP_CKPT_SAVE, verbose=0)
+        ref = _dp_ckpt_trainer(None)
+        ref.fit(dp_batches(DP_CKPT_STEPS, 32), epochs=1,
+                steps_per_epoch=DP_CKPT_STEPS, verbose=0)
+        sd, rsd = one.model.state_dict(), ref.model.state_dict()
+        diff = max(float((sd[k] - rsd[k]).abs().max()) for k in rsd
+                   if "running" not in k and rsd[k].is_floating_point())
+        bound = 3 * DP_CKPT_LR * DP_CKPT_STEPS
+        if not diff <= bound:
+            raise RuntimeError(f"dp_ckpt_gloo2 into one process: parameters "
+                               f"{diff:.3g} from strategy=None's run")
+    phase("dp_ckpt_gloo2", model="ResNet50_f32", processes=2,
+          backend="gloo", device="cuda:0 (shared)", strategy="ps",
+          optimizer="adam", steps=DP_CKPT_STEPS, saved_at=DP_CKPT_SAVE,
+          resumed_bitwise=True, owners=len(meta.get("param_state", {})),
+          save_mbytes=f"{save_mb:.2f}",
+          cut_run_s=f"{seen[('run', 0)]['cut_s']:.3f}",
+          resume_run_s=f"{seen[('resume', 0)]['resume_s']:.3f}",
+          restore_ms=f"{restore_ms:.2f}", one_process_moments_whole=True,
+          one_process_param_diff=f"{diff:.3g}",
+          one_process_bound=f"{bound:g}")
+    del one, ref
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dp-gloo2-child", nargs=3, metavar=("RANK", "PORT",
                                                            "DIR"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--resilience-child", metavar="DIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dp-ckpt-child", nargs=3,
+                    metavar=("RANK", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile a window of decode ticks after "
@@ -5498,6 +5971,10 @@ def main(argv=None) -> int:
         return 0
     if args.resilience_child:
         resilience_child(args.resilience_child)
+        return 0
+    if args.dp_ckpt_child:
+        rank, port, out_dir = args.dp_ckpt_child
+        dp_ckpt_child(int(rank), int(port), out_dir)
         return 0
     smi = device_line()
     print(smi, flush=True)
@@ -5544,14 +6021,22 @@ def main(argv=None) -> int:
     del notop
     phase("phase_seconds", name="keras_loader_host_fed",
           seconds=f"{time.perf_counter() - t0:.2f}")
-    with nccl_group_of_one():
-        for name, fn in (("dp_parity", phase_dp_parity),
-                         ("dp_parity_gloo2", phase_dp_parity_gloo2),
-                         ("dp_train", phase_dp_train)):
+    with nccl_group_of_one(), tempfile.TemporaryDirectory(dir=BUILD) as dp:
+        for name, fn in (
+                ("dp_parity", phase_dp_parity),
+                ("dp_parity_gloo2", lambda: phase_dp_parity_gloo2(dp)),
+                ("dp_ckpt_gloo2", lambda: phase_dp_ckpt_gloo2(dp)),
+                ("dp_train", phase_dp_train)):
             t0 = time.perf_counter()
             fn()
             phase("phase_seconds", name=name,
                   seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    hf_launches = phase_hf_llama_roundtrip()
+    phase_k1_op_cost()
+    artifact_launches = phase_export_artifacts()
+    phase("phase_seconds", name="checkpoint_formats",
+          seconds=f"{time.perf_counter() - t0:.2f}")
     phase_generate_parity()
     model, *b1 = phase_generate_decode(args.profile)
     phase_generate_spec(model, *b1)
@@ -5647,10 +6132,13 @@ def main(argv=None) -> int:
         "engine_preempt_serve": preempt_launches["paged_decode"],
         "engine_slice_serve": slice_serve_launches["paged_decode"],
         "engine_drain_restore": drain_launches["paged_decode"],
-        "engine_trace_serve": trace_launches["paged_decode"]}
+        "engine_trace_serve": trace_launches["paged_decode"],
+        "hf_llama_roundtrip": hf_launches["paged_decode"]}
     k1_paths = {"train_step": train_launches["flash_fwd"],
                 "train_long": long_launches["flash_fwd"],
                 "generate_swa": swa_launches["flash_fwd"],
+                "export_artifacts_swa_prefill":
+                    artifact_launches["flash_fwd"],
                 "gpt_train": gpt_train_launches["flash_fwd"],
                 "vit_train": vit_train_launches["flash_fwd"],
                 "train_options_step": options_launches["flash_fwd"]}

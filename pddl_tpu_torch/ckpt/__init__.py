@@ -8,9 +8,17 @@
   opt-in), MD5-verified;
 - :func:`load_keras_resnet50_h5` and :func:`export_keras_style_h5`: a
   Keras ResNet ``.h5`` into the port's ``ResNet`` and back out, the
-  reference's pretrained mode and its final ``model.save``.
+  reference's pretrained mode and its final ``model.save``;
+- :func:`load_hf_gpt2`, :func:`load_hf_llama` and :func:`export_hf_llama`:
+  HuggingFace LM checkpoints in and out of the port's GPT and Llama;
+- :func:`save_inference_artifact` / :func:`load_inference_artifact` and
+  :func:`save_decode_artifact` / :func:`load_decode_artifact`: serving
+  artifacts on ``torch.export``.
 
-``load_hf_gpt2`` waits for ROADMAP.md queue 1 item 6 (its HF part)."""
+Checkpoints of a strategy over several processes are one save each,
+which no world size shapes (``checkpoint.py``). ``load_hf_mixtral``
+waits for routed experts (ROADMAP.md queue 1 item 5). Importing this
+package imports no ``transformers``."""
 
 from pddl_tpu_torch.ckpt.checkpoint import (
     BackupAndRestore,
@@ -22,7 +30,17 @@ from pddl_tpu_torch.ckpt.checkpoint import (
     save_params_npz,
     tree_checksums,
 )
+from pddl_tpu_torch.ckpt.export import (
+    export_decode_programs,
+    export_inference_fn,
+    load_decode_artifact,
+    load_inference_artifact,
+    save_decode_artifact,
+    save_inference_artifact,
+)
 from pddl_tpu_torch.ckpt.fetch import fetch_keras_resnet50_weights
+from pddl_tpu_torch.ckpt.hf_export import export_hf_llama
+from pddl_tpu_torch.ckpt.hf_import import load_hf_gpt2, load_hf_llama
 from pddl_tpu_torch.ckpt.keras_import import (
     export_keras_style_h5,
     load_keras_resnet50_h5,
@@ -40,4 +58,13 @@ __all__ = [
     "fetch_keras_resnet50_weights",
     "export_keras_style_h5",
     "load_keras_resnet50_h5",
+    "load_hf_gpt2",
+    "load_hf_llama",
+    "export_hf_llama",
+    "export_inference_fn",
+    "save_inference_artifact",
+    "load_inference_artifact",
+    "export_decode_programs",
+    "save_decode_artifact",
+    "load_decode_artifact",
 ]

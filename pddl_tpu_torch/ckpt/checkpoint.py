@@ -36,8 +36,25 @@ trainer's in-process recovery restores from the same saves.
 
 ``async_save`` copies the state to the host at the call and writes it on
 a thread; :meth:`Checkpointer.wait` joins it (a restore waits first).
-Checkpoints are a single process's: the callbacks refuse a trainer whose
-strategy spans processes (ROADMAP.md queue 1 item 6).
+
+**Across processes, one save.** Under a strategy whose group spans
+processes (``mirrored``, ``multiworker``, ``ps``, the Horovod shim's),
+every process calls the save (the callbacks do, through
+:meth:`Checkpointer.save_trainer`) and one step directory in the format
+above results, which no world size shapes: :func:`whole_state` gathers
+each ``ps`` process's ``1/k`` slice of optimizer state into its whole
+tensor first (the other strategies' state is whole on every process),
+and ``meta.json`` records under ``param_state`` the parameter of each
+per-parameter optimizer tensor, by its path. Rank 0 alone writes and
+renames, synchronously; every process then waits on a barrier, so no
+process reads a save that is not there. A restore is every process's:
+each reads the same file and :func:`local_state` cuts the tensors of the
+parameters its strategy shards to its own slice. So a 2-process ``ps``
+save restores into one process, into ``mirrored``, or into ``ps`` at
+another size, as Orbax restores onto another mesh in the JAX package.
+Every process consumes one batch of its part a step, so the loader
+position is one for all: a save checks that the processes agree and
+records it once.
 
 **The call forms against the JAX package's.** :meth:`Checkpointer.save`
 takes the JAX form, ``save(state, epoch=None, metrics=None, force=False,
@@ -66,14 +83,19 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
-from pddl_tpu_torch.core import dist
+from pddl_tpu_torch.core import collectives, dist
 from pddl_tpu_torch.train.callbacks import Callback
 
 log = logging.getLogger(__name__)
 
 FORMAT = 1
 _STATE, _META = "state.pt", "meta.json"
+# The key of a trainer save's {optimizer tensor path: parameter name}:
+# what a restore at another world size slices the tensor by.
+OWNERS = "param_state"
+_LOADER_KEYS = ("epoch", "step_in_epoch", "batches_consumed")
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -107,15 +129,23 @@ def tree_checksums(state) -> Dict[str, str]:
     return {path: _crc(leaf) for path, leaf in _leaves(state)}
 
 
+def _map_leaves(tree, fn, prefix: str = ""):
+    """``tree`` rebuilt with each leaf replaced by ``fn(path, leaf)``
+    (the paths of :func:`_leaves`)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(v, fn, f"{prefix}/{i}")
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
 def _to_host(tree):
     """A CPU copy of every tensor of ``tree`` (the containers rebuilt)."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_host(v) for v in tree)
-    return tree
+    return _map_leaves(tree, lambda _, leaf: (
+        leaf.detach().to("cpu", copy=True)
+        if isinstance(leaf, torch.Tensor) else leaf))
 
 
 def _nbytes(tree) -> int:
@@ -153,6 +183,10 @@ class Checkpointer:
         self.max_to_keep = max_to_keep
         self.async_save = async_save
         self.read_only = read_only
+        # The process group of the trainer whose state is saved
+        # (:meth:`save_trainer`): with more than one member, its first
+        # writes and every member waits.
+        self.group = None
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._pending: Optional[int] = None
@@ -162,7 +196,9 @@ class Checkpointer:
         self.last_write_s = 0.0
         if not read_only:
             os.makedirs(self.directory, exist_ok=True)
-            for name in os.listdir(self.directory):
+            # Only the coordinator writes, so only it removes temporaries.
+            for name in (os.listdir(self.directory) if dist.is_coordinator()
+                         else ()):
                 if ".tmp-" in name:  # a save torn before its rename
                     shutil.rmtree(os.path.join(self.directory, name),
                                   ignore_errors=True)
@@ -177,20 +213,39 @@ class Checkpointer:
         unless ``checksum=False``. Returns the step. ``force`` is the JAX
         call form's: every save writes here (module docstring)."""
         del force
+        return self._save(state, epoch, metrics, loader, checksum, None)
+
+    def save_trainer(self, trainer, epoch: Optional[int] = None,
+                     metrics: Optional[Dict[str, float]] = None,
+                     loader: Optional[Dict[str, Any]] = None,
+                     checksum: bool = True) -> int:
+        """Save ``trainer``'s state in the form no world size shapes
+        (:func:`whole_state`, recording :data:`OWNERS`), as its group's
+        save: under a strategy over several processes every process calls
+        it, rank 0 writes. Returns the step."""
+        self.group = trainer.strategy.group
+        state, owners = whole_state(trainer)
+        return self._save(state, epoch, metrics, loader, checksum, owners)
+
+    def _save(self, state, epoch, metrics, loader, checksum, owners) -> int:
         if self.read_only:
             raise RuntimeError(f"{self.directory} is opened read-only")
         self.wait()
-        t0 = time.perf_counter()
-        host = _to_host(state)
-        self.last_copy_s = time.perf_counter() - t0
-        self.last_save_bytes = _nbytes(host)
-        step = int(host["step"])
-        meta: Dict[str, Any] = {"format": FORMAT, "step": step,
-                                "epoch": epoch, "metrics": metrics or {}}
-        if loader is not None:
-            meta["loader"] = dict(loader)
-        if checksum:
-            meta["checksums"] = tree_checksums(host)
+        if self.group is not None and collectives.axis_size(self.group) > 1:
+            # Rank 0 writes and renames, synchronously; every member
+            # waits on the barrier after the rename (even if it failed).
+            step = int(state["step"])
+            try:
+                if collectives.axis_index(self.group) == 0:
+                    host, meta = self._prepare(state, epoch, metrics,
+                                               loader, checksum, owners)
+                    self._write(step, host, meta)
+            finally:
+                tdist.barrier(group=self.group)
+            return step
+        host, meta = self._prepare(state, epoch, metrics, loader, checksum,
+                                   owners)
+        step = meta["step"]
         if self.async_save:
             self._pending = step
             self._thread = threading.Thread(
@@ -200,6 +255,23 @@ class Checkpointer:
         else:
             self._write(step, host, meta)
         return step
+
+    def _prepare(self, state, epoch, metrics, loader, checksum, owners):
+        """The host copy of ``state`` and its metadata."""
+        t0 = time.perf_counter()
+        host = _to_host(state)
+        self.last_copy_s = time.perf_counter() - t0
+        self.last_save_bytes = _nbytes(host)
+        step = int(host["step"])
+        meta: Dict[str, Any] = {"format": FORMAT, "step": step,
+                                "epoch": epoch, "metrics": metrics or {}}
+        if loader is not None:
+            meta["loader"] = dict(loader)
+        if owners:
+            meta[OWNERS] = dict(owners)
+        if checksum:
+            meta["checksums"] = tree_checksums(host)
+        return host, meta
 
     def _write_guarded(self, step, host, meta) -> None:
         try:
@@ -340,11 +412,92 @@ def latest_epoch(directory: str) -> Optional[int]:
     return ckpt.newest_metadata().get("epoch")
 
 
-def _single_process(trainer) -> None:
-    if trainer is not None and trainer.strategy.mesh.size > 1:
-        raise NotImplementedError(
-            "checkpoints of a strategy over several processes are not "
-            "ported yet: ROADMAP.md queue 1 item 6")
+def _param_owners(trainer) -> Dict[int, str]:
+    """``data_ptr`` -> parameter name for every per-parameter tensor of
+    the trainer's optimizer state (its moments, an ``f32_master`` rule's
+    masters, the accumulator); a ps slice's by its parameter's name."""
+    names = {p: n for n, p in trainer.model.named_parameters()}
+    names.update(getattr(trainer.strategy, "sharded_targets", dict)())
+    out: Dict[int, str] = {}
+
+    def own(target, t) -> None:
+        name = names.get(target)
+        if (name is not None and isinstance(t, torch.Tensor) and t.numel()
+                and t.shape == target.shape):
+            out[t.data_ptr()] = name
+
+    rule = trainer.optimizer
+    for target, st in rule.state.items():
+        for t in st.values():
+            own(target, t)
+    while rule is not None:
+        if hasattr(rule, "masters"):
+            for target, t in rule.masters().items():
+                own(target, t)
+        for target, t in getattr(rule, "_acc", {}).items():
+            own(target, t)
+        rule = getattr(rule, "inner", None)
+    return out
+
+
+def whole_state(trainer) -> Tuple[dict, Dict[str, str]]:
+    """``(state, owners)``: ``trainer.state_dict()`` in a form no world
+    size shapes — every slice of a ps strategy's optimizer state gathered
+    into its whole tensor (a collective: every process of the group calls
+    it) — and the parameter of each per-parameter optimizer tensor, by
+    its path, which a save records (:data:`OWNERS`) for
+    :func:`local_state`."""
+    state = trainer.state_dict()
+    owned = _param_owners(trainer)
+    strategy = trainer.strategy
+    sharded = set(getattr(strategy, "sharded_targets", dict)().values())
+    owners: Dict[str, str] = {}
+
+    def whole(path, leaf):
+        if not isinstance(leaf, torch.Tensor) or not leaf.numel():
+            return leaf
+        name = owned.get(leaf.data_ptr())
+        if name is None:
+            return leaf
+        owners[path] = name
+        return strategy.whole_state(name, leaf) if name in sharded else leaf
+
+    state["optimizer"] = _map_leaves(state["optimizer"], whole, "optimizer")
+    return state, owners
+
+
+def local_state(trainer, state: dict, meta: Dict[str, Any]) -> dict:
+    """The inverse of :func:`whole_state` for ``trainer``: a restored
+    save's whole optimizer tensors (:data:`OWNERS` of its ``meta``) of
+    each parameter the trainer's strategy shards, cut to this process's
+    slice. Anything else is returned as it is."""
+    owners = meta.get(OWNERS)
+    strategy = trainer.strategy
+    if not owners or not hasattr(strategy, "local_state"):
+        return state
+
+    def local(path, leaf):
+        name = owners.get(path)
+        return leaf if name is None else strategy.local_state(name, leaf)
+
+    return {**state, "optimizer": _map_leaves(state["optimizer"], local,
+                                              "optimizer")}
+
+
+def _loader_position(trainer) -> Optional[Dict[str, int]]:
+    """The trainer's loader position, checked equal on every process of
+    its group: each consumes one batch of its own part a step."""
+    loader = trainer.loader_state()
+    group = trainer.strategy.group
+    if loader is None or group is None or collectives.axis_size(group) < 2:
+        return loader
+    mine = torch.tensor([int(loader[k]) for k in _LOADER_KEYS],
+                        device=trainer.device)
+    every = collectives.all_gather(mine, group).cpu()
+    if not bool((every == every[0]).all()):
+        raise RuntimeError(f"the processes' loader positions differ: "
+                           f"{every.tolist()} ({_LOADER_KEYS})")
+    return loader
 
 
 def _grace_save(ckpt: Checkpointer, trainer, logs=None,
@@ -354,11 +507,11 @@ def _grace_save(ckpt: Checkpointer, trainer, logs=None,
     save-cadence batch) is not written again."""
     if ckpt.latest_step() == trainer.step:
         return trainer.step
-    loader = trainer.loader_state()
+    loader = _loader_position(trainer)
     epoch = (loader["epoch"] - 1) if loader else None
     metrics = {k: float(v) for k, v in logs.items()} if logs else None
-    return ckpt.save(trainer.state_dict(), epoch=epoch, metrics=metrics,
-                     loader=loader, checksum=checksum)
+    return ckpt.save_trainer(trainer, epoch=epoch, metrics=metrics,
+                             loader=loader, checksum=checksum)
 
 
 class ModelCheckpoint(Callback):
@@ -377,10 +530,6 @@ class ModelCheckpoint(Callback):
         self.every_n_epochs = every_n_epochs
         self.best = float("inf") if mode == "min" else -float("inf")
 
-    def set_trainer(self, trainer) -> None:
-        _single_process(trainer)
-        super().set_trainer(trainer)
-
     def _improved(self, current: float) -> bool:
         return current < self.best if self.mode == "min" else current > self.best
 
@@ -397,8 +546,8 @@ class ModelCheckpoint(Callback):
             if current is None or not self._improved(current):
                 return
             self.best = current
-        self.ckpt.save(self.trainer.state_dict(), epoch=epoch,
-                       metrics=logs, loader=self.trainer.loader_state())
+        self.ckpt.save_trainer(self.trainer, epoch=epoch, metrics=logs,
+                               loader=_loader_position(self.trainer))
 
     def on_train_end(self, logs):
         self.ckpt.wait()
@@ -415,19 +564,15 @@ class BackupAndRestore(Callback):
         self.ckpt = Checkpointer(directory, max_to_keep=max(max_to_keep, 2),
                                  async_save=async_save)
 
-    def set_trainer(self, trainer) -> None:
-        _single_process(trainer)
-        super().set_trainer(trainer)
-
     def on_train_begin(self):
         if self.ckpt.latest_step() is None:
             return
-        state, _ = self.ckpt.restore()
-        self.trainer.load_state_dict(state)
+        state, meta = self.ckpt.restore()
+        self.trainer.load_state_dict(local_state(self.trainer, state, meta))
 
     def on_epoch_end(self, epoch, logs):
-        self.ckpt.save(self.trainer.state_dict(), epoch=epoch, metrics=logs,
-                       loader=self.trainer.loader_state())
+        self.ckpt.save_trainer(self.trainer, epoch=epoch, metrics=logs,
+                               loader=_loader_position(self.trainer))
 
     def on_train_end(self, logs):
         self.ckpt.wait()
@@ -437,12 +582,21 @@ class CheckpointEveryN(Callback):
     """Step-granular verified checkpoints — the CheckFreq cadence.
 
     Every ``every_n_steps`` steps the trainer's whole state is saved
-    (async by default) with its checksums and the loader position, and
-    at least the last two saves are kept. It powers both recovery paths:
-    a new process's ``Trainer.fit(resume=directory)``, and the trainer's
+    (async by default; synchronous, rank 0 writing, under a group of
+    processes) with its checksums and the loader position, and at least
+    the last two saves are kept. It powers both recovery paths: a new
+    process's ``Trainer.fit(resume=directory)``, and the trainer's
     in-process restore-and-replay (``set_trainer`` attaches it; the
     trainer's replay buffer holds two intervals). The cadence is counted
-    on the host from the trainer's step at train start."""
+    on the host from the trainer's step at train start.
+
+    The loader position (``epoch``, ``step_in_epoch``,
+    ``batches_consumed``) is what each rank's loader needs to resume
+    mid-epoch bitwise: every rank consumes one batch of its own part of
+    the stream a step (``process_index``/``process_count``, or the global
+    batch under ``mirrored``), so the position is the same on every rank;
+    the save checks that they agree and records it once, and each rank's
+    resume skips that many batches of its own stream."""
 
     def __init__(self, directory: str, every_n_steps: int = 50,
                  max_to_keep: int = 3, async_save: bool = True,
@@ -465,7 +619,6 @@ class CheckpointEveryN(Callback):
         self._step = 0
 
     def set_trainer(self, trainer) -> None:
-        _single_process(trainer)
         super().set_trainer(trainer)
         trainer.attach_recovery(self)
 

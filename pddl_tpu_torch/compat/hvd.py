@@ -21,6 +21,8 @@ reference call                    shim behavior
 ``Callback(0)`` (``:111``)        buffers to every process
 ``MetricAverageCallback``         cross-process metric mean (``:112-113``)
 ``LearningRateWarmupCallback``    linear warmup (``:114-115``)
+rank 0's ``model.save``           :func:`save_model`: rank 0 alone writes
+(``:125-129``)                    ``ImageNet-<name>-<size>GPUs-reuse.npz``
 ================================  ============================================
 
 The one semantic difference from :mod:`pddl_tpu.compat.hvd`: there, one
@@ -36,10 +38,12 @@ Data sharding is per process: ``num_data_shards()`` is ``size()`` and
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from pddl_tpu_torch.core import collectives, dist
 from pddl_tpu_torch.core.mesh import DATA_AXIS, Mesh, build_mesh
@@ -287,3 +291,27 @@ class callbacks:  # namespace mirror of horovod.tensorflow.keras.callbacks
     BroadcastGlobalVariablesCallback = BroadcastGlobalVariablesCallback
     MetricAverageCallback = MetricAverageCallback
     LearningRateWarmupCallback = LearningRateWarmupCallback
+
+
+# ------------------------------------------------------------------- save
+def save_model(model, model_name: str = "resnet50",
+               directory: str = ".") -> Optional[str]:
+    """The reference's closing save (``imagenet-resnet50-hvd.py:125-129``),
+    rank 0's alone: the model's tensors as
+    ``<directory>/ImageNet-<model_name>-<size>GPUs-reuse.npz``
+    (:func:`pddl_tpu_torch.ckpt.save_params_npz`; the card's machine has
+    no h5py for the reference's ``.h5``). The reference builds the name
+    as ``'-' + hvd.size() + 'GPUs'``, str plus int, which raises on rank 0
+    at save time; the size is formatted here. Every process waits for
+    the write; returns the path on rank 0, ``None`` elsewhere."""
+    from pddl_tpu_torch.ckpt.checkpoint import save_params_npz  # noqa: PLC0415
+
+    group = _require_init().group
+    path = os.path.join(directory,
+                        f"ImageNet-{model_name}-{size()}GPUs-reuse.npz")
+    try:
+        save_params_npz(path, model)  # the coordinator's only
+    finally:
+        if group is not None:
+            tdist.barrier(group=group)
+    return path if dist.is_coordinator() else None

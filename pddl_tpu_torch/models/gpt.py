@@ -50,7 +50,7 @@ from pddl_tpu_torch.models.vit import (
     init_transformer_weights,
     remat_block,
 )
-from pddl_tpu_torch.ops.attention import cache_slot_insert
+from pddl_tpu_torch.ops.attention import cache_slot_insert, host_index
 from pddl_tpu_torch.ops.large_vocab import chunked_cross_entropy
 from pddl_tpu_torch.ops.quant import with_params
 
@@ -94,12 +94,12 @@ class _GPTEmbed(nn.Module):
             pos = index[:, None] + torch.arange(s, device=tokens.device)
             step = self.pos_embed[0][pos.clamp(max=self.max_len - 1)]
         else:
-            i = int(index or 0)
+            i = 0 if index is None else host_index(index)
             if i + s > self.max_len:
                 raise ValueError(
                     f"a {s}-token block at position {i} runs past max_len "
                     f"{self.max_len}")
-            step = self.pos_embed[:, i:i + s]
+            step = self.pos_embed.narrow(1, i, s)
         return x.to(self.dtype) + step.to(self.dtype)
 
 
@@ -315,13 +315,16 @@ def sample_logits_batched(generator: torch.Generator, logits: torch.Tensor,
 
 def sample_logits(generator: Optional[torch.Generator], logits: torch.Tensor,
                   *, temperature: float = 1.0, top_k: Optional[int] = None,
-                  top_p: Optional[float] = None) -> torch.Tensor:
+                  top_p: Optional[float] = None,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One sampling step over ``[B, V]`` logits: temperature warps first,
     then top-k, then nucleus (:func:`filtered_logits`), then one draw per
     row from ``generator`` (the Gumbel-max trick). ``temperature <= 0`` is
     the greedy argmax and draws nothing. Returns int64 ``[B]``. The draws
     are not the JAX package's (threefry and torch's generators differ):
-    only greedy streams compare token for token."""
+    only greedy streams compare token for token. ``noise`` is the ``[B,
+    V]`` uniform draw in place of ``generator``'s (the decode artifact's
+    programs take it as an input, ``ckpt/export.py``)."""
     if top_k is not None and int(top_k) < 1:
         raise ValueError(f"top_k must be >= 1, got {top_k}")
     if top_p is not None and not 0.0 < float(top_p) <= 1.0:
@@ -331,7 +334,8 @@ def sample_logits(generator: Optional[torch.Generator], logits: torch.Tensor,
         return logits.argmax(dim=-1)
     filt = filtered_logits(logits, temperature=temperature, top_k=top_k,
                            top_p=top_p)
-    u = torch.rand(filt.shape, generator=generator, device=logits.device)
+    u = noise if noise is not None else torch.rand(
+        filt.shape, generator=generator, device=logits.device)
     return (filt - torch.log(-torch.log(u))).argmax(dim=-1)
 
 

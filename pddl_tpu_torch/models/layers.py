@@ -156,13 +156,13 @@ def row_attend(q, k, v, cache, i, max_index, *, ring: Optional[int] = None,
             raise ValueError(
                 f"a {s}-token block at cache_index {i} runs past "
                 f"the cache's {cache_len} positions")
-        ck[:, :, i:i + s] = k
-        cv[:, :, i:i + s] = v
+        ck.narrow(2, i, s).copy_(k)
+        cv.narrow(2, i, s).copy_(v)
         return decode_attention(q, ck, cv, i, window=window,
                                 chunk=sweep_chunk(q, cache_len))
     if s == 1:
-        ck[:, :, i % ring] = k[:, :, 0]
-        cv[:, :, i % ring] = v[:, :, 0]
+        ck.narrow(2, i % ring, 1).copy_(k)
+        cv.narrow(2, i % ring, 1).copy_(v)
         return decode_attention(q, ck, cv, i, window=window, rolling=True)
     # A block on the ring (chunked prefill of a sliding-window model): it
     # attends to itself through K1 with its LSE and to the history through

@@ -77,7 +77,11 @@ from pddl_tpu_torch.device import resolve_device
 from pddl_tpu_torch.models.layers import linear as _linear
 from pddl_tpu_torch.models.layers import paged_attend, row_attend
 from pddl_tpu_torch.models.vit import remat_block
-from pddl_tpu_torch.ops.attention import attention_reference, flash_attention
+from pddl_tpu_torch.ops.attention import (
+    attention_reference,
+    flash_attention,
+    host_index,
+)
 from pddl_tpu_torch.ops.rope import apply_rope_qk
 
 _NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
@@ -189,7 +193,7 @@ class LlamaAttention(nn.Module):
                 pos = i[:, None] + torch.arange(s, device=x.device)
             else:
                 # A shared offset stays a host int: no copy to the device.
-                i = max_index = int(cache_index)
+                i = max_index = host_index(cache_index)
                 pos = torch.arange(i, i + s, device=x.device)
             q, k = apply_rope_qk(q, k, pos, theta=self.rope_theta)
             k, v = k.to(self.dtype), v.to(self.dtype)

@@ -71,7 +71,11 @@ from pddl_tpu_torch.models.layers import (
     paged_attend,
     row_attend,
 )
-from pddl_tpu_torch.ops.attention import attention_reference, flash_attention
+from pddl_tpu_torch.ops.attention import (
+    attention_reference,
+    flash_attention,
+    host_index,
+)
 
 _NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
 
@@ -187,7 +191,7 @@ class MultiHeadAttention(nn.Module):
             if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
                 i = cache_index.to(x.device)
             else:
-                i = max_index = int(cache_index)
+                i = max_index = host_index(cache_index)
             k, v = k.to(self.dtype), v.to(self.dtype)
             if block_table is not None:
                 o = paged_attend(q, k, v, cache, i, block_table, max_index)

@@ -59,6 +59,13 @@ IndexLike = Union[int, torch.Tensor]
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def host_index(index) -> Union[int, torch.SymInt]:
+    """A shared cache position as a host int. A ``torch.SymInt`` (the
+    position of a traced decode step, ``ckpt/export.py``) passes through
+    as it is, so a trace keeps it symbolic instead of specializing it."""
+    return index if isinstance(index, torch.SymInt) else int(index)
+
+
 def _gqa_rep(q: torch.Tensor, k: torch.Tensor) -> int:
     """Query heads per K/V head (``[..., H, S, D]`` layouts)."""
     hq, hkv = q.shape[-3], k.shape[-3]
@@ -363,11 +370,36 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Returns ``(o, lse [B, H, Sq] f32 or None)``.
 
     A CUDA ``q`` launches the kernel or raises (see :func:`_check_flash`);
-    a CPU ``q`` gets the plain version, the only reason it ever runs."""
+    a CPU ``q`` gets the plain version, the only reason it ever runs. K1
+    is also registered as the ops ``pddl_tpu_torch::flash_fwd`` and
+    ``pddl_tpu_torch::flash_fwd_nolse``, whose fake versions give
+    ``torch.export`` the outputs' shapes: a traced call (its tensors are
+    not plain tensors, e.g. ``torch.export``'s fake ones) records the op,
+    so an exported program on the card carries K1 (``ckpt/export.py``),
+    while an eager call launches straight through ``ctypes``, without
+    the op's dispatch (tens of µs a call, ``chip_smoke.py``'s
+    ``k1_op_cost``)."""
     if q.device.type == "cpu":
         o, lse = flash_forward_plain(q, k, v, causal=causal, scale=scale,
                                      window=window, k_offset=k_offset)
         return o, (lse if want_lse else None)
+    args = (q, k, v, bool(causal), float(scale), int(window or 0),
+            int(k_offset))
+    if type(q) is torch.Tensor:
+        return _flash_fwd_launch(*args, want_lse)
+    _check_flash(q, {"k": k, "v": v})  # at trace time
+    if want_lse:
+        return torch.ops.pddl_tpu_torch.flash_fwd(*args)
+    return torch.ops.pddl_tpu_torch.flash_fwd_nolse(*args), None
+
+
+def _flash_fwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, scale: float, window: int, k_offset: int,
+                      want_lse: bool
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1's launch through ``ctypes`` after :func:`_check_flash`'s checks
+    (``window`` 0 for none), counted in ``_kernels.launch_counts``: the
+    eager call's and the registered ops' body."""
     _check_flash(q, {"k": k, "v": v})
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -378,11 +410,38 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = lib.pddl_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(), b, h, hkv, sq, sk, d,
-        int(causal), window or 0, k_offset, scale, _KERNEL_DTYPES[q.dtype],
+        int(causal), window, k_offset, scale, _KERNEL_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check("flash_fwd", code)
     _kernels.launch_counts["flash_fwd" if want_lse else "flash_fwd_nolse"] += 1
     return o, lse
+
+
+@torch.library.custom_op("pddl_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float, window: int, k_offset: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _flash_fwd_launch(q, k, v, causal, scale, window, k_offset, True)
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, window, k_offset):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op("pddl_tpu_torch::flash_fwd_nolse", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_nolse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, scale: float, window: int,
+                        k_offset: int) -> torch.Tensor:
+    return _flash_fwd_launch(q, k, v, causal, scale, window, k_offset,
+                             False)[0]
+
+
+@_flash_fwd_nolse_op.register_fake
+def _flash_fwd_nolse_fake(q, k, v, causal, scale, window, k_offset):
+    return torch.empty_like(q)
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -673,7 +732,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         before = idx[:, :, None]                                   # [B, 1, 1]
     else:
         # A shared position stays a host int: no copy to the device.
-        idx = before = max_index = int(index)
+        idx = before = max_index = host_index(index)
         q_pos = torch.arange(idx, idx + s, device=q.device)        # [s]
     if rolling:
         if window is None:
@@ -692,14 +751,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     total = idx if history_only else idx + s
     # The live prefix: slots [0, live) hold every token any row has (a
     # ring is dense once it wrapped).
-    live = cache_len if max_index is None else max(0, min(
-        cache_len, max_index + (0 if history_only else s)))
-    step = live if s == 1 else min(chunk, cache_len)
+    live = cache_len
+    if max_index is not None:
+        # Compared, not min()'d: a traced step's symbolic bound then stays
+        # a plain sum its trace can prove in range.
+        live = max_index + (0 if history_only else s)
+        live = cache_len if live > cache_len else (0 if live < 0 else live)
     qg = q.reshape(b, hkv, rep, s, d).to(k_cache.dtype).float()
     m = l = acc = None  # the online softmax's state, from the first chunk
-    for start in range(0, live, max(step, 1)):
-        stop = min(start + step, live)
-        kc = k_cache[:, :, start:stop].float()
+    if isinstance(live, torch.SymInt) and s == 1:
+        spans = [(0, live)]  # a traced step: one pass, its length symbolic
+    else:
+        step = live if s == 1 else min(chunk, cache_len)
+        spans = [(start, min(start + step, live))
+                 for start in range(0, live, max(step, 1))]
+    for start, stop in spans:
+        kc = k_cache.narrow(2, start, stop - start).float()
         sb = torch.einsum("bgrqd,bgkd->bgrqk", qg, kc) * scale_v
         slot = torch.arange(start, stop, device=q.device)
         if rolling:
@@ -722,7 +789,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             m_new = torch.maximum(m, m_new)
         p = torch.exp(sb - m_new)
         pv = torch.einsum("bgrqk,bgkd->bgrqd", p.to(v_cache.dtype).float(),
-                          v_cache[:, :, start:stop].float())
+                          v_cache.narrow(2, start, stop - start).float())
         if m is None:
             l, acc = p.sum(dim=-1, keepdim=True), pv
         else:

@@ -213,7 +213,7 @@ class HeartbeatCallback(Callback):
     the restart marker stop the same way without raising — only the
     detector reports. Compose with ``CheckpointEveryN`` + a relaunch at
     the new world size + ``fit(resume=...)`` for the full elastic
-    story (checkpoint resume is ROADMAP.md queue 1 item 6 in the port).
+    story: a save is world-size free (``ckpt/checkpoint.py``).
     """
 
     def __init__(self, monitor: HeartbeatMonitor,

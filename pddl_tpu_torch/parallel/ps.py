@@ -69,6 +69,7 @@ class ParameterServerStrategy(Strategy):
         self.shard_optimizer_state = shard_optimizer_state
         self._bootstrap = (coordinator_address, num_processes, process_id)
         self._shards: List[_Shard] = []
+        self._by_name: Dict[str, _Shard] = {}
         self._capped: List[torch.nn.Parameter] = []
         # The JAX warning's count, taken at the first step (once the
         # optimizer has made its state).
@@ -120,12 +121,36 @@ class ParameterServerStrategy(Strategy):
             shard = p.detach().narrow(pl.dim, start, length).clone()
             swap[p] = shard
             self._shards.append((p, shard, pl, start))
+            self._by_name[name] = self._shards[-1]
         for group in opt.param_groups:
             group["params"] = [swap.get(q, q) for q in group["params"]]
         if hasattr(opt, "shard_sums"):  # lamb, lars, clip: whole norms
             opt.shard_sums = {s: self._shard_sum(pl)
                               for _, s, pl, _ in self._shards}
         return opt
+
+    def sharded_targets(self) -> Dict[torch.Tensor, str]:
+        """This process's slices, each by its parameter's name."""
+        return {shard: name for name, (_, shard, _, _) in
+                self._by_name.items()}
+
+    def whole_state(self, name: str, part: torch.Tensor) -> torch.Tensor:
+        """A tensor of per-parameter optimizer state whole from every
+        process's slice of it (a collective: every process calls it, in
+        the same order), as :meth:`_gather` makes a parameter whole."""
+        pl = self._by_name[name][2]
+        parts = collectives.all_gather(part.contiguous(), self.group)
+        return torch.cat([parts[i * pl.replicas] for i in range(pl.count)],
+                         pl.dim)
+
+    def local_state(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This process's slice of a whole tensor of parameter ``name``'s
+        optimizer state; a parameter it does not shard keeps it whole."""
+        entry = self._by_name.get(name)
+        if entry is None:
+            return whole
+        _, shard, pl, start = entry
+        return whole.narrow(pl.dim, start, shard.shape[pl.dim]).clone()
 
     def _shard_sum(self, pl: Placement):
         """Sum a per-shard value over a parameter's shards: the first

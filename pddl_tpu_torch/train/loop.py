@@ -422,13 +422,15 @@ class Trainer:
     def _restore_and_replay(self, lost: TrainStateLost, target: int) -> None:
         """Roll the state back to the newest verified save and replay the
         buffered batches forward to ``target``, the step that failed."""
+        from pddl_tpu_torch.ckpt.checkpoint import local_state
+
         cb = self._recovery_cb
         if cb is None or cb.ckpt is None:
             raise lost
         for _ in range(self.max_recoveries):
             self.fault_stats["recoveries"] += 1
             cb.ckpt.wait()  # an in-flight async save may be the newest good
-            state, _ = cb.ckpt.restore()
+            state, meta = cb.ckpt.restore()
             restored_step = int(state["step"])
             if restored_step > target:
                 raise RuntimeError(
@@ -446,7 +448,7 @@ class Trainer:
                     f"and the failed step ({target}) — checkpoint "
                     "cadence outran the buffer") from lost
             self._tracer.on_restore(target, restored_step, lost.site)
-            self.load_state_dict(state)
+            self.load_state_dict(local_state(self, state, meta))
             try:
                 for s in range(restored_step, target):
                     if self._faults is not None:
@@ -666,7 +668,7 @@ class Trainer:
         (with ``steps_per_epoch``); otherwise ``host_skip`` batches are
         drained from a fresh iterator (without ``steps_per_epoch``, only
         the resumed epoch's)."""
-        from pddl_tpu_torch.ckpt.checkpoint import Checkpointer
+        from pddl_tpu_torch.ckpt.checkpoint import Checkpointer, local_state
 
         if isinstance(train_data, Iterator):
             raise ValueError(
@@ -679,7 +681,7 @@ class Trainer:
                      ckpt.directory)
             return None
         state, meta = ckpt.restore()
-        self.load_state_dict(state)
+        self.load_state_dict(local_state(self, state, meta))
         loader = meta.get("loader") or None
         if loader:
             initial_epoch = int(loader.get("epoch", 0))
