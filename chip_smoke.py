@@ -73,11 +73,11 @@ one line per phase:
    tokens/s, TTFT p50, peak device memory (the serving path's launches);
 8. train parity — full-width Llama-1B at depth 2 in f32 (TF32 off), one
    seeded weight set trained by the port's Trainer on the card (kernels)
-   and on the CPU (plain versions), 2 adamw steps (losses within rtol
-   1e-4, parameters within 2·lr·steps), then 2 sgd steps (losses within
+   and on the CPU (plain versions), 1 adamw step (losses within rtol
+   1e-4, parameters within 2·lr·steps), then 1 sgd step (losses within
    rtol 1e-5, each parameter's last-step gradient within 1e-3 of its
    max-abs: the check that holds K2's gradients on the training path),
-   then 2 sgd steps with ``remat="dots"`` and the backward's threshold at
+   then 1 sgd step with ``remat="dots"`` and the backward's threshold at
    0 on both sides (the same check for K3a, K3b and remat);
 9. train converge — a width-64 tiny Llama with flash attention learns
    the synthetic next-token task on the card (last loss < 0.7 x first);
@@ -180,8 +180,8 @@ one line per phase:
 15k. export artifacts — ``ckpt/export.py`` on the card: ResNet-50 (f32,
     eval, B 8 x 224) as an inference artifact exported on the card
     (logits within 1e-6 of the largest) and on the CPU listing the card,
-    moved at load (within 1e-4); Llama-1B decode artifacts (bf16, B 2,
-    prompt 128, 32 new, greedy), full and sliding-window (window 1024,
+    moved at load (within 1e-4); Llama-1B decode artifacts at depth 2
+    (bf16, B 2, prompt 128, 32 new, greedy), full and sliding-window (window 1024,
     ``max_len`` 4096): tokens equal to ``generate``'s (the bf16 tie rule),
     the zip's bytes against the weights', export, load, prefill and
     decode ms, and the windowed prefill launching K1 once a layer through
@@ -194,7 +194,7 @@ one line per phase:
     card, once a layer); token-exact unless a tie, as in phase 6;
 17. generate decode — ``benchmarks/decode_bench.py``'s configuration
     (full Llama-1B, vocab 128256, ``max_len`` 1024, bf16, prompt 64,
-    greedy; 128 new, the bench's 256 cut for time) at B 1 and B 8: new
+    greedy; 64 new, the bench's 256 cut for time) at B 1 and B 8: new
     tokens/s, ms per token, peak device
     memory, and at B 1 the weight-read bound (the weights' bytes and the
     live K/V over HBM bandwidth) and the ratio to it; no hand-written
@@ -211,11 +211,12 @@ one line per phase:
     at this shape against its plain version, with its times and bound;
 19. engine row parity — phase 6's wave through ``ServeEngine(paged=False)``
     with the prefix cache on and at ``prefix_cache_blocks=0``;
-20. engine row serve — phase 7's wave through ``ServeEngine(paged=False)``:
+20. engine row serve — phase 7's wave through ``ServeEngine(paged=False)``
+    (run right after phase 7, on its model):
     tokens/s, TTFT, the tick, the prefix cache's gather and donation
     copy bytes and ``resident_kv_report`` beside the paged engine's; no
     hand-written kernel runs there;
-21. engine spec serve — phase 7's wave with 64 new tokens through the
+21. engine spec serve — phase 7's wave with 32 new tokens through the
     row and paged engines at ``spec_k`` 0 and 4 and the paged engine with
     a depth-2 self-draft (the model's embedding, first 2 blocks, final
     norm and head): tokens/s, TTFT, the decode tick, tokens per tick and
@@ -225,7 +226,7 @@ one line per phase:
     model's single-token steps), never on the n-gram legs (the verify is
     multi-token);
 22. engine spec parity — speculative serving, ``spec_k`` 4, greedy,
-    full-width Llama-1B at depth 2 in f32 (TF32 off, ``max_len`` 304):
+    full-width Llama-1B at depth 1 in f32 (TF32 off, ``max_len`` 304):
     4 repetitive prompts x 48 new tokens, one of them ending at
     ``max_len`` (its windows reach past the cache), on the row engine,
     the paged engine with n-gram drafts and the paged engine with a
@@ -342,8 +343,8 @@ one line per phase:
     round 2 against the untiered engine (recompute), the streams equal
     to a pool that holds every chain unless a bf16 tie;
 34. engine preempt serve — 8 best-effort serve prompts x 128 new, then 8
-    interactive 64-token prompts x 32 after 4 steps, at ``preempt_cap`` 2
-    and 0 in turns: the interactive TTFT p50/p99, the best-effort
+    interactive 64-token prompts x 32 after 4 steps, at ``preempt_cap`` 2,
+    then 0: the interactive TTFT p50/p99, the best-effort
     completion wall, preemptions, the best-effort streams equal;
 35. engine drain restore — phase 7's wave drained at step 10 to a file
     under ``build/`` and restored into a fresh engine (row, paged,
@@ -369,16 +370,49 @@ one line per phase:
     draft model (its tree sliced in lockstep) and a tenant engine;
     token-exact against the CPU and against whole-prompt admission, K4
     exactly 2 x the paged ticks (the draft leg: its draft steps);
+38b. tp ep gloo2 — tensor and expert parallelism, two processes sharing
+    the card over gloo (``--tp-gloo2-child``), f32 with TF32 off:
+    ``tp_parity_gloo2``, full-width, full-depth Llama-1B at B 1 x S 1024
+    under ``TensorParallelStrategy(2, rules=LLAMA_TP_RULES)`` (16 query
+    and 4 KV heads a process: K1/K2 at H 16/4), 2 SGD steps against one
+    process's (loss within 1e-4 relative, gradient norm within 1e-3, every
+    local block within 2·lr), each process's parameter bytes, the
+    collectives a step as counted; ``tp_decode_gloo2``, ``generate`` B 2 x
+    prompt 128 x 32 new and ``generate_speculative`` under TP2
+    token-exact with one process's ``generate`` (the tie rule of phase
+    6), the top-2 margin, ms a token of each; ``ep_parity_gloo2``, the
+    routed Llama (8 experts, top-2, every 4th block from the back) at
+    depth 8 under ``ExpertParallelStrategy(2, rules=LLAMA_EP_RULES)``
+    (4 experts a process) with the same gates and the expert bytes a
+    process; (the TP-local K1/K2 shape is held to its plain version and
+    timed among phases 4–5: ``tp_kernels``)
+38c. moe parity — the routed Llama at Llama-1B's width and depth 4, f32,
+    card against CPU: block 3's router choices, kept set and queue
+    positions exact (or ties), eval logits within 1e-4, one SGD step's
+    loss within rtol 1e-5 and gradients within 1e-3 of their max-abs;
+38d. mixtral roundtrip — that model through ``export_hf_llama`` and
+    ``load_hf_mixtral`` bitwise (the router's bias aside: Mixtral has
+    none);
+38e. moe train — the routed Llama at full depth (2.91 B parameters),
+    bf16 compute over f32 parameters, adamw, B 2 x S 2048: tokens/s, MFU
+    over the parameters a token meets, losses, ``moe_drop_rate``, the aux
+    loss, peak memory, K1/K2 once a layer a step;
 39. kernels — one JSON object: every ported kernel with its launches on
     its main paths (phases 7, 10, 11, 15i, 15k, 18, 21, 23, 26, 27, 28,
-    30, 30c, 32-34 and 35-37;
+    30, 30c, 32-34, 35-37, 38b and 38e;
     K4's, K1's and K2's by path under ``launches_by_path``, the parity
     legs' included there for K4), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
     ``library_computes`` says; other timing shapes under ``shapes``: K4's
-    and, for K1 and K2, the GPT and ViT train shapes); the ResNet path,
+    and, for K1 and K2, the GPT and ViT train shapes and one TP2
+    process's Llama-1B heads); the ResNet path,
     the Keras import and export and the loader add none (the JAX package
     runs no Pallas kernel there);
+
+Phases 21, 23, 28 and 32-37 serve full-width models cut to depth 4
+(``SERVE_DEPTH``; GPT-2-small's too in phase 28): their ticks are
+host-bound, and the script has a time limit. Phase 7 and 20 serve the
+full depth.
 
 and, as its last line, ``{"ok": true, "device": {...}}``. Any failure
 raises: the script exits non-zero and prints no result. It needs the
@@ -438,6 +472,7 @@ from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
 from pddl_tpu_torch.ops.augment import standard_augment, standard_eval_transform
 from pddl_tpu_torch.ops.lora import merge_lora_into_head
+from pddl_tpu_torch.ops.moe import sown
 from pddl_tpu_torch.ops.quant import (
     dequantize,
     install_params,
@@ -465,7 +500,15 @@ from pddl_tpu_torch.data.native_loader import (
     build_native,
     write_packed,
 )
+from pddl_tpu_torch.core import collectives
+from pddl_tpu_torch.ckpt import load_hf_mixtral
 from pddl_tpu_torch.parallel import MirroredStrategy, get_strategy
+from pddl_tpu_torch.parallel.tensor_parallel import (
+    LLAMA_EP_RULES,
+    LLAMA_TP_RULES,
+    ExpertParallelStrategy,
+    TensorParallelStrategy,
+)
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.faults import FaultKind, FaultPlan, FaultSpec
 from pddl_tpu_torch.serve.kvcache import HostTierConfig, pool_nbytes
@@ -819,6 +862,8 @@ FLASH_CASES = {
     # The GPT-2-small and ViT-S/16 train steps (MHA; ViT non-causal).
     "gpt2_small": (8, 12, 12, 1024, 1024, 64, torch.bfloat16, True, None, 0),
     "vit_s16": (256, 6, 6, 196, 196, 64, torch.bfloat16, False, None, 0),
+    # One process's heads of Llama-1B under TP2 (16 query, 4 KV heads).
+    "llama1b_tp2": (1, 16, 4, 2048, 2048, 64, torch.bfloat16, True, None, 0),
 }
 WITH_DLSE = ("llama1b", "k_offset")
 
@@ -1195,17 +1240,24 @@ def top2_margin(model, tokens) -> float:
     return float(top[0] - top[1])
 
 
+def cpu_copy(gpu_model, factory=Llama_1B, **cfg):
+    """A model of ``cfg`` on the CPU holding ``gpu_model``'s weights: built
+    on ``meta`` (nothing drawn), laid out on the host and loaded. The
+    parity pairs draw their seeded weights on the card, in milliseconds;
+    the host's generator takes seconds a copy at Llama-1B's width."""
+    cpu_model = factory(**cfg, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    return cpu_model
+
+
 def _parity_pair(**cfg):
-    """One seeded full-width Llama-1B weight set at ``cfg``, on the CPU and
-    copied to the card, f32 with TF32 off."""
+    """One seeded full-width Llama-1B weight set at ``cfg``, drawn on the
+    card and copied to the CPU, f32 with TF32 off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cpu_model = Llama_1B(vocab_size=VOCAB, dtype=torch.float32, device="cpu",
-                         seed=1, **cfg)
-    gpu_model = Llama_1B(vocab_size=VOCAB, dtype=torch.float32, device=DEV,
-                         seed=1, **cfg)
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    return gpu_model, cpu_model
+    cfg = dict(vocab_size=VOCAB, dtype=torch.float32, seed=1, **cfg)
+    gpu_model = Llama_1B(**cfg, device=DEV)
+    return gpu_model, cpu_copy(gpu_model, **cfg)
 
 
 def check_streams(what, streams_gpu, streams_cpu, prompts, cpu_model, n):
@@ -1356,11 +1408,23 @@ def serve_prompts(vocab: int = VOCAB):
             for _ in range(24)]
 
 
-def serve_model_and_prompts():
+# The serving phases after phase 7's (20 excepted) run Llama-1B at full
+# width cut to this depth: their ticks are host-bound, about a layer's
+# launches a layer, and the script has a time limit.
+SERVE_DEPTH = 4
+
+
+def serve_model_and_prompts(depth: int = 16):
     torch.cuda.empty_cache()
-    model = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN,
+    model = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN, depth=depth,
                      dtype=torch.bfloat16, device=DEV, seed=0)
     return model, serve_prompts()
+
+
+def serve_label(model) -> str:
+    """A bf16 Llama-1B's name in the phase lines, with its depth when cut."""
+    cut = "" if model.depth == 16 else f"_depth{model.depth}"
+    return f"Llama_1B{cut}_bf16"
 
 
 def phase_engine_serve(model=None, prompts=None):
@@ -1484,7 +1548,8 @@ LM_KEYS = dict(input_key="tokens", target_key="targets")
 
 def _train_both(optimizer: str, lr: float, steps: int, factory=None,
                 **model_kw):
-    """One seeded model (``factory``, default Llama-1B; depth 2, f32)
+    """One seeded model (``factory``, default Llama-1B; depth 2, f32;
+    drawn on the card and copied to the CPU: :func:`cpu_copy`)
     trained ``steps`` steps by the port's Trainer on the card (kernels)
     and on the CPU (plain versions), on the same batches. Returns the
     per-step losses of each, their largest relative difference and, per
@@ -1493,9 +1558,8 @@ def _train_both(optimizer: str, lr: float, steps: int, factory=None,
     factory = factory or Llama_1B
     cfg = dict(dict(vocab_size=VOCAB, depth=2, dtype=torch.float32),
                **model_kw)
-    cpu_model = factory(**cfg, device="cpu", seed=2)
     gpu_model = factory(**cfg, device=DEV, seed=2)
-    gpu_model.load_state_dict(cpu_model.state_dict())
+    cpu_model = cpu_copy(gpu_model, factory, **cfg, seed=2)
     data = SyntheticLanguageModeling(batch_size=2, seq_len=256,
                                      vocab_size=cfg["vocab_size"], seed=1)
     losses = {}
@@ -1513,7 +1577,7 @@ def _train_both(optimizer: str, lr: float, steps: int, factory=None,
     return losses, rel, params
 
 
-def phase_train_parity(steps: int = 2, lr: float = 1e-4, sgd_lr: float = 1e-2):
+def phase_train_parity(steps: int = 1, lr: float = 1e-4, sgd_lr: float = 1e-2):
     """AdamW (the optimizer path), then plain SGD, which keeps the two
     sides' parameters closest: the last step's gradient of every
     parameter on the card must equal the CPU's within GRAD_TOL of its
@@ -2648,11 +2712,11 @@ def timed_generate(model, prompt, new, repeats):
     return float(np.median(walls)), out, dict(_kernels.launch_counts)
 
 
-def phase_generate_decode(profile_dir=None, new: int = 128,
+def phase_generate_decode(profile_dir=None, new: int = 64,
                           plen: int = 64):
     """``benchmarks/decode_bench.py``'s configuration: Llama-1B, vocab
     128256, ``max_len`` 1024, bf16 parameters and compute, prompt 64,
-    greedy, B 1 and B 8, with 128 new tokens (the bench's 256, cut for
+    greedy, B 1 and B 8, with 64 new tokens (the bench's 256, cut for
     time); one timed call after a warm-up. The
     full-length row cache runs no hand-written kernel (the JAX package's
     decode runs none either). Returns the model and B 1's prompt,
@@ -2807,7 +2871,7 @@ def phase_engine_row_serve(model, prompts, paged_kv):
     if sum(run["launches"].values()):
         raise RuntimeError(f"the row engine launched {run['launches']}")
     metrics, kv = run["eng"].metrics, run["kv"]
-    phase("engine_row_serve", model="Llama_1B_bf16", paged=False,
+    phase("engine_row_serve", model=serve_label(model), paged=False,
           **serve_fields(run), prefix_hits=run["snap"]["prefix_hits"],
           copy_bytes_gathered=metrics.copy_bytes_gathered,
           copy_bytes_donated=metrics.copy_bytes_donated,
@@ -2874,7 +2938,7 @@ def spec_fields(snap):
 
 def phase_engine_spec_parity(new: int = 48):
     """Speculative serving card against CPU and against the card's
-    ``spec_k=0`` engine, greedy, Llama-1B width at depth 2 in f32 (TF32
+    ``spec_k=0`` engine, greedy, Llama-1B width at depth 1 in f32 (TF32
     off), ``max_len`` 304: 4 repetitive prompts x 48 new tokens, ``spec_k``
     4, on the row engine, the paged engine with n-gram drafts and the
     paged engine with a draft model (the target's embedding, first block,
@@ -2884,7 +2948,7 @@ def phase_engine_spec_parity(new: int = 48):
     window; the n-gram legs launch none (the verify is multi-token). Then
     ``generate_speculative`` against ``generate`` at B 2. Returns the
     draft leg's launches."""
-    gpu_model, cpu_model = _parity_pair(max_len=SPEC_MAX_LEN, depth=2)
+    gpu_model, cpu_model = _parity_pair(max_len=SPEC_MAX_LEN, depth=1)
     prompts = spec_parity_prompts()
     if len(prompts[-1]) + new != SPEC_MAX_LEN:
         raise RuntimeError("the edge request does not end at max_len")
@@ -2919,7 +2983,7 @@ def phase_engine_spec_parity(new: int = 48):
         exact0, ties0 = check_streams(f"{leg} vs spec_k=0 request",
                                       streams["cuda"], base[paged], prompts,
                                       cpu_model, new)
-        phase("engine_spec_parity", leg=leg, model="Llama_1B_depth2_f32",
+        phase("engine_spec_parity", leg=leg, model="Llama_1B_depth1_f32",
               allow_tf32=False, max_len=SPEC_MAX_LEN, spec_k=SPEC_K,
               requests=len(prompts), new=new,
               edge_request_tokens=len(prompts[-1]) + len(streams["cuda"][-1]),
@@ -2942,7 +3006,7 @@ def phase_engine_spec_parity(new: int = 48):
         "generate_speculative cpu row", out[:, 64:].cpu().tolist(),
         cpu_out[:, 64:].tolist(), prompt.tolist(), cpu_model, new)
     phase("engine_spec_parity", leg="generate_speculative",
-          model="Llama_1B_depth2_f32", batch=2, prompt=64, new=new,
+          model="Llama_1B_depth1_f32", batch=2, prompt=64, new=new,
           draft_len=7, ngram=3, token_exact_vs_generate=exact,
           ties_vs_generate=ties, token_exact_vs_cpu=exact_cpu,
           ties_vs_cpu=ties_cpu, ticks=stats["ticks"],
@@ -2965,15 +3029,15 @@ def parted_streams(model, prompts, streams, base):
     return equal, (";".join(f"{m:.4g}" for m in margins) or "none")
 
 
-def phase_engine_spec_serve(model, prompts, new: int = 64):
-    """Phase 7's wave (Llama-1B bf16, 24 requests of 384 prompt tokens,
-    256 shared, on 8 slots, ``max_len`` 1024) with 64 new tokens: the row
-    and paged engines at ``spec_k`` 0 and 4, and the paged engine with a
-    depth-2 self-draft. Tokens/s, TTFT p50, the decode tick's p50, tokens
-    per tick and per slot window, the acceptance rate, the streams equal
-    to ``spec_k=0``'s and the margins where they part. The draft leg's K4
-    launches are exactly the draft's ``2 x (spec_k + 1)`` a window; no
-    speed gate. Returns the draft leg's launches."""
+def phase_engine_spec_serve(model, prompts, new: int = 32):
+    """Phase 7's wave (Llama-1B bf16 at ``SERVE_DEPTH``, 24 requests of 384
+    prompt tokens, 256 shared, on 8 slots, ``max_len`` 1024) with ``new``
+    tokens: the row and paged engines at ``spec_k`` 0 and 4, and the paged
+    engine with a depth-2 self-draft. Tokens/s, TTFT p50, the decode tick's
+    p50, tokens per tick and per slot window, the acceptance rate, the
+    streams equal to ``spec_k=0``'s and the margins where they part. The
+    draft leg's K4 launches are exactly the draft's ``2 x (spec_k + 1)`` a
+    window; no speed gate. Returns the draft leg's launches."""
     draft = self_draft(model, 2)
     runs = {}
     for leg, paged, kw in (
@@ -3019,7 +3083,7 @@ def phase_engine_spec_serve(model, prompts, new: int = 64):
         if not ok or sum(launches.values()) != launches["paged_decode"]:
             raise RuntimeError(f"engine_spec_serve {leg}: launches "
                                f"{launches} over {run['ticks']} ticks")
-        phase("engine_spec_serve", leg=leg, model="Llama_1B_bf16",
+        phase("engine_spec_serve", leg=leg, model=serve_label(model),
               new=new, **{k: fields[k] for k in (
                   "requests", "tokens", "wall_s", "tokens_per_s",
                   "ttft_p50_s", "ticks", "decode_tick_ms_p50")},
@@ -3031,7 +3095,7 @@ def phase_engine_spec_serve(model, prompts, new: int = 64):
 
 
 def phase_generate_spec(model, prompt, wall, ref):
-    """``generate_decode``'s B 1 leg (Llama-1B bf16, prompt 64, 128 new,
+    """``generate_decode``'s B 1 leg (Llama-1B bf16, prompt 64, 64 new,
     the same model and prompt) through ``generate_speculative``
     (``draft_len`` 7, ``ngram`` 3), one timed call after a warm-up,
     beside that leg's ``generate`` (its ``wall`` and
@@ -3354,7 +3418,8 @@ def tenant_tick_pairs(model, prompts, paged: bool, strings,
 
 
 def phase_engine_tenant_serve(model, prompts, out_dir: str):
-    """Phase 7's wave (full Llama-1B, bf16, ``max_len`` 1024, 24 greedy
+    """Phase 7's wave (Llama-1B at ``SERVE_DEPTH``, bf16, ``max_len``
+    1024, 24 greedy
     requests of 384 prompt tokens, 256 shared, x 32 new on 8 slots) in
     both modes, ``tenant=None`` and a tenant engine, one wave each: 16
     rank-8 adapters, the pool auto-sized to 12
@@ -3434,7 +3499,7 @@ def phase_engine_tenant_serve(model, prompts, out_dir: str):
                 if launches_out is None and paged:
                     launches_out = launches
             phase("engine_tenant_serve", mode=mode, leg=leg,
-                  model="Llama_1B_bf16", **{k: fields[k] for k in (
+                  model=serve_label(model), **{k: fields[k] for k in (
                       "requests", "tokens", "wall_s", "tokens_per_s",
                       "ttft_p50_s", "ttft_p99_s", "ticks",
                       "decode_tick_ms_p50")},
@@ -3462,7 +3527,7 @@ def phase_engine_tenant_serve(model, prompts, out_dir: str):
                                            tag=f"profile_{leg}_{mode}", **tkw)
         busy = {leg: float(f["device_busy_ms_per_tick"])
                 for leg, f in profiled.items()}
-        phase("engine_tenant_cost", mode=mode, model="Llama_1B_bf16",
+        phase("engine_tenant_cost", mode=mode, model=serve_label(model),
               paired_ticks=48,
               tick_ms_p50_plain=f"{tick['plain']:.4f}",
               tick_ms_p50_tenant=f"{tick['tenant']:.4f}",
@@ -3488,7 +3553,8 @@ GPT_CFG = dict(vocab_size=GPT_VOCAB, vocab_multiple=128, max_len=1024,
 INT8_MIN_ELEMS = 65536   # quantize_int8's default
 # The new train paths' K1/K2 shapes, timed beside their plain versions.
 NEW_FLASH_SHAPES = {"gpt2_small_train": "gpt2_small",
-                    "vit_s16_train": "vit_s16"}
+                    "vit_s16_train": "vit_s16",
+                    "llama1b_tp2_local": "llama1b_tp2"}
 
 
 def time_flash_shapes():
@@ -3567,15 +3633,13 @@ def time_flash_shapes():
 
 
 def gpt_parity_pair(max_len: int = SPEC_MAX_LEN):
-    """One seeded GPT-2-small weight set at depth 2 on the CPU and copied
-    to the card, f32 with TF32 off."""
+    """One seeded GPT-2-small weight set at depth 2, drawn on the card and
+    copied to the CPU, f32 with TF32 off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kw = dict(GPT_CFG, max_len=max_len, depth=2, dtype=torch.float32, seed=1)
-    cpu_model = GPT_Small(device="cpu", **kw)
     gpu_model = GPT_Small(device=DEV, **kw)
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    return gpu_model, cpu_model
+    return gpu_model, cpu_copy(gpu_model, GPT_Small, **kw)
 
 
 def engine_streams(model, prompts, new, **kw):
@@ -3772,10 +3836,12 @@ def int8_install(model):
 
 
 INT8_FAMILIES = {
-    "Llama_1B": lambda: Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN,
-                                 dtype=torch.bfloat16, device=DEV, seed=0),
-    "GPT_Small": lambda: GPT_Small(**GPT_CFG, dtype=torch.bfloat16,
-                                   device=DEV, seed=0),
+    f"Llama_1B_depth{SERVE_DEPTH}": lambda: Llama_1B(
+        vocab_size=VOCAB, max_len=MAX_LEN, depth=SERVE_DEPTH,
+        dtype=torch.bfloat16, device=DEV, seed=0),
+    f"GPT_Small_depth{SERVE_DEPTH}": lambda: GPT_Small(
+        **GPT_CFG, depth=SERVE_DEPTH, dtype=torch.bfloat16, device=DEV,
+        seed=0),
 }
 
 
@@ -3872,7 +3938,8 @@ def int8_serve_family(name, build):
 
 
 def phase_int8_serve():
-    """int8 serving on full Llama-1B and full GPT-2-small (bf16 compute,
+    """int8 serving on Llama-1B and GPT-2-small at full width and
+    ``SERVE_DEPTH`` (bf16 compute,
     ``quantize_int8(min_elems=65536)``, ``param_transform=dequantize``):
     ``quantized_bytes`` of the int8 tree against the dense tree's, and the
     ``memory_allocated`` that the model adds (the int8 model within 1% of
@@ -3895,7 +3962,7 @@ def dense_twin(model, qtree):
     return install_params(twin, dequantize(qtree))
 
 
-def phase_int8_parity(new: int = 8):
+def phase_int8_parity(new: int = 4):
     """int8 at depth 2 in f32 (TF32 off), ``min_elems`` 65536, on
     Llama-1B and GPT-2-small widths: the card's int8 tree bitwise the
     CPU's; the paged int8 engine on the card against the CPU's (token-exact
@@ -4122,10 +4189,9 @@ def _options_parity_chain(lr: float = 1e-4) -> None:
     accumulation and an EMA at 0.9, Llama-1B width at depth 2 in f32: 4
     micro-steps (2 updates) and one eval batch on the shadows, card against
     CPU."""
-    cfg = dict(vocab_size=VOCAB, depth=2, dtype=torch.float32)
-    cpu_model = Llama_1B(**cfg, device="cpu", seed=2)
-    gpu_model = Llama_1B(**cfg, device=DEV, seed=2)
-    gpu_model.load_state_dict(cpu_model.state_dict())
+    cfg = dict(vocab_size=VOCAB, depth=2, dtype=torch.float32, seed=2)
+    gpu_model = Llama_1B(**cfg, device=DEV)
+    cpu_model = cpu_copy(gpu_model, **cfg)
     data = SyntheticLanguageModeling(batch_size=2, seq_len=128,
                                      vocab_size=VOCAB, seed=1)
     val = data.with_offset(100)
@@ -4791,11 +4857,12 @@ SERVE_FAULTS = dict(seed=0, transient_rate=0.03, oom_rate=0.01,
 
 
 def phase_engine_fault_serve(model, prompts):
-    """Phase 7's wave (Llama-1B bf16, 24 x 384 prompt tokens, 256 shared,
-    x 32 new, 8 slots) in both modes, with the engine's real backoff and
-    latency sleeps: fault-free, under the seeded ``SERVE_FAULTS`` plan,
-    under a scheduled tick exhaustion at step 6 and with a real
-    ``torch.OutOfMemoryError`` raised by the allocator at the 6th tick.
+    """Phase 7's wave (Llama-1B bf16 at ``SERVE_DEPTH``, 24 x 384 prompt
+    tokens, 256 shared, x 32 new, 8 slots) in both modes, with the engine's
+    real backoff and latency sleeps: fault-free, under the seeded
+    ``SERVE_FAULTS`` plan, under a scheduled tick exhaustion at step 6 and
+    with a real ``torch.OutOfMemoryError`` raised by the allocator at the
+    6th tick.
     Gates: every stream equal to the fault-free wave's (bf16 tie rule,
     reported); the real OOM comes out as a degraded entry with no request
     failed; K4 once a layer a paged tick that ran. Prints the injections
@@ -4846,7 +4913,7 @@ def phase_engine_fault_serve(model, prompts):
             fields = serve_fields(run)
             clean = runs["fault_free"]
             phase("engine_fault_serve", mode=mode, leg=leg,
-                  model="Llama_1B_bf16", **{k: fields[k] for k in (
+                  model=serve_label(model), **{k: fields[k] for k in (
                       "requests", "tokens", "wall_s", "tokens_per_s",
                       "ttft_p50_s", "ttft_p99_s", "ticks")},
                   tokens_per_s_fault_free=serve_fields(clean)["tokens_per_s"],
@@ -4872,8 +4939,8 @@ def phase_engine_fault_serve(model, prompts):
 
 
 def tier_prompts(vocab: int = VOCAB):
-    """32 distinct 384-token prompts: 24-block chains, 12 MiB of bf16 K/V
-    each at Llama-1B's width."""
+    """32 distinct 384-token prompts: 24-block chains, 768 KiB of bf16 K/V
+    a layer each at Llama-1B's width."""
     rng = np.random.RandomState(6)
     return [rng.randint(0, vocab, 384) for _ in range(32)]
 
@@ -4928,7 +4995,8 @@ def tier_run(model, prompts, paged, rounds=2, new=16, promote=None,
 
 
 def phase_host_tier_serve(model, budget: int = 512 << 20):
-    """The host KV tier at full width (Llama-1B bf16, ``max_len`` 1024):
+    """The host KV tier at full width (Llama-1B bf16 at ``SERVE_DEPTH``,
+    ``max_len`` 1024):
     32 distinct 384-token prompts in 2 rounds of 16 new tokens on 8 slots,
     a 512 MiB host budget, device pools too small for them (paged: its
     floor + 1, 514 blocks; row: 193 blocks, 8 chains and scratch). Gates:
@@ -4976,7 +5044,7 @@ def phase_host_tier_serve(model, budget: int = 512 << 20):
         ms = sum(t for _, t in promote)
         late = [t for r in tiered["ttft"][1:] for t in r]
         late_u = [t for r in untiered["ttft"][1:] for t in r]
-        phase("host_tier_serve", mode=mode, model="Llama_1B_bf16",
+        phase("host_tier_serve", mode=mode, model=serve_label(model),
               prompts=len(prompts), prompt_tokens=384,
               rounds=len(tiered["streams"]), new=16,
               device_pool_blocks=small, host_budget_mib=budget >> 20,
@@ -5006,10 +5074,10 @@ def phase_host_tier_serve(model, budget: int = 512 << 20):
 
 def phase_engine_preempt_serve(model, prompts, be_new: int = 128,
                                ia_new: int = 32):
-    """Preemption at full width (Llama-1B bf16, the paged engine, 8
-    slots): 8 BEST_EFFORT serve prompts x 128 new fill the slots; after 4
-    steps 8 INTERACTIVE 64-token prompts x 32 new arrive. At
-    ``preempt_cap=2`` (the default) and 0, in turns (2, 0, 0, 2). Gates:
+    """Preemption at full width (Llama-1B bf16 at ``SERVE_DEPTH``, the
+    paged engine, 8 slots): 8 BEST_EFFORT serve prompts x 128 new fill the
+    slots; after 4 steps 8 INTERACTIVE 64-token prompts x 32 new arrive. At
+    ``preempt_cap=2`` (the default), then 0. Gates:
     the best-effort streams equal across the runs (bf16 tie rule),
     ``preemptions > 0`` at the default and 0 at 0, K4 once a layer a tick.
     Prints the interactive TTFT p50/p99, the best-effort completion wall,
@@ -5018,7 +5086,7 @@ def phase_engine_preempt_serve(model, prompts, be_new: int = 128,
     ia_prompts = [rng.randint(0, VOCAB, 64) for _ in range(8)]
     be_prompts = prompts[:8]
     total, runs = {"paged_decode": 0}, {}
-    for i, cap in enumerate((2, 0, 0, 2)):
+    for i, cap in enumerate((2, 0)):
         eng = ServeEngine(model, paged=True, max_slots=8,
                           prefix_block_size=16, preempt_cap=cap,
                           telemetry_capacity=4096)
@@ -5055,7 +5123,7 @@ def phase_engine_preempt_serve(model, prompts, be_new: int = 128,
         ia_ttft = [h.ttft_s for h in ia]
         be_wall = [h.finish_s - h.arrival_s for h in be]
         phase("engine_preempt_serve", turn=i, preempt_cap=cap,
-              model="Llama_1B_bf16", best_effort=len(be), best_effort_new=
+              model=serve_label(model), best_effort=len(be), best_effort_new=
               be_new, interactive=len(ia), interactive_new=ia_new,
               wall_s=f"{wall:.4f}",
               interactive_ttft_p50_s=f"{float(np.median(ia_ttft)):.5f}",
@@ -5220,7 +5288,8 @@ def slice_serve_run(model, running, cold, paged, slice_tokens,
 
 
 def phase_engine_slice_serve():
-    """Sliced prefill at full width: Llama-1B bf16, ``max_len`` 8192,
+    """Sliced prefill at full width: Llama-1B bf16 at ``SERVE_DEPTH``,
+    ``max_len`` 8192,
     ``prefill_len`` 4096, ``prefix_chunk`` 512, 8 slots. 7 streams of 384
     prompt tokens (256 shared) decode ``SLICE_RUNNING_NEW`` tokens; a cold
     4096-token prompt arrives at step 16. ``prefill_slice_tokens=512``
@@ -5231,8 +5300,8 @@ def phase_engine_slice_serve():
     tokens during the cold admission and its p99 there, the cold request's
     TTFT, tokens/s and K4's launches. Returns the paged runs' launches."""
     torch.cuda.empty_cache()
-    model = Llama_1B(vocab_size=VOCAB, max_len=8192, dtype=torch.bfloat16,
-                     device=DEV, seed=0)
+    model = Llama_1B(vocab_size=VOCAB, max_len=8192, depth=SERVE_DEPTH,
+                     dtype=torch.bfloat16, device=DEV, seed=0)
     running, cold = slice_serve_prompts()
     total = {"paged_decode": 0}
     for paged, order in ((False, (512, None)), (True, (None, 512))):
@@ -5253,7 +5322,7 @@ def phase_engine_slice_serve():
                 model, running + [cold], run["streams"],
                 runs[None]["streams"], f"engine_slice_serve {mode} request")
             phase("engine_slice_serve", mode=mode,
-                  prefill_slice_tokens=slice_tokens, model="Llama_1B_bf16",
+                  prefill_slice_tokens=slice_tokens, model=serve_label(model),
                   max_len=8192, running=len(running),
                   running_new=SLICE_RUNNING_NEW,
                   cold_prompt=len(cold), tokens=run["tokens"],
@@ -5333,15 +5402,15 @@ def restored_run(model, prompts, paged, path, **engine_kw):
 
 def phase_engine_drain_restore(model, prompts, pair, ref,
                                out_dir="build"):
-    """Drain and restore at full width: phase 7's wave (Llama-1B bf16, 24 x
-    384 prompt tokens, 256 shared, x 32 new, 8 slots) drained at step 10
-    to a file under ``build/`` and restored into a fresh engine: row,
-    paged, ``spec_k=4`` n-gram (paged), and the row snapshot into a paged
-    engine. Gates: every request finished with 32 tokens, the tokens
-    emitted before the drain kept, the streams equal to the undrained
-    wave's unless a bf16 tie (reported), K4 once a layer a paged restore
-    tick. Prints the snapshot's bytes, the drain's ms and the restore's
-    seconds to the first resumed token. Then an f32 depth-2 leg
+    """Drain and restore at full width: phase 7's wave (Llama-1B bf16 at
+    ``SERVE_DEPTH``, 24 x 384 prompt tokens, 256 shared, x 32 new, 8 slots)
+    drained at step 10 to a file under ``build/`` and restored into a fresh
+    engine: row, paged, ``spec_k=4`` n-gram (paged), and the row snapshot
+    into a paged engine. Gates: every request finished with 32 tokens, the
+    tokens emitted before the drain kept, the streams equal to the
+    undrained wave's unless a bf16 tie (reported), K4 once a layer a paged
+    restore tick. Prints the snapshot's bytes, the drain's ms and the
+    restore's seconds to the first resumed token. Then an f32 depth-2 leg
     (``engine_parity``'s prompts x 16, paged, drained at step 3): restored
     streams token-exact against the undrained card engine and against the
     CPU's drained-and-restored engine. ``ref``: the undrained wave's
@@ -5374,7 +5443,7 @@ def phase_engine_drain_restore(model, prompts, pair, ref,
         total["paged_decode"] += launches["paged_decode"]
         equal, ties = bf16_ties(model, prompts, streams, ref[restore_paged],
                                 f"engine_drain_restore {leg} request")
-        phase("engine_drain_restore", leg=leg, model="Llama_1B_bf16",
+        phase("engine_drain_restore", leg=leg, model=serve_label(model),
               requests=len(prompts), drain_step=DRAIN_STEP, source=source,
               running_at_drain=running, snapshot_bytes=nbytes,
               drain_ms=f"{drain_ms:.3f}",
@@ -5449,7 +5518,8 @@ def traced_parity_names(pair):
 
 
 def phase_engine_trace_serve(model, prompts, pair):
-    """Tracing at full width: phase 7's wave on the paged engine with a
+    """Tracing at full width: phase 7's wave (at ``SERVE_DEPTH``) on the
+    paged engine with a
     ``RequestTracer`` (a list sink) and with the default ``NULL_TRACER``,
     two waves each in turns (null, traced, traced, null): the tokens/s and
     decode-tick p50 ratios, traced over null. Gates: 24 finished spans
@@ -5501,7 +5571,8 @@ def phase_engine_trace_serve(model, prompts, pair):
                             [h.tokens for h in runs["null"][0]["handles"]],
                             "engine_trace_serve request")
     waves = iter(runs["null"][:1] + runs["traced"] + runs["null"][1:])
-    phase("engine_trace_serve", model="Llama_1B_bf16", requests=len(prompts),
+    phase("engine_trace_serve", model=serve_label(model),
+          requests=len(prompts),
           tokens_per_s_by_wave=",".join(
               f"{kind}:{tokens_s(next(waves)):.2f}" for kind in order),
           tokens_per_s_null=f"{mean('null', tokens_s):.2f}",
@@ -5729,7 +5800,8 @@ def _decode_artifact_leg(tag, model, prompt, new):
 
 
 def phase_export_artifacts(batch: int = 8, prompt_len: int = 128,
-                           new: int = 32, window: int = 1024):
+                           new: int = 32, window: int = 1024,
+                           depth: int = 2):
     """The serving artifacts of ``ckpt/export.py`` on the card. ResNet-50
     (1000 classes, f32, TF32 off, cuDNN deterministic), eval, B ``batch``
     x 224: an inference artifact exported on the card (its logits within
@@ -5739,8 +5811,9 @@ def phase_export_artifacts(batch: int = 8, prompt_len: int = 128,
     a 1x1 conv, ``models/resnet.py``, the same function in another cuDNN
     algorithm, ~1e-7 relative a layer through 53 eval-mode layers, as in
     ``keras_roundtrip``'s gate). Then greedy decode artifacts of Llama-1B
-    (bf16, ``max_len`` 1024) and of a sliding-window Llama-1B (window
-    1024, ``max_len`` 4096: the ring), B 2, prompt ``prompt_len``,
+    at ``depth`` (bf16, ``max_len`` 1024) and of a sliding-window
+    Llama-1B at ``depth`` (window 1024, ``max_len`` 4096: the ring), B 2,
+    prompt ``prompt_len``,
     ``new`` new tokens: tokens equal to ``generate``'s (the bf16 tie rule
     where they part), the zip smaller than the weights, and the
     sliding-window prefill launching K1 once a layer through the
@@ -5758,15 +5831,16 @@ def phase_export_artifacts(batch: int = 8, prompt_len: int = 128,
     torch.cuda.empty_cache()
     prompt = np.random.RandomState(21).randint(0, VOCAB, (2, prompt_len))
     llama = Llama_1B(vocab_size=VOCAB, max_len=MAX_LEN, dtype=torch.bfloat16,
-                     device=DEV, seed=0)
-    launches = _decode_artifact_leg("llama1b_decode", llama, prompt, new)
+                     device=DEV, seed=0, depth=depth)
+    launches = _decode_artifact_leg(f"llama1b_depth{depth}_decode", llama,
+                                    prompt, new)
     check_launches("llama1b decode artifact prefill", launches)
     del llama
     torch.cuda.empty_cache()
     swa = Llama_1B(vocab_size=VOCAB, max_len=4096, sliding_window=window,
-                   dtype=torch.bfloat16, device=DEV, seed=0)
-    launches = _decode_artifact_leg(f"llama1b_window{window}_decode", swa,
-                                    prompt, new)
+                   dtype=torch.bfloat16, device=DEV, seed=0, depth=depth)
+    launches = _decode_artifact_leg(
+        f"llama1b_depth{depth}_window{window}_decode", swa, prompt, new)
     check_launches("sliding-window decode artifact prefill", launches,
                    flash_fwd=swa.depth)
     del swa
@@ -5946,6 +6020,415 @@ def phase_dp_ckpt_gloo2(out_dir: str, timeout: float = 300.0):
     del one, ref
     torch.cuda.empty_cache()
 
+# ------------------------------------------ tensor and expert parallelism
+# The routed Llama: Llama-1B's widths with Mixtral's routing (8 experts,
+# top-2) in every 4th block from the back (blocks 15, 11, 7, 3): one
+# card's memory holds its f32 weights, gradients and Adam moments
+# (~2.91 B parameters, ~46.5 GB), where Mixtral's every block would not.
+MOE_CFG = dict(moe_experts=8, moe_top_k=2, moe_every=4)
+TP_LR, TP_STEPS, TP_SEQ = 1e-2, 2, 1024
+EP_DEPTH = 8                      # the EP parity model: blocks 7 and 3 routed
+TP_DECODE = dict(batch=2, prompt=128, new=32, draft_len=4)
+MOE_PARITY_DEPTH, MOE_PARITY_SEQ = 4, 64
+
+
+def _tp_batches(seq: int = TP_SEQ, seed: int = 4):
+    data = SyntheticLanguageModeling(batch_size=1, seq_len=seq,
+                                     vocab_size=VOCAB, seed=seed)
+    return [{k: torch.from_numpy(v).to(DEV) for k, v in data.batch(i).items()}
+            for i in range(TP_STEPS)]
+
+
+def _reference_run(factory, batches):
+    """The single-process SGD run of ``factory()``: its losses, gradient
+    norms and trained state (on the card)."""
+    tr = Trainer(factory(), optimizer="sgd", learning_rate=TP_LR,
+                 device=DEV, log_grad_norm=True, **LM_KEYS)
+    hist = tr.fit(batches, epochs=TP_STEPS, steps_per_epoch=1, verbose=0)
+    state = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    del tr
+    torch.cuda.empty_cache()
+    return hist.history, state
+
+
+def _sharded_run(tag, factory, strategy, batches, ref, out):
+    """``factory()`` under ``strategy`` (SGD, the same batches): its
+    losses and gradient norm against the reference's, every local block
+    against the reference's block, the bytes a process holds, the
+    launches and the collectives a step makes. Fills ``out``."""
+    model = factory()
+    whole = sum(p.numel() * p.element_size() for p in model.parameters())
+    experts = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters() if ".moe.w" in n)
+    tr = Trainer(model, optimizer="sgd", learning_rate=TP_LR, device=DEV,
+                 strategy=strategy, log_grad_norm=True, **LM_KEYS)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    collectives.reset_tp_counts()
+    t0 = time.perf_counter()
+    hist = tr.fit(batches, epochs=TP_STEPS, steps_per_epoch=1, verbose=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    counts = {k: v for k, v in collectives.TP_COUNTS.items()}
+    ref_hist, ref_state = ref
+    local = tr.model.state_dict()
+    diff = max(float((local[k] - strategy.local_state(k, ref_state[k]))
+                     .abs().max()) for k in local)
+    out[tag] = dict(
+        loss=hist.history["loss"], ref_loss=ref_hist["loss"],
+        loss_rel=max(abs(a - b) / abs(b) for a, b in zip(
+            hist.history["loss"], ref_hist["loss"])),
+        grad_norm_rel=max(abs(a - b) / abs(b) for a, b in zip(
+            hist.history["grad_norm"], ref_hist["grad_norm"])),
+        param_diff=diff, whole_bytes=whole, expert_bytes_whole=experts,
+        depth=model.depth,
+        local_bytes=sum(p.numel() * p.element_size()
+                        for p in tr.model.parameters()),
+        local_expert_bytes=sum(p.numel() * p.element_size()
+                               for n, p in tr.model.named_parameters()
+                               if ".moe.w" in n),
+        step_s=wall / TP_STEPS,
+        launches={k: launches[k] for k in FLASH_COUNTERS},
+        collectives_per_step={k: [v[0] / TP_STEPS, v[1] / TP_STEPS]
+                              for k, v in counts.items()})
+    del tr, model
+    torch.cuda.empty_cache()
+
+
+def _decode_leg(rank, out):
+    """``generate`` and ``generate_speculative`` of full-width, full-depth
+    Llama-1B in f32 under TP2 against the single process's, with ms a
+    token on both and the top-2 margins of the reference's decoded
+    positions."""
+    cfg = TP_DECODE
+    model = Llama_1B(vocab_size=VOCAB, dtype=torch.float32, device=DEV,
+                     seed=6)
+    gen = np.random.default_rng(8)
+    prompt = torch.from_numpy(gen.integers(
+        0, VOCAB, (cfg["batch"], cfg["prompt"])).astype(np.int32)).to(DEV)
+    tp = TensorParallelStrategy(2, rules=LLAMA_TP_RULES, device=DEV,
+                                backend="gloo")
+    sharded = tp.shard_model(model)
+    timed = {}
+    for tag, fn in (
+            ("single", lambda: generate(model, prompt, cfg["new"])),
+            ("tp2", lambda: generate(sharded, prompt, cfg["new"],
+                                     strategy=tp)),
+            ("spec_single", lambda: generate_speculative(
+                model, prompt, cfg["new"], draft_len=cfg["draft_len"])),
+            ("spec_tp2", lambda: generate_speculative(
+                sharded, prompt, cfg["new"], draft_len=cfg["draft_len"],
+                strategy=tp))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed[tag] = fn()
+        torch.cuda.synchronize()
+        out[f"decode_{tag}_ms_per_token"] = (
+            1e3 * (time.perf_counter() - t0) / cfg["new"])
+    ref = timed["single"]
+    with torch.no_grad():
+        logits = model(ref[:, :-1], train=False)[:, cfg["prompt"] - 1:]
+    top = logits.topk(2, dim=-1).values
+    margins = (top[..., 0] - top[..., 1]).cpu()
+    for tag in ("tp2", "spec_single", "spec_tp2"):
+        got = timed[tag]
+        same = (got == ref).cpu()
+        exact = bool(same.all())
+        tie = False
+        if not exact:
+            # A divergence is a tie when the reference's top-2 margin at
+            # the first differing position is under 1e-3.
+            rows = (~same).any(dim=1).nonzero().flatten()
+            tie = all(float(margins[r, int((~same[r]).nonzero()[0])
+                                    - cfg["prompt"]]) < 1e-3 for r in rows)
+        out[f"decode_{tag}_exact"] = exact
+        out[f"decode_{tag}_tie"] = tie
+    out["decode_min_margin"] = float(margins.min())
+    out["decode_cache_heads"] = sharded.cache_kv_heads
+    del model, sharded
+    torch.cuda.empty_cache()
+
+
+def tp_gloo2_child(rank: int, port: int, out_dir: str) -> None:
+    """``--tp-gloo2-child RANK PORT DIR``: one of two processes sharing the
+    card over gloo. Full-width, full-depth Llama-1B (f32, TF32 off) at
+    B 1 x S 1024: 2 SGD steps single-process, then under
+    ``TensorParallelStrategy(2, rules=LLAMA_TP_RULES)``; then the TP2
+    decode; then the routed Llama at depth 8 (blocks 7 and 3 routed) the
+    same way under ``ExpertParallelStrategy(2, rules=LLAMA_EP_RULES)``
+    (4 experts a process). Writes what it saw to
+    ``out_dir/tp_gloo2_{rank}.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+        rank=rank)
+    out = {"rank": rank}
+    batches = _tp_batches()
+    try:
+        def dense():
+            return Llama_1B(vocab_size=VOCAB, dtype=torch.float32,
+                            device=DEV, seed=5)
+
+        def routed():
+            return Llama_1B(vocab_size=VOCAB, dtype=torch.float32,
+                            device=DEV, seed=7, depth=EP_DEPTH, **MOE_CFG)
+
+        _sharded_run("tp", dense, TensorParallelStrategy(
+            2, rules=LLAMA_TP_RULES, device=DEV, backend="gloo"), batches,
+            _reference_run(dense, batches), out)
+        _decode_leg(rank, out)
+        _sharded_run("ep", routed, ExpertParallelStrategy(
+            2, rules=LLAMA_EP_RULES, device=DEV, backend="gloo"), batches,
+            _reference_run(routed, batches), out)
+    finally:
+        torch.distributed.destroy_process_group()
+    pathlib.Path(out_dir, f"tp_gloo2_{rank}.json").write_text(
+        json.dumps(out))
+
+
+def phase_tp_gloo2(out_dir: str, timeout: float = 420.0):
+    """``tp_parity_gloo2``, ``tp_decode_gloo2`` and ``ep_parity_gloo2``
+    (``tp_gloo2_child``'s two processes): each process's loss within 1e-4
+    relative of the single-process step's, the gradient norm within 1e-3
+    relative, every local block within 2·lr of the single process's
+    trained block; the decode token-exact (or a tie). Returns each
+    sharded run's launches."""
+    out_dir = pathlib.Path(out_dir)
+    _two_processes(lambda rank, port: ("--tp-gloo2-child", str(rank),
+                                       str(port), str(out_dir)),
+                   timeout, "tp_gloo2")
+    seen = [json.loads((out_dir / f"tp_gloo2_{r}.json").read_text())
+            for r in range(2)]
+    gates = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3,
+             "param_diff": 2 * TP_LR}
+    bad = []
+    for tag, name, model in (
+            ("tp", "tp_parity_gloo2", "Llama_1B_f32"),
+            ("ep", "ep_parity_gloo2",
+             f"Llama_1B_moe8_top2_every4_depth{EP_DEPTH}_f32")):
+        runs = [x[tag] for x in seen]
+        worst = {k: max(r[k] for r in runs) for k in gates}
+        r0 = runs[0]
+        per_step = ",".join(f"{k}:{v[0]:g}calls/{v[1] / 1e6:.2f}MB"
+                            for k, v in
+                            sorted(r0["collectives_per_step"].items()))
+        phase(name, model=model, processes=2, backend="gloo",
+              device="cuda:0 (shared)", batch=1, seq=TP_SEQ,
+              optimizer="sgd", lr=TP_LR, steps=TP_STEPS,
+              losses="/".join(f"{x:.7f}" for x in r0["loss"]),
+              ref_losses="/".join(f"{x:.7f}" for x in r0["ref_loss"]),
+              **{k: f"{v:.3g}" for k, v in worst.items()},
+              **{f"{k}_bound": f"{v:g}" for k, v in gates.items()},
+              whole_param_bytes=r0["whole_bytes"],
+              param_bytes_per_rank="/".join(str(r["local_bytes"])
+                                           for r in runs),
+              expert_bytes_whole=r0["expert_bytes_whole"],
+              expert_bytes_per_rank="/".join(str(r["local_expert_bytes"])
+                                            for r in runs),
+              step_s=f"{r0['step_s']:.3f}",
+              flash_per_step="/".join(f"{k}:{v / TP_STEPS:g}" for k, v
+                                      in r0["launches"].items()),
+              collectives_per_step=per_step)
+        bad += [f"{tag}_{k}" for k, lim in gates.items()
+                if not worst[k] <= lim]
+        want = r0["depth"] * TP_STEPS
+        if (r0["launches"]["flash_fwd"] != want
+                or r0["launches"]["flash_bwd_fused"] != want):
+            bad.append(f"{tag}_launches {r0['launches']}")
+    r0 = seen[0]
+    phase("tp_decode_gloo2", model="Llama_1B_f32", processes=2,
+          strategy="tensor_parallel", batch=TP_DECODE["batch"],
+          prompt=TP_DECODE["prompt"], new=TP_DECODE["new"],
+          draft_len=TP_DECODE["draft_len"],
+          cache_kv_heads_per_rank=r0["decode_cache_heads"],
+          **{f"{t}_exact": r0[f"decode_{t}_exact"]
+             for t in ("tp2", "spec_single", "spec_tp2")},
+          **{f"{t}_tie": r0[f"decode_{t}_tie"]
+             for t in ("tp2", "spec_single", "spec_tp2")},
+          min_top2_margin=f"{r0['decode_min_margin']:.3g}",
+          **{f"{t}_ms_per_token": f"{r0[f'decode_{t}_ms_per_token']:.3f}"
+             for t in ("single", "tp2", "spec_single", "spec_tp2")})
+    for t in ("tp2", "spec_single", "spec_tp2"):
+        if not (r0[f"decode_{t}_exact"] or r0[f"decode_{t}_tie"]):
+            bad.append(f"decode_{t}")
+    if bad:
+        raise RuntimeError(f"tp_gloo2 out of tolerance: {bad}")
+    return {tag: seen[0][tag]["launches"] for tag in ("tp", "ep")}
+
+
+def _routing_diff(gpu_model, cpu_model, tokens):
+    """The routed block 3's training-mode choices on the card and on the
+    CPU for the CPU's block input (captured by a hook in the CPU's eval
+    forward): ``(exact, ties, capacity, the CPU's eval logits)`` — a
+    choice that differs is a tie when the CPU's probabilities at it
+    differ by under 1e-5."""
+    seen = {}
+    blk = MOE_PARITY_DEPTH - 1
+
+    def keep(module, args):  # returns None: the call's arguments stand
+        seen["h"] = args[0].detach()
+
+    hook = cpu_model.blocks[blk].moe.register_forward_pre_hook(keep)
+    with torch.no_grad():
+        logits = cpu_model(tokens, train=False)
+    hook.remove()
+    h = seen["h"]
+    with torch.no_grad():
+        rc = cpu_model.blocks[blk].moe.routing(h, True)
+        rg = gpu_model.blocks[blk].moe.routing(h.to(DEV), True)
+    exact, ties = True, 0
+    for j in range(len(rc.expert)):
+        for field in ("expert", "kept", "position"):
+            a = getattr(rc, field)[j]
+            b = getattr(rg, field)[j].cpu()
+            if not torch.equal(a, b):
+                exact = False
+    if not exact:
+        probs = rc.probs.sort(dim=-1, descending=True).values
+        gaps = (probs[..., :-1] - probs[..., 1:]).amin(dim=-1)
+        ties = int((gaps < 1e-5).sum())
+    return exact, ties, rc.capacity, logits
+
+
+def phase_moe_parity(lr: float = 1e-2):
+    """The routed Llama at Llama-1B's width and depth 4 (block 3 routed),
+    f32 with TF32 off, one seeded weight set on the card (kernels) and on
+    the CPU (plain versions): block 3's router choices, kept set and
+    queue positions on the same input exact (or ties); eval logits
+    within 1e-4; one SGD step's loss within rtol 1e-5 and every
+    parameter's gradient within 1e-3 of its max-abs. Returns the card
+    model (for ``mixtral_roundtrip``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(vocab_size=VOCAB, depth=MOE_PARITY_DEPTH, dtype=torch.float32,
+              seed=9, **MOE_CFG)
+    gpu_model = Llama_1B(device=DEV, **kw)
+    cpu_model = cpu_copy(gpu_model, **kw)
+    data = SyntheticLanguageModeling(batch_size=2, seq_len=MOE_PARITY_SEQ,
+                                     vocab_size=VOCAB, seed=2).batch(0)
+    tokens = torch.from_numpy(data["tokens"])
+    exact, ties, capacity, lc = _routing_diff(gpu_model, cpu_model, tokens)
+    with torch.no_grad():
+        lg = gpu_model(tokens.to(DEV), train=False).cpu()
+    logit_err = float((lg - lc).abs().max())
+    losses, grad_rel = {}, {}
+    for name, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        tr = Trainer(model, optimizer="sgd", learning_rate=lr,
+                     device=model.device, **LM_KEYS)
+        logs = tr.train_step(data)
+        losses[name] = (float(logs["loss"]), float(logs["moe_drop_rate"]))
+    cpu_params = dict(cpu_model.named_parameters())
+    for n, p in gpu_model.named_parameters():
+        c = cpu_params[n].grad
+        grad_rel[n] = float((p.grad.cpu() - c).abs().max()) / float(
+            c.abs().max())
+    worst = max(grad_rel, key=grad_rel.get)
+    rel = abs(losses["cuda"][0] - losses["cpu"][0]) / losses["cpu"][0]
+    phase("moe_parity", model=f"Llama_1B_moe8_top2_depth{MOE_PARITY_DEPTH}"
+          "_f32", allow_tf32=False, batch=2, seq=MOE_PARITY_SEQ,
+          capacity=capacity,
+          routing_exact=exact, routing_ties=ties,
+          logits_max_abs_err=f"{logit_err:.3g}", logits_bound="1e-4",
+          loss_cuda=f"{losses['cuda'][0]:.7f}",
+          loss_cpu=f"{losses['cpu'][0]:.7f}", loss_rel=f"{rel:.3g}",
+          drop_rate_cuda=f"{losses['cuda'][1]:.6f}",
+          drop_rate_cpu=f"{losses['cpu'][1]:.6f}",
+          max_grad_rel_diff=f"{grad_rel[worst]:.3g}", worst_leaf=worst,
+          grad_bound=f"{GRAD_TOL[torch.float32]:g}")
+    if not (exact or ties):
+        raise RuntimeError("moe_parity: routing differs away from a tie")
+    if not (logit_err <= 1e-4 and rel <= 1e-5
+            and grad_rel[worst] <= GRAD_TOL[torch.float32]
+            and losses["cuda"][1] == losses["cpu"][1]):
+        raise RuntimeError(f"moe_parity out of tolerance: {losses} "
+                           f"logits {logit_err} {worst} {grad_rel[worst]}")
+    del cpu_model
+    return gpu_model
+
+
+def phase_mixtral_roundtrip(model):
+    """``export_hf_llama`` then ``load_hf_mixtral`` of the routed Llama
+    (the card's machine has no ``transformers``: the state dict's round
+    trip), bitwise but the router's bias (Mixtral has none), every routed
+    block's experts in Mixtral's keys."""
+    t0 = time.perf_counter()
+    sd = export_hf_llama(model)
+    export_ms = 1e3 * (time.perf_counter() - t0)
+    back = Llama_1B(vocab_size=VOCAB, depth=MOE_PARITY_DEPTH,
+                    dtype=torch.float32, device=DEV, seed=10, **MOE_CFG)
+
+    class _Holder:
+        def state_dict(self):
+            return sd
+
+    t0 = time.perf_counter()
+    load_hf_mixtral(_Holder(), back)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    # Mixtral's gate has no bias: the router's bias is not exported (as
+    # in the JAX package) and keeps the loading model's.
+    a, b = model.state_dict(), back.state_dict()
+    bitwise = all(torch.equal(a[k], b[k]) for k in a
+                  if not k.endswith("router.bias"))
+    experts = sum(1 for k in sd if ".block_sparse_moe.experts." in k)
+    phase("mixtral_roundtrip", model=f"Llama_1B_moe8_top2_depth"
+          f"{MOE_PARITY_DEPTH}_f32", hf_keys=len(sd), expert_keys=experts,
+          bitwise=bitwise, export_ms=f"{export_ms:.1f}",
+          load_ms=f"{load_ms:.1f}")
+    if not bitwise or experts != 8 * 3:
+        raise RuntimeError("mixtral_roundtrip: not bitwise")
+    del back, sd
+
+
+def phase_moe_train(batch: int = 2, seq: int = 2048, warmup: int = 1,
+                    steps: int = 3):
+    """The routed Llama at full depth (blocks 15, 11, 7, 3 routed), bf16
+    compute over f32 parameters, adamw, B 2 x S 2048 through
+    ``Trainer.fit``: tokens/s, the 6ND MFU over the parameters a token
+    meets (the dense ones and 2 of 8 experts), the losses with their aux
+    terms, ``moe_drop_rate``, peak memory, and K1/K2 launches (one each a
+    layer a step)."""
+    torch.cuda.empty_cache()
+    model = Llama_1B(vocab_size=VOCAB, dtype=torch.bfloat16,
+                     param_dtype=torch.float32, device=DEV, seed=11,
+                     **MOE_CFG)
+    n_params = sum(p.numel() for p in model.parameters())
+    experts = sum(p.numel() for n, p in model.named_parameters()
+                  if ".moe.w" in n)
+    active = (n_params - model.stem.embed.weight.numel() - experts
+              + experts * MOE_CFG["moe_top_k"] // MOE_CFG["moe_experts"])
+    tr, data, hist, wall, counts, tokens_s, _, peak = _timed_fit(
+        model, batch, seq, warmup, steps)
+    mfu = 6 * active * tokens_s / PEAK_FLOPS[torch.bfloat16]
+    with torch.no_grad():
+        model(torch.from_numpy(data.batch(warmup + steps)["tokens"]).to(DEV))
+    aux = sum(float(v) for v in sown(model)["losses"]["moe_aux_loss"])
+    losses = hist.history["loss"]
+    phase("moe_train", model="Llama_1B_moe8_top2_every4_bf16_compute_f32"
+          "_params", params=n_params, expert_params=experts,
+          active_matmul_params=active, batch=batch, seq=seq, steps=steps,
+          wall_s=f"{wall:.4f}", ms_per_step=f"{1e3 * wall / steps:.3f}",
+          tokens_per_s=f"{tokens_s:.2f}", mfu_6nd_active=f"{mfu:.4f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}",
+          losses="/".join(f"{x:.5f}" for x in losses),
+          moe_drop_rate="/".join(f"{x:.5f}" for x in
+                                 hist.history["moe_drop_rate"]),
+          last_aux_loss=f"{aux:.6f}",
+          flash_per_step="/".join(f"{k}:{counts[k] / steps:g}"
+                                  for k in FLASH_COUNTERS))
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"moe_train: non-finite losses {losses}")
+    want = {"flash_fwd": model.depth * steps,
+            "flash_bwd_fused": model.depth * steps, "flash_fwd_nolse": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if {k: counts[k] for k in want} != want:
+        raise RuntimeError(f"moe_train launches {counts}, want {want}")
+    del tr, data, model
+    torch.cuda.empty_cache()
+    return counts
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5955,6 +6438,9 @@ def main(argv=None) -> int:
     ap.add_argument("--resilience-child", metavar="DIR",
                     help=argparse.SUPPRESS)
     ap.add_argument("--dp-ckpt-child", nargs=3,
+                    metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-gloo2-child", nargs=3,
                     metavar=("RANK", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -5976,11 +6462,16 @@ def main(argv=None) -> int:
         rank, port, out_dir = args.dp_ckpt_child
         dp_ckpt_child(int(rank), int(port), out_dir)
         return 0
+    if args.tp_gloo2_child:
+        rank, port, out_dir = args.tp_gloo2_child
+        tp_gloo2_child(int(rank), int(port), out_dir)
+        return 0
     smi = device_line()
     print(smi, flush=True)
     phase("device", name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda)
+          cuda=torch.version.cuda, host_threads=torch.get_num_threads(),
+          host_cpus=os.cpu_count())
     phase("build", kernels=",".join(_kernels.SOURCES),
           seconds=f"{build_kernels():.2f}")
     timing = {"paged_decode": phase_paged_decode(), **phase_flash_fwd(),
@@ -5988,11 +6479,20 @@ def main(argv=None) -> int:
               **phase_flash_bwd_two_sweep()}
     for name, shapes in time_flash_shapes().items():
         timing[name]["shapes"] = shapes
+    # One process's attention under TP2 (H 16/4): K1 and K2 held against
+    # their plain versions (FLASH_CASES' llama1b_tp2) and timed.
+    phase("tp_kernels", shape="B1_H16_Hkv4_S2048_D64_bf16_causal", **{
+        f"{n}_{k}": (f"{v:.5f}" if isinstance(v, float) else v)
+        for n in ("flash_fwd", "flash_bwd_fused")
+        for k, v in timing[n]["shapes"]["llama1b_tp2_local"].items()})
     phase_engine_parity()
     model, prompts = serve_model_and_prompts()
     serve_launches, paged_kv = phase_engine_serve(model, prompts)
     if args.profile:
         profile_decode(model, prompts, args.profile)
+    phase_engine_row_serve(model, prompts, paged_kv)
+    if args.profile:
+        profile_decode(model, prompts, args.profile, paged=False)
     del model
     phase_train_parity()
     phase_train_converge()
@@ -6043,10 +6543,7 @@ def main(argv=None) -> int:
     del model
     swa_launches = phase_generate_swa()
     phase_engine_row_parity()
-    model, prompts = serve_model_and_prompts()
-    phase_engine_row_serve(model, prompts, paged_kv)
-    if args.profile:
-        profile_decode(model, prompts, args.profile, paged=False)
+    model, prompts = serve_model_and_prompts(SERVE_DEPTH)
     spec_serve_launches = phase_engine_spec_serve(model, prompts)
     tenant_serve_launches = phase_engine_tenant_serve(
         model, prompts, args.profile or "build/profiles")
@@ -6116,6 +6613,18 @@ def main(argv=None) -> int:
     phase_train_resilience()
     phase("phase_seconds", name="train_resilience",
           seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tp_dir:
+        tp_launches = phase_tp_gloo2(tp_dir)
+    phase("phase_seconds", name="tp_ep_gloo2",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    moe_model = phase_moe_parity()
+    phase_mixtral_roundtrip(moe_model)
+    del moe_model
+    moe_launches = phase_moe_train()
+    phase("phase_seconds", name="moe",
+          seconds=f"{time.perf_counter() - t0:.2f}")
     src = "pddl_tpu_torch/ops/csrc/"
     att = "pddl_tpu/ops/attention.py:"
     # Each kernel's launches by main path (the Llama, GPT and ViT train
@@ -6141,11 +6650,17 @@ def main(argv=None) -> int:
                     artifact_launches["flash_fwd"],
                 "gpt_train": gpt_train_launches["flash_fwd"],
                 "vit_train": vit_train_launches["flash_fwd"],
-                "train_options_step": options_launches["flash_fwd"]}
+                "train_options_step": options_launches["flash_fwd"],
+                "tp_parity_gloo2": tp_launches["tp"]["flash_fwd"],
+                "ep_parity_gloo2": tp_launches["ep"]["flash_fwd"],
+                "moe_train": moe_launches["flash_fwd"]}
     k2_paths = {"train_step": train_launches["flash_bwd_fused"],
                 "gpt_train": gpt_train_launches["flash_bwd_fused"],
                 "vit_train": vit_train_launches["flash_bwd_fused"],
-                "train_options_step": options_launches["flash_bwd_fused"]}
+                "train_options_step": options_launches["flash_bwd_fused"],
+                "tp_parity_gloo2": tp_launches["tp"]["flash_bwd_fused"],
+                "ep_parity_gloo2": tp_launches["ep"]["flash_bwd_fused"],
+                "moe_train": moe_launches["flash_bwd_fused"]}
     # (name, source, TPU kernel's line, launches on the main paths: the
     # paged serve runs, the train steps (Llama, GPT, ViT) with the Llama
     # eval batch, the long-context run, or the sliding-window generate; K1

@@ -39,7 +39,10 @@ What is ported so far:
   single, mirrored, multi-worker and parameter-server strategies
   (``parallel/``) and the Horovod shim (``compat/hvd.py``), one process
   per device on ``torch.distributed`` (``core/``), with BatchNorm over the
-  global batch.
+  global batch; and beyond them tensor and expert parallelism
+  (``parallel/tensor_parallel.py``) over the mesh's ``model`` and
+  ``expert`` axes, with routed experts (``ops/moe.py``) in the Llama, GPT
+  and ViT.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no ``device="cpu"`` they raise.

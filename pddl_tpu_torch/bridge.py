@@ -20,7 +20,14 @@ map their biased ``query``/``key``/``value``/``out``, ``mlp1``/``mlp2``
 and LayerNorm ``scale``/``bias`` (the port's ``weight``/``bias``) the same
 way; GPT's ``token_embed`` and ``pos_embed`` and the ViT's ``pos_embed``
 carry over, and the ViT's ``patch_embed`` conv kernel ``[p, p, C, E]``
-becomes ``[E, C, p, p]``. MoE blocks raise (ROADMAP.md queue 1 item 5).
+becomes ``[E, C, p, p]``. A routed (MoE) block's ``moe`` subtree
+carries over expert-major: ``router`` kernel ``[E, N]`` → ``[N, E]`` and
+its bias, the experts' ``w1``/``w3``/``w2`` (and the GELU experts'
+``b1``/``b2``) as they are.
+
+:func:`shard_state_dict` cuts a whole state dict into one process's
+blocks under a bound tensor- or expert-parallel strategy, so a sharded
+run starts from the same numbers as a single-device JAX one.
 
 For a ResNet (:func:`resnet_params_from_jax`): conv kernels ``[kh, kw,
 in, out]`` become ``[out, in, kh, kw]``, the dense head's ``[in, out]``
@@ -50,10 +57,38 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
+def _moe_from_jax(moe: Mapping, pre: str, sd: Dict) -> None:
+    """A flax ``SwitchFFN`` subtree into ``sd`` under ``pre`` (``...moe.``)."""
+    sd[pre + "router.weight"] = _tensor(np.asarray(moe["router"]["kernel"]).T)
+    sd[pre + "router.bias"] = _tensor(moe["router"]["bias"])
+    for name in ("w1", "w3", "w2", "b1", "b2"):
+        if name in moe:
+            sd[pre + name] = _tensor(moe[name])
+
+
+def _moe_to_jax(sd: Mapping, pre: str) -> Dict[str, Any]:
+    out: Dict[str, Any] = {"router": {
+        "kernel": _array(sd[pre + "router.weight"]).T.copy(),
+        "bias": _array(sd[pre + "router.bias"])}}
+    for name in ("w1", "w3", "w2", "b1", "b2"):
+        if pre + name in sd:
+            out[name] = _array(sd[pre + name])
+    return out
+
+
+def shard_state_dict(state_dict: Mapping[str, torch.Tensor], strategy
+                     ) -> Dict[str, torch.Tensor]:
+    """A whole state dict (bridged from JAX, say) cut to this process's
+    blocks under ``strategy``, a bound
+    :class:`~pddl_tpu_torch.parallel.TensorParallelStrategy`: the sharded
+    tensors narrowed along their dimension, the rest as they are."""
+    return {k: strategy.local_state(k, v) for k, v in state_dict.items()}
+
+
 def llama_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Map a flax ``Llama`` param tree (numpy leaves; the ``params``
     collection, not the ``{"params": ...}`` wrapper) to a state_dict for
-    :class:`pddl_tpu_torch.models.llama.Llama`. Raises on MoE blocks."""
+    :class:`pddl_tpu_torch.models.llama.Llama`, routed blocks included."""
     sd: Dict[str, torch.Tensor] = {
         "stem.embed.weight": _tensor(params["embed"]["embedding"]),
         "head.ln_final.weight": _tensor(params["ln_final"]["scale"]),
@@ -63,9 +98,6 @@ def llama_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     depth = sum(1 for k in params if k.startswith("block"))
     for i in range(depth):
         blk = params[f"block{i}"]
-        if "moe" in blk:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP.md queue 1 item 5)")
         pre = f"blocks.{i}."
         sd[pre + "ln1.weight"] = _tensor(blk["ln1"]["scale"])
         sd[pre + "ln2.weight"] = _tensor(blk["ln2"]["scale"])
@@ -79,6 +111,9 @@ def llama_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                     np.asarray(attn[name]["bias"]).reshape(-1))
         sd[pre + "attn.out.weight"] = _tensor(
             np.asarray(attn["out"]["kernel"]).T)
+        if "moe" in blk:
+            _moe_from_jax(blk["moe"], pre + "moe.", sd)
+            continue
         for name in ("mlp_gate", "mlp_up", "mlp_down"):
             sd[pre + f"{name}.weight"] = _tensor(
                 np.asarray(blk[name]["kernel"]).T)
@@ -121,8 +156,12 @@ def llama_params_to_jax(model, state_dict: Optional[Mapping] = None
             "ln1": {"scale": _array(sd[pre + "ln1.weight"])},
             "ln2": {"scale": _array(sd[pre + "ln2.weight"])},
             "attn": attn}
-        for name in ("mlp_gate", "mlp_up", "mlp_down"):
-            blk[name] = {"kernel": _array(sd[pre + f"{name}.weight"]).T.copy()}
+        if pre + "moe.router.weight" in sd:
+            blk["moe"] = _moe_to_jax(sd, pre + "moe.")
+        else:
+            for name in ("mlp_gate", "mlp_up", "mlp_down"):
+                blk[name] = {
+                    "kernel": _array(sd[pre + f"{name}.weight"]).T.copy()}
         out[f"block{i}"] = blk
     return out
 
@@ -136,9 +175,6 @@ def _transformer_blocks_from_jax(params: Mapping, sd: Dict) -> None:
     depth = sum(1 for k in params if k.startswith("block"))
     for i in range(depth):
         blk = params[f"block{i}"]
-        if "moe" in blk:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP.md queue 1 item 5)")
         pre = f"blocks.{i}."
         for ln in ("ln1", "ln2"):
             sd[pre + ln + ".weight"], sd[pre + ln + ".bias"] = _ln(blk[ln])
@@ -149,8 +185,11 @@ def _transformer_blocks_from_jax(params: Mapping, sd: Dict) -> None:
                 kern.reshape(kern.shape[0], -1).T)           # [H*D, E]
             sd[pre + f"attn.{name}.bias"] = _tensor(
                 np.asarray(attn[name]["bias"]).reshape(-1))
-        named = [("attn.out", attn["out"]), ("mlp1", blk["mlp1"]),
-                 ("mlp2", blk["mlp2"])]
+        named = [("attn.out", attn["out"])]
+        if "moe" in blk:
+            _moe_from_jax(blk["moe"], pre + "moe.", sd)
+        else:
+            named += [("mlp1", blk["mlp1"]), ("mlp2", blk["mlp2"])]
         for name, leaf in named:
             sd[pre + name + ".weight"] = _tensor(np.asarray(leaf["kernel"]).T)
             sd[pre + name + ".bias"] = _tensor(leaf["bias"])
@@ -170,8 +209,11 @@ def _transformer_blocks_to_jax(model, sd, out: Dict) -> None:
         for name in ("ln1", "ln2"):
             blk[name] = {"scale": _array(sd[pre + name + ".weight"]),
                          "bias": _array(sd[pre + name + ".bias"])}
-        for name, key in (("attn.out", None), ("mlp1", "mlp1"),
-                          ("mlp2", "mlp2")):
+        moe = pre + "moe.router.weight" in sd
+        if moe:
+            blk["moe"] = _moe_to_jax(sd, pre + "moe.")
+        for name, key in (("attn.out", None),) + (
+                () if moe else (("mlp1", "mlp1"), ("mlp2", "mlp2"))):
             leaf = {"kernel": _array(sd[pre + name + ".weight"]).T.copy(),
                     "bias": _array(sd[pre + name + ".bias"])}
             if key is None:
@@ -183,8 +225,7 @@ def _transformer_blocks_to_jax(model, sd, out: Dict) -> None:
 
 def gpt_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Map a flax ``GPT`` param tree (numpy leaves, the ``params``
-    collection) to a state_dict for :class:`pddl_tpu_torch.models.gpt.GPT`.
-    Raises on MoE blocks."""
+    collection) to a state_dict for :class:`pddl_tpu_torch.models.gpt.GPT`."""
     sd: Dict[str, torch.Tensor] = {
         "stem.token_embed.weight": _tensor(params["token_embed"]["embedding"]),
         "stem.pos_embed": _tensor(params["pos_embed"]),
@@ -217,8 +258,7 @@ def gpt_params_to_jax(model, state_dict: Optional[Mapping] = None
 
 def vit_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Map a flax ``ViT`` param tree (numpy leaves, the ``params``
-    collection) to a state_dict for :class:`pddl_tpu_torch.models.vit.ViT`.
-    Raises on MoE blocks."""
+    collection) to a state_dict for :class:`pddl_tpu_torch.models.vit.ViT`."""
     sd: Dict[str, torch.Tensor] = {
         "stem.patch_embed.weight": _tensor(np.asarray(
             params["patch_embed"]["kernel"]).transpose(3, 2, 0, 1)),

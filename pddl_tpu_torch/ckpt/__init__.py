@@ -9,16 +9,17 @@
 - :func:`load_keras_resnet50_h5` and :func:`export_keras_style_h5`: a
   Keras ResNet ``.h5`` into the port's ``ResNet`` and back out, the
   reference's pretrained mode and its final ``model.save``;
-- :func:`load_hf_gpt2`, :func:`load_hf_llama` and :func:`export_hf_llama`:
-  HuggingFace LM checkpoints in and out of the port's GPT and Llama;
+- :func:`load_hf_gpt2`, :func:`load_hf_llama`, :func:`load_hf_mixtral`
+  and :func:`export_hf_llama`: HuggingFace LM checkpoints in and out of
+  the port's GPT and Llama (routed experts included);
 - :func:`save_inference_artifact` / :func:`load_inference_artifact` and
   :func:`save_decode_artifact` / :func:`load_decode_artifact`: serving
   artifacts on ``torch.export``.
 
 Checkpoints of a strategy over several processes are one save each,
-which no world size shapes (``checkpoint.py``). ``load_hf_mixtral``
-waits for routed experts (ROADMAP.md queue 1 item 5). Importing this
-package imports no ``transformers``."""
+which no world size shapes (``checkpoint.py``), tensor- and
+expert-parallel ones included. Importing this package imports no
+``transformers``."""
 
 from pddl_tpu_torch.ckpt.checkpoint import (
     BackupAndRestore,
@@ -40,7 +41,11 @@ from pddl_tpu_torch.ckpt.export import (
 )
 from pddl_tpu_torch.ckpt.fetch import fetch_keras_resnet50_weights
 from pddl_tpu_torch.ckpt.hf_export import export_hf_llama
-from pddl_tpu_torch.ckpt.hf_import import load_hf_gpt2, load_hf_llama
+from pddl_tpu_torch.ckpt.hf_import import (
+    load_hf_gpt2,
+    load_hf_llama,
+    load_hf_mixtral,
+)
 from pddl_tpu_torch.ckpt.keras_import import (
     export_keras_style_h5,
     load_keras_resnet50_h5,
@@ -60,6 +65,7 @@ __all__ = [
     "load_keras_resnet50_h5",
     "load_hf_gpt2",
     "load_hf_llama",
+    "load_hf_mixtral",
     "export_hf_llama",
     "export_inference_fn",
     "save_inference_artifact",

@@ -38,7 +38,9 @@ trainer's in-process recovery restores from the same saves.
 a thread; :meth:`Checkpointer.wait` joins it (a restore waits first).
 
 **Across processes, one save.** Under a strategy whose group spans
-processes (``mirrored``, ``multiworker``, ``ps``, the Horovod shim's),
+processes (``mirrored``, ``multiworker``, ``ps``, the Horovod shim's,
+``tensor_parallel`` and ``expert_parallel``, whose save group is every
+process of the mesh),
 every process calls the save (the callbacks do, through
 :meth:`Checkpointer.save_trainer`) and one step directory in the format
 above results, which no world size shapes: :func:`whole_state` gathers
@@ -223,7 +225,7 @@ class Checkpointer:
         (:func:`whole_state`, recording :data:`OWNERS`), as its group's
         save: under a strategy over several processes every process calls
         it, rank 0 writes. Returns the step."""
-        self.group = trainer.strategy.group
+        self.group = trainer.strategy.save_group
         state, owners = whole_state(trainer)
         return self._save(state, epoch, metrics, loader, checksum, owners)
 
@@ -463,6 +465,13 @@ def whole_state(trainer) -> Tuple[dict, Dict[str, str]]:
         return strategy.whole_state(name, leaf) if name in sharded else leaf
 
     state["optimizer"] = _map_leaves(state["optimizer"], whole, "optimizer")
+    # Tensor and expert parallelism shard the parameters themselves (and
+    # their shadows): each is gathered whole along its axis.
+    names = getattr(strategy, "sharded_names", dict)()
+    for key in ("model", "ema"):
+        if state.get(key) is not None and names:
+            state[key] = {k: strategy.whole_state(k, v) if k in names else v
+                          for k, v in state[key].items()}
     return state, owners
 
 
@@ -471,17 +480,25 @@ def local_state(trainer, state: dict, meta: Dict[str, Any]) -> dict:
     save's whole optimizer tensors (:data:`OWNERS` of its ``meta``) of
     each parameter the trainer's strategy shards, cut to this process's
     slice. Anything else is returned as it is."""
-    owners = meta.get(OWNERS)
+    owners = meta.get(OWNERS) or {}
     strategy = trainer.strategy
-    if not owners or not hasattr(strategy, "local_state"):
+    if not hasattr(strategy, "local_state"):
         return state
 
     def local(path, leaf):
         name = owners.get(path)
         return leaf if name is None else strategy.local_state(name, leaf)
 
-    return {**state, "optimizer": _map_leaves(state["optimizer"], local,
-                                              "optimizer")}
+    out = dict(state)
+    if owners:
+        out["optimizer"] = _map_leaves(state["optimizer"], local,
+                                       "optimizer")
+    names = getattr(strategy, "sharded_names", dict)()
+    for key in ("model", "ema"):
+        if out.get(key) is not None and names:
+            out[key] = {k: strategy.local_state(k, v) if k in names else v
+                        for k, v in out[key].items()}
+    return out
 
 
 def _loader_position(trainer) -> Optional[Dict[str, int]]:

@@ -10,8 +10,10 @@ map is a rename. Keys follow ``LlamaForCausalLM`` (``model.*`` and
 (``torch.from_numpy`` them for ``load_state_dict``). The GPT-2 family is
 deliberately not exported, as in the JAX package: HF GPT-2 ties
 ``lm_head`` to ``wte``, and a trained untied head has no faithful
-representation in that format. Mixtral layers wait for MoE (ROADMAP.md
-queue 1 item 5).
+representation in that format. A routed block exports as Mixtral's
+``block_sparse_moe``: the router weight as ``gate.weight`` (its bias,
+which Mixtral lacks, is not exported, as in the JAX package) and each
+expert's ``w1``/``w3``/``w2`` ``[out, in]``, in the JAX exporter's order.
 """
 
 from __future__ import annotations
@@ -41,8 +43,17 @@ def export_hf_llama(model, state_dict: Optional[Mapping] = None
     vocab = model.vocab_size
     out: Dict[str, np.ndarray] = {}
     for ours, theirs in llama_keys(model.depth):
+        pre = ours.rsplit("mlp_gate.weight", 1)[0]
+        if ours.endswith(".mlp_gate.weight") and pre + "moe.w1" in sd:
+            hf = theirs.rsplit("mlp.", 1)[0] + "block_sparse_moe."
+            out[hf + "gate.weight"] = _f32(sd[pre + "moe.router.weight"])
+            for name in ("w1", "w3", "w2"):
+                stack = sd[pre + "moe." + name]
+                for x in range(stack.shape[0]):
+                    out[hf + f"experts.{x}.{name}.weight"] = _f32(
+                        stack[x].t())
         if ours not in sd:
-            continue  # a bias-free model's q/k/v biases
+            continue  # a bias-free model's q/k/v biases, a routed MLP
         value = sd[ours]
         if ours in LLAMA_VOCAB_ROWS:
             value = value[:vocab]

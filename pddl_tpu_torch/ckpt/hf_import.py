@@ -44,9 +44,16 @@ away). A Llama checkpoint without ``lm_head.weight`` ties the head to the
 embedding; GPT-2's head is always its ``wte``, with the bias zeroed over
 the real vocabulary. Mistral (``sliding_window``) and Qwen2 (q/k/v
 biases) checkpoints are Llama-layout state dicts and load through
-:func:`load_hf_llama`. A Mixtral checkpoint (``block_sparse_moe`` layers)
-raises ``NotImplementedError``: routed experts wait for ROADMAP.md
-queue 1 item 5, and with them ``load_hf_mixtral``.
+:func:`load_hf_llama`. So do Mixtral checkpoints (:func:`load_hf_mixtral`
+resolves a directory through ``MixtralForCausalLM``): a layer's
+``block_sparse_moe.gate`` is the routed block's ``moe.router`` weight (a
+rename; the router's bias, which Mixtral lacks, keeps the model's) and
+the per-expert ``experts.{x}.w1|w3|w2`` ``[out, in]`` stack, transposed,
+into the expert-major ``moe.w1|w3|w2``. The model's routed blocks must
+sit where the checkpoint's are, with its expert count, and against a
+config ``moe_top_k`` must equal ``num_experts_per_tok`` (a model with
+``moe_eval_dropless=False`` must carry a capacity factor of at least
+``num_local_experts / num_experts_per_tok``), as the JAX importer checks.
 """
 
 from __future__ import annotations
@@ -79,8 +86,8 @@ LLAMA_HEAD = ("head.lm_head.weight", "lm_head.weight")  # outside ``model.``
 # The leaves whose first axis is the (padded) vocabulary.
 LLAMA_VOCAB_ROWS = frozenset({"stem.embed.weight", "head.lm_head.weight"})
 
-_MOE_REFUSAL = ("Mixtral checkpoints (block_sparse_moe layers): MoE blocks "
-                "are not ported yet (ROADMAP.md queue 1 item 5)")
+_MOE_REFUSAL = ("Mixtral checkpoints (block_sparse_moe layers) load into "
+                "a Llama: use load_hf_mixtral")
 
 
 def llama_keys(depth: int) -> Iterator[Tuple[str, str]]:
@@ -165,7 +172,64 @@ def _hf_depth(sd, prefix: str, layers: str) -> int:
 
 def _refuse_moe(sd) -> None:
     if any(".block_sparse_moe." in k for k in sd):
-        raise NotImplementedError(_MOE_REFUSAL)
+        raise ValueError(_MOE_REFUSAL)
+
+
+def _check_experts_config(model, cfg) -> None:
+    """The JAX importer's Mixtral config checks: the routing width, and a
+    capacity that cannot drop at inference."""
+    have_tk = getattr(cfg, "num_experts_per_tok", None)
+    n_local = getattr(cfg, "num_local_experts", None)
+    if not (n_local and have_tk):
+        return
+    want_tk = getattr(model, "moe_top_k", None)
+    if want_tk is not None and want_tk != have_tk:
+        raise ValueError(
+            f"hf llama import: model moe_top_k={want_tk} but the checkpoint "
+            f"uses num_experts_per_tok={have_tk} — rebuild with "
+            f"moe_top_k={have_tk}")
+    if not getattr(model, "moe_eval_dropless", False):
+        want_cf = getattr(model, "moe_capacity_factor", None)
+        if want_cf is not None and want_cf < n_local / have_tk:
+            raise ValueError(
+                f"hf llama import: moe_eval_dropless=False with "
+                f"moe_capacity_factor={want_cf} can drop routed tokens at "
+                f"inference (dropless Mixtral needs >= num_local_experts/"
+                f"num_experts_per_tok = {n_local / have_tk:g}) — re-enable "
+                "moe_eval_dropless or raise moe_capacity_factor for serving "
+                "parity")
+
+
+def _moe_layers(sd, prefix: str, model) -> Dict[int, int]:
+    """``{layer: experts}`` of the checkpoint's routed layers, checked
+    against the model's routed blocks."""
+    out = {}
+    for i, block in enumerate(model.blocks):
+        hf = f"{prefix}layers.{i}.block_sparse_moe."
+        moe = getattr(block, "moe", None)
+        if hf + "gate.weight" not in sd:
+            if moe is not None:
+                raise ValueError(
+                    f"hf llama import: layer {i} of the checkpoint is dense "
+                    "but the model block routes experts — rebuild the "
+                    "Llama with moe_experts=0 (or the checkpoint's "
+                    "moe_every)")
+            continue
+        if moe is None:
+            raise ValueError(
+                "hf llama import: checkpoint is a Mixtral (routed experts "
+                f"in layer {i}) but the model block has no MoE — rebuild "
+                "the Llama with moe_experts=config.num_local_experts")
+        n_exp = moe.w1.shape[0]
+        ck_exp = sum(1 for k in sd if k.startswith(hf + "experts.")
+                     and k.endswith(".w1.weight"))
+        if n_exp != ck_exp:
+            raise ValueError(
+                f"hf llama import: layer {i} has {ck_exp} experts in the "
+                f"checkpoint but the model was built with moe_experts="
+                f"{n_exp}")
+        out[i] = n_exp
+    return out
 
 
 @torch.no_grad()
@@ -307,7 +371,6 @@ def load_hf_llama(model_or_dir, model: nn.Module, *,
     if expected_rope_theta is None:
         expected_rope_theta = model.blocks[0].attn.rope_theta
     sd = _state_dict(model_or_dir)
-    _refuse_moe(sd)
     if cfg is not None:
         for name, want, have in (
                 ("rms_eps", expected_rms_eps,
@@ -323,8 +386,10 @@ def load_hf_llama(model_or_dir, model: nn.Module, *,
                     "module, not the weights, so the import would "
                     "silently skew logits)")
         _resolve_window(model, cfg)
+        _check_experts_config(model, cfg)
     prefix = "model." if any(k.startswith("model.") for k in sd) else ""
     target = model.state_dict()
+    routed = _moe_layers(sd, prefix, model)
 
     ckpt_has_bias = f"{prefix}layers.0.self_attn.q_proj.bias" in sd
     model_has_bias = "blocks.0.attn.query.bias" in target
@@ -353,4 +418,29 @@ def load_hf_llama(model_or_dir, model: nn.Module, *,
             value = sd[prefix + theirs[len("model."):]]
         _put(target, ours, value, allow_vocab_pad=ours in LLAMA_VOCAB_ROWS,
              what="hf llama import")
+    for i, n_exp in routed.items():
+        hf = f"{prefix}layers.{i}.block_sparse_moe."
+        _put(target, f"blocks.{i}.moe.router.weight", sd[hf + "gate.weight"],
+             what="hf llama import")
+        for name in ("w1", "w3", "w2"):
+            _put(target, f"blocks.{i}.moe.{name}", torch.stack([
+                _tensor(sd[hf + f"experts.{x}.{name}.weight"]).t()
+                for x in range(n_exp)]), what="hf llama import")
     return model
+
+
+def load_hf_mixtral(model_or_dir, model: nn.Module, **kwargs) -> nn.Module:
+    """Load a HF Mixtral checkpoint into the port's routed
+    :class:`~pddl_tpu_torch.models.llama.Llama` in place (module
+    docstring); returns ``model``. A directory resolves through
+    ``MixtralForCausalLM``; everything else is :func:`load_hf_llama`,
+    which maps the ``block_sparse_moe`` layers. Build the model with
+    ``moe_experts=config.num_local_experts`` and
+    ``moe_top_k=config.num_experts_per_tok``."""
+    _check_call(model, "load_hf_mixtral",
+                "load_hf_mixtral(model_or_dir, model, **kwargs) -> model")
+    if isinstance(model_or_dir, str):
+        from transformers import MixtralForCausalLM  # noqa: PLC0415
+
+        model_or_dir = MixtralForCausalLM.from_pretrained(model_or_dir)
+    return load_hf_llama(model_or_dir, model, **kwargs)

@@ -18,6 +18,16 @@ and device below; NCCL and gloo on the CPU run each natively.
 
 ``pcast_varying`` exists only for JAX's varying-manual-axes checker, which
 has no counterpart here.
+
+Tensor and expert parallelism take Megatron's pair of differentiable
+collectives, :func:`copy_to_group` (identity forward, all-reduce of the
+gradient backward) and :func:`reduce_from_group` (all-reduce forward,
+identity backward), and :func:`gather_from_group` (an all-gather along
+one dimension forward, this member's slice of the gradient backward).
+These three take ``None`` for a group of one (an axis of size 1), where
+each is the identity, and count their calls and bytes in
+:data:`TP_COUNTS` (forward and backward alike) so a step's collectives
+can be read off.
 """
 
 from __future__ import annotations
@@ -170,6 +180,91 @@ def ppermute_ring(x: torch.Tensor, group=None, *,
     for work in tdist.batch_isend_irecv(ops):
         work.wait()
     return out
+
+
+# Calls and bytes of the tensor/expert-parallel collectives, by name:
+# ``{"copy_to_bwd": [calls, bytes], ...}``. Reset with :func:`reset_tp_counts`.
+TP_COUNTS: dict = {}
+
+
+def reset_tp_counts() -> None:
+    TP_COUNTS.clear()
+
+
+def _count(name: str, x: torch.Tensor) -> None:
+    calls = TP_COUNTS.setdefault(name, [0, 0])
+    calls[0] += 1
+    calls[1] += x.numel() * x.element_size()
+
+
+def _sum_over(x: torch.Tensor, group, name: str) -> torch.Tensor:
+    _count(name, x)
+    out = x.contiguous().clone()
+    tdist.all_reduce(out, group=group)
+    return out
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.group, "copy_to_bwd"), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_over(x, group, "reduce_from_fwd")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        ctx.index, ctx.width = axis_index(group), x.shape[dim]
+        _count("gather_from_fwd", x)
+        return torch.cat(_gather_list(x.contiguous(), group), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.index * ctx.width,
+                            ctx.width).contiguous(), None, None)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's "copy to the model-parallel region": ``x`` as it is,
+    its gradient summed over ``group`` in the backward (the input of a
+    column-parallel product, each member's product contributing its part
+    of the input's gradient). ``None``: the identity."""
+    if group is None:
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's "reduce from the model-parallel region": the sum of
+    every member's ``x`` (a row-parallel product's partial sums), its
+    gradient passed back as it is. ``None``: the identity."""
+    if group is None:
+        return x
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every member's ``x`` concatenated along ``dim`` in member order
+    (vocabulary-sharded logits made whole); the backward keeps this
+    member's slice of the gradient. ``None``: the identity."""
+    if group is None:
+        return x
+    return _GatherFromGroup.apply(x, group, dim % x.ndim)
 
 
 def axis_index(group=None) -> int:

@@ -1,4 +1,4 @@
-"""The port's mesh: which processes form the data axis (the port of
+"""The port's mesh: which processes form each axis (the port of
 :mod:`pddl_tpu.core.mesh`).
 
 The port keeps one process per device, so a mesh is a set of processes,
@@ -13,11 +13,18 @@ each driving one card:
 
 :func:`build_mesh` returns a :class:`Mesh` record: the axis sizes, the
 ranks along the data axis in replica order, the data axis's process group
-and this process's device. Only the ``data`` axis is ported: an axis other
-than ``data`` with a size above 1 (tensor, sequence, expert or pipeline
-parallelism) raises ``NotImplementedError`` naming ROADMAP.md queue 1 item
-7. ``mesh_context``, ``shard_map`` and ``has_vma_checking`` are JAX
-mechanics (an ambient mesh, per-shard tracing, the varying-axes checker)
+and this process's device. Over the whole job the mesh takes every
+canonical axis: ranks follow JAX's row-major device order (the last axis
+varies fastest, so with ``data x model x expert`` a rank is
+``d·(model·expert) + m·expert + e``), and each axis of size above 1 gets
+the process group of the ranks that differ only along it
+(:attr:`Mesh.groups`; :attr:`Mesh.group` stays the ``data`` axis's).
+``tdist.new_group`` is a collective call, so every process creates every
+group, in the same order. The ``seq`` and ``stage`` axes above 1
+(sequence and pipeline parallelism) raise ``NotImplementedError`` naming
+ROADMAP.md queue 1 item 7; so does any axis but ``data`` on a mesh of
+this host's processes (``local_only``). ``mesh_context``, ``shard_map``
+and ``has_vma_checking`` are JAX mechanics (an ambient mesh, per-shard tracing, the varying-axes checker)
 with no counterpart here: a process runs its own replica's code, and
 collectives name a process group.
 """
@@ -42,7 +49,9 @@ EXPERT_AXIS = "expert"
 STAGE_AXIS = "stage"  # pipeline parallelism (GPipe microbatch pipeline)
 CANONICAL_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS, STAGE_AXIS)
 
-_ITEM_7 = "ROADMAP.md queue 1 item 7 (tensor, expert, sequence and pipeline parallelism)"
+_ITEM_7 = "ROADMAP.md queue 1 item 7 (sequence and pipeline parallelism)"
+# The axes above size 1 that a mesh over processes runs.
+_PORTED_AXES = (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,12 +108,16 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A data-parallel mesh of processes.
+    """A mesh of processes.
 
-    ``ranks`` are the global ranks along the data axis in replica order,
-    ``group`` the process group over them (``None`` for a mesh of one
-    process that needs no collective), ``device`` this process's card (or
-    the ``cpu``), ``slices`` the ranks by host of a hybrid mesh.
+    ``ranks`` are the global ranks along the data axis through this
+    process, in replica order, ``group`` the process group over them
+    (``None`` when the axis has one member and needs no collective),
+    ``device`` this process's card (or the ``cpu``), ``slices`` the ranks
+    by host of a hybrid mesh. ``axis_ranks`` and ``groups`` give the
+    same for every axis (an axis of size 1 has its one rank and no
+    group); ``world_group`` is the group of every rank of the mesh
+    (``None`` for a mesh of one process).
     """
 
     axis_sizes: Dict[str, int]
@@ -112,6 +125,11 @@ class Mesh:
     group: Optional[tdist.ProcessGroup]
     device: torch.device
     slices: Tuple[Tuple[int, ...], ...] = ()
+    axis_ranks: Dict[str, Tuple[int, ...]] = dataclasses.field(
+        default_factory=dict)
+    groups: Dict[str, Optional[tdist.ProcessGroup]] = dataclasses.field(
+        default_factory=dict)
+    world_group: Optional[tdist.ProcessGroup] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -126,6 +144,30 @@ class Mesh:
     def index(self) -> int:
         """This process's position along the data axis."""
         return self.ranks.index(dist.process_index())
+
+    def axis_group(self, axis: str) -> Optional[tdist.ProcessGroup]:
+        """The process group along ``axis`` through this process (``None``
+        for an axis of one member)."""
+        if axis == DATA_AXIS:
+            return self.group
+        return self.groups.get(axis)
+
+    def axis_index(self, axis: str) -> int:
+        """This process's position along ``axis``."""
+        if axis == DATA_AXIS:
+            return self.index
+        ranks = self.axis_ranks.get(axis)
+        return ranks.index(dist.process_index()) if ranks else 0
+
+    @property
+    def model_group(self) -> Optional[tdist.ProcessGroup]:
+        """The ``model`` (tensor-parallel) axis's group."""
+        return self.axis_group(MODEL_AXIS)
+
+    @property
+    def expert_group(self) -> Optional[tdist.ProcessGroup]:
+        """The ``expert`` axis's group."""
+        return self.axis_group(EXPERT_AXIS)
 
 
 def _host_ranks() -> Tuple[int, ...]:
@@ -178,19 +220,81 @@ def build_mesh(
     if ranks is None:
         ranks = (_host_ranks() if config.local_only
                  else tuple(range(dist.process_count())))
+        sizes = config.axis_sizes(len(ranks))
+        _check_axes(sizes, config.local_only)
+        if any(sizes[a] > 1 for a in CANONICAL_AXES if a != DATA_AXIS):
+            return _axes_mesh(sizes, ranks, device)
         group = _data_group(ranks)
     ranks = tuple(ranks)
     sizes = config.axis_sizes(len(ranks))
-    for name, s in sizes.items():
-        if name != DATA_AXIS and s > 1:
-            raise NotImplementedError(
-                f"mesh axis {name!r} of size {s} is not ported yet: only the "
-                f"data axis is; {_ITEM_7}")
+    _check_axes(sizes, True)
     if group is None and len(ranks) > 1:
         raise ValueError(f"a mesh over ranks {ranks} needs their group")
     device = resolve_device(dist.default_device() if device is None
                             else device)
-    return Mesh({a: sizes[a] for a in CANONICAL_AXES}, ranks, group, device)
+    return Mesh({a: sizes[a] for a in CANONICAL_AXES}, ranks, group, device,
+                axis_ranks={a: (dist.process_index(),)
+                            for a in CANONICAL_AXES if a != DATA_AXIS},
+                world_group=group)
+
+
+def _check_axes(sizes: Dict[str, int], data_only: bool) -> None:
+    ported = (DATA_AXIS,) if data_only else _PORTED_AXES
+    for name, s in sizes.items():
+        if name not in ported and s > 1:
+            where = ("on a mesh of chosen ranks or of this host's processes"
+                     if data_only and name in _PORTED_AXES else "")
+            raise NotImplementedError(
+                f"mesh axis {name!r} of size {s} is not ported yet"
+                f"{' ' + where if where else ''}: {_ITEM_7}")
+
+
+def axis_coords(sizes: Dict[str, int], rank: int) -> Dict[str, int]:
+    """A rank's coordinates on the mesh: JAX's row-major device order,
+    the last canonical axis varying fastest."""
+    coords = {}
+    for axis in reversed(CANONICAL_AXES):
+        rank, coords[axis] = divmod(rank, sizes[axis])
+    return {a: coords[a] for a in CANONICAL_AXES}
+
+
+def axis_lines(sizes: Dict[str, int], axis: str,
+               ranks: Sequence[int]) -> list:
+    """Every line of ranks along ``axis`` (the ranks that differ only in
+    their ``axis`` coordinate), in a fixed order: by the first rank."""
+    lines: dict = {}
+    for pos, rank in enumerate(ranks):
+        c = axis_coords(sizes, pos)
+        key = tuple(c[a] for a in CANONICAL_AXES if a != axis)
+        lines.setdefault(key, []).append(rank)
+    return sorted((tuple(v) for v in lines.values()), key=lambda t: t[0])
+
+
+def _axes_mesh(sizes: Dict[str, int], ranks: Tuple[int, ...],
+               device) -> Mesh:
+    """The mesh over every process of the job with axes beyond ``data``:
+    one group per line of each axis above size 1, created by every
+    process in the same order (``new_group`` is collective)."""
+    if not tdist.is_initialized():
+        raise RuntimeError(
+            f"a mesh of {len(ranks)} processes needs a process group: "
+            "call pddl_tpu_torch.core.dist.initialize first")
+    me = dist.process_index()
+    axis_ranks: Dict[str, Tuple[int, ...]] = {}
+    groups: Dict[str, Optional[tdist.ProcessGroup]] = {}
+    for axis in CANONICAL_AXES:
+        for line in axis_lines(sizes, axis, ranks):
+            group = tdist.new_group(list(line)) if len(line) > 1 else None
+            if me in line:
+                axis_ranks[axis], groups[axis] = line, group
+    world_group = (tdist.group.WORLD if len(ranks) == tdist.get_world_size()
+                   else tdist.new_group(list(ranks)))
+    device = resolve_device(dist.default_device() if device is None
+                            else device)
+    data = axis_ranks.pop(DATA_AXIS)
+    return Mesh({a: sizes[a] for a in CANONICAL_AXES}, data,
+                groups.pop(DATA_AXIS), device, axis_ranks=axis_ranks,
+                groups=groups, world_group=world_group)
 
 
 def slice_groups(

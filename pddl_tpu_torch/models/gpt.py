@@ -41,20 +41,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pddl_tpu_torch.core.collectives import copy_to_group, gather_from_group
 from pddl_tpu_torch.device import resolve_device
-from pddl_tpu_torch.models.layers import LayerNorm, linear
+from pddl_tpu_torch.models.layers import (
+    LayerNorm,
+    linear,
+    vocab_embed,
+)
 from pddl_tpu_torch.models.llama import ring_len
 from pddl_tpu_torch.models.vit import (
     TransformerBlock,
     check_unported,
     init_transformer_weights,
+    moe_of,
     remat_block,
 )
 from pddl_tpu_torch.ops.attention import cache_slot_insert, host_index
 from pddl_tpu_torch.ops.large_vocab import chunked_cross_entropy
 from pddl_tpu_torch.ops.quant import with_params
-
-_NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
 
 # The names of the engine-owned per-slot state a paged forward takes:
 # position counters (``cache_index``; GPT's embed calls its ``pos_index``)
@@ -80,6 +84,9 @@ class _GPTEmbed(nn.Module):
         self.token_embed = nn.Embedding(_padded(vocab_size, vocab_multiple),
                                         embed_dim, dtype=param_dtype,
                                         device=device)
+        # Vocabulary-parallel once bound: this process's first row.
+        self.vocab_group = None
+        self.vocab_offset = 0
         self.pos_embed = nn.Parameter(torch.zeros(
             1, max_len, embed_dim, dtype=param_dtype, device=device))
 
@@ -88,7 +95,8 @@ class _GPTEmbed(nn.Module):
         s = tokens.shape[1]
         if s > self.max_len:
             raise ValueError(f"sequence {s} exceeds max_len {self.max_len}")
-        x = self.token_embed(tokens)
+        x = vocab_embed(self.token_embed, tokens, self.vocab_group,
+                        self.vocab_offset)
         if isinstance(index, torch.Tensor) and index.ndim:
             # Per-row positions; past max_len, clamped (module docstring).
             pos = index[:, None] + torch.arange(s, device=tokens.device)
@@ -116,6 +124,7 @@ class _GPTHead(nn.Module):
         self.lm_head = linear(embed_dim, _padded(vocab_size, vocab_multiple),
                               bias=True, dtype=dtype, param_dtype=param_dtype,
                               device=device)
+        self.vocab_group = None  # vocabulary-parallel once bound
 
     def features(self, x):
         return self.ln_final(x).to(self.dtype)
@@ -123,9 +132,9 @@ class _GPTHead(nn.Module):
     def logits(self, feats):
         """The product, then the bias in the compute dtype, then the slice
         and the f32 cast, as the JAX ``Dense`` and ``lm_head_logits``."""
-        head, dt = self.lm_head, self.dtype
-        out = F.linear(feats.to(dt), head.weight.to(dt))
-        out = out + head.bias.to(dt)
+        head, dt, g = self.lm_head, self.dtype, self.vocab_group
+        out = F.linear(copy_to_group(feats, g).to(dt), head.weight.to(dt))
+        out = gather_from_group(out + head.bias.to(dt), g)
         return out[..., :self.vocab_size].float()
 
 
@@ -139,9 +148,10 @@ class GPT(nn.Module):
     without a card passes ``device="cpu"``). ``dtype`` is the compute type
     and ``param_dtype`` (default: ``dtype``) the parameters' storage type.
     ``ln_eps`` defaults to flax's 1e-6; HF GPT-2 checkpoints use 1e-5.
-    Not ported yet (each raises ``NotImplementedError``): Switch-MoE blocks
-    (``moe_experts > 0``, ROADMAP.md queue 1 item 5), ring /
-    sequence-parallel attention and ``mesh`` (item 7).
+    ``moe_experts > 0`` routes every ``moe_every``-th block from the back
+    (Switch-MoE, as the ViT). Not ported yet (each raises
+    ``NotImplementedError``): ring / sequence-parallel attention and
+    ``mesh`` (ROADMAP.md queue 1 item 7).
     """
 
     def __init__(self, vocab_size: int, max_len: int = 1024,
@@ -153,8 +163,7 @@ class GPT(nn.Module):
                  ln_eps: float = 1e-6, dtype=torch.float32,
                  param_dtype=None, device=None, seed: int = 0):
         super().__init__()
-        check_unported(attention=attention, mesh=mesh,
-                       moe_experts=moe_experts)
+        check_unported(attention=attention, mesh=mesh)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
         self.vocab_size = vocab_size
@@ -162,6 +171,9 @@ class GPT(nn.Module):
         self.embed_dim = embed_dim
         self.depth = depth
         self.num_heads = self.num_kv_heads = num_heads
+        # The decode cache's heads a process (local under tensor
+        # parallelism).
+        self.cache_kv_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.sliding_window = None
         self.uses_ring_cache = False
@@ -175,9 +187,10 @@ class GPT(nn.Module):
         self.blocks = nn.ModuleList(
             block_cls(embed_dim, num_heads, mlp_ratio=mlp_ratio,
                       attention=attention, causal=True, dropout=dropout,
-                      ln_eps=ln_eps, dtype=dtype, param_dtype=param_dtype,
-                      device=device)
-            for _ in range(depth))
+                      moe_experts=moe_of(i, depth, moe_experts, moe_every),
+                      moe_top_k=moe_top_k, ln_eps=ln_eps, dtype=dtype,
+                      param_dtype=param_dtype, device=device)
+            for i in range(depth))
         self.head = _GPTHead(vocab_size, embed_dim, vocab_multiple, ln_eps,
                              dtype, param_dtype, device)
         self.init_weights(seed)
@@ -347,7 +360,8 @@ def decode_cache(model, batch: int) -> dict:
     (:func:`~pddl_tpu_torch.models.llama.ring_len`) or ``max_len``. The
     JAX tree's position counters are the forward's ``cache_index``."""
     length = ring_len(model.sliding_window, model.max_len) or model.max_len
-    shape = (batch, model.num_kv_heads, length, model.head_dim)
+    heads = getattr(model, "cache_kv_heads", model.num_kv_heads)
+    shape = (batch, heads, length, model.head_dim)
 
     def _leaf():
         return torch.zeros(shape, dtype=model.dtype, device=model.device)
@@ -473,6 +487,20 @@ def load_variables(model, variables, param_transform=None, *,
                        role=role)
 
 
+def sharded_model(model, strategy, param_transform=None):
+    """``model`` under ``strategy`` for decoding: itself with none, else
+    the strategy's bound copy (``model`` itself if it is bound already),
+    the cache then split by K/V head. ``param_transform`` raises there,
+    as in the JAX package: the rules describe the dense layout."""
+    if strategy is None:
+        return model
+    if param_transform is not None:
+        raise NotImplementedError(
+            "param_transform (int8 serving) is unsharded-only: the "
+            "sharding trees below describe the DENSE params layout")
+    return strategy.shard_model(model)
+
+
 @torch.no_grad()
 def generate(model, prompt, max_new_tokens: int, *,
              temperature: float = 0.0, top_k: Optional[int] = None,
@@ -494,8 +522,10 @@ def generate(model, prompt, max_new_tokens: int, *,
         (``generator`` required, a ``torch.Generator`` on the model's
         device in place of the JAX ``rng`` key), optionally filtered by
         ``top_k`` and/or nucleus ``top_p`` (:func:`sample_logits`).
-      strategy: must be None (sharded inference, ROADMAP.md queue 1
-        item 7).
+      strategy: a :class:`~pddl_tpu_torch.parallel.TensorParallelStrategy`
+        decodes sharded (:func:`sharded_model`): each process holds its
+        block of the weights by the strategy's rules and its K/V heads of
+        the cache, and samples the same tokens from the gathered logits.
       variables / param_transform: the JAX function's weights and their
         transform, for this call only (:func:`load_variables`: ``model``
         keeps its own weights); ``None`` decodes with the model's own.
@@ -507,11 +537,8 @@ def generate(model, prompt, max_new_tokens: int, *,
     single-token forward per new token but the last (whose logits would
     never be sampled); no step syncs with the host.
     """
-    if strategy is not None:
-        raise NotImplementedError(
-            "generate(strategy=...) (sharded inference) is "
-            + _NOT_PORTED.format("7 (distributed)"))
-    model = load_variables(model, variables, param_transform)
+    model = sharded_model(load_variables(model, variables, param_transform),
+                          strategy, param_transform)
     dev = model.device
     prompt = torch.as_tensor(prompt).to(dev, torch.int32)
     b, p = prompt.shape
@@ -561,6 +588,10 @@ def fused_lm_loss(model, tokens: torch.Tensor, targets: torch.Tensor, *,
     :class:`GPT`, whose head bias joins the chunks in f32) takes the place
     of the JAX function's ``model`` and ``variables``.
     """
+    if model.head.vocab_group is not None:
+        raise NotImplementedError(
+            "fused_lm_loss over a vocabulary-parallel head (tensor "
+            "parallelism): train on the materialized logits")
     feats = model(tokens, train=train, features_only=True)
     head = model.head.lm_head
     v = model.vocab_size

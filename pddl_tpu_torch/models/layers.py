@@ -1,7 +1,19 @@
 """Layers shared by the transformer families (Llama, GPT, ViT): the
-linear that casts at use, flax's LayerNorm, and the cached attention
-that writes a block's K/V into a row cache or a paged pool and attends
-over it.
+linear that casts at use, flax's LayerNorm, the tensor-parallel forms of
+the products and the embedding, and the cached attention that writes a
+block's K/V into a row cache or a paged pool and attends over it.
+
+Tensor parallelism (Megatron, bound by
+:class:`~pddl_tpu_torch.parallel.TensorParallelStrategy`): a
+column-parallel product takes its input through
+:func:`~pddl_tpu_torch.core.collectives.copy_to_group` and keeps its
+output's block; a row-parallel one (:func:`row_linear`) sums its partial
+products over the group and adds the bias once, after the sum; the
+vocabulary-parallel embedding (:func:`vocab_embed`) looks up the tokens
+of its rows, zeros the others and sums over the group; the
+vocabulary-parallel head gathers its block of the logits
+(:func:`~pddl_tpu_torch.core.collectives.gather_from_group`). A group of
+``None`` (no tensor parallelism) makes each the plain form.
 
 The attention helpers are the decode half of every attention module:
 ``LlamaAttention`` (post-RoPE keys, optional window and ring) and the
@@ -17,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pddl_tpu_torch.core.collectives import reduce_from_group
 from pddl_tpu_torch.ops.attention import (
     decode_attention,
     flash_attention_lse,
@@ -80,6 +93,30 @@ def linear(in_features: int, out_features: int, *, bias: bool, dtype,
                          device=device)
     return CastLinear(in_features, out_features, bias=bias, dtype=dtype,
                       param_dtype=param_dtype, device=device)
+
+
+def row_linear(lin: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel ``lin`` over ``x``'s block: the partial products
+    summed over ``group``, then the bias (``lin(x)`` with no group)."""
+    if group is None:
+        return lin(x)
+    dt = getattr(lin, "compute_dtype", lin.weight.dtype)
+    out = reduce_from_group(F.linear(x.to(dt), lin.weight.to(dt)), group)
+    return out if lin.bias is None else out + lin.bias.to(dt)
+
+
+def vocab_embed(emb: nn.Embedding, tokens: torch.Tensor, group,
+                offset: int) -> torch.Tensor:
+    """The vocabulary-parallel lookup: this member holds rows ``offset ..
+    offset + rows - 1``; other tokens read zeros, and the sum over
+    ``group`` is the whole lookup (``emb(tokens)`` with no group)."""
+    if group is None:
+        return emb(tokens)
+    rows = emb.weight.shape[0]
+    local = tokens - offset
+    mine = (local >= 0) & (local < rows)
+    out = F.embedding(local.clamp(0, rows - 1), emb.weight)
+    return reduce_from_group(out * mine[..., None].to(out.dtype), group)
 
 
 class LayerNorm(nn.Module):

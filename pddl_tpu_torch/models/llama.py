@@ -56,11 +56,25 @@ A ``sliding_window`` trains and runs the full forward through the
 windowed flash kernels, and decodes through the rolling ring cache when
 its window, rounded up to 128, is under ``max_len``
 (:attr:`Llama.uses_ring_cache`); the serving engine and the paged cache
-refuse such a model, as the JAX package does. Not ported yet (each raises
-``NotImplementedError``): routed experts (``moe_experts > 0``, ROADMAP.md
-queue 1 item 5; the other ``moe_*`` options are accepted at their JAX
-defaults only) and ring / sequence-parallel attention and ``mesh``
-(queue 1 item 7).
+refuse such a model, as the JAX package does.
+
+Routed experts (Mixtral): ``moe_experts > 0`` makes every
+``moe_every``-th block counted from the back a
+:class:`~pddl_tpu_torch.ops.moe.SwitchFFN` of ``moe_experts`` SwiGLU
+experts (``moe_top_k``, ``moe_capacity_factor``, ``moe_eval_dropless``
+at the JAX semantics); the training forward drops over-capacity tokens,
+the eval forward (``train=False``) and every cached forward run dropless
+by default, as the JAX decode module does.
+
+Tensor parallelism: bound by
+:class:`~pddl_tpu_torch.parallel.TensorParallelStrategy` with
+``LLAMA_TP_RULES``, each attention runs its local heads (each process's
+query heads read its own K/V heads, so the GQA group stays whole), the
+SwiGLU ``mlp_gate``/``mlp_up`` are column-parallel and ``mlp_down``
+row-parallel, and the embedding and ``lm_head`` vocabulary-parallel
+(``models/layers.py``). Not ported yet (each raises
+``NotImplementedError``): ring / sequence-parallel attention and ``mesh``
+(ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -73,15 +87,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pddl_tpu_torch.core.collectives import copy_to_group, gather_from_group
 from pddl_tpu_torch.device import resolve_device
+from pddl_tpu_torch.models.layers import (
+    paged_attend,
+    row_attend,
+    row_linear,
+    vocab_embed,
+)
 from pddl_tpu_torch.models.layers import linear as _linear
-from pddl_tpu_torch.models.layers import paged_attend, row_attend
 from pddl_tpu_torch.models.vit import remat_block
 from pddl_tpu_torch.ops.attention import (
     attention_reference,
     flash_attention,
     host_index,
 )
+from pddl_tpu_torch.ops.moe import SwitchFFN
 from pddl_tpu_torch.ops.rope import apply_rope_qk
 
 _NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
@@ -151,6 +172,9 @@ class LlamaAttention(nn.Module):
         self.sliding_window = sliding_window
         self.ring = ring_len(sliding_window, max_decode_len)
         self.dtype = dtype
+        # The model axis's group once bound: the heads above are then this
+        # process's (``parallel/tensor_parallel.py``).
+        self.tp_group = None
         lin = functools.partial(_linear, dtype=dtype,
                                 param_dtype=param_dtype or dtype,
                                 device=device)
@@ -173,6 +197,7 @@ class LlamaAttention(nn.Module):
                 max_index: Optional[int] = None) -> torch.Tensor:
         b, s, _ = x.shape
         hd = self.head_dim
+        x = copy_to_group(x, self.tp_group)
         q = self.query(x).view(b, s, self.num_heads, hd).transpose(1, 2)
         k = self.key(x).view(b, s, self.num_kv_heads, hd).transpose(1, 2)
         v = self.value(x).view(b, s, self.num_kv_heads, hd).transpose(1, 2)
@@ -202,7 +227,7 @@ class LlamaAttention(nn.Module):
             else:
                 o = self._row(q, k, v, cache, i, max_index)
         o = o.transpose(1, 2).reshape(b, s, self.num_heads * hd)
-        return self.out(o)
+        return row_linear(self.out, o, self.tp_group)
 
     def _paged(self, q, k, v, cache, i, block_table, max_index):
         if self.ring is not None:
@@ -218,14 +243,17 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaBlock(nn.Module):
-    """Pre-RMSNorm residual block: attention then a dense SwiGLU MLP."""
+    """Pre-RMSNorm residual block: attention then a SwiGLU MLP — dense, or
+    routed over ``moe_experts`` SwiGLU experts (the Mixtral block)."""
 
     def __init__(self, embed_dim: int, num_heads: int, num_kv_heads: int,
                  intermediate_dim: int, *, rope_theta: float = 10000.0,
                  attention: str = "flash",
                  sliding_window: Optional[int] = None,
                  qkv_bias: bool = False, rms_eps: float = 1e-5,
-                 max_decode_len: int = 1024, dtype=torch.float32,
+                 max_decode_len: int = 1024, moe_experts: int = 0,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 2.0,
+                 moe_eval_dropless: bool = True, dtype=torch.float32,
                  param_dtype=None, device=None):
         super().__init__()
         param_dtype = param_dtype or dtype
@@ -237,17 +265,32 @@ class LlamaBlock(nn.Module):
             qkv_bias=qkv_bias, max_decode_len=max_decode_len, dtype=dtype,
             param_dtype=param_dtype, device=device)
         self.ln2 = _rms_norm(embed_dim, rms_eps, param_dtype, device)
+        self.tp_group = None  # the MLP's model-axis group once bound
+        if moe_experts:
+            self.moe = SwitchFFN(
+                embed_dim, moe_experts, hidden_dim=intermediate_dim,
+                top_k=moe_top_k, capacity_factor=moe_capacity_factor,
+                eval_dropless=moe_eval_dropless, expert_act="swiglu",
+                dtype=dtype, param_dtype=param_dtype, device=device)
+            return
         lin = functools.partial(_linear, bias=False, dtype=dtype,
                                 param_dtype=param_dtype, device=device)
         self.mlp_gate = lin(embed_dim, intermediate_dim)
         self.mlp_up = lin(embed_dim, intermediate_dim)
         self.mlp_down = lin(intermediate_dim, embed_dim)
 
-    def forward(self, x, **cache_kw):
+    def forward(self, x, train: bool = True, **cache_kw):
+        """``train`` (positional, as the remat wrapper passes it) gates
+        the routed block's capacity rule; a cached forward runs as eval."""
         h = self.attn(self.ln1(x).to(self.dtype), **cache_kw)
         x = x + h
         h = self.ln2(x).to(self.dtype)
-        return x + self.mlp_down(F.silu(self.mlp_gate(h)) * self.mlp_up(h))
+        if hasattr(self, "moe"):
+            return x + self.moe(h, train and not cache_kw)
+        h = copy_to_group(h, self.tp_group)
+        return x + row_linear(
+            self.mlp_down, F.silu(self.mlp_gate(h)) * self.mlp_up(h),
+            self.tp_group)
 
 
 class _LlamaEmbed(nn.Module):
@@ -261,9 +304,13 @@ class _LlamaEmbed(nn.Module):
         self.dtype = dtype
         self.embed = nn.Embedding(padded_v, embed_dim, dtype=param_dtype,
                                   device=device)
+        # Vocabulary-parallel once bound: this process's first row.
+        self.vocab_group = None
+        self.vocab_offset = 0
 
     def forward(self, tokens):
-        return self.embed(tokens).to(self.dtype)
+        return vocab_embed(self.embed, tokens, self.vocab_group,
+                           self.vocab_offset).to(self.dtype)
 
 
 class _LlamaHead(nn.Module):
@@ -279,12 +326,15 @@ class _LlamaHead(nn.Module):
         self.ln_final = _rms_norm(embed_dim, rms_eps, param_dtype, device)
         self.lm_head = _linear(embed_dim, padded_v, bias=False, dtype=dtype,
                                param_dtype=param_dtype, device=device)
+        self.vocab_group = None  # vocabulary-parallel once bound
 
     def features(self, x):
         return self.ln_final(x).to(self.dtype)
 
     def logits(self, feats):
-        return self.lm_head(feats)[..., :self.vocab_size].float()
+        g = self.vocab_group
+        out = gather_from_group(self.lm_head(copy_to_group(feats, g)), g)
+        return out[..., :self.vocab_size].float()
 
 
 class Llama(nn.Module):
@@ -318,24 +368,12 @@ class Llama(nn.Module):
             raise NotImplementedError(
                 "mesh (sharded attention) is " + _NOT_PORTED.format(
                     "7 (distributed)"))
-        for name, value, default in (
-                ("moe_top_k", moe_top_k, 2), ("moe_every", moe_every, 1),
-                ("moe_capacity_factor", moe_capacity_factor, 2.0),
-                ("moe_eval_dropless", moe_eval_dropless, True)):
-            if value != default:
-                raise NotImplementedError(
-                    f"{name}={value!r} is " + _NOT_PORTED.format(
-                        "5.8 (ops/moe.py)"))
         if attention in ("ring", "ring_flash"):
             raise NotImplementedError(
                 f"attention={attention!r} (sequence parallelism) is "
                 + _NOT_PORTED.format("7 (distributed)"))
         if attention not in ("flash", "reference"):
             raise ValueError(f"unknown attention {attention!r}")
-        if moe_experts:
-            raise NotImplementedError(
-                "moe_experts > 0 is "
-                + _NOT_PORTED.format("5 (causal-LM train step, ops/moe.py)"))
         block_cls = remat_block(LlamaBlock, remat)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
@@ -345,24 +383,43 @@ class Llama(nn.Module):
         self.depth = depth
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
+        # The decode cache's K/V heads a process (the local ones under
+        # tensor parallelism).
+        self.cache_kv_heads = self.num_kv_heads
         self.head_dim = embed_dim // num_heads
+        self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_every = moe_every
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_eval_dropless = moe_eval_dropless
         self.sliding_window = sliding_window
         self.attention = attention
         self.remat = remat
         self.dtype = dtype
         self.param_dtype = param_dtype
         inter = intermediate_dim or _default_intermediate_dim(embed_dim)
+        # The modules are built on ``meta`` and then laid out on
+        # ``device`` uninitialised: init_weights draws every parameter, so
+        # torch's default init (most of a host build's time) is skipped.
+        shell = torch.device("meta")
         self.stem = _LlamaEmbed(vocab_size, embed_dim, vocab_multiple, dtype,
-                                param_dtype, device)
+                                param_dtype, shell)
+        # Every moe_every-th block from the back is routed (as JAX's).
         self.blocks = nn.ModuleList(
             block_cls(embed_dim, num_heads, self.num_kv_heads, inter,
                        rope_theta=rope_theta, attention=attention,
                        sliding_window=sliding_window, qkv_bias=qkv_bias,
-                       rms_eps=rms_eps, max_decode_len=max_len, dtype=dtype,
-                       param_dtype=param_dtype, device=device)
-            for _ in range(depth))
+                       rms_eps=rms_eps, max_decode_len=max_len,
+                       moe_experts=(moe_experts if (depth - 1 - i) % moe_every
+                                    == 0 else 0),
+                       moe_top_k=moe_top_k,
+                       moe_capacity_factor=moe_capacity_factor,
+                       moe_eval_dropless=moe_eval_dropless, dtype=dtype,
+                       param_dtype=param_dtype, device=shell)
+            for i in range(depth))
         self.head = _LlamaHead(vocab_size, embed_dim, vocab_multiple,
-                               rms_eps, dtype, param_dtype, device)
+                               rms_eps, dtype, param_dtype, shell)
+        self.to_empty(device=device)
         self.init_weights(seed)
 
     @property
@@ -379,9 +436,18 @@ class Llama(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
-        """Redraw every weight from a generator seeded with ``seed``."""
+        """Redraw every weight from a generator seeded with ``seed`` (a
+        routed block's experts by :meth:`SwitchFFN.reset_parameters`). A
+        model on the ``meta`` device (shapes only) draws nothing."""
+        if self.device.type == "meta":
+            return
         gen = torch.Generator(device=self.device).manual_seed(seed)
         for name, p in self.named_parameters():
+            if ".moe." in name:
+                moe = self.get_submodule(name.split(".moe.")[0] + ".moe")
+                if name.endswith("moe.router.weight"):
+                    moe.reset_parameters(gen)
+                continue
             if isinstance(self.get_submodule(name.rsplit(".", 1)[0]),
                           _RMSNorm):
                 p.fill_(1.0)
@@ -397,8 +463,9 @@ class Llama(nn.Module):
                 block_table: Optional[torch.Tensor] = None,
                 max_index: Optional[int] = None,
                 features_only: bool = False) -> torch.Tensor:
-        """``train`` is accepted for the JAX signature and changes nothing
-        (the dense blocks have no dropout). With a cache, ``cache_index``
+        """``train`` gates the routed blocks' capacity rule (the dense
+        blocks have no dropout); a cached forward runs as eval. With a
+        cache, ``cache_index``
         is an int or a ``[B]`` tensor, and ``max_index`` the tensor's
         largest entry as a host int, which bounds each layer's sweep to
         the live prefix without a host sync (the serving engine owns its
@@ -412,7 +479,7 @@ class Llama(nn.Module):
                 kw = {"cache": cache[f"block{i}"]["attn"],
                       "cache_index": cache_index, "block_table": block_table,
                       "max_index": max_index}
-            x = block(x, **kw)
+            x = block(x, train, **kw)
         feats = self.head.features(x)
         return feats if features_only else self.head.logits(feats)
 

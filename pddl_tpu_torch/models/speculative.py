@@ -42,12 +42,12 @@ import torch
 import torch.nn.functional as F
 
 from pddl_tpu_torch.models.gpt import (
-    _NOT_PORTED,
     _last_logits,
     decode_cache,
     filtered_logits,
     load_variables,
     sample_logits,
+    sharded_model,
 )
 
 __all__ = ["generate_speculative", "ngram_drafts"]
@@ -168,8 +168,9 @@ def generate_speculative(model, prompt, max_new_tokens: int, *,
       ngram: the lookup key's length.
       return_stats: also return ``{"ticks", "emitted",
         "tokens_per_tick"}``, counting delivered tokens only.
-      strategy: must be None (sharded inference, ROADMAP.md queue 1
-        item 7).
+      strategy: a :class:`~pddl_tpu_torch.parallel.TensorParallelStrategy`
+        runs the prefill and every verify forward sharded, as
+        ``generate``'s (:func:`~pddl_tpu_torch.models.gpt.sharded_model`).
       variables / param_transform: as ``generate``'s
         (:func:`~pddl_tpu_torch.models.gpt.load_variables`): int8 weights
         with ``param_transform=dequantize``.
@@ -178,11 +179,8 @@ def generate_speculative(model, prompt, max_new_tokens: int, *,
     ``(tokens, stats)``. The prompt and the token buffer stay on the
     device; each tick's one host sync is its accepted length.
     """
-    if strategy is not None:
-        raise NotImplementedError(
-            "generate_speculative(strategy=...) (sharded inference) is "
-            + _NOT_PORTED.format("7 (distributed)"))
-    model = load_variables(model, variables, param_transform)
+    model = sharded_model(load_variables(model, variables, param_transform),
+                          strategy, param_transform)
     dev = model.device
     prompt = torch.as_tensor(prompt).to(dev, torch.int32)
     b, p = prompt.shape

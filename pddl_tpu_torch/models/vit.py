@@ -27,10 +27,16 @@ generator. Attention takes three paths, chosen by the cache passed:
 ResNet and its data: a stride-``p`` patch embed (a conv, computed as one
 product over the flattened patches), ``pos_embed [1, (H/p)(W/p), E]``,
 non-causal blocks, then the head: LayerNorm (flax's default eps 1e-6),
-the mean over tokens and the classifier, f32 logits. Not ported yet (each
-raises ``NotImplementedError``): Switch-MoE blocks (``moe_experts > 0``,
-ROADMAP.md queue 1 item 5), ring / sequence-parallel attention and
-``mesh`` (item 7), and ``GPipeViT`` (item 7).
+the mean over tokens and the classifier, f32 logits. ``moe_experts > 0``
+makes every ``moe_every``-th block from the back a Switch-MoE block
+(:class:`~pddl_tpu_torch.ops.moe.SwitchFFN`, GELU experts of width
+``mlp_ratio·E``, top-``moe_top_k``). Bound by a
+:class:`~pddl_tpu_torch.parallel.TensorParallelStrategy`
+(``VIT_TP_RULES``), the attention runs its local heads and ``mlp1`` /
+``mlp2`` are column- / row-parallel (``models/layers.py``); GPT's token
+embedding and head are vocabulary-parallel. Not ported yet (each raises
+``NotImplementedError``): ring / sequence-parallel attention and
+``mesh``, and ``GPipeViT`` (ROADMAP.md queue 1 item 7).
 
 The remat policies trade FLOPs for device memory, so longer sequences
 and deeper stacks fit:
@@ -64,18 +70,21 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from pddl_tpu_torch.core.collectives import copy_to_group
 from pddl_tpu_torch.device import resolve_device
 from pddl_tpu_torch.models.layers import (
     LayerNorm,
     linear,
     paged_attend,
     row_attend,
+    row_linear,
 )
 from pddl_tpu_torch.ops.attention import (
     attention_reference,
     flash_attention,
     host_index,
 )
+from pddl_tpu_torch.ops.moe import SwitchFFN
 
 _NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
 
@@ -127,7 +136,7 @@ def remat_block(block_cls: Type[nn.Module], remat: str) -> Type[nn.Module]:
     return Remat
 
 
-def check_unported(*, attention: str, mesh, moe_experts: int) -> None:
+def check_unported(*, attention: str, mesh) -> None:
     """Refuse the options of the GPT and ViT families that are not ported
     yet, each naming its ROADMAP.md item."""
     if mesh is not None:
@@ -140,10 +149,12 @@ def check_unported(*, attention: str, mesh, moe_experts: int) -> None:
             + _NOT_PORTED.format("7 (distributed)"))
     if attention not in ("flash", "reference"):
         raise ValueError(f"unknown attention {attention!r}")
-    if moe_experts:
-        raise NotImplementedError(
-            "moe_experts > 0 (Switch-MoE blocks) is "
-            + _NOT_PORTED.format("5 (ops/moe.py)"))
+
+
+def moe_of(i: int, depth: int, moe_experts: int, moe_every: int) -> int:
+    """Block ``i``'s experts: every ``moe_every``-th block counted from
+    the back is routed (the JAX placement)."""
+    return moe_experts if (depth - 1 - i) % moe_every == 0 else 0
 
 
 class MultiHeadAttention(nn.Module):
@@ -163,6 +174,7 @@ class MultiHeadAttention(nn.Module):
         self.attention = attention
         self.causal = causal
         self.dtype = dtype
+        self.tp_group = None  # the model axis's group once bound
         lin = functools.partial(linear, bias=True, dtype=dtype,
                                 param_dtype=param_dtype or dtype,
                                 device=device)
@@ -179,8 +191,9 @@ class MultiHeadAttention(nn.Module):
                 cache_index: Union[int, torch.Tensor, None] = None,
                 block_table: Optional[torch.Tensor] = None,
                 max_index: Optional[int] = None) -> torch.Tensor:
-        b, s, e = x.shape
+        b, s, _ = x.shape
         h, hd = self.num_heads, self.head_dim
+        x = copy_to_group(x, self.tp_group)
         q, k, v = (lin(x).view(b, s, h, hd).transpose(1, 2)
                    for lin in (self.query, self.key, self.value))
         if cache is None:
@@ -197,7 +210,8 @@ class MultiHeadAttention(nn.Module):
                 o = paged_attend(q, k, v, cache, i, block_table, max_index)
             else:
                 o = row_attend(q, k, v, cache, i, max_index)
-        return self.out(o.transpose(1, 2).reshape(b, s, e))
+        return row_linear(self.out, o.transpose(1, 2).reshape(b, s, h * hd),
+                          self.tp_group)
 
 
 class TransformerBlock(nn.Module):
@@ -208,7 +222,8 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int, *, mlp_ratio: int = 4,
                  attention: str = "flash", causal: bool = False,
-                 dropout: float = 0.0, ln_eps: float = 1e-6,
+                 dropout: float = 0.0, moe_experts: int = 0,
+                 moe_top_k: int = 1, ln_eps: float = 1e-6,
                  dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         param_dtype = param_dtype or dtype
@@ -218,11 +233,17 @@ class TransformerBlock(nn.Module):
             embed_dim, num_heads, attention=attention, causal=causal,
             dtype=dtype, param_dtype=param_dtype, device=device)
         self.ln2 = LayerNorm(embed_dim, ln_eps, param_dtype, device)
+        self.drop = nn.Dropout(dropout) if dropout else None
+        self.tp_group = None  # the MLP's model-axis group once bound
+        if moe_experts:
+            self.moe = SwitchFFN(embed_dim, moe_experts, mlp_ratio=mlp_ratio,
+                                 top_k=moe_top_k, dtype=dtype,
+                                 param_dtype=param_dtype, device=device)
+            return
         lin = functools.partial(linear, bias=True, dtype=dtype,
                                 param_dtype=param_dtype, device=device)
         self.mlp1 = lin(embed_dim, embed_dim * mlp_ratio)
         self.mlp2 = lin(embed_dim * mlp_ratio, embed_dim)
-        self.drop = nn.Dropout(dropout) if dropout else None
 
     def _dropout(self, h, train: bool, cached: bool):
         if self.drop is None or not train or cached or not self.training:
@@ -233,8 +254,13 @@ class TransformerBlock(nn.Module):
         cached = bool(cache_kw)
         h = self.attn(self.ln1(x).to(self.dtype), **cache_kw)
         x = x + self._dropout(h, train, cached)
-        h = self.mlp1(self.ln2(x).to(self.dtype))
-        h = self.mlp2(F.gelu(h, approximate="tanh"))
+        h = self.ln2(x).to(self.dtype)
+        if hasattr(self, "moe"):
+            h = self.moe(h, train and not cached)
+        else:
+            h = self.mlp1(copy_to_group(h, self.tp_group))
+            h = row_linear(self.mlp2, F.gelu(h, approximate="tanh"),
+                           self.tp_group)
         return x + self._dropout(h, train, cached)
 
 
@@ -242,10 +268,19 @@ def init_transformer_weights(model: nn.Module, seed: int) -> None:
     """Draw a GPT's or ViT's weights from a generator seeded with ``seed``:
     every product's weight normal with std ``fan_in ** -0.5`` (the token
     embedding's fan-in is its width), ``pos_embed`` normal with std 0.02
-    (flax's initializer), biases 0 and LayerNorm scales 1."""
+    (flax's initializer), biases 0 and LayerNorm scales 1; a Switch-MoE
+    block's by :meth:`~pddl_tpu_torch.ops.moe.SwitchFFN.reset_parameters`.
+    A model on the ``meta`` device (shapes only) draws nothing."""
+    if model.device.type == "meta":
+        return
     gen = torch.Generator(device=model.device).manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
+            if ".moe." in name:
+                if name.endswith("moe.router.weight"):
+                    model.get_submodule(
+                        name.split(".moe.")[0] + ".moe").reset_parameters(gen)
+                continue
             owner = model.get_submodule(name.rsplit(".", 1)[0]) \
                 if "." in name else model
             if isinstance(owner, LayerNorm):
@@ -332,8 +367,7 @@ class ViT(nn.Module):
                  dtype=torch.float32, param_dtype=None, device=None,
                  seed: int = 0):
         super().__init__()
-        check_unported(attention=attention, mesh=mesh,
-                       moe_experts=moe_experts)
+        check_unported(attention=attention, mesh=mesh)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
         self.patch_size = patch_size
@@ -350,9 +384,11 @@ class ViT(nn.Module):
         block_cls = remat_block(TransformerBlock, remat)
         self.blocks = nn.ModuleList(
             block_cls(embed_dim, num_heads, mlp_ratio=mlp_ratio,
-                      attention=attention, dropout=dropout, dtype=dtype,
+                      attention=attention, dropout=dropout,
+                      moe_experts=moe_of(i, depth, moe_experts, moe_every),
+                      moe_top_k=moe_top_k, dtype=dtype,
                       param_dtype=param_dtype, device=device)
-            for _ in range(depth))
+            for i in range(depth))
         self.head = _ViTHead(embed_dim, num_classes, dtype, param_dtype,
                              device)
         self.init_weights(seed)

@@ -1,6 +1,8 @@
 """Device-side ops of the port (the port of :mod:`pddl_tpu.ops`): the
 augment, attention (with the hand-written CUDA kernels behind it, built
-at first launch by ``_kernels.py``) and the chunked cross-entropy.
+at first launch by ``_kernels.py``), the chunked cross-entropy and the
+routed experts (``SwitchFFN``, ``ops/moe.py``; resolved here, outside
+``__all__`` as in the JAX package).
 
 The names resolve lazily. ``ring_attention``, ``ring_attention_flash``
 and ``sequence_parallel_attention`` wait for ROADMAP.md queue 1 item 7."""
@@ -14,4 +16,5 @@ _EXPORTS = {
     "chunked_cross_entropy": "large_vocab",
 }
 __all__ = sorted(_EXPORTS)
-__getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)
+__getattr__, __dir__ = lazy_exports(__name__, {**_EXPORTS,
+                                               "SwitchFFN": "moe"})

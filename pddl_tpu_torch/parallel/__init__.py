@@ -12,10 +12,16 @@ Reference surface (SURVEY.md §1-§2):
 - Horovod (``imagenet-resnet50-hvd.py``) — lives in
   :mod:`pddl_tpu_torch.compat.hvd` as an API shim over the same core.
 
+Beyond the reference: tensor and expert parallelism
+(:class:`TensorParallelStrategy`, :class:`ExpertParallelStrategy`,
+``parallel/tensor_parallel.py``) over the mesh's ``model`` and ``expert``
+axes.
+
 One process per device; a Strategy decides (a) which processes form the
-mesh, (b) where optimizer state lives, (c) batch-size arithmetic, (d) who
-logs/saves. Tensor, expert and pipeline parallelism are ROADMAP.md queue
-1 item 7: ``get_strategy`` names it for them.
+mesh, (b) where optimizer state and weights live, (c) batch-size
+arithmetic, (d) who logs/saves. Pipeline parallelism
+(``PipelineStrategy``) is ROADMAP.md queue 1 item 7: ``get_strategy``
+names it.
 """
 
 from pddl_tpu_torch.parallel.base import Strategy, get_strategy
@@ -23,6 +29,10 @@ from pddl_tpu_torch.parallel.single import SingleDeviceStrategy
 from pddl_tpu_torch.parallel.mirrored import MirroredStrategy
 from pddl_tpu_torch.parallel.multiworker import MultiWorkerMirroredStrategy
 from pddl_tpu_torch.parallel.ps import ParameterServerStrategy
+from pddl_tpu_torch.parallel.tensor_parallel import (
+    ExpertParallelStrategy,
+    TensorParallelStrategy,
+)
 
 __all__ = [
     "Strategy",
@@ -31,4 +41,6 @@ __all__ = [
     "MirroredStrategy",
     "MultiWorkerMirroredStrategy",
     "ParameterServerStrategy",
+    "TensorParallelStrategy",
+    "ExpertParallelStrategy",
 ]

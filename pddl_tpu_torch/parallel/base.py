@@ -36,7 +36,7 @@ from pddl_tpu_torch.train.state import make_optimizer
 
 Batch = Dict[str, Any]
 
-_ITEM_7 = {"tensor_parallel", "expert_parallel", "pipeline"}
+_ITEM_7 = {"pipeline"}
 
 
 class Strategy:
@@ -165,6 +165,17 @@ class Strategy:
     def optimizer_step(self, optimizer: torch.optim.Optimizer) -> None:
         optimizer.step()
 
+    def grad_norm(self, model: torch.nn.Module) -> torch.Tensor:
+        """The global L2 norm of the model's gradients (``log_grad_norm``)."""
+        return torch.nn.utils.get_total_norm(
+            [p.grad for p in model.parameters() if p.grad is not None])
+
+    @property
+    def save_group(self):
+        """The processes of one save (``ckpt/checkpoint.py``): the data
+        axis's group here."""
+        return self.group
+
     # -- process topology --------------------------------------------------
     @property
     def process_index(self) -> int:
@@ -193,11 +204,12 @@ def register_strategy(name: str):
 
 
 def get_strategy(name: str, **kwargs) -> Strategy:
-    """Strategy by config string (``single``/``mirrored``/``multiworker``/``ps``)."""
+    """Strategy by config string (``single``/``mirrored``/``multiworker``/
+    ``ps``/``tensor_parallel``/``expert_parallel``)."""
     if name in _ITEM_7:
         raise NotImplementedError(
             f"strategy {name!r} is not ported yet: ROADMAP.md queue 1 item 7 "
-            "(tensor, expert, sequence and pipeline parallelism)")
+            "(sequence and pipeline parallelism)")
     try:
         cls = _STRATEGIES[name]
     except KeyError:

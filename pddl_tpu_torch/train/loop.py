@@ -11,7 +11,11 @@ reads them in ``eval_step`` and ``predict``. ``augment`` (``fn(generator,
 images)``) runs on the device before the train step's forward, with a
 ``torch.Generator`` seeded from ``(seed + 1, step)``, so a rerun with the
 same seed draws the same crops; ``eval_transform`` (``fn(images)``) runs
-before ``eval_step``'s and ``predict``'s. With ``log_grad_norm`` the step
+before ``eval_step``'s and ``predict``'s. Both steps add the auxiliary
+losses the model sows (a routed block's ``moe_aux_loss``) to the task
+loss and log its sown metrics (``moe_drop_rate``, the mean over the
+routed blocks), as the JAX trainer does with its ``losses`` and
+``metrics`` collections. With ``log_grad_norm`` the step
 logs the global L2 norm of the gradients as ``grad_norm``. The model runs
 eagerly; eval runs under ``torch.no_grad()``, so a Llama with
 ``attention="flash"`` launches the forward kernel without its LSE write
@@ -26,8 +30,10 @@ The trainer runs on ``cuda`` unless asked for the CPU (``device="cpu"``),
 and moves the model there. A batch field that is already a tensor on that
 device is used as it is.
 
-``strategy`` (:mod:`pddl_tpu_torch.parallel`) trains data-parallel, one
-process per device, to the JAX trainer's numbers: each process takes its
+``strategy`` (:mod:`pddl_tpu_torch.parallel`) trains data-parallel (or
+tensor- and expert-parallel: the strategy binds the model to its blocks
+first and reduces the gradient norm over its axes), one process per
+device, to the JAX trainer's numbers: each process takes its
 rows of each batch (``Strategy.distribute_batch``), BatchNorm takes its
 statistics over the global batch, the gradients are averaged over the
 strategy's data group after the backward, and the strategy steps the
@@ -93,6 +99,7 @@ import torch
 
 from pddl_tpu_torch.core import collectives
 from pddl_tpu_torch.obs.trace import NULL_TRACER
+from pddl_tpu_torch.ops.moe import sown
 from pddl_tpu_torch.parallel.base import Strategy
 from pddl_tpu_torch.parallel.single import SingleDeviceStrategy
 from pddl_tpu_torch.train import metrics as metrics_lib
@@ -266,11 +273,26 @@ class Trainer:
         full[i * b:(i + 1) * b] = x
         return self.augment(self._generator(), full)[i * b:(i + 1) * b]
 
-    def _logs(self, loss, logits, labels) -> Dict[str, torch.Tensor]:
+    def _logs(self, loss, logits, labels, metrics=None
+              ) -> Dict[str, torch.Tensor]:
         logs = {"loss": loss.detach()}
         for name, fn in self.metric_fns.items():
             logs[name] = fn(logits, labels)
+        for name, values in (metrics or {}).items():
+            logs[name] = sum(v.detach() for v in values) / len(values)
         return logs
+
+    def _loss(self, logits, labels):
+        """The task loss plus every auxiliary loss the model sowed in this
+        forward (the MoE load-balancing loss), and the sown metrics: the
+        JAX trainer's ``losses`` and ``metrics`` collections (a metric
+        sown by several blocks is their mean, as ``_sown_metrics``)."""
+        loss = self.loss_fn(logits, labels)
+        got = sown(self.model)
+        for values in got["losses"].values():
+            for aux in values:
+                loss = loss + aux.sum()
+        return loss, got["metrics"]
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One step on ``batch``; logs stay on the device."""
@@ -285,15 +307,13 @@ class Trainer:
         # optimizer holds slices, not the whole parameters.
         self.model.zero_grad(set_to_none=True)
         logits = self.model(x)
-        loss = self.loss_fn(logits, y)
+        loss, sown_metrics = self._loss(logits, y)
         loss.backward()
         self.strategy.reduce_gradients(self.model)
         with torch.no_grad():
-            logs = self._logs(loss, logits.detach(), y)
+            logs = self._logs(loss, logits.detach(), y, sown_metrics)
             if self.log_grad_norm:
-                logs["grad_norm"] = torch.nn.utils.get_total_norm(
-                    [p.grad for p in self.model.parameters()
-                     if p.grad is not None])
+                logs["grad_norm"] = self.strategy.grad_norm(self.model)
         self.strategy.optimizer_step(self.optimizer)
         # Under accumulation the parameters moved only if the window
         # closed (mini_step back at 0): the EMA follows the updates.
@@ -319,7 +339,8 @@ class Trainer:
 
     def _eval_step(self, x, y) -> Dict[str, torch.Tensor]:
         logits = self._eval_logits(x, ema=True)
-        return self._logs(self.loss_fn(logits, y), logits, y)
+        loss, sown_metrics = self._loss(logits, y)
+        return self._logs(loss, logits, y, sown_metrics)
 
     def predict(self, images) -> np.ndarray:
         """Forward pass in inference mode on a batch of images, on the

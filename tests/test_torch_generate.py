@@ -18,7 +18,7 @@ weights and the same seeded numpy prompts.
   per-row `[B]` index and a single-token ring step) against the JAX
   decode module's cache;
 - the argument checks, with the JAX function's messages, and the
-  the refusal of `strategy=`, and `param_transform=` over `variables=`;
+  `strategy=` (a one-process tensor-parallel strategy), and `param_transform=` over `variables=`;
 - sampled tokens lie in their filter (`top_k`, `top_p`), `top_k=1`
   equals greedy, and one seed gives one stream.
 """
@@ -216,11 +216,27 @@ def test_argument_errors_match_jax(kw, match):
     (dict(param_transform=lambda p: p), "queue 1 item 3"),
 ])
 def test_unported_options_are_refused(kw, item):
-    """``strategy`` is still refused. ``param_transform`` (queue 1 item 3,
-    int8 serving) is ported: it transforms the ``variables`` passed with
-    it — an identity over the model's own weights decodes as ``generate``
-    does — and alone it raises, having nothing to transform."""
+    """``strategy`` (queue 1 item 7) is ported: a one-process tensor
+    parallel strategy decodes as ``generate`` does (two processes: tests/
+    test_torch_tensor_parallel.py), and with ``param_transform`` it raises
+    the JAX function's ``NotImplementedError``. ``param_transform`` (queue
+    1 item 3, int8 serving) is ported: it transforms the ``variables``
+    passed with it — an identity over the model's own weights decodes as
+    ``generate`` does — and alone it raises, having nothing to
+    transform."""
     _, _, tm = _pair(max_len=64)
+    if "strategy" in kw:
+        from pddl_tpu_torch.parallel import TensorParallelStrategy
+
+        tp = TensorParallelStrategy(device="cpu")
+        want = generate(tm, _prompt(1, 5), 4)
+        assert torch.equal(generate(tm, _prompt(1, 5), 4, strategy=tp),
+                           want)
+        with pytest.raises(NotImplementedError, match="unsharded-only"):
+            generate(tm, _prompt(1, 5), 4, strategy=tp,
+                     variables={"params": tm.state_dict()},
+                     param_transform=lambda p: p)
+        return
     if "param_transform" in kw:
         want = generate(tm, _prompt(1, 5), 4)
         got = generate(tm, _prompt(1, 5), 4,

@@ -240,5 +240,21 @@ def test_per_row_positions_past_max_len_are_clamped():
     (dict(attention="ring"), "item 7"), (dict(mesh=object()), "item 7"),
     (dict(moe_experts=4), "item 5")])
 def test_unported_options_raise(kw, item):
+    """Ring attention and ``mesh`` wait for item 7. Switch-MoE blocks
+    (item 5) are ported: a routed GPT gives the JAX model's logits."""
+    if "moe_experts" in kw:
+        tokens = np.random.default_rng(0).integers(0, 64, (2, 12)).astype(
+            np.int32)
+        jm = jax_tiny_gpt(vocab_size=64, max_len=64, **kw)
+        params = jax.tree.map(np.asarray, jm.init(
+            jax.random.key(0), jnp.asarray(tokens), train=False)["params"])
+        tm = tiny_gpt(vocab_size=64, max_len=64, device="cpu", **kw)
+        tm.load_state_dict(gpt_params_from_jax(params))
+        with torch.no_grad():
+            got = tm(torch.from_numpy(tokens), train=False)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply(
+            {"params": params}, jnp.asarray(tokens), train=False)),
+            rtol=0, atol=1e-5)
+        return
     with pytest.raises(NotImplementedError, match=item):
         tiny_gpt(device="cpu", **kw)

@@ -50,7 +50,7 @@ from pddl_tpu_torch.models.llama import Llama  # noqa: E402
 # tests/test_hf_import.py's GPT-2 and tests/test_llama.py's Llama.
 GV, GP, GE, GL, GH = 97, 64, 32, 2, 2
 LV, LE, LL, LH = 61, 32, 2, 4
-ROADMAP_MOE = r"ROADMAP\.md queue 1 item 5"
+MIXTRAL_REFUSAL = r"moe_experts=config\.num_local_experts"
 
 
 def _tokens(vocab, batch=2, seq=17, seed=3):
@@ -259,8 +259,15 @@ def test_mixtral_checkpoint_is_refused(hf):
     mixtral = _hf_llama_model(transformers.MixtralForCausalLM,
                               num_local_experts=4, num_experts_per_tok=2,
                               sliding_window=None, router_aux_loss_coef=0.0)
-    with pytest.raises(NotImplementedError, match=ROADMAP_MOE):
+    # Routed experts are ported: a dense model still refuses a Mixtral
+    # (the JAX importer's error), a routed one loads it
+    # (tests/test_torch_mixtral.py holds it to transformers).
+    with pytest.raises(ValueError, match=MIXTRAL_REFUSAL):
         load_hf_llama(mixtral, _llama())
+    routed = load_hf_llama(mixtral, _llama(moe_experts=4, moe_top_k=2))
+    np.testing.assert_allclose(_port_logits(routed, _tokens(LV)),
+                               _hf_logits(mixtral, _tokens(LV)), rtol=0,
+                               atol=1e-5)
 
 
 def test_save_pretrained_directory_loads_offline(hf, tmp_path, monkeypatch):

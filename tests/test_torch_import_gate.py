@@ -237,10 +237,11 @@ WAITING = {
              "TFRecordReader", "TokenFileDataset", "load_token_corpus"},
     "serve": set(),
     "ckpt": set(),
+    "parallel": {"PipelineStrategy"},
 }
-# JAX names outside the subpackages' ``__all__`` that wait: Mixtral's
-# importer for routed experts (ROADMAP.md queue 1 item 5.8).
-WAITING_IN_MODULES = {"ckpt.hf_import": {"load_hf_mixtral"}}
+# JAX names outside the subpackages' ``__all__`` that wait (none since
+# Mixtral's importer came with the routed experts).
+WAITING_IN_MODULES = {"ckpt.hf_import": set()}
 
 
 def _jax_all(sub):

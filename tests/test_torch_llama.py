@@ -102,6 +102,30 @@ def test_bridge_carries_qkv_bias_and_slices_padded_vocab():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("kw", [
+    {}, dict(qkv_bias=True, vocab_multiple=8),
+    dict(depth=4, moe_experts=4, moe_every=2),
+    dict(param_dtype=torch.bfloat16)],
+    ids=["dense", "qkv_bias", "routed", "bf16_storage"])
+def test_every_parameter_is_drawn_from_the_seed(kw):
+    """The modules are built on ``meta`` and laid out uninitialised, so
+    ``init_weights`` must write every parameter: with uninitialised memory
+    filled with NaN, each one comes out finite and equal to another build's
+    of the same seed."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        assert torch.empty(4).isnan().all()  # the fill this test relies on
+        a, b = (tiny_llama(**kw, device="cpu", seed=3).state_dict()
+                for _ in range(2))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert a.keys() == b.keys()
+    for name, t in a.items():
+        assert t.float().isfinite().all(), name
+        assert torch.equal(t, b[name]), name
+
+
 def test_paged_prefill_and_ticks_match_jax(pair):
     """Two rows, each chunk-prefilled at batch 1 through its own table
     (row 1 continues past a chunk boundary), then eight batched ticks at

@@ -20,8 +20,10 @@ right error, held against the JAX package on the CPU.
   exactly).
 - Every other option of the JAX signatures that the port lacks is
   accepted at the JAX default and raises `NotImplementedError` naming its
-  ROADMAP.md item for any other value (the `Llama`'s `moe_*` options and
-  `mesh` among them); the trainer's `donate_state`, `eval_with_ema`, retry
+  ROADMAP.md item for any other value (`mesh` among them); the `Llama`'s
+  `moe_*` options, ported with the routed experts, each give the JAX
+  model's training logits (within 1e-5) and drop rate on a routed tiny
+  Llama; the trainer's `donate_state`, `eval_with_ema`, retry
   and recovery knobs and `fit(prefetch=)`, ported with the rest of the
   trainer, are held to what each does; `submit`'s `adapter` and `constraint`, ported with
   tenancy, raise the JAX engine's `ValueError` on an engine without a
@@ -264,6 +266,9 @@ TRAINER = {("trainer", "donate_state"), ("trainer", "eval_with_ema"),
            ("trainer", "max_retries"), ("trainer", "retry_backoff_s"),
            ("trainer", "max_recoveries"), ("trainer", "retry_sleep"),
            ("fit", "prefetch")}
+# Ported since too (routed experts): each gives the JAX model's numbers.
+MOE = {("model", "moe_top_k"), ("model", "moe_every"),
+       ("model", "moe_capacity_factor"), ("model", "moe_eval_dropless")}
 JAX_FN = {"trainer": JaxTrainer.__init__, "fit": JaxTrainer.fit,
           "engine": JaxServeEngine.__init__, "submit": JaxServeEngine.submit,
           "model": JaxLlama}
@@ -320,6 +325,9 @@ def test_unported_option_takes_the_jax_default_and_refuses_others(
         return
     if (where, name) in TRAINER:
         _check_ported_trainer(name, other)
+        return
+    if (where, name) in MOE:
+        _check_ported_moe(name, other)
         return
     with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
         _call(where, **{name: other})
@@ -403,6 +411,31 @@ def _check_ported_trainer(name, other):
             1, "train_step", FaultKind.TRANSIENT, count + 1)])
         with pytest.raises(TrainStateLost):
             _lm_fit(fault_plan=plan, **kw)
+
+
+def _check_ported_moe(name, other):
+    """A routed tiny Llama (4 experts) with the option at ``other``: the
+    JAX model's training logits and drop rate through the bridge."""
+    from pddl_tpu_torch.ops.moe import sown
+
+    kw = dict(vocab_size=VOCAB, max_len=64, moe_experts=4, **{name: other})
+    tokens = np.random.default_rng(4).integers(0, VOCAB, (2, 24)).astype(
+        np.int32)
+    jm = jax_tiny_llama(**kw)
+    params = jax.tree.map(np.asarray, jax.jit(lambda k: jm.init(
+        k, jnp.asarray(tokens), train=False))(jax.random.key(0))["params"])
+    tm = tiny_llama(device="cpu", **kw)
+    tm.load_state_dict(llama_params_from_jax(params))
+    want, coll = jax.jit(lambda p: jm.apply(
+        {"params": p}, jnp.asarray(tokens), train=True,
+        mutable=["losses", "metrics"]))(params)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(tokens), train=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        [float(v) for v in sown(tm)["metrics"]["moe_drop_rate"]],
+        [float(v) for v in jax.tree.leaves(coll["metrics"])], atol=1e-6)
 
 
 def _check_ported_resilience(name, other):

@@ -14,7 +14,7 @@ weights and the same seeded numpy inputs.
   (df + 6·sqrt(2·df), over bins of expected count >= 5) of the exact
   filtered distributions; one seed gives one stream;
 - the argument checks in the JAX words, the ring-cache refusal, a
-  full-cache sliding-window model accepted, the refusal of `strategy=`,
+  full-cache sliding-window model accepted, `strategy=` (one process),
   and `param_transform=` over `variables=`;
 - the decode module at the cache's edge: a `[B]` index with one row at
   `max_len - 2` and a 5-token block writes the positions before the edge
@@ -276,10 +276,26 @@ def test_ring_cache_refused_and_full_cache_window_accepted():
 @pytest.mark.parametrize("kw,item", [(dict(strategy=object()), "item 7"),
                                      (dict(param_transform=abs), "item 3")])
 def test_unported_options_refused(pair64, kw, item):
-    """``strategy`` is still refused. ``param_transform`` (item 3, int8
-    serving) is ported: it transforms the ``variables`` passed with it (an
-    identity over the model's own weights speculates as without it) and
-    alone raises, having nothing to transform."""
+    """``strategy`` (item 7) is ported: a one-process tensor-parallel
+    strategy speculates as without it (two processes: tests/
+    test_torch_tensor_parallel.py) and refuses ``param_transform`` as the
+    JAX function does. ``param_transform`` (item 3, int8 serving) is
+    ported: it transforms the ``variables`` passed with it (an identity
+    over the model's own weights speculates as without it) and alone
+    raises, having nothing to transform."""
+    if "strategy" in kw:
+        from pddl_tpu_torch.parallel import TensorParallelStrategy
+
+        tm, tp = pair64[2], TensorParallelStrategy(device="cpu")
+        want = generate_speculative(tm, _random(1, 4), 6, draft_len=3)
+        got = generate_speculative(tm, _random(1, 4), 6, draft_len=3,
+                                   strategy=tp)
+        assert torch.equal(got, want)
+        with pytest.raises(NotImplementedError, match="unsharded-only"):
+            generate_speculative(tm, _random(1, 4), 2, strategy=tp,
+                                 variables={"params": tm.state_dict()},
+                                 param_transform=lambda p: p)
+        return
     if "param_transform" in kw:
         tm = pair64[2]
         want = generate_speculative(tm, _random(1, 4), 6, draft_len=3)

@@ -16,8 +16,9 @@
   gradient's size, so a near-zero gradient whose sign differs between the
   two (their sums run in another order) puts them 2·lr apart per step;
 - the `adamw` decay mask leaves 1-D parameters undecayed;
-- unported options (MoE, ring attention, the model-parallel strategies)
-  raise `NotImplementedError` naming ROADMAP.md; `augment`, `callbacks`
+- unported options (ring attention, the pipeline strategy) raise
+  `NotImplementedError` naming ROADMAP.md; MoE and the tensor- and
+  expert-parallel strategies, once among them, now run; `augment`, `callbacks`
   and the optimizer, EMA, fault and `fit` options, once among them, now
   run, each checked for what it does;
 - the trainer runs on `cuda` unless given `device="cpu"`.
@@ -305,8 +306,9 @@ def _check_optimizer_option(kw):
     ("model", {"attention": "ring"}),
 ])
 def test_unported_options_raise(where, kw, tmp_path):
-    """The options still unported raise naming their ROADMAP.md item (MoE,
-    ring attention: item 7; the model-parallel strategies). The rest were
+    """The options still unported raise naming their ROADMAP.md item (ring
+    attention and the pipeline strategy: item 7). MoE and the tensor- and
+    expert-parallel strategies run now, a step each. The rest were
     ported since, and each is checked for what it does: the EMA shadow
     after a step, the parameters moving once a window under
     accumulation, the schedule's rate, stochastic rounding over bf16
@@ -320,10 +322,22 @@ def test_unported_options_raise(where, kw, tmp_path):
         # else is a TypeError); the model-parallel ones are still item 7.
         with pytest.raises(TypeError, match="Strategy"):
             Trainer(model, **trainer_kw, **kw)
-        for name in ("tensor_parallel", "expert_parallel", "pipeline"):
-            with pytest.raises(NotImplementedError,
-                               match=r"ROADMAP\.md queue 1 item 7"):
-                get_strategy(name)
+        # Tensor and expert parallelism are ported; pipeline is item 7.
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md queue 1 item 7"):
+            get_strategy("pipeline")
+        tp = get_strategy("tensor_parallel", device="cpu")
+        Trainer(tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu"),
+                strategy=tp, **trainer_kw).train_step(
+                    SyntheticLanguageModeling(**LM).batch(0))
+        return
+    if where == "model" and "moe_experts" in kw:
+        # Ported (routed experts): the step adds the aux loss and logs the
+        # drop rate (tests/test_torch_moe.py holds both to JAX's).
+        tr = Trainer(tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu",
+                                **kw), **trainer_kw)
+        logs = tr.train_step(SyntheticLanguageModeling(**LM).batch(0))
+        assert "moe_drop_rate" in logs
         return
     if where == "model":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -79,5 +79,17 @@ def test_three_adam_steps_match_jax_trainer():
     (dict(attention="ring_flash"), "item 7"), (dict(mesh=object()), "item 7"),
     (dict(moe_experts=2), "item 5")])
 def test_unported_options_raise(kw, item):
+    """Ring attention and ``mesh`` wait for item 7. Switch-MoE blocks
+    (item 5) are ported: a routed ViT gives the JAX model's logits."""
+    if "moe_experts" in kw:
+        jm, params, tm = _pair(**kw)
+        x = np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(
+            np.float32)
+        with torch.no_grad():
+            got = tm(torch.from_numpy(x), train=False)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply(
+            {"params": params}, jnp.asarray(x), train=False)), rtol=0,
+            atol=1e-5)
+        return
     with pytest.raises(NotImplementedError, match=item):
         tiny_vit(device="cpu", **kw)
