@@ -24,8 +24,9 @@ GPT-2-small (training, ``generate``, both engines, speculation), on
 ResNet-50 under the reference's distribution modes (world size 1 on
 NCCL, and two processes sharing the card over gloo), on
 int8 weights (Llama-1B and GPT-2-small served through
-``param_transform=dequantize``) and on ViT-S/16 (training), and prints
-one line per phase:
+``param_transform=dequantize``), on ViT-S/16 (training), and under
+tensor, expert, sequence and pipeline parallelism (two processes sharing
+the card over gloo), and prints one line per phase:
 
 1. device — ``nvidia-smi``'s card name and power limit;
 2. build — every kernel compiled by ``nvcc``, one process per source, all
@@ -374,11 +375,11 @@ one line per phase:
     the card over gloo (``--tp-gloo2-child``), f32 with TF32 off:
     ``tp_parity_gloo2``, full-width, full-depth Llama-1B at B 1 x S 1024
     under ``TensorParallelStrategy(2, rules=LLAMA_TP_RULES)`` (16 query
-    and 4 KV heads a process: K1/K2 at H 16/4), 2 SGD steps against one
+    and 4 KV heads a process: K1/K2 at H 16/4), one SGD step against one
     process's (loss within 1e-4 relative, gradient norm within 1e-3, every
     local block within 2·lr), each process's parameter bytes, the
     collectives a step as counted; ``tp_decode_gloo2``, ``generate`` B 2 x
-    prompt 128 x 32 new and ``generate_speculative`` under TP2
+    prompt 128 x 16 new and ``generate_speculative`` under TP2
     token-exact with one process's ``generate`` (the tie rule of phase
     6), the top-2 margin, ms a token of each; ``ep_parity_gloo2``, the
     routed Llama (8 experts, top-2, every 4th block from the back) at
@@ -397,6 +398,42 @@ one line per phase:
     bf16 compute over f32 parameters, adamw, B 2 x S 2048: tokens/s, MFU
     over the parameters a token meets, losses, ``moe_drop_rate``, the aux
     loss, peak memory, K1/K2 once a layer a step;
+38f. sp kernels — K1 with its LSE and K2 with an LSE cotangent at a
+    ring rotation's shapes for Llama-1B at seq 2 (B 1, H 32/8, Sq = Sk =
+    4096, D 64, bf16): the diagonal (causal), a past shard (no mask) and
+    a windowed rotation (window 4096, ``k_offset`` -4096), each against
+    its plain version and timed beside it, SDPA and the bound over the
+    pairs its mask keeps;
+38g. sp parity gloo2 — sequence parallelism, two processes sharing the
+    card over gloo (``--sp-pp-gloo2-child``), f32 with TF32 off: a
+    mirrored strategy over a ``data`` 1 x ``seq`` 2 mesh, one SGD step of
+    Llama-1B's width at depth 2, B 1 x S 2048, ``ring_flash`` and
+    ``ring``, with and without a window of 512, and of ViT-S/16 at depth 2
+    under ``ring_flash``, against one process (attention ``flash``) from
+    the same weights drawn on the card, with phase 38b's gates on the
+    loss and gradient norm and each part's parameters within 1e-3 of its
+    update plus two f32 ulps; K1/K2
+    launches by rank (rank 0's later shard has weight 0 and runs none);
+38h. sp train gloo2 — full Llama-1B, bf16 compute over f32 parameters,
+    ``remat="dots"``, ``ring_flash`` over seq 2 at B 1 x S 8192 (4096
+    tokens a process), adamw, 1 warm-up and 2 timed steps: tokens/s, s a
+    step and each process's peak memory beside ``train_long``'s, the
+    ring's hops and bytes a step, K1/K2 launches;
+38i. pp parity gloo2 — ``GPipeLlama`` at Llama-1B's widths and
+    ``GPipeViT`` at ViT-S/16's, 2 stages x 1 block, M 2, f32, attention
+    ``flash``, one SGD step under ``PipelineStrategy(2)`` against one
+    process's ``apply_sequential`` (built whole on the mesh's
+    ``shape_only`` record): the gates of 38b on the loss and the gradient
+    norm, each part's parameters (embed, each stage, head) within 1e-3 of
+    its update plus two f32 ulps; each process lays out its stage only;
+38j. pp train gloo2 — ``GPipeLlama`` at full Llama-1B (2 stages x 8
+    blocks), bf16 compute over f32 parameters, ``flash``, adamw at B 4 x
+    S 2048 and M 2 and M 4: tokens/s, s a step, parameter bytes, the
+    bytes each process's construction lays out (its stage only) and peak
+    memory a process, the activation hops, the share of the step each
+    stage's host is blocked in the schedule, and each process's device
+    idle share (one more step under ``torch.profiler``: 1 - its kernel
+    time over the timed step wall) beside the bubble (S-1)/(M+S-1);
 39. kernels — one JSON object: every ported kernel with its launches on
     its main paths (phases 7, 10, 11, 15i, 15k, 18, 21, 23, 26, 27, 28,
     30, 30c, 32-34, 35-37, 38b and 38e;
@@ -404,8 +441,10 @@ one line per phase:
     legs' included there for K4), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
     ``library_computes`` says; other timing shapes under ``shapes``: K4's
-    and, for K1 and K2, the GPT and ViT train shapes and one TP2
-    process's Llama-1B heads); the ResNet path,
+    and, for K1 and K2, the GPT and ViT train shapes, one TP2 process's
+    Llama-1B heads and the ring rotation's three shapes; the sequence-
+    and pipeline-parallel paths of 38g-38j under ``launches_by_path``,
+    both processes' launches summed); the ResNet path,
     the Keras import and export and the loader add none (the JAX package
     runs no Pallas kernel there);
 
@@ -463,10 +502,10 @@ from pddl_tpu_torch.models.gpt import (
     fused_lm_loss,
     generate,
 )
-from pddl_tpu_torch.models.llama import Llama_1B, tiny_llama
+from pddl_tpu_torch.models.llama import GPipeLlama, Llama_1B, tiny_llama
 from pddl_tpu_torch.models.speculative import generate_speculative
 from pddl_tpu_torch.models.resnet import Conv, ResNet50, tiny_resnet
-from pddl_tpu_torch.models.vit import ViT_S16
+from pddl_tpu_torch.models.vit import GPipeViT, ViT_S16
 from pddl_tpu_torch.obs import RequestTracer
 from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
@@ -502,7 +541,9 @@ from pddl_tpu_torch.data.native_loader import (
 )
 from pddl_tpu_torch.core import collectives
 from pddl_tpu_torch.ckpt import load_hf_mixtral
+from pddl_tpu_torch.core.mesh import MeshConfig
 from pddl_tpu_torch.parallel import MirroredStrategy, get_strategy
+from pddl_tpu_torch.parallel.pipeline import PipelineStrategy
 from pddl_tpu_torch.parallel.tensor_parallel import (
     LLAMA_EP_RULES,
     LLAMA_TP_RULES,
@@ -1727,9 +1768,11 @@ def phase_train_step(batch: int = 4, seq: int = 2048, warmup: int = 2,
     launches = dict(_kernels.launch_counts)
     losses = hist.history["loss"] + [val["loss"]]
     depth = model.depth
+    PHASE_FIGURES["train_step"] = _train_fields(
+        model, batch, seq, steps, hist, wall, train_counts, tokens_s, mfu,
+        peak)
     phase("train_step", model="Llama_1B_bf16_compute_f32_params",
-          **_train_fields(model, batch, seq, steps, hist, wall, train_counts,
-                          tokens_s, mfu, peak),
+          **PHASE_FIGURES["train_step"],
           eval_loss=f"{val['loss']:.5f}",
           eval_flash_fwd_nolse=launches["flash_fwd_nolse"])
     if not all(np.isfinite(losses)):
@@ -1756,9 +1799,10 @@ def phase_train_long(batch: int = 1, seq: int = 8192, warmup: int = 2,
     tr, data, hist, wall, counts, tokens_s, mfu, peak = _timed_fit(
         model, batch, seq, warmup, steps)
     depth = model.depth
+    PHASE_FIGURES["train_long"] = _train_fields(
+        model, batch, seq, steps, hist, wall, counts, tokens_s, mfu, peak)
     phase("train_long", model="Llama_1B_remat_dots_bf16_compute_f32_params",
-          **_train_fields(model, batch, seq, steps, hist, wall, counts,
-                          tokens_s, mfu, peak))
+          **PHASE_FIGURES["train_long"])
     losses = hist.history["loss"]
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite long-context losses {losses}")
@@ -6026,9 +6070,9 @@ def phase_dp_ckpt_gloo2(out_dir: str, timeout: float = 300.0):
 # card's memory holds its f32 weights, gradients and Adam moments
 # (~2.91 B parameters, ~46.5 GB), where Mixtral's every block would not.
 MOE_CFG = dict(moe_experts=8, moe_top_k=2, moe_every=4)
-TP_LR, TP_STEPS, TP_SEQ = 1e-2, 2, 1024
+TP_LR, TP_STEPS, TP_SEQ = 1e-2, 1, 1024
 EP_DEPTH = 8                      # the EP parity model: blocks 7 and 3 routed
-TP_DECODE = dict(batch=2, prompt=128, new=32, draft_len=4)
+TP_DECODE = dict(batch=2, prompt=128, new=16, draft_len=4)
 MOE_PARITY_DEPTH, MOE_PARITY_SEQ = 4, 64
 
 
@@ -6153,7 +6197,7 @@ def _decode_leg(rank, out):
 def tp_gloo2_child(rank: int, port: int, out_dir: str) -> None:
     """``--tp-gloo2-child RANK PORT DIR``: one of two processes sharing the
     card over gloo. Full-width, full-depth Llama-1B (f32, TF32 off) at
-    B 1 x S 1024: 2 SGD steps single-process, then under
+    B 1 x S 1024: one SGD step single-process, then under
     ``TensorParallelStrategy(2, rules=LLAMA_TP_RULES)``; then the TP2
     decode; then the routed Llama at depth 8 (blocks 7 and 3 routed) the
     same way under ``ExpertParallelStrategy(2, rules=LLAMA_EP_RULES)``
@@ -6430,6 +6474,734 @@ def phase_moe_train(batch: int = 2, seq: int = 2048, warmup: int = 1,
     return counts
 
 
+# ------------------------------------------ phases 38f-38j: SP and PP
+# One ring rotation of Llama-1B at seq 2 (B 1 x S 8192 over two
+# processes: 4096 tokens a process): the diagonal (causal), a past shard
+# (no mask), and a windowed rotation (window 4096, keys 4096 back).
+SP_SHAPES = {
+    "sp_ring_diag": (1, 32, 8, 4096, 4096, 64, torch.bfloat16, True, None, 0),
+    "sp_ring_past": (1, 32, 8, 4096, 4096, 64, torch.bfloat16, False, None,
+                     0),
+    "sp_ring_window": (1, 32, 8, 4096, 4096, 64, torch.bfloat16, True, 4096,
+                       -4096),
+}
+SP_LR, SP_PARITY_SEQ, SP_WINDOW = 1e-2, 2048, 512
+# One warm-up and two timed steps (a step is ~9 s of gloo-staged
+# gradient all-reduce): the script's time limit.
+SP_TRAIN = dict(batch=1, seq=8192, warmup=1, steps=2)
+PP_PARITY = dict(batch=2, seq=512, images=4, microbatches=2)
+PP_TRAIN = dict(batch=4, seq=2048, warmup=1, steps=3, blocks=8)
+# remat_stages in pp_train_gloo2: without it each process's 8 blocks keep
+# B 4 x S 2048's activations beside the head's 4.2 GB of f32 logits on
+# every stage, and the pair ran out of the card's 80 GB.
+PP_REMAT = True
+GLOO2_GATES = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3}   # phase 38b's
+# The SGD parity legs' parameter gate, a share of each part's update
+# (``_one_process_step``): the gradient norm's 1e-3.
+PARAM_STEP_REL = 1e-3
+# The GPipe models' widths: Llama-1B's and ViT-S/16's.
+GPIPE_LLAMA_WIDTHS = dict(embed_dim=2048, num_heads=32, num_kv_heads=8,
+                          intermediate_dim=8192, rope_theta=500000.0)
+GPIPE_VIT_WIDTHS = dict(patch_size=16, embed_dim=384, num_heads=6,
+                        num_classes=1000)
+# The train phases' figures for the comparisons of the new ones.
+PHASE_FIGURES: dict = {}
+
+
+def masked_pairs(sq: int, sk: int, causal: bool, window, k_offset: int) -> int:
+    """The (query, key) pairs a flash call's mask keeps: what this
+    call's work is."""
+    if not causal:
+        return sq * sk
+    t = torch.arange(sq)[:, None]
+    j = torch.arange(sk)[None, :] + k_offset
+    keep = t >= j
+    if window is not None:
+        keep &= j > t - window
+    return int(keep.sum())
+
+
+def _ring_bounds(q, k, pairs):
+    """K1's (with LSE) and K2's (with ``dlse``) bounds for ``pairs`` kept
+    pairs: 4·B·H·pairs·D forward flops and 10·B·H·pairs·D backward over
+    the bf16 peak, or their tensors' bytes once (K2 also reads dlse)."""
+    b, h, s, d = q.shape
+    row = b * h * s * 4
+    fwd = _bound((2 * q.numel() + 2 * k.numel()) * q.element_size() + row,
+                 4 * b * h * pairs * d, q.dtype)
+    bwd = _bound((4 * q.numel() + 4 * k.numel()) * q.element_size()
+                 + 2 * row, 10 * b * h * pairs * d, q.dtype)
+    return fwd, bwd
+
+
+def phase_sp_kernels():
+    """K1 with its LSE and K2 with an LSE cotangent at a ring rotation's
+    shapes (``SP_SHAPES``): each against its plain version (K1 within
+    TOL, K2 within GRAD_TOL of each gradient's max-abs; a row that sees
+    no key is held to an lse at NEG_INF and gets the ring's zero
+    cotangents), then timed on
+    CUDA events beside the plain version, SDPA (a boolean mask for the
+    windowed rotation) and the bound over the pairs the mask keeps.
+    Returns ``{kernel: {shape: fields}}``."""
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    out = {"flash_fwd": {}, "flash_bwd_fused": {}}
+    bad = []
+    for tag, shape in SP_SHAPES.items():
+        b, h, hkv, sq, sk, d, dtype, causal, window, k_off = shape
+        cases = []
+        for _ in range(2):
+            qkv, do, dlse, kw = flash_case(gen, *shape)
+            o, lse = tatt.flash_forward(*qkv, **kw)
+            cases.append((qkv, o, lse, do, dlse))
+        c = cases[0]
+        ref_o, ref_lse = tatt.flash_forward_plain(*c[0], **kw)
+        # A row whose keys all lie outside the window (the windowed
+        # rotation's last) has no softmax: its lse is NEG_INF and the
+        # ring's merge weighs it 0, so its o is not a result and its
+        # cotangents are 0 (``ops/ring_attention.py``), as here.
+        live = ref_lse > -1e29
+        empty = int((~live).sum())
+        for cs_ in cases:
+            cs_[3].mul_(live[..., None].to(cs_[3].dtype))
+            cs_[4].mul_(live)
+        got = tatt.flash_backward(*c[0], ref_o, ref_lse, c[3], c[4], **kw)
+        want = tatt.flash_backward_plain(*c[0], ref_o, ref_lse, c[3], c[4],
+                                         **kw)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(c[1].float()).all()
+                and all(torch.isfinite(g.float()).all() for g in got)):
+            raise RuntimeError(f"sp_kernels {tag}: non-finite output")
+        if empty and not bool((c[2][~live] <= -1e29).all()):
+            bad.append(f"{tag}_flash_fwd lse of an empty row above -1e29")
+        fwd_err = max(float((c[1].float() - ref_o.float())[live].abs().max()),
+                      float((c[2] - ref_lse)[live].abs().max()))
+        bwd_abs = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+        bwd_rel = max(float((g.float() - w.float()).abs().max())
+                      / float(w.float().abs().max())
+                      for g, w in zip(got, want))
+        del got, want, ref_o, ref_lse
+        if not fwd_err <= TOL[dtype]:
+            bad.append(f"{tag}_flash_fwd {fwd_err:.3g}")
+        if not bwd_rel <= GRAD_TOL[dtype]:
+            bad.append(f"{tag}_flash_bwd_dlse {bwd_rel:.3g}")
+        fwd_ms = cuda_ms(lambda i: tatt.flash_forward(*cases[i][0], **kw), 2,
+                         iters=20)
+        plain_fwd = cuda_ms(lambda i: tatt.flash_forward_plain(
+            *cases[i][0], **kw), 2, iters=2)
+        bwd_ms = cuda_ms(lambda i: tatt.flash_backward(
+            *cases[i][0], *cases[i][1:], **kw), 2, iters=10)
+        plain_bwd = cuda_ms(lambda i: tatt.flash_backward_plain(
+            *cases[i][0], *cases[i][1:], **kw), 2, iters=2)
+        mask = None
+        if causal and (window is not None or k_off):
+            t = torch.arange(sq, device=DEV)[:, None]
+            j = torch.arange(sk, device=DEV)[None, :] + k_off
+            mask = (t >= j) & (j > t - window)
+        leaves = [[x.detach().requires_grad_() for x in cs[0]]
+                  for cs in cases]
+
+        def sdpa(i, backward):
+            o = F.scaled_dot_product_attention(
+                *leaves[i], attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+            if backward:
+                o.backward(cases[i][3])
+        sdpa_f = cuda_ms(lambda i: sdpa(i, False), 2, iters=10)
+        sdpa_fb = cuda_ms(lambda i: sdpa(i, True), 2, iters=10)
+        q, k = c[0][:2]
+        pairs = masked_pairs(sq, sk, causal, window, k_off)
+        (fb, fby), (bb, bby) = _ring_bounds(q, k, pairs)
+        out["flash_fwd"][tag] = dict(ms=fwd_ms, plain_ms=plain_fwd,
+                                     library_ms=sdpa_f, bound_ms=fb,
+                                     bound_by=fby, max_abs_err=fwd_err)
+        out["flash_bwd_fused"][tag] = dict(
+            ms=bwd_ms, plain_ms=plain_bwd, library_ms=sdpa_fb - sdpa_f,
+            bound_ms=bb, bound_by=bby, max_abs_err=bwd_abs, with_dlse=True)
+        phase("sp_kernels", shape=f"{tag}_B{b}_H{h}_Hkv{hkv}_S{sq}_D{d}_bf16"
+              f"_{'causal' if causal else 'full'}_window{window}_koff{k_off}",
+              pairs=pairs, empty_rows=empty, k1_err=f"{fwd_err:.3g}",
+              k1_tol=TOL[dtype],
+              k2_dlse_rel_err=f"{bwd_rel:.3g}", k2_tol=GRAD_TOL[dtype],
+              **{f"{n}_{key}": (f"{v:.5f}" if isinstance(v, float) else v)
+                 for n in out for key, v in out[n][tag].items()
+                 if key != "max_abs_err"})
+        del cases, leaves
+    if bad:
+        raise RuntimeError(f"sp_kernels disagree with plain: {bad}")
+    return out
+
+
+def _launches():
+    return {k: _kernels.launch_counts[k] for k in FLASH_COUNTERS}
+
+
+def _tp_counts():
+    """A copy of the collectives' counts (their lists go on counting)."""
+    return {k: list(v) for k, v in collectives.TP_COUNTS.items()}
+
+
+def _part_of(name: str) -> str:
+    """A parameter's part for the per-part gates: its top module, a
+    pipeline stage by its index."""
+    part = name.split(".")[0]
+    return "stage" + name.split(".")[1] if part == "stages" else part
+
+
+def _step_record(strategy, tr, logs, ref, whole):
+    """The gates' numbers of one sharded step against one process's:
+    ``ref`` = (loss, grad_norm, state, param_bound_by_part) on the
+    reference's holder (else None), ``whole`` the sharded run's whole
+    state."""
+    loss = float(collectives.pmean(logs["loss"], strategy.batch_group))
+    gn = float(logs["grad_norm"])
+    rec = dict(loss=loss, grad_norm=gn)
+    if ref is not None:
+        rloss, rgn, rstate, bounds = ref
+        rec.update(ref_loss=rloss, ref_grad_norm=rgn,
+                   loss_rel=abs(loss - rloss) / abs(rloss),
+                   grad_norm_rel=abs(gn - rgn) / abs(rgn))
+        by_part: dict = {}
+        for name, t in whole.items():
+            part = _part_of(name)
+            diff = float((t.float() - rstate[name].float()).abs().max())
+            by_part[part] = max(by_part.get(part, 0.0), diff)
+        rec["param_diff_by_part"] = by_part
+        rec["param_diff"] = max(by_part.values())
+        rec["param_bound_by_part"] = bounds
+    return rec
+
+
+def _one_process_step(model, batch, keys, forward=None):
+    """One SGD step of ``model`` alone (``forward`` replaces its forward,
+    the GPipe models' ``apply_sequential``): (loss, grad_norm, state,
+    the parameter gate by part). A part's gate is :data:`PARAM_STEP_REL`
+    of its largest update (lr·max|g|, so a gradient counted twice moves
+    the part by its whole update) plus two f32 ulps of its largest
+    parameter (the rounding of ``p - lr·g`` on either side)."""
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    run = model
+    if forward is not None:
+        class _Run(torch.nn.Module):
+            def __init__(self, inner):
+                super().__init__()
+                self.inner = inner
+
+            def forward(self, x, *, train=True):
+                return forward(x)
+
+        run = _Run(model)
+    tr = Trainer(run, optimizer="sgd", learning_rate=SP_LR, device=DEV,
+                 log_grad_norm=True, **keys)
+    logs = tr.train_step(batch)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step: dict = {}
+    scale: dict = {}
+    for name, t in state.items():
+        part = _part_of(name)
+        step[part] = max(step.get(part, 0.0), float(
+            (t.float() - before[name].float()).abs().max()))
+        scale[part] = max(scale.get(part, 0.0), float(t.abs().max()))
+    bounds = {part: PARAM_STEP_REL * step[part]
+              + 2 * float(np.spacing(np.float32(scale[part])))
+              for part in step}
+    out = (float(logs["loss"]), float(logs["grad_norm"]), state, bounds)
+    del tr, run, before
+    return out
+
+
+def _sp_strategy():
+    return MirroredStrategy(device=DEV, backend="gloo",
+                            mesh_config=MeshConfig(data=1, seq=2))
+
+
+def _sp_parity_legs(rank: int, out: dict) -> None:
+    """Phase 38g's legs (f32, TF32 off): Llama-1B's width at depth 2,
+    B 1 x S 2048, ring_flash and ring, with and without a window of 512;
+    ViT-S/16 at depth 2 under ring_flash, against one-process references
+    (attention "flash") that the two processes run first, split between
+    them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = SyntheticLanguageModeling(batch_size=1, seq_len=SP_PARITY_SEQ,
+                                     vocab_size=VOCAB, seed=5)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in data.batch(0).items()}
+    rng = np.random.default_rng(6)
+    images = {"image": torch.from_numpy(rng.normal(size=(
+        4, 224, 224, 3)).astype(np.float32)).to(DEV),
+        "label": torch.from_numpy(rng.integers(0, 1000, 4)).to(DEV)}
+
+    def llama(attention, window, mesh=None):
+        return Llama_1B(vocab_size=VOCAB, depth=2, dtype=torch.float32,
+                        sliding_window=window, attention=attention,
+                        mesh=mesh, device=DEV, seed=11)
+
+    def vit(attention, mesh=None):
+        return ViT_S16(depth=2, attention=attention, mesh=mesh,
+                       dtype=torch.float32, device=DEV, seed=12)
+
+    legs = [("llama_ring_flash", "ring_flash", None),
+            ("llama_ring", "ring", None),
+            ("llama_ring_flash_w512", "ring_flash", SP_WINDOW),
+            ("llama_ring_w512", "ring", SP_WINDOW),
+            ("vit_s16_ring_flash", "ring_flash", None)]
+    # The one-process references, split over the two processes (the
+    # parameters are replicated: either process's hold a leg's result).
+    mine = {0: (None, "vit"), 1: (SP_WINDOW,)}[rank]
+    refs = {}
+    for key in mine:
+        refs[key] = (_one_process_step(vit("flash"), images, {})
+                     if key == "vit" else
+                     _one_process_step(llama("flash", key), batch, LM_KEYS))
+        torch.cuda.empty_cache()
+    strategy = _sp_strategy()
+    for tag, attention, window in legs:
+        is_vit = tag.startswith("vit")
+        model = (vit(attention, strategy.mesh) if is_vit
+                 else llama(attention, window, strategy.mesh))
+        tr = Trainer(model, optimizer="sgd", learning_rate=SP_LR,
+                     strategy=strategy, device=DEV, log_grad_norm=True,
+                     **({} if is_vit else LM_KEYS))
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        collectives.reset_tp_counts()
+        logs = tr.train_step(images if is_vit else batch)
+        torch.cuda.synchronize()
+        launches = _launches()
+        counts = _tp_counts()
+        ref = refs.get("vit" if is_vit else window)
+        out[tag] = dict(_step_record(strategy, tr, logs, ref,
+                                     tr.model.state_dict()),
+                        launches=launches, collectives=counts)
+        del tr, model
+        torch.cuda.empty_cache()
+    del refs
+    torch.cuda.empty_cache()
+
+
+def _sp_train_leg(rank: int, out: dict) -> None:
+    """Phase 38h: full Llama-1B, bf16 compute over f32 parameters,
+    ``remat="dots"``, ring_flash over seq 2, adamw at B 1 x S 8192 (4096
+    tokens a process): the timed steps' wall, launches and hops."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = SP_TRAIN
+    strategy = _sp_strategy()
+    model = Llama_1B(vocab_size=VOCAB, remat="dots", dtype=torch.bfloat16,
+                     param_dtype=torch.float32, attention="ring_flash",
+                     mesh=strategy.mesh, device=DEV, seed=0)
+    tr = Trainer(model, optimizer="adamw", learning_rate=1e-4,
+                 strategy=strategy, device=DEV, **LM_KEYS)
+    data = SyntheticLanguageModeling(batch_size=cfg["batch"],
+                                     seq_len=cfg["seq"], vocab_size=VOCAB,
+                                     seed=0)
+    tr.fit(data, epochs=1, steps_per_epoch=cfg["warmup"], verbose=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    collectives.reset_tp_counts()
+    t0 = time.perf_counter()
+    hist = tr.fit(data.with_offset(cfg["warmup"]), epochs=cfg["steps"],
+                  steps_per_epoch=1, verbose=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["sp_train"] = dict(
+        wall_s=wall, step_s=wall / cfg["steps"],
+        tokens_s=cfg["batch"] * cfg["seq"] * cfg["steps"] / wall,
+        peak=torch.cuda.max_memory_allocated(), losses=hist.history["loss"],
+        launches=_launches(), collectives=_tp_counts(),
+        depth=model.depth)
+    del tr, model
+    torch.cuda.empty_cache()
+
+
+def _pp_parity_legs(rank: int, out: dict) -> None:
+    """Phase 38i (f32, TF32 off): GPipeLlama at Llama-1B's widths and
+    GPipeViT at ViT-S/16's, 2 stages x 1 block, M 2, attention "flash",
+    one SGD step under ``PipelineStrategy(2)`` against one process's
+    ``apply_sequential`` from the same weights (rank 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = PP_PARITY
+    data = SyntheticLanguageModeling(batch_size=cfg["batch"],
+                                     seq_len=cfg["seq"], vocab_size=VOCAB,
+                                     seed=7)
+    tokens = {k: torch.from_numpy(v).to(DEV)
+              for k, v in data.batch(0).items()}
+    rng = np.random.default_rng(8)
+    images = {"image": torch.from_numpy(rng.normal(size=(
+        cfg["images"], 224, 224, 3)).astype(np.float32)).to(DEV),
+        "label": torch.from_numpy(rng.integers(0, 1000, cfg["images"]))
+        .to(DEV)}
+    legs = (
+        ("gpipe_llama", GPipeLlama, dict(vocab_size=VOCAB,
+                                          **GPIPE_LLAMA_WIDTHS),
+         tokens, LM_KEYS),
+        ("gpipe_vit", GPipeViT, GPIPE_VIT_WIDTHS, images, {}))
+    for tag, cls, kw, batch, keys in legs:
+        strategy = PipelineStrategy(2, device=DEV, backend="gloo")
+        kw = dict(kw, n_stages=2, blocks_per_stage=1,
+                  n_microbatches=cfg["microbatches"], mesh=strategy.mesh,
+                  attention="flash", dtype=torch.float32, device=DEV, seed=13)
+        ref = None
+        if rank == 0:
+            whole = cls(**dict(kw, mesh=strategy.mesh.shape_only()))
+            ref = _one_process_step(whole, batch, keys,
+                                    forward=whole.apply_sequential)
+            del whole
+        whole_bytes = _param_bytes(cls(**dict(
+            kw, mesh=strategy.mesh.shape_only(), device="meta")))
+        held = _quiet_allocated()
+        model = cls(**kw)
+        built_bytes = torch.cuda.max_memory_allocated() - held
+        tr = Trainer(model, optimizer="sgd", learning_rate=SP_LR,
+                     strategy=strategy, device=DEV, log_grad_norm=True,
+                     **keys)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        collectives.reset_tp_counts()
+        logs = tr.train_step(batch)
+        torch.cuda.synchronize()
+        launches = _launches()
+        counts = _tp_counts()
+        whole_state = strategy.gather_state_dict(tr.model)
+        out[tag] = dict(_step_record(strategy, tr, logs, ref, whole_state),
+                        launches=launches, collectives=counts,
+                        whole_bytes=whole_bytes, built_bytes=built_bytes,
+                        local_bytes=_param_bytes(tr.model))
+        del tr, model, whole_state, ref
+        torch.cuda.empty_cache()
+
+
+def _quiet_allocated() -> int:
+    """The card's allocated bytes with the earlier legs' garbage freed
+    and the peak reset to them: the peak above this after a build is
+    the most the build held at once."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+@contextlib.contextmanager
+def _blocked_in_schedule(acc: list):
+    """Add to ``acc[0]`` the host seconds spent in the pipeline
+    schedule's receives, its send waits and its outputs' broadcast
+    (``ops/pipeline.py`` calls them through ``collectives``)."""
+    names = ("recv_counted", "wait_sends", "broadcast_counted")
+    saved = {n: getattr(collectives, n) for n in names}
+
+    def timed(fn):
+        def inner(*args, **kwargs):
+            if fn is saved["broadcast_counted"] and args[-1] != \
+                    "pp_outputs_fwd":
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[0] += time.perf_counter() - t0
+        return inner
+
+    for n in names:
+        setattr(collectives, n, timed(saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(collectives, n, fn)
+
+
+def _profiled_step(tr, data):
+    """One training step under ``torch.profiler``: this process's kernel
+    ms and copy ms on the device, and the step's wall (s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.fit(data, epochs=1, steps_per_epoch=1, verbose=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = device_kernels(prof)
+    copy_us = sum(e.self_device_time_total for e in kern
+                  if e.key.startswith(("Memcpy", "Memset")))
+    busy_us = sum(e.self_device_time_total for e in kern) - copy_us
+    return busy_us / 1e3, copy_us / 1e3, wall
+
+
+def _pp_train_legs(rank: int, out: dict) -> None:
+    """Phase 38j: GPipeLlama at full Llama-1B (2 stages x 8 blocks), bf16
+    compute over f32 parameters, attention "flash", adamw at B 4 x
+    S 2048, at M 2 and M 4: each timed step's wall, the host seconds the
+    stage waits in the schedule, launches, hops, bytes and peak memory."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = PP_TRAIN
+    data = SyntheticLanguageModeling(batch_size=cfg["batch"],
+                                     seq_len=cfg["seq"], vocab_size=VOCAB,
+                                     seed=0)
+    for m in (2, 4):
+        strategy = PipelineStrategy(2, device=DEV, backend="gloo")
+        kw = dict(vocab_size=VOCAB, n_stages=2,
+                  blocks_per_stage=cfg["blocks"], n_microbatches=m,
+                  mesh=strategy.mesh, **GPIPE_LLAMA_WIDTHS,
+                  attention="flash", remat_stages=PP_REMAT,
+                  dtype=torch.bfloat16, param_dtype=torch.float32,
+                  device=DEV, seed=0)
+        whole_bytes = _param_bytes(GPipeLlama(**dict(
+            kw, mesh=strategy.mesh.shape_only(), device="meta")))
+        held = _quiet_allocated()
+        model = GPipeLlama(**kw)
+        built_bytes = torch.cuda.max_memory_allocated() - held
+        tr = Trainer(model, optimizer="adamw", learning_rate=1e-4,
+                     strategy=strategy, device=DEV, **LM_KEYS)
+        tr.fit(data, epochs=1, steps_per_epoch=cfg["warmup"], verbose=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        collectives.reset_tp_counts()
+        blocked = [0.0]
+        t0 = time.perf_counter()
+        with _blocked_in_schedule(blocked):
+            hist = tr.fit(data.with_offset(cfg["warmup"]),
+                          epochs=cfg["steps"], steps_per_epoch=1, verbose=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches, counts = _launches(), _tp_counts()
+        # One more step under the profiler: this process's kernel time.
+        busy_ms, copy_ms, prof_wall = _profiled_step(
+            tr, data.with_offset(cfg["warmup"] + cfg["steps"]))
+        step_s = wall / cfg["steps"]
+        out[f"pp_train_m{m}"] = dict(
+            wall_s=wall, step_s=step_s,
+            tokens_s=cfg["batch"] * cfg["seq"] * cfg["steps"] / wall,
+            host_blocked_share=blocked[0] / wall, bubble=1 / (m + 1),
+            kernel_ms=busy_ms, copy_ms=copy_ms, profiled_step_s=prof_wall,
+            idle_share=(1 - busy_ms / 1e3 / step_s) if busy_ms else None,
+            whole_bytes=whole_bytes, built_bytes=built_bytes,
+            local_bytes=_param_bytes(tr.model), peak=peak,
+            losses=hist.history["loss"], launches=launches,
+            collectives=counts)
+        del tr, model
+        torch.cuda.empty_cache()
+
+
+def sp_pp_gloo2_child(rank: int, port: int, out_dir: str) -> None:
+    """``--sp-pp-gloo2-child RANK PORT DIR``: one of two processes sharing
+    the card over gloo: the legs of phases 38g-38j in turn. Writes what
+    it saw to ``out_dir/sp_pp_gloo2_{rank}.json``."""
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+        rank=rank)
+    out = {"rank": rank}
+    try:
+        for name, fn in (("sp_parity", _sp_parity_legs),
+                         ("sp_train", _sp_train_leg),
+                         ("pp_parity", _pp_parity_legs),
+                         ("pp_train", _pp_train_legs)):
+            t0 = time.perf_counter()
+            before = set(out)
+            fn(rank, out)
+            out[f"{name}_seconds"] = time.perf_counter() - t0
+            print(json.dumps({k: out[k] for k in set(out) - before},
+                             default=str), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    pathlib.Path(out_dir, f"sp_pp_gloo2_{rank}.json").write_text(
+        json.dumps(out))
+
+
+def _built_whole(tag: str, runs) -> list:
+    """A stage's process must lay out its own stage, the embed and the
+    head and no more: the most its construction held on the card at
+    once within 1 MiB (the allocator's rounding) above its parameters'
+    bytes, which are below the whole model's."""
+    return [f"{tag}_built_bytes {r['built_bytes']} of {r['local_bytes']}"
+            for r in runs
+            if not r["local_bytes"] <= r["built_bytes"]
+            <= r["local_bytes"] + (1 << 20)
+            or not r["local_bytes"] < r["whole_bytes"]]
+
+
+def _per_step(counts: dict, steps: int) -> str:
+    return ",".join(f"{k}:{v[0] / steps:g}calls/{v[1] / steps / 1e6:.2f}MB"
+                    for k, v in sorted(counts.items()))
+
+
+def _sum_launches(runs, key="launches"):
+    return {k: sum(r[key][k] for r in runs) for k in FLASH_COUNTERS}
+
+
+def phase_sp_pp_gloo2(out_dir: str, timeout: float = 600.0):
+    """Phases 38g-38j from ``sp_pp_gloo2_child``'s two processes: the
+    parity gates (phase 38b's: loss within 1e-4 relative, gradient norm within
+    1e-3; each part's parameters within 1e-3 of its update plus two f32
+    ulps, ``_one_process_step``), the launch
+    counts each leg must show, and the train legs' figures beside
+    ``train_long``'s and ``train_step``'s. Returns the launches (both
+    processes summed) by path."""
+    out_dir = pathlib.Path(out_dir)
+    _two_processes(lambda rank, port: ("--sp-pp-gloo2-child", str(rank),
+                                       str(port), str(out_dir)),
+                   timeout, "sp_pp_gloo2")
+    seen = [json.loads((out_dir / f"sp_pp_gloo2_{r}.json").read_text())
+            for r in range(2)]
+    bad = []
+    paths = {}
+
+    def gate(phase_name, tag, depth, want_k1, want_k2, **extra):
+        r0, r1 = seen[0][tag], seen[1][tag]
+        ref = r0 if "ref_loss" in r0 else r1   # the reference's holder
+        bounds = ref["param_bound_by_part"]
+        fields = {k: f"{ref[k]:.3g}" for k in GLOO2_GATES}
+        phase(phase_name, leg=tag, processes=2, backend="gloo",
+              device="cuda:0 (shared)", optimizer="sgd", lr=SP_LR, steps=1,
+              loss=f"{ref['loss']:.7f}", ref_loss=f"{ref['ref_loss']:.7f}",
+              reference_rank=0 if ref is r0 else 1,
+              **fields, param_diff=f"{ref['param_diff']:.3g}",
+              param_diff_by_part=",".join(
+                  f"{k}:{v:.3g}" for k, v in ref["param_diff_by_part"].items()),
+              **{f"{k}_bound": f"{v:g}" for k, v in GLOO2_GATES.items()},
+              param_diff_bound_by_part=",".join(
+                  f"{k}:{v:.3g}" for k, v in bounds.items()),
+              launches_per_rank="/".join(
+                  f"k1:{r['launches']['flash_fwd']},k2:"
+                  f"{r['launches']['flash_bwd_fused']}" for r in (r0, r1)),
+              collectives_rank0=_per_step(r0["collectives"], 1),
+              collectives_rank1=_per_step(r1["collectives"], 1), **extra)
+        bad.extend(f"{tag}_{k}" for k, lim in GLOO2_GATES.items()
+                   if not ref[k] <= lim)
+        bad.extend(f"{tag}_param_diff_{k}"
+                   for k, v in ref["param_diff_by_part"].items()
+                   if not v <= bounds[k])
+        got = [(r["launches"]["flash_fwd"], r["launches"]["flash_bwd_fused"])
+               for r in (r0, r1)]
+        if got != [(want_k1[0], want_k2[0]), (want_k1[1], want_k2[1])]:
+            bad.append(f"{tag}_launches {got}")
+        if want_k1[0] or want_k1[1]:
+            paths[phase_name + "_" + tag] = _sum_launches((r0, r1))
+
+    # Ring flash at seq 2 (causal): rank 0 runs the diagonal only (the
+    # later shard has weight 0), rank 1 the diagonal and the past shard;
+    # the plain ring launches nothing.
+    for tag in ("llama_ring_flash", "llama_ring_flash_w512"):
+        gate("sp_parity_gloo2", tag, 2, (2, 4), (2, 4),
+             model="Llama_1B_depth2_f32", batch=1, seq=SP_PARITY_SEQ)
+    for tag in ("llama_ring", "llama_ring_w512"):
+        gate("sp_parity_gloo2", tag, 2, (0, 0), (0, 0),
+             model="Llama_1B_depth2_f32", batch=1, seq=SP_PARITY_SEQ)
+    # ViT: non-causal, both rotations on both ranks.
+    gate("sp_parity_gloo2", "vit_s16_ring_flash", 2, (4, 4), (4, 4),
+         model="ViT_S16_depth2_f32", batch=4, image=224)
+    for tag in ("gpipe_llama", "gpipe_vit"):
+        r0, r1 = seen[0][tag], seen[1][tag]
+        m = PP_PARITY["microbatches"]
+        gate("pp_parity_gloo2", tag, 1, (m, m), (m, m),
+             model=("GPipeLlama_Llama1B_widths" if tag == "gpipe_llama"
+                    else "GPipeViT_ViT_S16_widths") + "_2x1_f32",
+             microbatches=m,
+             param_bytes_per_rank=f"{r0['local_bytes']}/{r1['local_bytes']}",
+             built_bytes_per_rank=f"{r0['built_bytes']}/{r1['built_bytes']}",
+             whole_param_bytes=r0["whole_bytes"])
+        bad.extend(_built_whole(tag, (r0, r1)))
+
+    # 38h: the sequence-parallel train step beside train_long's.
+    st = [s["sp_train"] for s in seen]
+    steps, depth = SP_TRAIN["steps"], st[0]["depth"]
+    long_fig = PHASE_FIGURES.get("train_long", {})
+    phase("sp_train_gloo2", model="Llama_1B_remat_dots_bf16_compute_f32_params",
+          attention="ring_flash", processes=2, seq_axis=2,
+          batch=SP_TRAIN["batch"], seq=SP_TRAIN["seq"],
+          tokens_per_process=SP_TRAIN["seq"] // 2, steps=steps,
+          step_s=f"{st[0]['step_s']:.4f}", tokens_per_s=f"{st[0]['tokens_s']:.2f}",
+          peak_mem_gib_per_rank="/".join(f"{s['peak'] / 2**30:.3f}"
+                                         for s in st),
+          train_long_ms_per_step=long_fig.get("ms_per_step", "not measured"),
+          train_long_tokens_per_s=long_fig.get("tokens_per_s",
+                                               "not measured"),
+          train_long_peak_mem_gib=long_fig.get("peak_mem_gib",
+                                               "not measured"),
+          losses="/".join(f"{x:.5f}" for x in st[0]["losses"]),
+          flash_per_step_per_rank="/".join(
+              ",".join(f"{k}:{s['launches'][k] / steps:g}"
+                       for k in FLASH_COUNTERS) for s in st),
+          collectives_per_step_rank0=_per_step(st[0]["collectives"], steps),
+          collectives_per_step_rank1=_per_step(st[1]["collectives"], steps))
+    # K1 runs in the forward and again in the remat recompute: rank 0 the
+    # diagonal only, rank 1 both rotations; K2 once a rotation.
+    want = [(2 * depth * steps, depth * steps),
+            (4 * depth * steps, 2 * depth * steps)]
+    got = [(s["launches"]["flash_fwd"], s["launches"]["flash_bwd_fused"])
+           for s in st]
+    if got != want:
+        bad.append(f"sp_train_launches {got} want {want}")
+    if not all(np.isfinite(x) for s in st for x in s["losses"]):
+        bad.append("sp_train_losses")
+    paths["sp_train_gloo2"] = _sum_launches(st)
+
+    # 38j: the pipeline train step at M 2 and M 4.
+    for m in (2, 4):
+        pt = [s[f"pp_train_m{m}"] for s in seen]
+        steps = PP_TRAIN["steps"]
+        step_fig = PHASE_FIGURES.get("train_step", {})
+        phase("pp_train_gloo2", model="GPipeLlama_Llama1B_2x8_bf16_compute_"
+              "f32_params", attention="flash", processes=2, stages=2,
+              microbatches=m, remat_stages=PP_REMAT, batch=PP_TRAIN["batch"],
+              seq=PP_TRAIN["seq"], steps=steps,
+              step_s=f"{pt[0]['step_s']:.4f}",
+              tokens_per_s=f"{pt[0]['tokens_s']:.2f}",
+              train_step_ms_per_step=step_fig.get("ms_per_step",
+                                                  "not measured"),
+              train_step_tokens_per_s=step_fig.get("tokens_per_s",
+                                                   "not measured"),
+              whole_param_bytes=pt[0]["whole_bytes"],
+              param_bytes_per_rank="/".join(str(p["local_bytes"])
+                                           for p in pt),
+              built_bytes_per_rank="/".join(str(p["built_bytes"])
+                                           for p in pt),
+              peak_mem_gib_per_rank="/".join(f"{p['peak'] / 2**30:.3f}"
+                                             for p in pt),
+              host_blocked_share_per_rank="/".join(
+                  f"{p['host_blocked_share']:.4f}" for p in pt),
+              kernel_ms_profiled_step_per_rank="/".join(
+                  f"{p['kernel_ms']:.3f}" for p in pt),
+              copy_ms_profiled_step_per_rank="/".join(
+                  f"{p['copy_ms']:.3f}" for p in pt),
+              profiled_step_s_per_rank="/".join(
+                  f"{p['profiled_step_s']:.4f}" for p in pt),
+              idle_share_per_rank="/".join(
+                  "not measured" if p["idle_share"] is None else
+                  f"{p['idle_share']:.4f}" for p in pt),
+              bubble=f"{pt[0]['bubble']:.4f}",
+              losses="/".join(f"{x:.5f}" for x in pt[0]["losses"]),
+              flash_per_step_per_rank="/".join(
+                  ",".join(f"{k}:{p['launches'][k] / steps:g}"
+                           for k in FLASH_COUNTERS) for p in pt),
+              collectives_per_step_rank0=_per_step(pt[0]["collectives"],
+                                                   steps),
+              collectives_per_step_rank1=_per_step(pt[1]["collectives"],
+                                                   steps))
+        per = PP_TRAIN["blocks"] * m * steps * (2 if PP_REMAT else 1)
+        got = [(p["launches"]["flash_fwd"], p["launches"]["flash_bwd_fused"])
+               for p in pt]
+        if got != [(per, PP_TRAIN["blocks"] * m * steps)] * 2:
+            bad.append(f"pp_train_m{m}_launches {got}")
+        if not all(np.isfinite(x) for p in pt for x in p["losses"]):
+            bad.append(f"pp_train_m{m}_losses")
+        bad.extend(_built_whole(f"pp_train_m{m}", pt))
+        paths[f"pp_train_gloo2_m{m}"] = _sum_launches(pt)
+    phase("phase_seconds_sp_pp", **{
+        k: f"{v:.2f}" for k, v in seen[0].items() if k.endswith("_seconds")})
+    if bad:
+        raise RuntimeError(f"sp_pp_gloo2 out of tolerance: {bad}")
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dp-gloo2-child", nargs=3, metavar=("RANK", "PORT",
@@ -6441,6 +7213,9 @@ def main(argv=None) -> int:
                     metavar=("RANK", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--tp-gloo2-child", nargs=3,
+                    metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sp-pp-gloo2-child", nargs=3,
                     metavar=("RANK", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -6465,6 +7240,10 @@ def main(argv=None) -> int:
     if args.tp_gloo2_child:
         rank, port, out_dir = args.tp_gloo2_child
         tp_gloo2_child(int(rank), int(port), out_dir)
+        return 0
+    if args.sp_pp_gloo2_child:
+        rank, port, out_dir = args.sp_pp_gloo2_child
+        sp_pp_gloo2_child(int(rank), int(port), out_dir)
         return 0
     smi = device_line()
     print(smi, flush=True)
@@ -6625,6 +7404,14 @@ def main(argv=None) -> int:
     moe_launches = phase_moe_train()
     phase("phase_seconds", name="moe",
           seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    for name, shapes in phase_sp_kernels().items():
+        timing[name]["shapes"].update(shapes)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=BUILD) as sp_dir:
+        sp_pp_launches = phase_sp_pp_gloo2(sp_dir)
+    phase("phase_seconds", name="sp_pp",
+          seconds=f"{time.perf_counter() - t0:.2f}")
     src = "pddl_tpu_torch/ops/csrc/"
     att = "pddl_tpu/ops/attention.py:"
     # Each kernel's launches by main path (the Llama, GPT and ViT train
@@ -6653,14 +7440,17 @@ def main(argv=None) -> int:
                 "train_options_step": options_launches["flash_fwd"],
                 "tp_parity_gloo2": tp_launches["tp"]["flash_fwd"],
                 "ep_parity_gloo2": tp_launches["ep"]["flash_fwd"],
-                "moe_train": moe_launches["flash_fwd"]}
+                "moe_train": moe_launches["flash_fwd"],
+                **{p: n["flash_fwd"] for p, n in sp_pp_launches.items()}}
     k2_paths = {"train_step": train_launches["flash_bwd_fused"],
                 "gpt_train": gpt_train_launches["flash_bwd_fused"],
                 "vit_train": vit_train_launches["flash_bwd_fused"],
                 "train_options_step": options_launches["flash_bwd_fused"],
                 "tp_parity_gloo2": tp_launches["tp"]["flash_bwd_fused"],
                 "ep_parity_gloo2": tp_launches["ep"]["flash_bwd_fused"],
-                "moe_train": moe_launches["flash_bwd_fused"]}
+                "moe_train": moe_launches["flash_bwd_fused"],
+                **{p: n["flash_bwd_fused"]
+                   for p, n in sp_pp_launches.items()}}
     # (name, source, TPU kernel's line, launches on the main paths: the
     # paged serve runs, the train steps (Llama, GPT, ViT) with the Llama
     # eval batch, the long-context run, or the sliding-window generate; K1

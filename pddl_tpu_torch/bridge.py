@@ -35,6 +35,11 @@ becomes ``[out, in]``, BatchNorm ``scale``/``bias`` become its weight and
 bias, and the ``batch_stats`` ``mean``/``var`` its running buffers;
 ``stage{s}_block{b}`` modules sit under ``blocks.``.
 
+A GPipe model's tree ``{"embed", "stages", "head"}``
+(:func:`gpipe_params_from_jax`, :func:`gpipe_params_to_jax`) maps its
+embed and head as the family's stem and head, and slice ``i`` of every
+stacked ``stages`` leaf as stage ``i``'s blocks (``stages.{i}.…``).
+
 A trainer's shadows go the same way (:func:`ema_to_jax`: the EMA
 shadows, ResNet's with its ``batch_stats`` shadow; :func:`master_to_jax`:
 an ``f32_master`` rule's masters, f32 leaves standing for their own), so
@@ -293,6 +298,107 @@ def vit_params_to_jax(model, state_dict: Optional[Mapping] = None
                        "bias": _array(sd["head.head.bias"])}
     _transformer_blocks_to_jax(model, sd, out)
     return out
+
+
+_GPIPE_FAMILY = {"embed": "llama", "token_embed": "gpt",
+                 "patch_embed": "vit"}
+
+
+def _gpipe_family(embed_tree: Mapping) -> str:
+    for key, family in _GPIPE_FAMILY.items():
+        if key in embed_tree:
+            return family
+    raise ValueError(f"not a GPipe embed tree: {sorted(embed_tree)}")
+
+
+def gpipe_params_from_jax(params: Mapping, stage: Optional[int] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """Map a flax GPipe param tree ``{"embed", "stages", "head"}`` (numpy
+    leaves; every leaf under ``stages`` carries a leading ``[n_stages]``
+    dim) of a ``GPipeLlama``, ``GPipeGPT`` or ``GPipeViT`` to a state_dict
+    of the port's twin: stage ``i``'s slice goes to ``stages.{i}.…``.
+    ``stage``: that stage's blocks only (with the embed and head), the
+    state of a process bound to it."""
+    family = _gpipe_family(params["embed"])
+    stages = params["stages"]
+    names = sorted((k for k in stages if k.startswith("block")),
+                   key=lambda k: int(k[len("block"):]))
+    per = len(names)
+    n = int(np.shape(_first_leaf(stages))[0])
+    merged: Dict[str, Any] = dict(params["embed"])
+    merged.update(params["head"])
+    for i in range(n):
+        for j, name in enumerate(names):
+            merged[f"block{i * per + j}"] = _slice_tree(stages[name], i)
+    from_jax = {"llama": llama_params_from_jax, "gpt": gpt_params_from_jax,
+                "vit": vit_params_from_jax}[family]
+    out = {}
+    for k, v in from_jax(merged).items():
+        if k.startswith("stem."):
+            k = "embed." + k[len("stem."):]
+        elif k.startswith("blocks."):
+            _, g, rest = k.split(".", 2)
+            i, j = divmod(int(g), per)
+            if stage is not None and i != stage:
+                continue
+            k = f"stages.{i}.blocks.{j}.{rest}"
+        out[k] = v
+    return out
+
+
+def gpipe_params_to_jax(model, state_dict: Optional[Mapping] = None
+                        ) -> Dict[str, Any]:
+    """The inverse of :func:`gpipe_params_from_jax` for a port GPipe
+    model built whole (or ``state_dict``, every stage's names): the flax
+    GPipe tree, the stages' leaves stacked on a leading dim."""
+    from types import SimpleNamespace  # noqa: PLC0415
+
+    sd = model.state_dict() if state_dict is None else state_dict
+    n = model.n_stages
+    per = sum(1 for k in sd if k.startswith("stages.0.")
+              and k.endswith("ln1.weight"))
+    flat = {}
+    for k, v in sd.items():
+        if k.startswith("embed."):
+            k = "stem." + k[len("embed."):]
+        elif k.startswith("stages."):
+            _, i, _, j, rest = k.split(".", 4)
+            k = f"blocks.{int(i) * per + int(j)}.{rest}"
+        flat[k] = v
+    family = _gpipe_family({k.split(".")[1]: None for k in flat
+                            if k.startswith("stem.")})
+    shim = SimpleNamespace(
+        embed_dim=model.embed_dim, num_heads=model.num_heads,
+        num_kv_heads=getattr(model, "num_kv_heads", model.num_heads),
+        depth=n * per)
+    to_jax = {"llama": llama_params_to_jax, "gpt": gpt_params_to_jax,
+              "vit": vit_params_to_jax}[family]
+    tree = to_jax(shim, flat)
+    blocks = {f"block{j}": [tree.pop(f"block{i * per + j}")
+                            for i in range(n)] for j in range(per)}
+    stages = {name: _stack_trees(parts) for name, parts in blocks.items()}
+    embed_keys = {"llama": ("embed",), "gpt": ("token_embed", "pos_embed"),
+                  "vit": ("patch_embed", "pos_embed")}[family]
+    embed = {k: tree.pop(k) for k in embed_keys}
+    return {"embed": embed, "stages": stages, "head": tree}
+
+
+def _first_leaf(tree):
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _slice_tree(tree, i: int):
+    if isinstance(tree, Mapping):
+        return {k: _slice_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _stack_trees(trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
 
 
 def _resnet_key(path: str) -> str:

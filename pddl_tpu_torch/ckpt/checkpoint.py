@@ -39,8 +39,9 @@ a thread; :meth:`Checkpointer.wait` joins it (a restore waits first).
 
 **Across processes, one save.** Under a strategy whose group spans
 processes (``mirrored``, ``multiworker``, ``ps``, the Horovod shim's,
-``tensor_parallel`` and ``expert_parallel``, whose save group is every
-process of the mesh),
+``tensor_parallel``, ``expert_parallel`` and ``pipeline``, whose save
+group is every process of the mesh, and a sequence-parallel mirrored
+strategy, whose is every process of the batch),
 every process calls the save (the callbacks do, through
 :meth:`Checkpointer.save_trainer`) and one step directory in the format
 above results, which no world size shapes: :func:`whole_state` gathers
@@ -449,9 +450,11 @@ def whole_state(trainer) -> Tuple[dict, Dict[str, str]]:
     it) — and the parameter of each per-parameter optimizer tensor, by
     its path, which a save records (:data:`OWNERS`) for
     :func:`local_state`."""
+    strategy = trainer.strategy
+    if hasattr(strategy, "whole_trainer_state"):  # the pipeline's own form
+        return strategy.whole_trainer_state(trainer)
     state = trainer.state_dict()
     owned = _param_owners(trainer)
-    strategy = trainer.strategy
     sharded = set(getattr(strategy, "sharded_targets", dict)().values())
     owners: Dict[str, str] = {}
 
@@ -482,6 +485,8 @@ def local_state(trainer, state: dict, meta: Dict[str, Any]) -> dict:
     slice. Anything else is returned as it is."""
     owners = meta.get(OWNERS) or {}
     strategy = trainer.strategy
+    if hasattr(strategy, "local_trainer_state"):
+        return strategy.local_trainer_state(trainer, state, meta)
     if not hasattr(strategy, "local_state"):
         return state
 

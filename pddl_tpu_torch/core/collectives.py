@@ -28,6 +28,15 @@ These three take ``None`` for a group of one (an axis of size 1), where
 each is the identity, and count their calls and bytes in
 :data:`TP_COUNTS` (forward and backward alike) so a step's collectives
 can be read off.
+
+Sequence and pipeline parallelism move tensors between neighbours:
+:func:`ppermute_ring` is differentiable, as JAX's ``ppermute`` is (its
+backward is the shift by ``-shift``), counted as ``ppermute_ring_fwd`` /
+``ppermute_ring_bwd``; :func:`shift_counted` is the same shift under a
+name of the caller's, for the ring-attention and pipeline
+``autograd.Function`` s whose backward runs its own shifts in a fixed
+order (send/recv pairs match by order on each rank; a chain of
+differentiable shifts is scheduled by the autograd engine).
 """
 
 from __future__ import annotations
@@ -160,15 +169,14 @@ def reduce_scatter(tree: Tree, group=None, *, scatter_axis: int = 0) -> Tree:
     return _map(_one, tree)
 
 
-def ppermute_ring(x: torch.Tensor, group=None, *,
-                  shift: int = 1) -> torch.Tensor:
-    """Rotate values around the ring: member i sends to (i+shift) % n and
-    receives from (i-shift) % n."""
+def _ring_exchange(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """Member i's ``x`` to member (i+shift) % n, uncounted and outside
+    autograd."""
     n, i = axis_size(group), axis_index(group)
     if shift % n == 0:
         return x.clone()
     if _staged("send", x, group):
-        return ppermute_ring(x.cpu(), group, shift=shift).to(x.device)
+        return _ring_exchange(x.cpu(), group, shift).to(x.device)
     x = x.contiguous()
     out = torch.empty_like(x)
 
@@ -182,7 +190,29 @@ def ppermute_ring(x: torch.Tensor, group=None, *,
     return out
 
 
-# Calls and bytes of the tensor/expert-parallel collectives, by name:
+class _PpermuteRing(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return shift_counted(x, group, shift, "ppermute_ring_fwd")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (shift_counted(grad.contiguous(), ctx.group, -ctx.shift,
+                              "ppermute_ring_bwd"), None, None)
+
+
+def ppermute_ring(x: torch.Tensor, group=None, *,
+                  shift: int = 1) -> torch.Tensor:
+    """Rotate values around the ring: member i sends to (i+shift) % n and
+    receives from (i-shift) % n. Differentiable: the gradient goes back
+    by ``-shift``. Counted in :data:`TP_COUNTS` as ``ppermute_ring_fwd``
+    / ``ppermute_ring_bwd``."""
+    return _PpermuteRing.apply(x, group, shift)
+
+
+# Calls and bytes of the model-parallel collectives (tensor, expert,
+# sequence and pipeline parallelism), by name:
 # ``{"copy_to_bwd": [calls, bytes], ...}``. Reset with :func:`reset_tp_counts`.
 TP_COUNTS: dict = {}
 
@@ -202,6 +232,56 @@ def _sum_over(x: torch.Tensor, group, name: str) -> torch.Tensor:
     out = x.contiguous().clone()
     tdist.all_reduce(out, group=group)
     return out
+
+
+def shift_counted(x: torch.Tensor, group, shift: int, name: str
+                  ) -> torch.Tensor:
+    """:func:`ppermute_ring`'s exchange by ``shift`` outside autograd,
+    counted in :data:`TP_COUNTS` under ``name`` (a shift by a multiple of
+    the group's size moves nothing and is not counted)."""
+    if shift % axis_size(group):
+        _count(name, x)
+    return _ring_exchange(x, group, shift)
+
+
+def send_counted(x: torch.Tensor, group, member: int, name: str):
+    """Send ``x`` to ``member`` of ``group`` without waiting, counted in
+    :data:`TP_COUNTS` under ``name``: returns the pending work and the
+    buffer sent, both to keep until :func:`wait_sends` (a CUDA tensor on
+    gloo goes through a host copy)."""
+    _count(name, x)
+    buf = x.detach().contiguous()
+    if _staged("send", buf, group):
+        buf = buf.cpu()
+    dst = tdist.get_global_rank(group, member) if group else member
+    return tdist.isend(buf, dst, group=group), buf
+
+
+def wait_sends(pending: list) -> None:
+    """Wait for every ``(work, buffer)`` of :func:`send_counted`."""
+    for work, _ in pending:
+        work.wait()
+    pending.clear()
+
+
+def recv_counted(like: torch.Tensor, group, member: int,
+                 name: str) -> torch.Tensor:
+    """A tensor shaped and typed as ``like``, received from ``member`` of
+    ``group`` (waits), counted under ``name``."""
+    buf = torch.empty_like(like)
+    host = buf.cpu() if _staged("recv", buf, group) else buf
+    src = tdist.get_global_rank(group, member) if group else member
+    tdist.recv(host, src, group=group)
+    _count(name, buf)
+    return host.to(buf.device) if host is not buf else buf
+
+
+def broadcast_counted(x: torch.Tensor, group, root: int,
+                      name: str) -> torch.Tensor:
+    """Member ``root``'s ``x`` on every member (others pass a buffer of
+    its shape), counted under ``name``."""
+    _count(name, x)
+    return broadcast(x, group, root)
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -237,6 +317,30 @@ class _GatherFromGroup(torch.autograd.Function):
     def backward(ctx, grad):
         return (grad.narrow(ctx.dim, ctx.index * ctx.width,
                             ctx.width).contiguous(), None, None)
+
+
+class _SeqSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum_over(x, group, "seq_sum_fwd")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.group, "seq_sum_bwd"), None
+
+
+def seq_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every member's ``x`` (a pooled sum over a
+    sequence-sharded axis), whose gradient is summed over the group too:
+    each member's loss is the whole loss, so each member's share of the
+    gradient is ``n`` times its part, and the gradient average over the
+    batch's processes brings every parameter to the one-process gradient
+    (the replicated head's is equal on every member, the sharded body's
+    sums). ``None``: the identity."""
+    if group is None:
+        return x
+    return _SeqSum.apply(x, group)
 
 
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
@@ -277,22 +381,43 @@ def axis_size(group=None) -> int:
     return tdist.get_world_size(group) if tdist.is_initialized() else 1
 
 
+# The largest flat buffer of :func:`flat_all_reduce_`: a model's whole
+# gradient in one buffer would hold a second copy of it (6 GB for
+# Llama-1B in f32).
+FLAT_BUCKET_BYTES = 256 << 20
+
+
 def flat_all_reduce_(tensors: List[torch.Tensor], group=None,
                      mean: bool = False) -> None:
     """Sum ``tensors`` over the group in place (``mean``: then divide by
-    its size, as :func:`pmean`) through one flat buffer per dtype: one
-    collective instead of one per tensor."""
+    its size, as :func:`pmean`) through flat buffers per dtype, each of
+    whole tensors up to :data:`FLAT_BUCKET_BYTES` (a larger tensor alone):
+    one collective a bucket instead of one per tensor. Each element's sum
+    is the same whatever the buckets."""
     if not tdist.is_initialized():
         return
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in ts])
-        tdist.all_reduce(flat, group=group)
-        if mean:
-            flat.div_(axis_size(group))
-        offset = 0
+        bucket, nbytes = [], 0
         for t in ts:
-            t.copy_(flat[offset:offset + t.numel()].view(t.shape))
-            offset += t.numel()
+            size = t.numel() * t.element_size()
+            if bucket and nbytes + size > FLAT_BUCKET_BYTES:
+                _reduce_bucket(bucket, group, mean)
+                bucket, nbytes = [], 0
+            bucket.append(t)
+            nbytes += size
+        if bucket:
+            _reduce_bucket(bucket, group, mean)
+
+
+def _reduce_bucket(ts: List[torch.Tensor], group, mean: bool) -> None:
+    flat = torch.cat([t.reshape(-1) for t in ts])
+    tdist.all_reduce(flat, group=group)
+    if mean:
+        flat.div_(axis_size(group))
+    offset = 0
+    for t in ts:
+        t.copy_(flat[offset:offset + t.numel()].view(t.shape))
+        offset += t.numel()

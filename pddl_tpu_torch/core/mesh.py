@@ -19,11 +19,15 @@ varies fastest, so with ``data x model x expert`` a rank is
 ``d·(model·expert) + m·expert + e``), and each axis of size above 1 gets
 the process group of the ranks that differ only along it
 (:attr:`Mesh.groups`; :attr:`Mesh.group` stays the ``data`` axis's).
-``tdist.new_group`` is a collective call, so every process creates every
-group, in the same order. The ``seq`` and ``stage`` axes above 1
-(sequence and pipeline parallelism) raise ``NotImplementedError`` naming
-ROADMAP.md queue 1 item 7; so does any axis but ``data`` on a mesh of
-this host's processes (``local_only``). ``mesh_context``, ``shard_map``
+With a ``seq`` axis above 1 the ranks that differ only in ``data`` and
+``seq`` form one more group, :attr:`Mesh.batch_group`: a
+sequence-sharded batch's processes, over which the gradient and the
+logs are averaged. ``tdist.new_group`` is a collective call, so every
+process creates every group, in the same order. Not ported yet (each
+raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 7): a
+``seq`` axis above 1 beside a ``model``, ``expert`` or ``stage`` axis
+above 1, and any axis but ``data`` on a mesh of chosen ranks or of this
+host's processes (``local_only``). ``mesh_context``, ``shard_map``
 and ``has_vma_checking`` are JAX mechanics (an ambient mesh, per-shard tracing, the varying-axes checker)
 with no counterpart here: a process runs its own replica's code, and
 collectives name a process group.
@@ -49,9 +53,12 @@ EXPERT_AXIS = "expert"
 STAGE_AXIS = "stage"  # pipeline parallelism (GPipe microbatch pipeline)
 CANONICAL_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS, STAGE_AXIS)
 
-_ITEM_7 = "ROADMAP.md queue 1 item 7 (sequence and pipeline parallelism)"
+_ITEM_7 = "ROADMAP.md queue 1 item 7 (distributed: what is left)"
 # The axes above size 1 that a mesh over processes runs.
-_PORTED_AXES = (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)
+_PORTED_AXES = CANONICAL_AXES
+# The data and seq axes together: the processes of one sequence-sharded
+# batch (``Mesh.batch_group``).
+BATCH_PLANE = "data+seq"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,10 +138,21 @@ class Mesh:
         default_factory=dict)
     world_group: Optional[tdist.ProcessGroup] = None
 
+    def __deepcopy__(self, memo):
+        # The processes and their groups: a model's copy shares them.
+        return self
+
     @property
     def shape(self) -> Dict[str, int]:
         """Axis sizes by name, in canonical order (a JAX ``mesh.shape``)."""
         return dict(self.axis_sizes)
+
+    def shape_only(self) -> "Mesh":
+        """This mesh's axis sizes over this process alone, with no group:
+        a pipeline model built on it holds every stage (the one-process
+        oracle of a run on this mesh)."""
+        return Mesh(dict(self.axis_sizes), (dist.process_index(),), None,
+                    self.device)
 
     @property
     def size(self) -> int:
@@ -158,6 +176,14 @@ class Mesh:
             return self.index
         ranks = self.axis_ranks.get(axis)
         return ranks.index(dist.process_index()) if ranks else 0
+
+    @property
+    def batch_group(self) -> Optional[tdist.ProcessGroup]:
+        """The processes of one batch: the ``data`` and ``seq`` axes
+        together (the ``data`` axis's group when ``seq`` is 1)."""
+        if self.axis_sizes.get(SEQ_AXIS, 1) == 1:
+            return self.group
+        return self.groups.get(BATCH_PLANE)
 
     @property
     def model_group(self) -> Optional[tdist.ProcessGroup]:
@@ -247,6 +273,13 @@ def _check_axes(sizes: Dict[str, int], data_only: bool) -> None:
             raise NotImplementedError(
                 f"mesh axis {name!r} of size {s} is not ported yet"
                 f"{' ' + where if where else ''}: {_ITEM_7}")
+    if sizes[SEQ_AXIS] > 1:
+        beside = [a for a in (MODEL_AXIS, EXPERT_AXIS, STAGE_AXIS)
+                  if sizes[a] > 1]
+        if beside:
+            raise NotImplementedError(
+                f"a seq axis of size {sizes[SEQ_AXIS]} beside the "
+                f"{'/'.join(beside)} axis is not ported yet: {_ITEM_7}")
 
 
 def axis_coords(sizes: Dict[str, int], rank: int) -> Dict[str, int]:
@@ -261,11 +294,13 @@ def axis_coords(sizes: Dict[str, int], rank: int) -> Dict[str, int]:
 def axis_lines(sizes: Dict[str, int], axis: str,
                ranks: Sequence[int]) -> list:
     """Every line of ranks along ``axis`` (the ranks that differ only in
-    their ``axis`` coordinate), in a fixed order: by the first rank."""
+    their ``axis`` coordinate; ``axis`` may name several, joined by
+    ``+``, for a plane), in a fixed order: by the first rank."""
+    along = axis.split("+")
     lines: dict = {}
     for pos, rank in enumerate(ranks):
         c = axis_coords(sizes, pos)
-        key = tuple(c[a] for a in CANONICAL_AXES if a != axis)
+        key = tuple(c[a] for a in CANONICAL_AXES if a not in along)
         lines.setdefault(key, []).append(rank)
     return sorted((tuple(v) for v in lines.values()), key=lambda t: t[0])
 
@@ -282,7 +317,8 @@ def _axes_mesh(sizes: Dict[str, int], ranks: Tuple[int, ...],
     me = dist.process_index()
     axis_ranks: Dict[str, Tuple[int, ...]] = {}
     groups: Dict[str, Optional[tdist.ProcessGroup]] = {}
-    for axis in CANONICAL_AXES:
+    planes = (BATCH_PLANE,) if sizes[SEQ_AXIS] > 1 else ()
+    for axis in CANONICAL_AXES + planes:
         for line in axis_lines(sizes, axis, ranks):
             group = tdist.new_group(list(line)) if len(line) > 1 else None
             if me in line:

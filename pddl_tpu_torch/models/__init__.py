@@ -2,15 +2,15 @@
 ResNet family with Keras-v1 parity, the ViT and the Llama, with the JAX
 package's presets. GPT is ``models/gpt.py``, as in the JAX package.
 
-The names resolve lazily. ``GPipeLlama`` and the registry
-(``get_model``, ``register_model``, ``list_models``) wait for ROADMAP.md
-queue 1 items 7 and 9."""
+The names resolve lazily. The registry (``get_model``,
+``register_model``, ``list_models``) waits for ROADMAP.md queue 1 item
+9."""
 
 from pddl_tpu_torch._lazy import lazy_exports
 
 _EXPORTS = {
-    **dict.fromkeys(("Llama", "Llama_1B", "Llama_Small", "tiny_llama"),
-                    "llama"),
+    **dict.fromkeys(("Llama", "Llama_1B", "Llama_Small", "tiny_llama",
+                     "GPipeLlama"), "llama"),
     **dict.fromkeys(("ResNet", "ResNet18", "ResNet34", "ResNet50",
                      "ResNet101", "ResNet152"), "resnet"),
     **dict.fromkeys(("ViT", "ViT_S16", "ViT_B16", "ViT_L16"), "vit"),

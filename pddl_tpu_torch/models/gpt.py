@@ -45,13 +45,17 @@ from pddl_tpu_torch.core.collectives import copy_to_group, gather_from_group
 from pddl_tpu_torch.device import resolve_device
 from pddl_tpu_torch.models.layers import (
     LayerNorm,
+    SeqShard,
+    check_attention,
     linear,
     vocab_embed,
 )
+from pddl_tpu_torch.models.gpipe import GPipeModel
 from pddl_tpu_torch.models.llama import ring_len
 from pddl_tpu_torch.models.vit import (
     TransformerBlock,
-    check_unported,
+    _ViTStage,
+    draw_transformer_weights,
     init_transformer_weights,
     moe_of,
     remat_block,
@@ -91,8 +95,16 @@ class _GPTEmbed(nn.Module):
             1, max_len, embed_dim, dtype=param_dtype, device=device))
 
     def forward(self, tokens: torch.Tensor,
-                index: Union[int, torch.Tensor, None]) -> torch.Tensor:
+                index: Union[int, torch.Tensor, None] = None,
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
+        """``seq`` of ``n`` above 1: ``tokens`` are this process's slice
+        of the sequence, at global positions ``my·s + arange(s)``."""
         s = tokens.shape[1]
+        if seq is not None and seq.n > 1:
+            index = seq.offset(s)
+            if seq.n * s > self.max_len:
+                raise ValueError(f"sequence {seq.n * s} exceeds max_len "
+                                 f"{self.max_len}")
         if s > self.max_len:
             raise ValueError(f"sequence {s} exceeds max_len {self.max_len}")
         x = vocab_embed(self.token_embed, tokens, self.vocab_group,
@@ -129,6 +141,10 @@ class _GPTHead(nn.Module):
     def features(self, x):
         return self.ln_final(x).to(self.dtype)
 
+    def forward(self, x):
+        """Features then logits (the head after a pipeline)."""
+        return self.logits(self.features(x))
+
     def logits(self, feats):
         """The product, then the bias in the compute dtype, then the slice
         and the f32 cast, as the JAX ``Dense`` and ``lm_head_logits``."""
@@ -149,9 +165,10 @@ class GPT(nn.Module):
     and ``param_dtype`` (default: ``dtype``) the parameters' storage type.
     ``ln_eps`` defaults to flax's 1e-6; HF GPT-2 checkpoints use 1e-5.
     ``moe_experts > 0`` routes every ``moe_every``-th block from the back
-    (Switch-MoE, as the ViT). Not ported yet (each raises
-    ``NotImplementedError``): ring / sequence-parallel attention and
-    ``mesh`` (ROADMAP.md queue 1 item 7).
+    (Switch-MoE, as the ViT). ``attention="ring"``/``"ring_flash"``
+    with the port's ``mesh`` attends over its ``seq`` axis; with ``seq``
+    above 1 each process is fed its slice of the tokens and adds its
+    slice of ``pos_embed`` (global positions), as the Llama does.
     """
 
     def __init__(self, vocab_size: int, max_len: int = 1024,
@@ -163,9 +180,11 @@ class GPT(nn.Module):
                  ln_eps: float = 1e-6, dtype=torch.float32,
                  param_dtype=None, device=None, seed: int = 0):
         super().__init__()
-        check_unported(attention=attention, mesh=mesh)
+        check_attention(attention, mesh, moe_experts=moe_experts)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
+        self.mesh = mesh
+        self.seq = SeqShard(mesh)
         self.vocab_size = vocab_size
         self.max_len = max_len
         self.embed_dim = embed_dim
@@ -188,8 +207,8 @@ class GPT(nn.Module):
             block_cls(embed_dim, num_heads, mlp_ratio=mlp_ratio,
                       attention=attention, causal=True, dropout=dropout,
                       moe_experts=moe_of(i, depth, moe_experts, moe_every),
-                      moe_top_k=moe_top_k, ln_eps=ln_eps, dtype=dtype,
-                      param_dtype=param_dtype, device=device)
+                      moe_top_k=moe_top_k, ln_eps=ln_eps, mesh=mesh,
+                      dtype=dtype, param_dtype=param_dtype, device=device)
             for i in range(depth))
         self.head = _GPTHead(vocab_size, embed_dim, vocab_multiple, ln_eps,
                              dtype, param_dtype, device)
@@ -216,7 +235,8 @@ class GPT(nn.Module):
         its largest entry as a host int, as in the port's Llama."""
         if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
             cache_index = cache_index.to(tokens.device)  # once, not per layer
-        x = self.stem(tokens, cache_index if cache is not None else 0)
+        x = self.stem(tokens, cache_index if cache is not None else 0,
+                      self.seq if cache is None else None)
         for i, block in enumerate(self.blocks):
             if cache is None:
                 x = block(x, train)
@@ -230,6 +250,47 @@ class GPT(nn.Module):
     def head_logits(self, feats: torch.Tensor) -> torch.Tensor:
         """The LM head over ``features_only`` output: vocab logits, f32."""
         return self.head.logits(feats)
+
+
+class GPipeGPT(GPipeModel):
+    """Pipeline-parallel causal LM: token and position embedding
+    (replicated) → ``n_stages`` stages of ``blocks_per_stage`` causal
+    transformer blocks through the GPipe schedule → LM head (replicated)
+    (``models/gpipe.py``). The JAX constructor's arguments plus
+    ``device`` and ``seed``; weights are drawn as the GPT's, each part
+    from its own generator (:meth:`GPipeModel.materialize`)."""
+
+    def __init__(self, *, vocab_size: int, n_stages: int,
+                 blocks_per_stage: int, n_microbatches: int, mesh,
+                 max_len: int = 1024, embed_dim: int = 256,
+                 num_heads: int = 4, mlp_ratio: int = 4,
+                 attention: str = "reference", ln_eps: float = 1e-6,
+                 dtype=torch.float32, param_dtype=None, device=None,
+                 seed: int = 0):
+        if attention not in ("flash", "reference"):
+            raise ValueError(f"unknown attention {attention!r}")
+        device = resolve_device(device)
+        param_dtype = param_dtype or dtype
+        shell = torch.device("meta")
+        super().__init__(
+            embed=_GPTEmbed(vocab_size, max_len, embed_dim, 1, dtype,
+                            param_dtype, shell),
+            stages=[_ViTStage(embed_dim, num_heads, blocks_per_stage,
+                              mlp_ratio=mlp_ratio, attention=attention,
+                              causal=True, ln_eps=ln_eps, dtype=dtype,
+                              param_dtype=param_dtype, device=shell)
+                    for _ in range(n_stages)],
+            head=_GPTHead(vocab_size, embed_dim, 1, ln_eps, dtype,
+                          param_dtype, shell),
+            n_stages=n_stages, n_microbatches=n_microbatches, mesh=mesh)
+        self.vocab_size = vocab_size
+        self.max_len = max_len
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.attention = attention
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.materialize(device, draw_transformer_weights, seed)
 
 
 # GPT-2 small (12 x 768, 12 heads).

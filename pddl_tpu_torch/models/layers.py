@@ -15,6 +15,13 @@ vocabulary-parallel head gathers its block of the logits
 (:func:`~pddl_tpu_torch.core.collectives.gather_from_group`). A group of
 ``None`` (no tensor parallelism) makes each the plain form.
 
+Sequence parallelism (``mesh`` with a ``seq`` axis above 1): each
+process holds its shard of the sequence through the whole model
+(:class:`SeqShard`): positions are global (``my·s + arange(s)``), the
+attention is the ring (:func:`attend_full`), and a mean over tokens is a
+sum over the ``seq`` axis (``collectives.seq_sum``) divided by the global
+length.
+
 The attention helpers are the decode half of every attention module:
 ``LlamaAttention`` (post-RoPE keys, optional window and ring) and the
 GPT/ViT ``MultiHeadAttention`` (no window) both hand their projected
@@ -31,11 +38,79 @@ from torch import nn
 
 from pddl_tpu_torch.core.collectives import reduce_from_group
 from pddl_tpu_torch.ops.attention import (
+    attention_reference,
     decode_attention,
+    flash_attention,
     flash_attention_lse,
     paged_cache_insert,
     paged_decode_attention,
 )
+
+_ITEM_7 = "not ported yet: ROADMAP.md queue 1 item 7 (distributed)"
+ATTENTIONS = ("flash", "reference", "ring", "ring_flash")
+
+
+class SeqShard:
+    """A model's place on the ``seq`` axis: ``n`` shards, this process's
+    index ``my`` and the axis's ``group`` (``n`` 1: no sharding, whatever
+    the mesh)."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        self.n = 1 if mesh is None else mesh.shape["seq"]
+        self.my = 0 if self.n == 1 else mesh.axis_index("seq")
+        self.group = None if self.n == 1 else mesh.axis_group("seq")
+
+    def offset(self, s_local: int) -> int:
+        """The global position of this shard's first token."""
+        return self.my * s_local
+
+
+def check_attention(attention: str, mesh, *, moe_experts: int = 0) -> None:
+    """Validate a family's ``attention`` against its ``mesh``: the ring
+    needs the mesh (the JAX text), a ``seq`` axis above 1 shards the
+    activations and so needs the ring, and a routed block under it is
+    not ported (the JAX module routes over the global tokens)."""
+    if attention not in ATTENTIONS:
+        raise ValueError(f"unknown attention {attention!r}")
+    if attention in ("ring", "ring_flash") and mesh is None:
+        raise ValueError(f"attention={attention!r} needs the mesh")
+    if mesh is not None and mesh.shape["seq"] > 1:
+        if attention not in ("ring", "ring_flash"):
+            raise ValueError(
+                f"a mesh with a seq axis of {mesh.shape['seq']} shards the "
+                f"sequence over processes: attention={attention!r} would "
+                "attend within the shard; use 'ring' or 'ring_flash'")
+        if moe_experts:
+            raise NotImplementedError(
+                "routed (MoE) blocks under a sequence-sharded mesh are "
+                + _ITEM_7)
+
+
+def attend_full(attention: str, mesh, q, k, v, *, causal: bool,
+                window: Optional[int] = None) -> torch.Tensor:
+    """The training forward's attention by name: the flash kernels, the
+    plain reference, or the ring over ``mesh``'s ``seq`` axis (this
+    process's shards in, its shard out)."""
+    if attention == "flash":
+        return flash_attention(q, k, v, causal=causal, window=window)
+    if attention == "reference":
+        return attention_reference(q, k, v, causal=causal, window=window)
+    from pddl_tpu_torch.ops.ring_attention import (  # noqa: PLC0415
+        sequence_parallel_attention,
+    )
+
+    return sequence_parallel_attention(
+        q, k, v, mesh, causal=causal, window=window,
+        use_flash=attention == "ring_flash")
+
+
+def refuse_mesh_decode(mesh) -> None:
+    """A cached forward of a model built with a mesh: not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "decoding a model built with a mesh is " + _ITEM_7)
+
 
 def jax_shapes(model: nn.Module) -> Dict[str, tuple]:
     """``{parameter name: JAX shape}`` for every parameter whose JAX shape

@@ -72,9 +72,21 @@ Tensor parallelism: bound by
 query heads read its own K/V heads, so the GQA group stays whole), the
 SwiGLU ``mlp_gate``/``mlp_up`` are column-parallel and ``mlp_down``
 row-parallel, and the embedding and ``lm_head`` vocabulary-parallel
-(``models/layers.py``). Not ported yet (each raises
-``NotImplementedError``): ring / sequence-parallel attention and ``mesh``
-(ROADMAP.md queue 1 item 7).
+(``models/layers.py``).
+
+Sequence parallelism: ``attention="ring"`` or ``"ring_flash"`` with the
+port's ``mesh`` (:func:`pddl_tpu_torch.core.mesh.build_mesh`, a strategy's
+``mesh``) attends through
+:func:`~pddl_tpu_torch.ops.ring_attention.sequence_parallel_attention`
+over its ``seq`` axis (``"ring_flash"``: K1 per rotation, K2/K3 in the
+backward, on the card), the window composing with the ring. With ``seq``
+above 1 each process holds its ``S/seq`` slice of the sequence through
+the whole model: it is fed its slice of the tokens
+(``Strategy.distribute_batch``), its RoPE positions are global
+(``my·s + arange(s)``) and its logits are its slice's. Not ported yet
+(each raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 7):
+routed blocks under such a mesh and decoding a model built with a mesh.
+:class:`GPipeLlama` (``models/gpipe.py``) is the pipeline-parallel twin.
 """
 
 from __future__ import annotations
@@ -89,23 +101,22 @@ from torch import nn
 
 from pddl_tpu_torch.core.collectives import copy_to_group, gather_from_group
 from pddl_tpu_torch.device import resolve_device
+from pddl_tpu_torch.models.gpipe import GPipeModel
 from pddl_tpu_torch.models.layers import (
+    SeqShard,
+    attend_full,
+    check_attention,
     paged_attend,
+    refuse_mesh_decode,
     row_attend,
     row_linear,
     vocab_embed,
 )
 from pddl_tpu_torch.models.layers import linear as _linear
 from pddl_tpu_torch.models.vit import remat_block
-from pddl_tpu_torch.ops.attention import (
-    attention_reference,
-    flash_attention,
-    host_index,
-)
+from pddl_tpu_torch.ops.attention import host_index
 from pddl_tpu_torch.ops.moe import SwitchFFN
 from pddl_tpu_torch.ops.rope import apply_rope_qk
-
-_NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
 
 
 def _default_intermediate_dim(embed_dim: int) -> int:
@@ -153,7 +164,8 @@ class LlamaAttention(nn.Module):
                  rope_theta: float = 10000.0, attention: str = "flash",
                  sliding_window: Optional[int] = None,
                  qkv_bias: bool = False, max_decode_len: int = 1024,
-                 dtype=torch.float32, param_dtype=None, device=None):
+                 mesh=None, dtype=torch.float32, param_dtype=None,
+                 device=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(
@@ -169,6 +181,8 @@ class LlamaAttention(nn.Module):
         self.head_dim = embed_dim // num_heads
         self.rope_theta = rope_theta
         self.attention = attention
+        self.mesh = mesh
+        self.seq = SeqShard(mesh)
         self.sliding_window = sliding_window
         self.ring = ring_len(sliding_window, max_decode_len)
         self.dtype = dtype
@@ -202,12 +216,13 @@ class LlamaAttention(nn.Module):
         k = self.key(x).view(b, s, self.num_kv_heads, hd).transpose(1, 2)
         v = self.value(x).view(b, s, self.num_kv_heads, hd).transpose(1, 2)
         if cache is None:
-            pos = torch.arange(s, device=x.device)
+            first = self.seq.offset(s)
+            pos = torch.arange(first, first + s, device=x.device)
             q, k = apply_rope_qk(q, k, pos, theta=self.rope_theta)
-            attend = (flash_attention if self.attention == "flash"
-                      else attention_reference)
-            o = attend(q, k, v, causal=True, window=self.sliding_window)
+            o = attend_full(self.attention, self.mesh, q, k, v, causal=True,
+                            window=self.sliding_window)
         else:
+            refuse_mesh_decode(self.mesh)
             if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
                 i = cache_index.to(x.device)
                 if s != 1 and self.ring is not None:
@@ -253,8 +268,8 @@ class LlamaBlock(nn.Module):
                  qkv_bias: bool = False, rms_eps: float = 1e-5,
                  max_decode_len: int = 1024, moe_experts: int = 0,
                  moe_top_k: int = 2, moe_capacity_factor: float = 2.0,
-                 moe_eval_dropless: bool = True, dtype=torch.float32,
-                 param_dtype=None, device=None):
+                 moe_eval_dropless: bool = True, mesh=None,
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         param_dtype = param_dtype or dtype
         self.dtype = dtype
@@ -262,8 +277,8 @@ class LlamaBlock(nn.Module):
         self.attn = LlamaAttention(
             embed_dim, num_heads, num_kv_heads, rope_theta=rope_theta,
             attention=attention, sliding_window=sliding_window,
-            qkv_bias=qkv_bias, max_decode_len=max_decode_len, dtype=dtype,
-            param_dtype=param_dtype, device=device)
+            qkv_bias=qkv_bias, max_decode_len=max_decode_len, mesh=mesh,
+            dtype=dtype, param_dtype=param_dtype, device=device)
         self.ln2 = _rms_norm(embed_dim, rms_eps, param_dtype, device)
         self.tp_group = None  # the MLP's model-axis group once bound
         if moe_experts:
@@ -291,6 +306,40 @@ class LlamaBlock(nn.Module):
         return x + row_linear(
             self.mlp_down, F.silu(self.mlp_gate(h)) * self.mlp_up(h),
             self.tp_group)
+
+
+@torch.no_grad()
+def init_llama_weights(model: nn.Module, seed: int) -> None:
+    """Draw a Llama-family model's weights from a generator seeded with
+    ``seed``, in parameter order: normal with std ``fan_in ** -0.5`` for
+    every projection and ``embed_dim ** -0.5`` for the embedding, RMSNorm
+    scales 1, biases 0, a routed block's experts by
+    :meth:`SwitchFFN.reset_parameters`. A model on the ``meta`` device
+    (shapes only) draws nothing."""
+    if model.device.type == "meta":
+        return
+    draw_llama_weights(model,
+                       torch.Generator(device=model.device).manual_seed(seed))
+
+
+@torch.no_grad()
+def draw_llama_weights(model: nn.Module, gen: torch.Generator) -> None:
+    """:func:`init_llama_weights`'s draws from ``gen``, in ``model``'s
+    parameter order (a whole model or one part of it)."""
+    for name, p in model.named_parameters():
+        if ".moe." in name:
+            moe = model.get_submodule(name.split(".moe.")[0] + ".moe")
+            if name.endswith("moe.router.weight"):
+                moe.reset_parameters(gen)
+            continue
+        if isinstance(model.get_submodule(name.rsplit(".", 1)[0]),
+                      _RMSNorm):
+            p.fill_(1.0)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            fan_in = p.shape[1]
+            p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
 
 
 class _LlamaEmbed(nn.Module):
@@ -331,6 +380,10 @@ class _LlamaHead(nn.Module):
     def features(self, x):
         return self.ln_final(x).to(self.dtype)
 
+    def forward(self, x):
+        """Features then logits (the head after a pipeline)."""
+        return self.logits(self.features(x))
+
     def logits(self, feats):
         g = self.vocab_group
         out = gather_from_group(self.lm_head(copy_to_group(feats, g)), g)
@@ -364,16 +417,7 @@ class Llama(nn.Module):
                  rms_eps: float = 1e-5, dtype=torch.float32,
                  param_dtype=None, device=None, seed: int = 0):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (sharded attention) is " + _NOT_PORTED.format(
-                    "7 (distributed)"))
-        if attention in ("ring", "ring_flash"):
-            raise NotImplementedError(
-                f"attention={attention!r} (sequence parallelism) is "
-                + _NOT_PORTED.format("7 (distributed)"))
-        if attention not in ("flash", "reference"):
-            raise ValueError(f"unknown attention {attention!r}")
+        check_attention(attention, mesh, moe_experts=moe_experts)
         block_cls = remat_block(LlamaBlock, remat)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
@@ -394,6 +438,7 @@ class Llama(nn.Module):
         self.moe_eval_dropless = moe_eval_dropless
         self.sliding_window = sliding_window
         self.attention = attention
+        self.mesh = mesh
         self.remat = remat
         self.dtype = dtype
         self.param_dtype = param_dtype
@@ -414,8 +459,8 @@ class Llama(nn.Module):
                                     == 0 else 0),
                        moe_top_k=moe_top_k,
                        moe_capacity_factor=moe_capacity_factor,
-                       moe_eval_dropless=moe_eval_dropless, dtype=dtype,
-                       param_dtype=param_dtype, device=shell)
+                       moe_eval_dropless=moe_eval_dropless, mesh=mesh,
+                       dtype=dtype, param_dtype=param_dtype, device=shell)
             for i in range(depth))
         self.head = _LlamaHead(vocab_size, embed_dim, vocab_multiple,
                                rms_eps, dtype, param_dtype, shell)
@@ -434,28 +479,10 @@ class Llama(nn.Module):
         rounded up to 128, is under ``max_len`` (:func:`ring_len`)."""
         return ring_len(self.sliding_window, self.max_len) is not None
 
-    @torch.no_grad()
     def init_weights(self, seed: int) -> None:
-        """Redraw every weight from a generator seeded with ``seed`` (a
-        routed block's experts by :meth:`SwitchFFN.reset_parameters`). A
-        model on the ``meta`` device (shapes only) draws nothing."""
-        if self.device.type == "meta":
-            return
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        for name, p in self.named_parameters():
-            if ".moe." in name:
-                moe = self.get_submodule(name.split(".moe.")[0] + ".moe")
-                if name.endswith("moe.router.weight"):
-                    moe.reset_parameters(gen)
-                continue
-            if isinstance(self.get_submodule(name.rsplit(".", 1)[0]),
-                          _RMSNorm):
-                p.fill_(1.0)
-            elif name.endswith("bias"):
-                p.zero_()
-            else:
-                fan_in = p.shape[1]
-                p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
+        """Redraw every weight from a generator seeded with ``seed``
+        (:func:`init_llama_weights`)."""
+        init_llama_weights(self, seed)
 
     def forward(self, tokens: torch.Tensor, *, train: bool = True,
                 cache: Optional[dict] = None,
@@ -513,3 +540,76 @@ Llama_300M = functools.partial(
 Llama_1B = functools.partial(
     Llama, embed_dim=2048, depth=16, num_heads=32, num_kv_heads=8,
     intermediate_dim=8192, rope_theta=500000.0, max_len=4096)
+
+
+class _LlamaStage(nn.Module):
+    """One pipeline stage: a run of dense Llama blocks. The pipeline
+    splits layers, never the sequence, so each block's RoPE positions
+    are ``arange(S)`` on every stage."""
+
+    def __init__(self, embed_dim: int, num_heads: int, num_kv_heads: int,
+                 intermediate_dim: int, blocks: int, *, rope_theta: float,
+                 attention: str, rms_eps: float, dtype, param_dtype,
+                 device):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            LlamaBlock(embed_dim, num_heads, num_kv_heads, intermediate_dim,
+                       rope_theta=rope_theta, attention=attention,
+                       rms_eps=rms_eps, dtype=dtype, param_dtype=param_dtype,
+                       device=device)
+            for _ in range(blocks))
+
+    def forward(self, x):
+        for block in self.blocks:
+            x = block(x, False)
+        return x
+
+
+class GPipeLlama(GPipeModel):
+    """Pipeline-parallel modern-decoder LM: token embed (replicated) →
+    ``n_stages`` stages of ``blocks_per_stage`` RoPE/RMSNorm/SwiGLU
+    blocks through the GPipe schedule → bias-free head (replicated), the
+    JAX constructor's arguments (no routed experts, window or q/k/v bias,
+    as there) plus ``device`` and ``seed``. ``mesh`` is the port's mesh,
+    whose ``stage`` axis must have ``n_stages`` positions. Weights are
+    drawn as :class:`Llama`'s (:func:`draw_llama_weights`), each part
+    from its own generator (:meth:`GPipeModel.materialize`)."""
+
+    def __init__(self, *, vocab_size: int, n_stages: int,
+                 blocks_per_stage: int, n_microbatches: int, mesh,
+                 embed_dim: int = 256, num_heads: int = 4,
+                 num_kv_heads: Optional[int] = None,
+                 intermediate_dim: Optional[int] = None,
+                 rope_theta: float = 10000.0,
+                 attention: str = "reference", rms_eps: float = 1e-5,
+                 remat_stages: bool = False, dtype=torch.float32,
+                 param_dtype=None, device=None, seed: int = 0):
+        if attention not in ("flash", "reference"):
+            raise ValueError(f"unknown attention {attention!r}")
+        device = resolve_device(device)
+        param_dtype = param_dtype or dtype
+        kv = num_kv_heads or num_heads
+        inter = intermediate_dim or _default_intermediate_dim(embed_dim)
+        shell = torch.device("meta")
+        super().__init__(
+            embed=_LlamaEmbed(vocab_size, embed_dim, 1, dtype, param_dtype,
+                              shell),
+            stages=[_LlamaStage(embed_dim, num_heads, kv, inter,
+                                blocks_per_stage, rope_theta=rope_theta,
+                                attention=attention, rms_eps=rms_eps,
+                                dtype=dtype, param_dtype=param_dtype,
+                                device=shell)
+                    for _ in range(n_stages)],
+            head=_LlamaHead(vocab_size, embed_dim, 1, rms_eps, dtype,
+                            param_dtype, shell),
+            n_stages=n_stages, n_microbatches=n_microbatches, mesh=mesh,
+            remat_stages=remat_stages)
+        self.vocab_size = vocab_size
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.num_kv_heads = kv
+        self.blocks_per_stage = blocks_per_stage
+        self.attention = attention
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.materialize(device, draw_llama_weights, seed)

@@ -34,9 +34,17 @@ makes every ``moe_every``-th block from the back a Switch-MoE block
 :class:`~pddl_tpu_torch.parallel.TensorParallelStrategy`
 (``VIT_TP_RULES``), the attention runs its local heads and ``mlp1`` /
 ``mlp2`` are column- / row-parallel (``models/layers.py``); GPT's token
-embedding and head are vocabulary-parallel. Not ported yet (each raises
-``NotImplementedError``): ring / sequence-parallel attention and
-``mesh``, and ``GPipeViT`` (ROADMAP.md queue 1 item 7).
+embedding and head are vocabulary-parallel.
+
+Sequence parallelism: ``attention="ring"`` or ``"ring_flash"`` with the
+port's ``mesh`` attends over its ``seq`` axis; with ``seq`` above 1 each
+process keeps its contiguous slice of the patch tokens (and of
+``pos_embed``) from the stem on, and the head's mean over tokens is a sum
+over the ``seq`` axis divided by the whole token count
+(``collectives.seq_sum``), so every process computes the same logits and
+the head's gradient is the one-process gradient after the batch's
+average (``models/layers.py``). :class:`GPipeViT` (``models/gpipe.py``)
+is the pipeline-parallel twin.
 
 The remat policies trade FLOPs for device memory, so longer sequences
 and deeper stacks fit:
@@ -70,23 +78,22 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from pddl_tpu_torch.core.collectives import copy_to_group
+from pddl_tpu_torch.core.collectives import copy_to_group, seq_sum
 from pddl_tpu_torch.device import resolve_device
+from pddl_tpu_torch.models.gpipe import GPipeModel
 from pddl_tpu_torch.models.layers import (
     LayerNorm,
+    SeqShard,
+    attend_full,
+    check_attention,
     linear,
     paged_attend,
+    refuse_mesh_decode,
     row_attend,
     row_linear,
 )
-from pddl_tpu_torch.ops.attention import (
-    attention_reference,
-    flash_attention,
-    host_index,
-)
+from pddl_tpu_torch.ops.attention import host_index
 from pddl_tpu_torch.ops.moe import SwitchFFN
-
-_NOT_PORTED = "not ported yet: ROADMAP.md queue 1 item {}"
 
 _DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
                    torch.ops.aten.bmm.default})
@@ -136,21 +143,6 @@ def remat_block(block_cls: Type[nn.Module], remat: str) -> Type[nn.Module]:
     return Remat
 
 
-def check_unported(*, attention: str, mesh) -> None:
-    """Refuse the options of the GPT and ViT families that are not ported
-    yet, each naming its ROADMAP.md item."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (sharded attention) is " + _NOT_PORTED.format(
-                "7 (distributed)"))
-    if attention in ("ring", "ring_flash"):
-        raise NotImplementedError(
-            f"attention={attention!r} (sequence parallelism) is "
-            + _NOT_PORTED.format("7 (distributed)"))
-    if attention not in ("flash", "reference"):
-        raise ValueError(f"unknown attention {attention!r}")
-
-
 def moe_of(i: int, depth: int, moe_experts: int, moe_every: int) -> int:
     """Block ``i``'s experts: every ``moe_every``-th block counted from
     the back is routed (the JAX placement)."""
@@ -163,7 +155,7 @@ class MultiHeadAttention(nn.Module):
     another rank: the q/k/v biases, DenseGeneral ``[H, D]`` there."""
 
     def __init__(self, embed_dim: int, num_heads: int, *,
-                 attention: str = "flash", causal: bool = False,
+                 attention: str = "flash", causal: bool = False, mesh=None,
                  dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         if embed_dim % num_heads:
@@ -172,6 +164,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.attention = attention
+        self.mesh = mesh
         self.causal = causal
         self.dtype = dtype
         self.tp_group = None  # the model axis's group once bound
@@ -197,10 +190,10 @@ class MultiHeadAttention(nn.Module):
         q, k, v = (lin(x).view(b, s, h, hd).transpose(1, 2)
                    for lin in (self.query, self.key, self.value))
         if cache is None:
-            attend = (flash_attention if self.attention == "flash"
-                      else attention_reference)
-            o = attend(q, k, v, causal=self.causal)
+            o = attend_full(self.attention, self.mesh, q, k, v,
+                            causal=self.causal)
         else:
+            refuse_mesh_decode(self.mesh)
             if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
                 i = cache_index.to(x.device)
             else:
@@ -223,7 +216,7 @@ class TransformerBlock(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, *, mlp_ratio: int = 4,
                  attention: str = "flash", causal: bool = False,
                  dropout: float = 0.0, moe_experts: int = 0,
-                 moe_top_k: int = 1, ln_eps: float = 1e-6,
+                 moe_top_k: int = 1, ln_eps: float = 1e-6, mesh=None,
                  dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         param_dtype = param_dtype or dtype
@@ -231,7 +224,7 @@ class TransformerBlock(nn.Module):
         self.ln1 = LayerNorm(embed_dim, ln_eps, param_dtype, device)
         self.attn = MultiHeadAttention(
             embed_dim, num_heads, attention=attention, causal=causal,
-            dtype=dtype, param_dtype=param_dtype, device=device)
+            mesh=mesh, dtype=dtype, param_dtype=param_dtype, device=device)
         self.ln2 = LayerNorm(embed_dim, ln_eps, param_dtype, device)
         self.drop = nn.Dropout(dropout) if dropout else None
         self.tp_group = None  # the MLP's model-axis group once bound
@@ -273,25 +266,31 @@ def init_transformer_weights(model: nn.Module, seed: int) -> None:
     A model on the ``meta`` device (shapes only) draws nothing."""
     if model.device.type == "meta":
         return
-    gen = torch.Generator(device=model.device).manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if ".moe." in name:
-                if name.endswith("moe.router.weight"):
-                    model.get_submodule(
-                        name.split(".moe.")[0] + ".moe").reset_parameters(gen)
-                continue
-            owner = model.get_submodule(name.rsplit(".", 1)[0]) \
-                if "." in name else model
-            if isinstance(owner, LayerNorm):
-                p.fill_(1.0 if name.endswith("weight") else 0.0)
-            elif name.endswith("pos_embed"):
-                p.normal_(0.0, 0.02, generator=gen)
-            elif name.endswith("bias"):
-                p.zero_()
-            else:
-                fan_in = p[0].numel()
-                p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
+    draw_transformer_weights(
+        model, torch.Generator(device=model.device).manual_seed(seed))
+
+
+@torch.no_grad()
+def draw_transformer_weights(model: nn.Module, gen: torch.Generator) -> None:
+    """:func:`init_transformer_weights`'s draws from ``gen``, in
+    ``model``'s parameter order (a whole model or one part of it)."""
+    for name, p in model.named_parameters():
+        if ".moe." in name:
+            if name.endswith("moe.router.weight"):
+                model.get_submodule(
+                    name.split(".moe.")[0] + ".moe").reset_parameters(gen)
+            continue
+        owner = model.get_submodule(name.rsplit(".", 1)[0]) \
+            if "." in name else model
+        if isinstance(owner, LayerNorm):
+            p.fill_(1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith("pos_embed"):
+            p.normal_(0.0, 0.02, generator=gen)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            fan_in = p[0].numel()
+            p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
 
 
 class _ViTEmbed(nn.Module):
@@ -311,7 +310,10 @@ class _ViTEmbed(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(
             1, grid * grid, embed_dim, dtype=param_dtype, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
+        """The patch tokens, all of them or (``seq`` of ``n`` above 1)
+        this process's contiguous ``1/n`` of them."""
         b, hh, ww, c = x.shape
         p = self.patch_size
         if hh % p or ww % p:
@@ -324,10 +326,18 @@ class _ViTEmbed(nn.Module):
         dt = self.dtype
         patches = (x.to(dt).reshape(b, gh, p, gw, p, c)
                    .permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * c))
+        pos = self.pos_embed
+        if seq is not None and seq.n > 1:
+            if (gh * gw) % seq.n:
+                raise ValueError(f"{gh * gw} patch tokens do not split over "
+                                 f"a seq axis of {seq.n}")
+            s = gh * gw // seq.n
+            patches = patches.narrow(1, seq.offset(s), s)
+            pos = pos.narrow(1, seq.offset(s), s)
         conv = self.patch_embed
         kernel = conv.weight.permute(0, 2, 3, 1).reshape(conv.out_channels, -1)
         x = F.linear(patches, kernel.to(dt), conv.bias.to(dt))
-        return x + self.pos_embed.to(dt)
+        return x + pos.to(dt)
 
 
 class _ViTHead(nn.Module):
@@ -343,8 +353,13 @@ class _ViTHead(nn.Module):
                             param_dtype=param_dtype, device=device)
                      if num_classes else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ln_final(x).mean(dim=1)
+    def forward(self, x: torch.Tensor,
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
+        x = self.ln_final(x)
+        if seq is not None and seq.n > 1:
+            x = seq_sum(x.sum(dim=1), seq.group) / (seq.n * x.shape[1])
+        else:
+            x = x.mean(dim=1)
         if self.head is not None:
             x = self.head(x.to(self.dtype))
         return x.float()
@@ -367,9 +382,11 @@ class ViT(nn.Module):
                  dtype=torch.float32, param_dtype=None, device=None,
                  seed: int = 0):
         super().__init__()
-        check_unported(attention=attention, mesh=mesh)
+        check_attention(attention, mesh, moe_experts=moe_experts)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
+        self.mesh = mesh
+        self.seq = SeqShard(mesh)
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.depth = depth
@@ -386,7 +403,7 @@ class ViT(nn.Module):
             block_cls(embed_dim, num_heads, mlp_ratio=mlp_ratio,
                       attention=attention, dropout=dropout,
                       moe_experts=moe_of(i, depth, moe_experts, moe_every),
-                      moe_top_k=moe_top_k, dtype=dtype,
+                      moe_top_k=moe_top_k, mesh=mesh, dtype=dtype,
                       param_dtype=param_dtype, device=device)
             for i in range(depth))
         self.head = _ViTHead(embed_dim, num_classes, dtype, param_dtype,
@@ -402,10 +419,73 @@ class ViT(nn.Module):
         init_transformer_weights(self, seed)
 
     def forward(self, x: torch.Tensor, *, train: bool = True) -> torch.Tensor:
-        x = self.stem(x)
+        x = self.stem(x, self.seq)
         for block in self.blocks:
             x = block(x, train)
-        return self.head(x)
+        return self.head(x, self.seq)
+
+
+class _ViTStage(nn.Module):
+    """One pipeline stage: a run of (non-causal) transformer blocks, one
+    structure for every stage."""
+
+    def __init__(self, embed_dim: int, num_heads: int, blocks: int, *,
+                 mlp_ratio: int = 4, attention: str = "reference",
+                 causal: bool = False, ln_eps: float = 1e-6,
+                 dtype=torch.float32, param_dtype=None, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            TransformerBlock(embed_dim, num_heads, mlp_ratio=mlp_ratio,
+                             attention=attention, causal=causal,
+                             ln_eps=ln_eps, dtype=dtype,
+                             param_dtype=param_dtype, device=device)
+            for _ in range(blocks))
+
+    def forward(self, x):
+        for block in self.blocks:
+            x = block(x, False)
+        return x
+
+
+class GPipeViT(GPipeModel):
+    """Pipeline-parallel ViT: patch embed (replicated) → ``n_stages``
+    stages of ``blocks_per_stage`` transformer blocks through the GPipe
+    schedule → head (replicated) (``models/gpipe.py``). The JAX
+    constructor's arguments plus ``image_size``/``channels`` (flax infers
+    them at ``init``), ``device`` and ``seed``; weights are drawn as the
+    ViT's (:func:`draw_transformer_weights`), each part from its own
+    generator (:meth:`GPipeModel.materialize`)."""
+
+    def __init__(self, *, n_stages: int, blocks_per_stage: int,
+                 n_microbatches: int, mesh, patch_size: int = 16,
+                 embed_dim: int = 384, num_heads: int = 6,
+                 num_classes: int = 1000, mlp_ratio: int = 4,
+                 attention: str = "reference", image_size: int = 224,
+                 channels: int = 3, dtype=torch.float32, param_dtype=None,
+                 device=None, seed: int = 0):
+        if attention not in ("flash", "reference"):
+            raise ValueError(f"unknown attention {attention!r}")
+        device = resolve_device(device)
+        param_dtype = param_dtype or dtype
+        shell = torch.device("meta")
+        super().__init__(
+            embed=_ViTEmbed(image_size, patch_size, channels, embed_dim,
+                            dtype, param_dtype, shell),
+            stages=[_ViTStage(embed_dim, num_heads, blocks_per_stage,
+                              mlp_ratio=mlp_ratio, attention=attention,
+                              dtype=dtype, param_dtype=param_dtype,
+                              device=shell)
+                    for _ in range(n_stages)],
+            head=_ViTHead(embed_dim, num_classes, dtype, param_dtype,
+                          shell),
+            n_stages=n_stages, n_microbatches=n_microbatches, mesh=mesh)
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.num_classes = num_classes
+        self.attention = attention
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.materialize(device, draw_transformer_weights, seed)
 
 
 ViT_S16 = functools.partial(ViT, patch_size=16, embed_dim=384, depth=12,

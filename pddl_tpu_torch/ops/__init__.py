@@ -4,8 +4,8 @@ at first launch by ``_kernels.py``), the chunked cross-entropy and the
 routed experts (``SwitchFFN``, ``ops/moe.py``; resolved here, outside
 ``__all__`` as in the JAX package).
 
-The names resolve lazily. ``ring_attention``, ``ring_attention_flash``
-and ``sequence_parallel_attention`` wait for ROADMAP.md queue 1 item 7."""
+The names resolve lazily; ``ring_attention``, ``ring_attention_flash``
+and ``sequence_parallel_attention`` are ``ops/ring_attention.py``'s."""
 
 from pddl_tpu_torch._lazy import lazy_exports
 
@@ -14,6 +14,8 @@ _EXPORTS = {
     **dict.fromkeys(("attention_reference", "decode_attention",
                      "flash_attention", "flash_attention_lse"), "attention"),
     "chunked_cross_entropy": "large_vocab",
+    **dict.fromkeys(("ring_attention", "ring_attention_flash",
+                     "sequence_parallel_attention"), "ring_attention"),
 }
 __all__ = sorted(_EXPORTS)
 __getattr__, __dir__ = lazy_exports(__name__, {**_EXPORTS,

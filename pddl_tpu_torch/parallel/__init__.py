@@ -15,13 +15,14 @@ Reference surface (SURVEY.md §1-§2):
 Beyond the reference: tensor and expert parallelism
 (:class:`TensorParallelStrategy`, :class:`ExpertParallelStrategy`,
 ``parallel/tensor_parallel.py``) over the mesh's ``model`` and ``expert``
-axes.
+axes, pipeline parallelism (:class:`PipelineStrategy`,
+``parallel/pipeline.py``) over its ``stage`` axis, and sequence
+parallelism over its ``seq`` axis (a mirrored strategy over a
+``data`` x ``seq`` mesh, ``parallel/base.py``).
 
 One process per device; a Strategy decides (a) which processes form the
 mesh, (b) where optimizer state and weights live, (c) batch-size
-arithmetic, (d) who logs/saves. Pipeline parallelism
-(``PipelineStrategy``) is ROADMAP.md queue 1 item 7: ``get_strategy``
-names it.
+arithmetic, (d) who logs/saves.
 """
 
 from pddl_tpu_torch.parallel.base import Strategy, get_strategy
@@ -33,6 +34,7 @@ from pddl_tpu_torch.parallel.tensor_parallel import (
     ExpertParallelStrategy,
     TensorParallelStrategy,
 )
+from pddl_tpu_torch.parallel.pipeline import PipelineStrategy
 
 __all__ = [
     "Strategy",
@@ -43,4 +45,5 @@ __all__ = [
     "ParameterServerStrategy",
     "TensorParallelStrategy",
     "ExpertParallelStrategy",
+    "PipelineStrategy",
 ]

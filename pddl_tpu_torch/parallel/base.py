@@ -13,6 +13,17 @@ Batch contract (``distribute_batch``): a strategy whose data is fed by one
 process (mirrored, single) hands every process the **global** batch and
 each takes its rows; a multi-process strategy (multi-worker, ps) hands each
 process its local part (``imagenet-resnet50-multiworkers.py:66-69``).
+
+Sequence parallelism (a mesh with a ``seq`` axis above 1, e.g.
+``MirroredStrategy(mesh_config=MeshConfig(data=2, seq=2))``, the JAX
+tests' mirrored strategy over a ``data`` x ``seq`` mesh): each process
+also takes its ``seq`` position's contiguous slice of every ``[B, S]``
+field (the tokens and the already-shifted targets, so no target crosses a
+shard's edge; images and labels stay whole: the ViT cuts its own patch
+tokens). Each process's loss is the mean over its slice, so the global
+mean is the mean over the batch's processes: the gradients and the logs
+are averaged over ``data`` x ``seq`` (:attr:`Mesh.batch_group`), which
+gives every process the one-process step's parameters.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import torch
 from pddl_tpu_torch.core import collectives, dist
 from pddl_tpu_torch.core.mesh import (
     DATA_AXIS,
+    SEQ_AXIS,
     Mesh,
     MeshConfig,
     build_mesh,
@@ -35,8 +47,6 @@ from pddl_tpu_torch.models.resnet import bind_data_group
 from pddl_tpu_torch.train.state import make_optimizer
 
 Batch = Dict[str, Any]
-
-_ITEM_7 = {"pipeline"}
 
 
 class Strategy:
@@ -131,11 +141,31 @@ class Strategy:
             return batch
         local = int(np.shape(leaves[0])[0])
         validate_divisible(local * n_procs, self.mesh)
-        if n_procs == self.mesh.size:
+        if n_procs != self.mesh.size:
+            rows = local // self.mesh.size
+            lo = self.mesh.index * rows
+            batch = {k: v[lo:lo + rows] for k, v in batch.items()}
+        return self._seq_slice(batch)
+
+    def _seq_slice(self, batch: Batch) -> Batch:
+        """This process's ``seq`` slice of every ``[B, S]`` field (module
+        docstring); the batch as it is on a mesh without sequence
+        parallelism."""
+        n = self.mesh.shape[SEQ_AXIS]
+        if n == 1:
             return batch
-        rows = local // self.mesh.size
-        lo = self.mesh.index * rows
-        return {k: v[lo:lo + rows] for k, v in batch.items()}
+        my = self.mesh.axis_index(SEQ_AXIS)
+        out = {}
+        for k, v in batch.items():
+            if np.ndim(v) != 2:
+                out[k] = v
+                continue
+            s = int(np.shape(v)[1])
+            if s % n:
+                raise ValueError(f"sequence {s} of {k!r} not divisible by "
+                                 f"the seq axis size {n}")
+            out[k] = v[:, my * (s // n):(my + 1) * (s // n)]
+        return out
 
     def distribute_dataset(self, it: Iterator[Batch]) -> Iterator[Batch]:
         for batch in it:
@@ -153,14 +183,21 @@ class Strategy:
         accumulation, ``param_update``, ``update_seed``)."""
         return make_optimizer(model, optimizer, learning_rate, **options)
 
+    @property
+    def batch_group(self):
+        """The processes of one batch: ``data`` x ``seq`` (the data axis's
+        group without sequence parallelism)."""
+        return self.mesh.batch_group
+
     def reduce_gradients(self, model: torch.nn.Module) -> None:
-        """Average every gradient over the data axis (the NCCL all-reduce
-        of ``MirroredStrategy``), in place."""
-        if self.group is None:
+        """Average every gradient over the batch's processes (the NCCL
+        all-reduce of ``MirroredStrategy``; ``data`` x ``seq`` under
+        sequence parallelism), in place."""
+        if self.batch_group is None:
             return
         collectives.flat_all_reduce_(
             [p.grad for p in model.parameters() if p.grad is not None],
-            self.group, mean=True)
+            self.batch_group, mean=True)
 
     def optimizer_step(self, optimizer: torch.optim.Optimizer) -> None:
         optimizer.step()
@@ -172,9 +209,9 @@ class Strategy:
 
     @property
     def save_group(self):
-        """The processes of one save (``ckpt/checkpoint.py``): the data
-        axis's group here."""
-        return self.group
+        """The processes of one save (``ckpt/checkpoint.py``): the batch's
+        (the data axis's group without sequence parallelism)."""
+        return self.batch_group
 
     # -- process topology --------------------------------------------------
     @property
@@ -205,11 +242,9 @@ def register_strategy(name: str):
 
 def get_strategy(name: str, **kwargs) -> Strategy:
     """Strategy by config string (``single``/``mirrored``/``multiworker``/
-    ``ps``/``tensor_parallel``/``expert_parallel``)."""
-    if name in _ITEM_7:
-        raise NotImplementedError(
-            f"strategy {name!r} is not ported yet: ROADMAP.md queue 1 item 7 "
-            "(sequence and pipeline parallelism)")
+    ``ps``/``tensor_parallel``/``expert_parallel``/``pipeline``)."""
+    if name == "pipeline":
+        import pddl_tpu_torch.parallel.pipeline  # noqa: F401,PLC0415
     try:
         cls = _STRATEGIES[name]
     except KeyError:

@@ -61,7 +61,12 @@ import torch
 from torch import nn
 
 from pddl_tpu_torch.core import collectives
-from pddl_tpu_torch.core.mesh import EXPERT_AXIS, MODEL_AXIS, MeshConfig
+from pddl_tpu_torch.core.mesh import (
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    STAGE_AXIS,
+    MeshConfig,
+)
 from pddl_tpu_torch.parallel.base import Strategy, register_strategy
 
 log = logging.getLogger(__name__)
@@ -146,6 +151,9 @@ class JaxLeaf:
     path: str
     shape: Tuple[int, ...]
     port_dims: Tuple[Optional[int], ...]
+    # A pipeline stage's parameter: the stage (JAX: its slice of the
+    # stacked [n_stages, ...] leaf, whose stage dim has no port dim).
+    stage: Optional[int] = None
 
 
 def _leaf_of(owner: nn.Module, local: str, p: torch.Tensor,
@@ -177,23 +185,34 @@ def jax_leaves(model: nn.Module) -> Dict[str, JaxLeaf]:
     """``{port parameter name: JaxLeaf}`` for a port Llama, GPT or ViT
     (whole: call before :meth:`TensorParallelStrategy.bind`). The paths
     are the JAX params tree's (``/block{i}/...``; the stem's and head's
-    leaves at the top, as ``share_scope`` keeps them)."""
+    leaves at the top, as ``share_scope`` keeps them). For a GPipe model
+    (``models/gpipe.py``) they are the JAX GPipe tree's: ``/embed/...``,
+    ``/head/...``, and ``/stages/block{j}/...`` for every stage's
+    parameter, whose JAX leaf is the stacked ``[n_stages, ...]`` one."""
+    gpipe = hasattr(model, "stages") and hasattr(model, "n_stages")
     out = {}
     for name, p in model.named_parameters():
         mod_name, local = name.rsplit(".", 1) if "." in name else ("", name)
         owner = model.get_submodule(mod_name) if mod_name else model
         parts = mod_name.split(".") if mod_name else []
-        if parts and parts[0] in ("stem", "head"):
+        stage = None
+        if gpipe and parts and parts[0] == "stages":
+            stage, parts = int(parts[1]), ["stages"] + parts[2:]
+        elif parts and parts[0] in ("stem", "head") and not gpipe:
             parts = parts[1:]
-        if len(parts) >= 2 and parts[0] == "blocks":
-            parts = [f"block{parts[1]}"] + parts[2:]
+        at = 1 if stage is not None else 0
+        if len(parts) >= at + 2 and parts[at] == "blocks":
+            parts = parts[:at] + [f"block{parts[at + 1]}"] + parts[at + 2:]
         heads = None
         if parts and parts[-1] in ("query", "key", "value") and len(parts) > 1:
             attn = model.get_submodule(mod_name.rsplit(".", 1)[0])
             heads = (attn.num_heads if parts[-1] == "query"
                      else getattr(attn, "num_kv_heads", attn.num_heads))
         leaf, shape, dims = _leaf_of(owner, local, p, heads)
-        out[name] = JaxLeaf("/" + "/".join(parts + [leaf]), shape, dims)
+        if stage is not None:
+            shape, dims = (model.n_stages,) + shape, (None,) + dims
+        out[name] = JaxLeaf("/" + "/".join(parts + [leaf]), shape, dims,
+                            stage)
     return out
 
 
@@ -209,6 +228,11 @@ class Placement:
     axis: Optional[str] = None
     count: int = 1
     index: int = 0
+
+    @property
+    def stage(self) -> Optional[int]:
+        """The pipeline stage of a stage's parameter (else None)."""
+        return self.leaf.stage
 
 
 @register_strategy("tensor_parallel")
@@ -276,7 +300,9 @@ class TensorParallelStrategy(Strategy):
         out = {}
         for name, leaf in jax_leaves(model).items():
             spec = self._spec_for(leaf.path, leaf.shape)
-            sharded = [(i, ax) for i, ax in enumerate(spec) if ax]
+            # The stage axis is the stage's module, not a dimension.
+            sharded = [(i, ax) for i, ax in enumerate(spec)
+                       if ax and ax != STAGE_AXIS]
             if not sharded:
                 out[name] = Placement(leaf, spec)
                 continue
@@ -302,7 +328,7 @@ class TensorParallelStrategy(Strategy):
         if model in _BOUND:
             raise ValueError("the model is bound to another strategy")
         super().bind(model)
-        placed = self.placements(model)
+        placed = self._placements_to_bind(model)
         for name, pl in placed.items():
             if pl.axis is None:
                 continue
@@ -318,6 +344,9 @@ class TensorParallelStrategy(Strategy):
         self._targets = {model.get_parameter(n): n
                          for n, pl in placed.items() if pl.axis}
         _BOUND[model] = self
+
+    def _placements_to_bind(self, model: nn.Module) -> Dict[str, Placement]:
+        return self.placements(model)
 
     def shard_model(self, model: nn.Module) -> nn.Module:
         """``model`` if it is bound to this strategy, else a bound copy

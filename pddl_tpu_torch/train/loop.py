@@ -659,7 +659,7 @@ class Trainer:
                 self._loader_state = {
                     "epoch": epoch + 1, "step_in_epoch": 0,
                     "batches_consumed": self._batches_consumed}
-                epoch_logs = _mean_logs(step_logs, self.strategy.group)
+                epoch_logs = _mean_logs(step_logs, self.strategy.batch_group)
                 dt = time.perf_counter() - t0
                 if validation_data is not None:
                     epoch_logs.update(self.evaluate(
@@ -774,7 +774,7 @@ class Trainer:
         if not logs_list:
             raise ValueError("empty evaluation dataset")
         out = {_prefix + k: v
-               for k, v in _mean_logs(logs_list, self.strategy.group).items()}
+               for k, v in _mean_logs(logs_list, self.strategy.batch_group).items()}
         if verbose and self.strategy.is_coordinator:
             print(" - ".join(f"{k}: {v:.4f}" for k, v in out.items()),
                   file=sys.stderr)

@@ -372,16 +372,15 @@ def test_strategy_registry_and_refusals():
                       ("multiworker", MultiWorkerMirroredStrategy),
                       ("ps", ParameterServerStrategy)):
         assert type(get_strategy(name)) is cls and cls.name == name
-    # Tensor and expert parallelism are ported (tests/
-    # test_torch_tensor_parallel.py); pipeline parallelism is item 7.
+    # Tensor, expert and pipeline parallelism are ported (tests/
+    # test_torch_tensor_parallel.py, tests/test_torch_pipeline.py).
     assert type(get_strategy("tensor_parallel", device="cpu")).__name__ == \
         "TensorParallelStrategy"
     assert type(get_strategy("expert_parallel", expert_parallel=1,
                              device="cpu")).__name__ == \
         "ExpertParallelStrategy"
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1 item 7"):
-        get_strategy("pipeline")
+    assert type(get_strategy("pipeline", n_stages=1,
+                             device="cpu")).__name__ == "PipelineStrategy"
     with pytest.raises(ValueError, match="unknown strategy 'zero'"):
         get_strategy("zero")
 

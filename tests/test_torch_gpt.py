@@ -237,24 +237,35 @@ def test_per_row_positions_past_max_len_are_clamped():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(attention="ring"), "item 7"), (dict(mesh=object()), "item 7"),
+    (dict(attention="ring"), "item 7"), (dict(mesh="one process"), "item 7"),
     (dict(moe_experts=4), "item 5")])
 def test_unported_options_raise(kw, item):
-    """Ring attention and ``mesh`` wait for item 7. Switch-MoE blocks
-    (item 5) are ported: a routed GPT gives the JAX model's logits."""
-    if "moe_experts" in kw:
-        tokens = np.random.default_rng(0).integers(0, 64, (2, 12)).astype(
-            np.int32)
-        jm = jax_tiny_gpt(vocab_size=64, max_len=64, **kw)
-        params = jax.tree.map(np.asarray, jm.init(
-            jax.random.key(0), jnp.asarray(tokens), train=False)["params"])
-        tm = tiny_gpt(vocab_size=64, max_len=64, device="cpu", **kw)
-        tm.load_state_dict(gpt_params_from_jax(params))
-        with torch.no_grad():
-            got = tm(torch.from_numpy(tokens), train=False)
-        np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply(
-            {"params": params}, jnp.asarray(tokens), train=False)),
-            rtol=0, atol=1e-5)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        tiny_gpt(device="cpu", **kw)
+    """Ring attention and ``mesh`` (item 7) and Switch-MoE blocks (item 5)
+    are ported: each GPT gives the JAX model's logits. The ring runs over
+    a one-process mesh against the JAX XLA ring over one device; a mesh
+    whose seq axis is 1 leaves the attention as it is. Decoding a model
+    built with a mesh still raises, naming item 7."""
+    tokens = np.random.default_rng(0).integers(0, 64, (2, 12)).astype(
+        np.int32)
+    jkw, tkw = dict(kw), dict(kw)
+    if "moe_experts" not in kw:
+        from pddl_tpu.core.mesh import MeshConfig, build_mesh
+        from pddl_tpu_torch.core.mesh import build_mesh as port_mesh
+
+        jkw["mesh"] = build_mesh(MeshConfig(data=1),
+                                 devices=jax.devices()[:1])
+        tkw["mesh"] = port_mesh(device="cpu")
+    jm = jax_tiny_gpt(vocab_size=64, max_len=64, **jkw)
+    params = jax.tree.map(np.asarray, jm.init(
+        jax.random.key(0), jnp.asarray(tokens), train=False)["params"])
+    tm = tiny_gpt(vocab_size=64, max_len=64, device="cpu", **tkw)
+    tm.load_state_dict(gpt_params_from_jax(params))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(tokens), train=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply(
+        {"params": params}, jnp.asarray(tokens), train=False)),
+        rtol=0, atol=1e-5)
+    if "mesh" in tkw:
+        with pytest.raises(NotImplementedError, match=item):
+            tm(torch.from_numpy(tokens[:, :4]), cache=decode_cache(tm, 2),
+               cache_index=0)

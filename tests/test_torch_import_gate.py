@@ -230,14 +230,13 @@ def _check_ported_resilience(model, kw):
 # flax TrainState has no twin: the port's trainer state is a state_dict).
 WAITING = {
     "train": {"TrainState"},
-    "models": {"GPipeLlama", "get_model", "register_model", "list_models"},
-    "ops": {"ring_attention", "ring_attention_flash",
-            "sequence_parallel_attention"},
+    "models": {"get_model", "register_model", "list_models"},
+    "ops": set(),
     "data": {"ImageNetConfig", "ImageNetDataset", "load_imagenet",
              "TFRecordReader", "TokenFileDataset", "load_token_corpus"},
     "serve": set(),
     "ckpt": set(),
-    "parallel": {"PipelineStrategy"},
+    "parallel": set(),
 }
 # JAX names outside the subpackages' ``__all__`` that wait (none since
 # Mixtral's importer came with the routed experts).

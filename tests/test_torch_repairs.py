@@ -248,7 +248,7 @@ SWEEP = [
     ("model", "moe_every", 2),
     ("model", "moe_capacity_factor", 1.25),
     ("model", "moe_eval_dropless", False),
-    ("model", "mesh", object()),
+    ("model", "mesh", "a one-process mesh"),
 ]
 # Ported since the sweep was written: checked against the JAX engine.
 TENANCY = {("submit", "adapter"), ("submit", "constraint")}
@@ -269,6 +269,9 @@ TRAINER = {("trainer", "donate_state"), ("trainer", "eval_with_ema"),
 # Ported since too (routed experts): each gives the JAX model's numbers.
 MOE = {("model", "moe_top_k"), ("model", "moe_every"),
        ("model", "moe_capacity_factor"), ("model", "moe_eval_dropless")}
+# Ported since too (sequence parallelism): a Llama over a mesh gives the
+# JAX model's logits.
+MESH = {("model", "mesh")}
 JAX_FN = {"trainer": JaxTrainer.__init__, "fit": JaxTrainer.fit,
           "engine": JaxServeEngine.__init__, "submit": JaxServeEngine.submit,
           "model": JaxLlama}
@@ -329,8 +332,34 @@ def test_unported_option_takes_the_jax_default_and_refuses_others(
     if (where, name) in MOE:
         _check_ported_moe(name, other)
         return
+    if (where, name) in MESH:
+        _check_ported_mesh()
+        return
     with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
         _call(where, **{name: other})
+
+
+def _check_ported_mesh():
+    """A ring Llama over a one-process mesh gives the JAX ring Llama's
+    logits over one device (tests/test_torch_sequence_parallel.py runs
+    the seq axis over processes)."""
+    from pddl_tpu.core.mesh import MeshConfig, build_mesh
+    from pddl_tpu_torch.core.mesh import build_mesh as port_mesh
+
+    tokens = np.random.default_rng(0).integers(0, VOCAB, (2, 12)).astype(
+        np.int32)
+    jm = jax_tiny_llama(vocab_size=VOCAB, max_len=64, attention="ring",
+                        mesh=build_mesh(MeshConfig(data=1),
+                                        devices=jax.devices()[:1]))
+    params = jax.tree.map(np.asarray, jm.init(
+        jax.random.key(0), jnp.asarray(tokens), train=False)["params"])
+    tm = _call("model", attention="ring", mesh=port_mesh(device="cpu"))
+    tm.load_state_dict(llama_params_from_jax(params))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(tokens), train=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply(
+        {"params": params}, jnp.asarray(tokens), train=False)), rtol=0,
+        atol=1e-5)
 
 
 def _lm_fit(epochs=2, fit_kw=None, **kw):

@@ -9,8 +9,9 @@ the JAX package on the CPU.
   maps it to — equals the JAX strategy's ``_spec_for``, under TP2 and
   under EP2 (x TP2). The port's models are built on the ``meta`` device
   and the JAX trees come from ``jax.eval_shape``: no memory.
-- The mesh: ranks in JAX's row-major order, one line per axis, the
-  refusals of ``seq``/``stage`` and ``"pipeline"`` naming ROADMAP.md
+- The mesh: ranks in JAX's row-major order, one line per axis; the
+  ``seq`` and ``stage`` axes and ``"pipeline"`` build, and the refusals
+  that stay (chosen ranks, ``seq`` beside ``model``) name ROADMAP.md
   queue 1 item 7.
 - Two gloo processes (`tests/_torch_tp_child.py`, one deadline) run one
   SGD step each of DP1 x TP2 Llama (GQA), DP1 x TP2 ViT, DP1 x EP2 routed
@@ -195,13 +196,32 @@ def test_mesh_rank_order_and_axis_lines():
 
 @pytest.mark.parametrize("axis", ["seq", "stage"])
 def test_unported_axes_and_pipeline_name_item_7(axis):
+    """The seq and stage axes run over the job's processes now, in JAX's
+    rank order (tests/test_torch_sequence_parallel.py and
+    tests/test_torch_pipeline.py train on them): ``"pipeline"`` builds
+    and a Llama takes a mesh. What stays item 7: either axis on a mesh
+    of chosen ranks, and a seq axis beside the model axis."""
     with pytest.raises(NotImplementedError, match=ITEM_7):
         tmesh.build_mesh(tmesh.MeshConfig(data=1, **{axis: 2}),
                          ranks=(0, 1), group=object())
-    with pytest.raises(NotImplementedError, match=ITEM_7):
-        get_strategy("pipeline")
-    with pytest.raises(NotImplementedError, match=ITEM_7):
-        Llama_1B(vocab_size=64, device="meta", mesh=object())
+    sizes = tmesh.MeshConfig(data=-1, model=2, **{axis: 2}).axis_sizes(8)
+    if axis == "seq":
+        with pytest.raises(NotImplementedError, match=ITEM_7):
+            tmesh._check_axes(sizes, False)
+    else:
+        tmesh._check_axes(sizes, False)  # 3D: data x model x stage
+    jm = jax.sharding.Mesh(np.arange(8).reshape(
+        [sizes[a] for a in tmesh.CANONICAL_AXES]), tmesh.CANONICAL_AXES)
+    for rank in range(8):
+        c = tmesh.axis_coords(sizes, rank)
+        assert jm.devices[tuple(c[a] for a in tmesh.CANONICAL_AXES)] == rank
+    assert type(get_strategy("pipeline", n_stages=2)).__name__ == \
+        "PipelineStrategy"
+    mesh = tmesh.Mesh(dict(sizes, model=1, **{axis: 2}), (0,), None,
+                      torch.device("cpu"))
+    model = Llama_1B(vocab_size=64, device="meta", mesh=mesh,
+                     attention="ring_flash")
+    assert model.blocks[0].attn.seq.n == (2 if axis == "seq" else 1)
 
 
 def test_strategies_take_the_jax_signatures():

@@ -289,6 +289,35 @@ def _check_optimizer_option(kw):
         torch.testing.assert_close(p.detach(), torch.full((4,), -0.5))
 
 
+def _check_ring_step(kw):
+    """Ring attention over a one-process mesh: one SGD step against the
+    JAX ``Trainer`` over the XLA ring on one device."""
+    from pddl_tpu.core.mesh import MeshConfig, build_mesh
+    from pddl_tpu_torch.core.mesh import build_mesh as port_mesh
+
+    with pytest.raises(ValueError, match="needs the mesh"):
+        tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu", **kw)
+    jm = jax_tiny_llama(vocab_size=VOCAB, max_len=64, mesh=build_mesh(
+        MeshConfig(data=1), devices=jax.devices()[:1]), **kw)
+    jtr = JaxTrainer(jm, optimizer="sgd", learning_rate=0.1, seed=0,
+                     input_key="tokens", target_key="targets")
+    jtr.init_state(JaxLM(**LM).batch(0))
+    tm = tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu",
+                    mesh=port_mesh(device="cpu"), **kw)
+    tm.load_state_dict(llama_params_from_jax(
+        jax.tree.map(np.asarray, jtr.state.params)))
+    tr = Trainer(tm, optimizer="sgd", learning_rate=0.1, seed=0,
+                 input_key="tokens", target_key="targets", device="cpu")
+    jh = jtr.fit(JaxLM(**LM), epochs=1, steps_per_epoch=1, verbose=0)
+    th = tr.fit(SyntheticLanguageModeling(**LM), epochs=1,
+                steps_per_epoch=1, verbose=0)
+    np.testing.assert_allclose(th.history["loss"], jh.history["loss"],
+                               rtol=1e-5)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(
+        a, b, rtol=0, atol=2e-5), llama_params_to_jax(tm),
+        jax.tree.map(np.asarray, jtr.state.params))
+
+
 @pytest.mark.parametrize("where,kw", [
     ("trainer", {"strategy": object()}),
     ("trainer", {"ema_decay": 0.99}),
@@ -306,9 +335,10 @@ def _check_optimizer_option(kw):
     ("model", {"attention": "ring"}),
 ])
 def test_unported_options_raise(where, kw, tmp_path):
-    """The options still unported raise naming their ROADMAP.md item (ring
-    attention and the pipeline strategy: item 7). MoE and the tensor- and
-    expert-parallel strategies run now, a step each. The rest were
+    """Every option here was once unported. MoE, ring attention over a
+    one-process mesh (a step against the JAX ``Trainer`` over the XLA
+    ring; without a mesh it raises the JAX text) and the tensor-, expert-
+    and pipeline-parallel strategies run now, a step each. The rest were
     ported since, and each is checked for what it does: the EMA shadow
     after a step, the parameters moving once a window under
     accumulation, the schedule's rate, stochastic rounding over bf16
@@ -318,14 +348,19 @@ def test_unported_options_raise(where, kw, tmp_path):
     model = tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu")
     trainer_kw = dict(device="cpu", input_key="tokens", target_key="targets")
     if "strategy" in kw:
-        # Ported: the data-parallel strategies take a Strategy (anything
-        # else is a TypeError); the model-parallel ones are still item 7.
+        # Ported: the strategies take a Strategy (anything else is a
+        # TypeError), pipeline parallelism a GPipe model.
         with pytest.raises(TypeError, match="Strategy"):
             Trainer(model, **trainer_kw, **kw)
-        # Tensor and expert parallelism are ported; pipeline is item 7.
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue 1 item 7"):
-            get_strategy("pipeline")
+        from pddl_tpu_torch.models.llama import GPipeLlama
+
+        pp = get_strategy("pipeline", n_stages=1, device="cpu")
+        gp = GPipeLlama(vocab_size=VOCAB, n_stages=1, blocks_per_stage=2,
+                        n_microbatches=2, mesh=pp.mesh, embed_dim=32,
+                        device="cpu")
+        logs = Trainer(gp, strategy=pp, **trainer_kw).train_step(
+            SyntheticLanguageModeling(**LM).batch(0))
+        assert np.isfinite(float(logs["loss"]))
         tp = get_strategy("tensor_parallel", device="cpu")
         Trainer(tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu"),
                 strategy=tp, **trainer_kw).train_step(
@@ -340,9 +375,7 @@ def test_unported_options_raise(where, kw, tmp_path):
         assert "moe_drop_rate" in logs
         return
     if where == "model":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tiny_llama(vocab_size=VOCAB, max_len=64, device="cpu", **kw)
-        return
+        return _check_ring_step(kw)
     if where == "optimizer":
         return _check_optimizer_option(kw)
     if where == "fit":

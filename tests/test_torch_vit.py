@@ -10,7 +10,8 @@ the CPU, through the weight bridge (f32):
   (`SyntheticImageClassification`), 3 adam steps from the same weights:
   losses within rtol 1e-4, parameters within 2·lr·steps (Adam's
   sign-of-noise steps, as `tests/test_torch_resnet.py` holds them);
-- unported options raise, naming their ROADMAP.md item.
+- the options once unported (ring attention, ``mesh``, Switch-MoE)
+  give the JAX model's logits.
 """
 
 import jax
@@ -76,20 +77,35 @@ def test_three_adam_steps_match_jax_trainer():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(attention="ring_flash"), "item 7"), (dict(mesh=object()), "item 7"),
-    (dict(moe_experts=2), "item 5")])
+    (dict(attention="ring_flash"), "item 7"),
+    (dict(mesh="one process"), "item 7"), (dict(moe_experts=2), "item 5")])
 def test_unported_options_raise(kw, item):
-    """Ring attention and ``mesh`` wait for item 7. Switch-MoE blocks
-    (item 5) are ported: a routed ViT gives the JAX model's logits."""
+    """Ring attention and ``mesh`` (item 7) and Switch-MoE blocks (item 5)
+    are ported: each ViT gives the JAX model's logits. The flash ring runs
+    over a one-process mesh against the JAX XLA ring (the same function)
+    over one device; a mesh whose seq axis is 1 leaves the attention as
+    it is (tests/test_torch_sequence_parallel.py shards the tokens)."""
     if "moe_experts" in kw:
         jm, params, tm = _pair(**kw)
-        x = np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(
-            np.float32)
-        with torch.no_grad():
-            got = tm(torch.from_numpy(x), train=False)
-        np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply(
-            {"params": params}, jnp.asarray(x), train=False)), rtol=0,
-            atol=1e-5)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        tiny_vit(device="cpu", **kw)
+    else:
+        from pddl_tpu.core.mesh import MeshConfig, build_mesh
+        from pddl_tpu_torch.core.mesh import build_mesh as port_mesh
+
+        jkw = dict(mesh=build_mesh(MeshConfig(data=1),
+                                   devices=jax.devices()[:1]))
+        tkw = dict(mesh=port_mesh(device="cpu"))
+        if "attention" in kw:
+            jkw["attention"], tkw["attention"] = "ring", kw["attention"]
+        jm = jax_tiny_vit(**jkw)
+        params = jax.tree.map(np.asarray, jm.init(
+            jax.random.key(2), jnp.zeros((1, 32, 32, 3), jnp.float32),
+            train=False)["params"])
+        tm = tiny_vit(device="cpu", **tkw)
+        tm.load_state_dict(vit_params_from_jax(params))
+    x = np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), train=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply(
+        {"params": params}, jnp.asarray(x), train=False)), rtol=0,
+        atol=1e-5)
