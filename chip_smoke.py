@@ -434,9 +434,33 @@ the card over gloo), and prints one line per phase:
     stage's host is blocked in the schedule, and each process's device
     idle share (one more step under ``torch.profiler``: 1 - its kernel
     time over the timed step wall) beside the bubble (S-1)/(M+S-1);
+38k. fleet local — the serving fleet in one process: a ``FleetRouter``
+    over two ``LocalReplica``s, each a paged engine of full-width
+    GPT-2-small in f32 built by the fleet worker's ``build_engine``
+    (vocab 50257, ``max_len`` 1024, 768 wide, 12 layers and heads, a 256
+    MiB host tier, blocks of 8), serving phase 7's wave (24 prompts of
+    384 tokens, 256 shared, x 32 new, greedy, 8 slots a replica): the
+    streams token-equal to one engine's (the tie rule), K4 exactly 12 x
+    the ticks summed over the replicas, fleet tokens/s and TTFT p50/p99;
+    then one chain pull — a new prefix exported from the replica that
+    holds it and imported into the other's host tier: the chain's bytes,
+    export and import ms and GB/s, the next request there token-equal
+    and K4 on its promoted ticks;
+38l. fleet process — the same wave through two port worker processes
+    time-sharing the card (framed transport, ``device`` the card): the
+    spawn-to-ready seconds, fleet tokens/s, TTFT p50/p99, every
+    replica's census (``compile_counts``) all 1 after the wave; a SIGTERM
+    drain of one worker mid-wave restored on the survivor (the drain's
+    ms, the restore's seconds to the first resumed token); a SIGKILL of
+    one worker mid-wave replayed from the router's mirrors (replays);
+    then one chaos campaign over two workers (a storage storm, a hard
+    kill and a router crash with journal recovery), every invariant
+    held; every stream token-exact against one in-process engine (the
+    tie rule; the campaign's check is exact). Two processes sharing one
+    card, not a multi-card fleet;
 39. kernels — one JSON object: every ported kernel with its launches on
     its main paths (phases 7, 10, 11, 15i, 15k, 18, 21, 23, 26, 27, 28,
-    30, 30c, 32-34, 35-37, 38b and 38e;
+    30, 30c, 32-34, 35-37, 38b, 38e and 38k;
     K4's, K1's and K2's by path under ``launches_by_path``, the parity
     legs' included there for K4), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
@@ -471,6 +495,7 @@ run with or without it; their tables go to DIR, or to
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import copy
 import gc
@@ -550,8 +575,15 @@ from pddl_tpu_torch.parallel.tensor_parallel import (
     ExpertParallelStrategy,
     TensorParallelStrategy,
 )
-from pddl_tpu_torch.serve.engine import ServeEngine
+from pddl_tpu_torch.chaos import ChaosConductor, ReplicaChaos
+from pddl_tpu_torch.serve.engine import ServeEngine as _ServeEngine
 from pddl_tpu_torch.serve.faults import FaultKind, FaultPlan, FaultSpec
+from pddl_tpu_torch.serve.fleet import (
+    FleetRouter,
+    LocalReplica,
+    ProcessReplica,
+)
+from pddl_tpu_torch.serve.fleet.worker import build_engine
 from pddl_tpu_torch.serve.kvcache import HostTierConfig, pool_nbytes
 from pddl_tpu_torch.serve.request import FinishReason, Priority
 from pddl_tpu_torch.serve.tenant import (
@@ -579,6 +611,7 @@ from pddl_tpu_torch.train.state import (
     optimizer_state_bytes,
 )
 from pddl_tpu_torch.train.metrics import sparse_categorical_crossentropy
+from pddl_tpu_torch.utils.faults import StorageFaultPlan
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
@@ -589,6 +622,16 @@ VOCAB, MAX_LEN = 128256, 1024          # as benchmarks/decode_bench.py builds it
 DEV = torch.device("cuda", 0)
 BUILD = pathlib.Path(__file__).resolve().parent / "build"
 _T0 = time.perf_counter()
+SMI = "not read"  # nvidia-smi's card name and power limit, set by main
+
+
+def ServeEngine(*args, **kwargs):
+    """The port's engine, warmed where it is built, as a server warms
+    before it takes traffic (the fleet worker does): a phase's counted
+    window then holds its traffic's launches only."""
+    eng = _ServeEngine(*args, **kwargs)
+    eng.warmup()
+    return eng
 
 
 def phase(tag: str, **fields) -> None:
@@ -3015,8 +3058,10 @@ def phase_engine_spec_parity(new: int = 48):
                 torch.cuda.synchronize()
                 launches = dict(_kernels.launch_counts)
             snaps[name] = eng.metrics.snapshot()
-        want = (drafts["cuda"].depth * (SPEC_K + 1) * snaps["cuda"]
-                ["spec_ticks"] if with_draft else 0)
+        # The draft leg's engine warms inside the window (it is built
+        # there): its dead window runs the draft model's steps once more.
+        want = (drafts["cuda"].depth * (SPEC_K + 1)
+                * (snaps["cuda"]["spec_ticks"] + 1) if with_draft else 0)
         if launches["paged_decode"] != want or sum(launches.values()) != want:
             raise RuntimeError(f"engine_spec_parity {leg}: launches "
                                f"{launches}, want {want} paged_decode")
@@ -6486,11 +6531,11 @@ SP_SHAPES = {
                        -4096),
 }
 SP_LR, SP_PARITY_SEQ, SP_WINDOW = 1e-2, 2048, 512
-# One warm-up and two timed steps (a step is ~9 s of gloo-staged
+# One warm-up and one timed step (a step is ~9 s of gloo-staged
 # gradient all-reduce): the script's time limit.
-SP_TRAIN = dict(batch=1, seq=8192, warmup=1, steps=2)
+SP_TRAIN = dict(batch=1, seq=8192, warmup=1, steps=1)
 PP_PARITY = dict(batch=2, seq=512, images=4, microbatches=2)
-PP_TRAIN = dict(batch=4, seq=2048, warmup=1, steps=3, blocks=8)
+PP_TRAIN = dict(batch=4, seq=2048, warmup=1, steps=2, blocks=8)
 # remat_stages in pp_train_gloo2: without it each process's 8 blocks keep
 # B 4 x S 2048's activations beside the head's 4.2 GB of f32 logits on
 # every stage, and the pair ran out of the card's 80 GB.
@@ -7201,6 +7246,347 @@ def phase_sp_pp_gloo2(out_dir: str, timeout: float = 600.0):
         raise RuntimeError(f"sp_pp_gloo2 out of tolerance: {bad}")
     return paths
 
+# -------------------------------------------------------- phases 38k-38l
+# The fleet's replicas: the fleet worker's flat configuration at
+# GPT-2-small's full width (its one model family), paged, f32, a 256 MiB
+# host tier; the worker's engines keep the engine's blocks of 8 (no
+# worker key sets them), and ``prefill_len`` 512 admits the wave's
+# 384-token prompts.
+FLEET_CFG = dict(vocab=GPT_VOCAB, max_len=1024, embed_dim=768, depth=12,
+                 heads=12, param_seed=0, engine_seed=0, slots=8,
+                 prefill_len=512, max_queue_depth=64, paged=True,
+                 host_tier_bytes=256 << 20, device="cuda")
+# Prefix affinity over the shadow radix (blocks of 8) with the
+# interactive escape at 12 in flight: the wave's shared prefix would
+# otherwise send all 24 requests to one replica.
+FLEET_ROUTER = dict(affinity_block_size=8, affinity_blocks=1,
+                    respawn=False, interactive_reroute_load=12)
+FLEET_NEW = 32
+FLEET_READY_S = 300.0
+FLEET_DEADLINE_S = 300.0
+
+
+def fleet_oracle():
+    """One in-process engine of the fleet's configuration on the card,
+    built as a worker builds its own: the streams every fleet leg is held
+    to."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng = build_engine(FLEET_CFG)
+    eng.warmup()
+    return eng
+
+
+def oracle_streams(eng, prompts, new=FLEET_NEW):
+    handles = [eng.submit([int(t) for t in p], new) for p in prompts]
+    eng.run()
+    return [list(h.tokens) for h in handles]
+
+
+def fleet_submit(fleet, prompts, new=FLEET_NEW):
+    return [fleet.submit([int(t) for t in p], new) for p in prompts]
+
+
+def fleet_until(fleet, done, what, sleep_s=0.0):
+    """Step ``fleet`` until ``done()``; raises at the deadline."""
+    deadline = time.monotonic() + FLEET_DEADLINE_S
+    while not done():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{what}: the fleet did not get there in "
+                               f"{FLEET_DEADLINE_S:.0f} s")
+        fleet.step()
+        if sleep_s:
+            time.sleep(sleep_s)
+
+
+def fleet_fields(handles, wall):
+    """Tokens/s over the wall, TTFT p50/p99 on the router's clock."""
+    tokens = sum(len(h.tokens) for h in handles)
+    ttft = np.array([h.ttft_s for h in handles], dtype=np.float64)
+    return dict(requests=len(handles), tokens=tokens, wall_s=f"{wall:.4f}",
+                tokens_per_s=f"{tokens / wall:.2f}",
+                ttft_p50_s=f"{np.percentile(ttft, 50):.5f}",
+                ttft_p99_s=f"{np.percentile(ttft, 99):.5f}")
+
+
+def check_fleet_streams(what, handles, want, prompts, oracle, n=FLEET_NEW):
+    """Every handle FINISHED, its stream token-equal to the oracle's unless
+    a tie (the oracle's top-2 margin below 1e-3 at the divergence)."""
+    for i, h in enumerate(handles):
+        if h.state.value != "finished":
+            raise RuntimeError(f"{what} {i}: {h.state} {h.finish_reason}")
+    return check_streams(what, [h.tokens for h in handles], want, prompts,
+                         oracle.model, n)
+
+
+def census_ones(what, counts):
+    if not counts or set(counts.values()) != {1}:
+        raise RuntimeError(f"{what}: compile_counts {counts}, want all 1")
+
+
+def phase_fleet_local(oracle, prompts, want):
+    """Phase 38k. Returns K4's launches: the wave's and the chain pull's."""
+    reps = [LocalReplica(i, lambda: build_engine(FLEET_CFG))
+            for i in range(2)]
+    fleet = FleetRouter(reps, **FLEET_ROUTER)
+    fleet.warmup()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = fleet_submit(fleet, prompts)
+    fleet_until(fleet, lambda: not fleet.has_work, "fleet_local wave")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    engines = {s.replica_id: s.driver.engine for s in fleet.replicas}
+    for eng in engines.values():
+        if eng.telemetry.total_appended > eng.telemetry.capacity:
+            raise RuntimeError("telemetry ring wrapped; ticks undercounted")
+    ticks = {r: sum(1 for rec in e.telemetry.snapshot() if rec["live_slots"])
+             for r, e in engines.items()}
+    depth = FLEET_CFG["depth"]
+    check_launches("fleet_local wave", launches,
+                   paged_decode=depth * sum(ticks.values()))
+    routed = {r: sum(h.replica_id == r for h in handles) for r in engines}
+    if min(routed.values()) == 0:
+        raise RuntimeError(f"fleet_local: one replica served nothing: "
+                           f"{routed}")
+    exact, ties = check_fleet_streams("fleet_local request", handles, want,
+                                      prompts, oracle)
+    census_ones("fleet_local", fleet.compile_counts())
+    phase("fleet_local", card=SMI, model="GPT_Small_f32", replicas=2,
+          in_process=True, **fleet_fields(handles, wall),
+          routed="/".join(str(routed[r]) for r in sorted(routed)),
+          ticks="/".join(str(ticks[r]) for r in sorted(ticks)),
+          paged_decode_launches=launches["paged_decode"],
+          token_exact=exact, ties=ties,
+          migrations=fleet.metrics.requests_migrated)
+    # One chain pull: a new prefix, cached where the router put it, is
+    # exported there and imported into the other replica's host tier;
+    # the next request for it there promotes it.
+    rng = np.random.RandomState(11)
+    shared = rng.randint(0, GPT_VOCAB, 256)
+    first, second = (np.concatenate([shared, rng.randint(0, GPT_VOCAB, 128)])
+                     for _ in range(2))
+    (h1,) = fleet_submit(fleet, [first])
+    fleet_until(fleet, lambda: h1.done, "fleet_local chain source")
+    src = next(s for s in fleet.replicas if s.replica_id == h1.replica_id)
+    dst = next(s for s in fleet.replicas if s is not src)
+    t0 = time.perf_counter()
+    entry = src.driver.export_chain([int(t) for t in second])
+    t1 = time.perf_counter()
+    stored = dst.driver.import_chain(entry)
+    t2 = time.perf_counter()
+    blocks = len(shared) // 8
+    if entry is None or stored != blocks:
+        raise RuntimeError(f"chain pull: {stored} blocks stored, want "
+                           f"{blocks}")
+    kv_bytes = sum(len(base64.b64decode(leaf["b64"]))
+                   for block in entry["blocks"] for leaf in block.values())
+    wire_bytes = len(json.dumps(entry))
+    eng = dst.driver.engine
+    promoted0 = eng.metrics.host_tier_promotions
+    before = eng.telemetry.total_appended
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    h2 = eng.submit([int(t) for t in second], FLEET_NEW)
+    eng.run()
+    torch.cuda.synchronize()
+    pull_launches = dict(_kernels.launch_counts)
+    pull_ticks = sum(1 for rec in eng.telemetry.snapshot()[
+        before - eng.telemetry.total_appended:] if rec["live_slots"])
+    check_launches("fleet_local chain pull", pull_launches,
+                   paged_decode=depth * pull_ticks)
+    promoted = eng.metrics.host_tier_promotions - promoted0
+    if promoted < blocks:
+        raise RuntimeError(f"chain pull: {promoted} blocks promoted, want "
+                           f">= {blocks}")
+    exact2, ties2 = check_streams(
+        "fleet_local chain pull", [h2.tokens],
+        oracle_streams(oracle, [second]), [second], oracle.model, FLEET_NEW)
+    phase("fleet_chain_pull", card=SMI, model="GPT_Small_f32",
+          from_replica=src.replica_id, to_replica=dst.replica_id,
+          blocks=stored, kv_bytes=kv_bytes, wire_bytes=wire_bytes,
+          export_ms=f"{1e3 * (t1 - t0):.3f}",
+          import_ms=f"{1e3 * (t2 - t1):.3f}",
+          kv_gb_per_s=f"{kv_bytes / (t2 - t0) / 1e9:.4f}",
+          promoted_blocks=promoted, ticks=pull_ticks,
+          paged_decode_launches=pull_launches["paged_decode"],
+          token_exact=exact2, ties=ties2)
+    fleet.close()
+    return launches["paged_decode"] + pull_launches["paged_decode"]
+
+
+def spawn_workers(ids):
+    """Port worker processes of the fleet's configuration on the card,
+    started together; returns them ready, with the spawn-to-ready wall."""
+    t0 = time.perf_counter()
+    reps = [ProcessReplica(i, dict(FLEET_CFG, replica_id=i),
+                           python=sys.executable, wait_ready=False,
+                           ready_timeout_s=FLEET_READY_S) for i in ids]
+    try:
+        for rep in reps:
+            rep.wait_ready()
+    except BaseException:
+        for rep in reps:
+            rep.kill()
+            rep.close()
+        raise
+    for rep in reps:
+        census_ones(f"worker {rep.replica_id} ready",
+                    rep.ready_compile_counts)
+    return reps, time.perf_counter() - t0
+
+
+def phase_fleet_process(oracle, prompts, want):
+    """Phase 38l: two worker processes time-sharing the card."""
+    workers = []
+    try:
+        # Six workers start together: the fleet's two, the SIGKILL leg's
+        # replacement, and the campaign's first partner and two fresh
+        # workers for its recovered router (started here, they are ready
+        # when the crash comes: a warm pool, not a cold spawn).
+        reps, spawn_s = spawn_workers((0, 1, 2, 3, 20, 21))
+        workers += reps
+        fleet = FleetRouter(reps[:2], **FLEET_ROUTER)
+        t0 = time.perf_counter()
+        handles = fleet_submit(fleet, prompts)
+        fleet_until(fleet, lambda: not fleet.has_work, "fleet_process wave",
+                    sleep_s=0.0005)
+        wall = time.perf_counter() - t0
+        exact, ties = check_fleet_streams("fleet_process request", handles,
+                                          want, prompts, oracle)
+        census_ones("fleet_process wave", fleet.compile_counts())
+        phase("fleet_process", card=SMI, leg="wave", model="GPT_Small_f32",
+              processes=2, sharing="one card", spawn_to_ready_s=(
+                  f"{spawn_s:.3f}"), workers_started=len(reps),
+              **fleet_fields(handles, wall), token_exact=exact, ties=ties)
+        # SIGTERM one worker mid-wave: its snapshot restores on the other.
+        part = prompts[:8]
+        handles = fleet_submit(fleet, part)
+        fleet_until(fleet, lambda: sum(len(h.tokens) for h in handles) >= 24,
+                    "fleet_process drain leg", sleep_s=0.0005)
+        victim = max(fleet.replicas, key=lambda s: s.load)
+        moved = [h for h in handles
+                 if h.replica_id == victim.replica_id and not h.done]
+        t0 = time.perf_counter()
+        migrated = fleet.scale_down(victim.replica_id)
+        t1 = time.perf_counter()
+        # The capture applied the victim's last events; the first token
+        # after it comes from the survivor.
+        resumed = [(h, len(h.tokens)) for h in moved if not h.done]
+        fleet_until(fleet, lambda: not resumed or any(
+            len(h.tokens) > n for h, n in resumed),
+                    "fleet_process restore", sleep_s=0.0005)
+        t2 = time.perf_counter()
+        fleet_until(fleet, lambda: not fleet.has_work,
+                    "fleet_process drain leg", sleep_s=0.0005)
+        if not moved or migrated < len(moved) \
+                or fleet.metrics.migrated_via_drain < 1:
+            raise RuntimeError(f"drain leg: {migrated} migrated of "
+                               f"{len(moved)} in flight")
+        exact, ties = check_fleet_streams("fleet_process drained", handles,
+                                          want[:8], part, oracle)
+        phase("fleet_process", card=SMI, leg="sigterm_drain",
+              victim=victim.replica_id, in_flight=len(moved),
+              migrated=migrated, drain_ms=f"{1e3 * (t1 - t0):.3f}",
+              restore_to_first_token_s=(f"{t2 - t1:.4f}" if resumed
+                                        else "none left running"),
+              via_drain=fleet.metrics.migrated_via_drain,
+              token_exact=exact, ties=ties)
+        # SIGKILL one worker mid-wave: its streams replay from the
+        # router's mirrors on the survivor.
+        fleet.scale_up(reps[2])
+        part = prompts[8:16]
+        handles = fleet_submit(fleet, part)
+        fleet_until(fleet, lambda: sum(len(h.tokens) for h in handles) >= 24,
+                    "fleet_process kill leg", sleep_s=0.0005)
+        victim = max(fleet.replicas, key=lambda s: s.load)
+        victim.driver.kill()
+        fleet_until(fleet, lambda: not fleet.has_work,
+                    "fleet_process kill leg", sleep_s=0.0005)
+        replays = fleet.metrics.migrated_via_replay
+        if fleet.metrics.replica_down_events < 1 or replays < 1:
+            raise RuntimeError("kill leg: no replica death or no replay")
+        exact, ties = check_fleet_streams("fleet_process killed", handles,
+                                          want[8:16], part, oracle)
+        survivor = next(s for s in fleet.replicas if s is not victim)
+        census_ones("fleet_process survivor",
+                    survivor.driver.compile_counts())
+        phase("fleet_process", card=SMI, leg="sigkill_replay",
+              victim=victim.replica_id, replays=replays,
+              replica_down_events=fleet.metrics.replica_down_events,
+              token_exact=exact, ties=ties)
+        fleet_campaign(oracle, [survivor.driver, reps[3]], reps[4:6])
+    finally:
+        for rep in workers:
+            rep.kill()
+            rep.close()
+
+
+def fleet_campaign(oracle, first, fresh):
+    """One chaos campaign over two workers (``first``): a storage storm, a
+    hard kill and a router crash recovered from the journal over two
+    fresh, ready workers (``fresh``); the referee's invariants all hold,
+    its streams exact."""
+    pools = [list(first), list(fresh)]
+
+    def make_replicas():
+        if not pools:
+            raise RuntimeError("fleet campaign: a second router crash")
+        return pools.pop(0)
+
+    def make_chaos(fleet):
+        return [ReplicaChaos(replica_id=int(s.replica_id),
+                             slow_fn=s.driver.set_tick_delay,
+                             kill_fn=s.driver.kill)
+                for s in fleet.replicas]
+
+    rng = np.random.RandomState(13)
+    workload = [(rng.randint(0, GPT_VOCAB, 64), 8) for _ in range(4)]
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        cond = ChaosConductor(
+            make_replicas, make_chaos,
+            lambda p, n: oracle_streams(oracle, [p], n)[0],
+            journal_dir=os.path.join(tmp, "wal"),
+            storage_plan=StorageFaultPlan(seed=0),
+            router_kw=dict(FLEET_ROUTER),
+            journal_kw=dict(fsync_batch_records=2, retry_limit=1,
+                            retry_backoff_s=0.0, rearm_interval_s=0.0,
+                            sleep_fn=lambda _: None),
+            recovery_bound_s=FLEET_DEADLINE_S, seed=0)
+        t0 = time.perf_counter()
+        report = cond.run(workload, planes=("storage", "kill", "router"),
+                          horizon=20, kills=1, pace_s=0.01,
+                          max_wall_s=FLEET_DEADLINE_S)
+        wall = time.perf_counter() - t0
+    kinds = [a.kind for a in report.actions]
+    if not report.ok or len(kinds) < 3 or "router_crash" not in kinds:
+        raise RuntimeError(f"fleet campaign: actions {kinds}, violations "
+                           f"{report.violations}")
+    phase("fleet_process", card=SMI, leg="campaign", actions=",".join(kinds),
+          invariants=",".join(f"{k}={v}" for k, v in
+                              sorted(report.invariants.items())),
+          recovery_s=f"{report.recovery_s:.3f}", steps=report.steps,
+          storage_injected=report.injected.get("storage", 0),
+          wall_s=f"{wall:.3f}")
+
+
+def phase_fleet():
+    """Phases 38k and 38l over one oracle and the serve wave's prompts.
+    Returns K4's launches in the in-process fleet."""
+    oracle = fleet_oracle()
+    prompts = serve_prompts(GPT_VOCAB)
+    t0 = time.perf_counter()
+    want = oracle_streams(oracle, prompts)
+    phase("fleet_oracle", card=SMI, model="GPT_Small_f32",
+          requests=len(prompts), new=FLEET_NEW,
+          wall_s=f"{time.perf_counter() - t0:.4f}")
+    launches = phase_fleet_local(oracle, prompts, want)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_fleet_process(oracle, prompts, want)
+    return launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -7245,7 +7631,8 @@ def main(argv=None) -> int:
         rank, port, out_dir = args.sp_pp_gloo2_child
         sp_pp_gloo2_child(int(rank), int(port), out_dir)
         return 0
-    smi = device_line()
+    global SMI
+    smi = SMI = device_line()
     print(smi, flush=True)
     phase("device", name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
@@ -7375,6 +7762,10 @@ def main(argv=None) -> int:
           seconds=f"{time.perf_counter() - t0:.2f}")
     gpt_parity_launches = phase_gpt_parity()
     gpt_serve_launches = phase_gpt_serve()
+    t0 = time.perf_counter()
+    fleet_launches = phase_fleet()
+    phase("phase_seconds", name="fleet",
+          seconds=f"{time.perf_counter() - t0:.2f}")
     gpt_train_launches = phase_gpt_train()
     int8_serve_launches = phase_int8_serve()
     int8_parity_launches = phase_int8_parity()
@@ -7421,6 +7812,7 @@ def main(argv=None) -> int:
         "engine_spec_serve_draft": spec_serve_launches["paged_decode"],
         "engine_tenant_serve": tenant_serve_launches["paged_decode"],
         "gpt_serve": gpt_serve_launches["paged_decode"],
+        "fleet_local": fleet_launches,
         **{f"int8_serve_{name}": launches["paged_decode"]
            for name, launches in int8_serve_launches.items()},
         "engine_fault_serve": fault_serve_launches["paged_decode"],

@@ -79,7 +79,7 @@ def run_once(tree: pathlib.Path) -> tuple:
         raise RuntimeError(f"K4 run of {tree} failed:\n{proc.stderr[-4000:]}")
     result = json.loads(next(line for line in proc.stdout.splitlines()
                              if line.startswith("RESULT "))[7:])
-    return result, ptxas_report(proc.stdout)
+    return result, ptxas_report(proc.stderr)
 
 
 def main(argv=None) -> int:

@@ -175,9 +175,8 @@ class NullTracer:
         """Engine drained (snapshot taken)."""
 
     def on_fleet_event(self, name: str, **attrs) -> None:
-        """A fleet-router lifecycle event (the JAX package's
-        ``serve/fleet/router.py``; the port's fleet is ROADMAP.md queue 1
-        item 8): replica_up/replica_down, circuit transitions, migration,
+        """A fleet-router lifecycle event (``serve/fleet/router.py``):
+        replica_up/replica_down, circuit transitions, migration,
         shed, heartbeat_missed, orphaned, probe_failed. One generic hook —
         the event vocabulary belongs to the router, the transport (and
         the no-op discipline) to the tracer."""

@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -106,7 +107,8 @@ def build(names: Optional[Iterable[str]] = None,
             errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         if log.strip():
-            print(f"[nvcc {name}]\n{log.rstrip()}")
+            # To stderr: a fleet worker's stdout carries its protocol only.
+            print(f"[nvcc {name}]\n{log.rstrip()}", file=sys.stderr)
         os.replace(tmp, lib)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))

@@ -17,8 +17,9 @@ leaves the old snapshot or the new one, never a torn file.
 
 The wire format is the JAX package's, byte for byte: a snapshot either
 package drains restores into the other, in either engine mode, and the
-JAX package's fleet migrates streams over it (ROADMAP.md queue 1 item 8
-ports the fleet, and with it the prefix-chain wire entries).
+JAX package's fleet and the port's (``serve/fleet/``) migrate streams over
+it. :func:`kv_chain_to_wire` / :func:`kv_chain_from_wire` are the
+fleet's prefix-chain entries, byte for byte the JAX package's too.
 
 Versions: v2 added each entry's ``priority`` (v1 entries restore as
 ``interactive``); v3 the header's ``paged`` and each running entry's
@@ -35,6 +36,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Dict, List
+
+import torch
 
 from pddl_tpu_torch.serve.request import (
     Priority,
@@ -135,6 +138,78 @@ def decode_handle(entry: Dict[str, object], now_s: float) -> RequestHandle:
     handle.spec_accepted = int(spec.get("accepted", 0))
     handle.state = RequestState.QUEUED
     return handle
+
+
+# Wire dtype names (numpy's, as the JAX package writes them) of the
+# torch dtypes a K/V leaf may have.
+_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16"}
+_TORCH_DTYPES = {name: dt for dt, name in _WIRE_DTYPES.items()}
+
+
+def _leaf_bytes(arr) -> bytes:
+    """A CPU tensor's (or numpy array's) raw row-major bytes; a 16-bit
+    float goes through its int16 view (numpy has no bfloat16)."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu().contiguous()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.view(torch.int16)
+        return t.numpy().tobytes()
+    import numpy as np  # noqa: PLC0415
+
+    return np.ascontiguousarray(arr).tobytes()
+
+
+def _leaf_dtype(arr) -> str:
+    if isinstance(arr, torch.Tensor):
+        return _WIRE_DTYPES[arr.dtype]
+    return str(arr.dtype)
+
+
+def kv_chain_to_wire(tokens: List[int], blocks) -> Dict[str, object]:
+    """The replica-to-replica prefix-transfer wire entry: a cached
+    chain's token ids plus each block's per-leaf K/V payload, JSON-safe
+    (raw bytes base64'd with shape and numpy dtype name), riding the same
+    JSON-line transports the drain snapshot rides. Not a snapshot entry
+    (chains are cache contents, not requests), so it leaves the versioned
+    entry manifest alone. Byte for byte the JAX package's entry for the
+    same tokens and blocks (CPU tensors, or numpy arrays)."""
+    import base64  # noqa: PLC0415
+
+    return {
+        "tokens": [int(t) for t in tokens],
+        "blocks": [
+            {key: {"shape": list(arr.shape), "dtype": _leaf_dtype(arr),
+                   "b64": base64.b64encode(_leaf_bytes(arr)).decode()}
+             for key, arr in block.items()}
+            for block in blocks],
+    }
+
+
+def kv_chain_from_wire(entry: Dict[str, object]):
+    """Decode :func:`kv_chain_to_wire`: ``(tokens, blocks)`` with each
+    block a ``{leaf_key: CPU tensor}`` dict, shape and dtype restored
+    verbatim. Validation is the importer's job (the engine's host tier
+    checks every payload against its own leaf spec and refuses a
+    mismatch, so a chain of another configuration imports nothing); a
+    dtype name no K/V leaf has raises ``ValueError``."""
+    import base64  # noqa: PLC0415
+
+    tokens = [int(t) for t in entry.get("tokens", [])]
+    blocks = []
+    for block in entry.get("blocks", []):
+        decoded = {}
+        for key, leaf in block.items():
+            dtype = _TORCH_DTYPES.get(leaf["dtype"])
+            if dtype is None:
+                raise ValueError(
+                    f"chain leaf {key!r} has dtype {leaf['dtype']!r}; "
+                    f"K/V leaves are one of {sorted(_TORCH_DTYPES)}")
+            raw = bytearray(base64.b64decode(leaf["b64"]))
+            decoded[key] = torch.frombuffer(raw, dtype=dtype).reshape(
+                [int(s) for s in leaf["shape"]])
+        blocks.append(decoded)
+    return tokens, blocks
 
 
 def save_snapshot(snapshot: Dict[str, object], path: str) -> None:

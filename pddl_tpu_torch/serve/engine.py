@@ -143,10 +143,32 @@ points with the same arguments, every argument a host scalar the engine
 already holds; the default :data:`~pddl_tpu_torch.obs.trace.NULL_TRACER`
 costs one no-op call a hook and allocates nothing.
 
-PyTorch runs eagerly, so the JAX engine's fixed compiled-program set
-(its ``warmup`` and ``compile_counts``) has no counterpart here; its
-fleet-worker methods (``export_prefix_chain``/``import_prefix_chain``)
-come with the fleet (ROADMAP.md queue 1 item 8).
+Warmup and the program census: PyTorch compiles nothing, but the JAX
+engine's contract stays. :meth:`ServeEngine.warmup` runs one dummy
+admission into slot 0 and one tick with every slot dead, so every site
+runs once with its serving shapes and every kernel the engine will launch
+is built and loaded (K4 on a paged engine) before traffic; it leaves no
+trace (the radix index empty, no slot taken, the metrics, the telemetry,
+the fault plan and the sampling generator as they were; junk K/V lands at
+parked positions or in the scratch sink) and ``step()`` calls it
+implicitly. :meth:`ServeEngine.compile_counts` has the JAX engine's keys
+for the same configuration, and each value is a count the engine
+measures: the number of distinct signatures (shapes and dtypes) of the
+tensor inputs the site's JAX program takes that the site was entered
+with since construction. It reads 1 after warmup on a shape-closed
+engine, so "zero recompiles after warmup" means the same thing in both
+packages: no new program shape. Host values are not shapes: block-id
+lists (the JAX programs take them padded to a fixed width), offsets,
+lengths, the tick's ``max_index`` bound, and a tenant engine's optional
+mask and adapter-row inputs (one shape each when present).
+
+Cross-replica prefix transfer (the fleet's chain pulls,
+``serve/fleet/``): :meth:`ServeEngine.export_prefix_chain` reads the
+longest cached chain for a prompt (the device match, pinned for the read,
+then host-tier blocks extending it) as a ``serve/drain.py`` chain wire
+entry; :meth:`ServeEngine.import_prefix_chain` stores a decoded chain in
+the host tier, block by block, and the next admission promotes it
+through the ``host_promote`` site like a locally spilled chain.
 """
 
 from __future__ import annotations
@@ -217,6 +239,22 @@ def _zero(tree: dict) -> None:
     """Zero every K/V leaf of a cache or pool tree in place."""
     for _, leaf in kv_leaf_items(tree):
         leaf.zero_()
+
+
+def _signature(x):
+    """The shapes and dtypes of the tensors and arrays in ``x`` (nested
+    through dicts, lists and tuples); host values (ints, floats, block-id
+    lists, ``None``, other objects) contribute ``None``."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    if isinstance(x, np.ndarray):
+        return x.shape, x.dtype.str
+    if isinstance(x, dict):
+        return tuple((k, _signature(v)) for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        sig = tuple(_signature(v) for v in x)
+        return sig if any(v is not None for v in sig) else None
+    return None
 
 
 class _SlotStateLost(RuntimeError):
@@ -438,6 +476,10 @@ class ServeEngine:
         self._drain_path: Optional[str] = None
         self._snapshot: Optional[dict] = None
         self._prev_handlers: Dict[int, object] = {}
+        # The program census (:meth:`compile_counts`): each site's
+        # distinct input signatures since construction.
+        self._warm = False
+        self._site_sigs: Dict[str, set] = {}
 
         bs = int(prefix_block_size)
         if bs < 1:
@@ -1178,6 +1220,7 @@ class ServeEngine:
             try:
                 if self._faults is not None:
                     self._faults.check(site)
+                self._note_signature(site, args)
                 t0 = time.perf_counter()
                 out = fn(*args)
                 # Host wall time of the call (an asynchronous launch's
@@ -1208,6 +1251,161 @@ class ServeEngine:
                 self._tracer.on_retry(self._cur_step, site, attempt)
                 self._backoff_sleep(
                     self._retry_backoff_s * (2 ** (attempt - 1)))
+
+    def _note_signature(self, site: str, args) -> None:
+        """Count the input signature ``site`` is entered with (the
+        census :meth:`compile_counts` reads). The tick reads its inputs
+        from the engine, so its signature is taken over them; the verify
+        leaves out the tenant engine's optional masks and adapter rows."""
+        if site == "tick":
+            args = (self._cache, self._positions, self._tables,
+                    self._tokens, self._temps, self._top_ks, self._top_ps)
+        elif site == "verify":
+            args = (self._cache,) + tuple(args[:5])
+        self._site_sigs.setdefault(site, set()).add(_signature(args))
+
+    def _izeros(self, *shape) -> torch.Tensor:
+        """An int32 zero tensor on the engine's device (warmup's dummy
+        tokens, tables, positions and caps)."""
+        return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+    def _warm_call(self, site: str, fn, *args):
+        """One warmup call: counted in the census, outside the fault
+        plan, the retries and the per-site wall (warmup is not traffic)."""
+        self._note_signature(site, args)
+        return fn(*args)
+
+    @torch.no_grad()
+    def warmup(self) -> None:
+        """Run every site once with its serving shapes before traffic, so
+        every kernel the engine will launch is built and loaded (K4
+        through ``ops/_kernels.py`` on a paged engine, on the card): one
+        dummy admission into slot 0 and one tick with every slot dead.
+        No trace is left: the junk K/V lands at parked positions (row
+        mode: the slot insert overwrites whole rows) or in the scratch
+        sink (paged: all-scratch tables); the dummy gather and donation
+        use only the scratch block, so the radix index stays empty and
+        no slot is taken; the metrics, the telemetry, the tracer and the
+        fault plan are not touched, and the sampling generator's state is
+        put back. Idempotent; :meth:`step` calls it implicitly."""
+        if self._warm:
+            return
+        rng_state = self._rng.get_state()
+        zeros = self._izeros
+        if self._tenant_on:
+            # The identity row takes zeros: its content is unchanged.
+            self._warm_call(
+                "adapter_load", adapter_pool_load, self._apool_a,
+                self._apool_b, 0,
+                torch.zeros((self.model.embed_dim, self._registry.rank)),
+                torch.zeros((self._registry.rank, self.model.vocab_size)))
+        if self._paged:
+            t1 = zeros(1, self._table_width)
+            _, logits, _ = self._warm_call(
+                "chunk_prefill", prefill_row_features, self.model,
+                zeros(1, self._chunk), 1, self._cache, 0, t1)
+            if self._has_wide:
+                _, logits, _ = self._warm_call(
+                    "chunk_prefill_wide", prefill_row_features, self.model,
+                    zeros(1, self.prefill_len), 1, self._cache, 0, t1)
+            if self._host is not None:
+                self._warm_call(
+                    "host_promote", self._promote_rows,
+                    self._assemble_promote_rows([]),
+                    np.zeros(self._match_cap, np.int64))
+        elif self._prefix_on:
+            scratch = [0] * self._match_cap
+            self._warm_call("gather", gather_prefix_into_row, self._pool,
+                            self._row, scratch)
+            _, logits, _ = self._warm_call(
+                "chunk_prefill", prefill_row_features, self.model,
+                zeros(1, self._chunk), 1, self._row, 0, None)
+            if self._has_wide:
+                _, logits, _ = self._warm_call(
+                    "chunk_prefill_wide", prefill_row_features, self.model,
+                    zeros(1, self.prefill_len), 1, self._row, 0, None)
+            self._warm_call("donate", donate_prefix_blocks, self._pool,
+                            self._row, [0] * self._donate_cap, 0)
+            if self._host is not None:
+                self._warm_call(
+                    "host_promote", self._promote_rows,
+                    self._assemble_promote_rows([]),
+                    np.zeros(self._match_cap, np.int64))
+            self._warm_call("insert", insert_cache_slot, self._cache,
+                            self._row, 0)
+        else:
+            row, logits, _ = self._warm_call(
+                "prefill", prefill_row_features, self.model,
+                zeros(1, self.prefill_len), 1)
+            self._warm_call("insert", insert_cache_slot, self._cache, row, 0)
+        self._warm_call("sample_first", self._sample_first, logits, None,
+                        0.0, 0, 2.0)
+        if self._spec_on:
+            self._warm_spec()
+        else:
+            self._warm_call("tick", self._tick)
+        self._rng.set_state(rng_state)
+        self._warm = True
+
+    def _warm_spec(self) -> None:
+        """The draft/verify pair (and the draft model's admission chunk)
+        with all-dead inputs: caps 0 and forced -1 accept nothing, and the
+        junk writes land at parked positions or in the scratch sink."""
+        s, k = self.max_slots, self._spec_k
+        forced_tok = np.zeros((s, k), np.int32)
+        forced_n = np.full(s, -1, np.int32)
+        zeros = self._izeros
+        table = zeros(s, self._table_width) if self._paged else None
+        if self._draft_on:
+            self._warm_call("draft_prefill", self._draft_chunk,
+                            zeros(1, self._chunk), 0,
+                            zeros(1, self._table_width))
+        self._warm_call("draft", self._draft_tokens, zeros(s), zeros(s, 1),
+                        table, forced_tok, forced_n)
+        self._warm_call("verify", self._verify, zeros(s, k + 1), zeros(s),
+                        table, zeros(s), zeros(s) - 1, None, None)
+
+    def compile_counts(self) -> Dict[str, int]:
+        """The program census, with the JAX engine's keys for this
+        configuration: per site, the number of distinct input signatures
+        (the shapes and dtypes of the tensors its JAX program takes) it
+        was entered with since construction. Every entry reads 1 after
+        :meth:`warmup` and stays there on a shape-closed engine: the
+        zero-recompiles-after-warmup contract."""
+        return {site: len(self._site_sigs.get(site, ()))
+                for site in self._program_sites()}
+
+    def _program_sites(self) -> List[str]:
+        """The JAX engine's resident programs in this configuration."""
+        if self._paged:
+            sites = ["sample_first", "chunk_prefill"]
+            if self._spec_on:
+                sites += ["verify", "draft"]
+                if self._draft_on:
+                    sites.append("draft_prefill")
+            else:
+                sites.append("tick")
+            if self._has_wide:
+                sites.append("chunk_prefill_wide")
+            if self._tenant_on:
+                sites.append("adapter_load")
+            if self._host is not None:
+                sites.append("host_promote")
+            return sites
+        sites = ["insert", "sample_first"]
+        sites += ["verify", "draft"] if self._spec_on else ["tick"]
+        if self._tenant_on:
+            sites.append("adapter_load")
+        if self._prefix_on:
+            sites += ["gather", "chunk_prefill"]
+            if self._has_wide:
+                sites.append("chunk_prefill_wide")
+            sites.append("donate")
+            if self._host is not None:
+                sites.append("host_promote")
+        else:
+            sites.append("prefill")
+        return sites
 
     def _enter_degraded(self) -> None:
         """OOM response: flush every unpinned prefix block from the index
@@ -2570,6 +2768,7 @@ class ServeEngine:
             self.drain(self._drain_path)
         if self._drained:
             return 0
+        self.warmup()
         cur = self._step_idx
         self._cur_step = cur
         if self._faults is not None:
@@ -2740,3 +2939,77 @@ class ServeEngine:
         for h in handles:
             self._tracer.on_restored(h, len(h.tokens))
         return handles
+
+    # ------------------------------------------- cross-replica transfer
+    def export_prefix_chain(self, tokens, max_blocks: Optional[int] = None):
+        """The replica-to-replica prefix-transfer EXPORT: the longest
+        cached chain for ``tokens`` — the device radix match first (read
+        to the host in one gather and one copy, the read demotion uses,
+        pinned for exactly the read), host-tier blocks extending it —
+        as a ``serve/drain.py`` chain wire entry. ``None`` when nothing
+        is cached, the prefix machinery or the HOST TIER is off (a
+        tier-less replica could not receive a peer's chain either:
+        exporting is a tiered-fleet feature), or the engine is degraded
+        (exporting from a shed cache would race the flush) or drained."""
+        if (not self._prefix_on or self._host is None
+                or self._degraded or self._drained):
+            return None
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        cap = self._match_blocks(tokens)
+        if max_blocks is not None:
+            cap = min(cap, int(max_blocks))
+        if cap < 1:
+            return None
+        match = self._prefix.match(tokens, max_blocks=cap)
+        m = match.n_blocks
+        blocks: List[Dict[str, torch.Tensor]] = []
+        if m > 0:
+            self._prefix.pin(match.node)
+            try:
+                blocks = self._gather_blocks_host(match.block_ids)
+            except Exception as e:  # noqa: BLE001 - device faults only
+                if classify(e) is None:
+                    raise
+                blocks = []  # a failed read exports nothing
+            finally:
+                self._prefix.unpin(match.node)
+            if len(blocks) < m:
+                return None
+        if m < cap:  # the guard above made sure the tier is armed
+            tip = self._host.pin_chain(tokens, m, cap - m)
+            if tip is not None:
+                try:
+                    blocks.extend(self._host.chain_data(tip, tip.depth - m))
+                finally:
+                    self._host.unpin(tip)
+        if not blocks:
+            return None
+        bs = self.prefix_block_size
+        return drain_io.kv_chain_to_wire(
+            [int(t) for t in tokens[:len(blocks) * bs]], blocks)
+
+    def import_prefix_chain(self, entry) -> int:
+        """The transfer IMPORT: the decoded chain's blocks enter the HOST
+        TIER only (no device work on the routing path: the next admission
+        for the prefix promotes them through the budget-charged
+        ``host_promote`` site, as a locally spilled chain). A payload
+        failing this engine's leaf spec is refused block by block, and
+        the first refusal ends the import (a hole would end every deeper
+        block's promotability). Returns the blocks stored; 0 with the
+        tier off."""
+        if self._host is None:
+            return 0
+        tokens, blocks = drain_io.kv_chain_from_wire(entry)
+        bs = self.prefix_block_size
+        stored = 0
+        for j, data in enumerate(blocks):
+            chain = tokens[:(j + 1) * bs]
+            if len(chain) < (j + 1) * bs:
+                break
+            if self._host.has_block(chain):
+                continue
+            if not self._host.store(chain, data):
+                break
+            stored += 1
+            self.metrics.record_host_spill(self._host.bytes_resident)
+        return stored

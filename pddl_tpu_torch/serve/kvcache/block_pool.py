@@ -79,11 +79,16 @@ def _leaves(tree):
 
 
 def kv_leaf_items(tree: dict):
-    """``(key, leaf)`` for every K/V leaf of a cache or pool tree, in tree
-    order; ``key`` is the leaf's path (``"block0/attn/cached_key"``)."""
-    for blk, leaves in tree.items():
-        for name, leaf in leaves["attn"].items():
-            yield f"{blk}/attn/{name}", leaf
+    """``(key, leaf)`` for every K/V leaf of a cache or pool tree. ``key``
+    is the leaf's path in the JAX package's ``keystr`` form
+    (``"['block0']['attn']['cached_key']"``) and the items come in that
+    package's flattening order (sorted keys), so a host-tier payload, and
+    a prefix chain on the wire, carries the same keys in the same order
+    in both packages."""
+    return sorted(((f"['{blk}']['attn']['{name}']", leaf)
+                   for blk, leaves in tree.items()
+                   for name, leaf in leaves["attn"].items()),
+                  key=lambda item: item[0])
 
 
 def _kv_pairs(pool: dict, row_cache: dict):

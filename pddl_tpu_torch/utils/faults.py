@@ -1,5 +1,7 @@
 """Seeded deterministic fault injection — the shared core (the port's own
-copy of :mod:`pddl_tpu.utils.faults`, the device-fault half).
+copy of :mod:`pddl_tpu.utils.faults`: the device faults, and the storage
+faults the fleet router's journal injects through its file-operation
+shim).
 
 A :class:`FaultPlan` hooks every guarded device-call boundary of a host
 loop (the serving engine's ``_device_call``) and fires transient errors,
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import errno
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -231,3 +234,173 @@ class FaultPlan:
         if kind is FaultKind.KILL:
             raise KillPoint(site, self.step_idx)
         self._sleep(self.latency_s)  # LATENCY: slow, not broken
+
+
+class StorageFaultKind(enum.Enum):
+    EIO = "eio"          # transient-or-persistent I/O error (``errno.EIO``)
+    ENOSPC = "enospc"    # disk full (``errno.ENOSPC``): reclaim, don't retry
+    TORN = "torn"        # write persists a prefix, then fails (power-cut model)
+    SLOW = "slow"        # slow fsync/write — the gray disk; nothing raised
+
+
+@dataclasses.dataclass(frozen=True)
+class StorageFaultSpec:
+    """One scheduled storage fault: fire ``kind`` on the next ``count``
+    invocations of file operation ``op``, starting at the ``seq``-th
+    call of that op (a per-op invocation counter, 0-based — the storage
+    analog of :class:`FaultSpec`'s ``(step, site)`` coordinate, because
+    a journal has no step clock of its own)."""
+
+    op: str
+    seq: int
+    kind: StorageFaultKind
+    count: int = 1
+
+
+class StorageFaultPlan:
+    """Seeded fault schedule over a journal's file-operation sites.
+
+    The storage sibling of :class:`FaultPlan`: same two deterministic
+    layers (explicit :class:`StorageFaultSpec` coordinates + per-call
+    Bernoulli rate draws from one seeded stream), but coordinates are
+    ``(op, seq)`` — the op name and its per-op invocation index —
+    because file ops have no host-loop step to hang a schedule on.
+
+    The consumer is a VFS shim (``journal._JournalVFS``) that calls
+    :meth:`check` immediately BEFORE each real ``os`` call:
+
+    - **EIO** raises ``OSError(errno.EIO)`` before the op runs — the
+      retryable class; persistent storms drive the journal into its
+      NON_DURABLE degraded mode.
+    - **ENOSPC** raises ``OSError(errno.ENOSPC)`` — not retried; the
+      journal's contract is to reclaim space (emergency checkpoint +
+      rotate) before writing again.
+    - **TORN** is *returned* to the shim rather than raised: only the
+      write path can model it (persist a prefix of the buffer, then
+      raise EIO), which is exactly the torn-tail shape
+      ``_readable_prefix_len`` truncates at recovery.
+    - **SLOW** sleeps ``slow_s`` and returns — the gray disk; fsync
+      deadlines and tick cadence must survive it.
+
+    :meth:`quiesce` clears rates and pending schedule in place — how a
+    test "repairs the disk" so re-arm probes can restore durability.
+    """
+
+    SITES: Tuple[str, ...] = ("open", "write", "fsync", "replace", "fstat")
+
+    def __init__(self, seed: int = 0, *, eio_rate: float = 0.0,
+                 enospc_rate: float = 0.0, torn_rate: float = 0.0,
+                 slow_rate: float = 0.0, slow_s: float = 0.005,
+                 ops: Optional[Sequence[str]] = None,
+                 scheduled: Sequence[StorageFaultSpec] = (),
+                 max_random_injections: Optional[int] = None,
+                 sleep_fn=time.sleep):
+        for name, rate in (("eio_rate", eio_rate),
+                           ("enospc_rate", enospc_rate),
+                           ("torn_rate", torn_rate),
+                           ("slow_rate", slow_rate)):
+            if not 0.0 <= rate <= 1.0:
+                raise ValueError(f"{name} must be in [0, 1], got {rate}")
+        if eio_rate + enospc_rate + torn_rate + slow_rate > 1.0:
+            raise ValueError("storage fault rates must sum to <= 1")
+        if ops is not None:
+            unknown = set(ops) - set(self.SITES)
+            if unknown:
+                raise ValueError(
+                    f"unknown storage op(s) {sorted(unknown)}; valid ops "
+                    f"are {self.SITES}")
+        for spec in scheduled:
+            if spec.op not in self.SITES:
+                raise ValueError(
+                    f"unknown scheduled op {spec.op!r}; valid ops are "
+                    f"{self.SITES}")
+            if spec.seq < 0:
+                raise ValueError(f"StorageFaultSpec.seq must be >= 0: {spec}")
+            if spec.count < 1:
+                raise ValueError(
+                    f"StorageFaultSpec.count must be >= 1: {spec}")
+        self.seed = int(seed)
+        self._rng = np.random.default_rng(seed)
+        self._rates = (float(eio_rate), float(enospc_rate),
+                       float(torn_rate), float(slow_rate))
+        self.slow_s = float(slow_s)
+        self._ops = frozenset(ops) if ops is not None else None
+        self._sched: Dict[Tuple[str, int], List[StorageFaultKind]] = {}
+        for spec in scheduled:
+            for i in range(spec.count):
+                self._sched.setdefault((spec.op, spec.seq + i), []).append(
+                    spec.kind)
+        self._max_random = max_random_injections
+        self._random_fired = 0
+        self._sleep = sleep_fn
+        # Per-op invocation counters: the ``seq`` axis of the schedule.
+        self.calls: Dict[str, int] = {op: 0 for op in self.SITES}
+        self.injected: Dict[StorageFaultKind, int] = {
+            k: 0 for k in StorageFaultKind}
+        # Observer ``fn(seq, op, kind_value)``, mirroring FaultPlan's
+        # ``on_inject`` so injections land in traces with coordinates.
+        self.on_inject = None
+
+    @property
+    def total_injected(self) -> int:
+        return sum(self.injected.values())
+
+    def quiesce(self) -> None:
+        """Repair the disk: clear rates and any pending schedule so
+        every later :meth:`check` passes (re-arm probes succeed)."""
+        self._rates = (0.0, 0.0, 0.0, 0.0)
+        self._sched.clear()
+
+    def check(self, op: str) -> Optional[StorageFaultKind]:
+        """Called by the VFS shim immediately before the real ``os``
+        op. Raises ``OSError`` (EIO/ENOSPC), sleeps (SLOW), or returns
+        :data:`StorageFaultKind.TORN` for the shim to half-write;
+        returns ``None`` when the op should proceed untouched."""
+        if op not in self.calls:
+            raise ValueError(
+                f"unknown storage op {op!r}; valid ops are {self.SITES}")
+        seq = self.calls[op]
+        self.calls[op] = seq + 1
+        pending = self._sched.get((op, seq))
+        if pending:
+            kind = pending.pop(0)
+            if not pending:
+                del self._sched[(op, seq)]
+            return self._fire(kind, op, seq)
+        e, n, t, s = self._rates
+        if e + n + t + s <= 0.0:
+            return None
+        if self._ops is not None and op not in self._ops:
+            return None
+        if (self._max_random is not None
+                and self._random_fired >= self._max_random):
+            return None
+        u = self._rng.random()
+        if u < e:
+            kind = StorageFaultKind.EIO
+        elif u < e + n:
+            kind = StorageFaultKind.ENOSPC
+        elif u < e + n + t:
+            kind = StorageFaultKind.TORN
+        elif u < e + n + t + s:
+            kind = StorageFaultKind.SLOW
+        else:
+            return None
+        self._random_fired += 1
+        return self._fire(kind, op, seq)
+
+    def _fire(self, kind: StorageFaultKind, op: str,
+              seq: int) -> Optional[StorageFaultKind]:
+        self.injected[kind] += 1
+        if self.on_inject is not None:
+            self.on_inject(seq, op, kind.value)
+        where = f"at op {op!r} seq {seq}"
+        if kind is StorageFaultKind.EIO:
+            raise OSError(errno.EIO, f"injected I/O error {where}")
+        if kind is StorageFaultKind.ENOSPC:
+            raise OSError(errno.ENOSPC,
+                          f"injected no-space-on-device {where}")
+        if kind is StorageFaultKind.TORN:
+            return kind  # the write path half-writes, then raises EIO
+        self._sleep(self.slow_s)  # SLOW: gray disk, not a broken one
+        return None

@@ -155,7 +155,7 @@ def test_row_writes_match_the_jax_cache():
     jcache = mut["cache"]
     with torch.no_grad():
         tm(torch.tensor(toks[:, :126]), cache=cache, cache_index=0)
-        for t in range(126, 140):  # wraps the 128-slot ring at t = 128
+        for t in range(126, 132):  # wraps the 128-slot ring at t = 128
             ref, mut = dec.apply({"params": params, "cache": jcache},
                                  jnp.asarray(toks[:, t:t + 1]), train=False,
                                  mutable=["cache"])

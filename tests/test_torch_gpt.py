@@ -103,15 +103,16 @@ def test_flash_matches_reference_through_model():
 
 @pytest.fixture(scope="module")
 def trained():
-    """One tiny GPT trained 6 epochs x 8 steps on the next-token task:
-    the first 3 epochs are `test_gpt_learns_next_token_task`'s run, all 6
-    `test_generate_continues_learned_sequence`'s."""
+    """One tiny GPT trained 3 epochs x 6 steps on the next-token task:
+    `test_gpt_learns_next_token_task`'s run and
+    `test_generate_continues_learned_sequence`'s (0.977 accurate by
+    then)."""
     ds = SyntheticLanguageModeling(batch_size=32, seq_len=32, vocab_size=16,
                                    seed=0)
     tr = Trainer(tiny_gpt(vocab_size=16, max_len=48, device="cpu"),
                  optimizer="adamw", learning_rate=3e-3, seed=0,
                  input_key="tokens", target_key="targets", device="cpu")
-    return ds, tr, tr.fit(ds, epochs=6, steps_per_epoch=8, verbose=0)
+    return ds, tr, tr.fit(ds, epochs=3, steps_per_epoch=6, verbose=0)
 
 
 def test_gpt_learns_next_token_task(trained):

@@ -92,3 +92,26 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels.build(["flash_fwd"])
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_build_log_goes_to_stderr_never_stdout(monkeypatch, tmp_path,
+                                               capfd):
+    """A fleet worker builds its kernels with stdout carrying its
+    protocol: a stand-in ``nvcc`` that chatters and writes the library
+    leaves stdout empty, and its log lands on stderr."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\n"
+                    "echo 'ptxas info : Used 42 registers'\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then shift; : > \"$1\"; fi\n"
+                    "  shift\n"
+                    "done\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(nvcc.parent))
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    out = _kernels.build(["paged_decode"])
+    assert out["paged_decode"].exists()
+    captured = capfd.readouterr()
+    assert captured.out == ""
+    assert "Used 42 registers" in captured.err

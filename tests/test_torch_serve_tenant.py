@@ -250,6 +250,10 @@ def test_base_slots_bitwise_equal_to_the_plain_engine(models, mode,
     assert not plain.tenant_enabled and plain.adapter_registry is None
     assert plain.adapter_pool_resident == 0
     logs = {"tenant": [], "plain": []}
+    # Warm both engines first: the record holds the traffic's sampling
+    # calls only (warmup's dummy admission and dead tick sample too).
+    tenant.warmup()
+    plain.warmup()
     _recording(monkeypatch, logs)
     for name, eng, extra in (
             ("tenant", tenant, [dict(adapter="globex"),
