@@ -26,7 +26,9 @@ NCCL, and two processes sharing the card over gloo), on
 int8 weights (Llama-1B and GPT-2-small served through
 ``param_transform=dequantize``), on ViT-S/16 (training), and under
 tensor, expert, sequence and pipeline parallelism (two processes sharing
-the card over gloo), and prints one line per phase:
+the card over gloo), and through the command line (``python -m
+pddl_tpu_torch``: ResNet-50 and Llama-1B) beside the TFRecord reader,
+and prints one line per phase:
 
 1. device — ``nvidia-smi``'s card name and power limit;
 2. build — every kernel compiled by ``nvcc``, one process per source, all
@@ -458,9 +460,34 @@ the card over gloo), and prints one line per phase:
     held; every stream token-exact against one in-process engine (the
     tie rule; the campaign's check is exact). Two processes sharing one
     card, not a multi-card fleet;
+38m. cli_resnet — the reference's ``imagenet-resnet50.py`` through the
+    command line: ``python -m pddl_tpu_torch --preset single --synthetic
+    --epochs 1 --steps-per-epoch 3`` as a process of its own (full
+    ResNet-50, 224 x 224, B 32, Adam, the reference's callbacks and
+    ``ModelSummary``; ``runpy`` runs the package's ``__main__`` with a
+    recorder appended to the callbacks): exit 0, three finite step
+    losses and a finite validation loss; the wall time from spawn, the
+    steady step time (steps 2-3, synchronized) and images/s;
+38n. cli_llama — full-width Llama-1B through ``run.main`` in this
+    process (``--model llama_1b --num-classes 128256 --seq-len 2048
+    --batch 4``, bf16 compute over f32 parameters, 3 steps and one
+    validation batch on a seeded byte corpus encoded by
+    ``encode_text_file``, ``--profile-dir``): K1 with its LSE and K2
+    exactly depth x steps launches, K1 without it depth (the validation
+    batch), K3a/K3b none; the first loss bitwise the first loss of a
+    ``Trainer`` built by hand from the same config and seed; the
+    profiler's trace names ``flash_fwd_mma_kernel`` and
+    ``flash_bwd_kv_mma_kernel``; step 2's tokens/s beside phase 10's;
+38o. tfrecord_native — the TFRecord reader's C++ (``data/csrc/
+    pddl_tfrecord.cpp``, built with the loader's library): 2,048 seeded
+    records of mixed lengths (zero-length ones among them) written by the
+    Python writer into four files and read back natively, sequentially,
+    in 4 shards and shuffled: byte-equal, disjoint and complete, a
+    permutation, the native CRC the Python one; the read's MB/s (warm
+    page cache);
 39. kernels — one JSON object: every ported kernel with its launches on
     its main paths (phases 7, 10, 11, 15i, 15k, 18, 21, 23, 26, 27, 28,
-    30, 30c, 32-34, 35-37, 38b, 38e and 38k;
+    30, 30c, 32-34, 35-37, 38b, 38e, 38k and 38n;
     K4's, K1's and K2's by path under ``launches_by_path``, the parity
     legs' included there for K4), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
@@ -515,6 +542,116 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# Phase 38m's child (``chip_smoke.py --cli-child OUT ARGV``): ``python -m
+# pddl_tpu_torch ARGV`` with a recorder appended. It runs here, before the
+# rest of the port is imported, so the child loads what the CLI loads and
+# the recorder's two modules besides.
+from pddl_tpu_torch.train.callbacks import Callback
+from pddl_tpu_torch.utils.profiling import StepTimer
+
+
+class CliRecorder(Callback):
+    """Appended to the CLI's callbacks (by wrapping ``run.build_trainer``):
+    each train step's loss, each epoch's logs, a :class:`StepTimer` over
+    the run's global batch (first step excluded, the device synchronized
+    at each step boundary) and the host seconds of each batch drawn from
+    the train iterable ``run.build_data`` returns (by wrapping it)."""
+
+    def __init__(self):
+        self.losses, self.epochs, self.draws = [], [], []
+        self.timer = None
+
+    def set_trainer(self, trainer):
+        super().set_trainer(trainer)
+        self.timer.set_trainer(trainer)
+
+    def on_train_begin(self):
+        self.timer.on_train_begin()
+
+    def on_train_batch_end(self, step, logs):
+        self.timer.on_train_batch_end(step, logs)
+        self.losses.append(float(logs["loss"]))
+
+    def on_epoch_end(self, epoch, logs):
+        self.epochs.append(dict(logs))
+
+    def record(self) -> dict:
+        return {"global_batch": self.timer.global_batch_size,
+                "losses": self.losses, "epochs": self.epochs,
+                "draws": self.draws, "step_times": self.timer.step_times,
+                "timer": self.timer.snapshot()}
+
+
+class TimedBatches:
+    """``data``, re-iterable as it was, with the host seconds each batch
+    took to draw appended to ``draws``."""
+
+    def __init__(self, data, draws: list):
+        self.data, self.draws = data, draws
+
+    def __iter__(self):
+        it = iter(self.data)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            self.draws.append(time.perf_counter() - t0)
+            yield batch
+
+
+@contextlib.contextmanager
+def recorded_cli():
+    """``pddl_tpu_torch.run`` with a :class:`CliRecorder` appended to the
+    callbacks ``build_trainer`` returns and timing the train batches
+    ``build_data`` returns; yields the recorder."""
+    from pddl_tpu_torch import run as cli_run
+
+    rec = CliRecorder()
+    real_trainer, real_data = cli_run.build_trainer, cli_run.build_data
+
+    def build_trainer(cfg, *args, **kwargs):
+        trainer, callbacks = real_trainer(cfg, *args, **kwargs)
+        batch = trainer.strategy.scale_batch_size(cfg.per_replica_batch)
+        rec.timer = StepTimer(global_batch_size=batch, verbose=0)
+        return trainer, [*callbacks, rec]
+
+    def build_data(cfg, strategy):
+        train, val = real_data(cfg, strategy)
+        return TimedBatches(train, rec.draws), val
+
+    cli_run.build_trainer, cli_run.build_data = build_trainer, build_data
+    try:
+        yield rec
+    finally:
+        cli_run.build_trainer, cli_run.build_data = real_trainer, real_data
+
+
+def cli_child(out_path: str, argv: list) -> None:
+    """``python -m pddl_tpu_torch ARGV`` in this process (``runpy`` runs
+    the package's ``__main__`` as ``-m`` does) with a :class:`CliRecorder`
+    appended; writes its record, and the host clock when the CLI started,
+    to ``out_path``."""
+    import runpy
+
+    started = time.time()
+    with recorded_cli() as rec:
+        sys.argv = ["pddl_tpu_torch", *argv]
+        try:
+            runpy.run_module("pddl_tpu_torch", run_name="__main__",
+                             alter_sys=True)
+        except SystemExit as e:
+            if e.code not in (0, None):
+                raise
+    with open(out_path, "w") as f:
+        json.dump({**rec.record(), "cli_started": started}, f)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--cli-child"]:
+    cli_child(sys.argv[2], sys.argv[3:])
+    sys.exit(0)
+
+
 import pddl_tpu_torch.compat.hvd as hvd
 import pddl_tpu_torch.serve.engine as engine_mod
 from pddl_tpu_torch.data.synthetic import (
@@ -564,6 +701,13 @@ from pddl_tpu_torch.data.native_loader import (
     build_native,
     write_packed,
 )
+from pddl_tpu_torch.data.text import encode_text_file, load_token_corpus
+from pddl_tpu_torch.data.tfrecord import (
+    masked_crc32c,
+    native_masked_crc32c,
+    open_tfrecords,
+    write_tfrecord,
+)
 from pddl_tpu_torch.core import collectives
 from pddl_tpu_torch.ckpt import load_hf_mixtral
 from pddl_tpu_torch.core.mesh import MeshConfig
@@ -592,7 +736,6 @@ from pddl_tpu_torch.serve.tenant import (
     compile_constraint,
 )
 from pddl_tpu_torch.train.callbacks import (
-    Callback,
     CSVLogger,
     EarlyStopping,
     LambdaCallback,
@@ -7588,7 +7731,226 @@ def phase_fleet():
     return launches
 
 
+# ------------------------------------------------------- phases 38m-38o
+# The reference's command line: `python -m pddl_tpu_torch` (run.py) with
+# its presets, the model registry and the data modules. The recorder they
+# read (`CliRecorder`, `recorded_cli`, `cli_child`) sits above the port's
+# imports, for phase 38m's child.
+CLI_STEPS = 3
+CLI_LLAMA_BATCH, CLI_LLAMA_SEQ = 4, 2048
+TFR_RECORDS, TFR_READS = 2048, 8
+
+
+def check_cli_record(what, rec):
+    """Every step's loss finite, one epoch with a finite validation loss,
+    ``CLI_STEPS - 1`` steps timed, ``CLI_STEPS + 2`` train batches drawn.
+    Returns the epoch's logs and the host seconds of the draws inside the timed
+    steps: the trainer's feed (``prefetch`` 2) draws batches 1-3 in step 1
+    and batch k + 2 in step k, before it launches step k's work, while
+    the device holds none (the timer synchronized at step k - 1's end)."""
+    losses = rec["losses"]
+    if len(losses) != CLI_STEPS or not np.isfinite(losses).all():
+        raise RuntimeError(f"{what}: step losses {losses}, want "
+                           f"{CLI_STEPS} finite")
+    [epoch] = rec["epochs"]
+    if not np.isfinite(epoch.get("val_loss", np.nan)):
+        raise RuntimeError(f"{what}: no finite validation loss in {epoch}")
+    if len(rec["step_times"]) != CLI_STEPS - 1:
+        raise RuntimeError(f"{what}: {len(rec['step_times'])} timed steps")
+    if len(rec["draws"]) != CLI_STEPS + 2:
+        raise RuntimeError(f"{what}: {len(rec['draws'])} train batches "
+                           f"drawn, want {CLI_STEPS + 2}")
+    return epoch, rec["draws"][3:]
+
+
+def phase_cli_resnet(out_dir: str) -> dict:
+    """The reference's ``imagenet-resnet50.py`` through the CLI:
+    ``python -m pddl_tpu_torch --preset single --synthetic --epochs 1
+    --steps-per-epoch 3`` as its own process (full ResNet-50 at 224 x 224,
+    B 32, Adam, the reference's callbacks and ``ModelSummary``). Gates:
+    exit 0, three finite step losses, a finite validation loss. Records
+    the wall time from spawn to exit and to the CLI's start, the steady
+    step time (steps 2-3, synchronized), images/s, and the host time of
+    the synthetic batch draws inside those steps (the device idle)."""
+    out = os.path.join(out_dir, "cli_resnet.json")
+    argv = ["--preset", "single", "--synthetic", "--epochs", "1",
+            "--steps-per-epoch", str(CLI_STEPS)]
+    spawned = time.time()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, __file__, "--cli-child", out, *argv],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli_resnet: exit {proc.returncode}\n"
+                           f"{proc.stderr[-4000:]}")
+    with open(out) as f:
+        rec = json.load(f)
+    epoch, draws = check_cli_record("cli_resnet", rec)
+    if "Model parameters:" not in proc.stderr:
+        raise RuntimeError("cli_resnet: no ModelSummary in the output")
+    step_s = float(np.mean(rec["step_times"]))
+    phase("cli_resnet", argv=" ".join(argv), wall_from_spawn_s=f"{wall:.2f}",
+          to_cli_start_s=f"{rec['cli_started'] - spawned:.2f}",
+          losses="/".join(f"{x:.5f}" for x in rec["losses"]),
+          val_loss=f"{epoch['val_loss']:.5f}",
+          steady_step_ms=f"{1e3 * step_s:.3f}",
+          step_ms="/".join(f"{1e3 * t:.3f}" for t in rec["step_times"]),
+          draw_ms="/".join(f"{1e3 * t:.3f}" for t in draws),
+          draw_share=f"{sum(draws) / sum(rec['step_times']):.3f}",
+          images_per_s=f"{rec['global_batch'] / step_s:.2f}", smi=SMI)
+    return rec
+
+
+def write_byte_corpus(root: str, n_bytes: int, seed: int = 0) -> str:
+    """A seeded printable-ASCII ``train.txt`` under ``root``, encoded to
+    ``train.bin`` (+ ``meta.json``) by the port's ``encode_text_file``."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    txt = os.path.join(root, "train.txt")
+    with open(txt, "wb") as f:
+        f.write(rng.integers(32, 127, n_bytes, dtype=np.uint8).tobytes())
+    encode_text_file(txt, os.path.join(root, "train.bin"))
+    return root
+
+
+def phase_cli_llama(out_dir: str):
+    """Full-width Llama-1B through ``run.main`` in this process (so the
+    launch counts see it): ``--model llama_1b --num-classes 128256
+    --seq-len 2048 --batch 4``, bf16 compute over f32 parameters, 3 steps
+    and one validation batch on a byte corpus from ``--data-dir``, with
+    ``--profile-dir``. Gates: K1 with its LSE and K2 launched depth x
+    steps times, K1 without it depth times (the validation batch), K3a/K3b
+    never; the first loss bitwise the first loss of a ``Trainer`` built
+    by hand from the same config and seed on the same batch; the trace
+    names both kernels."""
+    from pddl_tpu_torch import run as cli_run
+
+    corpus = write_byte_corpus(os.path.join(out_dir, "corpus"),
+                               n_bytes=64 * CLI_LLAMA_SEQ + 1)
+    prof = os.path.join(out_dir, "profile")
+    argv = ["--preset", "single", "--model", "llama_1b", "--data-dir",
+            corpus, "--num-classes", str(VOCAB), "--seq-len",
+            str(CLI_LLAMA_SEQ), "--batch", str(CLI_LLAMA_BATCH), "--epochs",
+            "1", "--steps-per-epoch", str(CLI_STEPS), "--profile-dir", prof,
+            "--verbose", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_cli() as rec:
+        if cli_run.main(argv) != 0:
+            raise RuntimeError("cli_llama: main returned non-zero")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_kernels.launch_counts)
+    trainer = rec.trainer
+    depth = trainer.model.depth
+    record = rec.record()
+    del rec, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    epoch, draws = check_cli_record("cli_llama", record)
+    want = {"flash_fwd": depth * CLI_STEPS,
+            "flash_bwd_fused": depth * CLI_STEPS,
+            "flash_fwd_nolse": depth, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if {k: counts[k] for k in want} != want:
+        raise RuntimeError(f"cli_llama: flash launches {counts}, want {want}")
+    # The same config and seed by hand: the model, the optimizer, the
+    # corpus's first batch.
+    model = Llama_1B(vocab_size=VOCAB, dtype=torch.bfloat16,
+                     param_dtype=torch.float32, device=DEV, seed=0)
+    hand = Trainer(model, optimizer="adam", learning_rate=1e-3, seed=0,
+                   metrics=["accuracy", "perplexity"], device=DEV,
+                   **LM_KEYS)
+    train, _ = load_token_corpus(corpus, seq_len=CLI_LLAMA_SEQ,
+                                 train_batch_size=CLI_LLAMA_BATCH,
+                                 val_batch_size=CLI_LLAMA_BATCH, seed=0)
+    first = float(hand.train_step(next(iter(train)))["loss"])
+    del model, hand
+    gc.collect()
+    torch.cuda.empty_cache()
+    if first != record["losses"][0]:
+        raise RuntimeError(f"cli_llama: first loss {record['losses'][0]!r}"
+                           f" but {first!r} from a hand-built Trainer")
+    traces = [os.path.join(prof, n) for n in os.listdir(prof)
+              if n.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise RuntimeError(f"cli_llama: traces {os.listdir(prof)}")
+    with open(traces[0]) as f:
+        text = f.read()
+    for name in ("flash_fwd_mma_kernel", "flash_bwd_kv_mma_kernel"):
+        if name not in text:
+            raise RuntimeError(f"cli_llama: the trace names no {name}")
+    # Step 2 still warms (the allocator, the optimizer's first update of
+    # every moment); step 3 runs under the profiler's window.
+    tokens_s = [CLI_LLAMA_BATCH * CLI_LLAMA_SEQ / t
+                for t in record["step_times"]]
+    ref = PHASE_FIGURES.get("train_step", {}).get("tokens_per_s")
+    phase("cli_llama", model="llama_1b_bf16_compute_f32_params",
+          batch=CLI_LLAMA_BATCH, seq=CLI_LLAMA_SEQ, steps=CLI_STEPS,
+          wall_s=f"{wall:.2f}",
+          losses="/".join(f"{x:.5f}" for x in record["losses"]),
+          val_loss=f"{epoch['val_loss']:.5f}",
+          first_loss_bitwise_hand_built="true",
+          step_ms="/".join(f"{1e3 * t:.3f}" for t in record["step_times"]),
+          draw_ms="/".join(f"{1e3 * t:.3f}" for t in draws),
+          tokens_per_s="/".join(f"{x:.2f}" for x in tokens_s),
+          train_step_tokens_per_s=ref,
+          trace_mb=f"{len(text) / 1e6:.1f}",
+          flash="/".join(f"{k}:{counts[k]}" for k in FLASH_COUNTERS),
+          smi=SMI)
+    return counts
+
+
+def phase_tfrecord_native(out_dir: str):
+    """The port's TFRecord reader, its C++ built from the checkout on the
+    card's host: 2,048 seeded records of mixed lengths (zero-length ones
+    among them) written by the pure-Python ``write_tfrecord`` into four
+    files, read back through ``TFRecordReader(native=True)`` sequentially,
+    in 4 shards and shuffled. Gates: byte-equal records, shards disjoint
+    and complete, the shuffle a permutation, the native CRC the Python
+    CRC. Records the native read's MB/s (warm page cache)."""
+    rng = np.random.default_rng(21)
+    lengths = rng.integers(0, 4096, TFR_RECORDS)
+    lengths[::97] = 0
+    recs = [rng.bytes(int(k)) for k in lengths]
+    paths = []
+    for i in range(4):
+        path = os.path.join(out_dir, f"part-{i}.tfrecord")
+        write_tfrecord(path, recs[i::4])
+        paths.append(path)
+    order = [r for i in range(4) for r in recs[i::4]]  # file order
+    reader = open_tfrecords(paths, native=True)
+    if list(reader) != order or list(reader) != order:
+        raise RuntimeError("tfrecord_native: sequential records differ")
+    shards = [list(open_tfrecords(paths, native=True, shard_index=i,
+                                  shard_count=4)) for i in range(4)]
+    if any(shards[i] != order[i::4] for i in range(4)):
+        raise RuntimeError("tfrecord_native: a shard is not every 4th")
+    shuffled = list(open_tfrecords(paths, native=True, shuffle=True,
+                                   seed=3))
+    if sorted(shuffled) != sorted(order) or shuffled == order:
+        raise RuntimeError("tfrecord_native: the shuffle is no permutation")
+    for data in recs[:64]:
+        if native_masked_crc32c(data) != masked_crc32c(data):
+            raise RuntimeError("tfrecord_native: native CRC differs")
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    t0 = time.perf_counter()
+    for _ in range(TFR_READS):
+        for _ in reader:
+            pass
+    sec = (time.perf_counter() - t0) / TFR_READS
+    reader.close()
+    phase("tfrecord_native", records=TFR_RECORDS,
+          zero_length=int((lengths == 0).sum()),
+          file_mb=f"{nbytes / 1e6:.3f}", read_ms=f"{1e3 * sec:.3f}",
+          mb_per_s=f"{nbytes / 1e6 / sec:.1f}", page_cache="warm",
+          smi=SMI)
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dp-gloo2-child", nargs=3, metavar=("RANK", "PORT",
                                                            "DIR"),
@@ -7803,6 +8165,20 @@ def main(argv=None) -> int:
         sp_pp_launches = phase_sp_pp_gloo2(sp_dir)
     phase("phase_seconds", name="sp_pp",
           seconds=f"{time.perf_counter() - t0:.2f}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=BUILD) as cli_dir:
+        t0 = time.perf_counter()
+        phase_cli_resnet(cli_dir)
+        phase("phase_seconds", name="cli_resnet",
+              seconds=f"{time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        cli_launches = phase_cli_llama(cli_dir)
+        phase("phase_seconds", name="cli_llama",
+              seconds=f"{time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        phase_tfrecord_native(cli_dir)
+        phase("phase_seconds", name="tfrecord_native",
+              seconds=f"{time.perf_counter() - t0:.2f}")
     src = "pddl_tpu_torch/ops/csrc/"
     att = "pddl_tpu/ops/attention.py:"
     # Each kernel's launches by main path (the Llama, GPT and ViT train
@@ -7833,7 +8209,8 @@ def main(argv=None) -> int:
                 "tp_parity_gloo2": tp_launches["tp"]["flash_fwd"],
                 "ep_parity_gloo2": tp_launches["ep"]["flash_fwd"],
                 "moe_train": moe_launches["flash_fwd"],
-                **{p: n["flash_fwd"] for p, n in sp_pp_launches.items()}}
+                **{p: n["flash_fwd"] for p, n in sp_pp_launches.items()},
+                "cli_llama": cli_launches["flash_fwd"]}
     k2_paths = {"train_step": train_launches["flash_bwd_fused"],
                 "gpt_train": gpt_train_launches["flash_bwd_fused"],
                 "vit_train": vit_train_launches["flash_bwd_fused"],
@@ -7842,7 +8219,10 @@ def main(argv=None) -> int:
                 "ep_parity_gloo2": tp_launches["ep"]["flash_bwd_fused"],
                 "moe_train": moe_launches["flash_bwd_fused"],
                 **{p: n["flash_bwd_fused"]
-                   for p, n in sp_pp_launches.items()}}
+                   for p, n in sp_pp_launches.items()},
+                "cli_llama": cli_launches["flash_bwd_fused"]}
+    nolse_paths = {"train_step_eval": train_launches["flash_fwd_nolse"],
+                   "cli_llama_eval": cli_launches["flash_fwd_nolse"]}
     # (name, source, TPU kernel's line, launches on the main paths: the
     # paged serve runs, the train steps (Llama, GPT, ViT) with the Llama
     # eval batch, the long-context run, or the sliding-window generate; K1
@@ -7850,8 +8230,7 @@ def main(argv=None) -> int:
     rows = [
         ("paged_decode", "paged_decode.cu", 1221, sum(k4_paths.values())),
         ("flash_fwd", "flash_fwd.cu", 183, sum(k1_paths.values())),
-        ("flash_fwd_nolse", "flash_fwd.cu", 389,
-         train_launches["flash_fwd_nolse"]),
+        ("flash_fwd_nolse", "flash_fwd.cu", 389, sum(nolse_paths.values())),
         ("flash_bwd_fused", "flash_bwd.cu", 617, sum(k2_paths.values())),
         ("flash_bwd_dq", "flash_bwd.cu", 551, long_launches["flash_bwd_dq"]),
         ("flash_bwd_dkv", "flash_bwd.cu", 578,
@@ -7873,6 +8252,7 @@ def main(argv=None) -> int:
         **{f"int8_parity_{name}": launches["paged_decode"]
            for name, launches in int8_parity_launches.items()}}
     kernels[1]["launches_by_path"] = k1_paths
+    kernels[2]["launches_by_path"] = nolse_paths
     kernels[3]["launches_by_path"] = k2_paths
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,12 @@ What is ported so far:
   ``expert`` axes, with routed experts (``ops/moe.py``) in the Llama, GPT
   and ViT.
 
+The reference's eight scripts are the presets of one command line,
+``python -m pddl_tpu_torch --preset NAME`` (``run.py``, ``config.py``),
+over the model registry (``models/registry.py``) and the data modules
+(``data/``: synthetic tasks, TFRecords, ImageNet, packed files, token
+corpora).
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no ``device="cpu"`` they raise.
 
@@ -52,6 +58,7 @@ the public names below resolve lazily (PEP 562).
 """
 
 from pddl_tpu_torch._lazy import lazy_exports
+from pddl_tpu_torch.version import __version__
 
 _EXPORTS = {
     "Llama": "models.llama",
@@ -74,6 +81,8 @@ _EXPORTS = {
     "Trainer": "train.loop",
     "MeshConfig": "core.mesh",
     "build_mesh": "core.mesh",
+    "local_device_count": "core.mesh",
+    "collectives": "core.collectives",
     "MinSizePartitioner": "core.sharding",
     "get_strategy": "parallel",
     "SyntheticImageClassification": "data.synthetic",
@@ -83,5 +92,5 @@ _EXPORTS = {
     "gpt_params_from_jax": "bridge",
     "vit_params_from_jax": "bridge",
 }
-__all__ = sorted(_EXPORTS)
+__all__ = ["__version__"] + sorted(_EXPORTS)
 __getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)

@@ -61,6 +61,21 @@ _PORTED_AXES = CANONICAL_AXES
 BATCH_PLANE = "data+seq"
 
 
+def local_device_count() -> int:
+    """Devices this process can drive: the cards it sees (one process
+    drives one of them, ``cuda:{local_rank}``), or 1 on a host without a
+    card, where the process is its own device (the CPU), as JAX counts
+    its one CPU device."""
+    return torch.cuda.device_count() or 1
+
+
+def global_device_count() -> int:
+    """Devices across the job (the "world size" analogue). The port runs
+    one process per device, so this is the process group's world size: 1
+    with no process group."""
+    return dist.process_count()
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Declarative mesh shape.

@@ -18,8 +18,10 @@ arrays. ``Trainer`` moves them to the card (with ``fit(prefetch=)``
 through pinned memory on a side stream), and the model casts on the
 device.
 
-**The library** is compiled from ``csrc/`` by the host compiler (``$CXX``
-or ``g++``, with the JAX package's Makefile flags) at the first use, into
+**The library** (this loader, and the TFRecord reader of ``tfrecord.py``
+from ``csrc/pddl_tfrecord.cpp``) is compiled from ``csrc/`` by the host
+compiler (``$CXX`` or ``g++``, with the JAX package's Makefile flags) at
+the first use, into
 ``build/`` at the root of the checkout, named by a digest of the sources,
 the compiler and the flags: an edited source builds a new library, and a
 stale one is never loaded. A failed build raises with the compiler's
@@ -46,7 +48,7 @@ _MAGIC = 0x314C4450  # "PDL1"
 _HEADER = struct.Struct("<IIHHHH")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("pddl_io.cpp",)
+_SOURCES = ("pddl_io.cpp", "pddl_tfrecord.cpp")
 _HEADERS = ("pddl_rng.h",)
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread",
              "-shared")
