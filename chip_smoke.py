@@ -26,7 +26,8 @@ NCCL, and two processes sharing the card over gloo), on
 int8 weights (Llama-1B and GPT-2-small served through
 ``param_transform=dequantize``), on ViT-S/16 (training), and under
 tensor, expert, sequence and pipeline parallelism (two processes sharing
-the card over gloo), and through the command line (``python -m
+the card over gloo, and four for a ``seq`` axis beside the others), and
+through the command line (``python -m
 pddl_tpu_torch``: ResNet-50 and Llama-1B) beside the TFRecord reader,
 and prints one line per phase:
 
@@ -373,22 +374,23 @@ and prints one line per phase:
     draft model (its tree sliced in lockstep) and a tenant engine;
     token-exact against the CPU and against whole-prompt admission, K4
     exactly 2 x the paged ticks (the draft leg: its draft steps);
-38b. tp ep gloo2 — tensor and expert parallelism, two processes sharing
-    the card over gloo (``--tp-gloo2-child``), f32 with TF32 off:
-    ``tp_parity_gloo2``, full-width, full-depth Llama-1B at B 1 x S 1024
-    under ``TensorParallelStrategy(2, rules=LLAMA_TP_RULES)`` (16 query
-    and 4 KV heads a process: K1/K2 at H 16/4), one SGD step against one
-    process's (loss within 1e-4 relative, gradient norm within 1e-3, every
-    local block within 2·lr), each process's parameter bytes, the
-    collectives a step as counted; ``tp_decode_gloo2``, ``generate`` B 2 x
-    prompt 128 x 16 new and ``generate_speculative`` under TP2
-    token-exact with one process's ``generate`` (the tie rule of phase
-    6), the top-2 margin, ms a token of each; ``ep_parity_gloo2``, the
-    routed Llama (8 experts, top-2, every 4th block from the back) at
-    depth 8 under ``ExpertParallelStrategy(2, rules=LLAMA_EP_RULES)``
-    (4 experts a process) with the same gates and the expert bytes a
-    process; (the TP-local K1/K2 shape is held to its plain version and
-    timed among phases 4–5: ``tp_kernels``)
+38b. tp ep gloo2 — tensor and expert parallelism, two processes sharing the
+    card over gloo (``--tp-gloo2-child``), f32 with TF32 off:
+    ``tp_parity_gloo2``, full-width Llama-1B at depth 8 (16 before PR 22)
+    at B 1 x S 1024 under ``TensorParallelStrategy(2,
+    rules=LLAMA_TP_RULES)`` (16 query and 4 KV heads a process: K1/K2 at H
+    16/4), one SGD step against one process's (loss within 1e-4 relative,
+    gradient norm within 1e-3, every local block within 2·lr), each
+    process's parameter bytes, the collectives a step as counted;
+    ``tp_decode_gloo2``, ``generate`` B 2 x prompt 128 x 16 new and
+    ``generate_speculative`` under TP2 token-exact with one process's
+    ``generate`` (the tie rule of phase 6), the top-2 margin, ms a token of
+    each; ``ep_parity_gloo2``, the routed Llama (8 experts, top-2, every
+    4th block from the back) at depth 4 (8 before PR 22) under
+    ``ExpertParallelStrategy(2, rules=LLAMA_EP_RULES)`` (4 experts a
+    process) with the same gates and the expert bytes a process; (the
+    TP-local K1/K2 shape is held to its plain version and timed among
+    phases 4–5: ``tp_kernels``)
 38c. moe parity — the routed Llama at Llama-1B's width and depth 4, f32,
     card against CPU: block 3's router choices, kept set and queue
     positions exact (or ties), eval logits within 1e-4, one SGD step's
@@ -406,19 +408,20 @@ and prints one line per phase:
     a windowed rotation (window 4096, ``k_offset`` -4096), each against
     its plain version and timed beside it, SDPA and the bound over the
     pairs its mask keeps;
-38g. sp parity gloo2 — sequence parallelism, two processes sharing the
-    card over gloo (``--sp-pp-gloo2-child``), f32 with TF32 off: a
-    mirrored strategy over a ``data`` 1 x ``seq`` 2 mesh, one SGD step of
-    Llama-1B's width at depth 2, B 1 x S 2048, ``ring_flash`` and
+38g. sp parity gloo2 — sequence parallelism, two processes sharing the card
+    over gloo (``--sp-pp-gloo2-child``), f32 with TF32 off: a mirrored
+    strategy over a ``data`` 1 x ``seq`` 2 mesh, one SGD step of Llama-1B's
+    width at depth 1 (2 before PR 22), B 1 x S 2048, ``ring_flash`` and
     ``ring``, with and without a window of 512, and of ViT-S/16 at depth 2
     under ``ring_flash``, against one process (attention ``flash``) from
-    the same weights drawn on the card, with phase 38b's gates on the
-    loss and gradient norm and each part's parameters within 1e-3 of its
-    update plus two f32 ulps; K1/K2
-    launches by rank (rank 0's later shard has weight 0 and runs none);
-38h. sp train gloo2 — full Llama-1B, bf16 compute over f32 parameters,
+    the same weights drawn on the card, with phase 38b's gates on the loss
+    and gradient norm and each part's parameters within 1e-3 of its update
+    plus two f32 ulps; K1/K2 launches by rank (rank 0's later shard has
+    weight 0 and runs none);
+38h. sp train gloo2 — Llama-1B's width at depth 8 (16 before PR 22),
+    bf16 compute over f32 parameters,
     ``remat="dots"``, ``ring_flash`` over seq 2 at B 1 x S 8192 (4096
-    tokens a process), adamw, 1 warm-up and 2 timed steps: tokens/s, s a
+    tokens a process), adamw, 1 warm-up and 1 timed step: tokens/s, s a
     step and each process's peak memory beside ``train_long``'s, the
     ring's hops and bytes a step, K1/K2 launches;
 38i. pp parity gloo2 — ``GPipeLlama`` at Llama-1B's widths and
@@ -428,14 +431,14 @@ and prints one line per phase:
     ``shape_only`` record): the gates of 38b on the loss and the gradient
     norm, each part's parameters (embed, each stage, head) within 1e-3 of
     its update plus two f32 ulps; each process lays out its stage only;
-38j. pp train gloo2 — ``GPipeLlama`` at full Llama-1B (2 stages x 8
-    blocks), bf16 compute over f32 parameters, ``flash``, adamw at B 4 x
-    S 2048 and M 2 and M 4: tokens/s, s a step, parameter bytes, the
-    bytes each process's construction lays out (its stage only) and peak
-    memory a process, the activation hops, the share of the step each
-    stage's host is blocked in the schedule, and each process's device
-    idle share (one more step under ``torch.profiler``: 1 - its kernel
-    time over the timed step wall) beside the bubble (S-1)/(M+S-1);
+38j. pp train gloo2 — ``GPipeLlama`` at Llama-1B's widths (2 stages x 4
+    blocks; 8 before PR 22), bf16 compute over f32 parameters, ``flash``,
+    adamw at B 4 x S 2048 and M 2 and M 4: tokens/s, s a step, parameter
+    bytes, the bytes each process's construction lays out (its stage only)
+    and peak memory a process, the activation hops, the share of the step
+    each stage's host is blocked in the schedule, and each process's device
+    idle share (one more step under ``torch.profiler``: 1 - its kernel time
+    over the timed step wall) beside the bubble (S-1)/(M+S-1);
 38k. fleet local — the serving fleet in one process: a ``FleetRouter``
     over two ``LocalReplica``s, each a paged engine of full-width
     GPT-2-small in f32 built by the fleet worker's ``build_engine``
@@ -485,16 +488,52 @@ and prints one line per phase:
     in 4 shards and shuffled: byte-equal, disjoint and complete, a
     permutation, the native CRC the Python one; the read's MB/s (warm
     page cache);
+38p. mesh decode gloo2 — in 38g's two processes, each decodes the whole
+    sequence with full-width Llama-1B (depth 4, bf16) built on the seq-2
+    mesh (``ring_flash``) and with the same weights built without one:
+    ``generate()`` of B 2 x 640-token prompts, 32 new, through a
+    512-window ring cache (its prefill runs K1 with the LSE), and the
+    paged engine's greedy streams of 128-token prompts (K4 every tick,
+    depth x ticks): tokens equal to the plain model's and across the
+    processes, the launches equal;
+38q. sp moe gloo2 — the routed Llama (8 experts, top 2, capacity factor
+    1, its second block routed) at Llama-1B's width and depth 2, f32,
+    one SGD step over seq 2 (``ring_flash``: the routing over the whole
+    row, queue positions after the earlier shard's) against one process
+    with 38b's gates and 38g's per-part parameter gate; the drop rate
+    (above 0) and K1/K2 by rank;
+38r. pp wrapped gloo2 — ``GPipeGPT`` at GPT-2-small's widths, 2 stages
+    x 1 block, bf16 parameters with f32 masters under a clipped Adam with
+    a warmup-cosine schedule and accumulation over 2 micro-steps,
+    attention ``reference`` and cuDNN deterministic (held bitwise): the
+    uninterrupted 4 steps, a run saved at step 3 (mid-window) and a
+    fresh pipeline's ``fit(resume=)`` bitwise equal in every leaf of the
+    trainer's state, and the save restored into one process (the
+    parameters equal, one update and one micro-step counted, every
+    accumulator present);
+38s. mesh gloo4 — a ``seq`` axis of 2 beside a ``model``, ``expert`` or
+    ``stage`` axis of 2: four processes sharing the card over gloo
+    (``--mesh-gloo4-child``), f32 with TF32 off, one SGD step each of
+    Llama-1B's width at depth 1 under ``TensorParallelStrategy(2,
+    seq_parallel=2)`` (ring attention with the heads over ``model``),
+    the routed Llama (its one block routed) under
+    ``ExpertParallelStrategy(2, seq_parallel=2)``
+    and ``GPipeLlama`` (2 stages x 1 block, M 2) under
+    ``PipelineStrategy(2, seq_parallel=2)``, B 1 (2 for the pipeline) x
+    S 2048, each against a one-process step (leg i's on rank i, run side
+    by side first) with 38b's gates and 38g's
+    per-part parameter gate; every rank at JAX's mesh coordinates, K1/K2
+    once a layer per rotation its ``seq`` position runs;
 39. kernels — one JSON object: every ported kernel with its launches on
     its main paths (phases 7, 10, 11, 15i, 15k, 18, 21, 23, 26, 27, 28,
-    30, 30c, 32-34, 35-37, 38b, 38e, 38k and 38n;
+    30, 30c, 32-34, 35-37, 38b, 38e, 38k, 38n, 38p and 38s;
     K4's, K1's and K2's by path under ``launches_by_path``, the parity
     legs' included there for K4), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
     ``library_computes`` says; other timing shapes under ``shapes``: K4's
     and, for K1 and K2, the GPT and ViT train shapes, one TP2 process's
     Llama-1B heads and the ring rotation's three shapes; the sequence-
-    and pipeline-parallel paths of 38g-38j under ``launches_by_path``,
+    and pipeline-parallel paths of 38g-38s under ``launches_by_path``,
     both processes' launches summed); the ResNet path,
     the Keras import and export and the loader add none (the JAX package
     runs no Pallas kernel there);
@@ -660,6 +699,7 @@ from pddl_tpu_torch.data.synthetic import (
 )
 from pddl_tpu_torch.models.gpt import (
     GPT_Small,
+    GPipeGPT,
     decode_cache,
     fused_lm_loss,
     generate,
@@ -710,6 +750,7 @@ from pddl_tpu_torch.data.tfrecord import (
 )
 from pddl_tpu_torch.core import collectives
 from pddl_tpu_torch.ckpt import load_hf_mixtral
+import pddl_tpu_torch.core.mesh as tmesh
 from pddl_tpu_torch.core.mesh import MeshConfig
 from pddl_tpu_torch.parallel import MirroredStrategy, get_strategy
 from pddl_tpu_torch.parallel.pipeline import PipelineStrategy
@@ -6155,15 +6196,15 @@ def dp_ckpt_child(rank: int, port: int, out_dir: str) -> None:
         torch.distributed.destroy_process_group()
 
 
-def _two_processes(args, timeout: float, what: str) -> None:
-    """Two children of this script, under one deadline that kills every
-    survivor; a child that fails fails the phase."""
+def _two_processes(args, timeout: float, what: str, n: int = 2) -> None:
+    """``n`` (two) children of this script, under one deadline that kills
+    every survivor; a child that fails fails the phase."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     procs = [subprocess.Popen(
         [sys.executable, __file__, *args(rank, port)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+        stderr=subprocess.STDOUT, text=True) for rank in range(n)]
     deadline = time.monotonic() + timeout
     logs = []
     try:
@@ -6259,7 +6300,9 @@ def phase_dp_ckpt_gloo2(out_dir: str, timeout: float = 300.0):
 # (~2.91 B parameters, ~46.5 GB), where Mixtral's every block would not.
 MOE_CFG = dict(moe_experts=8, moe_top_k=2, moe_every=4)
 TP_LR, TP_STEPS, TP_SEQ = 1e-2, 1, 1024
-EP_DEPTH = 8                      # the EP parity model: blocks 7 and 3 routed
+# The TP parity and decode model's depth, and the EP parity model's (block
+# 3 routed): cut from 16 and 8 in PR 22 for the script's time limit.
+TP_DEPTH, EP_DEPTH = 8, 4
 TP_DECODE = dict(batch=2, prompt=128, new=16, draft_len=4)
 MOE_PARITY_DEPTH, MOE_PARITY_SEQ = 4, 64
 
@@ -6329,13 +6372,13 @@ def _sharded_run(tag, factory, strategy, batches, ref, out):
 
 
 def _decode_leg(rank, out):
-    """``generate`` and ``generate_speculative`` of full-width, full-depth
-    Llama-1B in f32 under TP2 against the single process's, with ms a
+    """``generate`` and ``generate_speculative`` of full-width Llama-1B at
+    ``TP_DEPTH`` in f32 under TP2 against the single process's, with ms a
     token on both and the top-2 margins of the reference's decoded
     positions."""
     cfg = TP_DECODE
-    model = Llama_1B(vocab_size=VOCAB, dtype=torch.float32, device=DEV,
-                     seed=6)
+    model = Llama_1B(vocab_size=VOCAB, depth=TP_DEPTH, dtype=torch.float32,
+                     device=DEV, seed=6)
     gen = np.random.default_rng(8)
     prompt = torch.from_numpy(gen.integers(
         0, VOCAB, (cfg["batch"], cfg["prompt"])).astype(np.int32)).to(DEV)
@@ -6384,10 +6427,10 @@ def _decode_leg(rank, out):
 
 def tp_gloo2_child(rank: int, port: int, out_dir: str) -> None:
     """``--tp-gloo2-child RANK PORT DIR``: one of two processes sharing the
-    card over gloo. Full-width, full-depth Llama-1B (f32, TF32 off) at
+    card over gloo. Full-width Llama-1B at ``TP_DEPTH`` (f32, TF32 off) at
     B 1 x S 1024: one SGD step single-process, then under
     ``TensorParallelStrategy(2, rules=LLAMA_TP_RULES)``; then the TP2
-    decode; then the routed Llama at depth 8 (blocks 7 and 3 routed) the
+    decode; then the routed Llama at ``EP_DEPTH`` (block 3 routed) the
     same way under ``ExpertParallelStrategy(2, rules=LLAMA_EP_RULES)``
     (4 experts a process). Writes what it saw to
     ``out_dir/tp_gloo2_{rank}.json``."""
@@ -6400,8 +6443,8 @@ def tp_gloo2_child(rank: int, port: int, out_dir: str) -> None:
     batches = _tp_batches()
     try:
         def dense():
-            return Llama_1B(vocab_size=VOCAB, dtype=torch.float32,
-                            device=DEV, seed=5)
+            return Llama_1B(vocab_size=VOCAB, depth=TP_DEPTH,
+                            dtype=torch.float32, device=DEV, seed=5)
 
         def routed():
             return Llama_1B(vocab_size=VOCAB, dtype=torch.float32,
@@ -6437,7 +6480,7 @@ def phase_tp_gloo2(out_dir: str, timeout: float = 420.0):
              "param_diff": 2 * TP_LR}
     bad = []
     for tag, name, model in (
-            ("tp", "tp_parity_gloo2", "Llama_1B_f32"),
+            ("tp", "tp_parity_gloo2", f"Llama_1B_depth{TP_DEPTH}_f32"),
             ("ep", "ep_parity_gloo2",
              f"Llama_1B_moe8_top2_every4_depth{EP_DEPTH}_f32")):
         runs = [x[tag] for x in seen]
@@ -6470,7 +6513,8 @@ def phase_tp_gloo2(out_dir: str, timeout: float = 420.0):
                 or r0["launches"]["flash_bwd_fused"] != want):
             bad.append(f"{tag}_launches {r0['launches']}")
     r0 = seen[0]
-    phase("tp_decode_gloo2", model="Llama_1B_f32", processes=2,
+    phase("tp_decode_gloo2", model=f"Llama_1B_depth{TP_DEPTH}_f32",
+          processes=2,
           strategy="tensor_parallel", batch=TP_DECODE["batch"],
           prompt=TP_DECODE["prompt"], new=TP_DECODE["new"],
           draft_len=TP_DECODE["draft_len"],
@@ -6674,11 +6718,12 @@ SP_SHAPES = {
                        -4096),
 }
 SP_LR, SP_PARITY_SEQ, SP_WINDOW = 1e-2, 2048, 512
-# One warm-up and one timed step (a step is ~9 s of gloo-staged
-# gradient all-reduce): the script's time limit.
-SP_TRAIN = dict(batch=1, seq=8192, warmup=1, steps=1)
+SP_PARITY_DEPTH = 1   # the Llama legs' (2 before PR 22; the ViT's stays 2)
+# One warm-up and one timed step (a step at full depth was ~9-11 s of
+# gloo-staged gradient all-reduce), at depth 8: the script's time limit.
+SP_TRAIN = dict(batch=1, seq=8192, warmup=1, steps=1, depth=8)
 PP_PARITY = dict(batch=2, seq=512, images=4, microbatches=2)
-PP_TRAIN = dict(batch=4, seq=2048, warmup=1, steps=2, blocks=8)
+PP_TRAIN = dict(batch=4, seq=2048, warmup=1, steps=2, blocks=4)
 # remat_stages in pp_train_gloo2: without it each process's 8 blocks keep
 # B 4 x S 2048's activations beside the head's 4.2 GB of f32 logits on
 # every stage, and the pair ran out of the card's 80 GB.
@@ -6904,7 +6949,8 @@ def _sp_strategy():
 
 
 def _sp_parity_legs(rank: int, out: dict) -> None:
-    """Phase 38g's legs (f32, TF32 off): Llama-1B's width at depth 2,
+    """Phase 38g's legs (f32, TF32 off): Llama-1B's width at depth 1 (2
+    before PR 22),
     B 1 x S 2048, ring_flash and ring, with and without a window of 512;
     ViT-S/16 at depth 2 under ring_flash, against one-process references
     (attention "flash") that the two processes run first, split between
@@ -6921,7 +6967,8 @@ def _sp_parity_legs(rank: int, out: dict) -> None:
         "label": torch.from_numpy(rng.integers(0, 1000, 4)).to(DEV)}
 
     def llama(attention, window, mesh=None):
-        return Llama_1B(vocab_size=VOCAB, depth=2, dtype=torch.float32,
+        return Llama_1B(vocab_size=VOCAB, depth=SP_PARITY_DEPTH,
+                        dtype=torch.float32,
                         sliding_window=window, attention=attention,
                         mesh=mesh, device=DEV, seed=11)
 
@@ -6969,15 +7016,16 @@ def _sp_parity_legs(rank: int, out: dict) -> None:
 
 
 def _sp_train_leg(rank: int, out: dict) -> None:
-    """Phase 38h: full Llama-1B, bf16 compute over f32 parameters,
+    """Phase 38h: Llama-1B at depth 8, bf16 compute over f32 parameters,
     ``remat="dots"``, ring_flash over seq 2, adamw at B 1 x S 8192 (4096
     tokens a process): the timed steps' wall, launches and hops."""
     torch.backends.cuda.matmul.allow_tf32 = True
     cfg = SP_TRAIN
     strategy = _sp_strategy()
-    model = Llama_1B(vocab_size=VOCAB, remat="dots", dtype=torch.bfloat16,
-                     param_dtype=torch.float32, attention="ring_flash",
-                     mesh=strategy.mesh, device=DEV, seed=0)
+    model = Llama_1B(vocab_size=VOCAB, depth=cfg["depth"], remat="dots",
+                     dtype=torch.bfloat16, param_dtype=torch.float32,
+                     attention="ring_flash", mesh=strategy.mesh, device=DEV,
+                     seed=0)
     tr = Trainer(model, optimizer="adamw", learning_rate=1e-4,
                  strategy=strategy, device=DEV, **LM_KEYS)
     data = SyntheticLanguageModeling(batch_size=cfg["batch"],
@@ -7123,7 +7171,7 @@ def _profiled_step(tr, data):
 
 
 def _pp_train_legs(rank: int, out: dict) -> None:
-    """Phase 38j: GPipeLlama at full Llama-1B (2 stages x 8 blocks), bf16
+    """Phase 38j: GPipeLlama at Llama-1B's widths (2 stages x 4 blocks), bf16
     compute over f32 parameters, attention "flash", adamw at B 4 x
     S 2048, at M 2 and M 4: each timed step's wall, the host seconds the
     stage waits in the schedule, launches, hops, bytes and peak memory."""
@@ -7179,6 +7227,194 @@ def _pp_train_legs(rank: int, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# Phase 38p: decoding Llama-1B built on a seq-2 mesh, full width, depth
+# cut to 4, bf16: generate() through a sliding-window ring cache (K1 with
+# its LSE on the prefill) and the paged engine (K4 every tick).
+MESH_DECODE = dict(depth=4, batch=2, prompt=640, window=512, new=32,
+                   engine_prompt=128)
+
+
+def _mesh_decode_leg(rank: int, out: dict) -> None:
+    """Phase 38p: each process decodes the whole sequence with a model
+    built on the seq-2 mesh (ring_flash) and with the same weights built
+    without a mesh: ``generate()`` of a windowed model (its ring prefill
+    runs K1) and the paged engine's streams of a full-cache one; tokens
+    and launches of each run."""
+    cfg = MESH_DECODE
+    strategy = _sp_strategy()
+    rng = np.random.default_rng(23)
+    prompts = torch.from_numpy(rng.integers(
+        0, VOCAB, (cfg["batch"], cfg["prompt"]))).to(DEV)
+    eng_prompts = [p[:cfg["engine_prompt"]].tolist() for p in prompts.cpu()]
+    runs = {}
+    for tag, mesh, attention in (("mesh", strategy.mesh, "ring_flash"),
+                                 ("plain", None, "flash")):
+        kw = dict(vocab_size=VOCAB, depth=cfg["depth"],
+                  dtype=torch.bfloat16, attention=attention, mesh=mesh,
+                  device=DEV, seed=21)
+        model = Llama_1B(sliding_window=cfg["window"], **kw)
+        assert model.uses_ring_cache
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        with torch.no_grad():
+            toks = generate(model, prompts, cfg["new"])
+        torch.cuda.synchronize()
+        gen_launches = dict(_kernels.launch_counts)
+        del model
+        model = Llama_1B(**kw)
+        streams, eng_launches, ticks = engine_streams(
+            model, eng_prompts, cfg["new"], paged=True)
+        runs[tag] = dict(generate=toks[:, cfg["prompt"]:].cpu().tolist(),
+                         engine=streams, generate_launches=gen_launches,
+                         engine_launches=eng_launches, ticks=ticks,
+                         depth=model.depth)
+        del model
+        torch.cuda.empty_cache()
+    out["mesh_decode"] = runs
+
+
+def _sp_moe_leg(rank: int, out: dict) -> None:
+    """Phase 38q (f32, TF32 off): the routed Llama at Llama-1B's width,
+    depth 2 (the second block routed: 8 experts, top 2, capacity factor
+    1, so tokens drop), B 1 x S 2048, one SGD step over seq 2 with
+    ring_flash against one process (attention "flash", rank 0) from the
+    same weights: the routing runs over the whole row."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = SyntheticLanguageModeling(batch_size=1, seq_len=SP_PARITY_SEQ,
+                                     vocab_size=VOCAB, seed=9)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in data.batch(0).items()}
+
+    def llama(attention, mesh=None):
+        return Llama_1B(vocab_size=VOCAB, depth=2, dtype=torch.float32,
+                        attention=attention, mesh=mesh, device=DEV,
+                        seed=14, **dict(MOE_CFG, moe_capacity_factor=1.0))
+
+    ref = (_one_process_step(llama("flash"), batch, LM_KEYS)
+           if rank == 0 else None)
+    torch.cuda.empty_cache()
+    strategy = _sp_strategy()
+    tr = Trainer(llama("ring_flash", strategy.mesh), optimizer="sgd",
+                 learning_rate=SP_LR, strategy=strategy, device=DEV,
+                 log_grad_norm=True, **LM_KEYS)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    collectives.reset_tp_counts()
+    logs = tr.train_step(batch)
+    torch.cuda.synchronize()
+    launches, counts = _launches(), _tp_counts()
+    out["sp_moe"] = dict(_step_record(strategy, tr, logs, ref,
+                                      tr.model.state_dict()),
+                         drop_rate=float(collectives.pmean(
+                             logs["moe_drop_rate"], strategy.batch_group)),
+                         launches=launches, collectives=counts)
+    del tr, ref
+    torch.cuda.empty_cache()
+
+
+# Phase 38r: a wrapped update rule under the pipeline: bf16 parameters
+# with f32 masters, a clipped Adam under a warmup-cosine schedule,
+# accumulation over 2 micro-steps; saved at step 3 (mid-window). The model
+# is GPipeGPT at GPT-2-small's widths: a save holds each parameter's
+# master, two moments and accumulator (Llama-1B's vocabulary would make
+# every save ~6 GB).
+PP_WRAPPED = dict(batch=2, seq=256, steps=4, save_at=3, lr=1e-4)
+GPIPE_GPT_WIDTHS = dict(vocab_size=GPT_VOCAB, max_len=1024, embed_dim=768,
+                        num_heads=12, ln_eps=1e-5)
+
+
+def _pp_wrapped_trainer(model, strategy):
+    def optimizer(ps):
+        return make_optimizer(ps, "adam", PP_WRAPPED["lr"],
+                              schedule="warmup_cosine",
+                              schedule_options=dict(warmup_steps=1,
+                                                    decay_steps=8),
+                              grad_clip_norm=1.0)
+    return Trainer(model, optimizer=optimizer,
+                   learning_rate=PP_WRAPPED["lr"], strategy=strategy,
+                   device=DEV, gradient_accumulation_steps=2,
+                   param_update="f32_master", **LM_KEYS)
+
+
+def _gpipe_gpt(mesh, seed):
+    return GPipeGPT(n_stages=2, blocks_per_stage=1, n_microbatches=2,
+                    mesh=mesh, **GPIPE_GPT_WIDTHS, attention="reference",
+                    dtype=torch.float32, param_dtype=torch.bfloat16,
+                    device=DEV, seed=seed)
+
+
+def _pp_wrapped_leg(rank: int, out: dict) -> None:
+    """Phase 38r (TF32 off, cuDNN deterministic): ``GPipeGPT`` at
+    GPT-2-small's widths, 2 stages x 1 block, M 2, bf16 parameters, attention
+    "reference" (the plain path: K2's dq is an atomic sum, and the leg is
+    held bitwise) under :func:`_pp_wrapped_trainer`: the uninterrupted
+    run, a run saved at ``save_at`` through ``CheckpointEveryN`` and cut
+    there, and a fresh pipeline's ``fit(resume=)``: the resumed and the
+    uninterrupted trainer's state checksums, the gathered state at the
+    save, and the save restored into one process (rank 0)."""
+    cfg = PP_WRAPPED
+    data = SyntheticLanguageModeling(batch_size=cfg["batch"],
+                                     seq_len=cfg["seq"], vocab_size=GPT_VOCAB,
+                                     seed=10)
+    ckpt = pathlib.Path(out["out_dir"], "pp_wrapped_ckpt")
+
+    def fit(callbacks=(), resume=None):
+        strategy = PipelineStrategy(2, device=DEV, backend="gloo")
+        tr = _pp_wrapped_trainer(_gpipe_gpt(strategy.mesh, 15), strategy)
+        try:
+            tr.fit(data, epochs=1, steps_per_epoch=cfg["steps"],
+                   callbacks=callbacks, resume=resume, verbose=0)
+        except _Stopped:
+            pass
+        torch.cuda.synchronize()
+        return tr, strategy
+
+    t0 = time.perf_counter()
+    with deterministic_block():
+        clean, _ = fit()
+        want = tree_checksums(clean.state_dict())
+        del clean
+        saved, strategy = fit([CheckpointEveryN(str(ckpt),
+                                                every_n_steps=cfg["save_at"],
+                                                async_save=False),
+                               _StopAt(cfg["save_at"])])
+        at_save = {k: v.float().cpu() for k, v in
+                   strategy.gather_state_dict(saved.model).items()}
+        saved_step = saved.step
+        del saved
+        torch.cuda.empty_cache()
+        resumed, _ = fit(resume=str(ckpt))
+        got = tree_checksums(resumed.state_dict())
+        resumed_step = resumed.step
+        del resumed
+        torch.cuda.empty_cache()
+        one = {}
+        if rank == 0:
+            # A mesh record of the sizes only (building a strategy's
+            # mesh would be collective): the model is built whole.
+            sizes = {"data": 1, "model": 1, "seq": 1, "expert": 1,
+                     "stage": 2}
+            whole = _gpipe_gpt(tmesh.Mesh(sizes, (0,), None, DEV), 16)
+            tr = _pp_wrapped_trainer(whole, None)
+            state, meta = Checkpointer(str(ckpt), read_only=True).restore()
+            tr.load_state_dict(local_state(tr, state, meta))
+            chain = tr.optimizer.state_dict()
+            one = dict(
+                params_equal=all(torch.equal(v.float().cpu(), at_save[k])
+                                 for k, v in tr.model.state_dict().items()),
+                count=chain["count"], mini_step=chain["mini_step"],
+                acc=sum(a is not None for a in chain["acc"]),
+                params=len(chain["acc"]))
+            del tr, whole, state
+            torch.cuda.empty_cache()
+    out["pp_wrapped"] = dict(
+        resumed_equal=got == want, leaves=len(want),
+        differing=sorted(k for k in want if got.get(k) != want[k])[:5],
+        steps=[saved_step, resumed_step], one_process=one,
+        seconds=time.perf_counter() - t0)
+
+
 def sp_pp_gloo2_child(rank: int, port: int, out_dir: str) -> None:
     """``--sp-pp-gloo2-child RANK PORT DIR``: one of two processes sharing
     the card over gloo: the legs of phases 38g-38j in turn. Writes what
@@ -7186,12 +7422,15 @@ def sp_pp_gloo2_child(rank: int, port: int, out_dir: str) -> None:
     torch.distributed.init_process_group(
         "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
         rank=rank)
-    out = {"rank": rank}
+    out = {"rank": rank, "out_dir": out_dir}
     try:
         for name, fn in (("sp_parity", _sp_parity_legs),
                          ("sp_train", _sp_train_leg),
                          ("pp_parity", _pp_parity_legs),
-                         ("pp_train", _pp_train_legs)):
+                         ("pp_train", _pp_train_legs),
+                         ("mesh_decode", _mesh_decode_leg),
+                         ("sp_moe", _sp_moe_leg),
+                         ("pp_wrapped", _pp_wrapped_leg)):
             t0 = time.perf_counter()
             before = set(out)
             fn(rank, out)
@@ -7225,7 +7464,7 @@ def _sum_launches(runs, key="launches"):
     return {k: sum(r[key][k] for r in runs) for k in FLASH_COUNTERS}
 
 
-def phase_sp_pp_gloo2(out_dir: str, timeout: float = 600.0):
+def phase_sp_pp_gloo2(out_dir: str, timeout: float = 900.0):
     """Phases 38g-38j from ``sp_pp_gloo2_child``'s two processes: the
     parity gates (phase 38b's: loss within 1e-4 relative, gradient norm within
     1e-3; each part's parameters within 1e-3 of its update plus two f32
@@ -7277,12 +7516,13 @@ def phase_sp_pp_gloo2(out_dir: str, timeout: float = 600.0):
     # Ring flash at seq 2 (causal): rank 0 runs the diagonal only (the
     # later shard has weight 0), rank 1 the diagonal and the past shard;
     # the plain ring launches nothing.
+    d = SP_PARITY_DEPTH
     for tag in ("llama_ring_flash", "llama_ring_flash_w512"):
-        gate("sp_parity_gloo2", tag, 2, (2, 4), (2, 4),
-             model="Llama_1B_depth2_f32", batch=1, seq=SP_PARITY_SEQ)
+        gate("sp_parity_gloo2", tag, d, (d, 2 * d), (d, 2 * d),
+             model=f"Llama_1B_depth{d}_f32", batch=1, seq=SP_PARITY_SEQ)
     for tag in ("llama_ring", "llama_ring_w512"):
-        gate("sp_parity_gloo2", tag, 2, (0, 0), (0, 0),
-             model="Llama_1B_depth2_f32", batch=1, seq=SP_PARITY_SEQ)
+        gate("sp_parity_gloo2", tag, d, (0, 0), (0, 0),
+             model=f"Llama_1B_depth{d}_f32", batch=1, seq=SP_PARITY_SEQ)
     # ViT: non-causal, both rotations on both ranks.
     gate("sp_parity_gloo2", "vit_s16_ring_flash", 2, (4, 4), (4, 4),
          model="ViT_S16_depth2_f32", batch=4, image=224)
@@ -7302,7 +7542,8 @@ def phase_sp_pp_gloo2(out_dir: str, timeout: float = 600.0):
     st = [s["sp_train"] for s in seen]
     steps, depth = SP_TRAIN["steps"], st[0]["depth"]
     long_fig = PHASE_FIGURES.get("train_long", {})
-    phase("sp_train_gloo2", model="Llama_1B_remat_dots_bf16_compute_f32_params",
+    phase("sp_train_gloo2", model=f"Llama_1B_depth{depth}_remat_dots_bf16_"
+          "compute_f32_params",
           attention="ring_flash", processes=2, seq_axis=2,
           batch=SP_TRAIN["batch"], seq=SP_TRAIN["seq"],
           tokens_per_process=SP_TRAIN["seq"] // 2, steps=steps,
@@ -7337,8 +7578,9 @@ def phase_sp_pp_gloo2(out_dir: str, timeout: float = 600.0):
         pt = [s[f"pp_train_m{m}"] for s in seen]
         steps = PP_TRAIN["steps"]
         step_fig = PHASE_FIGURES.get("train_step", {})
-        phase("pp_train_gloo2", model="GPipeLlama_Llama1B_2x8_bf16_compute_"
-              "f32_params", attention="flash", processes=2, stages=2,
+        phase("pp_train_gloo2", model=f"GPipeLlama_Llama1B_2x"
+              f"{PP_TRAIN['blocks']}_bf16_compute_f32_params",
+              attention="flash", processes=2, stages=2,
               microbatches=m, remat_stages=PP_REMAT, batch=PP_TRAIN["batch"],
               seq=PP_TRAIN["seq"], steps=steps,
               step_s=f"{pt[0]['step_s']:.4f}",
@@ -7383,11 +7625,249 @@ def phase_sp_pp_gloo2(out_dir: str, timeout: float = 600.0):
             bad.append(f"pp_train_m{m}_losses")
         bad.extend(_built_whole(f"pp_train_m{m}", pt))
         paths[f"pp_train_gloo2_m{m}"] = _sum_launches(pt)
+
+    # 38p: decoding a model built on the seq-2 mesh, in each process,
+    # against the same weights built without a mesh (the same programs:
+    # token-exact, the same launches).
+    md = [s["mesh_decode"] for s in seen]
+    depth = md[0]["mesh"]["depth"]
+    for r, run in enumerate(md):
+        mesh, plain = run["mesh"], run["plain"]
+        for what in ("generate", "engine"):
+            if mesh[what] != plain[what] or mesh[what] != md[0]["mesh"][what]:
+                bad.append(f"mesh_decode_{what}_tokens_rank{r}")
+            if mesh[f"{what}_launches"] != plain[f"{what}_launches"]:
+                bad.append(f"mesh_decode_{what}_launches_rank{r}")
+        if not mesh["generate_launches"]["flash_fwd"] > 0:
+            bad.append(f"mesh_decode_generate_k1_rank{r}")
+        k4 = mesh["engine_launches"]["paged_decode"]
+        if not (k4 > 0 and k4 == depth * mesh["ticks"]):
+            bad.append(f"mesh_decode_engine_k4_rank{r} {k4}")
+    phase("mesh_decode_gloo2", model=f"Llama_1B_depth{depth}_bf16",
+          attention="ring_flash", processes=2, seq_axis=2,
+          batch=MESH_DECODE["batch"], generate_prompt=MESH_DECODE["prompt"],
+          window=MESH_DECODE["window"],
+          engine_prompt=MESH_DECODE["engine_prompt"],
+          new=MESH_DECODE["new"], paged=True,
+          gates_ok=not any(b.startswith("mesh_decode_") for b in bad),
+          generate_k1_per_rank="/".join(
+              str(m["mesh"]["generate_launches"]["flash_fwd"]) for m in md),
+          engine_k4_per_rank="/".join(
+              str(m["mesh"]["engine_launches"]["paged_decode"]) for m in md),
+          engine_ticks_per_rank="/".join(str(m["mesh"]["ticks"])
+                                         for m in md),
+          seconds=f"{seen[0]['mesh_decode_seconds']:.2f}")
+    paths["mesh_decode_gloo2_generate"] = {
+        k: sum(m["mesh"]["generate_launches"].get(k, 0) for m in md)
+        for k in FLASH_COUNTERS}
+    k4_paths = {"mesh_decode_gloo2_engine": sum(
+        m["mesh"]["engine_launches"]["paged_decode"] for m in md)}
+
+    # 38q: the routed Llama over seq 2 against one process.
+    gate("sp_moe_gloo2", "sp_moe", 2, (2, 4), (2, 4),
+         model="Llama_1B_width_depth2_moe8_top2_cf1_f32", batch=1,
+         seq=SP_PARITY_SEQ,
+         drop_rate=f"{seen[0]['sp_moe']['drop_rate']:.5f}")
+    if not seen[0]["sp_moe"]["drop_rate"] > 0:
+        bad.append("sp_moe_no_drops")
+
+    # 38r: the wrapped update rule's pipeline save and resume.
+    pw = [s["pp_wrapped"] for s in seen]
+    one = pw[0]["one_process"]
+    phase("pp_wrapped_gloo2", model="GPipeGPT_GPT2_small_widths_2x1_bf16_"
+          "params_f32_masters", attention="reference", processes=2,
+          stages=2, microbatches=2, batch=PP_WRAPPED["batch"],
+          seq=PP_WRAPPED["seq"], steps=PP_WRAPPED["steps"],
+          save_at=PP_WRAPPED["save_at"],
+          rule="adam+warmup_cosine+clip1.0+accumulate2+f32_master",
+          resumed_bitwise_per_rank="/".join(str(w["resumed_equal"])
+                                            for w in pw),
+          leaves_per_rank="/".join(str(w["leaves"]) for w in pw),
+          one_process_params_equal=one.get("params_equal"),
+          one_process_count=one.get("count"),
+          one_process_mini_step=one.get("mini_step"),
+          one_process_accumulators=f"{one.get('acc')}/{one.get('params')}",
+          seconds=f"{pw[0]['seconds']:.2f}")
+    for r, w in enumerate(pw):
+        if not w["resumed_equal"] or not w["leaves"]:
+            bad.append(f"pp_wrapped_resume_rank{r} {w['differing']}")
+        if w["steps"] != [PP_WRAPPED["save_at"], PP_WRAPPED["steps"]]:
+            bad.append(f"pp_wrapped_steps_rank{r} {w['steps']}")
+    if not (one.get("params_equal") and one.get("count") == 1
+            and one.get("mini_step") == 1
+            and one.get("acc") == one.get("params")):
+        bad.append(f"pp_wrapped_one_process {one}")
     phase("phase_seconds_sp_pp", **{
         k: f"{v:.2f}" for k, v in seen[0].items() if k.endswith("_seconds")})
     if bad:
         raise RuntimeError(f"sp_pp_gloo2 out of tolerance: {bad}")
+    return paths, k4_paths
+
+# ------------------------------------------------------------ phase 38s
+# A seq axis of 2 beside a model, expert or stage axis of 2: four
+# processes sharing the card over gloo, f32, Llama-1B's width at depth 1
+# (the GPipe model 2 stages x 1 block, M 2), one SGD step each against one
+# process (attention "flash") from the same weights; ranks 0-2 each run
+# one leg's reference first, side by side.
+MESH4 = dict(seq=2048, pp_batch=2, depth=1)
+
+
+def _mesh4_legs(rank: int, out: dict) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = SyntheticLanguageModeling(batch_size=1, seq_len=MESH4["seq"],
+                                     vocab_size=VOCAB, seed=17)
+    tokens = {k: torch.from_numpy(v).to(DEV)
+              for k, v in data.batch(0).items()}
+    data = SyntheticLanguageModeling(batch_size=MESH4["pp_batch"],
+                                     seq_len=MESH4["seq"], vocab_size=VOCAB,
+                                     seed=18)
+    pp_tokens = {k: torch.from_numpy(v).to(DEV)
+                 for k, v in data.batch(0).items()}
+
+    def llama(attention, mesh=None, **kw):
+        return Llama_1B(vocab_size=VOCAB, depth=MESH4["depth"],
+                        dtype=torch.float32, attention=attention, mesh=mesh,
+                        device=DEV, seed=19, **kw)
+
+    def gpipe(attention, mesh):
+        return GPipeLlama(vocab_size=VOCAB, n_stages=2, blocks_per_stage=1,
+                          n_microbatches=2, mesh=mesh, **GPIPE_LLAMA_WIDTHS,
+                          attention=attention, dtype=torch.float32,
+                          device=DEV, seed=20)
+
+    legs = (
+        ("sp_tp", lambda: TensorParallelStrategy(
+            2, rules=LLAMA_TP_RULES, device=DEV, backend="gloo",
+            seq_parallel=2), llama, {}),
+        ("sp_ep", lambda: ExpertParallelStrategy(
+            2, rules=LLAMA_EP_RULES, device=DEV, backend="gloo",
+            seq_parallel=2), llama, dict(MOE_CFG, moe_every=1)),
+        ("sp_pp", lambda: PipelineStrategy(2, device=DEV, backend="gloo",
+                                           seq_parallel=2), gpipe, None))
+    # The references, leg i's on rank i (the parameters are replicated:
+    # the holder's gathered state is every process's).
+    refs = {}
+    for i, (tag, _, build, kw) in enumerate(legs):
+        if i != rank:
+            continue
+        if build is gpipe:
+            sizes = {"data": 1, "model": 1, "seq": 1, "expert": 1,
+                     "stage": 2}
+            whole = gpipe("flash", tmesh.Mesh(sizes, (0,), None, DEV))
+            refs[tag] = _one_process_step(whole, pp_tokens, LM_KEYS,
+                                          forward=whole.apply_sequential)
+        else:
+            whole = build("flash", **kw)
+            refs[tag] = _one_process_step(whole, tokens, LM_KEYS)
+        del whole
+        torch.cuda.empty_cache()
+    for tag, make_strategy, build, kw in legs:
+        batch = pp_tokens if build is gpipe else tokens
+        ref = refs.pop(tag, None)
+        strategy = make_strategy()
+        model = (gpipe("ring_flash", strategy.mesh) if build is gpipe
+                 else build("ring_flash", strategy.mesh, **kw))
+        tr = Trainer(model, optimizer="sgd", learning_rate=SP_LR,
+                     strategy=strategy, device=DEV, log_grad_norm=True,
+                     **LM_KEYS)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        collectives.reset_tp_counts()
+        logs = tr.train_step(batch)
+        torch.cuda.synchronize()
+        launches, counts = _launches(), _tp_counts()
+        whole_state = strategy.gather_state_dict(tr.model)
+        out[tag] = dict(_step_record(strategy, tr, logs, ref, whole_state),
+                        launches=launches, collectives=counts,
+                        coords={a: strategy.mesh.axis_index(a)
+                                for a in tmesh.CANONICAL_AXES},
+                        sizes=strategy.mesh.shape)
+        del tr, model, whole_state, ref
+        torch.cuda.empty_cache()
+
+
+def mesh_gloo4_child(rank: int, port: int, out_dir: str) -> None:
+    """``--mesh-gloo4-child RANK PORT DIR``: one of four processes sharing
+    the card over gloo: phase 38s's legs. Writes what it saw to
+    ``out_dir/mesh_gloo4_{rank}.json``."""
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=4,
+        rank=rank)
+    out = {"rank": rank}
+    try:
+        t0 = time.perf_counter()
+        _mesh4_legs(rank, out)
+        out["seconds"] = time.perf_counter() - t0
+    finally:
+        torch.distributed.destroy_process_group()
+    pathlib.Path(out_dir, f"mesh_gloo4_{rank}.json").write_text(
+        json.dumps(out))
+
+
+def phase_mesh_gloo4(out_dir: str, timeout: float = 600.0):
+    """Phase 38s from ``mesh_gloo4_child``'s four processes: each leg's
+    parity gates (phase 38b's, against a one-process step: leg i's on
+    rank i), every rank at JAX's mesh coordinates, and K1/K2 launched once
+    a layer per ring rotation this rank's ``seq`` position runs (the
+    diagonal, and the past shard from position 1). Returns the launches
+    (the four processes summed) by leg."""
+    out_dir = pathlib.Path(out_dir)
+    _two_processes(lambda rank, port: ("--mesh-gloo4-child", str(rank),
+                                       str(port), str(out_dir)),
+                   timeout, "mesh_gloo4", n=4)
+    seen = [json.loads((out_dir / f"mesh_gloo4_{r}.json").read_text())
+            for r in range(4)]
+    bad, paths = [], {}
+    depth = MESH4["depth"]
+    for tag, other, layers in (("sp_tp", "model", depth),
+                               ("sp_ep", "expert", depth),
+                               ("sp_pp", "stage", 2)):
+        recs = [s[tag] for s in seen]
+        ref = next(r for r in recs if "ref_loss" in r)
+        bounds = ref["param_bound_by_part"]
+        want = []
+        for rank, r in enumerate(recs):
+            coords = tmesh.axis_coords(r["sizes"], rank)
+            if r["coords"] != coords:
+                bad.append(f"{tag}_coords_rank{rank} {r['coords']}")
+            n = layers * (1 + coords["seq"])
+            want.append((n, n))
+        got = [(r["launches"]["flash_fwd"], r["launches"]["flash_bwd_fused"])
+               for r in recs]
+        if got != want:
+            bad.append(f"{tag}_launches {got} want {want}")
+        bad.extend(f"{tag}_{k}" for k, lim in GLOO2_GATES.items()
+                   if not ref[k] <= lim)
+        bad.extend(f"{tag}_param_diff_{k}"
+                   for k, v in ref["param_diff_by_part"].items()
+                   if not v <= bounds[k])
+        phase("mesh_gloo4", leg=tag, processes=4, backend="gloo",
+              device="cuda:0 (shared)", mesh=",".join(
+                  f"{a}:{v}" for a, v in ref["sizes"].items()),
+              model=("GPipeLlama_Llama1B_widths_2x1_M2_f32" if tag == "sp_pp"
+                     else f"Llama_1B_depth{depth}_f32"
+                     + ("_moe8_top2_every1" if tag == "sp_ep" else "")),
+              reference_rank=recs.index(ref),
+              attention="ring_flash", seq=MESH4["seq"], optimizer="sgd",
+              lr=SP_LR, loss=f"{ref['loss']:.7f}",
+              ref_loss=f"{ref['ref_loss']:.7f}",
+              **{k: f"{ref[k]:.3g}" for k in GLOO2_GATES},
+              **{f"{k}_bound": f"{v:g}" for k, v in GLOO2_GATES.items()},
+              param_diff=f"{ref['param_diff']:.3g}",
+              param_diff_by_part=",".join(
+                  f"{k}:{v:.3g}"
+                  for k, v in ref["param_diff_by_part"].items()),
+              param_diff_bound_by_part=",".join(
+                  f"{k}:{v:.3g}" for k, v in bounds.items()),
+              launches_per_rank="/".join(f"k1:{a},k2:{b}" for a, b in got),
+              collectives_rank0=_per_step(recs[0]["collectives"], 1),
+              seconds=f"{seen[0]['seconds']:.2f}")
+        paths[f"mesh_gloo4_{tag}"] = _sum_launches(recs)
+    if bad:
+        raise RuntimeError(f"mesh_gloo4 out of tolerance: {bad}")
     return paths
+
 
 # -------------------------------------------------------- phases 38k-38l
 # The fleet's replicas: the fleet worker's flat configuration at
@@ -7966,6 +8446,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sp-pp-gloo2-child", nargs=3,
                     metavar=("RANK", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-gloo4-child", nargs=3,
+                    metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile a window of decode ticks after "
                          "phases 7, 20 and 21 (the last two speculative: "
@@ -7992,6 +8475,10 @@ def main(argv=None) -> int:
     if args.sp_pp_gloo2_child:
         rank, port, out_dir = args.sp_pp_gloo2_child
         sp_pp_gloo2_child(int(rank), int(port), out_dir)
+        return 0
+    if args.mesh_gloo4_child:
+        rank, port, out_dir = args.mesh_gloo4_child
+        mesh_gloo4_child(int(rank), int(port), out_dir)
         return 0
     global SMI
     smi = SMI = device_line()
@@ -8162,8 +8649,14 @@ def main(argv=None) -> int:
         timing[name]["shapes"].update(shapes)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=BUILD) as sp_dir:
-        sp_pp_launches = phase_sp_pp_gloo2(sp_dir)
+        sp_pp_launches, sp_pp_k4 = phase_sp_pp_gloo2(sp_dir)
     phase("phase_seconds", name="sp_pp",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD) as mesh_dir:
+        sp_pp_launches.update(phase_mesh_gloo4(mesh_dir))
+    phase("phase_seconds", name="mesh_gloo4",
           seconds=f"{time.perf_counter() - t0:.2f}")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=BUILD) as cli_dir:
@@ -8197,7 +8690,8 @@ def main(argv=None) -> int:
         "engine_slice_serve": slice_serve_launches["paged_decode"],
         "engine_drain_restore": drain_launches["paged_decode"],
         "engine_trace_serve": trace_launches["paged_decode"],
-        "hf_llama_roundtrip": hf_launches["paged_decode"]}
+        "hf_llama_roundtrip": hf_launches["paged_decode"],
+        **sp_pp_k4}
     k1_paths = {"train_step": train_launches["flash_fwd"],
                 "train_long": long_launches["flash_fwd"],
                 "generate_swa": swa_launches["flash_fwd"],

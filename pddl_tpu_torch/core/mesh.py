@@ -22,12 +22,20 @@ the process group of the ranks that differ only along it
 With a ``seq`` axis above 1 the ranks that differ only in ``data`` and
 ``seq`` form one more group, :attr:`Mesh.batch_group`: a
 sequence-sharded batch's processes, over which the gradient and the
-logs are averaged. ``tdist.new_group`` is a collective call, so every
-process creates every group, in the same order. Not ported yet (each
-raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 7): a
-``seq`` axis above 1 beside a ``model``, ``expert`` or ``stage`` axis
-above 1, and any axis but ``data`` on a mesh of chosen ranks or of this
-host's processes (``local_only``). ``mesh_context``, ``shard_map``
+logs are averaged. Every combination of axes runs, a ``seq`` axis beside
+``model``, ``expert`` or ``stage`` too (ring attention over ``seq`` with
+the heads sharded over ``model``, routed experts over ``expert``, or the
+stages of a pipeline over ``stage``). ``tdist.new_group`` is a collective
+call, so every process of the job creates every group, in the same
+order: the mesh over the job, or with ``local_only`` every host's mesh
+over its processes (each process keeps its host's). A mesh of chosen
+ranks is built by its members only (each line's group by the ranks of
+the line, ``use_local_synchronization``), and a line's group is made
+once per process and reused by a later mesh over the same ranks. Its
+ranks come in increasing order: a torch process group orders its members
+by rank, so a line's positions are its ranks' order (JAX's
+``build_mesh`` over chosen devices takes any order). ``mesh_context``,
+``shard_map``
 and ``has_vma_checking`` are JAX mechanics (an ambient mesh, per-shard tracing, the varying-axes checker)
 with no counterpart here: a process runs its own replica's code, and
 collectives name a process group.
@@ -53,9 +61,6 @@ EXPERT_AXIS = "expert"
 STAGE_AXIS = "stage"  # pipeline parallelism (GPipe microbatch pipeline)
 CANONICAL_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS, STAGE_AXIS)
 
-_ITEM_7 = "ROADMAP.md queue 1 item 7 (distributed: what is left)"
-# The axes above size 1 that a mesh over processes runs.
-_PORTED_AXES = CANONICAL_AXES
 # The data and seq axes together: the processes of one sequence-sharded
 # batch (``Mesh.batch_group``).
 BATCH_PLANE = "data+seq"
@@ -262,13 +267,28 @@ def build_mesh(
         ranks = (_host_ranks() if config.local_only
                  else tuple(range(dist.process_count())))
         sizes = config.axis_sizes(len(ranks))
-        _check_axes(sizes, config.local_only)
-        if any(sizes[a] > 1 for a in CANONICAL_AXES if a != DATA_AXIS):
-            return _axes_mesh(sizes, ranks, device)
+        if _beyond_data(sizes):
+            hosts = ([tuple(range(h, h + len(ranks)))
+                      for h in range(0, dist.process_count(), len(ranks))]
+                     if config.local_only else [ranks])
+            return _axes_mesh(sizes, hosts, ranks, device)
         group = _data_group(ranks)
     ranks = tuple(ranks)
     sizes = config.axis_sizes(len(ranks))
-    _check_axes(sizes, True)
+    if _beyond_data(sizes):
+        if group is not None:
+            raise ValueError(
+                "a mesh with axes beyond data builds its groups: pass no "
+                "group")
+        if dist.process_index() not in ranks:
+            raise ValueError(f"this process ({dist.process_index()}) is "
+                             f"not one of the mesh's ranks {ranks}")
+        if list(ranks) != sorted(ranks):
+            raise ValueError(
+                f"ranks {ranks} of a mesh with axes beyond data must be in "
+                "increasing order: a process group orders its members by "
+                "rank")
+        return _axes_mesh(sizes, [ranks], ranks, device, members_only=True)
     if group is None and len(ranks) > 1:
         raise ValueError(f"a mesh over ranks {ranks} needs their group")
     device = resolve_device(dist.default_device() if device is None
@@ -279,22 +299,8 @@ def build_mesh(
                 world_group=group)
 
 
-def _check_axes(sizes: Dict[str, int], data_only: bool) -> None:
-    ported = (DATA_AXIS,) if data_only else _PORTED_AXES
-    for name, s in sizes.items():
-        if name not in ported and s > 1:
-            where = ("on a mesh of chosen ranks or of this host's processes"
-                     if data_only and name in _PORTED_AXES else "")
-            raise NotImplementedError(
-                f"mesh axis {name!r} of size {s} is not ported yet"
-                f"{' ' + where if where else ''}: {_ITEM_7}")
-    if sizes[SEQ_AXIS] > 1:
-        beside = [a for a in (MODEL_AXIS, EXPERT_AXIS, STAGE_AXIS)
-                  if sizes[a] > 1]
-        if beside:
-            raise NotImplementedError(
-                f"a seq axis of size {sizes[SEQ_AXIS]} beside the "
-                f"{'/'.join(beside)} axis is not ported yet: {_ITEM_7}")
+def _beyond_data(sizes: Dict[str, int]) -> bool:
+    return any(sizes[a] > 1 for a in CANONICAL_AXES if a != DATA_AXIS)
 
 
 def axis_coords(sizes: Dict[str, int], rank: int) -> Dict[str, int]:
@@ -320,11 +326,28 @@ def axis_lines(sizes: Dict[str, int], axis: str,
     return sorted((tuple(v) for v in lines.values()), key=lambda t: t[0])
 
 
-def _axes_mesh(sizes: Dict[str, int], ranks: Tuple[int, ...],
-               device) -> Mesh:
-    """The mesh over every process of the job with axes beyond ``data``:
-    one group per line of each axis above size 1, created by every
-    process in the same order (``new_group`` is collective)."""
+# Groups made over chosen ranks by their members, by rank tuple: a
+# member-synchronised group is named by its ranks, so a later mesh over
+# the same ranks takes the group made first.
+_MEMBER_GROUPS: Dict[Tuple[int, ...], tdist.ProcessGroup] = {}
+
+
+def _member_group(line: Tuple[int, ...]) -> tdist.ProcessGroup:
+    group = _MEMBER_GROUPS.get(line)
+    if group is None:
+        group = _MEMBER_GROUPS[line] = tdist.new_group(
+            list(line), use_local_synchronization=True)
+    return group
+
+
+def _axes_mesh(sizes: Dict[str, int], meshes: Sequence[Tuple[int, ...]],
+               ranks: Tuple[int, ...], device, *,
+               members_only: bool = False) -> Mesh:
+    """The mesh over ``ranks`` with axes beyond ``data``: one group per
+    line of each axis above size 1. Every process makes the groups of
+    every mesh of ``meshes`` (``ranks`` among them) in the same order
+    (``new_group`` is collective), or with ``members_only`` the groups
+    of its own lines only."""
     if not tdist.is_initialized():
         raise RuntimeError(
             f"a mesh of {len(ranks)} processes needs a process group: "
@@ -333,16 +356,28 @@ def _axes_mesh(sizes: Dict[str, int], ranks: Tuple[int, ...],
     axis_ranks: Dict[str, Tuple[int, ...]] = {}
     groups: Dict[str, Optional[tdist.ProcessGroup]] = {}
     planes = (BATCH_PLANE,) if sizes[SEQ_AXIS] > 1 else ()
-    for axis in CANONICAL_AXES + planes:
-        for line in axis_lines(sizes, axis, ranks):
-            group = tdist.new_group(list(line)) if len(line) > 1 else None
-            if me in line:
-                axis_ranks[axis], groups[axis] = line, group
-    world_group = (tdist.group.WORLD if len(ranks) == tdist.get_world_size()
-                   else tdist.new_group(list(ranks)))
+    for mesh_ranks in meshes:
+        made: Dict[Tuple[int, ...], tdist.ProcessGroup] = {}
+        for axis in CANONICAL_AXES + planes + ("world",):
+            lines = ([tuple(mesh_ranks)] if axis == "world"
+                     else axis_lines(sizes, axis, mesh_ranks))
+            for line in lines:
+                group = None
+                if len(line) > 1 and (not members_only or me in line):
+                    if line not in made:
+                        made[line] = (
+                            _member_group(line) if members_only
+                            else tdist.group.WORLD if axis == "world"
+                            and len(line) == tdist.get_world_size()
+                            else tdist.new_group(list(line)))
+                    group = made[line]
+                if me in line:
+                    axis_ranks[axis], groups[axis] = line, group
     device = resolve_device(dist.default_device() if device is None
                             else device)
     data = axis_ranks.pop(DATA_AXIS)
+    axis_ranks.pop("world")
+    world_group = groups.pop("world")
     return Mesh({a: sizes[a] for a in CANONICAL_AXES}, data,
                 groups.pop(DATA_AXIS), device, axis_ranks=axis_ranks,
                 groups=groups, world_group=world_group)

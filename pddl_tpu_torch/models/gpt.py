@@ -180,7 +180,7 @@ class GPT(nn.Module):
                  ln_eps: float = 1e-6, dtype=torch.float32,
                  param_dtype=None, device=None, seed: int = 0):
         super().__init__()
-        check_attention(attention, mesh, moe_experts=moe_experts)
+        check_attention(attention, mesh)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
         self.mesh = mesh

@@ -46,7 +46,6 @@ from pddl_tpu_torch.ops.attention import (
     paged_decode_attention,
 )
 
-_ITEM_7 = "not ported yet: ROADMAP.md queue 1 item 7 (distributed)"
 ATTENTIONS = ("flash", "reference", "ring", "ring_flash")
 
 
@@ -66,11 +65,11 @@ class SeqShard:
         return self.my * s_local
 
 
-def check_attention(attention: str, mesh, *, moe_experts: int = 0) -> None:
+def check_attention(attention: str, mesh) -> None:
     """Validate a family's ``attention`` against its ``mesh``: the ring
-    needs the mesh (the JAX text), a ``seq`` axis above 1 shards the
-    activations and so needs the ring, and a routed block under it is
-    not ported (the JAX module routes over the global tokens)."""
+    needs the mesh (the JAX text), and a ``seq`` axis above 1 shards the
+    activations and so needs the ring. (A routed block under such a mesh
+    routes over the whole row: ``ops/moe.py``.)"""
     if attention not in ATTENTIONS:
         raise ValueError(f"unknown attention {attention!r}")
     if attention in ("ring", "ring_flash") and mesh is None:
@@ -81,10 +80,6 @@ def check_attention(attention: str, mesh, *, moe_experts: int = 0) -> None:
                 f"a mesh with a seq axis of {mesh.shape['seq']} shards the "
                 f"sequence over processes: attention={attention!r} would "
                 "attend within the shard; use 'ring' or 'ring_flash'")
-        if moe_experts:
-            raise NotImplementedError(
-                "routed (MoE) blocks under a sequence-sharded mesh are "
-                + _ITEM_7)
 
 
 def attend_full(attention: str, mesh, q, k, v, *, causal: bool,
@@ -103,13 +98,6 @@ def attend_full(attention: str, mesh, q, k, v, *, causal: bool,
     return sequence_parallel_attention(
         q, k, v, mesh, causal=causal, window=window,
         use_flash=attention == "ring_flash")
-
-
-def refuse_mesh_decode(mesh) -> None:
-    """A cached forward of a model built with a mesh: not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "decoding a model built with a mesh is " + _ITEM_7)
 
 
 def jax_shapes(model: nn.Module) -> Dict[str, tuple]:

@@ -83,9 +83,11 @@ backward, on the card), the window composing with the ring. With ``seq``
 above 1 each process holds its ``S/seq`` slice of the sequence through
 the whole model: it is fed its slice of the tokens
 (``Strategy.distribute_batch``), its RoPE positions are global
-(``my·s + arange(s)``) and its logits are its slice's. Not ported yet
-(each raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 7):
-routed blocks under such a mesh and decoding a model built with a mesh.
+(``my·s + arange(s)``) and its logits are its slice's; a routed block
+routes over the whole row (``ops/moe.py``). A cached forward (decoding)
+runs on the whole sequence in every process, as the JAX decode branch
+runs before any mesh attention: a ring-trained model decodes through
+``generate()`` and the serving engine as it is.
 :class:`GPipeLlama` (``models/gpipe.py``) is the pipeline-parallel twin.
 """
 
@@ -107,7 +109,6 @@ from pddl_tpu_torch.models.layers import (
     attend_full,
     check_attention,
     paged_attend,
-    refuse_mesh_decode,
     row_attend,
     row_linear,
     vocab_embed,
@@ -222,7 +223,6 @@ class LlamaAttention(nn.Module):
             o = attend_full(self.attention, self.mesh, q, k, v, causal=True,
                             window=self.sliding_window)
         else:
-            refuse_mesh_decode(self.mesh)
             if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
                 i = cache_index.to(x.device)
                 if s != 1 and self.ring is not None:
@@ -301,7 +301,9 @@ class LlamaBlock(nn.Module):
         x = x + h
         h = self.ln2(x).to(self.dtype)
         if hasattr(self, "moe"):
-            return x + self.moe(h, train and not cache_kw)
+            # A cached forward holds the whole sequence: it routes alone.
+            return x + self.moe(h, train and not cache_kw,
+                                None if cache_kw else self.attn.seq)
         h = copy_to_group(h, self.tp_group)
         return x + row_linear(
             self.mlp_down, F.silu(self.mlp_gate(h)) * self.mlp_up(h),
@@ -417,7 +419,7 @@ class Llama(nn.Module):
                  rms_eps: float = 1e-5, dtype=torch.float32,
                  param_dtype=None, device=None, seed: int = 0):
         super().__init__()
-        check_attention(attention, mesh, moe_experts=moe_experts)
+        check_attention(attention, mesh)
         block_cls = remat_block(LlamaBlock, remat)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
@@ -544,18 +546,21 @@ Llama_1B = functools.partial(
 
 class _LlamaStage(nn.Module):
     """One pipeline stage: a run of dense Llama blocks. The pipeline
-    splits layers, never the sequence, so each block's RoPE positions
-    are ``arange(S)`` on every stage."""
+    splits layers, not the sequence, so each block's RoPE positions are
+    ``arange(S)`` on every stage; on a mesh whose ``seq`` axis is above 1
+    (``mesh``, with ring attention) each process runs its stage on its
+    slice of the sequence, at its global positions."""
 
     def __init__(self, embed_dim: int, num_heads: int, num_kv_heads: int,
                  intermediate_dim: int, blocks: int, *, rope_theta: float,
                  attention: str, rms_eps: float, dtype, param_dtype,
-                 device):
+                 device, mesh=None):
         super().__init__()
         self.blocks = nn.ModuleList(
             LlamaBlock(embed_dim, num_heads, num_kv_heads, intermediate_dim,
                        rope_theta=rope_theta, attention=attention,
-                       rms_eps=rms_eps, dtype=dtype, param_dtype=param_dtype,
+                       mesh=mesh, rms_eps=rms_eps, dtype=dtype,
+                       param_dtype=param_dtype,
                        device=device)
             for _ in range(blocks))
 
@@ -571,7 +576,10 @@ class GPipeLlama(GPipeModel):
     blocks through the GPipe schedule → bias-free head (replicated), the
     JAX constructor's arguments (no routed experts, window or q/k/v bias,
     as there) plus ``device`` and ``seed``. ``mesh`` is the port's mesh,
-    whose ``stage`` axis must have ``n_stages`` positions. Weights are
+    whose ``stage`` axis must have ``n_stages`` positions; on a mesh with
+    a ``seq`` axis above 1 the stages take ``attention="ring"`` or
+    ``"ring_flash"`` and run on this process's slice of the sequence
+    (sequence x pipeline parallelism, the port's). Weights are
     drawn as :class:`Llama`'s (:func:`draw_llama_weights`), each part
     from its own generator (:meth:`GPipeModel.materialize`)."""
 
@@ -584,8 +592,7 @@ class GPipeLlama(GPipeModel):
                  attention: str = "reference", rms_eps: float = 1e-5,
                  remat_stages: bool = False, dtype=torch.float32,
                  param_dtype=None, device=None, seed: int = 0):
-        if attention not in ("flash", "reference"):
-            raise ValueError(f"unknown attention {attention!r}")
+        check_attention(attention, mesh)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
         kv = num_kv_heads or num_heads
@@ -598,7 +605,7 @@ class GPipeLlama(GPipeModel):
                                 blocks_per_stage, rope_theta=rope_theta,
                                 attention=attention, rms_eps=rms_eps,
                                 dtype=dtype, param_dtype=param_dtype,
-                                device=shell)
+                                device=shell, mesh=mesh)
                     for _ in range(n_stages)],
             head=_LlamaHead(vocab_size, embed_dim, 1, rms_eps, dtype,
                             param_dtype, shell),

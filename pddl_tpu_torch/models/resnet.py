@@ -32,8 +32,12 @@ batch, as flax's does under the JAX trainer's ``jit`` over a data-sharded
 batch: the strategy binds its data group to every BatchNorm
 (:func:`bind_data_group`), which then reduces each channel's sum and
 centred sum of squares over the group (:class:`_SyncBatchNorm`).
-``axis_name`` names that group: ``None`` or ``"data"``; another axis is
-item 7's (ROADMAP.md queue 1).
+``axis_name`` names that group's mesh axis, as the JAX model's names the
+axis its BatchNorm reduces over under ``shard_map``: ``None`` or
+``"data"`` the data axis, another canonical axis (``"seq"``, ``"model"``,
+...) that axis's process group on the strategy's mesh
+(:meth:`pddl_tpu_torch.parallel.base.Strategy.bind`), so each process
+normalizes with the statistics of the rows held along that axis.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 
+from pddl_tpu_torch.core.mesh import CANONICAL_AXES
 from pddl_tpu_torch.device import resolve_device
 
 # Keras BN hyper-parameters (keras.applications.resnet: epsilon 1.001e-5).
@@ -307,11 +312,10 @@ class ResNet(nn.Module):
                  axis_name: Optional[str] = None, device=None,
                  seed: int = 0):
         super().__init__()
-        if axis_name not in (None, "data"):
-            raise NotImplementedError(
-                f"axis_name={axis_name!r} (BatchNorm over a mesh axis other "
-                "than data) is not ported yet: ROADMAP.md queue 1 item 7 "
-                "(distributed)")
+        if axis_name is not None and axis_name not in CANONICAL_AXES:
+            raise ValueError(
+                f"axis_name={axis_name!r} names no mesh axis; the port's "
+                f"meshes have {CANONICAL_AXES}")
         if bn_mode not in ("train", "frozen"):
             raise ValueError(f"unknown bn_mode {bn_mode!r}")
         if stem not in ("keras", "space_to_depth"):
@@ -321,6 +325,7 @@ class ResNet(nn.Module):
                 f"small_input_stem=True conflicts with stem={stem!r}: "
                 "the small 3x3/s1 stem would silently win; pick one")
         device = resolve_device(device)
+        self.axis_name = axis_name
         self.num_classes = num_classes
         self.small_input_stem = small_input_stem
         self.stem = stem

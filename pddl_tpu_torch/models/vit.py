@@ -88,7 +88,6 @@ from pddl_tpu_torch.models.layers import (
     check_attention,
     linear,
     paged_attend,
-    refuse_mesh_decode,
     row_attend,
     row_linear,
 )
@@ -193,7 +192,6 @@ class MultiHeadAttention(nn.Module):
             o = attend_full(self.attention, self.mesh, q, k, v,
                             causal=self.causal)
         else:
-            refuse_mesh_decode(self.mesh)
             if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
                 i = cache_index.to(x.device)
             else:
@@ -227,6 +225,7 @@ class TransformerBlock(nn.Module):
             mesh=mesh, dtype=dtype, param_dtype=param_dtype, device=device)
         self.ln2 = LayerNorm(embed_dim, ln_eps, param_dtype, device)
         self.drop = nn.Dropout(dropout) if dropout else None
+        self.seq = SeqShard(mesh)  # the routed block's place on ``seq``
         self.tp_group = None  # the MLP's model-axis group once bound
         if moe_experts:
             self.moe = SwitchFFN(embed_dim, moe_experts, mlp_ratio=mlp_ratio,
@@ -249,7 +248,9 @@ class TransformerBlock(nn.Module):
         x = x + self._dropout(h, train, cached)
         h = self.ln2(x).to(self.dtype)
         if hasattr(self, "moe"):
-            h = self.moe(h, train and not cached)
+            # A cached forward holds the whole sequence: it routes alone.
+            h = self.moe(h, train and not cached,
+                         None if cached else self.seq)
         else:
             h = self.mlp1(copy_to_group(h, self.tp_group))
             h = row_linear(self.mlp2, F.gelu(h, approximate="tanh"),
@@ -382,7 +383,7 @@ class ViT(nn.Module):
                  dtype=torch.float32, param_dtype=None, device=None,
                  seed: int = 0):
         super().__init__()
-        check_attention(attention, mesh, moe_experts=moe_experts)
+        check_attention(attention, mesh)
         device = resolve_device(device)
         param_dtype = param_dtype or dtype
         self.mesh = mesh

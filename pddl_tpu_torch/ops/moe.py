@@ -36,6 +36,22 @@ them, and the partial outputs are summed over the group
 backward sums each position's part of the input's gradient and of the
 gates' (:func:`~pddl_tpu_torch.core.collectives.copy_to_group` on both),
 while the aux loss, which every position computes whole, flows back once.
+
+**Under a sequence-sharded mesh.** With a ``seq`` shard passed to the
+forward (a model built on a mesh whose ``seq`` axis is above 1), each
+process holds ``S/n`` tokens of every row, and the routing is still the
+JAX module's over the whole row: the capacity is the global
+``max(1, int(capacity_factor·top_k·S/N))``, and each choice's queue
+positions continue from the earlier shards' tokens of that choice for
+each (row, expert) — an exclusive prefix of the per-shard counts over
+the ``seq`` group, one all-gather of ``[B, N]`` counts a choice — after
+the tokens every shard kept in the earlier choices. So the capacity
+drops fall on the tokens the JAX module drops. The aux loss and the drop
+rate are the whole row's (the mean router probability summed over the
+group by :func:`~pddl_tpu_torch.core.collectives.seq_sum`, whose
+gradient the batch's average brings back to the one-process gradient).
+A cached forward holds the whole sequence in every process and routes
+it locally.
 """
 
 from __future__ import annotations
@@ -47,7 +63,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pddl_tpu_torch.core.collectives import copy_to_group, reduce_from_group
+from pddl_tpu_torch.core.collectives import (
+    all_gather,
+    copy_to_group,
+    psum,
+    reduce_from_group,
+    seq_sum,
+)
 
 
 class Routing(NamedTuple):
@@ -77,12 +99,20 @@ def capacity_of(s: int, num_experts: int, top_k: int,
     return max(1, int(capacity_factor * top_k * s / num_experts))
 
 
+def _sharded(seq) -> bool:
+    return seq is not None and seq.n > 1
+
+
 def route(probs: torch.Tensor, top_k: int, capacity: int,
           normalize_gates: bool = True,
-          gate_probs: Optional[torch.Tensor] = None) -> Routing:
+          gate_probs: Optional[torch.Tensor] = None, seq=None) -> Routing:
     """The JAX module's ``top_k`` sequential choices over ``probs``
     ``[B, S, N]``. ``gate_probs`` (the same values, another autograd
-    path: the expert-parallel gates) feeds the gates when given."""
+    path: the expert-parallel gates) feeds the gates when given. ``seq``
+    (a shard of ``n`` above 1: ``n``, this shard's index ``my`` and the
+    ``group``) makes ``probs`` this shard's tokens of each row: positions
+    continue from the earlier shards' tokens of the same choice, and
+    ``offset`` counts the kept tokens of the whole row."""
     b, s, n = probs.shape
     remaining = probs if gate_probs is None else gate_probs
     offset = probs.new_zeros((b, n))
@@ -96,9 +126,20 @@ def route(probs: torch.Tensor, top_k: int, capacity: int,
         if first is None:
             first = raw
         remaining = remaining * (1.0 - raw)
-        position = (torch.cumsum(raw, dim=1) + offset[:, None, :]) * raw
+        # This choice's tokens per (row, expert): on this shard, before it
+        # (the earlier shards' queue ahead of this one's) and in the row.
+        mine = raw.sum(dim=1)
+        before, total = 0.0, mine
+        if _sharded(seq):
+            every = all_gather(mine, seq.group)               # [n, B, N]
+            before, total = every[:seq.my].sum(dim=0), every.sum(dim=0)
+        position = (torch.cumsum(raw, dim=1)
+                    + (offset + before)[:, None, :]) * raw
         onehot = raw * (position <= capacity)
-        offset = offset + onehot.sum(dim=1)
+        # The row's queue for this choice holds offset+1 .. offset+total:
+        # the kept ones are those up to the capacity.
+        offset = offset + torch.minimum(total,
+                                        (capacity - offset).clamp(min=0.0))
         keep = onehot.sum(dim=-1) > 0                         # [B, S]
         pos = ((position - 1.0) * onehot).sum(dim=-1).long()  # 0-based
         experts.append(idx)
@@ -211,9 +252,13 @@ class SwitchFFN(nn.Module):
         self.expert_offset = offset
         self.n_local = n_local
 
-    def routing(self, x: torch.Tensor, train: bool = True) -> Routing:
-        """The router and the choices for ``x`` ``[B, S, E]``."""
+    def routing(self, x: torch.Tensor, train: bool = True,
+                seq=None) -> Routing:
+        """The router and the choices for ``x`` ``[B, S, E]`` (this
+        shard's tokens under ``seq``: the capacity is the whole row's)."""
         b, s, _ = x.shape
+        if _sharded(seq):
+            s = s * seq.n
         logits = F.linear(x.float(), self.router.weight.float(),
                           self.router.bias.float())
         probs = torch.softmax(logits, dim=-1)
@@ -222,7 +267,8 @@ class SwitchFFN(nn.Module):
                           self.capacity_factor,
                           not train and self.eval_dropless)
         return route(probs, self.top_k, cap, self.normalize_gates,
-                     gate_probs if self.expert_group is not None else None)
+                     gate_probs if self.expert_group is not None else None,
+                     seq)
 
     def _experts(self, xin: torch.Tensor) -> torch.Tensor:
         """The local experts over their slots ``[B, n, C, E]``."""
@@ -237,14 +283,24 @@ class SwitchFFN(nn.Module):
         return (torch.einsum("bnch,nhd->bncd", h, w2)
                 + self.b2.to(dt)[:, None, :])
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = True,
+                seq=None) -> torch.Tensor:
+        """``seq``: the model's place on a ``seq`` axis above 1 when
+        ``x`` holds this process's tokens of each row (module
+        docstring); ``None`` routes ``x`` as the whole sequence."""
         b, s, d = x.shape
-        r = self.routing(x, train)
+        r = self.routing(x, train, seq)
         n = self.num_experts
-        frac = r.first.mean(dim=(0, 1))
-        mean_prob = r.probs.mean(dim=(0, 1))
+        if _sharded(seq):
+            tokens = b * s * seq.n
+            frac = psum(r.first.sum(dim=(0, 1)), seq.group) / tokens
+            mean_prob = seq_sum(r.probs.sum(dim=(0, 1)), seq.group) / tokens
+        else:
+            tokens = b * s
+            frac = r.first.mean(dim=(0, 1))
+            mean_prob = r.probs.mean(dim=(0, 1))
         aux = self.aux_loss_weight * n * torch.sum(frac * mean_prob)
-        drop = 1.0 - r.offset.sum() / (b * s * self.top_k)
+        drop = 1.0 - r.offset.sum() / (tokens * self.top_k)
         self.sown = {"losses": {"moe_aux_loss": aux},
                      "metrics": {"moe_drop_rate": drop}}
 

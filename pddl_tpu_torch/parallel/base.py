@@ -173,8 +173,11 @@ class Strategy:
 
     # -- the step ----------------------------------------------------------
     def bind(self, model: torch.nn.Module) -> None:
-        """Prepare ``model`` for the step: BatchNorm over the global batch."""
-        bind_data_group(model, self.group)
+        """Prepare ``model`` for the step: BatchNorm over the global batch,
+        or over the mesh axis a ResNet's ``axis_name`` names."""
+        axis = getattr(model, "axis_name", None)
+        bind_data_group(model, self.group if axis in (None, DATA_AXIS)
+                        else self.mesh.axis_group(axis))
 
     def make_optimizer(self, model: torch.nn.Module, optimizer,
                        learning_rate: float, **options):

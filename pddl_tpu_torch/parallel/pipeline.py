@@ -30,8 +30,13 @@ stacked leaf's slice ``i`` through :mod:`pddl_tpu_torch.bridge`) and the
 optimizer's per-parameter state in that model's order, gathered over
 ``stage`` and ``model``; rank 0 writes it. It restores bitwise into one
 process's whole model, and :meth:`local_trainer_state` cuts it back to a
-process's stage and block. A wrapped update rule (bf16 rules, schedules,
-clipping, accumulation) is not saved this way yet.
+process's stage and block. A wrapped update rule (the bf16 rules,
+schedules, clipping, accumulation: ``train/mixed_precision.py``,
+``train/state.py``) saves its own state around the inner rule's: the
+per-parameter lists (accumulators, ``f32_master`` masters) in the
+sequential model's order like the moments, the counters as they are, and
+a stochastic-rounding generator's state by stage (``generator`` holds
+stage 0's, which a one-process restore takes).
 """
 
 from __future__ import annotations
@@ -58,8 +63,7 @@ from pddl_tpu_torch.parallel.tensor_parallel import (
     VIT_TP_RULES,
     _shard_dim,
 )
-
-_ITEM_7 = "not ported yet: ROADMAP.md queue 1 item 7 (distributed)"
+from pddl_tpu_torch.train.mixed_precision import OptimizerWrapper
 
 # Stage-stacked parameter trees live under a "stages" key; everything in
 # them shards its leading (stage) dim. Embed/head params fall through the
@@ -94,6 +98,15 @@ PIPELINE_TP_RULES: Sequence[Rule] = tuple(
 ) + tuple(PIPELINE_RULES)
 
 
+def _every(p: torch.Tensor) -> bool:
+    return True
+
+
+def _bf16(p: torch.Tensor) -> bool:
+    """A target ``ParamUpdate`` runs through an f32 proxy."""
+    return p.dtype == torch.bfloat16
+
+
 def _is_stage(name: str) -> bool:
     return name.startswith("stages.")
 
@@ -113,6 +126,8 @@ class PipelineStrategy(TensorParallelStrategy):
         the ``data`` axis).
       model_parallel: TP degree inside each stage; >1 switches the default
         rule table to the combined 3D layout (``PIPELINE_TP_RULES``).
+      seq_parallel: a ``seq`` axis beside ``stage``: a ring GPipe model
+        built on the mesh runs each stage on its sequence slice.
       rules, coordinator_address, num_processes, process_id, device,
         backend: as :class:`TensorParallelStrategy`'s.
     """
@@ -123,8 +138,8 @@ class PipelineStrategy(TensorParallelStrategy):
             rules = PIPELINE_TP_RULES if model_parallel > 1 else PIPELINE_RULES
         super().__init__(model_parallel=model_parallel, rules=rules, **kwargs)
         self._mesh_config = MeshConfig(
-            data=-1, model=model_parallel, stage=n_stages
-        )
+            data=-1, model=model_parallel, stage=n_stages,
+            seq=self.seq_parallel)
         self.n_stages = n_stages
 
     # -- binding -----------------------------------------------------------
@@ -272,40 +287,37 @@ class PipelineStrategy(TensorParallelStrategy):
             out.append((local, seq))
         return out
 
-    def _plain_optimizer(self, trainer) -> torch.optim.Optimizer:
-        opt = trainer.optimizer
-        if type(opt).__module__.split(".")[0] != "torch":
-            raise NotImplementedError(
-                f"saving a pipeline run's {type(opt).__name__} (a wrapped "
-                "update rule) is " + _ITEM_7)
-        return opt
+    def _staged(self) -> bool:
+        return self.mesh.axis_group(STAGE_AXIS) is not None
 
-    def whole_trainer_state(self, trainer) -> Tuple[dict, Dict[str, str]]:
-        """``(state, owners)`` of a save (module docstring): the sequential
-        model's state, gathered (every process calls it)."""
-        opt = self._plain_optimizer(trainer)
-        state = trainer.state_dict()
-        model = self.gather_state_dict(trainer.model)
-        ema = None
-        if state.get("ema") is not None:
-            ema = {}
-            for k, v in state["ema"].items():
-                ema.update(self._whole(k, v))
-        sd = opt.state_dict()
-        params = {n: p for n, p in trainer.model.named_parameters()}
-        staged = self.mesh.axis_group(STAGE_AXIS) is not None
+    def _whole_names(self, name: str) -> List[str]:
+        """The whole model's names of this process's parameter ``name``:
+        every stage's for a stage's parameter."""
+        if self._staged() and _is_stage(name):
+            return [_restage(name, s)
+                    for s in range(self.mesh.shape[STAGE_AXIS])]
+        return [name]
+
+    def _local_of(self, name: str) -> str:
+        """This process's parameter in the role of whole name ``name``."""
+        if self._staged() and _is_stage(name):
+            return _restage(name, self.mesh.axis_index(STAGE_AXIS))
+        return name
+
+    def _whole_torch(self, trainer, sd: dict) -> dict:
+        """A ``torch.optim`` state dict over the whole model's parameters
+        in sequential order (collectives)."""
+        params = dict(trainer.model.named_parameters())
         groups, per_name = [], {}
         seq_index = 0
-        for (local, seq), saved in zip(self._sequential_names(trainer),
-                                       sd["param_groups"]):
+        names = self._sequential_names(trainer)
+        for (local, seq), saved in zip(names, sd["param_groups"]):
             for name, idx in zip(local, saved["params"]):
                 st = sd["state"].get(idx)
                 if st is None:
                     continue
-                targets = ([_restage(name, s)
-                            for s in range(self.mesh.shape[STAGE_AXIS])]
-                           if staged and _is_stage(name) else [name])
-                entry: Dict[str, dict] = {t: {} for t in targets}
+                entry: Dict[str, dict] = {
+                    t: {} for t in self._whole_names(name)}
                 for key in sorted(st):
                     v = st[key]
                     if (isinstance(v, torch.Tensor) and v.ndim
@@ -313,31 +325,20 @@ class PipelineStrategy(TensorParallelStrategy):
                         for t_name, t in self._whole(name, v).items():
                             entry[t_name][key] = t
                     else:
-                        for t_name in targets:
+                        for t_name in entry:
                             entry[t_name][key] = v
                 per_name.update(entry)
             groups.append(dict(saved, params=list(
                 range(seq_index, seq_index + len(seq)))))
             seq_index += len(seq)
-        flat_names = [n for _, seq in self._sequential_names(trainer)
-                      for n in seq]
-        optimizer = {"state": {i: per_name[n] for i, n in
-                               enumerate(flat_names) if n in per_name},
-                     "param_groups": groups}
-        return {"step": state["step"], "model": model,
-                "optimizer": optimizer, "ema": ema}, {}
+        flat_names = [n for _, seq in names for n in seq]
+        return {"state": {i: per_name[n] for i, n in enumerate(flat_names)
+                          if n in per_name},
+                "param_groups": groups}
 
-    def local_trainer_state(self, trainer, state: dict, meta) -> dict:
-        """The inverse of :meth:`whole_trainer_state`: this process's
-        stage and block of a save."""
-        self._plain_optimizer(trainer)
-        mine = trainer.model.state_dict()
-        model = {k: self.local_state(k, state["model"][k]) for k in mine}
-        ema = state.get("ema")
-        if ema is not None:
-            ema = {k: self.local_state(k, ema[k]) for k in mine if k in ema}
-        saved = state["optimizer"]
-        params = {n: p for n, p in trainer.model.named_parameters()}
+    def _local_torch(self, trainer, saved: dict) -> dict:
+        """The inverse of :meth:`_whole_torch`."""
+        params = dict(trainer.model.named_parameters())
         groups, opt_state, local_index = [], {}, 0
         for (local, seq), sgroup in zip(self._sequential_names(trainer),
                                         saved["param_groups"]):
@@ -354,9 +355,103 @@ class PipelineStrategy(TensorParallelStrategy):
                 ids.append(local_index)
                 local_index += 1
             groups.append(dict(sgroup, params=ids))
+        return {"state": opt_state, "param_groups": groups}
+
+    def _kept_names(self, trainer, keep) -> Tuple[List[str], List[str]]:
+        """This process's and the whole model's parameter names, in
+        target order, whose (local) parameter passes ``keep``."""
+        params = dict(trainer.model.named_parameters())
+        names = self._sequential_names(trainer)
+        local = [n for loc, _ in names for n in loc if keep(params[n])]
+        whole = [n for _, seq in names for n in seq
+                 if keep(params[self._local_of(n)])]
+        return local, whole
+
+    def _whole_list(self, trainer, values: list, keep) -> list:
+        """A wrapper's per-target list (``None`` where a target has no
+        entry) over the whole model's targets."""
+        local, whole = self._kept_names(trainer, keep)
+        by_name = {}
+        for name, v in zip(local, values, strict=True):
+            if v is None:
+                by_name.update({t: None for t in self._whole_names(name)})
+            else:
+                by_name.update(self._whole(name, v))
+        return [by_name[n] for n in whole]
+
+    def _local_list(self, trainer, values: list, keep) -> list:
+        """The inverse of :meth:`_whole_list`."""
+        params = dict(trainer.model.named_parameters())
+        local, whole = self._kept_names(trainer, keep)
+        by_name = dict(zip(whole, values, strict=True))
+        out = []
+        for name in local:
+            v = by_name[name]
+            if v is not None and v.shape != params[name].shape:
+                v = self.local_state(name, v)
+            out.append(v)
+        return out
+
+    def _whole_rule(self, trainer, opt, sd: dict) -> dict:
+        """The optimizer's state over the whole model: a wrapper's own
+        state around its inner rule's, down to the ``torch.optim`` rule."""
+        if not isinstance(opt, OptimizerWrapper):
+            return self._whole_torch(trainer, sd)
+        out = dict(sd, inner=self._whole_rule(trainer, opt.inner,
+                                              sd["inner"]))
+        if "acc" in sd:
+            out["acc"] = self._whole_list(trainer, sd["acc"], _every)
+        if "masters" in sd:
+            out["masters"] = self._whole_list(trainer, sd["masters"], _bf16)
+        if "generator" in sd and self._staged():
+            gens = collectives.all_gather(sd["generator"],
+                                          self.mesh.axis_group(STAGE_AXIS))
+            out["generator"] = gens[0]
+            out["generator_by_stage"] = list(gens.unbind(0))
+        return out
+
+    def _local_rule(self, trainer, opt, sd: dict) -> dict:
+        """The inverse of :meth:`_whole_rule`."""
+        if not isinstance(opt, OptimizerWrapper):
+            return self._local_torch(trainer, sd)
+        out = dict(sd, inner=self._local_rule(trainer, opt.inner,
+                                              sd["inner"]))
+        if "acc" in sd:
+            out["acc"] = self._local_list(trainer, sd["acc"], _every)
+        if "masters" in sd:
+            out["masters"] = self._local_list(trainer, sd["masters"], _bf16)
+        by_stage = out.pop("generator_by_stage", None)
+        if by_stage is not None and self._staged():
+            out["generator"] = by_stage[self.mesh.axis_index(STAGE_AXIS)]
+        return out
+
+    def whole_trainer_state(self, trainer) -> Tuple[dict, Dict[str, str]]:
+        """``(state, owners)`` of a save (module docstring): the sequential
+        model's state, gathered (every process calls it)."""
+        state = trainer.state_dict()
+        model = self.gather_state_dict(trainer.model)
+        ema = None
+        if state.get("ema") is not None:
+            ema = {}
+            for k, v in state["ema"].items():
+                ema.update(self._whole(k, v))
+        optimizer = self._whole_rule(trainer, trainer.optimizer,
+                                     state["optimizer"])
         return {"step": state["step"], "model": model,
-                "optimizer": {"state": opt_state, "param_groups": groups},
-                "ema": ema}
+                "optimizer": optimizer, "ema": ema}, {}
+
+    def local_trainer_state(self, trainer, state: dict, meta) -> dict:
+        """The inverse of :meth:`whole_trainer_state`: this process's
+        stage and block of a save."""
+        mine = trainer.model.state_dict()
+        model = {k: self.local_state(k, state["model"][k]) for k in mine}
+        ema = state.get("ema")
+        if ema is not None:
+            ema = {k: self.local_state(k, ema[k]) for k in mine if k in ema}
+        optimizer = self._local_rule(trainer, trainer.optimizer,
+                                     state["optimizer"])
+        return {"step": state["step"], "model": model,
+                "optimizer": optimizer, "ema": ema}
 
     def __repr__(self) -> str:
         shape = self.mesh.shape

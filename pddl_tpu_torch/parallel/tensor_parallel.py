@@ -248,6 +248,11 @@ class TensorParallelStrategy(Strategy):
         (:func:`pddl_tpu_torch.core.dist.initialize`).
       device / backend: this process's device and the groups' backend
         (two processes sharing one card take gloo).
+      seq_parallel: size of a ``seq`` axis beside ``model`` (the port's
+        keyword; JAX reaches the mesh by building it): a model built on
+        the strategy's mesh with ``attention="ring"``/``"ring_flash"``
+        attends over ``seq`` with its heads sharded over ``model``, each
+        process fed its slice of every ``[B, S]`` field.
     """
 
     def __init__(self, model_parallel: int = 1,
@@ -255,9 +260,11 @@ class TensorParallelStrategy(Strategy):
                  coordinator_address: Optional[str] = None,
                  num_processes: Optional[int] = None,
                  process_id: Optional[int] = None, *, device=None,
-                 backend: Optional[str] = None):
-        super().__init__(MeshConfig(data=-1, model=model_parallel),
+                 backend: Optional[str] = None, seq_parallel: int = 1):
+        super().__init__(MeshConfig(data=-1, model=model_parallel,
+                                    seq=seq_parallel),
                          device=device, backend=backend)
+        self.seq_parallel = seq_parallel
         self.rules = [(re.compile(pat), fn) for pat, fn in rules]
         self._bootstrap = (coordinator_address, num_processes, process_id)
         self._bound: Dict[str, Placement] = {}
@@ -456,6 +463,8 @@ class ExpertParallelStrategy(TensorParallelStrategy):
     Expert-major MoE weights shard dim 0 over ``expert``; every other
     weight follows the Megatron rules over ``model`` (size 1 unless
     ``model_parallel`` is raised), so EP and TP compose in one table.
+    With ``seq_parallel`` the routed blocks route over the whole row
+    (``ops/moe.py``) and run their experts over ``expert``.
     """
 
     def __init__(self, expert_parallel: int, model_parallel: int = 1,
@@ -463,7 +472,8 @@ class ExpertParallelStrategy(TensorParallelStrategy):
         super().__init__(model_parallel=model_parallel, rules=rules,
                          **kwargs)
         self._mesh_config = MeshConfig(data=-1, model=model_parallel,
-                                       expert=expert_parallel)
+                                       expert=expert_parallel,
+                                       seq=self.seq_parallel)
 
 
 # ------------------------------------------------------ module configuration

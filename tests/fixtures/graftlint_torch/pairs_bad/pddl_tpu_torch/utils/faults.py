@@ -1,0 +1,5 @@
+"""Bad twin: the storage-fault vocabulary."""
+
+
+class StorageFaultPlan:
+    SITES = ("open",)

@@ -1,0 +1,10 @@
+"""Good twin: an emitter the trace-vocab rule reaches only
+through its pair."""
+
+
+class Tracer:
+    def on_queue(self, span, now):
+        span.event(now, "queued")
+
+    def on_finish(self, span, now):
+        span.event(now, "finish")

@@ -1,0 +1,5 @@
+"""Good twin: the engine's fault-site vocabulary."""
+
+
+class FaultPlan:
+    SITES = ("tick", "prefill")

@@ -1,0 +1,3 @@
+"""The authoritative replica roles."""
+
+ROLES = ("prefill", "decode", "unified")

@@ -244,8 +244,9 @@ def test_unported_options_raise(kw, item):
     """Ring attention and ``mesh`` (item 7) and Switch-MoE blocks (item 5)
     are ported: each GPT gives the JAX model's logits. The ring runs over
     a one-process mesh against the JAX XLA ring over one device; a mesh
-    whose seq axis is 1 leaves the attention as it is. Decoding a model
-    built with a mesh still raises, naming item 7."""
+    whose seq axis is 1 leaves the attention as it is. A model built with
+    a mesh decodes as the JAX one does: greedy tokens equal to the JAX
+    ``generate``'s (the cached forward runs before any mesh attention)."""
     tokens = np.random.default_rng(0).integers(0, 64, (2, 12)).astype(
         np.int32)
     jkw, tkw = dict(kw), dict(kw)
@@ -267,6 +268,7 @@ def test_unported_options_raise(kw, item):
         {"params": params}, jnp.asarray(tokens), train=False)),
         rtol=0, atol=1e-5)
     if "mesh" in tkw:
-        with pytest.raises(NotImplementedError, match=item):
-            tm(torch.from_numpy(tokens[:, :4]), cache=decode_cache(tm, 2),
-               cache_index=0)
+        want = jax_generate(jm, {"params": params}, jnp.asarray(tokens[:, :4]),
+                            6)
+        np.testing.assert_array_equal(
+            generate(tm, tokens[:, :4], 6).numpy(), np.asarray(want))

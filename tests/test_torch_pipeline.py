@@ -11,7 +11,12 @@
   and the port's own `apply_sequential` at each leg's options:
   outputs within 1e-5, each gradient within 1e-4 of its own max-abs. The same
   cluster takes an Adam step of `GPipeLlama` and saves it: the save
-  restores bitwise into one process's whole model.
+  restores bitwise into one process's whole model. A wrapped update rule
+  (bf16 parameters with f32 masters, clipped Adam under a schedule,
+  accumulation over 2 micro-steps) is saved mid-window, restored into a
+  fresh pipeline whose `fit(resume=)` ends bitwise equal to the
+  uninterrupted run, and restored into one process (the parameters, the
+  masters, the accumulators and the counters).
 - A 4-process cluster trains `dryrun_multichip` shape 5 (data 2 x stage 2
   `GPipeViT`) and shape 7 (stage 2 x model 2, Megatron TP inside each
   stage) one SGD step each, against the JAX single-device `Trainer` over
@@ -41,6 +46,7 @@ from _torch_cluster import REPO, Cluster
 from _torch_sp_child import (
     LR,
     PP_ADAM,
+    PP_WRAPPED,
     PP_FWD,
     PP_LEG_KW,
     PP_LEGS,
@@ -48,6 +54,7 @@ from _torch_sp_child import (
     pp_kw,
     pp_leg_batch,
     port_extra,
+    pp_wrapped_trainer,
 )
 from pddl_tpu.core.mesh import MeshConfig, build_mesh
 from pddl_tpu.models.gpt import GPipeGPT as JaxGPipeGPT
@@ -320,6 +327,41 @@ def test_pipeline_save_restores_into_one_process(runs):
                one.model.named_parameters()}
     assert all(st["exp_avg"].shape == p.shape for (n, st), p in
                zip(moments.items(), one.model.parameters()))
+    x, _ = pp_input("llama", 1)
+    assert torch.isfinite(one.model.apply_sequential(
+        torch.from_numpy(x).long())).all()
+
+
+def test_pipeline_wrapped_rule_saves_restores_and_resumes_bitwise(runs):
+    work, _, _ = runs
+    got = np.load(work / "pp_wrapped.npz")
+    steps, save_at = PP_WRAPPED["steps"], PP_WRAPPED["save_at"]
+    assert got["steps"].tolist() == [save_at, steps, steps]
+    assert got["resumed_equal"].size and got["resumed_equal"].all()
+    ckpt = Checkpointer(str(work / "ckpt_pp_wrapped"), read_only=True)
+    assert ckpt.all_steps() == [save_at]
+    whole = GPipeLlama(mesh=_fake_mesh(), device="cpu",
+                       param_dtype=torch.bfloat16,
+                       **pp_kw("llama", {}, 2))
+    one = pp_wrapped_trainer(whole)
+    state, meta = ckpt.restore()
+    one.load_state_dict(local_state(one, state, meta))
+    for name, t in one.model.state_dict().items():
+        assert torch.equal(t.float(), torch.from_numpy(got[f"save/{name}"])
+                           ), name
+    # Saved mid-window: one update done, one micro-step accumulated.
+    chain = one.optimizer.state_dict()
+    assert (chain["count"], chain["mini_step"]) == (1, 1)
+    targets = list(one.model.parameters())
+    assert len(chain["acc"]) == len(targets)
+    assert all(a is not None and a.shape == p.shape and a.abs().sum() > 0
+               for a, p in zip(chain["acc"], targets))
+    rule = chain["inner"]
+    while "masters" not in rule:
+        rule = rule["inner"]
+    assert all(m.dtype == torch.float32 and m.shape == p.shape
+               and torch.equal(m.to(torch.bfloat16), p.detach())
+               for m, p in zip(rule["masters"], targets, strict=True))
     x, _ = pp_input("llama", 1)
     assert torch.isfinite(one.model.apply_sequential(
         torch.from_numpy(x).long())).all()

@@ -40,9 +40,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import PartitionSpec as P
 
 import pddl_tpu.models.resnet as jres
 import pddl_tpu_torch.models.resnet as tres
+from pddl_tpu.core.mesh import MeshConfig as JaxMeshConfig
+from pddl_tpu.core.mesh import build_mesh as jax_build_mesh
+from pddl_tpu.core.mesh import shard_map as jax_shard_map
 from pddl_tpu.data.synthetic import SyntheticImageClassification as JaxImages
 from pddl_tpu.ops.augment import standard_augment as jax_standard_augment
 from pddl_tpu.ops.augment import (
@@ -372,14 +376,31 @@ def test_resnet_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_axis_name_is_refused():
-    """``"data"`` is ported (BatchNorm over the strategy's data group,
-    ``tests/test_torch_strategies.py``): alone it normalizes each batch as
-    ``None`` does. Any other axis is still item 7's."""
-    x = torch.tensor(_images((4, 16, 16, 3)))
+    """Every mesh axis is ported: BatchNorm reduces over the named axis's
+    group of the strategy's mesh (``"data"``: the data group,
+    ``tests/test_torch_strategies.py``; ``"seq"`` over two processes
+    against the JAX ``shard_map`` twin,
+    ``tests/test_torch_sequence_parallel.py``). Alone, any axis
+    normalizes each batch as ``None`` does, as the JAX model over an axis
+    of one device does; a name that is no mesh axis is refused."""
+    x = _images((4, 16, 16, 3))
+    jm = jres.tiny_resnet(axis_name="model")
+    v = jm.init(jax.random.key(1), jnp.asarray(x[:1]), train=False)
+    mesh = jax_build_mesh(JaxMeshConfig(data=1), devices=jax.devices()[:1])
+    want, _ = jax_shard_map(
+        lambda v, x: jm.apply(v, x, train=True, mutable=["batch_stats"]),
+        mesh=mesh, in_specs=(P(), P()), out_specs=(P(), P()))(
+            v, jnp.asarray(x))
     models = [tres.tiny_resnet(device="cpu", axis_name=name, seed=1)
-              for name in (None, "data")]
-    out = [m(x) for m in models]
-    assert torch.equal(out[0], out[1])
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1 item 7"):
+              for name in (None, "data", "model", "seq")]
+    params = jax.tree.map(np.asarray, v["params"])
+    stats = jax.tree.map(np.asarray, v["batch_stats"])
+    for m in models:
+        m.load_state_dict(resnet_params_from_jax(params, stats))
+    out = [m(torch.tensor(x)) for m in models]
+    for o in out[1:]:
+        assert torch.equal(out[0], o)
+    np.testing.assert_allclose(out[2].detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="names no mesh axis"):
         tres.tiny_resnet(device="cpu", axis_name="batch")

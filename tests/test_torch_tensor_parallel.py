@@ -10,9 +10,9 @@ the JAX package on the CPU.
   under EP2 (x TP2). The port's models are built on the ``meta`` device
   and the JAX trees come from ``jax.eval_shape``: no memory.
 - The mesh: ranks in JAX's row-major order, one line per axis; the
-  ``seq`` and ``stage`` axes and ``"pipeline"`` build, and the refusals
-  that stay (chosen ranks, ``seq`` beside ``model``) name ROADMAP.md
-  queue 1 item 7.
+  ``seq`` and ``stage`` axes and ``"pipeline"`` build, ``seq`` beside
+  ``model`` too (trained in tests/test_torch_sequence_parallel.py), and
+  a mesh of chosen ranks with either axis builds its own groups.
 - Two gloo processes (`tests/_torch_tp_child.py`, one deadline) run one
   SGD step each of DP1 x TP2 Llama (GQA), DP1 x TP2 ViT, DP1 x EP2 routed
   Llama (top-2, tokens dropped) and DP1 x EP2 Switch ViT, and two
@@ -69,7 +69,6 @@ from pddl_tpu_torch.parallel import tensor_parallel as ttp
 from pddl_tpu_torch.train.loop import Trainer
 from pddl_tpu_torch.train.state import make_optimizer
 
-ITEM_7 = r"ROADMAP\.md queue 1 item 7"
 
 
 # ------------------------------------------------------------ placement
@@ -196,20 +195,20 @@ def test_mesh_rank_order_and_axis_lines():
 
 @pytest.mark.parametrize("axis", ["seq", "stage"])
 def test_unported_axes_and_pipeline_name_item_7(axis):
-    """The seq and stage axes run over the job's processes now, in JAX's
-    rank order (tests/test_torch_sequence_parallel.py and
-    tests/test_torch_pipeline.py train on them): ``"pipeline"`` builds
-    and a Llama takes a mesh. What stays item 7: either axis on a mesh
-    of chosen ranks, and a seq axis beside the model axis."""
-    with pytest.raises(NotImplementedError, match=ITEM_7):
+    """The seq and stage axes run over the job's processes, in JAX's rank
+    order (tests/test_torch_sequence_parallel.py and
+    tests/test_torch_pipeline.py train on them), beside the model axis
+    too: ``"pipeline"`` builds and a Llama takes a mesh. A mesh of chosen
+    ranks with either axis builds its own groups (over processes: the
+    4-process leg of tests/test_torch_sequence_parallel.py), so it takes
+    no caller's group and needs its ranks in increasing order."""
+    with pytest.raises(ValueError, match="pass no group"):
         tmesh.build_mesh(tmesh.MeshConfig(data=1, **{axis: 2}),
                          ranks=(0, 1), group=object())
+    with pytest.raises(ValueError, match="increasing order"):
+        tmesh.build_mesh(tmesh.MeshConfig(data=1, **{axis: 2}),
+                         ranks=(1, 0))
     sizes = tmesh.MeshConfig(data=-1, model=2, **{axis: 2}).axis_sizes(8)
-    if axis == "seq":
-        with pytest.raises(NotImplementedError, match=ITEM_7):
-            tmesh._check_axes(sizes, False)
-    else:
-        tmesh._check_axes(sizes, False)  # 3D: data x model x stage
     jm = jax.sharding.Mesh(np.arange(8).reshape(
         [sizes[a] for a in tmesh.CANONICAL_AXES]), tmesh.CANONICAL_AXES)
     for rank in range(8):
