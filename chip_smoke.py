@@ -29,7 +29,9 @@ tensor, expert, sequence and pipeline parallelism (two processes sharing
 the card over gloo, and four for a ``seq`` axis beside the others), and
 through the command line (``python -m
 pddl_tpu_torch``: ResNet-50 and Llama-1B) beside the TFRecord reader,
-and prints one line per phase:
+and through the repo's examples (``examples_torch/``: GPT-Small trained on
+the CPython standard library's bytes, and the reference's preempt /
+resume / export workflow), and prints one line per phase:
 
 1. device — ``nvidia-smi``'s card name and power limit;
 2. build — every kernel compiled by ``nvcc``, one process per source, all
@@ -209,7 +211,7 @@ and prints one line per phase:
     tokens equal unless a tie (the card's top-2 margin at the divergence
     under 8 bf16 ulps of the top logit);
 18. generate swa — a sliding-window Llama-1B (window 1024, ``max_len``
-    4096), bf16, B 1, prompt 2048, 128 new: tokens/s, the prefill's wall,
+    4096), bf16, B 1, prompt 2048, 64 new: tokens/s, the prefill's wall,
     16 K1 launches with the LSE in the run (the sliding-window path's
     launches), the ring's cache bytes against a full-length cache's; K1
     at this shape against its plain version, with its times and bound;
@@ -376,7 +378,8 @@ and prints one line per phase:
     exactly 2 x the paged ticks (the draft leg: its draft steps);
 38b. tp ep gloo2 — tensor and expert parallelism, two processes sharing the
     card over gloo (``--tp-gloo2-child``), f32 with TF32 off:
-    ``tp_parity_gloo2``, full-width Llama-1B at depth 8 (16 before PR 22)
+    ``tp_parity_gloo2``, full-width Llama-1B at depth 2 (cut from 16 for
+    the script's time limit)
     at B 1 x S 1024 under ``TensorParallelStrategy(2,
     rules=LLAMA_TP_RULES)`` (16 query and 4 KV heads a process: K1/K2 at H
     16/4), one SGD step against one process's (loss within 1e-4 relative,
@@ -418,7 +421,8 @@ and prints one line per phase:
     and gradient norm and each part's parameters within 1e-3 of its update
     plus two f32 ulps; K1/K2 launches by rank (rank 0's later shard has
     weight 0 and runs none);
-38h. sp train gloo2 — Llama-1B's width at depth 8 (16 before PR 22),
+38h. sp train gloo2 — Llama-1B's width at depth 2 (cut from 16 for the
+    script's time limit),
     bf16 compute over f32 parameters,
     ``remat="dots"``, ``ring_flash`` over seq 2 at B 1 x S 8192 (4096
     tokens a process), adamw, 1 warm-up and 1 timed step: tokens/s, s a
@@ -431,8 +435,9 @@ and prints one line per phase:
     ``shape_only`` record): the gates of 38b on the loss and the gradient
     norm, each part's parameters (embed, each stage, head) within 1e-3 of
     its update plus two f32 ulps; each process lays out its stage only;
-38j. pp train gloo2 — ``GPipeLlama`` at Llama-1B's widths (2 stages x 4
-    blocks; 8 before PR 22), bf16 compute over f32 parameters, ``flash``,
+38j. pp train gloo2 — ``GPipeLlama`` at Llama-1B's widths (2 stages x 1
+    block, cut from 8 for the script's time limit), bf16 compute over f32
+    parameters, ``flash``,
     adamw at B 4 x S 2048 and M 2 and M 4: tokens/s, s a step, parameter
     bytes, the bytes each process's construction lays out (its stage only)
     and peak memory a process, the activation hops, the share of the step
@@ -524,9 +529,28 @@ and prints one line per phase:
     by side first) with 38b's gates and 38g's
     per-part parameter gate; every rank at JAX's mesh coordinates, K1/K2
     once a layer per rotation its ``seq`` position runs;
+38t. examples pycorpus — ``examples_torch/real_data_convergence.py``'s
+    ``run_pycorpus`` on GPT-Small at full width (768 x 12, bf16 compute
+    over f32 parameters, flash attention) for one epoch of
+    ``EX_PYCORPUS_STEPS`` steps at B 32 x S 256 on the CPython standard
+    library's bytes (built into ``build/``), cosine over those steps, 4
+    validation batches: the validation loss below the validation split's
+    own byte-unigram entropy (the best a model blind to context can do),
+    and K1 and K2 launched depth x steps times, K1 without its LSE depth
+    x 4 (the validation batches), K3a/K3b never;
+38u. examples rehearsal — ``examples_torch/workflow_rehearsal.py``'s four
+    seams at the reference's scale (ResNet-50, 224 x 224, B 32, 16
+    classes) with its epochs and steps cut (``EX_REHEARSAL``), ``.npz``:
+    two ``python -m pddl_tpu_torch`` processes, the first sent a SIGTERM
+    once an epoch has ended, which saves a checkpoint and exits 0, the
+    second ``--resume``-d at the interrupted epoch and exiting 0, and the
+    exported ``.npz`` reloaded with logits (and every tensor) bitwise the
+    checkpoint's. ResNet-50 runs no hand-written kernel, so this phase
+    runs on a thread while phase 2's ``nvcc`` builds them, before any
+    phase times the card;
 39. kernels — one JSON object: every ported kernel with its launches on
     its main paths (phases 7, 10, 11, 15i, 15k, 18, 21, 23, 26, 27, 28,
-    30, 30c, 32-34, 35-37, 38b, 38e, 38k, 38n, 38p and 38s;
+    30, 30c, 32-34, 35-37, 38b, 38e, 38k, 38n, 38p, 38s and 38t;
     K4's, K1's and K2's by path under ``launches_by_path``, the parity
     legs' included there for K4), error, times and bound (K3b's
     library time is SDPA's backward, which computes dq, dk and dv, as
@@ -1132,6 +1156,14 @@ FLASH_CASES = {
     "vit_s16": (256, 6, 6, 196, 196, 64, torch.bfloat16, False, None, 0),
     # One process's heads of Llama-1B under TP2 (16 query, 4 KV heads).
     "llama1b_tp2": (1, 16, 4, 2048, 2048, 64, torch.bfloat16, True, None, 0),
+    # The real-data examples' train shapes (B 32 x S 256): GPT-Small,
+    # llama_small (GQA 12/4) and llama_300m (GQA 20/4).
+    "gpt_small_s256": (32, 12, 12, 256, 256, 64, torch.bfloat16, True, None,
+                       0),
+    "llama_small_s256": (32, 12, 4, 256, 256, 64, torch.bfloat16, True, None,
+                         0),
+    "llama_300m_s256": (32, 20, 4, 256, 256, 64, torch.bfloat16, True, None,
+                        0),
 }
 WITH_DLSE = ("llama1b", "k_offset")
 
@@ -3061,10 +3093,10 @@ def windowed_fwd_bound_ms(q, k, window):
     return _bound(nbytes, 4 * b * h * d * pairs, q.dtype)
 
 
-def phase_generate_swa(plen: int = 2048, new: int = 128,
+def phase_generate_swa(plen: int = 2048, new: int = 64,
                        window: int = 1024, max_len: int = 4096):
     """A sliding-window Llama-1B (window 1024, ``max_len`` 4096: ring 1024),
-    bf16, B 1, prompt 2048, 128 new: the prefill runs K1 with its LSE once
+    bf16, B 1, prompt 2048, 64 new: the prefill runs K1 with its LSE once
     a layer (16 launches, counted from zero around the call) merged with
     the pre-write ring's history. Prints tokens/s, the prefill's wall,
     K1's launches, the ring's cache bytes against a full-length cache's,
@@ -3827,7 +3859,10 @@ INT8_MIN_ELEMS = 65536   # quantize_int8's default
 # The new train paths' K1/K2 shapes, timed beside their plain versions.
 NEW_FLASH_SHAPES = {"gpt2_small_train": "gpt2_small",
                     "vit_s16_train": "vit_s16",
-                    "llama1b_tp2_local": "llama1b_tp2"}
+                    "llama1b_tp2_local": "llama1b_tp2",
+                    "pycorpus_gpt_small": "gpt_small_s256",
+                    "pycorpus_llama_small": "llama_small_s256",
+                    "pycorpus_llama_300m": "llama_300m_s256"}
 
 
 def time_flash_shapes():
@@ -4609,7 +4644,7 @@ def phase_train_options_parity() -> None:
 
 
 def _options_step(param_dtype, mode: str, log_dir: str, warmup: int = 1,
-                  updates: int = 3):
+                  updates: int = 2):
     """Full-width Llama-1B, bf16 compute over ``param_dtype`` storage,
     adamw at 1e-4 under warmup_cosine and a clip at 1.0, B 4 x S 2048 as
     2 x B 2 micro-batches, EMA 0.999, ``param_update=mode``, with
@@ -6121,7 +6156,7 @@ def phase_export_artifacts(batch: int = 8, prompt_len: int = 128,
     return launches
 
 
-DP_CKPT_STEPS, DP_CKPT_SAVE, DP_CKPT_LR = 4, 2, 1e-3
+DP_CKPT_STEPS, DP_CKPT_SAVE, DP_CKPT_LR = 3, 2, 1e-3
 
 
 class _Stopped(Exception):
@@ -6147,10 +6182,11 @@ def dp_ckpt_runs(mode: str, rank: int, out_dir: str) -> None:
     """One of two processes on the card over gloo (the group open) under
     ``ps`` (min 256 KiB), ResNet-50 f32 (cuDNN deterministic), adam,
     ``rank``'s 16 rows of each global 32. ``run`` (in
-    ``dp_gloo2_child``'s processes, after its parity legs): 4 steps
-    uninterrupted, then 2 under ``CheckpointEveryN`` (stopped after its
-    save at step 2); ``resume`` (fresh processes, ``dp_ckpt_child``): a
-    fresh trainer through ``fit(resume=)`` to step 4. Writes the
+    ``dp_gloo2_child``'s processes, after its parity legs):
+    ``DP_CKPT_STEPS`` steps uninterrupted, then 2 under
+    ``CheckpointEveryN`` (stopped after its save at step 2); ``resume``
+    (fresh processes, ``dp_ckpt_child``): a fresh trainer through
+    ``fit(resume=)`` to step ``DP_CKPT_STEPS``. Writes the
     checksums of its state to ``out_dir``."""
     _deterministic()
     batches = dp_batches(DP_CKPT_STEPS, 16, start=16 * rank)
@@ -6230,7 +6266,7 @@ def phase_dp_ckpt_gloo2(out_dir: str, timeout: float = 300.0):
     two processes share the card over gloo under ``ps`` (``dp_parity_gloo2``'s,
     which ran the uninterrupted and the cut run into ``out_dir``); the save
     at step 2 is rank 0's, world-size free (ps's Adam slices gathered
-    whole). Fresh processes resume from it to step 4: each process's state
+    whole). Fresh processes resume from it to step 3: each process's state
     bitwise the uninterrupted run's. The same save restores into this one
     process (``strategy=None``): every Adam moment whole, the state as
     saved, then 2 steps on the global batch of 32, its parameters within
@@ -6302,7 +6338,7 @@ MOE_CFG = dict(moe_experts=8, moe_top_k=2, moe_every=4)
 TP_LR, TP_STEPS, TP_SEQ = 1e-2, 1, 1024
 # The TP parity and decode model's depth, and the EP parity model's (block
 # 3 routed): cut from 16 and 8 in PR 22 for the script's time limit.
-TP_DEPTH, EP_DEPTH = 8, 4
+TP_DEPTH, EP_DEPTH = 2, 4
 TP_DECODE = dict(batch=2, prompt=128, new=16, draft_len=4)
 MOE_PARITY_DEPTH, MOE_PARITY_SEQ = 4, 64
 
@@ -6720,10 +6756,10 @@ SP_SHAPES = {
 SP_LR, SP_PARITY_SEQ, SP_WINDOW = 1e-2, 2048, 512
 SP_PARITY_DEPTH = 1   # the Llama legs' (2 before PR 22; the ViT's stays 2)
 # One warm-up and one timed step (a step at full depth was ~9-11 s of
-# gloo-staged gradient all-reduce), at depth 8: the script's time limit.
-SP_TRAIN = dict(batch=1, seq=8192, warmup=1, steps=1, depth=8)
+# gloo-staged gradient all-reduce), at depth 2: the script's time limit.
+SP_TRAIN = dict(batch=1, seq=8192, warmup=1, steps=1, depth=2)
 PP_PARITY = dict(batch=2, seq=512, images=4, microbatches=2)
-PP_TRAIN = dict(batch=4, seq=2048, warmup=1, steps=2, blocks=4)
+PP_TRAIN = dict(batch=4, seq=2048, warmup=1, steps=2, blocks=1)
 # remat_stages in pp_train_gloo2: without it each process's 8 blocks keep
 # B 4 x S 2048's activations beside the head's 4.2 GB of f32 logits on
 # every stage, and the pair ran out of the card's 80 GB.
@@ -7016,7 +7052,7 @@ def _sp_parity_legs(rank: int, out: dict) -> None:
 
 
 def _sp_train_leg(rank: int, out: dict) -> None:
-    """Phase 38h: Llama-1B at depth 8, bf16 compute over f32 parameters,
+    """Phase 38h: Llama-1B at depth 2, bf16 compute over f32 parameters,
     ``remat="dots"``, ring_flash over seq 2, adamw at B 1 x S 8192 (4096
     tokens a process): the timed steps' wall, launches and hops."""
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -7171,7 +7207,7 @@ def _profiled_step(tr, data):
 
 
 def _pp_train_legs(rank: int, out: dict) -> None:
-    """Phase 38j: GPipeLlama at Llama-1B's widths (2 stages x 4 blocks), bf16
+    """Phase 38j: GPipeLlama at Llama-1B's widths (2 stages x 1 block), bf16
     compute over f32 parameters, attention "flash", adamw at B 4 x
     S 2048, at M 2 and M 4: each timed step's wall, the host seconds the
     stage waits in the schedule, launches, hops, bytes and peak memory."""
@@ -8429,6 +8465,125 @@ def phase_tfrecord_native(out_dir: str):
           smi=SMI)
 
 
+# ------------------------------------------------------- phases 38t-38u
+# The repo's examples (examples_torch/), at full width with their depth
+# in steps and epochs cut: the next-byte track's trainer on real text,
+# and the reference's preempt / resume / export workflow.
+EX_PYCORPUS_STEPS, EX_PYCORPUS_VAL = 200, 4
+EX_REHEARSAL = dict(epochs=4, steps=3, marker_epoch=1)
+
+
+class Background:
+    """``fn(*args)`` on a thread started now; ``join()`` waits for it and
+    raises what it raised. ``seconds`` is its wall."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self.error, self.seconds = None, 0.0
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                fn(*args)
+            except BaseException as e:  # noqa: BLE001 - re-raised in join
+                self.error = e
+            self.seconds = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def join(self) -> None:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+
+
+def phase_examples_pycorpus(out_dir: str):
+    """GPT-Small through ``run_pycorpus`` on the stdlib corpus (phase
+    38t). Returns the launches."""
+    from examples_torch import real_data_convergence as rdc
+
+    work = str(BUILD / "real_data")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = rdc.run_pycorpus(
+        work, os.path.join(out_dir, "pycorpus.jsonl"), device="cuda",
+        epochs=1, steps_per_epoch=EX_PYCORPUS_STEPS,
+        validation_steps=EX_PYCORPUS_VAL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_kernels.launch_counts)
+    depth = 12  # GPT-Small's blocks
+    check_launches("examples_pycorpus", counts,
+                   flash_fwd=depth * EX_PYCORPUS_STEPS,
+                   flash_bwd_fused=depth * EX_PYCORPUS_STEPS,
+                   flash_fwd_nolse=depth * EX_PYCORPUS_VAL)
+    val_loss = res["final_val_loss_nats"]
+    entropy = rdc.unigram_entropy_nats(os.path.join(work, "pycorpus",
+                                                    "val.txt"))
+    if not np.isfinite(val_loss) or not val_loss < entropy:
+        raise RuntimeError(f"examples_pycorpus: val loss {val_loss} not "
+                           f"below the val split's unigram entropy "
+                           f"{entropy}")
+    with open(os.path.join(out_dir, "pycorpus.jsonl")) as f:
+        [epoch] = [json.loads(line) for line in f.readlines()[1:]]
+    phase("examples_pycorpus", model="gpt_small_768x12_bf16_compute_f32",
+          batch=32, seq=256, steps=EX_PYCORPUS_STEPS,
+          validation_batches=EX_PYCORPUS_VAL,
+          train_bytes=res["sizes"]["train_bytes"],
+          val_bytes=res["sizes"]["val_bytes"],
+          loss=f"{epoch['loss']:.5f}", val_loss=f"{val_loss:.5f}",
+          val_unigram_entropy_nats=f"{entropy:.5f}",
+          val_bits_per_byte=f"{res['final_val_bits_per_byte']:.5f}",
+          wall_s=f"{wall:.2f}",
+          flash="/".join(f"{k}:{counts[k]}" for k in FLASH_COUNTERS),
+          smi=SMI)
+    return counts
+
+
+def phase_examples_rehearsal(out_dir: str) -> None:
+    """The workflow rehearsal's four seams at ResNet-50 224 x 224 B 32
+    with cut epochs (phase 38u). Its two processes and its re-import run
+    ResNet-50 only (cuDNN, no hand-written kernel), so ``main`` runs it
+    on a thread while ``nvcc`` builds the kernels, before any phase times
+    the card."""
+    from examples_torch import workflow_rehearsal as wr
+
+    plan = wr.Plan(model="resnet50", image=224, batch=32, num_classes=16,
+                   sigterm_after=300, **EX_REHEARSAL)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = wr.rehearse(plan, os.path.join(out_dir, "work"),
+                      os.path.join(out_dir, "artifacts"), device="cuda",
+                      final_format="npz")
+    wall = time.perf_counter() - t0
+    leg1, leg2 = rec["leg1_preempted"], rec["leg2_resume"]
+    bad = [name for name, ok in (
+        ("preemption_checkpoint", bool(leg1["checkpoint_steps"])),
+        ("leg1_clean_exit", leg1["rc"] == 0),
+        ("leg2_clean_exit", leg2["rc"] == 0),
+        ("resumed_at_interrupted_epoch", rec["resumed_at_interrupted_epoch"]),
+        ("logits_bitwise", rec["final_vs_checkpoint_max_logit_delta"] == 0.0),
+        ("npz_bitwise", rec["npz_vs_checkpoint_max_param_delta"] == 0.0))
+        if not ok]
+    if bad:
+        raise RuntimeError(f"examples_rehearsal: {bad} in {rec}")
+    phase("examples_rehearsal", model="resnet50_224_b32_16_classes",
+          epochs=plan.epochs, steps_per_epoch=plan.steps,
+          leg1_epochs="/".join(map(str, leg1["epochs_seen"])),
+          leg1_checkpoint_steps="/".join(map(str, leg1["checkpoint_steps"])),
+          leg1_rc=leg1["rc"], leg1_wall_s=leg1["wall_s"],
+          leg2_epochs="/".join(map(str, leg2["epochs_seen"])),
+          leg2_rc=leg2["rc"], leg2_wall_s=leg2["wall_s"],
+          leg4_wall_s=rec["leg4_reimport"]["wall_s"],
+          logit_delta=rec["final_vs_checkpoint_max_logit_delta"],
+          param_delta=rec["npz_vs_checkpoint_max_param_delta"],
+          final_lr=f"{rec['final_lr']:.3g}", wall_s=f"{wall:.2f}", smi=SMI)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -8487,8 +8642,16 @@ def main(argv=None) -> int:
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, host_threads=torch.get_num_threads(),
           host_cpus=os.cpu_count())
+    # Phase 38u's processes use the card while nvcc builds the kernels.
+    BUILD.mkdir(exist_ok=True)
+    rehearsal_dir = tempfile.TemporaryDirectory(dir=BUILD)
+    rehearsal = Background(phase_examples_rehearsal, rehearsal_dir.name)
     phase("build", kernels=",".join(_kernels.SOURCES),
           seconds=f"{build_kernels():.2f}")
+    rehearsal.join()
+    phase("phase_seconds", name="examples_rehearsal",
+          seconds=f"{rehearsal.seconds:.2f}")
+    rehearsal_dir.cleanup()
     timing = {"paged_decode": phase_paged_decode(), **phase_flash_fwd(),
               "flash_bwd_fused": phase_flash_bwd(),
               **phase_flash_bwd_two_sweep()}
@@ -8672,6 +8835,11 @@ def main(argv=None) -> int:
         phase_tfrecord_native(cli_dir)
         phase("phase_seconds", name="tfrecord_native",
               seconds=f"{time.perf_counter() - t0:.2f}")
+    with tempfile.TemporaryDirectory(dir=BUILD) as ex_dir:
+        t0 = time.perf_counter()
+        examples_launches = phase_examples_pycorpus(ex_dir)
+        phase("phase_seconds", name="examples_pycorpus",
+              seconds=f"{time.perf_counter() - t0:.2f}")
     src = "pddl_tpu_torch/ops/csrc/"
     att = "pddl_tpu/ops/attention.py:"
     # Each kernel's launches by main path (the Llama, GPT and ViT train
@@ -8704,7 +8872,8 @@ def main(argv=None) -> int:
                 "ep_parity_gloo2": tp_launches["ep"]["flash_fwd"],
                 "moe_train": moe_launches["flash_fwd"],
                 **{p: n["flash_fwd"] for p, n in sp_pp_launches.items()},
-                "cli_llama": cli_launches["flash_fwd"]}
+                "cli_llama": cli_launches["flash_fwd"],
+                "examples_pycorpus": examples_launches["flash_fwd"]}
     k2_paths = {"train_step": train_launches["flash_bwd_fused"],
                 "gpt_train": gpt_train_launches["flash_bwd_fused"],
                 "vit_train": vit_train_launches["flash_bwd_fused"],
@@ -8714,9 +8883,12 @@ def main(argv=None) -> int:
                 "moe_train": moe_launches["flash_bwd_fused"],
                 **{p: n["flash_bwd_fused"]
                    for p, n in sp_pp_launches.items()},
-                "cli_llama": cli_launches["flash_bwd_fused"]}
+                "cli_llama": cli_launches["flash_bwd_fused"],
+                "examples_pycorpus": examples_launches["flash_bwd_fused"]}
     nolse_paths = {"train_step_eval": train_launches["flash_fwd_nolse"],
-                   "cli_llama_eval": cli_launches["flash_fwd_nolse"]}
+                   "cli_llama_eval": cli_launches["flash_fwd_nolse"],
+                   "examples_pycorpus_eval":
+                       examples_launches["flash_fwd_nolse"]}
     # (name, source, TPU kernel's line, launches on the main paths: the
     # paged serve runs, the train steps (Llama, GPT, ViT) with the Llama
     # eval batch, the long-context run, or the sliding-window generate; K1

@@ -21,6 +21,8 @@ trainer's `augment` hook and its callbacks
   the parameters and the BatchNorm buffers.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,11 @@ from pddl_tpu_torch.data.synthetic import SyntheticImageClassification
 from pddl_tpu_torch.models.resnet import tiny_resnet
 from pddl_tpu_torch.train.loop import Trainer
 from pddl_tpu_torch.train.state import get_learning_rate
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 IMAGES = dict(batch_size=4, image_size=16, num_classes=10, seed=0)
 

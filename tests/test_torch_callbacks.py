@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import pddl_tpu.models.resnet as jres
 import pddl_tpu_torch.models.resnet as tres
@@ -53,6 +54,11 @@ from pddl_tpu_torch.train.callbacks import (
 from pddl_tpu_torch.train.loop import Trainer
 from pddl_tpu_torch.train.state import get_learning_rate, set_learning_rate
 from pddl_tpu_torch.utils.summary import format_table, param_summary
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 VOCAB = 64
 LM = dict(batch_size=4, seq_len=16, vocab_size=VOCAB, seed=3)

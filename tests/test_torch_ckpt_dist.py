@@ -20,8 +20,14 @@ import json
 import os
 
 import pytest
+import torch
 
 from _torch_cluster import REPO, Cluster
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 N = 2
 

@@ -32,6 +32,11 @@ from pddl_tpu_torch.models import registry as port_registry
 
 from _torch_cluster import Cluster
 
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 TINY_IMAGE = dict(model="tiny_resnet", num_classes=8, image_size=32,
                   crop=32, per_replica_batch=2, val_per_replica_batch=2,
                   compute_dtype="float32", verbose=0, data_dir=None)

@@ -13,6 +13,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 from pddl_tpu.data import imagenet as jax_imagenet
 from pddl_tpu.data import pack as jax_pack
@@ -25,6 +26,11 @@ from pddl_tpu_torch.data import text as port_text
 from pddl_tpu_torch.data import tfrecord as port_tfr
 
 from conftest import native_build_error
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

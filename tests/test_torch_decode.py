@@ -11,6 +11,8 @@
   helpers `gather_prefix_into_row` and `donate_prefix_blocks`: exact.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,11 @@ import pddl_tpu.ops.attention as jatt
 from pddl_tpu.serve.kvcache import block_pool as jpool
 from pddl_tpu_torch.ops import attention as tatt
 from pddl_tpu_torch.serve.kvcache import block_pool as tpool
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 TOL = {np.float32: 1e-5, "bfloat16": 2e-2}
 

@@ -9,6 +9,7 @@ Pure Python or single-process: no process group is opened here (a
 """
 
 import itertools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -51,6 +52,11 @@ from pddl_tpu_torch.parallel.multiworker import HeartbeatMonitor, WorkerLost
 from pddl_tpu_torch.train.callbacks import LearningRateWarmup
 from pddl_tpu_torch.train.loop import Trainer
 from pddl_tpu_torch.train.state import get_learning_rate, make_optimizer
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 ENV = ("PDDL_COORDINATOR", "PDDL_NUM_PROCESSES", "PDDL_PROCESS_ID",
        "SLURM_NTASKS", "SLURM_PROCID", "SLURM_STEP_NODELIST",

@@ -13,6 +13,7 @@ over the group of one, agrees with the same path on the CPU within 1e-5
 ``native_batch_norm`` within 1e-5.
 """
 
+import os
 import socket
 
 import pytest
@@ -24,6 +25,11 @@ from pddl_tpu_torch.models.resnet import (
     _SyncBatchNorm,
     bind_data_group,
 )
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,11 @@ from pddl_tpu_torch.models.llama import tiny_llama
 from pddl_tpu_torch.models.resnet import ResNet
 from pddl_tpu_torch.ops.quant import dequantize, quantize_int8
 
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 CPU = "cpu"
 RESNET = dict(stage_sizes=(1,), num_classes=8, width_multiplier=0.25,
               small_input_stem=True)

@@ -13,6 +13,8 @@ saved LSE and sums over up to 128 keys and a query group, so the order
 differences of the forward grow by the scores' magnitude.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,11 @@ import torch
 import pddl_tpu.ops.attention as jatt
 from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=3e-4, atol=3e-4)

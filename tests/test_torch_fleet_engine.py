@@ -4,6 +4,8 @@ JAX engine's keys per configuration and counts real input signatures,
 and ``export_prefix_chain``/``import_prefix_chain`` move a cached chain
 between the two packages' engines on bridged weights, both ways."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,11 @@ from pddl_tpu_torch.models.gpt import tiny_gpt
 from pddl_tpu_torch.serve import SamplingParams, ServeEngine
 from pddl_tpu_torch.serve import drain as drain_io
 from pddl_tpu_torch.serve.tenant import AdapterRegistry, TenantConfig
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, MAX_LEN = 32, 64
 

@@ -7,11 +7,13 @@ Each test kills its surviving workers when it ends or when its deadline
 passes."""
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import pytest
+import torch
 
 from pddl_tpu.serve.fleet import EpochFenced as JaxEpochFenced
 from pddl_tpu.serve.fleet import ProcessReplica as JaxProcessReplica
@@ -20,6 +22,11 @@ from pddl_tpu_torch.serve.fleet import FleetRouter, ProcessReplica
 from pddl_tpu_torch.serve.fleet.replica import snapshot_from_pairs
 from pddl_tpu_torch.serve.fleet.worker import FENCED_CMDS, ROLES, build_engine
 from pddl_tpu_torch.serve.request import RequestState
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CFG = dict(vocab=32, max_len=64, embed_dim=32, depth=2, heads=4, slots=2,
            prefill_len=16, max_queue_depth=64, param_seed=0,

@@ -6,10 +6,13 @@ campaign with every invariant held, and one hot-standby takeover. The
 router, the engines and the lease read fake clocks: nothing here waits
 on the wall clock."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from conftest import FakeClock
 from pddl_tpu.models.gpt import tiny_gpt as jax_tiny_gpt
@@ -35,6 +38,11 @@ from pddl_tpu_torch.serve.fleet import (
 from pddl_tpu_torch.serve.fleet import journal as journal_io
 from pddl_tpu_torch.serve.request import RequestState
 from pddl_tpu_torch.utils.faults import StorageFaultPlan
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, MAX_LEN, BS = 32, 64, 8
 ROUTER_KW = dict(affinity_block_size=BS, affinity_blocks=1, respawn=False)

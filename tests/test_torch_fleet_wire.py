@@ -6,6 +6,7 @@ through. The same records make the same bytes in both packages, and
 each package reads what the other wrote."""
 
 import json
+import os
 
 import ml_dtypes
 import numpy as np
@@ -30,6 +31,11 @@ from pddl_tpu_torch.utils.faults import (
     StorageFaultPlan,
     StorageFaultSpec,
 )
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 RECORDS = [{"cmd": "submit", "rid": 7, "prompt": [1, 2, 3],
             "max_new_tokens": 4, "sampling": {"temperature": 0.0}},

@@ -20,6 +20,8 @@ versions, the only thing it runs on CPU tensors. f32 throughout:
 - unported options raise, naming their ROADMAP.md item.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +45,11 @@ from pddl_tpu_torch.models.gpt import (
     tiny_gpt,
 )
 from pddl_tpu_torch.train.loop import Trainer
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 LM = dict(batch_size=4, seq_len=32, vocab_size=64, seed=3)

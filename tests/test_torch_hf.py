@@ -22,6 +22,8 @@ network) and against the JAX package's importer and exporter.
 The ``transformers`` oracles are built once per module.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,6 +48,11 @@ from pddl_tpu_torch.ckpt import (  # noqa: E402
 )
 from pddl_tpu_torch.models.gpt import GPT  # noqa: E402
 from pddl_tpu_torch.models.llama import Llama  # noqa: E402
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 # tests/test_hf_import.py's GPT-2 and tests/test_llama.py's Llama.
 GV, GP, GE, GL, GH = 97, 64, 32, 2, 2

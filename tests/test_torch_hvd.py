@@ -30,6 +30,11 @@ from pddl_tpu.core.mesh import build_mesh as jax_build_mesh
 from pddl_tpu_torch.models.resnet import tiny_resnet
 from pddl_tpu_torch.train.state import make_optimizer
 
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 CHILD = os.path.join(os.path.dirname(__file__), "_torch_hvd_child.py")
 
 

@@ -2,9 +2,11 @@
 `serve_tick_ab.py` import no
 `jax`, no `flax`, no `optax`, `orbax` or `tensorflow` and nothing of the
 JAX package, and the engine refuses to run on a host without a card
-unless asked for the CPU. The ImageNet input modules take TensorFlow as a
-CPU input library, as the JAX package's do, but only inside the functions
-that decode (`TF_INPUT_MODULES`): importing them imports no TensorFlow."""
+unless asked for the CPU. `examples_torch/` imports none of them and
+nothing of the JAX package's `examples/`. The ImageNet input modules take
+TensorFlow as a CPU input library, as the JAX package's do, but only
+inside the functions that decode (`TF_INPUT_MODULES`): importing them
+imports no TensorFlow."""
 
 import ast
 import os
@@ -14,6 +16,11 @@ import sys
 
 import pytest
 import torch
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "pddl_tpu_torch"
@@ -115,6 +122,22 @@ def test_source_scan_finds_no_jax_package_import():
         tf_ok = str(path.relative_to(REPO)) in TF_INPUT_MODULES
         bad = set(_imported_roots(path, tf_ok)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+# The examples' digits track encodes its PNGs with TensorFlow, inside the
+# builder only, as the JAX example does.
+EXAMPLES = sorted((REPO / "examples_torch").glob("*.py"))
+EXAMPLES_TF_OK = ("examples_torch/real_data_convergence.py",)
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_examples_import_no_jax_and_nothing_of_the_jax_examples(path):
+    """`examples_torch/` imports torch and the port: no `jax`, `flax`,
+    nothing of `pddl_tpu` and nothing of the JAX package's `examples/`."""
+    tf_ok = str(path.relative_to(REPO)) in EXAMPLES_TF_OK
+    bad = set(_imported_roots(path, tf_ok)) & set(FORBIDDEN + ("examples",))
+    assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+    assert "pddl_tpu_torch" in set(_imported_roots(path))
 
 
 def test_engine_raises_without_a_card(monkeypatch):

@@ -28,6 +28,7 @@ oracle.
 """
 
 import copy
+import os
 
 import h5py
 import numpy as np
@@ -40,6 +41,11 @@ from pddl_tpu_torch.ckpt import keras_import as tk
 from pddl_tpu_torch.models.resnet import ResNet50, s2d_stem_kernel_inverse
 
 tf_keras = pytest.importorskip("tf_keras")
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 PARITY = dict(rtol=1e-5, atol=1e-5)   # tests/test_keras_parity.py:42
 EXPORT = dict(rtol=5e-3, atol=5e-3)   # tests/test_keras_parity.py:72

@@ -17,11 +17,18 @@ no atomics and is bitwise equal from run to run, as is K1's output, and so
 are K2's and K3b's dk and dv, which are summed inside one block.
 """
 
+import os
+
 import pytest
 import torch
 
 from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}

@@ -18,6 +18,8 @@ against the JAX package's on the CPU.
   replaying token-exact with the JAX engine's injections.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +49,11 @@ from pddl_tpu_torch.serve import (
     ServeEngine,
 )
 from pddl_tpu_torch.serve.request import Request, RequestHandle
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, MAX_LEN, BS = 32, 64, 8
 TIER_KEYS = ("host_tier_spills", "host_tier_hits", "host_tier_promotions",

@@ -10,6 +10,8 @@ against the JAX Llama on the CPU, through the weight bridge.
 - greedy tokens through the port's paged path equal `conftest.ref_greedy`.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,11 @@ from pddl_tpu_torch.models.gpt import prefill_row_from
 from pddl_tpu_torch.models.llama import tiny_llama
 from pddl_tpu_torch.ops.rope import apply_rope_qk, rope_cos_sin
 from pddl_tpu_torch.serve.kvcache import paged_decode_cache
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 BS, T = 4, 16  # pool block size and table width (64 = max_len positions)

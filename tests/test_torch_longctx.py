@@ -22,6 +22,7 @@ stated:
 """
 
 import copy
+import os
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +46,11 @@ from pddl_tpu_torch.ops import _kernels
 from pddl_tpu_torch.ops import attention as tatt
 from pddl_tpu_torch.ops.large_vocab import chunked_cross_entropy
 from pddl_tpu_torch.train.loop import Trainer
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 VOCAB, SEQ = 64, 32
 LM = dict(batch_size=4, seq_len=SEQ, vocab_size=VOCAB, seed=3)

@@ -14,6 +14,8 @@
   `load_hf_mixtral` is the identity, bitwise.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,11 @@ from pddl_tpu_torch.bridge import (  # noqa: E402
 )
 from pddl_tpu_torch.ckpt import export_hf_llama, load_hf_mixtral  # noqa: E402
 from pddl_tpu_torch.models.llama import Llama  # noqa: E402
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, E, L, H = 61, 32, 2, 4
 

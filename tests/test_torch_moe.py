@@ -15,6 +15,8 @@ package's `SwitchFFN` on the CPU, f32.
   within 1e-6, the parameters within 1e-5.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,11 @@ from pddl_tpu_torch.models.llama import tiny_llama
 from pddl_tpu_torch.models.vit import tiny_vit
 from pddl_tpu_torch.ops.moe import SwitchFFN, sown
 from pddl_tpu_torch.train.loop import Trainer
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 B, S, E, N, H = 2, 16, 32, 4, 48
 

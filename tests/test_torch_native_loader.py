@@ -27,6 +27,11 @@ from pddl_tpu.data import native_loader as jnl
 from pddl_tpu_torch.data import native_loader as tnl
 from pddl_tpu_torch.ops._kernels import BUILD_DIR
 
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 
 def _samples(n, h=8, w=8, c=3, seed=0):
     rng = np.random.default_rng(seed)

@@ -22,6 +22,7 @@ CPU, from the same bridged `tiny_gpt` weights (vocabulary 32, `max_len`
 
 import inspect
 import json
+import os
 import tracemalloc
 
 import jax
@@ -44,6 +45,11 @@ from pddl_tpu_torch.models.gpt import tiny_gpt
 from pddl_tpu_torch.obs import NULL_TRACER, NullTracer, RequestTracer
 from pddl_tpu_torch.serve import FaultKind, FaultPlan, FaultSpec, ServeEngine
 from pddl_tpu_torch.serve.request import RequestHandle
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, MAX_LEN = 32, 64
 

@@ -13,6 +13,8 @@ rate constant (as in JAX), and `update_seed` seeds the stochastic
 rounding (equal seeds round alike, another seed otherwise).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,11 @@ from pddl_tpu_torch.data.synthetic import SyntheticLanguageModeling
 from pddl_tpu_torch.models.llama import tiny_llama
 from pddl_tpu_torch.train.loop import Trainer
 from pddl_tpu_torch.train.state import make_optimizer
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 LM = dict(batch_size=4, seq_len=32, vocab_size=64, seed=3)
 

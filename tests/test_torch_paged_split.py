@@ -15,11 +15,17 @@
 """
 
 import itertools
+import os
 
 import pytest
 import torch
 
 from pddl_tpu_torch.ops import attention as tatt
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 GRID = list(itertools.product((1, 2, 8, 64, 200), (1, 8), (1, 6, 64, 256),
                               (4, 16, 64), (8, 132)))

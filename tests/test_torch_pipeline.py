@@ -75,6 +75,11 @@ from pddl_tpu_torch.parallel import get_strategy
 from pddl_tpu_torch.parallel import pipeline as tpp
 from pddl_tpu_torch.train.loop import Trainer
 
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 JAX_GPIPE = {"llama": JaxGPipeLlama, "gpt": JaxGPipeGPT, "vit": JaxGPipeViT}
 PORT_GPIPE = {"llama": GPipeLlama, "gpt": GPipeGPT, "vit": GPipeViT}
 

@@ -19,6 +19,8 @@ package on the CPU.
   and beside an int8 engine, the caller's model decodes as before.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +43,11 @@ from pddl_tpu_torch.ops.quant import (
     quantize_int8,
     quantized_bytes,
 )
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 FAMILIES = {"gpt": (jax_tiny_gpt, tiny_gpt, gpt_params_from_jax),
             "llama": (jax_tiny_llama, tiny_llama, llama_params_from_jax)}

@@ -41,6 +41,7 @@ right error, held against the JAX package on the CPU.
 """
 
 import inspect
+import os
 import tempfile
 import time
 
@@ -65,6 +66,11 @@ from pddl_tpu_torch.ops import attention as tatt
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.kvcache import paged_decode_cache
 from pddl_tpu_torch.train.loop import Trainer, _mean_logs
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 VOCAB = 64
 LM = dict(batch_size=4, seq_len=32, vocab_size=VOCAB, seed=3)

@@ -35,6 +35,8 @@ bridge, `SyntheticImageClassification` and the image-classification
   `axis_name` takes `"data"` only.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,6 +62,11 @@ from pddl_tpu_torch.ops.augment import (
     standard_eval_transform,
 )
 from pddl_tpu_torch.train.loop import Trainer
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 NARROW = dict(width_multiplier=0.125, num_classes=10)
 

@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_cluster import REPO, Cluster
 from _torch_sp_child import RING_CASES, RING_OPS, ring_inputs
@@ -32,6 +33,11 @@ from pddl_tpu.ops.ring_attention import (
     sequence_parallel_attention,
 )
 from pddl_tpu_torch.ops.ring_attention import _band_hops
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 def _jax_runs(name):

@@ -87,6 +87,11 @@ from pddl_tpu_torch.models.vit import ViT
 from pddl_tpu_torch.train.loop import Trainer
 from pddl_tpu_torch.train.state import make_optimizer
 
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 JAX_FAMILY = {"llama": JaxLlama, "gpt": JaxGPT, "vit": JaxViT}
 PORT = {"llama": (Llama, bridge.llama_params_from_jax,
                   bridge.llama_params_to_jax),

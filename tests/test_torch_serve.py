@@ -13,6 +13,8 @@ on the CPU.
   and `tokens_emitted`.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +49,11 @@ from pddl_tpu_torch.serve.request import (
     SamplingParams,
 )
 from pddl_tpu_torch.serve.scheduler import SLOScheduler
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 def _pop_trace(sched_cls, req_cls, handle_cls, prio):

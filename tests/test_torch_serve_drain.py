@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import pddl_tpu.serve.drain as jax_drain
 from conftest import FakeClock, ref_greedy
@@ -57,6 +58,11 @@ from pddl_tpu_torch.serve.tenant import (
     TenantConfig,
     compile_constraint,
 )
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, MAX_LEN = 32, 64
 VOCAB32 = (list("0123456789") + list('{}[]":,.-') + ["true", "false"]

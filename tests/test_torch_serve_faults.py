@@ -26,6 +26,8 @@ bridged `tiny_gpt` weights (vocabulary 32, `max_len` 64).
   the replay lane outranking every class.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,6 +59,11 @@ from pddl_tpu_torch.serve.request import Request, RequestHandle
 from pddl_tpu_torch.serve.scheduler import SLOScheduler
 from pddl_tpu_torch.serve.tenant import AdapterRegistry, TenantConfig
 from pddl_tpu_torch.utils.faults import classify
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, MAX_LEN = 32, 64
 VOCAB32 = (list("0123456789") + list('{}[]":,.-') + ["true", "false"]

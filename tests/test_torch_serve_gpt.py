@@ -15,10 +15,13 @@ the same bridged `tiny_gpt` weights (vocabulary 32, `max_len` 64).
   `generate` over the merged (biased) head.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from conftest import ref_greedy
 from pddl_tpu.models.gpt import tiny_gpt as jax_tiny_gpt
@@ -35,6 +38,11 @@ from pddl_tpu_torch.serve.tenant import (
     TenantConfig,
     compile_constraint,
 )
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, MAX_LEN = 32, 64
 VOCAB32 = (list("0123456789") + list('{}[]":,.-') + ["true", "false"]

@@ -10,10 +10,13 @@ weights, token for token, and the first ones also `ref_greedy` (the JAX
 dequant is bitwise the JAX one (`tests/test_torch_quant.py`).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from conftest import ref_greedy
 from pddl_tpu.models.gpt import tiny_gpt as jax_tiny_gpt
@@ -27,6 +30,11 @@ from pddl_tpu_torch.ops.lora import merge_lora_into_head
 from pddl_tpu_torch.ops.quant import dequantize, install_params, quantize_int8
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.tenant import AdapterRegistry, TenantConfig
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V = 32
 FAMILIES = {"gpt": (jax_tiny_gpt, tiny_gpt, gpt_params_from_jax, 0),

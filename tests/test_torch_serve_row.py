@@ -15,6 +15,8 @@ its `kv_bytes_allocated` is the JAX one less those int32 leaves) and
 `prefix_pool_nbytes` (likewise).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,11 @@ from pddl_tpu_torch.bridge import llama_params_from_jax
 from pddl_tpu_torch.models.llama import tiny_llama
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.request import FinishReason, SamplingParams
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, MAX_LEN, DEPTH, SLOTS = 32, 64, 2, 2
 

@@ -20,10 +20,13 @@ clock-free metrics:
 - the refusals in the JAX engine's words.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from conftest import FakeClock, ref_greedy
 from pddl_tpu.models.gpt import tiny_gpt as jax_tiny_gpt
@@ -37,6 +40,11 @@ from pddl_tpu_torch.bridge import gpt_params_from_jax
 from pddl_tpu_torch.models.gpt import tiny_gpt
 from pddl_tpu_torch.serve import FaultKind, FaultPlan, Priority, ServeEngine
 from pddl_tpu_torch.serve.tenant import AdapterRegistry, TenantConfig
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, MAX_LEN = 32, 64
 VOCAB32 = (list("0123456789") + list('{}[]":,.-') + ["true", "false"]

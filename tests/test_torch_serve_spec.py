@@ -21,6 +21,7 @@ norm and head as a depth-1 Llama: the self-draft `chip_smoke.py` uses).
 """
 
 import copy
+import os
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +41,11 @@ from pddl_tpu_torch.ops.quant import dequantize, install_params, quantize_int8
 from pddl_tpu_torch.serve.engine import ServeEngine
 from pddl_tpu_torch.serve.request import FinishReason, SamplingParams
 from pddl_tpu_torch.serve.tenant import TenantConfig
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, MAX_LEN, SLOTS, K = 32, 64, 3, 4
 ENGINE_KW = dict(max_slots=SLOTS, prefill_len=24, prefix_block_size=4,

@@ -26,6 +26,7 @@ against the JAX tenant engine on the CPU, from the same bridged
 """
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +57,11 @@ from pddl_tpu_torch.serve.tenant import (
     TenantConfig,
     compile_constraint,
 )
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V, MAX_LEN = 32, 64
 VOCAB32 = (list("0123456789") + list('{}[]":,.-') + ["true", "false"]

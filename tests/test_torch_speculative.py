@@ -22,6 +22,8 @@ weights and the same seeded numpy inputs.
   the JAX decode module's).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,11 @@ from pddl_tpu_torch.models.speculative import (
     generate_speculative,
     ngram_drafts,
 )
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 V = 32
 

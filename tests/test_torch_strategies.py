@@ -37,6 +37,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import pddl_tpu.models.resnet as jres
 from _torch_cluster import Cluster
@@ -51,6 +52,11 @@ from pddl_tpu.train.state import make_optimizer as jax_make_optimizer
 from pddl_tpu_torch import bridge
 from pddl_tpu_torch.core.sharding import MinSizePartitioner
 from pddl_tpu_torch.models.resnet import tiny_resnet
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CHILD = os.path.join(os.path.dirname(__file__), "_torch_strategy_child.py")
 SIZES = (2, 4)

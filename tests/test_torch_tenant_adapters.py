@@ -19,6 +19,8 @@
   model's logits within 1e-5 (f32).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,11 @@ import pddl_tpu_torch.serve.tenant.adapters as tad
 from pddl_tpu.models.llama import tiny_llama as jax_tiny_llama
 from pddl_tpu_torch.bridge import llama_params_from_jax
 from pddl_tpu_torch.models.llama import tiny_llama
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 D, V, RANK = 32, 40, 4
 

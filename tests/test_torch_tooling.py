@@ -20,6 +20,11 @@ from pddl_tpu.utils import profiling as jax_prof
 from pddl_tpu_torch.utils import bench_artifact as port_bench
 from pddl_tpu_torch.utils import profiling as port_prof
 
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SERIES = os.path.join(REPO, "artifacts", "gpt_bench")
 

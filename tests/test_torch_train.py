@@ -24,6 +24,8 @@
 - the trainer runs on `cuda` unless given `device="cpu"`.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +46,11 @@ from pddl_tpu_torch.train.state import (
     make_optimizer,
     set_learning_rate,
 )
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 VOCAB, SEQ = 64, 32
 LM = dict(batch_size=4, seq_len=SEQ, vocab_size=VOCAB, seed=3)

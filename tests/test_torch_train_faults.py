@@ -74,6 +74,11 @@ from pddl_tpu_torch.train.faults import (
 from pddl_tpu_torch.train.loop import Trainer
 from pddl_tpu_torch.utils.preemption import PreemptionCheckpoint
 
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 VOCAB = 64
 LM = dict(batch_size=4, seq_len=16, vocab_size=VOCAB, seed=3)
 KEYS = dict(input_key="tokens", target_key="targets")

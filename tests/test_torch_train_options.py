@@ -36,6 +36,8 @@ bridged weights on the same numpy batches.
 - `fit(prefetch=0/1/2)` and `donate_state` give the same numbers.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -73,6 +75,11 @@ from pddl_tpu_torch.train.state import (
     make_optimizer,
     make_schedule,
 )
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 VOCAB = 64
 LM = dict(batch_size=4, seq_len=32, vocab_size=VOCAB, seed=3)

@@ -14,6 +14,8 @@ the CPU, through the weight bridge (f32):
   give the JAX model's logits.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,11 @@ from pddl_tpu_torch.bridge import vit_params_from_jax, vit_params_to_jax
 from pddl_tpu_torch.data.synthetic import SyntheticImageClassification
 from pddl_tpu_torch.models.vit import tiny_vit
 from pddl_tpu_torch.train.loop import Trainer
+
+# One torch thread a process under xdist: the suite's workers share the
+# host's cores, and a torch thread pool in each worker oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 def _pair(**kw):
